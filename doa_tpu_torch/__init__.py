@@ -1,0 +1,44 @@
+"""doa_tpu_torch — the doa_tpu DoA pipeline in PyTorch, with hand-written
+CUDA kernels for the NVIDIA H100 (sm_90a).
+
+A port of the JAX package ``doa_tpu``, which stays the reference. Module
+names mirror ``doa_tpu``; inside, the code is plain functions on torch
+tensors with an explicit ``device``. The configuration system is shared:
+``DoaConfig``, ``PRESETS`` and the enums are ``doa_tpu.configs``'s own
+(that module imports no JAX). This package never imports JAX.
+
+Covered so far: the narrowband fused path (``build_pipeline_torch``) —
+interleaved capture → chunk-Gram kernel (K1) → embedded covariance
+windows → warm-start MGS subspace iteration (K4) with the escalation
+detector → MUSIC scan kernel (K3) or fused scan + peaks kernel (K2).
+ROADMAP.md lists what is still to port.
+"""
+
+from doa_tpu import configs
+from doa_tpu.configs import (
+    ArrayGeometry,
+    AvgMethod,
+    DoaConfig,
+    Estimator,
+    GridSpec1D,
+    PRESETS,
+)
+
+
+def build_pipeline_torch(*args, **kwargs):
+    """Lazy re-export of doa_tpu_torch.pipeline_torch.build_pipeline_torch."""
+    from doa_tpu_torch.pipeline_torch import build_pipeline_torch as f
+
+    return f(*args, **kwargs)
+
+
+__all__ = [
+    "configs",
+    "ArrayGeometry",
+    "AvgMethod",
+    "DoaConfig",
+    "Estimator",
+    "GridSpec1D",
+    "PRESETS",
+    "build_pipeline_torch",
+]

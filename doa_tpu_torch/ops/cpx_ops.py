@@ -1,0 +1,227 @@
+"""Signal-subspace iteration on embedded covariances (MGS, warm start,
+escalation detector) — port of the MGS branch of doa_tpu/ops/cpx_ops.py.
+
+The reference runs this stage as XLA. Here the rounds of the iteration run
+in one CUDA kernel per call (K4, csrc/subspace.cu; `mgs_iterate`), whose
+plain version is the same schedule as batched torch ops; the detector and
+the rare escalation batch are torch ops. Every product is true FP32
+(cpx.fp32_matmuls).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from doa_tpu_torch import _build
+from doa_tpu_torch.cpx import fp32_matmuls
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIG = {"doa_mgs_iterate": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]}
+MGS_MAX_N2 = 64         # csrc/subspace.cu: two elements of a row per lane
+
+
+def _mgs_rows(Vt: torch.Tensor, passes: int = 1) -> torch.Tensor:
+    """Modified Gram-Schmidt over the K2 rows of Vt f32[B, K2, 2N]:
+    exact sequential deflation, robust at any eigenvalue spread."""
+    rows = []
+    for i in range(Vt.shape[-2]):
+        v = Vt[..., i, :]
+        for _ in range(passes):
+            for u in rows:
+                v = v - (u * v).sum(-1, keepdim=True) * u
+        v = v * torch.rsqrt((v * v).sum(-1, keepdim=True).clamp_min(1e-30))
+        rows.append(v)
+    return torch.stack(rows, dim=-2)
+
+
+def mgs_iterate_plain(E, num_sources: int, rounds: int, init=None):
+    """Plain PyTorch version of K4 → (Vt, W, Vt_prev), each
+    f32[B, 2K, 2N]: start from `init` (rows orthonormal; may broadcast
+    over windows) or, cold, from MGS of E's first 2K rows; then
+    rounds − 1 times W = Vt E, Vt_prev = Vt, Vt = MGS(W) with two passes
+    in the last round. W and Vt_prev are the last apply's (one extra apply
+    when none ran) — the escalation detector's inputs."""
+    K2 = 2 * num_sources
+    Vt = _mgs_rows(E[..., :K2, :]) if init is None else init
+    W = Vt_prev = None
+    for r in range(rounds - 1):
+        W = torch.matmul(Vt, E)
+        Vt_prev = Vt
+        Vt = _mgs_rows(W, passes=2 if r == rounds - 2 else 1)
+    if W is None:
+        Vt_prev = Vt
+        W = torch.matmul(Vt, E)
+    return Vt, W, Vt_prev
+
+
+def mgs_iterate(E: torch.Tensor, num_sources: int, rounds: int,
+                init: torch.Tensor | None = None):
+    """K4: every round of the MGS subspace iteration of each window in one
+    launch (csrc/subspace.cu) → (Vt, W, Vt_prev) as mgs_iterate_plain.
+    E f32[B, 2N, 2N] (2N ≤ 64); init f32[B or 1, 2K, 2N] or None (cold).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel and raises if that fails."""
+    K2 = 2 * num_sources
+    if E.dim() != 3 or E.shape[1] != E.shape[2] or E.dtype != torch.float32:
+        raise ValueError(f"need E f32[B, 2N, 2N], got {tuple(E.shape)} "
+                         f"{E.dtype}")
+    B, n2 = E.shape[0], E.shape[-1]
+    if init is not None and (init.shape[-2:] != (K2, n2)
+                             or init.shape[0] not in (1, B)):
+        raise ValueError(f"init {tuple(init.shape)} does not fit "
+                         f"({B}, {K2}, {n2})")
+    if E.device.type == "cpu":
+        return mgs_iterate_plain(E, num_sources, rounds, init)
+    if not E.is_cuda:
+        raise ValueError(f"unsupported device {E.device}")
+    if n2 > MGS_MAX_N2 or K2 > n2 or rounds < 1:
+        raise ValueError(f"mgs_iterate kernel takes 2N ≤ {MGS_MAX_N2}, "
+                         f"2K ≤ 2N, rounds ≥ 1 (2N={n2}, 2K={K2}, "
+                         f"rounds={rounds})")
+    E = E.contiguous()
+    if init is not None:
+        stride = 0 if init.shape[0] == 1 or init.stride(0) == 0 else K2 * n2
+        init = (init[:1] if stride == 0 else init).to(torch.float32)
+        init = init.contiguous()
+    outs = [torch.empty((B, K2, n2), dtype=torch.float32, device=E.device)
+            for _ in range(3)]
+    lib = _build.load("subspace", _SIG)
+    err = lib.doa_mgs_iterate(
+        E.data_ptr(), None if init is None else init.data_ptr(),
+        0 if init is None else stride, *(o.data_ptr() for o in outs),
+        B, n2, K2, rounds, torch.cuda.current_stream(E.device).cuda_stream)
+    _build.check(err, "doa_mgs_iterate")
+    mgs_iterate.launches += 1
+    return tuple(outs)
+
+
+mgs_iterate.launches = 0
+
+
+def escalation_detector(W, Vt_prev, n2: int, scale=None):
+    """From the final apply product W = Vt_prev @ E (Vt_prev orthonormal
+    rows; `scale` = tr(E)/n2 per window, or None if E is already
+    trace-normalised) → (gamma, gamma_max, res) each f32[B]:
+
+    * gamma: min captured Rayleigh / noise-floor mean (≈1 when the weakest
+      captured direction has sunk into the noise bulk);
+    * gamma_max: max captured Rayleigh / noise mean (≈1.3–1.7 on a
+      source-free capture: nothing to converge to);
+    * res: span-invariance residual, ‖W‖² − ‖Vᵀ E V‖² by Pythagoras."""
+    k2 = Vt_prev.shape[-2]
+    lam = (W * Vt_prev).sum(-1)                          # (B, 2K)
+    if scale is not None:
+        lam = lam / scale[:, None]
+    noise_mean = ((n2 - lam.sum(-1)) / (n2 - k2)).clamp_min(1e-30)
+    gamma = lam.min(-1).values / noise_mean
+    gamma_max = lam.max(-1).values / noise_mean
+    C = torch.matmul(W, Vt_prev.transpose(-1, -2))     # Vᵀ E V
+    w2 = (W * W).sum((-2, -1))
+    c2 = (C * C).sum((-2, -1))
+    res = torch.sqrt((w2 - c2).clamp_min(0.0) / w2.clamp_min(1e-30))
+    return gamma, gamma_max, res
+
+
+def escalation_flags(gamma, gamma_max, res, gap: float, tol: float,
+                     signal_floor: float):
+    """→ (bad bool[B], score f32[B]): unconverged (res > tol) or weakest
+    direction in the noise bulk (gamma < gap), provided the capture shows
+    a dominant component (gamma_max ≥ signal_floor). score orders the
+    flagged windows by severity."""
+    bad = ((res > tol) | (gamma < gap)) & (gamma_max >= signal_floor)
+    score = res / tol + (gap - gamma).clamp_min(0.0)
+    return bad, score
+
+
+def escalate_flagged(Ep, Vt, bad, score, extra: int, capacity: int):
+    """Gather the worst min(B, capacity) flagged windows, run `extra` MGS
+    rounds on that compact batch, scatter back. Flagged windows beyond the
+    capacity stay unescalated (reported as overflow). Ties in score keep
+    the lower window index first, as lax.top_k does."""
+    B = Vt.shape[0]
+    M = min(B, max(1, capacity))
+    key = torch.where(bad, score, torch.full_like(score, -torch.inf))
+    idx = torch.sort(key, descending=True, stable=True).indices[:M]
+    Ep_c = Ep.index_select(0, idx)
+    v = Vt_c = Vt.index_select(0, idx)
+    for _ in range(extra):
+        v = _mgs_rows(torch.matmul(v, Ep_c), passes=2)
+    upd = torch.where(bad[idx][:, None, None], v, Vt_c)
+    out = Vt.clone()
+    out[idx] = upd
+    return out
+
+
+def _subspace_E_T_mgs(E, num_sources: int, iters: int, squarings: int,
+                      init=None, escalate_extra: int = 0,
+                      escalate_gap: float = 3.0, escalate_tol: float = 0.05,
+                      escalate_signal_floor: float = 2.5,
+                      escalate_capacity: int = 1024,
+                      return_stats: bool = False):
+    """MGS-orthonormalised subspace iteration (see the reference's
+    docstring for the measured design). init: an orthonormal starting
+    basis f32[B, 2K, 2N] (warm start; `iters` then counts E-applies from
+    it). escalate_extra > 0 (squarings == 0 only) arms the detector and
+    the pay-per-window escalation.
+
+    One host sync per call: whether any window was flagged decides
+    whether the escalation batch runs at all (lax.cond in the reference)."""
+    n2 = E.shape[-1]
+    tr = torch.diagonal(E, dim1=-2, dim2=-1).sum(-1) / n2        # (B,)
+    if squarings > 0:
+        Ep = E / tr.clamp_min(1e-30)[:, None, None]
+        for _ in range(squarings):
+            Ep = torch.matmul(Ep, Ep)
+        scale = None
+    else:
+        # MGS is scale-invariant: iterate on raw E, normalise only the
+        # detector's Rayleighs
+        Ep = E
+        scale = tr.clamp_min(1e-30)
+    if init is not None:
+        rounds = iters // (1 << squarings) + 1
+    else:
+        rounds = max(1, iters // (1 << squarings))
+    Vt, W, Vt_prev = mgs_iterate(Ep, num_sources, rounds, init)
+    zero = torch.zeros((), dtype=torch.int32, device=E.device)
+    if escalate_extra <= 0 or squarings > 0:
+        return (Vt, (zero, zero)) if return_stats else Vt
+    gamma, gamma_max, res = escalation_detector(W, Vt_prev, n2, scale=scale)
+    bad, score = escalation_flags(gamma, gamma_max, res, escalate_gap,
+                                  escalate_tol, escalate_signal_floor)
+    if bool(bad.any()):
+        Vt = escalate_flagged(Ep, Vt, bad, score, escalate_extra,
+                              escalate_capacity)
+    if return_stats:
+        flagged = bad.sum().to(torch.int32)
+        cap = min(Vt.shape[0], max(1, escalate_capacity))
+        overflow = (flagged - cap).clamp_min(0)
+        return Vt, (flagged, overflow)
+    return Vt
+
+
+def signal_subspace_from_E_T(E, num_sources: int, iters: int = 8,
+                             squarings: int = 0, orth: str = "mgs",
+                             init=None, escalate_extra: int = 0,
+                             escalate_gap: float = 3.0,
+                             escalate_tol: float = 0.05,
+                             escalate_signal_floor: float = 2.5,
+                             escalate_capacity: int = 1024,
+                             return_stats: bool = False):
+    """Embedded signal subspace in transposed layout: Vt f32[B, 2K, 2N]
+    with Vt·Vtᵀ = I, from E f32[B, 2N, 2N]. Only orth="mgs" is ported
+    (the reference default); the packed Newton–Schulz variant raises."""
+    if orth != "mgs":
+        raise NotImplementedError(
+            f"orth={orth!r}: only 'mgs' is ported (ROADMAP.md, queue A.3)")
+    with fp32_matmuls():
+        return _subspace_E_T_mgs(
+            E, num_sources, iters, squarings, init=init,
+            escalate_extra=escalate_extra, escalate_gap=escalate_gap,
+            escalate_tol=escalate_tol,
+            escalate_signal_floor=escalate_signal_floor,
+            escalate_capacity=escalate_capacity, return_stats=return_stats)

@@ -1,0 +1,177 @@
+"""Interleaved-ingest covariance: raw capture → embedded windows E(R).
+
+Port of doa_tpu/ops/pallas/cov_embedded.py (the stacked variant). A
+C-ordered complex64 capture (T, N) is, byte for byte, the float32 array
+x[T, 2N] = [t0c0.re, t0c0.im, t0c1.re, …], so the capture enters with no
+copy. The chunk-Gram kernel K1 (csrc/cov_gram.cu) reads it once and writes
+the interleaved-basis Gram Û_c = Σ_t u_t u_tᵀ of every chunk of
+g = gcd(S, hop) samples. Windows are strided prefix-sum differences over
+the chunk stack (the reference's sliding windows, any overlap). The rest
+runs as FP32 torch ops on the (B, 2N, 2N) windows: the change to the
+planar basis, the embedding E = [[Rr, −Ri], [Ri, Rr]], the calibration
+correction W = c cᴴ folded as (c cᴴ) ∘ R, forward-backward averaging and
+the 1/S scale. All of these are permutations, sign flips and elementwise
+products, so no matmul and no TF32 question arises there.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from doa_tpu_torch import _build
+from doa_tpu_torch.cpx import fp32_matmuls
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "int8": torch.int8}
+_KERNEL_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_SIG = {"doa_chunk_gram": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p]}
+
+
+def _perm_interleaved_to_planar(N: int) -> np.ndarray:
+    """(2N, 2N) permutation P with (P u)[planar] = u[interleaved]:
+    planar row c ← interleaved row 2c (re), planar row N+c ← 2c+1."""
+    P = np.zeros((2 * N, 2 * N), np.float32)
+    for c in range(N):
+        P[c, 2 * c] = 1.0
+        P[N + c, 2 * c + 1] = 1.0
+    return P
+
+
+def chunk_grams_uhat_plain(x: torch.Tensor, g: int) -> torch.Tensor:
+    """Plain PyTorch version of K1: x[n·g, 2N] → f32[n, 2N, 2N].
+
+    float32 and bfloat16 inputs are widened to float32 and multiplied in
+    true FP32. int8 is multiplied in float64, which is exact for these
+    integers, and rounded once to float32 — the same numbers as the
+    kernel's exact int32 sum cast to float32."""
+    n2 = x.shape[-1]
+    n = x.shape[0] // g
+    xc = x[:n * g].reshape(n, g, n2)
+    if x.dtype == torch.int8:
+        xd = xc.to(torch.float64)
+        return torch.bmm(xd.transpose(1, 2), xd).to(torch.float32)
+    xf = xc.to(torch.float32)
+    with fp32_matmuls():
+        return torch.bmm(xf.transpose(1, 2), xf)
+
+
+def chunk_grams_uhat(x: torch.Tensor, g: int) -> torch.Tensor:
+    """K1: per-chunk Grams Û_c = Σ_t u_t u_tᵀ of x[n·g, 2N] (float32,
+    bfloat16 or int8; contiguous rows) → f32[n, 2N, 2N].
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (csrc/cov_gram.cu) and raises if that fails."""
+    if x.dim() != 2 or x.dtype not in _KERNEL_DTYPE_CODE:
+        raise ValueError(f"need x[T, 2N] float32|bfloat16|int8, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    n2 = x.shape[1]
+    n = x.shape[0] // g
+    if n < 1:
+        raise ValueError(f"capture of {x.shape[0]} samples holds no chunk "
+                         f"of {g}")
+    if x.device.type == "cpu":
+        return chunk_grams_uhat_plain(x, g)
+    if not x.is_cuda:
+        raise ValueError(f"unsupported device {x.device}")
+    if not (n2 % 4 == 0 and n2 <= 64 or n2 % 2 == 0 and n2 <= 30):
+        raise ValueError(f"chunk_gram kernel takes 2N a multiple of 4 up to "
+                         f"64 or even up to 30, got 2N = {n2}")
+    x = x[:n * g].contiguous()
+    lib = _build.load("cov_gram", _SIG)
+    out = torch.empty((n, n2, n2), dtype=torch.float32, device=x.device)
+    err = lib.doa_chunk_gram(
+        x.data_ptr(), out.data_ptr(), n, g, n2, _KERNEL_DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "doa_chunk_gram")
+    chunk_grams_uhat.launches += 1
+    return out
+
+
+chunk_grams_uhat.launches = 0
+
+
+def uhat_windows_to_embedded(Uw: torch.Tensor, N: int, scale: float, W,
+                             fb: bool) -> torch.Tensor:
+    """Interleaved-basis window Grams Uw f32[..., 2N, 2N] → embedded
+    covariance E(R) f32[..., 2N, 2N], with W = (Wre, Wim) the planes of
+    the correction c cᴴ and optional forward-backward averaging.
+
+    With Ũ = P Uw Pᵀ = [[A, B], [C, D]] in the planar basis, R = Σ x xᴴ
+    has Rr = A + D and Ri = C − B; every step is an FP32 elementwise op
+    (the reference's permutation matmuls are exact, so the two agree)."""
+    n2 = 2 * N
+    lead = Uw.shape[:-2]
+    U4 = Uw.reshape(-1, N, 2, N, 2)
+    rr = (U4[:, :, 0, :, 0] + U4[:, :, 1, :, 1]) * scale
+    ri = (U4[:, :, 1, :, 0] - U4[:, :, 0, :, 1]) * scale
+    Wre, Wim = W
+    rr, ri = rr * Wre - ri * Wim, rr * Wim + ri * Wre
+    if fb:
+        rr = 0.5 * (rr + rr.flip(-2, -1))
+        ri = 0.5 * (ri - ri.flip(-2, -1))
+    E = torch.cat([torch.cat([rr, -ri], dim=-1),
+                   torch.cat([ri, rr], dim=-1)], dim=-2)
+    return E.reshape(lead + (n2, n2))
+
+
+def correction_pattern(cr: torch.Tensor, ci: torch.Tensor):
+    """Planes (Wre, Wim) of W = c cᴴ for c = cr + j·ci."""
+    return (cr[:, None] * cr[None, :] + ci[:, None] * ci[None, :],
+            ci[:, None] * cr[None, :] - cr[:, None] * ci[None, :])
+
+
+def cov_embedded(xil: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor, *,
+                 N: int, snapshot_size: int, overlap: int = 0,
+                 fb: bool = False, compute_dtype="float32") -> torch.Tensor:
+    """xil: the capture as x[T, 2N] (or any shape with the same bytes,
+    e.g. doa_tpu's (T/TPACK, 2N·TPACK)); cr/ci: f32[N] correction →
+    E(R) windows f32[B, 2N, 2N], normalised by S, with the correction
+    and optional FB folded in. Any 0 ≤ overlap < S: chunks of
+    g = gcd(S, hop) samples, windows by strided prefix-sum differences.
+
+    compute_dtype "float32" | "bfloat16" | "int8" (or the torch dtype):
+    bfloat16 rounds a float32 capture to bfloat16 before the Gram (f32
+    accumulation); int8 is the ingest-quantized mode and needs an int8
+    capture (io.native.quantize_interleaved_int8)."""
+    dt = _DTYPES.get(compute_dtype, compute_dtype)
+    S = snapshot_size
+    hop = S - overlap
+    g = math.gcd(S, hop)
+    x = xil.reshape(-1, 2 * N)
+    if dt == torch.int8:
+        if x.dtype != torch.int8:
+            raise ValueError(
+                "cov_dtype='int8' is the ingest-quantized mode: feed an "
+                "int8 capture (io.native.quantize_interleaved_int8)")
+    elif dt == torch.bfloat16:
+        x = x.to(torch.bfloat16)
+    elif dt == torch.float32:
+        x = x.to(torch.float32)
+    else:
+        raise ValueError(f"unsupported compute_dtype {compute_dtype!r}")
+    T = x.shape[0]
+    if T < S:
+        raise ValueError(f"capture of {T} samples is shorter than one "
+                         f"window ({S})")
+    n = T // g
+    B = (T - S) // hop + 1
+    n_win = S // g
+    stride = hop // g
+    U = chunk_grams_uhat(x[:n * g], g)           # interleaved basis
+    if n_win == 1:
+        Uw = U[:B]
+    else:
+        # windows first: every later step is linear in the chunk sum
+        csum = torch.cat([U.new_zeros((1,) + U.shape[1:]),
+                          torch.cumsum(U, dim=0)], dim=0)
+        lo = csum[0:(B - 1) * stride + 1:stride]
+        hi = csum[n_win:n_win + (B - 1) * stride + 1:stride]
+        Uw = hi - lo
+    W = correction_pattern(cr, ci)
+    return uhat_windows_to_embedded(Uw, N, 1.0 / S, W, fb)

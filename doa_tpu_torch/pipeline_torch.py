@@ -1,0 +1,202 @@
+"""The narrowband fused DoA pipeline on torch tensors (port of the fused
+branch of doa_tpu/pipeline_tpu.py::build_pipeline_tpu).
+
+    capture x[T, 2N] (the bytes of a complex64 (T, N) buffer)
+      → K1 chunk Grams → windows E(R) f32[B, 2N, 2N]   ops/cuda/cov_embedded
+      → warm-start MGS subspace (K4) Vt f32[B, 2K, 2N] ops/cpx_ops
+      → K2 scan + peaks (return_spectra=False)          ops/cuda/music_scan
+        or K3 scan → normalise → find_local_max          ops/peaks
+
+Every product carrying a value runs in true FP32 (cpx.fp32_matmuls). On a
+CUDA device every kernel launch either runs or raises; nothing falls back
+to the CPU or to a plain version.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from doa_tpu.configs import AvgMethod, DoaConfig, Estimator
+from doa_tpu_torch.cpx import fp32_matmuls, unembed_hermitian
+from doa_tpu_torch.io.native import quantize_interleaved_int8
+from doa_tpu_torch.ops.cpx_ops import signal_subspace_from_E_T
+from doa_tpu_torch.ops.cuda.cov_embedded import cov_embedded
+from doa_tpu_torch.ops.cuda.music_scan import (
+    MAX_FUSED_G, MAX_FUSED_K, music_scan, music_scan_peaks)
+from doa_tpu_torch.ops.peaks import find_local_max
+from doa_tpu_torch.pipeline import DoaResult, _steering_matrix
+
+
+def _check_slice(cfg: DoaConfig) -> None:
+    """Raise NotImplementedError for a config outside the ported slice,
+    naming the ROADMAP.md entry that will cover it."""
+    todo = []
+    if cfg.wideband.enabled:
+        todo.append("wideband (queue A.4, slice 2)")
+    if cfg.geometry.kind != "ula" or cfg.grid2d is not None:
+        todo.append("2-D az/el grids (queue A.4, slice 2)")
+    if cfg.smoothing.enabled:
+        todo.append("spatial smoothing on the planes path (queue A.3)")
+    if cfg.beamspace.enabled:
+        todo.append("beamspace (queue A.3)")
+    if cfg.subspace_method != "power":
+        todo.append(f"subspace_method={cfg.subspace_method!r} (queue A.3)")
+    if cfg.subspace_impl == "pallas":
+        todo.append("subspace_impl='pallas' (queue B.11)")
+    if tuple(cfg.estimators) != (Estimator.MUSIC,):
+        todo.append("estimators other than MUSIC (queue A.3)")
+    if cfg.subspace_check:
+        todo.append("subspace_check (queue A.3)")
+    if cfg.scan_mode == "hierarchical":
+        todo.append("scan_mode='hierarchical' (queue A.3)")
+    if todo:
+        raise NotImplementedError(
+            "doa_tpu_torch ports the narrowband fused path only; not yet "
+            "ported: " + "; ".join(todo) + " — see ROADMAP.md")
+
+
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but torch sees no CUDA "
+                           "device; the pipeline does not fall back to CPU")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _correction_planes(correction, N: int, device: torch.device):
+    if correction is None:
+        c = np.ones((N,), np.complex64)
+    else:
+        c = np.asarray(correction).astype(np.complex64).reshape(N)
+    return (torch.from_numpy(np.ascontiguousarray(c.real)).to(device),
+            torch.from_numpy(np.ascontiguousarray(c.imag)).to(device))
+
+
+def load_state(A_re, A_im, correction=None, *, device) -> dict:
+    """The pipeline's state — steering planes A_re, A_im f32[G, N] and the
+    calibration correction c64[N] (numpy; None = no correction) — as
+    device tensors, for build_pipeline_torch(state=...)."""
+    dev = _device(device)
+    A_re = np.array(A_re, dtype=np.float32)
+    A_im = np.array(A_im, dtype=np.float32)
+    if A_re.ndim != 2 or A_re.shape != A_im.shape:
+        raise ValueError(f"need A_re, A_im f32[G, N] of one shape, got "
+                         f"{A_re.shape} and {A_im.shape}")
+    cr, ci = _correction_planes(correction, A_re.shape[1], dev)
+    return {"A_re": torch.from_numpy(A_re).to(dev),
+            "A_im": torch.from_numpy(A_im).to(dev), "cr": cr, "ci": ci}
+
+
+def build_pipeline_torch(cfg: DoaConfig, *, device, refine_peaks: bool = True,
+                         return_spectra: bool = True,
+                         return_covariance: bool = False,
+                         state: dict | None = None):
+    """→ callable(x, correction=None) → DoaResult for a numpy complex64
+    capture x (T, N), with
+
+    * ``call.interleaved(xil, correction=None)``: the capture as float
+      x[T, 2N] or doa_tpu's (T/TPACK, 2N·TPACK) (same bytes), numpy or
+      torch; under cov_dtype="int8" a float buffer is quantized on the
+      device, an int8 buffer passes as it is;
+    * ``call.steering_planes`` (A_re, A_im), ``call.fast_path`` (True),
+      ``call.config``.
+
+    `state` (load_state) replaces the steering built from cfg and gives
+    the default correction. return_spectra=False fuses normalise + peaks
+    into the scan kernel (K2) when k ≤ 4 and G ≤ 8192, an explicit size
+    rule; otherwise the spectrum kernel (K3) and find_local_max run."""
+    dev = _device(device)
+    _check_slice(cfg)
+    N = cfg.geometry.num_elements
+    K = cfg.num_sources
+    k = cfg.num_max_vals
+    A_host, x_rng = _steering_matrix(cfg)
+    if state is None:
+        state = load_state(A_host.real, A_host.imag, device=dev)
+    elif tuple(state["A_re"].shape) != A_host.shape:
+        raise ValueError(f"state steering {tuple(state['A_re'].shape)} does "
+                         f"not match the config's grid {A_host.shape}")
+    A_re = state["A_re"].to(dev)
+    A_im = state["A_im"].to(dev)
+    At_emb = torch.cat([A_re, A_im], dim=-1).contiguous()      # (G, 2N)
+    nrm = (At_emb * At_emb).sum(dim=-1)
+    G = At_emb.shape[0]
+    fuse_peaks = (not return_spectra and k <= MAX_FUSED_K
+                  and 3 <= G <= MAX_FUSED_G)
+    fb = cfg.avg_method == AvgMethod.FORWARD_BACKWARD
+    esc = cfg.escalate_kwargs
+
+    def _subspace(E):
+        """→ (Vt, (flagged, overflow)); warm start from the capture-mean
+        subspace when the batch has ≥ 32 windows (as the reference)."""
+        if cfg.subspace_warm_start and E.shape[0] >= 32:
+            Vt_bar = signal_subspace_from_E_T(
+                E.mean(dim=0, keepdim=True), K,
+                iters=max(cfg.power_iters, 8), **esc)
+            init = Vt_bar.expand((E.shape[0],) + Vt_bar.shape[1:])
+            return signal_subspace_from_E_T(
+                E, K, iters=cfg.power_iters_warm, init=init,
+                return_stats=True, **esc)
+        return signal_subspace_from_E_T(
+            E, K, iters=cfg.power_iters, squarings=cfg.power_squarings,
+            return_stats=True, **(esc if cfg.power_squarings == 0 else {}))
+
+    def run(x: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor):
+        with fp32_matmuls():
+            E = cov_embedded(x, cr, ci, N=N, snapshot_size=cfg.snapshot_size,
+                             overlap=cfg.overlap, fb=fb,
+                             compute_dtype=cfg.cov_dtype)
+            Vt, (flagged, overflow) = _subspace(E)
+            spectra = {}
+            if fuse_peaks:
+                v, l = music_scan_peaks(Vt, At_emb, k, x_rng[0], x_rng[1],
+                                        refine=refine_peaks, nrm=nrm)
+            else:
+                P = music_scan(Vt, At_emb, nrm)
+                P = P / P.max(dim=-1, keepdim=True).values
+                v, l = find_local_max(P, k, x_rng[0], x_rng[1],
+                                      refine=refine_peaks)
+                if return_spectra:
+                    spectra["music"] = P
+            R = unembed_hermitian(E) if return_covariance else None
+        return DoaResult(spectra=spectra, peak_values={"music": v},
+                         peak_angles={"music": l}, covariance=R,
+                         escalation_flagged=flagged,
+                         escalation_overflow=overflow)
+
+    def _planes(correction):
+        if correction is None:
+            return state["cr"].to(dev), state["ci"].to(dev)
+        return _correction_planes(correction, N, dev)
+
+    def _ingest(x: torch.Tensor) -> torch.Tensor:
+        x = x.to(dev).reshape(-1, 2 * N)
+        if cfg.cov_dtype == "int8" and x.is_floating_point():
+            x = quantize_interleaved_int8(x)[0]
+        return x
+
+    def call(x, correction=None) -> DoaResult:
+        if isinstance(x, np.ndarray):
+            if x.dtype != np.complex64 or x.ndim != 2 or x.shape[1] != N:
+                raise ValueError(f"need a complex64 (T, {N}) capture, got "
+                                 f"{x.dtype} {x.shape}")
+            # zero-copy view: C-ordered c64 (T, N) is float32 (T, 2N)
+            xt = torch.from_numpy(np.ascontiguousarray(x).view(np.float32))
+        else:
+            raise TypeError("call(x) takes a numpy complex64 (T, N) "
+                            "capture; use call.interleaved for tensors")
+        return run(_ingest(xt), *_planes(correction))
+
+    def call_interleaved(xil, correction=None) -> DoaResult:
+        xt = torch.from_numpy(np.ascontiguousarray(xil)) if isinstance(
+            xil, np.ndarray) else xil
+        return run(_ingest(xt), *_planes(correction))
+
+    call.interleaved = call_interleaved
+    call.steering_planes = (A_re, A_im)
+    call.fast_path = True
+    call.config = cfg
+    return call

@@ -1,0 +1,161 @@
+"""Port parity: doa_tpu_torch's interleaved-ingest covariance (the plain
+path of the K1 chunk-Gram kernel) against doa_tpu's Pallas kernel in
+interpret mode, on the same numpy capture."""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+import golden
+from doa_tpu.io.native import quantize_interleaved_int8 as quantize_jax
+from doa_tpu.ops.pallas import cov_embedded as ce_jax
+from doa_tpu_torch.io.native import quantize_interleaved_int8
+from doa_tpu_torch.ops.cuda import cov_embedded as ce
+
+S = 256
+
+
+def _capture(N, T=16 * S, seed=3):
+    return golden.synthetic_ula_iq([60.0, 110.0], N, 0.5, T, snr_db=10,
+                                   seed=seed).astype(np.complex64)
+
+
+def _correction(N, seed=0):
+    rng = np.random.default_rng(seed)
+    c = ((1.0 + 0.1 * rng.standard_normal(N))
+         * np.exp(1j * rng.uniform(-0.3, 0.3, N))).astype(np.complex64)
+    return c.real.astype(np.float32), c.imag.astype(np.float32)
+
+
+def _jax_E(xil, cr, ci, N, overlap, fb, dtype=jnp.float32):
+    tp = ce_jax.interleave_factor(N)
+    x = jnp.asarray(np.asarray(xil).reshape(-1, 2 * N * tp))
+    return np.asarray(ce_jax.cov_embedded_pallas(
+        x, jnp.asarray(cr), jnp.asarray(ci), N=N, snapshot_size=S,
+        overlap=overlap, fb=fb, compute_dtype=dtype, interpret=True))
+
+
+def _torch_E(xil, cr, ci, N, overlap, fb, dtype="float32"):
+    return ce.cov_embedded(
+        torch.as_tensor(xil), torch.from_numpy(cr), torch.from_numpy(ci),
+        N=N, snapshot_size=S, overlap=overlap, fb=fb,
+        compute_dtype=dtype).numpy()
+
+
+@pytest.mark.parametrize("N,overlap,fb", [
+    (16, 0, False), (16, 0, True), (16, 128, False), (16, 100, False),
+    (16, 192, True), (8, 0, True), (8, 128, False), (8, 192, True)])
+def test_cov_embedded_matches_pallas(N, overlap, fb):
+    """f32 E(R) windows with a random correction, every overlap framing
+    (gcd chunks + strided prefix sums): rtol 1e-4, atol 1e-5·max|E| (the
+    tolerance of tests/test_fused_path.py's kernel-vs-golden check; the
+    JAX kernel's f32 Gram is a bf16 hi/lo split, ~16 mantissa bits)."""
+    xil = _capture(N).view(np.float32)                  # (T, 2N)
+    cr, ci = _correction(N)
+    E_ref = _jax_E(xil, cr, ci, N, overlap, fb)
+    E = _torch_E(xil, cr, ci, N, overlap, fb)
+    assert E.shape == E_ref.shape
+    np.testing.assert_allclose(E, E_ref, rtol=1e-4,
+                               atol=1e-5 * np.abs(E_ref).max())
+
+
+def test_cov_embedded_bf16_matches_pallas():
+    """bf16 ingest: both round the samples to bf16 and accumulate in f32;
+    only the summation order differs (rtol 1e-3, atol 1e-4·max|E|)."""
+    N = 16
+    xil = _capture(N).view(np.float32)
+    cr, ci = _correction(N, seed=1)
+    E_ref = _jax_E(xil, cr, ci, N, 128, True, dtype=jnp.bfloat16)
+    E = _torch_E(xil, cr, ci, N, 128, True, dtype="bfloat16")
+    np.testing.assert_allclose(E, E_ref, rtol=1e-3,
+                               atol=1e-4 * np.abs(E_ref).max())
+
+
+def test_quantize_interleaved_int8_bit_equal():
+    xil = _capture(16).view(np.float32)
+    q_ref, s_ref = quantize_jax(jnp.asarray(xil))
+    q, s = quantize_interleaved_int8(torch.from_numpy(xil))
+    assert q.dtype == torch.int8
+    np.testing.assert_array_equal(q.numpy(), np.asarray(q_ref))
+    assert float(s) == float(s_ref)
+
+
+@pytest.mark.parametrize("overlap", [0, 128])
+def test_cov_embedded_int8(overlap):
+    """int8 ingest: the Gram is exact, so E equals scale² times the f32 E
+    of the dequantized samples (rtol 1e-5), and matches the JAX int8
+    kernel (rtol 1e-6: exact Grams, one f32 windowing/embedding pass)."""
+    N = 16
+    xil = _capture(N).view(np.float32)
+    cr, ci = _correction(N, seed=2)
+    q, s = quantize_interleaved_int8(torch.from_numpy(xil))
+    E_q = _torch_E(q.numpy(), cr, ci, N, overlap, False, dtype="int8")
+    xdq = (q.to(torch.float32) / s).numpy()
+    E_f = _torch_E(xdq, cr, ci, N, overlap, False)
+    s2 = float(s) ** 2
+    np.testing.assert_allclose(E_q, s2 * E_f, rtol=1e-5,
+                               atol=1e-5 * np.abs(E_q).max())
+    E_ref = _jax_E(q.numpy(), cr, ci, N, overlap, False, dtype=jnp.int8)
+    np.testing.assert_allclose(E_q, E_ref, rtol=1e-6,
+                               atol=1e-6 * np.abs(E_ref).max())
+    with pytest.raises(ValueError, match="int8"):
+        _torch_E(xil, cr, ci, N, overlap, False, dtype="int8")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_chunk_grams_plain_matches_numpy(dtype):
+    """K1's plain version: Û_c = Σ_t u_t u_tᵀ per chunk of g rows, against
+    a float64 numpy Gram of the same (dtype-rounded) samples."""
+    rng = np.random.default_rng(5)
+    g, n, n2 = 64, 6, 16
+    x = torch.from_numpy(
+        (rng.standard_normal((n * g + 7, n2)) * 20).astype(np.float32))
+    xd = x.to(dtype)
+    U = ce.chunk_grams_uhat(xd, g)
+    assert U.shape == (n, n2, n2) and U.dtype == torch.float32
+    xs = xd.to(torch.float64).numpy()[:n * g].reshape(n, g, n2)
+    U_ref = np.einsum("ntc,ntd->ncd", xs, xs)
+    if dtype == torch.int8:
+        np.testing.assert_array_equal(U.numpy(), U_ref.astype(np.float32))
+    else:
+        np.testing.assert_allclose(U.numpy(), U_ref, rtol=1e-5,
+                                   atol=1e-5 * np.abs(U_ref).max())
+
+
+def test_chunk_grams_rejects_other_devices_and_dtypes():
+    with pytest.raises(ValueError, match="device"):
+        ce.chunk_grams_uhat(torch.empty((256, 32), device="meta"), 64)
+    with pytest.raises(ValueError, match="float32"):
+        ce.chunk_grams_uhat(torch.zeros((256, 32), dtype=torch.float64), 64)
+
+
+def test_embedding_transform_matches_permutation_form():
+    """uhat_windows_to_embedded's index form equals the reference's
+    permutation-matmul form E = (P U Pᵀ + M U Mᵀ)/S, M = Jp P, followed
+    by the correction and FB — and the permutation is doa_tpu's."""
+    N = 8
+    n2 = 2 * N
+    P = ce._perm_interleaved_to_planar(N)
+    np.testing.assert_array_equal(P, ce_jax._perm_interleaved_to_planar(N))
+    rng = np.random.default_rng(9)
+    Z = rng.standard_normal((5, 40, n2)).astype(np.float32)
+    U = np.einsum("btc,btd->bcd", Z, Z)
+    cr, ci = _correction(N, seed=4)
+    W = ce.correction_pattern(torch.from_numpy(cr), torch.from_numpy(ci))
+    Jp = np.zeros((n2, n2), np.float32)
+    Jp[:N, N:] = -np.eye(N)
+    Jp[N:, :N] = np.eye(N)
+    M = Jp @ P
+    E0 = (P @ U @ P.T + M @ U @ M.T) / 40.0
+    rr, ri = E0[:, :N, :N], E0[:, N:, :N]
+    Wre, Wim = W[0].numpy(), W[1].numpy()
+    rr, ri = rr * Wre - ri * Wim, rr * Wim + ri * Wre
+    rr = 0.5 * (rr + rr[:, ::-1, ::-1])
+    ri = 0.5 * (ri - ri[:, ::-1, ::-1])
+    E_ref = np.concatenate([np.concatenate([rr, -ri], -1),
+                            np.concatenate([ri, rr], -1)], -2)
+    E = ce.uhat_windows_to_embedded(torch.from_numpy(U), N, 1.0 / 40.0, W,
+                                    fb=True).numpy()
+    np.testing.assert_allclose(E, E_ref, rtol=1e-5,
+                               atol=1e-6 * np.abs(E_ref).max())

@@ -1,0 +1,219 @@
+"""Port parity for the whole slice: build_pipeline_torch on the CPU (the
+kernels' plain versions) against doa_tpu's build_pipeline_tpu with its
+Pallas kernels in interpret mode, on the same complex64 capture and
+correction; plus the port's state, steering, embedding, precision scope,
+import fence and device rules."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from doa_tpu.configs import (ArrayGeometry, DoaConfig, Estimator,
+                             GridSpec1D, GridSpec2D, PRESETS)
+from doa_tpu.cpx import Cpx, embed_hermitian as embed_jax
+from doa_tpu.io import SourceSpec, synth_ula_iq
+from doa_tpu.ops import steering as steer_jax
+from doa_tpu.pipeline_tpu import build_pipeline_tpu
+from doa_tpu_torch import cpx
+from doa_tpu_torch.ops import steering
+from doa_tpu_torch.pipeline_torch import build_pipeline_torch, load_state
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _cfg(overlap=0, cov_dtype="float32"):
+    return DoaConfig(
+        geometry=ArrayGeometry(kind="ula", num_elements=8, norm_spacing=0.5),
+        snapshot_size=256, overlap=overlap, num_sources=2,
+        estimators=(Estimator.MUSIC,), grid=GridSpec1D(num_points=256),
+        num_max_vals=2, cov_dtype=cov_dtype)
+
+
+def _capture(B=40, seed=1):
+    """B ≥ 32 windows at overlap 0, so both pipelines warm-start."""
+    return synth_ula_iq([SourceSpec(theta_deg=60.0, freq_norm=0.1),
+                         SourceSpec(theta_deg=110.0, freq_norm=0.3)],
+                        8, 0.5, B * 256, snr_db=10,
+                        seed=seed).astype(np.complex64)
+
+
+def _correction(N=8, seed=0):
+    rng = np.random.default_rng(seed)
+    return ((1.0 + 0.1 * rng.standard_normal(N))
+            * np.exp(1j * rng.uniform(-0.3, 0.3, N))).astype(np.complex64)
+
+
+@pytest.mark.parametrize("overlap,return_spectra,cov_dtype", [
+    (0, True, "float32"), (0, False, "float32"), (128, True, "float32"),
+    (128, False, "float32"), (0, False, "int8"), (128, True, "int8")])
+def test_slice_matches_reference(overlap, return_spectra, cov_dtype):
+    """Angles within 1e-3°, equal escalation counts, and (with spectra)
+    the same normalised spectra."""
+    cfg = _cfg(overlap, cov_dtype)
+    x = _capture()
+    c = _correction()
+    ref = build_pipeline_tpu(
+        dataclasses.replace(cfg, cov_impl="pallas", scan_mode="pallas"),
+        return_spectra=return_spectra)(x, c)
+    pipe = build_pipeline_torch(cfg, device="cpu",
+                                return_spectra=return_spectra)
+    out = pipe(x, c)
+    a_ref = np.asarray(ref.peak_angles["music"])
+    a = out.peak_angles["music"].numpy()
+    assert a.shape == a_ref.shape == ((x.shape[0] - 256) // (256 - overlap)
+                                      + 1, 2)
+    np.testing.assert_allclose(a, a_ref, atol=1e-3)
+    assert int(out.escalation_flagged) == int(ref.escalation_flagged)
+    assert int(out.escalation_overflow) == int(ref.escalation_overflow)
+    if return_spectra:
+        # P/max P = dmin/den: dmin sits at a MUSIC null, where f32
+        # cancellation leaves ~1e-4-relative noise, so each row carries its
+        # own scale (within 1e-2); after it, bins agree to 1e-4 relative,
+        # and to 1e-3 absolute at the peaks (den there is a null too)
+        P = out.spectra["music"].numpy()
+        P_ref = np.asarray(ref.spectra["music"])
+        row = np.median(P / P_ref, axis=-1, keepdims=True)
+        np.testing.assert_allclose(row, 1.0, rtol=1e-2)
+        np.testing.assert_allclose(P / row, P_ref, rtol=1e-4, atol=1e-3)
+    else:
+        assert out.spectra == {} and ref.spectra == {}
+
+
+def test_interleaved_entry_takes_both_layouts():
+    """call.interleaved accepts x[T, 2N] and doa_tpu's (T/TPACK, 2N·TPACK)
+    — the same bytes — and agrees with the complex64 entry."""
+    cfg = _cfg()
+    x = _capture(B=8)
+    pipe = build_pipeline_torch(cfg, device="cpu", return_spectra=False)
+    a = pipe(x).peak_angles["music"]
+    flat = x.view(np.float32)                          # (T, 16)
+    a1 = pipe.interleaved(flat).peak_angles["music"]
+    a2 = pipe.interleaved(torch.from_numpy(flat.reshape(-1, 128))
+                          ).peak_angles["music"]
+    torch.testing.assert_close(a1, a, rtol=0, atol=0)
+    torch.testing.assert_close(a2, a, rtol=0, atol=0)
+    assert pipe.fast_path and pipe.config is cfg
+
+
+def test_load_state_with_reference_steering():
+    """The port's steering is bit-equal to doa_tpu's; load_state takes
+    doa_tpu's planes and a correction, and the pipeline built on that
+    state matches the reference run with the same correction."""
+    cfg = _cfg()
+    c = _correction(seed=3)
+    pipe_j = build_pipeline_tpu(dataclasses.replace(
+        cfg, cov_impl="pallas", scan_mode="pallas"))
+    A_re, A_im = (np.asarray(p) for p in pipe_j.steering_planes)
+    own = build_pipeline_torch(cfg, device="cpu")
+    np.testing.assert_array_equal(own.steering_planes[0].numpy(), A_re)
+    np.testing.assert_array_equal(own.steering_planes[1].numpy(), A_im)
+    state = load_state(A_re, A_im, c, device="cpu")
+    pipe = build_pipeline_torch(cfg, device="cpu", state=state)
+    x = _capture(B=36, seed=4)
+    a_ref = np.asarray(pipe_j(x, c).peak_angles["music"])
+    np.testing.assert_allclose(pipe(x).peak_angles["music"].numpy(), a_ref,
+                               atol=1e-3)
+    np.testing.assert_allclose(pipe(x, c).peak_angles["music"].numpy(),
+                               a_ref, atol=1e-3)
+    with pytest.raises(ValueError, match="grid"):
+        build_pipeline_torch(dataclasses.replace(
+            cfg, grid=GridSpec1D(num_points=128)),
+                             device="cpu", state=state)
+
+
+def test_steering_grids_bit_equal():
+    geo = ArrayGeometry(kind="ula", num_elements=8, norm_spacing=0.5)
+    grid = GridSpec1D(num_points=181)
+    np.testing.assert_array_equal(steering.ula_grid(geo, grid),
+                                  steer_jax.ula_grid(geo, grid))
+    geo2 = ArrayGeometry(kind="ura", num_elements=16, shape=(4, 4))
+    grid2 = GridSpec2D(num_az=19, num_el=10)
+    np.testing.assert_array_equal(steering.ura_grid(geo2, grid2),
+                                  steer_jax.ura_grid(geo2, grid2))
+
+
+def test_embedding_matches_reference():
+    rng = np.random.default_rng(2)
+    Z = (rng.standard_normal((3, 5, 4))
+         + 1j * rng.standard_normal((3, 5, 4))).astype(np.complex64)
+    R = np.einsum("bti,btj->bij", Z, Z.conj())
+    E = cpx.embed_hermitian(torch.from_numpy(R))
+    np.testing.assert_array_equal(E.numpy(),
+                                  np.asarray(embed_jax(Cpx.from_complex(R))))
+    torch.testing.assert_close(cpx.unembed_hermitian(E), torch.from_numpy(R))
+    v = torch.from_numpy(Z[0, 0])
+    np.testing.assert_array_equal(cpx.embed_vector(v).numpy(),
+                                  np.concatenate([Z[0, 0].real,
+                                                  Z[0, 0].imag]))
+    # E(C)·ṽ = embed of C·v
+    np.testing.assert_allclose(
+        (E[0] @ cpx.embed_vector(v)).numpy(),
+        cpx.embed_vector(torch.from_numpy(R[0]) @ v).numpy(), rtol=1e-5,
+        atol=1e-5)
+
+
+def test_fp32_matmuls_scope():
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    with cpx.fp32_matmuls():
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+    assert (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) == before
+    prec = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        with pytest.raises(RuntimeError, match="highest"):
+            with cpx.fp32_matmuls():
+                pass
+    finally:
+        torch.set_float32_matmul_precision(prec)
+
+
+def test_port_never_imports_jax():
+    """In a fresh interpreter the port's pipeline loads no jax, and of
+    doa_tpu only the modules shared by design."""
+    code = (
+        "import sys, doa_tpu_torch.pipeline_torch, "
+        "doa_tpu_torch.ops.cuda.cov_embedded, "
+        "doa_tpu_torch.ops.cuda.music_scan\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "shared = {'doa_tpu', 'doa_tpu.configs'}\n"
+        "extra = {m for m in sys.modules if m.startswith('doa_tpu.')"
+        " or m == 'doa_tpu'} - shared\n"
+        "assert not extra, extra\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_cuda_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_pipeline_torch(_cfg(), device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_state(np.ones((4, 8)), np.zeros((4, 8)), device="cuda")
+
+
+@pytest.mark.parametrize("name", ["c2_ula8_2src", "c3_ula16_calib_smooth",
+                                  "c5_ura64_wideband"])
+def test_configs_outside_the_slice_raise(name):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        build_pipeline_torch(PRESETS[name], device="cpu")
+
+
+@pytest.mark.parametrize("name", ["c1_ula4_tone", "c4_ula16_streaming",
+                                  "fast_bf16", "fast_int8"])
+def test_presets_of_the_slice_build(name):
+    pipe = build_pipeline_torch(PRESETS[name], device="cpu")
+    assert pipe.steering_planes[0].shape == (
+        PRESETS[name].grid.num_points, PRESETS[name].geometry.num_elements)
