@@ -22,6 +22,18 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 5. the same scene check on the c4_ula16_streaming, fast_bf16 and
    fast_int8 presets at T=2^20, and the card's pipeline against the same
    pipeline on the CPU on a small capture.
+6. wideband kernel parity at c5's shapes (8x8 URA, 16 subbands,
+   181x91 az/el grid) on a wideband planar scene made on the card: the
+   FFT-channelizer Gram, the fused subband-scan fusion and the 2-D peaks
+   kernels, and the subspace kernel at 2N = 128 with one init per
+   subband; exact on integer-valued inputs, within the stated tolerances
+   on the scene; each kernel's time beside its plain version's.
+7. the c5 path: PRESETS["c5_ura64_wideband"] at B = 2048 windows
+   (T = 2^21 samples) through build_pipeline_torch(...).interleaved;
+   launch counts reset before and read after; the median pair-sorted
+   az/el within 0.5 deg of the planted (-20, 30), (35, 60); the median
+   call time, per-layer times and a profile window; then the card's
+   pipeline against the same pipeline on the CPU on 32 windows.
 
 The last two lines: one JSON object with the kernels, then
 {"ok": true, "device": {...}}.
@@ -42,6 +54,13 @@ SNR_DB = 10.0
 T_MAIN = 1 << 24
 T_PRESET = 1 << 20
 ANGLE_TOL = 0.5            # degrees, every window (bench.py tripwire)
+C5_TRUTH = ((-20.0, 30.0), (35.0, 60.0))   # planted (az, el), validate_tpu
+C5_BW = 0.5                # each source's band, centred on 0 (exp_r5.py)
+T_C5 = 1 << 21             # 2048 windows of 1024 samples
+T_C5_SMALL = 32 * 1024     # the card against the CPU
+C5_ANGLE_TOL = 0.5         # degrees, the median window
+SOURCES = ("cov_gram", "music_scan", "subspace", "wideband_cov",
+           "wideband_scan", "peaks2d")
 
 
 def log(msg):
@@ -331,17 +350,20 @@ def stage_times(torch, pipe, cfg, x, card):
     log("layer times, ms: " + ", ".join(f"{k} {v:.4f}"
                                         for k, v in out.items())
         + f"  [{card}]")
+    profile_window(torch, lambda: pipe.interleaved(x), card)
 
-    # device busy share of whole calls, from a short profiler window
+
+def profile_window(torch, fn, card, calls=3):
+    """Device busy share of whole calls and the top device ops, from a
+    short torch.profiler window."""
     from torch.profiler import ProfilerActivity, profile
-    pipe.interleaved(x)
+    fn()
     torch.cuda.synchronize()
-    calls = 3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
-            pipe.interleaved(x)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -358,6 +380,321 @@ def stage_times(torch, pipe, cfg, x, card):
     for dev_us, count, key in rows[:10]:
         log(f"  {dev_us / 1e3 / calls:9.4f} ms/call  x{count // calls:<4d} "
             f"{key[:90]}")
+
+
+def make_c5_scene(torch, T, device, seed=0):
+    """The c5 wideband planar scene as the interleaved capture
+    x f32[T, 128], made on the device from an explicit generator by the
+    model of doa_tpu.io.synthetic.synth_wideband_ura_iq: complex white
+    noise on every length-T FFT bin in each source's band (centred on 0,
+    width C5_BW), each bin steered at its own spacing
+    0.5·(1 + f·0.1) on both axes of the 8x8 array; unit source power,
+    complex white noise at 10 dB below it per element."""
+    nx = ny = 8
+    gen = torch.Generator(device=device).manual_seed(seed)
+    freqs = torch.fft.fftfreq(T, device=device, dtype=torch.float64)
+    ix = torch.arange(nx, device=device,
+                      dtype=torch.float64).repeat_interleave(ny)
+    iy = torch.arange(ny, device=device, dtype=torch.float64).repeat(nx)
+    spec = torch.zeros((T, nx * ny), dtype=torch.complex128, device=device)
+    for az_deg, el_deg in C5_TRUTH:
+        band = ((freqs >= -C5_BW / 2) & (freqs < C5_BW / 2)).nonzero()[:, 0]
+        nb = band.numel()
+        az, el = math.radians(az_deg), math.radians(el_deg)
+        u = math.cos(el) * math.sin(az) * ix + math.cos(el) * math.cos(az) * iy
+        w = torch.complex(
+            torch.randn(nb, generator=gen, device=device, dtype=torch.float64),
+            torch.randn(nb, generator=gen, device=device, dtype=torch.float64))
+        w = w * math.sqrt(T / (2.0 * nb))
+        d_eff = 0.5 * (1.0 + freqs[band] * 0.1)
+        phase = -2.0 * math.pi * d_eff[:, None] * u[None, :]
+        spec[band] += w[:, None] * torch.polar(torch.ones_like(phase), phase)
+    x = torch.fft.ifft(spec, dim=0) * math.sqrt(T)
+    del spec
+    npow = 10.0 ** (-SNR_DB / 10.0)
+    x += torch.complex(
+        torch.randn((T, nx * ny), generator=gen, device=device,
+                    dtype=torch.float64),
+        torch.randn((T, nx * ny), generator=gen, device=device,
+                    dtype=torch.float64)) * math.sqrt(npow / 2.0)
+    return torch.view_as_real(x.to(torch.complex64)).reshape(T, 2 * nx * ny)
+
+
+def pair_sorted(torch, ang):
+    """(B, k, 2) az/el → each window's peaks in order of az."""
+    order = torch.argsort(ang[..., 0], dim=-1)
+    return torch.gather(ang, 1, order[..., None].expand(ang.shape))
+
+
+def c5_errors(torch, ang):
+    """→ (max, median) over windows of the largest |angle − truth| of a
+    window, and the median pair-sorted (az, el) f32[2, 2]."""
+    a = pair_sorted(torch, ang)
+    truth = torch.tensor(C5_TRUTH, device=a.device)
+    if not bool(torch.isfinite(a).all()):
+        fail("non-finite c5 angles")
+    per = (a - truth).abs().amax(dim=(1, 2))
+    return float(per.max()), float(per.median()), a.median(dim=0).values
+
+
+def wideband_parity(torch, dev, x, cfg, pipe, card):
+    """Phase 6 → the records of the three wideband kernels, and the
+    per-subband inputs of the c5 path (E_sub, Vt, P) for later phases."""
+    from doa_tpu_torch.cpx import fp32_matmuls
+    from doa_tpu_torch.ops import cpx_ops
+    from doa_tpu_torch.ops import wideband as wb
+    from doa_tpu_torch.ops.cuda import peaks2d as pk
+    from doa_tpu_torch.ops.cuda import wideband_cov as wc
+    from doa_tpu_torch.ops.cuda import wideband_scan as wsc
+    from doa_tpu_torch.ops.peaks import find_local_max_2d
+
+    recs = {}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    F, N = cfg.wideband.num_subbands, cfg.geometry.num_elements
+    g2 = cfg.grid2d
+    az_rng, el_rng = (g2.az_lo_deg, g2.az_hi_deg), (g2.el_lo_deg, g2.el_hi_deg)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev).float()
+
+    # front end, exact: F ≤ 4 (twiddles ±1, ±j), integer samples and
+    # correction, every sum an integer below 2^24; the plain version in
+    # float64, rounded once (every register-tile form; g = 100 runs two
+    # stages at N = 64)
+    for Fx, Nx, gx in ((1, 64, 100), (2, 16, 16), (4, 64, 100), (4, 6, 16),
+                       (4, 5, 16)):
+        xf = ri(-4, 5, (5 * gx, Fx * 2 * Nx))
+        cr, ci = ri(-1, 3, (Nx,)), ri(-1, 2, (Nx,))
+        kw = dict(F=Fx, N=Nx, g=gx, scale=1.0 / 16)
+        d = (wc.subband_chunk_grams(xf, cr, ci, **kw)
+             - wc.subband_chunk_grams_plain(xf.double(), cr, ci, **kw)
+             ).abs().max().item()
+        log(f"wideband_fft_gram exact-input F={Fx} N={Nx} g={gx}: "
+            f"max|kernel-plain| = {d!r} (must be 0)")
+        check(d == 0.0, f"wideband_fft_gram F={Fx} N={Nx} differs on exact "
+                        f"inputs")
+
+    # front end on the c5 scene (no correction, as the main path)
+    S_sub, hop_sub, g = wc.subband_framing(F, cfg.snapshot_size, cfg.overlap)
+    M = x.shape[0] // F
+    xf = x[:M * F].reshape(M, F * 2 * N)
+    cr1 = torch.ones(N, device=dev)
+    ci0 = torch.zeros(N, device=dev)
+    kw = dict(F=F, N=N, g=g, scale=1.0 / S_sub)
+    E_sub = wc.subband_chunk_grams(xf, cr1, ci0, **kw)
+    Ep = wc.subband_chunk_grams_plain(xf, cr1, ci0, **kw)
+    e1 = (E_sub - Ep).abs().max().item()
+    s1 = Ep.abs().max().item()
+    log(f"wideband_fft_gram c5 scene {tuple(E_sub.shape)}: max|kernel-plain| "
+        f"= {e1!r}, max|E| = {s1!r}, tol 1e-5*max|E|")
+    check(e1 <= 1e-5 * s1, "wideband_fft_gram disagrees with plain")
+    del Ep
+    k_ms, p_ms = pair_ms(torch, lambda: wc.subband_chunk_grams(xf, cr1, ci0,
+                                                               **kw),
+                         lambda: wc.subband_chunk_grams_plain(xf, cr1, ci0,
+                                                              **kw))
+    log(f"wideband_fft_gram time [{M}, {F * 2 * N}] g={g}: kernel "
+        f"{k_ms:.4f} ms, plain (torch.fft + cuBLAS) {p_ms:.4f} ms  [{card}]")
+    recs["wideband_fft_gram"] = dict(
+        name="wideband_fft_gram", route="cuda",
+        source="doa_tpu_torch/csrc/wideband_cov.cu",
+        replaces="doa_tpu/ops/pallas/wideband_cov.py:162",
+        max_abs_err=e1, ms=k_ms, plain_ms=p_ms)
+
+    # K4 at 2N = 128 on the c5 windows: warm from one init per subband
+    # (3 rounds, as the pipeline) and cold (8 rounds); projectors to 1e-5
+    E = E_sub.reshape(-1, 2 * N, 2 * N)
+    with fp32_matmuls():
+        init = cpx_ops.mgs_iterate_plain(E_sub.mean(dim=1), 2, 8)[0]
+        for rounds, ini in ((3, init), (8, None)):
+            outk = cpx_ops.mgs_iterate(E, 2, rounds, ini)
+            outp = cpx_ops.mgs_iterate_plain(E, 2, rounds, ini)
+            dp = 0.0
+            for lo in range(0, E.shape[0], 4096):      # projectors in slices
+                pk_, pp_ = (o[0][lo:lo + 4096] for o in (outk, outp))
+                dp = max(dp, (pk_.transpose(1, 2) @ pk_
+                              - pp_.transpose(1, 2) @ pp_).abs().max().item())
+            dw = ((outk[1] - outp[1]).abs().max()
+                  / outp[1].abs().max()).item()
+            start = "warm, one init per subband" if ini is not None else "cold"
+            log(f"K4 c5 2N=128 rounds={rounds} {start}: max|projector kernel "
+                f"- plain| = {dp!r} (tol 1e-5), max|W kernel - plain|/max|W| "
+                f"= {dw!r} (tol 1e-5)")
+            check(dp <= 1e-5 and dw <= 1e-5, "K4 at 2N=128 disagrees")
+        del outk, outp
+        k4_ms, p4_ms = pair_ms(
+            torch, lambda: cpx_ops.mgs_iterate(E, 2, 3, init),
+            lambda: cpx_ops.mgs_iterate_plain(E, 2, 3, init))
+    log(f"K4 time (c5: warm, 3 rounds, {E.shape[0]} windows of 2N=128): "
+        f"kernel {k4_ms:.4f} ms, plain {p4_ms:.4f} ms  [{card}]")
+
+    # fusion, exact: Vt in quarter steps, A integer, nrm above every
+    # Σ y²: den = nrm − Σ y² are multiples of 1/16 below 2^24, exact in any
+    # order, so dmin, every dmin/den and their sums agree bit for bit
+    # (every 2K the kernel is built for; ragged n2, B and G)
+    for K2, n2 in ((2, 128), (4, 20), (6, 128), (8, 128)):
+        Vq = ri(-2, 3, (4, 100, K2, n2)) / 4
+        Aq = ri(-3, 4, (4, 1000, n2))
+        nq = 300000.0 + ri(0, 64, (4, 1000))
+        d = (wsc.wideband_fused_spectrum(Vq, Aq, nq)
+             - wsc.wideband_fused_spectrum_plain(Vq, Aq, nq)
+             ).abs().max().item()
+        log(f"wideband_fusion exact-input 2K={K2} 2N={n2}: max|kernel-plain| "
+            f"= {d!r} (must be 0)")
+        check(d == 0.0, f"wideband_fusion 2K={K2} differs on exact inputs")
+
+    # fusion on the c5 scene's subspaces and steering
+    with fp32_matmuls():
+        Vt = wb.subband_subspaces_from_E(E_sub, cfg)
+    Xr, Xi = pipe.subband_planes
+    At = torch.cat([Xr, Xi], dim=-1).contiguous()
+    nrm = (At * At).sum(dim=-1)
+    P = wsc.wideband_fused_spectrum(Vt, At, nrm)
+    Pp = wsc.wideband_fused_spectrum_plain(Vt, At, nrm)
+    e5 = (P - Pp).abs().max().item()
+    r5 = ((P - Pp).abs() / Pp).max().item()
+    log(f"wideband_fusion c5 scene B={P.shape[0]} G={P.shape[1]}: "
+        f"max|P kernel - P plain| = {e5!r}, max relative {r5!r}; tol "
+        f"2e-4 + 2e-4*|P|")
+    check(bool(((P - Pp).abs() <= 2e-4 + 2e-4 * Pp.abs()).all()),
+          "wideband_fusion disagrees with plain")
+    k_ms, p_ms = pair_ms(torch, lambda: wsc.wideband_fused_spectrum(Vt, At,
+                                                                   nrm),
+                         lambda: wsc.wideband_fused_spectrum_plain(Vt, At,
+                                                                   nrm))
+    log(f"wideband_fusion time (F={F}, B={P.shape[0]}, 2K=4, 2N=128, "
+        f"G={P.shape[1]}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms  "
+        f"[{card}]")
+    recs["wideband_fusion"] = dict(
+        name="wideband_fusion", route="cuda",
+        source="doa_tpu_torch/csrc/wideband_scan.cu",
+        replaces="doa_tpu/ops/pallas/wideband_scan.py:51",
+        max_abs_err=e5, ms=k_ms, plain_ms=p_ms)
+
+    # 2-D peaks, exact: integer spectra full of ties and plateaus, a
+    # strictly rising window (no interior peak) and a flat one
+    Pq = ri(1, 6, (512, g2.num_az, g2.num_el))
+    Pq[0] = torch.arange(Pq[0].numel(), device=dev,
+                         dtype=torch.float32).reshape(Pq[0].shape)
+    Pq[1] = 2.0
+    for k in (1, 2, 4):
+        for refine in (False, True):
+            got = pk.peaks2d(Pq, k, az_rng, el_rng, refine)
+            ref = find_local_max_2d(Pq, k, az_rng, el_rng, refine)
+            d = max((a - b).abs().max().item() for a, b in zip(got, ref))
+            log(f"peaks2d exact-input k={k} refine={refine}: max|kernel - "
+                f"plain| over values, az, el = {d!r} (must be 0)")
+            check(d == 0.0, "peaks2d differs on exact inputs")
+    # on the c5 scene's spectrum: bit for bit
+    P2 = Pp.reshape(-1, g2.num_az, g2.num_el)
+    got = pk.peaks2d(P2, 2, az_rng, el_rng, True)
+    ref = find_local_max_2d(P2, 2, az_rng, el_rng, True)
+    e6 = max((a - b).abs().max().item() for a, b in zip(got, ref))
+    log(f"peaks2d c5 scene: max|kernel - plain| over values, az, el = {e6!r} "
+        f"(must be 0)")
+    check(e6 == 0.0, "peaks2d differs from plain on the scene")
+    k_ms, p_ms = pair_ms(
+        torch, lambda: pk.peaks2d(P2, 2, az_rng, el_rng, True),
+        lambda: find_local_max_2d(P2, 2, az_rng, el_rng, True))
+    log(f"peaks2d time (B={P2.shape[0]}, {g2.num_az}x{g2.num_el}, k=2): "
+        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms  [{card}]")
+    recs["peaks2d"] = dict(
+        name="peaks2d", route="cuda", source="doa_tpu_torch/csrc/peaks2d.cu",
+        replaces="doa_tpu/ops/pallas/peaks2d.py:42",
+        max_abs_err=e6, ms=k_ms, plain_ms=p_ms)
+    return recs, (E_sub, Vt, At, nrm, P2)
+
+
+def c5_phases(torch, dev, card, counters):
+    """Phases 6 and 7 → (the wideband kernels' records, the subspace
+    kernel's launches in the c5 path). `counters`: the narrowband
+    kernels' wrappers, which must not launch in the c5 path."""
+    from doa_tpu_torch import PRESETS
+    from doa_tpu_torch.cpx import fp32_matmuls
+    from doa_tpu_torch.ops import cpx_ops
+    from doa_tpu_torch.ops import wideband as wb
+    from doa_tpu_torch.ops.cuda import peaks2d as pk
+    from doa_tpu_torch.ops.cuda import wideband_cov as wc
+    from doa_tpu_torch.ops.cuda import wideband_scan as wsc
+    from doa_tpu_torch.pipeline_torch import build_pipeline_torch
+
+    cfg = PRESETS["c5_ura64_wideband"]
+    pipe = build_pipeline_torch(cfg, device=dev)
+    x = make_c5_scene(torch, T_C5, dev)
+    torch.cuda.synchronize()
+    recs, (E_sub, Vt, At, nrm, P2) = wideband_parity(torch, dev, x, cfg,
+                                                     pipe, card)
+
+    # 7. the c5 path, counts from zero just before it
+    wb_counters = {"wideband_fft_gram": wc.subband_chunk_grams,
+                   "wideband_fusion": wsc.wideband_fused_spectrum,
+                   "peaks2d": pk.peaks2d, "mgs_iterate": cpx_ops.mgs_iterate}
+    for f in list(counters.values()) + list(wb_counters.values()):
+        f.launches = 0
+    res = pipe.interleaved(x)
+    torch.cuda.synchronize()
+    launches = {n: f.launches for n, f in wb_counters.items()}
+    log("launches in the c5 path: " + json.dumps(launches))
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} never ran in the c5 path")
+        if name in recs:
+            recs[name]["launches"] = n
+    for name in ("chunk_gram", "music_scan", "music_scan_peaks"):
+        check(counters[name].launches == 0,
+              f"narrowband kernel {name} ran in the c5 path")
+    B = T_C5 // cfg.snapshot_size
+    ang = res.peak_angles["music"]
+    check(tuple(ang.shape) == (B, 2, 2), f"c5 angles shape {tuple(ang.shape)}")
+    P = res.spectra["music"]
+    check(tuple(P.shape) == (B, 181 * 91) and bool(torch.isfinite(P).all()),
+          "c5 spectrum not finite or of the wrong shape")
+    e_max, e_med, med = c5_errors(torch, ang)
+    dmed = (med - torch.tensor(C5_TRUTH, device=med.device)).abs().max()
+    log(f"c5 path: {B} windows, per-window max |az/el - truth|: max "
+        f"{e_max!r} deg, median {e_med!r} deg; median pair-sorted (az, el) "
+        f"{med.tolist()} vs truth {list(C5_TRUTH)} (limit {C5_ANGLE_TOL} "
+        f"deg); escalation counts {res.escalation_flagged}")
+    check(float(dmed) <= C5_ANGLE_TOL, f"c5 median angle off by {dmed}")
+    ts = call_times(torch, lambda: pipe.interleaved(x), reps=20, warm=3)
+    med_ms = 0.5 * (ts[9] + ts[10])
+    log(f"c5 path: median {med_ms:.4f} ms per call of {B} windows (20 "
+        f"calls, min {ts[0]:.4f}, max {ts[-1]:.4f}) = "
+        f"{B / (med_ms / 1e3):.1f} snapshots/s  [{card}]")
+
+    g2 = cfg.grid2d
+    az_rng, el_rng = (g2.az_lo_deg, g2.az_hi_deg), (g2.el_lo_deg, g2.el_hi_deg)
+    cr1 = torch.ones(64, device=dev)
+    ci0 = torch.zeros(64, device=dev)
+    with fp32_matmuls():
+        layers = {
+            "front end (FFT-channelizer Gram)": lambda: wc.wideband_cov_embedded(
+                x, cr1, ci0, N=64, F=16, snapshot_size=1024),
+            "subspace (per-subband warm MGS + detector)":
+                lambda: wb.subband_subspaces_from_E(E_sub, cfg),
+            "fusion (two passes)": lambda: wsc.wideband_fused_spectrum(
+                Vt, At, nrm),
+            "peaks (2-D)": lambda: pk.peaks2d(P2, 2, az_rng, el_rng, True),
+        }
+        out = {k: time_ms(torch, f) for k, f in layers.items()}
+    log("c5 layer times, ms: " + ", ".join(f"{k} {v:.4f}"
+                                           for k, v in out.items())
+        + f"  [{card}]")
+    profile_window(torch, lambda: pipe.interleaved(x), card)
+    del x, res, P, E_sub, Vt, P2
+
+    # the card against the CPU on a short capture
+    xs = make_c5_scene(torch, T_C5_SMALL, dev, seed=2)
+    xc64 = xs.cpu().numpy().view("complex64")
+    a_gpu = pair_sorted(torch, pipe(xc64).peak_angles["music"]).cpu()
+    t0 = time.perf_counter()
+    a_cpu = pair_sorted(torch, build_pipeline_torch(cfg, device="cpu")(
+        xc64).peak_angles["music"])
+    d = (a_gpu - a_cpu).abs().max().item()
+    log(f"c5 card vs CPU pipeline on {a_cpu.shape[0]} windows: max pair-sorted "
+        f"angle difference {d!r} deg (tol 1e-2; CPU run "
+        f"{time.perf_counter() - t0:.1f} s)")
+    check(d <= 1e-2, "c5 card and CPU pipelines disagree")
+    return recs, launches["mgs_iterate"]
 
 
 def main():
@@ -389,10 +726,14 @@ def main():
     dev = torch.device("cuda", 0)
 
     # 2. build
+    from concurrent.futures import ThreadPoolExecutor
+    from doa_tpu_torch.ops.cuda import peaks2d, wideband_cov, wideband_scan
+    sigs = {"cov_gram": ce._SIG, "music_scan": ms._SIG,
+            "subspace": cpx_ops._SIG, "wideband_cov": wideband_cov._SIG,
+            "wideband_scan": wideband_scan._SIG, "peaks2d": peaks2d._SIG}
     t0 = time.perf_counter()
-    _build.load("cov_gram", ce._SIG)
-    _build.load("music_scan", ms._SIG)
-    _build.load("subspace", cpx_ops._SIG)
+    with ThreadPoolExecutor(len(SOURCES)) as pool:   # one nvcc per source
+        list(pool.map(lambda name: _build.load(name, sigs[name]), SOURCES))
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc per source: "
         + ", ".join(f"{k} {v:.2f} s" for k, v in _build.build_seconds.items())
         + ")")
@@ -487,6 +828,12 @@ def main():
     log(f"card vs CPU pipeline on 64 windows: max angle difference {d!r} "
         f"deg (tol 1e-3)")
     check(d <= 1e-3, "card and CPU pipelines disagree")
+    del xs, xc64
+
+    # 6. wideband kernel parity at c5's shapes, 7. the c5 path
+    wb_recs, k4_c5 = c5_phases(torch, dev, card, counters)
+    recs["mgs_iterate"]["launches"] += k4_c5    # the c5 path's, counted apart
+    recs.update(wb_recs)
     check("jax" not in sys.modules, "jax was imported")
 
     print(json.dumps({"kernels": list(recs.values())}), flush=True)

@@ -7,10 +7,16 @@ tensors with an explicit ``device``. The configuration system is shared:
 ``DoaConfig``, ``PRESETS`` and the enums are ``doa_tpu.configs``'s own
 (that module imports no JAX). This package never imports JAX.
 
-Covered so far: the narrowband fused path (``build_pipeline_torch``) —
-interleaved capture → chunk-Gram kernel (K1) → embedded covariance
-windows → warm-start MGS subspace iteration (K4) with the escalation
-detector → MUSIC scan kernel (K3) or fused scan + peaks kernel (K2).
+Covered so far (``build_pipeline_torch``):
+
+* the narrowband fused path — interleaved capture → chunk-Gram kernel
+  (K1) → embedded covariance windows → warm-start MGS subspace iteration
+  (K4) with the escalation detector → MUSIC scan kernel (K3) or fused
+  scan + peaks kernel (K2); on an az/el grid, the 2-D peaks kernel;
+* the wideband incoherent path (the c5 flagship) — FFT-channelizer +
+  subband Gram kernel → per-subband warm-start subspaces (K4, one init
+  per subband) → fused subband scan + fusion kernel → 2-D peaks kernel.
+
 ROADMAP.md lists what is still to port.
 """
 

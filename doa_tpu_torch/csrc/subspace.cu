@@ -8,26 +8,39 @@
 // launch:
 //
 //   cold:  Vt = MGS(rows 0..K2-1 of E), then rounds-1 applies;
-//   warm:  Vt = init, then rounds-1 applies;
+//   warm:  Vt = init of the window's group, then rounds-1 applies;
 //   apply: W = Vt E, Vt_prev = Vt, Vt = MGS(W) (two passes in the last
 //          round, one before), exactly the reference's schedule;
 //   out:   Vt, and W, Vt_prev of the last apply (the escalation detector's
 //          inputs; one extra apply when no round ran).
 //
-// What bounds it: reading E once (64 MiB at the headline, 0.02 ms at
-// 3.35 TB/s); the arithmetic is 4 K FMAs a window per round. Design: E,
-// Vt and W of a window live in its warp's slice of shared memory; the
-// apply has lane j produce W[k][j] (E rows read across lanes, Vt
-// broadcast), and each MGS dot product is a warp shuffle reduction. FP32
-// throughout.
+// Warm starts share an init across a group of consecutive windows: one
+// init for all (the narrowband capture mean), one per subband (the
+// wideband per-subband capture means, windows subband-major), or one per
+// window.
+//
+// What bounds it: reading E once (64 MiB at the narrowband headline, 2 GiB
+// at c5: F*B = 32768 windows of 2N = 128), and at 2N = 128 the apply's
+// 64 K FMAs a window per round. Design: Vt, W and Vt_prev of a window
+// live in its warp's slice of shared memory, and so does E up to
+// 2N = 64 (16 KiB, entering with 16-byte loads). At 2N = 128 E is 64 KiB
+// a window: staged, it held a block to 3 warps, an SM to 3 windows in
+// flight, and the stage ran slower than its plain version; there E is
+// read in place through L1/L2 (the second apply finds it in L2), and
+// shared memory no longer bounds the warps in flight. In the apply each
+// lane owns the columns j = lane + 32c of every row of W in registers (E
+// rows read across lanes, Vt broadcast), and each MGS dot product is a
+// warp shuffle reduction. FP32 throughout.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int MAX_N2 = 64;        // 2 elements of a row per lane
-constexpr int CPL = MAX_N2 / 32;
+constexpr int MAX_WARPS = 4;
+constexpr int MAX_N2 = 128;       // up to 4 elements of a row per lane
+constexpr int MAX_K2 = 8;
+constexpr int STAGE_E_MAX_N2 = 64;      // larger E stay in device memory
+constexpr size_t SMEM_LIMIT = 232448;   // bytes a block may use (H100)
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
@@ -35,19 +48,47 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// W[k][j] = sum_n V[k][n] * E[n][j]
+// W[k][j] = sum_n V[k][n] * E[n][j], summed in n order; CPL = columns
+// of a row per lane (ceil(n2 / 32))
+template <int CPL>
 __device__ void apply(const float* V, const float* Es, float* W, int n2,
                       int K2, int lane) {
-  for (int idx = lane; idx < K2 * n2; idx += 32) {
-    const int k = idx / n2, j = idx % n2;
-    float s = 0.f;
-    for (int n = 0; n < n2; ++n) s += V[k * n2 + n] * Es[n * n2 + j];
-    W[idx] = s;
+  float acc[MAX_K2][CPL];
+#pragma unroll
+  for (int k = 0; k < MAX_K2; ++k)
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) acc[k][c] = 0.f;
+  for (int n = 0; n < n2; ++n) {
+    float e[CPL];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int j = lane + 32 * c;
+      e[c] = j < n2 ? Es[n * n2 + j] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < MAX_K2; ++k) {
+      if (k < K2) {
+        const float v = V[k * n2 + n];
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) acc[k][c] += v * e[c];
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < MAX_K2; ++k) {
+    if (k < K2) {
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int j = lane + 32 * c;
+        if (j < n2) W[k * n2 + j] = acc[k][c];
+      }
+    }
   }
   __syncwarp();
 }
 
 // rows of W, modified Gram-Schmidt → V (orthonormal rows)
+template <int CPL>
 __device__ void mgs(const float* W, float* V, int n2, int K2, int passes,
                     int lane) {
   for (int i = 0; i < K2; ++i) {
@@ -86,39 +127,50 @@ __device__ void mgs(const float* W, float* V, int n2, int K2, int passes,
   }
 }
 
-__global__ void __launch_bounds__(WARPS * 32)
+template <int CPL>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
 mgs_iterate_kernel(const float* __restrict__ E,
-                   const float* __restrict__ init, int init_stride,
+                   const float* __restrict__ init, int init_group,
                    float* __restrict__ Vt_out, float* __restrict__ W_out,
                    float* __restrict__ Vprev_out, int B, int n2, int K2,
-                   int rounds) {
-  extern __shared__ float smem[];
+                   int rounds, int stage_e) {
+  extern __shared__ __align__(16) float smem[];
+  const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * WARPS + warp;
+  const int b = blockIdx.x * warps + warp;
   if (b >= B) return;               // warps are independent: no block sync
   const int kn = K2 * n2;
-  float* Es = smem + warp * (n2 * n2 + 3 * kn);
-  float* V = Es + n2 * n2;          // current Vt
+  const int e_sz = stage_e ? n2 * n2 : 0;
+  // n2 and K2 even: every slice starts 16-byte aligned
+  float* S = smem + warp * (e_sz + 3 * kn);
+  float* V = S + e_sz;              // current Vt
   float* W = V + kn;                // apply product
   float* P = W + kn;                // Vt before the last apply
   const float* Eb = E + (size_t)b * n2 * n2;
-  for (int idx = lane; idx < n2 * n2; idx += 32) Es[idx] = Eb[idx];
+  const float* Es = Eb;             // E in place, read through L1/L2
+  if (stage_e) {                    // E in the warp's shared slice
+    const float4* Eb4 = reinterpret_cast<const float4*>(Eb);
+    float4* S4 = reinterpret_cast<float4*>(S);
+#pragma unroll 4
+    for (int idx = lane; idx < n2 * n2 / 4; idx += 32) S4[idx] = Eb4[idx];
+    Es = S;
+  }
   if (init != nullptr) {
-    const float* Ib = init + (size_t)b * init_stride;
+    const float* Ib = init + (size_t)(b / init_group) * kn;
     for (int idx = lane; idx < kn; idx += 32) V[idx] = Ib[idx];
     __syncwarp();
   } else {
     __syncwarp();
-    mgs(Es, V, n2, K2, 1, lane);    // rows 0..K2-1 of E
+    mgs<CPL>(Es, V, n2, K2, 1, lane);   // rows 0..K2-1 of E
   }
   for (int r = 0; r + 1 < rounds; ++r) {
-    apply(V, Es, W, n2, K2, lane);
+    apply<CPL>(V, Es, W, n2, K2, lane);
     for (int idx = lane; idx < kn; idx += 32) P[idx] = V[idx];
     __syncwarp();
-    mgs(W, V, n2, K2, r == rounds - 2 ? 2 : 1, lane);
+    mgs<CPL>(W, V, n2, K2, r == rounds - 2 ? 2 : 1, lane);
   }
   if (rounds < 2) {                 // no apply ran: one for the detector
-    apply(V, Es, W, n2, K2, lane);
+    apply<CPL>(V, Es, W, n2, K2, lane);
     for (int idx = lane; idx < kn; idx += 32) P[idx] = V[idx];
     __syncwarp();
   }
@@ -130,26 +182,51 @@ mgs_iterate_kernel(const float* __restrict__ E,
   }
 }
 
-}  // namespace
-
-// E f32[B, n2, n2]; init f32 rows of K2*n2 at init_stride (0: one init for
-// every window; nullptr: cold start) → Vt, W, Vt_prev f32[B, K2, n2].
-extern "C" int doa_mgs_iterate(const void* E, const void* init,
-                               int init_stride, void* Vt, void* W,
-                               void* Vprev, int B, int n2, int K2, int rounds,
-                               void* stream) {
-  if (B < 1 || n2 < 1 || n2 > MAX_N2 || K2 < 1 || K2 > n2 || rounds < 1)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * WARPS * (n2 * n2 + 3 * K2 * n2);
+template <int CPL>
+int launch(const float* E, const float* init, int init_group, float* Vt,
+           float* W, float* Vprev, int B, int n2, int K2, int rounds,
+           int stage_e, int blocks, int warps, size_t smem,
+           cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mgs_iterate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        mgs_iterate_kernel<CPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int blocks = (B + WARPS - 1) / WARPS;
-  mgs_iterate_kernel<<<blocks, WARPS * 32, smem, (cudaStream_t)stream>>>(
-      (const float*)E, (const float*)init, init_stride, (float*)Vt,
-      (float*)W, (float*)Vprev, B, n2, K2, rounds);
+  mgs_iterate_kernel<CPL><<<blocks, warps * 32, smem, stream>>>(
+      E, init, init_group, Vt, W, Vprev, B, n2, K2, rounds, stage_e);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// E f32[B, n2, n2]; init f32[B / init_group, K2, n2], window b starting
+// from init row b / init_group (nullptr: cold start) → Vt, W, Vt_prev
+// f32[B, K2, n2]. n2 even, K2 even.
+extern "C" int doa_mgs_iterate(const void* E, const void* init,
+                               int init_group, void* Vt, void* W,
+                               void* Vprev, int B, int n2, int K2, int rounds,
+                               void* stream) {
+  if (B < 1 || n2 < 2 || n2 > MAX_N2 || n2 % 2 || K2 < 2 || K2 > MAX_K2 ||
+      K2 % 2 || K2 > n2 || rounds < 1 || (init && init_group < 1))
+    return (int)cudaErrorInvalidValue;
+  const int stage_e = n2 <= STAGE_E_MAX_N2;
+  const size_t per_warp =
+      sizeof(float) * ((stage_e ? n2 * n2 : 0) + 3 * K2 * n2);
+  int warps = (int)(SMEM_LIMIT / per_warp);
+  warps = warps > MAX_WARPS ? MAX_WARPS : warps;
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = per_warp * warps;
+  const int blocks = (B + warps - 1) / warps;
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* e = (const float*)E;
+  const float* in = (const float*)init;
+  if (n2 <= 32)
+    return launch<1>(e, in, init_group, (float*)Vt, (float*)W, (float*)Vprev,
+                     B, n2, K2, rounds, stage_e, blocks, warps, smem, st);
+  if (n2 <= 64)
+    return launch<2>(e, in, init_group, (float*)Vt, (float*)W, (float*)Vprev,
+                     B, n2, K2, rounds, stage_e, blocks, warps, smem, st);
+  return launch<4>(e, in, init_group, (float*)Vt, (float*)W, (float*)Vprev,
+                   B, n2, K2, rounds, stage_e, blocks, warps, smem, st);
 }

@@ -20,7 +20,8 @@ from doa_tpu_torch.cpx import fp32_matmuls
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {"doa_mgs_iterate": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]}
-MGS_MAX_N2 = 64         # csrc/subspace.cu: two elements of a row per lane
+MGS_MAX_N2 = 128        # csrc/subspace.cu: four elements of a row per lane
+MGS_MAX_K2 = 8          # csrc/subspace.cu: rows of W a lane keeps
 
 
 def _mgs_rows(Vt: torch.Tensor, passes: int = 1) -> torch.Tensor:
@@ -37,15 +38,34 @@ def _mgs_rows(Vt: torch.Tensor, passes: int = 1) -> torch.Tensor:
     return torch.stack(rows, dim=-2)
 
 
+def _init_rows(init, B: int):
+    """→ (m, init f32[m, 2K, 2N]) with window b starting from row
+    b // (B // m): one init for every window (m = 1, or an init expanded
+    over the windows), one per group of consecutive windows (m | B), or
+    one per window (m = B)."""
+    if init.shape[0] == B and B > 1 and init.stride(0) == 0:
+        init = init[:1]
+    m = init.shape[0]
+    if B % m:
+        raise ValueError(f"{m} inits do not divide {B} windows")
+    return m, init
+
+
 def mgs_iterate_plain(E, num_sources: int, rounds: int, init=None):
     """Plain PyTorch version of K4 → (Vt, W, Vt_prev), each
-    f32[B, 2K, 2N]: start from `init` (rows orthonormal; may broadcast
-    over windows) or, cold, from MGS of E's first 2K rows; then
-    rounds − 1 times W = Vt E, Vt_prev = Vt, Vt = MGS(W) with two passes
-    in the last round. W and Vt_prev are the last apply's (one extra apply
-    when none ran) — the escalation detector's inputs."""
+    f32[B, 2K, 2N]: start from `init` (rows orthonormal; f32[m, 2K, 2N]
+    with m | B, window b taking row b // (B // m)) or, cold, from MGS of
+    E's first 2K rows; then rounds − 1 times W = Vt E, Vt_prev = Vt,
+    Vt = MGS(W) with two passes in the last round. W and Vt_prev are the
+    last apply's (one extra apply when none ran) — the escalation
+    detector's inputs."""
     K2 = 2 * num_sources
-    Vt = _mgs_rows(E[..., :K2, :]) if init is None else init
+    if init is None:
+        Vt = _mgs_rows(E[..., :K2, :])
+    else:
+        B, n2 = E.shape[0], E.shape[-1]
+        m, init = _init_rows(init, B)
+        Vt = init[:, None].expand(m, B // m, K2, n2).reshape(B, K2, n2)
     W = Vt_prev = None
     for r in range(rounds - 1):
         W = torch.matmul(Vt, E)
@@ -61,7 +81,9 @@ def mgs_iterate(E: torch.Tensor, num_sources: int, rounds: int,
                 init: torch.Tensor | None = None):
     """K4: every round of the MGS subspace iteration of each window in one
     launch (csrc/subspace.cu) → (Vt, W, Vt_prev) as mgs_iterate_plain.
-    E f32[B, 2N, 2N] (2N ≤ 64); init f32[B or 1, 2K, 2N] or None (cold).
+    E f32[B, 2N, 2N] (2N ≤ 128); init f32[m, 2K, 2N] with m | B (window b
+    starts from row b // (B // m): one init, one per subband of a
+    subband-major stack, or one per window) or None (cold).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel and raises if that fails."""
@@ -70,29 +92,31 @@ def mgs_iterate(E: torch.Tensor, num_sources: int, rounds: int,
         raise ValueError(f"need E f32[B, 2N, 2N], got {tuple(E.shape)} "
                          f"{E.dtype}")
     B, n2 = E.shape[0], E.shape[-1]
-    if init is not None and (init.shape[-2:] != (K2, n2)
-                             or init.shape[0] not in (1, B)):
+    if init is not None and init.shape[-2:] != (K2, n2):
         raise ValueError(f"init {tuple(init.shape)} does not fit "
                          f"({B}, {K2}, {n2})")
     if E.device.type == "cpu":
         return mgs_iterate_plain(E, num_sources, rounds, init)
     if not E.is_cuda:
         raise ValueError(f"unsupported device {E.device}")
-    if n2 > MGS_MAX_N2 or K2 > n2 or rounds < 1:
-        raise ValueError(f"mgs_iterate kernel takes 2N ≤ {MGS_MAX_N2}, "
-                         f"2K ≤ 2N, rounds ≥ 1 (2N={n2}, 2K={K2}, "
-                         f"rounds={rounds})")
+    if n2 > MGS_MAX_N2 or n2 % 2 or K2 > min(n2, MGS_MAX_K2) or rounds < 1:
+        raise ValueError(f"mgs_iterate kernel takes an even 2N ≤ "
+                         f"{MGS_MAX_N2}, 2K ≤ min(2N, {MGS_MAX_K2}), "
+                         f"rounds ≥ 1 (2N={n2}, 2K={K2}, rounds={rounds})")
     E = E.contiguous()
+    if E.data_ptr() % 16:               # the kernel reads E as float4
+        E = E.clone()
+    group = 0
     if init is not None:
-        stride = 0 if init.shape[0] == 1 or init.stride(0) == 0 else K2 * n2
-        init = (init[:1] if stride == 0 else init).to(torch.float32)
-        init = init.contiguous()
+        m, init = _init_rows(init, B)
+        group = B // m
+        init = init.to(torch.float32).contiguous()
     outs = [torch.empty((B, K2, n2), dtype=torch.float32, device=E.device)
             for _ in range(3)]
     lib = _build.load("subspace", _SIG)
     err = lib.doa_mgs_iterate(
-        E.data_ptr(), None if init is None else init.data_ptr(),
-        0 if init is None else stride, *(o.data_ptr() for o in outs),
+        E.data_ptr(), None if init is None else init.data_ptr(), group,
+        *(o.data_ptr() for o in outs),
         B, n2, K2, rounds, torch.cuda.current_stream(E.device).cuda_stream)
     _build.check(err, "doa_mgs_iterate")
     mgs_iterate.launches += 1
@@ -164,9 +188,10 @@ def _subspace_E_T_mgs(E, num_sources: int, iters: int, squarings: int,
                       return_stats: bool = False):
     """MGS-orthonormalised subspace iteration (see the reference's
     docstring for the measured design). init: an orthonormal starting
-    basis f32[B, 2K, 2N] (warm start; `iters` then counts E-applies from
-    it). escalate_extra > 0 (squarings == 0 only) arms the detector and
-    the pay-per-window escalation.
+    basis f32[m, 2K, 2N], m | B, shared by groups of B // m consecutive
+    windows (warm start; `iters` then counts E-applies from it).
+    escalate_extra > 0 (squarings == 0 only) arms the detector and the
+    pay-per-window escalation.
 
     One host sync per call: whether any window was flagged decides
     whether the escalation batch runs at all (lax.cond in the reference)."""

@@ -126,6 +126,21 @@ def correction_pattern(cr: torch.Tensor, ci: torch.Tensor):
             ci[:, None] * cr[None, :] - cr[:, None] * ci[None, :])
 
 
+def window_sums(U: torch.Tensor, B: int, n_win: int,
+                stride: int) -> torch.Tensor:
+    """Chunk stack U f32[..., n, 2N, 2N] → B windows f32[..., B, 2N, 2N],
+    window w the sum of chunks w·stride … w·stride + n_win − 1: strided
+    differences of the prefix sums along the chunk axis (any overlap)."""
+    if n_win == 1:                       # g = S: chunks are the windows
+        return U[..., :B, :, :]
+    lead = U.shape[:-3]
+    csum = torch.cat([U.new_zeros(lead + (1,) + U.shape[-2:]),
+                      torch.cumsum(U, dim=-3)], dim=-3)
+    lo = csum[..., 0:(B - 1) * stride + 1:stride, :, :]
+    hi = csum[..., n_win:n_win + (B - 1) * stride + 1:stride, :, :]
+    return hi - lo
+
+
 def cov_embedded(xil: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor, *,
                  N: int, snapshot_size: int, overlap: int = 0,
                  fb: bool = False, compute_dtype="float32") -> torch.Tensor:
@@ -164,14 +179,7 @@ def cov_embedded(xil: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor, *,
     n_win = S // g
     stride = hop // g
     U = chunk_grams_uhat(x[:n * g], g)           # interleaved basis
-    if n_win == 1:
-        Uw = U[:B]
-    else:
-        # windows first: every later step is linear in the chunk sum
-        csum = torch.cat([U.new_zeros((1,) + U.shape[1:]),
-                          torch.cumsum(U, dim=0)], dim=0)
-        lo = csum[0:(B - 1) * stride + 1:stride]
-        hi = csum[n_win:n_win + (B - 1) * stride + 1:stride]
-        Uw = hi - lo
+    # windows first: every later step is linear in the chunk sum
+    Uw = window_sums(U, B, n_win, stride)
     W = correction_pattern(cr, ci)
     return uhat_windows_to_embedded(Uw, N, 1.0 / S, W, fb)

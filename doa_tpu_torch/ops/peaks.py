@@ -5,7 +5,9 @@ P[g] >= P[g+1] — top k by value with the lowest index on ties, rows with
 fewer peaks padded with the best peak, rows with none falling back to the
 global argmax. Optional sub-bin refine: a 3-point parabola in reciprocal
 space (q = 1/P is locally quadratic at a MUSIC null). The fused scan +
-peaks kernel (ops/cuda/music_scan.py, K2) reproduces this rule.
+peaks kernel (ops/cuda/music_scan.py, K2) reproduces this rule;
+find_local_max_2d is its az/el form (doa_tpu.ops.peaks.find_local_max_2d),
+which the 2-D peaks kernel (ops/cuda/peaks2d.py) reproduces.
 """
 
 from __future__ import annotations
@@ -66,18 +68,76 @@ def _refine_frac(P: torch.Tensor, idx: torch.Tensor, G: int):
     the three gathered points (the reciprocal is taken on those only)."""
     im = (idx - 1).clamp(0, G - 1)
     ip = (idx + 1).clamp(0, G - 1)
-    tiny = torch.finfo(P.dtype).tiny
+    return _parabola_frac(torch.gather(P, -1, im), torch.gather(P, -1, idx),
+                          torch.gather(P, -1, ip), idx, G)
+
+
+def _parabola_frac(pm, p0, pp, idx: torch.Tensor, G: int):
+    """idx + the vertex offset of the parabola through q = 1/P at the
+    bins idx − 1, idx, idx + 1 (P values pm, p0, pp; the neighbours
+    clamped to the axis), clipped to ±0.5; 0 at the axis ends."""
+    tiny = torch.finfo(p0.dtype).tiny
 
     def recip(v):
         return 1.0 / v.clamp_min(tiny)
 
-    qm = recip(torch.gather(P, -1, im))
-    q0 = recip(torch.gather(P, -1, idx))
-    qp = recip(torch.gather(P, -1, ip))
+    qm, q0, qp = recip(pm), recip(p0), recip(pp)
     denom = qm - 2.0 * q0 + qp
     delta = torch.where(denom.abs() > 0, 0.5 * (qm - qp) / denom,
                         torch.zeros_like(denom))
     delta = delta.clamp(-0.5, 0.5)
     interior = (idx > 0) & (idx < G - 1)
-    return idx.to(P.dtype) + torch.where(interior, delta,
-                                         torch.zeros_like(delta))
+    return idx.to(p0.dtype) + torch.where(interior, delta,
+                                          torch.zeros_like(delta))
+
+
+def find_local_max_2d(P: torch.Tensor, num_max_vals: int, az_rng, el_rng,
+                      refine: bool = False):
+    """2-D peak extraction for az/el scans: P (B, Ga, Ge) → (values,
+    az, el) each (B, k).
+
+    A bin is a peak iff it is interior on both axes, strictly exceeds its
+    up (az − 1) and left (el − 1) neighbours and is ≥ its down and right
+    ones; top k by value, the first row-major index on ties; rows with
+    fewer peaks pad with the best peak, rows with none fall back to the
+    global argmax. Refinement is separable: the reciprocal-space parabola
+    along the az column and along the el row through each peak. The 2-D
+    peaks kernel (ops/cuda/peaks2d.py) reproduces this rule."""
+    B, Ga, Ge = P.shape
+    G = Ga * Ge
+    is_max = torch.zeros_like(P, dtype=torch.bool)
+    c = P[:, 1:-1, 1:-1]
+    is_max[:, 1:-1, 1:-1] = ((c > P[:, :-2, 1:-1]) & (c >= P[:, 2:, 1:-1])
+                             & (c > P[:, 1:-1, :-2]) & (c >= P[:, 1:-1, 2:]))
+    Pf = P.reshape(B, G)
+    flat = torch.where(is_max.reshape(B, G), Pf,
+                       torch.full_like(Pf, -torch.inf))
+    vals, idx = _topk_lastaxis(flat, num_max_vals)
+
+    gval = Pf.max(dim=-1, keepdim=True).values
+    gidx = torch.where(Pf == gval, torch.arange(G, device=P.device),
+                       G).min(dim=-1, keepdim=True).values
+    have_any = torch.isfinite(vals[:, 0:1])
+    best_val = torch.where(have_any, vals[:, 0:1], gval)
+    best_idx = torch.where(have_any, idx[:, 0:1], gidx)
+    valid = torch.isfinite(vals)
+    vals = torch.where(valid, vals, best_val)
+    idx = torch.where(valid, idx, best_idx)
+
+    ia = idx // Ge
+    ie = idx % Ge
+    da = (az_rng[1] - az_rng[0]) / (Ga - 1)
+    de = (el_rng[1] - el_rng[0]) / (Ge - 1)
+    if refine:
+        pick = lambda a, e: torch.gather(Pf, -1, a * Ge + e)  # noqa: E731
+        am = (ia - 1).clamp(0, Ga - 1)
+        ap = (ia + 1).clamp(0, Ga - 1)
+        em = (ie - 1).clamp(0, Ge - 1)
+        ep = (ie + 1).clamp(0, Ge - 1)
+        p0 = pick(ia, ie)
+        fa = _parabola_frac(pick(am, ie), p0, pick(ap, ie), ia, Ga)
+        fe = _parabola_frac(pick(ia, em), p0, pick(ia, ep), ie, Ge)
+    else:
+        fa = ia.to(P.dtype)
+        fe = ie.to(P.dtype)
+    return vals, az_rng[0] + fa * da, el_rng[0] + fe * de

@@ -1,11 +1,22 @@
-"""The narrowband fused DoA pipeline on torch tensors (port of the fused
-branch of doa_tpu/pipeline_tpu.py::build_pipeline_tpu).
+"""The fused DoA pipelines on torch tensors (port of the fused
+branches of doa_tpu/pipeline_tpu.py::build_pipeline_tpu).
 
+Narrowband:
     capture x[T, 2N] (the bytes of a complex64 (T, N) buffer)
       → K1 chunk Grams → windows E(R) f32[B, 2N, 2N]   ops/cuda/cov_embedded
       → warm-start MGS subspace (K4) Vt f32[B, 2K, 2N] ops/cpx_ops
-      → K2 scan + peaks (return_spectra=False)          ops/cuda/music_scan
+      → K2 scan + peaks (return_spectra=False, 1-D)     ops/cuda/music_scan
         or K3 scan → normalise → find_local_max          ops/peaks
+           (2-D grids: the 2-D peaks kernel)            ops/cuda/peaks2d
+
+Wideband, incoherent fusion (c5):
+    capture x[T, 2N]
+      → FFT channelizer + subband Grams → E_sub f32[F, B, 2N, 2N]
+                                                   ops/cuda/wideband_cov
+      → per-subband warm-start MGS subspaces (K4) Vt f32[F, B, 2K, 2N]
+                                                   ops/wideband
+      → fused subband scan + fusion → P f32[B, G]  ops/cuda/wideband_scan
+      → 2-D peaks (az/el grids) or find_local_max  ops/cuda/peaks2d
 
 Every product carrying a value runs in true FP32 (cpx.fp32_matmuls). On a
 CUDA device every kernel launch either runs or raises; nothing falls back
@@ -24,18 +35,27 @@ from doa_tpu_torch.ops.cpx_ops import signal_subspace_from_E_T
 from doa_tpu_torch.ops.cuda.cov_embedded import cov_embedded
 from doa_tpu_torch.ops.cuda.music_scan import (
     MAX_FUSED_G, MAX_FUSED_K, music_scan, music_scan_peaks)
-from doa_tpu_torch.ops.peaks import find_local_max
-from doa_tpu_torch.pipeline import DoaResult, _steering_matrix
+from doa_tpu_torch.ops.cuda.peaks2d import MAX_PEAKS2D_K, peaks2d
+from doa_tpu_torch.ops.cuda.wideband_cov import wideband_cov_embedded
+from doa_tpu_torch.ops.peaks import find_local_max, find_local_max_2d
+from doa_tpu_torch.ops.wideband import wideband_music, wideband_steering_stack
+from doa_tpu_torch.pipeline import DoaResult, _steering_fn, _steering_matrix
 
 
 def _check_slice(cfg: DoaConfig) -> None:
     """Raise NotImplementedError for a config outside the ported slice,
     naming the ROADMAP.md entry that will cover it."""
     todo = []
-    if cfg.wideband.enabled:
-        todo.append("wideband (queue A.4, slice 2)")
-    if cfg.geometry.kind != "ula" or cfg.grid2d is not None:
-        todo.append("2-D az/el grids (queue A.4, slice 2)")
+    wb = cfg.wideband
+    if wb.enabled:
+        if wb.fusion != "incoherent":
+            todo.append(f"wideband fusion={wb.fusion!r} (queue A.4)")
+        if wb.num_subbands & (wb.num_subbands - 1):
+            todo.append(f"num_subbands={wb.num_subbands}, not a power of "
+                        "two: the dense-channelizer kernel (queue B.7)")
+        if cfg.compute_dtype != "float32":
+            todo.append(f"wideband compute_dtype={cfg.compute_dtype!r} "
+                        "(queue A.4)")
     if cfg.smoothing.enabled:
         todo.append("spatial smoothing on the planes path (queue A.3)")
     if cfg.beamspace.enabled:
@@ -52,8 +72,9 @@ def _check_slice(cfg: DoaConfig) -> None:
         todo.append("scan_mode='hierarchical' (queue A.3)")
     if todo:
         raise NotImplementedError(
-            "doa_tpu_torch ports the narrowband fused path only; not yet "
-            "ported: " + "; ".join(todo) + " — see ROADMAP.md")
+            "doa_tpu_torch ports the narrowband fused path and the "
+            "wideband incoherent path; not yet ported: " + "; ".join(todo)
+            + " — see ROADMAP.md")
 
 
 def _device(device) -> torch.device:
@@ -75,10 +96,14 @@ def _correction_planes(correction, N: int, device: torch.device):
             torch.from_numpy(np.ascontiguousarray(c.imag)).to(device))
 
 
-def load_state(A_re, A_im, correction=None, *, device) -> dict:
-    """The pipeline's state — steering planes A_re, A_im f32[G, N] and the
-    calibration correction c64[N] (numpy; None = no correction) — as
-    device tensors, for build_pipeline_torch(state=...)."""
+def load_state(A_re, A_im, correction=None, *, device,
+               subband_planes=None) -> dict:
+    """The pipeline's state — steering planes A_re, A_im f32[G, N], the
+    calibration correction c64[N] (None = no correction) and, for a
+    wideband config, the per-subband steering planes
+    subband_planes = (re, im) f32[F, G, N] (doa_tpu's
+    ``call.wb_ilv_args[1:]``; None = build them from the config), all
+    numpy — as device tensors, for build_pipeline_torch(state=...)."""
     dev = _device(device)
     A_re = np.array(A_re, dtype=np.float32)
     A_im = np.array(A_im, dtype=np.float32)
@@ -86,8 +111,17 @@ def load_state(A_re, A_im, correction=None, *, device) -> dict:
         raise ValueError(f"need A_re, A_im f32[G, N] of one shape, got "
                          f"{A_re.shape} and {A_im.shape}")
     cr, ci = _correction_planes(correction, A_re.shape[1], dev)
-    return {"A_re": torch.from_numpy(A_re).to(dev),
-            "A_im": torch.from_numpy(A_im).to(dev), "cr": cr, "ci": ci}
+    state = {"A_re": torch.from_numpy(A_re).to(dev),
+             "A_im": torch.from_numpy(A_im).to(dev), "cr": cr, "ci": ci}
+    if subband_planes is not None:
+        Xr, Xi = (np.array(p, dtype=np.float32) for p in subband_planes)
+        if Xr.ndim != 3 or Xr.shape != Xi.shape or Xr.shape[1:] != A_re.shape:
+            raise ValueError(f"need subband planes f32[F, G, N] of one shape "
+                             f"with (G, N) = {A_re.shape}, got {Xr.shape} and "
+                             f"{Xi.shape}")
+        state["As_re"] = torch.from_numpy(Xr).to(dev)
+        state["As_im"] = torch.from_numpy(Xi).to(dev)
+    return state
 
 
 def build_pipeline_torch(cfg: DoaConfig, *, device, refine_peaks: bool = True,
@@ -100,19 +134,35 @@ def build_pipeline_torch(cfg: DoaConfig, *, device, refine_peaks: bool = True,
     * ``call.interleaved(xil, correction=None)``: the capture as float
       x[T, 2N] or doa_tpu's (T/TPACK, 2N·TPACK) (same bytes), numpy or
       torch; under cov_dtype="int8" a float buffer is quantized on the
-      device, an int8 buffer passes as it is;
-    * ``call.steering_planes`` (A_re, A_im), ``call.fast_path`` (True),
-      ``call.config``.
+      device (narrowband), an int8 buffer passes as it is;
+    * ``call.steering_planes`` (A_re, A_im), ``call.subband_planes``
+      (wideband: (re, im) f32[F, G, N]; else None), ``call.fast_path``
+      (True), ``call.config``.
 
     `state` (load_state) replaces the steering built from cfg and gives
-    the default correction. return_spectra=False fuses normalise + peaks
-    into the scan kernel (K2) when k ≤ 4 and G ≤ 8192, an explicit size
-    rule; otherwise the spectrum kernel (K3) and find_local_max run."""
+    the default correction. Peak angles are (B, k) on a 1-D grid and
+    (B, k, 2) az/el on a 2-D one.
+
+    Narrowband: return_spectra=False fuses normalise + peaks into the
+    scan kernel (K2) when the grid is 1-D, k ≤ 4 and G ≤ 8192, an
+    explicit size rule; otherwise the spectrum kernel (K3) and the peaks
+    (find_local_max, or the 2-D peaks kernel) run.
+
+    Wideband (cfg.wideband.enabled; incoherent fusion, power-of-two
+    num_subbands): the FFT-channelizer front end, the per-subband
+    subspaces, the fused subband scan and the peaks; the fused spectrum
+    is always returned and the escalation counts are None, as in the
+    reference. cov_dtype and forward-backward averaging do not apply
+    there, as in the reference. The reference's wb_fusion_impl and
+    peaks_impl switches choose between its TPU kernels and XLA; here the
+    kernels always run."""
     dev = _device(device)
     _check_slice(cfg)
     N = cfg.geometry.num_elements
     K = cfg.num_sources
     k = cfg.num_max_vals
+    wb = cfg.wideband.enabled
+    g2 = cfg.grid2d if cfg.geometry.kind == "ura" else None
     A_host, x_rng = _steering_matrix(cfg)
     if state is None:
         state = load_state(A_host.real, A_host.imag, device=dev)
@@ -124,10 +174,38 @@ def build_pipeline_torch(cfg: DoaConfig, *, device, refine_peaks: bool = True,
     At_emb = torch.cat([A_re, A_im], dim=-1).contiguous()      # (G, 2N)
     nrm = (At_emb * At_emb).sum(dim=-1)
     G = At_emb.shape[0]
-    fuse_peaks = (not return_spectra and k <= MAX_FUSED_K
+    fuse_peaks = (not return_spectra and g2 is None and k <= MAX_FUSED_K
                   and 3 <= G <= MAX_FUSED_G)
     fb = cfg.avg_method == AvgMethod.FORWARD_BACKWARD
     esc = cfg.escalate_kwargs
+    subband_planes = None
+    if wb:
+        F = cfg.wideband.num_subbands
+        if "As_re" in state:
+            Xr, Xi = state["As_re"].to(dev), state["As_im"].to(dev)
+            if tuple(Xr.shape) != (F,) + A_host.shape:
+                raise ValueError(f"state subband steering {tuple(Xr.shape)} "
+                                 f"does not match ({F},) + {A_host.shape}")
+        else:
+            X = wideband_steering_stack(cfg, _steering_fn(cfg))
+            Xr, Xi = (torch.from_numpy(np.ascontiguousarray(
+                p.astype(np.float32))).to(dev) for p in (X.real, X.imag))
+        subband_planes = (Xr, Xi)
+        As_emb = torch.cat([Xr, Xi], dim=-1).contiguous()     # (F, G, 2N)
+        As_nrm = (As_emb * As_emb).sum(dim=-1)
+
+    def _peaks(P):
+        """(values, angles): 1-D → angles (B, k); 2-D → (B, k, 2) az/el
+        through the 2-D peaks kernel (k ≤ 4; the plain rule beyond)."""
+        if g2 is None:
+            return find_local_max(P, k, x_rng[0], x_rng[1],
+                                  refine=refine_peaks)
+        P2 = P.reshape(P.shape[0], g2.num_az, g2.num_el)
+        az_rng = (g2.az_lo_deg, g2.az_hi_deg)
+        el_rng = (g2.el_lo_deg, g2.el_hi_deg)
+        find = peaks2d if k <= MAX_PEAKS2D_K else find_local_max_2d
+        v, az, el = find(P2, k, az_rng, el_rng, refine=refine_peaks)
+        return v, torch.stack([az, el], dim=-1)
 
     def _subspace(E):
         """→ (Vt, (flagged, overflow)); warm start from the capture-mean
@@ -136,36 +214,46 @@ def build_pipeline_torch(cfg: DoaConfig, *, device, refine_peaks: bool = True,
             Vt_bar = signal_subspace_from_E_T(
                 E.mean(dim=0, keepdim=True), K,
                 iters=max(cfg.power_iters, 8), **esc)
-            init = Vt_bar.expand((E.shape[0],) + Vt_bar.shape[1:])
             return signal_subspace_from_E_T(
-                E, K, iters=cfg.power_iters_warm, init=init,
+                E, K, iters=cfg.power_iters_warm, init=Vt_bar,
                 return_stats=True, **esc)
         return signal_subspace_from_E_T(
             E, K, iters=cfg.power_iters, squarings=cfg.power_squarings,
             return_stats=True, **(esc if cfg.power_squarings == 0 else {}))
 
-    def run(x: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor):
-        with fp32_matmuls():
-            E = cov_embedded(x, cr, ci, N=N, snapshot_size=cfg.snapshot_size,
-                             overlap=cfg.overlap, fb=fb,
-                             compute_dtype=cfg.cov_dtype)
-            Vt, (flagged, overflow) = _subspace(E)
-            spectra = {}
-            if fuse_peaks:
-                v, l = music_scan_peaks(Vt, At_emb, k, x_rng[0], x_rng[1],
-                                        refine=refine_peaks, nrm=nrm)
-            else:
-                P = music_scan(Vt, At_emb, nrm)
-                P = P / P.max(dim=-1, keepdim=True).values
-                v, l = find_local_max(P, k, x_rng[0], x_rng[1],
-                                      refine=refine_peaks)
-                if return_spectra:
-                    spectra["music"] = P
-            R = unembed_hermitian(E) if return_covariance else None
+    def run_narrowband(x: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor):
+        E = cov_embedded(x, cr, ci, N=N, snapshot_size=cfg.snapshot_size,
+                         overlap=cfg.overlap, fb=fb,
+                         compute_dtype=cfg.cov_dtype)
+        Vt, (flagged, overflow) = _subspace(E)
+        spectra = {}
+        if fuse_peaks:
+            v, l = music_scan_peaks(Vt, At_emb, k, x_rng[0], x_rng[1],
+                                    refine=refine_peaks, nrm=nrm)
+        else:
+            P = music_scan(Vt, At_emb, nrm)
+            P = P / P.max(dim=-1, keepdim=True).values
+            v, l = _peaks(P)
+            if return_spectra:
+                spectra["music"] = P
+        R = unembed_hermitian(E) if return_covariance else None
         return DoaResult(spectra=spectra, peak_values={"music": v},
                          peak_angles={"music": l}, covariance=R,
                          escalation_flagged=flagged,
                          escalation_overflow=overflow)
+
+    def run_wideband(x: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor):
+        E_sub = wideband_cov_embedded(
+            x, cr, ci, N=N, F=cfg.wideband.num_subbands,
+            snapshot_size=cfg.snapshot_size, overlap=cfg.overlap)
+        P = wideband_music(E_sub, As_emb, As_nrm, cfg)
+        v, l = _peaks(P)
+        return DoaResult(spectra={"music": P}, peak_values={"music": v},
+                         peak_angles={"music": l})
+
+    def run(x: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor):
+        with fp32_matmuls():
+            return (run_wideband if wb else run_narrowband)(x, cr, ci)
 
     def _planes(correction):
         if correction is None:
@@ -174,7 +262,7 @@ def build_pipeline_torch(cfg: DoaConfig, *, device, refine_peaks: bool = True,
 
     def _ingest(x: torch.Tensor) -> torch.Tensor:
         x = x.to(dev).reshape(-1, 2 * N)
-        if cfg.cov_dtype == "int8" and x.is_floating_point():
+        if not wb and cfg.cov_dtype == "int8" and x.is_floating_point():
             x = quantize_interleaved_int8(x)[0]
         return x
 
@@ -197,6 +285,7 @@ def build_pipeline_torch(cfg: DoaConfig, *, device, refine_peaks: bool = True,
 
     call.interleaved = call_interleaved
     call.steering_planes = (A_re, A_im)
+    call.subband_planes = subband_planes
     call.fast_path = True
     call.config = cfg
     return call

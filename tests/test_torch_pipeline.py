@@ -84,6 +84,37 @@ def test_slice_matches_reference(overlap, return_spectra, cov_dtype):
         assert out.spectra == {} and ref.spectra == {}
 
 
+@pytest.mark.parametrize("return_spectra", [True, False])
+def test_narrowband_2d_grid_matches_reference(return_spectra):
+    """A 4×4 URA on an az/el grid: the narrowband path's spectrum kernel
+    then the 2-D peaks (kernel on the card, its plain rule here) against
+    the reference's Pallas scan and 2-D peaks kernel."""
+    from doa_tpu.io import synth_ura_iq
+    cfg = DoaConfig(
+        geometry=ArrayGeometry(kind="ura", num_elements=16, shape=(4, 4),
+                               norm_spacing=0.5),
+        snapshot_size=128, num_sources=2, num_max_vals=2,
+        estimators=(Estimator.MUSIC,),
+        grid2d=GridSpec2D(num_az=25, num_el=13))
+    x = synth_ura_iq([SourceSpec(az_deg=-20.0, el_deg=30.0, freq_norm=0.1),
+                      SourceSpec(az_deg=35.0, el_deg=60.0, freq_norm=0.3)],
+                     (4, 4), 0.5, 33 * 128, snr_db=10,
+                     seed=5).astype(np.complex64)
+    ref = build_pipeline_tpu(dataclasses.replace(
+        cfg, cov_impl="pallas", scan_mode="pallas"),
+        return_spectra=return_spectra)(x)
+    out = build_pipeline_torch(cfg, device="cpu",
+                               return_spectra=return_spectra)(x)
+    a = out.peak_angles["music"].numpy()
+    a_ref = np.asarray(ref.peak_angles["music"])
+    assert a.shape == a_ref.shape == (33, 2, 2)
+    order = lambda v: np.take_along_axis(  # noqa: E731
+        v, np.argsort(v[..., 0], -1)[..., None], 1)
+    np.testing.assert_allclose(order(a), order(a_ref), atol=1e-3)
+    assert int(out.escalation_flagged) == int(ref.escalation_flagged)
+    assert ("music" in out.spectra) == return_spectra
+
+
 def test_interleaved_entry_takes_both_layouts():
     """call.interleaved accepts x[T, 2N] and doa_tpu's (T/TPACK, 2N·TPACK)
     — the same bytes — and agrees with the complex64 entry."""
@@ -181,7 +212,10 @@ def test_port_never_imports_jax():
     code = (
         "import sys, doa_tpu_torch.pipeline_torch, "
         "doa_tpu_torch.ops.cuda.cov_embedded, "
-        "doa_tpu_torch.ops.cuda.music_scan\n"
+        "doa_tpu_torch.ops.cuda.music_scan, doa_tpu_torch.ops.wideband, "
+        "doa_tpu_torch.ops.cuda.wideband_cov, "
+        "doa_tpu_torch.ops.cuda.wideband_scan, "
+        "doa_tpu_torch.ops.cuda.peaks2d\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "shared = {'doa_tpu', 'doa_tpu.configs'}\n"
         "extra = {m for m in sys.modules if m.startswith('doa_tpu.')"
@@ -204,11 +238,28 @@ def test_cuda_device_raises_without_a_card():
         load_state(np.ones((4, 8)), np.zeros((4, 8)), device="cuda")
 
 
-@pytest.mark.parametrize("name", ["c2_ula8_2src", "c3_ula16_calib_smooth",
-                                  "c5_ura64_wideband"])
+def _c5_with(**wideband):
+    c5 = PRESETS["c5_ura64_wideband"]
+    return dataclasses.replace(
+        c5, wideband=dataclasses.replace(c5.wideband, **wideband))
+
+
+_OUTSIDE = {
+    "c2_ula8_2src": lambda: PRESETS["c2_ula8_2src"],
+    "c3_ula16_calib_smooth": lambda: PRESETS["c3_ula16_calib_smooth"],
+    "c5_tops": lambda: _c5_with(fusion="tops"),
+    "c5_12_subbands": lambda: _c5_with(num_subbands=12),
+    "c5_hierarchical": lambda: dataclasses.replace(
+        PRESETS["c5_ura64_wideband"], scan_mode="hierarchical"),
+    "c5_bf16_scan": lambda: dataclasses.replace(
+        PRESETS["c5_ura64_wideband"], compute_dtype="bfloat16"),
+}
+
+
+@pytest.mark.parametrize("name", list(_OUTSIDE))
 def test_configs_outside_the_slice_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_pipeline_torch(PRESETS[name], device="cpu")
+        build_pipeline_torch(_OUTSIDE[name](), device="cpu")
 
 
 @pytest.mark.parametrize("name", ["c1_ula4_tone", "c4_ula16_streaming",

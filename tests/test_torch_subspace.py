@@ -148,3 +148,24 @@ def test_only_mgs_is_ported():
     with pytest.raises(NotImplementedError, match="mgs"):
         cpx_ops.signal_subspace_from_E_T(torch.zeros((1, 8, 8)), 1,
                                          orth="ns")
+
+
+def test_init_per_group_of_windows():
+    """An init of m rows starts window b from row b // (B // m) (the
+    wideband path's one init per subband): the same as running each group
+    alone from its own row; an expanded single init is one group."""
+    E = torch.from_numpy(_E_scene(N=8, B=12))
+    Vb = cpx_ops.signal_subspace_from_E_T(
+        E.reshape(3, 4, 16, 16).mean(dim=1), 2, iters=8)     # (3, 4, 16)
+    out = cpx_ops.mgs_iterate(E, 2, 3, Vb)
+    for grp in range(3):
+        part = cpx_ops.mgs_iterate(E[4 * grp:4 * grp + 4], 2, 3,
+                                   Vb[grp:grp + 1])
+        for o, p in zip(out, part):
+            torch.testing.assert_close(o[4 * grp:4 * grp + 4], p, rtol=0,
+                                       atol=0)
+    one = cpx_ops.mgs_iterate(E, 2, 3, Vb[:1].expand(12, -1, -1))
+    torch.testing.assert_close(
+        one[0], cpx_ops.mgs_iterate(E, 2, 3, Vb[:1])[0], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="divide"):
+        cpx_ops.mgs_iterate(E, 2, 3, Vb[:1].expand(5, -1, -1).contiguous())
