@@ -34,16 +34,37 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    az/el within 0.5 deg of the planted (-20, 30), (35, 60); the median
    call time, per-layer times and a profile window; then the card's
    pipeline against the same pipeline on the CPU on 32 windows.
+8. planes-path kernel parity: kernel 8 (chunk Grams of sample planes, f32
+   and bf16, separate planes and the stride-2 views of a complex64
+   capture, 63 chunks + a tail) and kernel 12 (one Gram per window, N=16,
+   S=1024, overlap 1000: 43649 windows of 2^20 samples) exact on
+   integer-valued inputs and within 1e-5 of max|R| on the c3 scene; K4
+   exact at (2N, 2K) = (24, 6) and (16, 4) on signed-permutation windows
+   and within 1e-5 on the c3 scene's smoothed windows; each kernel's time
+   beside its plain version's.
+9. the planes path: the two-stage calibration on the card (common tone,
+   pilot at 68 deg, artifact round trip); PRESETS["c3_ula16_calib_smooth"]
+   at T=2^24 on validate_tpu.py's c3 scene (40/70 deg coherent, 100 deg),
+   impaired by chain phases and element gains/phases, through
+   call((xr, xi), correction) on strided card views: every window within
+   0.5 deg, launch counts, median call time, layer times, a profile
+   window; c3 with eigh at overlap 512 (1024 windows); the card against
+   the CPU on 64 c3 windows; PRESETS["c2_ula8_2src"] (MUSIC + Capon) at
+   T=2^24 on validate_tpu.py's c2 scene: every window within 0.5 deg of
+   60/110, the card against the CPU on 64 windows; the cov_windows entry
+   driven at gcd 8 (kernel 12).
 
 The last two lines: one JSON object with the kernels, then
 {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -60,7 +81,7 @@ T_C5 = 1 << 21             # 2048 windows of 1024 samples
 T_C5_SMALL = 32 * 1024     # the card against the CPU
 C5_ANGLE_TOL = 0.5         # degrees, the median window
 SOURCES = ("cov_gram", "music_scan", "subspace", "wideband_cov",
-           "wideband_scan", "peaks2d")
+           "wideband_scan", "peaks2d", "covariance")
 
 
 def log(msg):
@@ -697,6 +718,475 @@ def c5_phases(torch, dev, card, counters):
     return recs, launches["mgs_iterate"]
 
 
+# ---------------------------------------------------------------------
+# 8-9: the planes path (c3, c2, eigh) and the calibration stage
+# ---------------------------------------------------------------------
+
+C3_TRUTH = (40.0, 70.0, 100.0)     # validate_tpu.py's c3 scene
+C2_TRUTH = (60.0, 110.0)           # validate_tpu.py's c2 scene
+T_C3 = 1 << 24                     # 16384 windows of 1024: 2 GiB
+T_C2 = 1 << 24                     # 8192 windows of 2048: 1 GiB
+T_K12 = 1 << 20                    # kernel 12: S = 1024, overlap 1000
+B_EIGH = 1024                      # c3 with eigh at overlap 512
+B_CPU = 64                         # the card against the CPU
+T_CAL = 1 << 20                    # each calibration capture
+PILOT_DEG = 68.0
+
+
+def make_ula_capture(torch, T, N, sources, snr_db, device, seed):
+    """A ULA capture by the model of doa_tpu.io.synth_ula_iq as the
+    interleaved buffer x f32[T, N, 2] (complex64 bytes), made on the
+    device: each source (theta_deg, num, den) a unit tone of frequency
+    num/den cycles a sample with a random start phase (t·num mod den in
+    integers, so the phase is exact at any T), steered by
+    a_k = exp(−jπ·cos θ·k); complex white noise of power 10^(−snr/10) per
+    element."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    npow = 10.0 ** (-snr_db / 10.0)
+    x = torch.randn((T, N, 2), generator=gen, device=device)
+    x *= math.sqrt(npow / 2.0)
+    xc = torch.view_as_complex(x)
+    t = torch.arange(T, device=device, dtype=torch.int64)
+    k = torch.arange(N, device=device, dtype=torch.float64)
+    for theta, num, den in sources:
+        ph = (2.0 * math.pi / den) * ((t * num) % den).to(torch.float64)
+        ph += rng.uniform(0.0, 2.0 * math.pi)
+        s = torch.polar(torch.ones_like(ph), ph).to(torch.complex64)
+        a = torch.polar(torch.ones_like(k), -math.pi * math.cos(
+            math.radians(theta)) * k).to(torch.complex64)
+        xc += s[:, None] * a[None, :]
+        del ph, s
+    return x
+
+
+def c3_sources():
+    return ((40.0, 12, 100), (70.0, 12, 100), (100.0, 3, 10))
+
+
+def impairments(N, seed=3):
+    """Receiver-chain phases (chain 0 the reference) and element gains and
+    phases, as tests/test_calibration.py injects them → the per-channel
+    complex factor the capture is multiplied by (numpy complex128[N])."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    chain = rng.uniform(-1.5, 1.5, N)
+    chain[0] = 0.0
+    gains = 1.0 + 0.25 * rng.standard_normal(N)
+    phases = rng.uniform(-0.4, 0.4, N)
+    return np.exp(1j * chain) * gains * np.exp(1j * phases)
+
+
+def impair(torch, x, factor):
+    xc = torch.view_as_complex(x)
+    xc *= torch.from_numpy(factor.astype("complex64")).to(x.device)[None, :]
+    return x
+
+
+def sorted_err(torch, ang, truth):
+    """Max over windows of the largest |sorted angle − truth|."""
+    if not bool(torch.isfinite(ang).all()):
+        fail("non-finite angles")
+    a = torch.sort(ang, dim=-1).values
+    return float((a - torch.tensor(truth, device=a.device)).abs().max())
+
+
+def scan_parity(torch, tag, Vt, At, nrm, k):
+    """K3 and K2 against their plain versions on a path's own subspaces
+    (its 2N, 2K, G and k): den within 1e-5·max‖a‖², each window's sorted
+    peak angles within 0.01°."""
+    from doa_tpu_torch.ops.cuda import music_scan as ms
+
+    e3 = (1.0 / ms.music_scan(Vt, At, nrm)
+          - 1.0 / ms.music_scan_plain(Vt, At, nrm)).abs().max().item()
+    tol3 = 1e-5 * nrm.max().item()
+    _, lk = ms.music_scan_peaks(Vt, At, k, 0.0, 180.0, True, nrm)
+    _, lp = ms.music_scan_peaks_plain(Vt, At, k, 0.0, 180.0, True, nrm)
+    e2 = (lk.sort(-1).values - lp.sort(-1).values).abs().max().item()
+    log(f"K3/K2 {tag} (2N, 2K) = ({Vt.shape[2]}, {Vt.shape[1]}), "
+        f"G={At.shape[0]}, k={k}, {Vt.shape[0]} windows: max|den kernel - "
+        f"den plain| = {e3!r} (tol 1e-5*max‖a‖² = {tol3!r}); max|sorted "
+        f"loc kernel - plain| = {e2!r} deg (tol 0.01)")
+    check(e3 <= tol3, f"K3 disagrees with plain at {tag}'s shapes")
+    check(e2 <= 0.01, f"K2 disagrees with plain at {tag}'s shapes")
+
+
+def planes_parity(torch, dev, x3, card):
+    """Phase 8 → the records of kernels 8 and 12 (launches filled in
+    later). x3: the c3 capture f32[T, 16, 2] on the card."""
+    from doa_tpu_torch.cpx import embed_planes, fp32_matmuls
+    from doa_tpu_torch.ops import cpx_ops
+    from doa_tpu_torch.ops.cuda import covariance as cv
+
+    recs = {}
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def dmax(a, b):
+        return max((p - q).abs().max().item() for p, q in zip(a, b))
+
+    # kernel 8 exact: integer samples |x| ≤ 20 (exact in bf16 too), every
+    # sum an integer below 2^24; both register-tile forms (2N = 16, 32, 64;
+    # 2N = 30) and every load form: separate planes (float4), the stride-2
+    # views of an interleaved buffer (float4; float2 when it starts 8 bytes
+    # off a 16-byte boundary or N is odd), every third value (one value a
+    # thread); 63 chunks + a tail
+    for N in (8, 15, 16, 32):
+        g = 128
+        T8 = 63 * g + 17
+        buf = torch.randint(-20, 21, (T8 * 3 * N + 2,), generator=gen,
+                            device=dev).float()
+        xq = buf[:T8 * 2 * N].view(T8, N, 2)
+        xo = buf[2:2 + T8 * 2 * N].view(T8, N, 2)
+        x3v = buf[:T8 * 3 * N].view(T8, N, 3)
+        layouts = (("planar", (xq[..., 0].contiguous(),
+                               xq[..., 1].contiguous())),
+                   ("stride2", (xq[..., 0], xq[..., 1])),
+                   ("stride2 8-byte offset", (xo[..., 0], xo[..., 1])),
+                   ("stride3", (x3v[..., 0], x3v[..., 2])))
+        for dt in ("float32", "bfloat16"):
+            for name, (xr, xi) in layouts:
+                d = dmax(cv.chunk_grams(xr, xi, g, dt),
+                         cv.chunk_grams_plain(xr, xi, g, dt))
+                log(f"kernel 8 exact-input N={N} {dt} {name}: "
+                    f"max|kernel-plain| = {d!r} (must be 0)")
+                check(d == 0.0, f"kernel 8 N={N} {dt} {name} differs on "
+                                f"exact inputs")
+    # kernel 8 at c3's shape on the c3 scene (stride-2 views, g = S = 1024)
+    xr, xi = x3[..., 0], x3[..., 1]
+    ref = cv.chunk_grams_plain(xr, xi, 1024)
+    scale = ref[0].abs().max().item()
+    e8 = dmax(cv.chunk_grams(xr, xi, 1024), ref)
+    log(f"kernel 8 f32 c3 scene T={xr.shape[0]} N=16: max|kernel-plain| = "
+        f"{e8!r}, max|Rr| = {scale!r}, tol 1e-5*max|Rr|")
+    check(e8 <= 1e-5 * scale, "kernel 8 f32 disagrees with plain")
+    del ref
+    eb = dmax(cv.chunk_grams(xr, xi, 1024, "bfloat16"),
+              cv.chunk_grams_plain(xr, xi, 1024, "bfloat16"))
+    log(f"kernel 8 bf16 c3 scene: max|kernel-plain| = {eb!r}, tol "
+        f"1e-5*max|Rr|")
+    check(eb <= 1e-5 * scale, "kernel 8 bf16 disagrees with plain")
+    xp = (xr.contiguous(), xi.contiguous())
+    k_ms, p_ms = pair_ms(torch, lambda: cv.chunk_grams(xr, xi, 1024),
+                         lambda: cv.chunk_grams_plain(xr, xi, 1024))
+    kp_ms, _ = pair_ms(torch, lambda: cv.chunk_grams(*xp, 1024),
+                       lambda: cv.chunk_grams(xr, xi, 1024))
+    kb_ms, pb_ms = pair_ms(
+        torch, lambda: cv.chunk_grams(xr, xi, 1024, "bfloat16"),
+        lambda: cv.chunk_grams_plain(xr, xi, 1024, "bfloat16"))
+    del xp
+    log(f"kernel 8 time [{xr.shape[0]}, 16] x2 g=1024: f32 stride-2 kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; f32 planar kernel "
+        f"{kp_ms:.4f} ms; bf16 kernel {kb_ms:.4f} ms, plain {pb_ms:.4f} ms"
+        f"  [{card}]")
+    recs["planes_chunk_gram"] = dict(
+        name="planes_chunk_gram", route="cuda",
+        source="doa_tpu_torch/csrc/covariance.cu",
+        replaces="doa_tpu/ops/pallas/covariance.py:34",
+        max_abs_err=e8, ms=k_ms, plain_ms=p_ms)
+
+    # kernel 12: N = 16, S = 1024, overlap 1000 (hop 24, gcd 8)
+    S, ov = 1024, 1000
+    xq = torch.randint(-20, 21, (T_K12, 16, 2), generator=gen,
+                       device=dev).float()
+    d = dmax(cv.cov_windows(xq[..., 0], xq[..., 1], S, ov),
+             cv.cov_windows_plain(xq[..., 0], xq[..., 1], S, ov))
+    B12 = (T_K12 - S) // (S - ov) + 1
+    log(f"kernel 12 exact-input N=16 S={S} overlap={ov} ({B12} windows): "
+        f"max|kernel-plain| = {d!r} (must be 0)")
+    check(d == 0.0, "kernel 12 differs on exact inputs")
+    del xq
+    xr, xi = x3[:T_K12, :, 0], x3[:T_K12, :, 1]
+    ref = cv.cov_windows_plain(xr, xi, S, ov)
+    s12 = ref[0].abs().max().item()
+    e12 = dmax(cv.cov_windows(xr, xi, S, ov), ref)
+    log(f"kernel 12 c3 scene: max|kernel-plain| = {e12!r}, max|Rr| = "
+        f"{s12!r}, tol 1e-5*max|Rr|")
+    check(e12 <= 1e-5 * s12, "kernel 12 disagrees with plain")
+    del ref
+    k_ms, p_ms = pair_ms(torch, lambda: cv.cov_windows(xr, xi, S, ov),
+                         lambda: cv.cov_windows_plain(xr, xi, S, ov),)
+    log(f"kernel 12 time ({B12} windows of {S}x16, hop {S - ov}): kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms  [{card}]")
+    recs["planes_cov_windows"] = dict(
+        name="planes_cov_windows", route="cuda",
+        source="doa_tpu_torch/csrc/covariance.cu",
+        replaces="doa_tpu/ops/pallas/covariance.py:94",
+        max_abs_err=e12, ms=k_ms, plain_ms=p_ms)
+
+    # K4 at the planes path's new shapes, exact: E a signed permutation per
+    # window (every MGS dot product 0, every norm 1, every sum exact)
+    for n2, K in ((24, 3), (16, 2)):
+        Bq = 4096
+        perm = torch.argsort(torch.rand((Bq, n2), generator=gen, device=dev),
+                             dim=-1)
+        sign = torch.randint(0, 2, (Bq, n2), generator=gen,
+                             device=dev).float() * 2 - 1
+        Eq = torch.zeros((Bq, n2, n2), device=dev)
+        Eq.scatter_(2, perm[..., None], sign[..., None])
+        starts = [("cold", None)]
+        if K == 2:
+            starts.append(("warm", Eq[:1, :2 * K, :].clone()))
+        for start, ini in starts:
+            outk = cpx_ops.mgs_iterate(Eq, K, 8, ini)
+            outp = cpx_ops.mgs_iterate_plain(Eq, K, 8, ini)
+            d = max((a - b).abs().max().item() for a, b in zip(outk, outp))
+            log(f"K4 exact-input (2N, 2K) = ({n2}, {2 * K}) {start} 8 rounds:"
+                f" max|kernel-plain| over Vt, W, Vt_prev = {d!r} (must be 0)")
+            check(d == 0.0, f"K4 ({n2}, {2 * K}) differs on exact inputs")
+    # K4 on the c3 scene's smoothed windows (the planes path's cold start)
+    cr1 = torch.ones(16, device=dev)
+    ci0 = torch.zeros(16, device=dev)
+    from doa_tpu_torch import PRESETS
+    from doa_tpu_torch.pipeline_torch import compute_covariances
+    with fp32_matmuls():
+        R = compute_covariances(x3[..., 0], x3[..., 1],
+                                PRESETS["c3_ula16_calib_smooth"], (cr1, ci0))
+        E = embed_planes(*R)
+        outk = cpx_ops.mgs_iterate(E, 3, 8)
+        outp = cpx_ops.mgs_iterate_plain(E, 3, 8)
+        dp = (outk[0].transpose(1, 2) @ outk[0]
+              - outp[0].transpose(1, 2) @ outp[0]).abs().max().item()
+        log(f"K4 c3 scene (2N, 2K) = (24, 6) cold 8 rounds, {E.shape[0]} "
+            f"windows: max|projector kernel - plain| = {dp!r} (tol 1e-5)")
+        check(dp <= 1e-5, "K4 at (24, 6) disagrees with plain")
+        k4_ms, p4_ms = pair_ms(torch, lambda: cpx_ops.mgs_iterate(E, 3, 8),
+                               lambda: cpx_ops.mgs_iterate_plain(E, 3, 8))
+    log(f"K4 time (c3: cold, 8 rounds, {E.shape[0]} windows of 2N=24): "
+        f"kernel {k4_ms:.4f} ms, plain {p4_ms:.4f} ms  [{card}]")
+    return recs
+
+
+def calibrate(torch, dev, factor, card):
+    """Phase 9a: the two-stage calibration on the card → the correction
+    loaded back from its artifact (numpy complex64[16])."""
+    import numpy as np
+    from doa_tpu_torch import calib
+    from doa_tpu_torch.ops.cpx_ops import (apply_correction_to_cov,
+                                           cov_from_stream)
+
+    N = 16
+    t0 = time.perf_counter()
+    # stage 1: one common tone into every chain (broadside: a = 1)
+    x = impair(torch, make_ula_capture(torch, T_CAL, N, ((90.0, 1, 10),),
+                                       25.0, dev, seed=4), factor)
+    phi = calib.phase_offset_est(torch.view_as_complex(x))
+    c1 = calib.phase_correction(phi)
+    # stage 2: a pilot at a known angle, after the stage-1 correction
+    x = impair(torch, make_ula_capture(torch, T_CAL, N, (
+        (PILOT_DEG, 1, 10),), 25.0, dev, seed=5), factor)
+    Rr, Ri = cov_from_stream(x[..., 0], x[..., 1], 2048, 0)
+    Rr, Ri = apply_correction_to_cov(Rr, Ri, c1.real.contiguous(),
+                                     c1.imag.contiguous())
+    c2 = calib.average_corrections(calib.element_calibration(
+        torch.complex(Rr, Ri), PILOT_DEG, 0.5))
+    del x
+    art = calib.CalibrationArtifact(
+        phase_offsets=phi.cpu().numpy(), element_corrections=c2.cpu().numpy(),
+        num_elements=N, norm_spacing=0.5, pilot_theta_deg=PILOT_DEG)
+    with tempfile.TemporaryDirectory() as out_dir:
+        path = os.path.join(out_dir, "c3_calibration.npz")
+        calib.save_calibration(path, art)
+        corr = calib.load_calibration(path).correction_vector()
+    # the corrected chain: c · factor ∝ 1 up to one common complex gain
+    resid = corr * factor
+    resid = resid / resid[0]
+    err = float(np.abs(resid - 1).max())
+    log(f"calibration on the card (stage 1 common tone, stage 2 pilot at "
+        f"{PILOT_DEG} deg, {T_CAL} samples each, artifact round trip): "
+        f"max|c·impairment/(c·impairment)_0 - 1| = {err!r} (tol 2e-2); "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(err <= 2e-2, "calibration did not undo the impairments")
+    return corr
+
+
+def planes_phases(torch, dev, card):
+    """Phases 8 and 9 → (kernel records, the launches of K4 in the c3 and
+    c2 paths)."""
+    import numpy as np
+    from doa_tpu_torch import PRESETS
+    from doa_tpu_torch.cpx import embed_planes, fp32_matmuls
+    from doa_tpu_torch.ops import cpx_ops
+    from doa_tpu_torch.ops.cuda import cov_embedded as ce
+    from doa_tpu_torch.ops.cuda import covariance as cv
+    from doa_tpu_torch.ops.cuda import music_scan as ms
+    from doa_tpu_torch.ops.peaks import find_local_max
+    from doa_tpu_torch.pipeline_torch import (build_pipeline_torch,
+                                              compute_covariances)
+
+    factor = impairments(16)
+    x3 = make_ula_capture(torch, T_C3, 16, c3_sources(), SNR_DB, dev, seed=3)
+    torch.cuda.synchronize()
+    recs = planes_parity(torch, dev, x3, card)
+
+    # 9. the slice's paths
+    corr = calibrate(torch, dev, factor, card)
+    impair(torch, x3, factor)
+    xr, xi = x3[..., 0], x3[..., 1]                  # strided card views
+    cfg3 = PRESETS["c3_ula16_calib_smooth"]
+    pipes = {rs: build_pipeline_torch(cfg3, device=dev, return_spectra=rs)
+             for rs in (False, True)}
+    counters = {"planes_chunk_gram": cv.chunk_grams,
+                "planes_cov_windows": cv.cov_windows,
+                "mgs_iterate": cpx_ops.mgs_iterate,
+                "music_scan": ms.music_scan,
+                "music_scan_peaks": ms.music_scan_peaks,
+                "chunk_gram": ce.chunk_grams_uhat}
+    for f in counters.values():
+        f.launches = 0
+    res = {rs: p((xr, xi), corr) for rs, p in pipes.items()}
+    torch.cuda.synchronize()
+    n3 = {k: f.launches for k, f in counters.items()}
+    log("launches in the c3 path (both return_spectra modes): "
+        + json.dumps(n3))
+    check(n3["planes_chunk_gram"] > 0 and n3["mgs_iterate"] > 0
+          and n3["music_scan"] > 0 and n3["music_scan_peaks"] > 0,
+          "a kernel of the c3 path never ran")
+    check(n3["planes_cov_windows"] == 0 and n3["chunk_gram"] == 0,
+          "kernel 12 or K1 ran in the c3 path")
+    recs["planes_chunk_gram"]["launches"] = n3["planes_chunk_gram"]
+    B3 = T_C3 // 1024
+    for rs, r in res.items():
+        ang = r.peak_angles["music"]
+        check(tuple(ang.shape) == (B3, 3), f"c3 angles {tuple(ang.shape)}")
+        e = sorted_err(torch, ang, C3_TRUTH)
+        log(f"c3 path return_spectra={rs}: {B3} windows, max angle error "
+            f"{e!r} deg (limit {ANGLE_TOL}), escalation flagged "
+            f"{int(r.escalation_flagged)}, overflow "
+            f"{int(r.escalation_overflow)}")
+        check(e <= ANGLE_TOL, f"c3 angle error {e}")
+    P = res[True].spectra["music"]
+    check(tuple(P.shape) == (B3, 1024) and bool(torch.isfinite(P).all()),
+          "c3 spectra not finite or of the wrong shape")
+    del res, P
+    for rs, p in pipes.items():
+        ts = call_times(torch, lambda: p((xr, xi), corr), reps=20, warm=3)
+        med = 0.5 * (ts[9] + ts[10])
+        log(f"c3 path return_spectra={rs}: median {med:.4f} ms per call of "
+            f"{B3} windows (20 calls, min {ts[0]:.4f}, max {ts[-1]:.4f}) = "
+            f"{B3 / (med / 1e3):.1f} snapshots/s  [{card}]")
+    cr = torch.from_numpy(np.ascontiguousarray(corr.real)).to(dev)
+    ci = torch.from_numpy(np.ascontiguousarray(corr.imag)).to(dev)
+    pipe = pipes[True]
+    At = torch.cat(pipe.steering_planes, -1).contiguous()
+    nrm = (At * At).sum(-1)
+    esc = cfg3.escalate_kwargs
+    with fp32_matmuls():
+        R = compute_covariances(xr, xi, cfg3, (cr, ci))
+        E = embed_planes(*R)
+        Vt = cpx_ops.signal_subspace_from_E_T(E, 3, iters=8)
+        scan_parity(torch, "c3", Vt, At, nrm, 3)
+        P = ms.music_scan(Vt, At, nrm)
+        Pn = P / P.max(-1, keepdim=True).values
+        layers = {
+            "covariance (kernel 8 + windows + correction, FB, smoothing)":
+                lambda: compute_covariances(xr, xi, cfg3, (cr, ci)),
+            "subspace (cold MGS K4 + detector)":
+                lambda: cpx_ops.signal_subspace_from_E_T(
+                    embed_planes(*R), 3, iters=8, return_stats=True, **esc),
+            "scan (K3 + normalise)": lambda: (lambda q: q / q.max(
+                -1, keepdim=True).values)(ms.music_scan(Vt, At, nrm)),
+            "peaks (find_local_max)": lambda: find_local_max(
+                Pn, 3, 0.0, 180.0, refine=True),
+            "scan + peaks (K2)": lambda: ms.music_scan_peaks(
+                Vt, At, 3, 0.0, 180.0, True, nrm),
+        }
+        out = {k: time_ms(torch, f) for k, f in layers.items()}
+    log("c3 layer times, ms: " + ", ".join(f"{k} {v:.4f}"
+                                          for k, v in out.items())
+        + f"  [{card}]")
+    del R, E, Vt, P, Pn
+    profile_window(torch, lambda: pipes[False]((xr, xi), corr), card)
+
+    # c3 with eigh at overlap 512 on B_EIGH windows
+    cfg_e = dataclasses.replace(cfg3, overlap=512, subspace_method="eigh")
+    Te = (B_EIGH - 1) * 512 + 1024
+    r = build_pipeline_torch(cfg_e, device=dev)((xr[:Te], xi[:Te]), corr)
+    e = sorted_err(torch, r.peak_angles["music"], C3_TRUTH)
+    log(f"c3 eigh overlap 512: {r.peak_angles['music'].shape[0]} windows, "
+        f"max angle error {e!r} deg (limit {ANGLE_TOL})")
+    check(r.peak_angles["music"].shape[0] == B_EIGH and e <= ANGLE_TOL,
+          f"c3 eigh angle error {e}")
+
+    # the card against the CPU on B_CPU c3 windows
+    xs = x3[:B_CPU * 1024].cpu()
+    a_gpu = pipes[False]((xr[:B_CPU * 1024], xi[:B_CPU * 1024]), corr)
+    a_cpu = build_pipeline_torch(cfg3, device="cpu", return_spectra=False)(
+        (xs[..., 0], xs[..., 1]), corr)
+    d3 = (a_gpu.peak_angles["music"].cpu().sort(-1).values
+          - a_cpu.peak_angles["music"].sort(-1).values).abs().max().item()
+    log(f"c3 card vs CPU pipeline on {B_CPU} windows: max sorted angle "
+        f"difference {d3!r} deg (tol 1e-3)")
+    check(d3 <= 1e-3, "c3 card and CPU pipelines disagree")
+    del x3, xr, xi, xs, pipes, pipe
+
+    # c2 (fused path, MUSIC + Capon) at T_C2
+    cfg2 = PRESETS["c2_ula8_2src"]
+    x2 = make_ula_capture(torch, T_C2, 8, ((60.0, 1, 10), (110.0, 31, 100)),
+                          SNR_DB, dev, seed=2)
+    pipe2 = build_pipeline_torch(cfg2, device=dev, return_spectra=False)
+    for f in counters.values():
+        f.launches = 0
+    r2 = pipe2.interleaved(x2)
+    torch.cuda.synchronize()
+    n2 = {k: f.launches for k, f in counters.items()}
+    log("launches in the c2 path: " + json.dumps(n2))
+    check(n2["chunk_gram"] > 0 and n2["mgs_iterate"] > 0
+          and n2["music_scan_peaks"] > 0, "a kernel of the c2 path never ran")
+    B2 = T_C2 // 2048
+    for key in ("music", "capon"):
+        ang = r2.peak_angles[key]
+        check(tuple(ang.shape) == (B2, 2), f"c2 {key} {tuple(ang.shape)}")
+        e = sorted_err(torch, ang, C2_TRUTH)
+        log(f"c2 path {key}: {B2} windows, max angle error {e!r} deg (limit "
+            f"{ANGLE_TOL})")
+        check(e <= ANGLE_TOL, f"c2 {key} angle error {e}")
+    At2 = torch.cat(pipe2.steering_planes, -1).contiguous()
+    with fp32_matmuls():
+        E2 = ce.cov_embedded(x2, torch.ones(8, device=dev),
+                             torch.zeros(8, device=dev), N=8,
+                             snapshot_size=2048)
+        Vt2 = cpx_ops.signal_subspace_from_E_T(E2, 2, iters=8)
+        scan_parity(torch, "c2", Vt2, At2, (At2 * At2).sum(-1), 2)
+    del E2, Vt2
+    ts = call_times(torch, lambda: pipe2.interleaved(x2), reps=20, warm=3)
+    med = 0.5 * (ts[9] + ts[10])
+    log(f"c2 path (MUSIC + Capon, peaks only): median {med:.4f} ms per call "
+        f"of {B2} windows (20 calls, min {ts[0]:.4f}, max {ts[-1]:.4f}) = "
+        f"{B2 / (med / 1e3):.1f} snapshots/s  [{card}]")
+    profile_window(torch, lambda: pipe2.interleaved(x2), card)
+    xc64 = x2[:B_CPU * 2048].cpu().numpy().view("complex64")[..., 0]
+    g = pipe2(xc64)
+    c = build_pipeline_torch(cfg2, device="cpu", return_spectra=False)(xc64)
+    d2 = max((g.peak_angles[k].cpu().sort(-1).values
+              - c.peak_angles[k].sort(-1).values).abs().max().item()
+             for k in ("music", "capon"))
+    log(f"c2 card vs CPU pipeline on {B_CPU} windows: max sorted angle "
+        f"difference (MUSIC, Capon) {d2!r} deg (tol 1e-3)")
+    check(d2 <= 1e-3, "c2 card and CPU pipelines disagree")
+    del x2, r2
+
+    # the cov_windows entry (kernel 12's route, gcd < 64), driven as a
+    # user calls it, counts from zero
+    xq = make_ula_capture(torch, T_K12, 16, c3_sources(), SNR_DB, dev,
+                          seed=6)
+    for f in counters.values():
+        f.launches = 0
+    Rw = cv.cov_windows(xq[..., 0], xq[..., 1], 1024, 1000)
+    torch.cuda.synchronize()
+    B12 = (T_K12 - 1024) // 24 + 1
+    check(tuple(Rw[0].shape) == (B12, 16, 16)
+          and bool(torch.isfinite(Rw[0]).all()), "cov_windows output")
+    log(f"cov_windows entry (S=1024, overlap 1000, {B12} windows): launches "
+        f"kernel 12 {cv.cov_windows.launches}, kernel 8 "
+        f"{cv.chunk_grams.launches}")
+    check(cv.cov_windows.launches > 0 and cv.chunk_grams.launches == 0,
+          "the cov_windows entry did not take kernel 12")
+    recs["planes_cov_windows"]["launches"] = cv.cov_windows.launches
+    return recs, n3["mgs_iterate"] + n2["mgs_iterate"]
+
+
 def main():
     import torch
 
@@ -727,10 +1217,12 @@ def main():
 
     # 2. build
     from concurrent.futures import ThreadPoolExecutor
-    from doa_tpu_torch.ops.cuda import peaks2d, wideband_cov, wideband_scan
+    from doa_tpu_torch.ops.cuda import (covariance, peaks2d, wideband_cov,
+                                        wideband_scan)
     sigs = {"cov_gram": ce._SIG, "music_scan": ms._SIG,
             "subspace": cpx_ops._SIG, "wideband_cov": wideband_cov._SIG,
-            "wideband_scan": wideband_scan._SIG, "peaks2d": peaks2d._SIG}
+            "wideband_scan": wideband_scan._SIG, "peaks2d": peaks2d._SIG,
+            "covariance": covariance._SIG}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:   # one nvcc per source
         list(pool.map(lambda name: _build.load(name, sigs[name]), SOURCES))
@@ -834,6 +1326,11 @@ def main():
     wb_recs, k4_c5 = c5_phases(torch, dev, card, counters)
     recs["mgs_iterate"]["launches"] += k4_c5    # the c5 path's, counted apart
     recs.update(wb_recs)
+
+    # 8. planes kernel parity, 9. the c3, c2, eigh paths and calibration
+    pl_recs, k4_planes = planes_phases(torch, dev, card)
+    recs["mgs_iterate"]["launches"] += k4_planes
+    recs.update(pl_recs)
     check("jax" not in sys.modules, "jax was imported")
 
     print(json.dumps({"kernels": list(recs.values())}), flush=True)

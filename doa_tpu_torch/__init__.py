@@ -15,7 +15,15 @@ Covered so far (``build_pipeline_torch``):
   scan + peaks kernel (K2); on an az/el grid, the 2-D peaks kernel;
 * the wideband incoherent path (the c5 flagship) — FFT-channelizer +
   subband Gram kernel → per-subband warm-start subspaces (K4, one init
-  per subband) → fused subband scan + fusion kernel → 2-D peaks kernel.
+  per subband) → fused subband scan + fusion kernel → 2-D peaks kernel;
+* the narrowband planes path (c3: calibration correction, forward-backward
+  averaging, spatial smoothing; subspace_method="eigh"; (re, im) planes
+  input) — planes chunk-Gram kernel (kernel 8) → covariance planes →
+  cold MGS subspace (K4) and the scan kernels, or the eigh noise
+  projector; Capon and Bartlett on either narrowband path; the public
+  ``cov_windows`` entry (window-Gram kernel 12 below gcd 64);
+* the calibration stage (``doa_tpu_torch.calib``): chain phase offsets,
+  element gains/phases, and the .npz artifact both packages share.
 
 ROADMAP.md lists what is still to port.
 """

@@ -2,8 +2,9 @@
 
 doa_tpu carries complex values as split (re, im) planes (``Cpx``) because
 its TPU backend has no complex64; torch has complex64 on CUDA, so that type
-is not ported. The real 2N embedding is: the covariance kernels emit it
-and the subspace iteration and the scan kernels work on it.
+is not ported: the planes path carries (re, im) tensor pairs where the
+reference carries a ``Cpx``. The real 2N embedding is: the covariance
+kernels emit it and the subspace iteration and the scan kernels work on it.
 
     E(C) = [[Cr, -Ci], [Ci, Cr]]   (2N x 2N real symmetric for Hermitian C)
     embed_vector(v) = [re(v); im(v)]
@@ -16,26 +17,26 @@ import contextlib
 import torch
 
 
-def embed_hermitian(c: torch.Tensor) -> torch.Tensor:
-    """(..., N, N) complex → (..., 2N, 2N) real symmetric embedding."""
-    re, im = c.real, c.imag
+def embed_planes(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """Planes (re, im) (..., N, N) of a Hermitian C → E(C)
+    (..., 2N, 2N) real symmetric."""
     top = torch.cat([re, -im], dim=-1)
     bot = torch.cat([im, re], dim=-1)
     return torch.cat([top, bot], dim=-2)
 
 
-def unembed_hermitian(m: torch.Tensor) -> torch.Tensor:
-    """(..., 2N, 2N) real embedding → (..., N, N) complex. Averages the two
-    redundant copies for numerical symmetry."""
+def unembed_planes(m: torch.Tensor):
+    """(..., 2N, 2N) real embedding → planes (re, im) (..., N, N).
+    Averages the two redundant copies for numerical symmetry."""
     N = m.shape[-1] // 2
     re = 0.5 * (m[..., :N, :N] + m[..., N:, N:])
     im = 0.5 * (m[..., N:, :N] - m[..., :N, N:])
-    return torch.complex(re, im)
+    return re, im
 
 
 def embed_vector(v: torch.Tensor) -> torch.Tensor:
     """(..., N) complex → (..., 2N) real [re; im], matching
-    embed_hermitian's convention (E(C)·ṽ = embed of C·v)."""
+    embed_planes' convention (E(C)·ṽ = embed of C·v)."""
     return torch.cat([v.real, v.imag], dim=-1)
 
 

@@ -1,11 +1,18 @@
-"""Signal-subspace iteration on embedded covariances (MGS, warm start,
-escalation detector) — port of the MGS branch of doa_tpu/ops/cpx_ops.py.
+"""Real-valued (split re/im) DoA ops — port of doa_tpu/ops/cpx_ops.py.
 
-The reference runs this stage as XLA. Here the rounds of the iteration run
-in one CUDA kernel per call (K4, csrc/subspace.cu; `mgs_iterate`), whose
-plain version is the same schedule as batched torch ops; the detector and
-the rare escalation batch are torch ops. Every product is true FP32
-(cpx.fp32_matmuls).
+* Signal-subspace iteration on embedded covariances (MGS, warm start,
+  escalation detector). The reference runs this stage as XLA. Here the
+  rounds of the iteration run in one CUDA kernel per call (K4,
+  csrc/subspace.cu; `mgs_iterate`), whose plain version is the same
+  schedule as batched torch ops; the detector and the rare escalation
+  batch are torch ops.
+* The planes path: covariance windows from sample planes (kernel 8,
+  ops/cuda/covariance.py), the correction folded into R, forward-backward
+  averaging, spatial smoothing; the eigh noise projector; the dense MUSIC
+  denominators; Capon and Bartlett. A covariance travels as a pair of
+  planes (Rr, Ri) f32[B, N, N], where the reference carries a ``Cpx``.
+
+Every product is true FP32 (cpx.fp32_matmuls).
 """
 
 from __future__ import annotations
@@ -15,7 +22,8 @@ import ctypes
 import torch
 
 from doa_tpu_torch import _build
-from doa_tpu_torch.cpx import fp32_matmuls
+from doa_tpu_torch.cpx import embed_planes, fp32_matmuls, unembed_planes
+from doa_tpu_torch.ops.cuda.covariance import cov_from_stream  # noqa: F401
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -250,3 +258,170 @@ def signal_subspace_from_E_T(E, num_sources: int, iters: int = 8,
             escalate_tol=escalate_tol,
             escalate_signal_floor=escalate_signal_floor,
             escalate_capacity=escalate_capacity, return_stats=return_stats)
+
+
+def signal_subspace_from_E(E, num_sources: int, **kw):
+    """As signal_subspace_from_E_T, in the reference's layout: V_emb
+    f32[B, 2N, 2K] (or (V_emb, stats) with return_stats=True)."""
+    out = signal_subspace_from_E_T(E, num_sources, **kw)
+    if kw.get("return_stats"):
+        return out[0].transpose(-1, -2), out[1]
+    return out.transpose(-1, -2)
+
+
+def signal_subspace_embedded(Rr, Ri, num_sources: int, **kw):
+    """Orthonormal basis V_emb f32[B, 2N, 2K] of the embedded signal
+    subspace of the covariance planes (Rr, Ri): the cold MGS iteration of
+    signal_subspace_from_E on E(R) (kwargs as there)."""
+    return signal_subspace_from_E(embed_planes(Rr, Ri), num_sources, **kw)
+
+
+# ---------------------------------------------------------------------
+# The planes path: covariance windows from sample planes
+# (cov_from_stream, imported above from ops/cuda/covariance.py), then the
+# correction, FB and smoothing on the (Rr, Ri) planes
+# ---------------------------------------------------------------------
+
+def apply_correction_to_cov(Rr, Ri, cr, ci):
+    """cov(diag(c)·x) = (c cᴴ) ∘ cov(x) for c = cr + j·ci f32[N]: the
+    correction folded into R, before FB and smoothing."""
+    Wr = cr[:, None] * cr[None, :] + ci[:, None] * ci[None, :]
+    Wi = ci[:, None] * cr[None, :] - cr[:, None] * ci[None, :]
+    return Rr * Wr - Ri * Wi, Rr * Wi + Ri * Wr
+
+
+def forward_backward(Rr, Ri):
+    """R_fb = ½(R + J conj(R) J): flip both axes, negate the imaginary."""
+    return (0.5 * (Rr + Rr.flip(-2, -1)), 0.5 * (Ri - Ri.flip(-2, -1)))
+
+
+def spatial_smooth(Rr, Ri, subarray_size: int):
+    """Mean of the N − L + 1 diagonal L×L sub-blocks."""
+    N = Rr.shape[-1]
+    L = subarray_size
+    M = N - L + 1
+    rr, ri = Rr[..., 0:L, 0:L], Ri[..., 0:L, 0:L]
+    for m in range(1, M):
+        rr = rr + Rr[..., m:m + L, m:m + L]
+        ri = ri + Ri[..., m:m + L, m:m + L]
+    return rr / M, ri / M
+
+
+# ---------------------------------------------------------------------
+# Noise projector and the dense spectra
+# ---------------------------------------------------------------------
+
+def noise_projector(Rr, Ri, num_sources: int):
+    """Noise projector M = E_n E_nᴴ as planes (Mr, Mi) f32[B, N, N]: eigh of
+    the real 2N embedding, whose 2(N − K) smallest eigenvectors span the
+    embedded noise subspace (it is closed under the complex structure)."""
+    N = Rr.shape[-1]
+    _, V = torch.linalg.eigh(embed_planes(Rr, Ri))
+    Vn = V[..., :, :2 * (N - num_sources)]
+    with fp32_matmuls():
+        P = torch.matmul(Vn, Vn.transpose(-1, -2))
+    return unembed_planes(P)
+
+
+def _cast(t, compute_dtype):
+    """The reference's `astype(compute_dtype)` of a matmul input, as f32
+    values: bfloat16 rounds to nearest even, int8 truncates toward zero.
+    Products of such values are exact in FP32 and the sums accumulate in
+    FP32, as the reference's preferred_element_type=float32."""
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int8": torch.int8}[compute_dtype]
+    return t.to(dt).to(torch.float32)
+
+
+def music_denominator_subspace(V_emb, At_emb, compute_dtype="float32"):
+    """den[b, g] = ‖ã_g‖² − ‖V_embᵀ ã_g‖² for V_emb f32[B, 2N, 2K] and the
+    embedded grid At_emb f32[G, 2N]. compute_dtype bfloat16 rounds both
+    inputs; int8 quantizes both at scale 127 (clip to ±1), whose integer
+    products summed in FP32 are exact here (|Σ| < 2^24)."""
+    nrm = (At_emb * At_emb).sum(-1)
+    if compute_dtype == "int8":
+        q = lambda t: torch.round(t.clamp(-1, 1) * 127.0)  # noqa: E731
+        with fp32_matmuls():
+            Y = torch.einsum("gn,bnk->bgk", q(At_emb), q(V_emb))
+        Y = Y / (127.0 * 127.0)
+    else:
+        with fp32_matmuls():
+            Y = torch.einsum("gn,bnk->bgk", _cast(At_emb, compute_dtype),
+                             _cast(V_emb, compute_dtype))
+    return nrm[None, :] - (Y * Y).sum(-1)
+
+
+def music_denominator_cpx(Mr, Mi, Ar, Ai, compute_dtype="float32"):
+    """den[b, g] = Re(a_gᴴ M_b a_g) = arᵀMr ar + aiᵀMr ai + 2·aiᵀMi ar for
+    the projector planes (Mr, Mi) f32[B, N, N] and steering planes
+    (Ar, Ai) f32[G, N]; compute_dtype casts the matmul inputs as the
+    reference does (int8 truncates)."""
+    c = lambda t: _cast(t, compute_dtype)  # noqa: E731
+    with fp32_matmuls():
+        t1 = torch.einsum("gn,bnm->bgm", c(Ar), c(Mr))
+        t2 = torch.einsum("gn,bnm->bgm", c(Ai), c(Mr))
+        t3 = torch.einsum("gn,bnm->bgm", c(Ai), c(Mi))
+    return ((t1 * Ar[None]).sum(-1) + (t2 * Ai[None]).sum(-1)
+            + 2.0 * (t3 * Ar[None]).sum(-1))
+
+
+def spectrum_from_den(den, normalize: bool = True):
+    """P = 1 / max(den, tiny), each row divided by its maximum."""
+    P = 1.0 / den.clamp_min(torch.finfo(torch.float32).tiny)
+    if normalize:
+        P = P / P.max(dim=-1, keepdim=True).values
+    return P
+
+
+def bartlett_spectrum(Rr, Ri, At_emb, normalize: bool = True):
+    """Bartlett: P = ãᵀ E(R) ã = Re(aᴴ R a), one matmul of the flattened
+    E (B, 4N²) against the grid's outer-product table (4N², G)."""
+    E = embed_planes(Rr, Ri)
+    At = At_emb.T                                     # (2N, G)
+    Kt = (At[:, None, :] * At[None, :, :]).reshape(-1, At.shape[-1])
+    with fp32_matmuls():
+        P = torch.matmul(E.reshape(E.shape[0], -1), Kt)
+    if normalize:
+        P = P / P.max(dim=-1, keepdim=True).values
+    return P
+
+
+def capon_spectrum(Rr, Ri, At_emb, diag_load: float = 1e-4,
+                   normalize: bool = True, method: str = "cholesky",
+                   newton_iters: int = 24):
+    """Capon-MVDR: den = ãᵀ E(R)⁻¹ ã on the 2N embedding, with diagonal
+    loading diag_load·tr(R)/N. method "cholesky": L = chol(E) (cholesky_ex:
+    no host sync), den = ‖L⁻¹ã‖²; "newton": the Newton–Schulz inverse
+    X ← X(2I − EX) from X₀ = I/‖E‖∞."""
+    N = Rr.shape[-1]
+    if diag_load > 0:
+        tr = torch.diagonal(Rr, dim1=-2, dim2=-1).sum(-1) / N
+        eye = torch.eye(N, dtype=Rr.dtype, device=Rr.device)
+        Rr = Rr + (diag_load * tr)[..., None, None] * eye
+    E = embed_planes(Rr, Ri)                          # (B, 2N, 2N) SPD
+    At = At_emb.T                                     # (2N, G)
+    with fp32_matmuls():
+        if method == "cholesky":
+            L, _ = torch.linalg.cholesky_ex(E)
+            X = torch.linalg.solve_triangular(
+                L, At.expand(E.shape[:-2] + At.shape), upper=False)
+            den = (X * X).sum(-2)
+        elif method == "newton":
+            Einv = _spd_inverse_newton(E, iters=newton_iters)
+            den = (At * torch.matmul(Einv, At)).sum(-2)
+        else:
+            raise ValueError(f"unknown Capon method {method!r}")
+    return spectrum_from_den(den, normalize)
+
+
+def _spd_inverse_newton(E, iters: int = 24):
+    """Batched SPD inverse by Newton–Schulz, X ← X(2I − EX), from
+    X₀ = I/‖E‖∞ (max absolute row sum), so ‖I − EX₀‖ < 1."""
+    n = E.shape[-1]
+    eye = torch.eye(n, dtype=E.dtype, device=E.device)
+    norm = E.abs().sum(-1).max(-1).values
+    X = eye / norm[..., None, None]
+    with fp32_matmuls():
+        for _ in range(iters):
+            X = torch.matmul(X, 2.0 * eye - torch.matmul(E, X))
+    return X

@@ -1,13 +1,27 @@
-"""The fused DoA pipelines on torch tensors (port of the fused
-branches of doa_tpu/pipeline_tpu.py::build_pipeline_tpu).
+"""The DoA pipelines on torch tensors (port of the narrowband fused and
+planes branches and the wideband incoherent branch of
+doa_tpu/pipeline_tpu.py::build_pipeline_tpu).
 
-Narrowband:
+Narrowband, fused path (no smoothing, subspace_method="power"):
     capture x[T, 2N] (the bytes of a complex64 (T, N) buffer)
       → K1 chunk Grams → windows E(R) f32[B, 2N, 2N]   ops/cuda/cov_embedded
       → warm-start MGS subspace (K4) Vt f32[B, 2K, 2N] ops/cpx_ops
       → K2 scan + peaks (return_spectra=False, 1-D)     ops/cuda/music_scan
         or K3 scan → normalise → find_local_max          ops/peaks
            (2-D grids: the 2-D peaks kernel)            ops/cuda/peaks2d
+      Capon / Bartlett on R = unembed(E).
+
+Narrowband, planes path (smoothing, subspace_method="eigh", or planes
+input on either path):
+    planes xr, xi f32[T, N] (separate, or strided views of a complex64
+    capture)
+      → kernel 8 chunk Grams → windows (Rr, Ri) f32[B, N, N]
+                                                   ops/cuda/covariance
+      → correction (c cᴴ) ∘ R → FB → spatial smoothing  ops/cpx_ops
+      → cold MGS subspace of E(R) (K4) → K3 / K2 scan, or the eigh noise
+        projector and its dense denominator; Capon, Bartlett
+      (on a fused config, planes input embeds E(R) and joins the fused
+      path downstream)
 
 Wideband, incoherent fusion (c5):
     capture x[T, 2N]
@@ -29,8 +43,9 @@ import numpy as np
 import torch
 
 from doa_tpu.configs import AvgMethod, DoaConfig, Estimator
-from doa_tpu_torch.cpx import fp32_matmuls, unembed_hermitian
+from doa_tpu_torch.cpx import embed_planes, fp32_matmuls, unembed_planes
 from doa_tpu_torch.io.native import quantize_interleaved_int8
+from doa_tpu_torch.ops import cpx_ops
 from doa_tpu_torch.ops.cpx_ops import signal_subspace_from_E_T
 from doa_tpu_torch.ops.cuda.cov_embedded import cov_embedded
 from doa_tpu_torch.ops.cuda.music_scan import (
@@ -41,9 +56,11 @@ from doa_tpu_torch.ops.peaks import find_local_max, find_local_max_2d
 from doa_tpu_torch.ops.wideband import wideband_music, wideband_steering_stack
 from doa_tpu_torch.pipeline import DoaResult, _steering_fn, _steering_matrix
 
+_ESTIMATORS = (Estimator.MUSIC, Estimator.CAPON, Estimator.BARTLETT)
+
 
 def _check_slice(cfg: DoaConfig) -> None:
-    """Raise NotImplementedError for a config outside the ported slice,
+    """Raise NotImplementedError for a config outside the ported slices,
     naming the ROADMAP.md entry that will cover it."""
     todo = []
     wb = cfg.wideband
@@ -56,25 +73,40 @@ def _check_slice(cfg: DoaConfig) -> None:
         if cfg.compute_dtype != "float32":
             todo.append(f"wideband compute_dtype={cfg.compute_dtype!r} "
                         "(queue A.4)")
-    if cfg.smoothing.enabled:
-        todo.append("spatial smoothing on the planes path (queue A.3)")
+        if cfg.smoothing.enabled or cfg.subspace_method != "power":
+            todo.append("wideband with smoothing or subspace_method="
+                        f"{cfg.subspace_method!r} (queue A.4)")
+        if tuple(cfg.estimators) != (Estimator.MUSIC,):
+            todo.append("wideband estimators other than MUSIC (queue A.4)")
+    elif cfg.cov_dtype == "int8" and not _fused(cfg):
+        todo.append("cov_dtype='int8' on the planes path (ROADMAP.md §C)")
     if cfg.beamspace.enabled:
         todo.append("beamspace (queue A.3)")
-    if cfg.subspace_method != "power":
-        todo.append(f"subspace_method={cfg.subspace_method!r} (queue A.3)")
+    if cfg.subspace_method == "jacobi":
+        todo.append("subspace_method='jacobi' (queue A.3)")
     if cfg.subspace_impl == "pallas":
         todo.append("subspace_impl='pallas' (queue B.11)")
-    if tuple(cfg.estimators) != (Estimator.MUSIC,):
-        todo.append("estimators other than MUSIC (queue A.3)")
+    other = [e.value for e in cfg.estimators if e not in _ESTIMATORS]
+    if other:
+        todo.append(f"estimators {other} (root-MUSIC, ESPRIT, Unitary "
+                    "ESPRIT, min-norm: queue A.3)")
     if cfg.subspace_check:
         todo.append("subspace_check (queue A.3)")
     if cfg.scan_mode == "hierarchical":
         todo.append("scan_mode='hierarchical' (queue A.3)")
     if todo:
         raise NotImplementedError(
-            "doa_tpu_torch ports the narrowband fused path and the "
-            "wideband incoherent path; not yet ported: " + "; ".join(todo)
-            + " — see ROADMAP.md")
+            "doa_tpu_torch ports the narrowband fused and planes paths and "
+            "the wideband incoherent path; not yet ported: "
+            + "; ".join(todo) + " — see ROADMAP.md")
+
+
+def _fused(cfg: DoaConfig) -> bool:
+    """The fused-path rule: narrowband, power subspace, no smoothing. The
+    reference also asks gcd(S, hop) % TPACK == 0 (pipeline_tpu.py:164-166),
+    a TPU lane rule with no counterpart here, so it is dropped."""
+    return (not cfg.wideband.enabled and cfg.subspace_method == "power"
+            and not cfg.smoothing.enabled)
 
 
 def _device(device) -> torch.device:
@@ -87,18 +119,21 @@ def _device(device) -> torch.device:
     return dev
 
 
-def _correction_planes(correction, N: int, device: torch.device):
+def _correction_planes(correction, N, device: torch.device):
+    """→ (cr, ci) f32[N] on the device; N None takes the correction's own
+    length."""
     if correction is None:
         c = np.ones((N,), np.complex64)
     else:
-        c = np.asarray(correction).astype(np.complex64).reshape(N)
+        c = np.asarray(correction).astype(np.complex64).reshape(
+            -1 if N is None else N)
     return (torch.from_numpy(np.ascontiguousarray(c.real)).to(device),
             torch.from_numpy(np.ascontiguousarray(c.imag)).to(device))
 
 
 def load_state(A_re, A_im, correction=None, *, device,
                subband_planes=None) -> dict:
-    """The pipeline's state — steering planes A_re, A_im f32[G, N], the
+    """The pipeline's state — steering planes A_re, A_im f32[G, N_eff], the
     calibration correction c64[N] (None = no correction) and, for a
     wideband config, the per-subband steering planes
     subband_planes = (re, im) f32[F, G, N] (doa_tpu's
@@ -110,9 +145,12 @@ def load_state(A_re, A_im, correction=None, *, device,
     if A_re.ndim != 2 or A_re.shape != A_im.shape:
         raise ValueError(f"need A_re, A_im f32[G, N] of one shape, got "
                          f"{A_re.shape} and {A_im.shape}")
-    cr, ci = _correction_planes(correction, A_re.shape[1], dev)
     state = {"A_re": torch.from_numpy(A_re).to(dev),
-             "A_im": torch.from_numpy(A_im).to(dev), "cr": cr, "ci": ci}
+             "A_im": torch.from_numpy(A_im).to(dev)}
+    if correction is not None:
+        # the array's size: the steering's under smoothing is the subarray's
+        state["cr"], state["ci"] = _correction_planes(correction, None,
+                                                      dev)
     if subband_planes is not None:
         Xr, Xi = (np.array(p, dtype=np.float32) for p in subband_planes)
         if Xr.ndim != 3 or Xr.shape != Xi.shape or Xr.shape[1:] != A_re.shape:
@@ -124,29 +162,65 @@ def load_state(A_re, A_im, correction=None, *, device,
     return state
 
 
+def compute_covariances(xr: torch.Tensor, xi: torch.Tensor, cfg: DoaConfig,
+                        correction=None, compute_dtype=None):
+    """Covariance planes (Rr, Ri) of the sample planes xr, xi f32[T, N]
+    (doa_tpu's compute_covariances_cpx): kernel 8 chunk Grams and strided
+    prefix-sum windows, then, in this fixed order, the correction
+    (cr, ci) folded as (c cᴴ) ∘ R, forward-backward averaging and spatial
+    smoothing. compute_dtype: the Gram's input precision (default
+    cfg.cov_dtype)."""
+    Rr, Ri = cpx_ops.cov_from_stream(
+        xr, xi, cfg.snapshot_size, cfg.overlap,
+        compute_dtype=cfg.cov_dtype if compute_dtype is None
+        else compute_dtype)
+    if correction is not None:
+        Rr, Ri = cpx_ops.apply_correction_to_cov(Rr, Ri, *correction)
+    if cfg.avg_method == AvgMethod.FORWARD_BACKWARD:
+        Rr, Ri = cpx_ops.forward_backward(Rr, Ri)
+    if cfg.smoothing.enabled:
+        Rr, Ri = cpx_ops.spatial_smooth(Rr, Ri, cfg.smoothing.subarray_size)
+    return Rr, Ri
+
+
 def build_pipeline_torch(cfg: DoaConfig, *, device, refine_peaks: bool = True,
                          return_spectra: bool = True,
                          return_covariance: bool = False,
                          state: dict | None = None):
-    """→ callable(x, correction=None) → DoaResult for a numpy complex64
-    capture x (T, N), with
+    """→ callable(x, correction=None) → DoaResult. x is one of
 
-    * ``call.interleaved(xil, correction=None)``: the capture as float
-      x[T, 2N] or doa_tpu's (T/TPACK, 2N·TPACK) (same bytes), numpy or
-      torch; under cov_dtype="int8" a float buffer is quantized on the
-      device (narrowband), an int8 buffer passes as it is;
+    * a numpy complex (T, N) capture: complex64 enters as a zero-copy view
+      (the fused path reads it interleaved through K1; the planes path
+      reads its two strided planes through kernel 8), another complex
+      dtype is cast to complex64 once and takes the planes route;
+    * a pair (xr, xi) of f32[T, N] planes, tensors or arrays (doa_tpu's
+      ``Cpx``): device tensors, strided views included, go to kernel 8 as
+      they are. On a fused config the planes embed E(R) (f32 Grams, as the
+      reference's XLA route) and join the fused path downstream.
+
+    The callable also has
+
+    * ``call.interleaved(xil, correction=None)`` (fused and wideband
+      paths; a planes-path config raises ValueError, as the reference):
+      the capture as float x[T, 2N] or doa_tpu's (T/TPACK, 2N·TPACK) (same
+      bytes), numpy or torch; under cov_dtype="int8" a float buffer is
+      quantized on the device (narrowband), an int8 buffer passes as it
+      is;
     * ``call.steering_planes`` (A_re, A_im), ``call.subband_planes``
       (wideband: (re, im) f32[F, G, N]; else None), ``call.fast_path``
-      (True), ``call.config``.
+      (True on the fused path), ``call.config``.
 
     `state` (load_state) replaces the steering built from cfg and gives
     the default correction. Peak angles are (B, k) on a 1-D grid and
     (B, k, 2) az/el on a 2-D one.
 
-    Narrowband: return_spectra=False fuses normalise + peaks into the
-    scan kernel (K2) when the grid is 1-D, k ≤ 4 and G ≤ 8192, an
-    explicit size rule; otherwise the spectrum kernel (K3) and the peaks
-    (find_local_max, or the 2-D peaks kernel) run.
+    Narrowband MUSIC: with the power subspace, K3 scans the spectrum
+    (scan_mode "pallas", which "auto" picks on the fused path, or
+    compute_dtype float32); return_spectra=False fuses normalise + peaks
+    into the scan kernel (K2) when the grid is 1-D, k ≤ 4 and G ≤ 8192,
+    an explicit size rule; a dense scan in bfloat16/int8 runs the
+    reference's quantized forms as torch ops. subspace_method="eigh" scans
+    the eigh noise projector. Capon (Cholesky) and Bartlett scan R.
 
     Wideband (cfg.wideband.enabled; incoherent fusion, power-of-two
     num_subbands): the FFT-channelizer front end, the per-subband
@@ -162,6 +236,7 @@ def build_pipeline_torch(cfg: DoaConfig, *, device, refine_peaks: bool = True,
     K = cfg.num_sources
     k = cfg.num_max_vals
     wb = cfg.wideband.enabled
+    fused = _fused(cfg)
     g2 = cfg.grid2d if cfg.geometry.kind == "ura" else None
     A_host, x_rng = _steering_matrix(cfg)
     if state is None:
@@ -169,6 +244,7 @@ def build_pipeline_torch(cfg: DoaConfig, *, device, refine_peaks: bool = True,
     elif tuple(state["A_re"].shape) != A_host.shape:
         raise ValueError(f"state steering {tuple(state['A_re'].shape)} does "
                          f"not match the config's grid {A_host.shape}")
+    no_correction = _correction_planes(None, N, dev)
     A_re = state["A_re"].to(dev)
     A_im = state["A_im"].to(dev)
     At_emb = torch.cat([A_re, A_im], dim=-1).contiguous()      # (G, 2N)
@@ -176,6 +252,13 @@ def build_pipeline_torch(cfg: DoaConfig, *, device, refine_peaks: bool = True,
     G = At_emb.shape[0]
     fuse_peaks = (not return_spectra and g2 is None and k <= MAX_FUSED_K
                   and 3 <= G <= MAX_FUSED_G)
+    scan_mode = cfg.scan_mode
+    if scan_mode == "auto":
+        scan_mode = "pallas" if fused else "dense"
+    music_kernel = scan_mode == "pallas" or cfg.compute_dtype == "float32"
+    use_power = cfg.subspace_method == "power"
+    need_R = (Estimator.CAPON in cfg.estimators
+              or Estimator.BARTLETT in cfg.estimators or return_covariance)
     fb = cfg.avg_method == AvgMethod.FORWARD_BACKWARD
     esc = cfg.escalate_kwargs
     subband_planes = None
@@ -208,8 +291,9 @@ def build_pipeline_torch(cfg: DoaConfig, *, device, refine_peaks: bool = True,
         return v, torch.stack([az, el], dim=-1)
 
     def _subspace(E):
-        """→ (Vt, (flagged, overflow)); warm start from the capture-mean
-        subspace when the batch has ≥ 32 windows (as the reference)."""
+        """Fused path → (Vt, (flagged, overflow)); warm start from the
+        capture-mean subspace when the batch has ≥ 32 windows (as the
+        reference)."""
         if cfg.subspace_warm_start and E.shape[0] >= 32:
             Vt_bar = signal_subspace_from_E_T(
                 E.mean(dim=0, keepdim=True), K,
@@ -221,44 +305,96 @@ def build_pipeline_torch(cfg: DoaConfig, *, device, refine_peaks: bool = True,
             E, K, iters=cfg.power_iters, squarings=cfg.power_squarings,
             return_stats=True, **(esc if cfg.power_squarings == 0 else {}))
 
-    def run_narrowband(x: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor):
-        E = cov_embedded(x, cr, ci, N=N, snapshot_size=cfg.snapshot_size,
-                         overlap=cfg.overlap, fb=fb,
-                         compute_dtype=cfg.cov_dtype)
-        Vt, (flagged, overflow) = _subspace(E)
-        spectra = {}
-        if fuse_peaks:
-            v, l = music_scan_peaks(Vt, At_emb, k, x_rng[0], x_rng[1],
-                                    refine=refine_peaks, nrm=nrm)
-        else:
+    def _music(R, Vt):
+        """→ (P or None, (values, angles) or None)."""
+        if use_power and music_kernel:
+            if fuse_peaks:
+                return None, music_scan_peaks(Vt, At_emb, k, x_rng[0],
+                                              x_rng[1], refine=refine_peaks,
+                                              nrm=nrm)
             P = music_scan(Vt, At_emb, nrm)
-            P = P / P.max(dim=-1, keepdim=True).values
-            v, l = _peaks(P)
-            if return_spectra:
-                spectra["music"] = P
-        R = unembed_hermitian(E) if return_covariance else None
-        return DoaResult(spectra=spectra, peak_values={"music": v},
-                         peak_angles={"music": l}, covariance=R,
-                         escalation_flagged=flagged,
-                         escalation_overflow=overflow)
+            return P / P.max(dim=-1, keepdim=True).values, None
+        if use_power:
+            den = cpx_ops.music_denominator_subspace(
+                Vt.transpose(-1, -2), At_emb, cfg.compute_dtype)
+        else:
+            M = cpx_ops.noise_projector(*R, K)
+            den = cpx_ops.music_denominator_cpx(*M, A_re, A_im,
+                                                cfg.compute_dtype)
+        return cpx_ops.spectrum_from_den(den), None
 
-    def run_wideband(x: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor):
-        E_sub = wideband_cov_embedded(
-            x, cr, ci, N=N, F=cfg.wideband.num_subbands,
-            snapshot_size=cfg.snapshot_size, overlap=cfg.overlap)
-        P = wideband_music(E_sub, As_emb, As_nrm, cfg)
-        v, l = _peaks(P)
-        return DoaResult(spectra={"music": P}, peak_values={"music": v},
-                         peak_angles={"music": l})
+    def _estimate(R, E):
+        """Everything downstream of the covariance: R planes (Rr, Ri) or
+        None, E(R) windows (fused path) or None."""
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        stats = (zero, zero)
+        Vt = None
+        if use_power and Estimator.MUSIC in cfg.estimators:
+            if E is not None:
+                Vt, stats = _subspace(E)
+            else:
+                V, stats = cpx_ops.signal_subspace_embedded(
+                    *R, K, iters=cfg.power_iters,
+                    squarings=cfg.power_squarings, return_stats=True,
+                    **(esc if cfg.power_squarings == 0 else {}))
+                Vt = V.transpose(-1, -2)
+        spectra, pvals, pangs = {}, {}, {}
+        for est in cfg.estimators:
+            peaks = None
+            if est == Estimator.MUSIC:
+                P, peaks = _music(R, Vt)
+            elif est == Estimator.CAPON:
+                P = cpx_ops.capon_spectrum(*R, At_emb,
+                                           diag_load=cfg.capon_diag_load)
+            else:
+                P = cpx_ops.bartlett_spectrum(*R, At_emb)
+            if peaks is None:
+                peaks = _peaks(P)
+                if return_spectra:
+                    spectra[est.value] = P
+            pvals[est.value], pangs[est.value] = peaks
+        return DoaResult(
+            spectra=spectra, peak_values=pvals, peak_angles=pangs,
+            covariance=torch.complex(*R) if return_covariance else None,
+            escalation_flagged=stats[0], escalation_overflow=stats[1])
 
-    def run(x: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor):
+    def run_interleaved(x: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor):
         with fp32_matmuls():
-            return (run_wideband if wb else run_narrowband)(x, cr, ci)
+            if wb:
+                E_sub = wideband_cov_embedded(
+                    x, cr, ci, N=N, F=cfg.wideband.num_subbands,
+                    snapshot_size=cfg.snapshot_size, overlap=cfg.overlap)
+                P = wideband_music(E_sub, As_emb, As_nrm, cfg)
+                v, l = _peaks(P)
+                return DoaResult(spectra={"music": P},
+                                 peak_values={"music": v},
+                                 peak_angles={"music": l})
+            E = cov_embedded(x, cr, ci, N=N, snapshot_size=cfg.snapshot_size,
+                             overlap=cfg.overlap, fb=fb,
+                             compute_dtype=cfg.cov_dtype)
+            return _estimate(unembed_planes(E) if need_R else None, E)
+
+    def run_planes(xr: torch.Tensor, xi: torch.Tensor, cr: torch.Tensor,
+                   ci: torch.Tensor):
+        if wb:
+            raise NotImplementedError(
+                "planes input on the wideband path (queue A.4, ROADMAP.md): "
+                "pass a complex64 capture or use call.interleaved")
+        with fp32_matmuls():
+            # the fused path's planes route: f32 Grams whatever cov_dtype,
+            # as the reference's XLA stacked Gram
+            R = compute_covariances(xr, xi, cfg, (cr, ci),
+                                    "float32" if fused else None)
+            if fused:
+                return _estimate(R if need_R else None, embed_planes(*R))
+            return _estimate(R, None)
 
     def _planes(correction):
-        if correction is None:
+        if correction is not None:
+            return _correction_planes(correction, N, dev)
+        if "cr" in state:
             return state["cr"].to(dev), state["ci"].to(dev)
-        return _correction_planes(correction, N, dev)
+        return no_correction
 
     def _ingest(x: torch.Tensor) -> torch.Tensor:
         x = x.to(dev).reshape(-1, 2 * N)
@@ -266,26 +402,53 @@ def build_pipeline_torch(cfg: DoaConfig, *, device, refine_peaks: bool = True,
             x = quantize_interleaved_int8(x)[0]
         return x
 
+    def _plane(p) -> torch.Tensor:
+        if isinstance(p, np.ndarray):
+            p = torch.from_numpy(np.asarray(p, dtype=np.float32))
+        elif not isinstance(p, torch.Tensor):
+            raise TypeError(f"planes must be tensors or arrays, got "
+                            f"{type(p).__name__}")
+        p = p.to(device=dev, dtype=torch.float32)
+        if p.dim() != 2 or p.shape[1] != N:
+            raise ValueError(f"need planes f32[T, {N}], got "
+                             f"{tuple(p.shape)}")
+        return p
+
     def call(x, correction=None) -> DoaResult:
-        if isinstance(x, np.ndarray):
-            if x.dtype != np.complex64 or x.ndim != 2 or x.shape[1] != N:
-                raise ValueError(f"need a complex64 (T, {N}) capture, got "
-                                 f"{x.dtype} {x.shape}")
-            # zero-copy view: C-ordered c64 (T, N) is float32 (T, 2N)
-            xt = torch.from_numpy(np.ascontiguousarray(x).view(np.float32))
-        else:
-            raise TypeError("call(x) takes a numpy complex64 (T, N) "
-                            "capture; use call.interleaved for tensors")
-        return run(_ingest(xt), *_planes(correction))
+        cr, ci = _planes(correction)
+        if isinstance(x, (tuple, list)):
+            if len(x) != 2:
+                raise ValueError("planes input is a pair (xr, xi)")
+            return run_planes(_plane(x[0]), _plane(x[1]), cr, ci)
+        if not isinstance(x, np.ndarray):
+            raise TypeError("call(x) takes a numpy complex (T, N) capture "
+                            "or a pair of f32[T, N] planes; use "
+                            "call.interleaved for interleaved tensors")
+        if x.ndim != 2 or x.shape[1] != N or not np.iscomplexobj(x):
+            raise ValueError(f"need a complex (T, {N}) capture, got "
+                             f"{x.dtype} {x.shape}")
+        c64 = x.dtype == np.complex64
+        # zero-copy view: C-ordered c64 (T, N) is float32 (T, 2N); another
+        # complex dtype is cast once
+        xt = torch.from_numpy(np.ascontiguousarray(
+            x, dtype=np.complex64).view(np.float32))
+        if wb or (fused and c64):
+            return run_interleaved(_ingest(xt), cr, ci)
+        xt = xt.to(dev).view(-1, N, 2)
+        return run_planes(xt[..., 0], xt[..., 1], cr, ci)
 
     def call_interleaved(xil, correction=None) -> DoaResult:
+        if not (fused or wb):
+            raise ValueError("the interleaved entry needs the fused path "
+                             "(power subspace, no smoothing) or the "
+                             "wideband path; this config takes planes")
         xt = torch.from_numpy(np.ascontiguousarray(xil)) if isinstance(
             xil, np.ndarray) else xil
-        return run(_ingest(xt), *_planes(correction))
+        return run_interleaved(_ingest(xt), *_planes(correction))
 
     call.interleaved = call_interleaved
     call.steering_planes = (A_re, A_im)
     call.subband_planes = subband_planes
-    call.fast_path = True
+    call.fast_path = fused
     call.config = cfg
     return call

@@ -173,10 +173,11 @@ def test_embedding_matches_reference():
     Z = (rng.standard_normal((3, 5, 4))
          + 1j * rng.standard_normal((3, 5, 4))).astype(np.complex64)
     R = np.einsum("bti,btj->bij", Z, Z.conj())
-    E = cpx.embed_hermitian(torch.from_numpy(R))
+    Rt = torch.from_numpy(R)
+    E = cpx.embed_planes(Rt.real, Rt.imag)
     np.testing.assert_array_equal(E.numpy(),
                                   np.asarray(embed_jax(Cpx.from_complex(R))))
-    torch.testing.assert_close(cpx.unembed_hermitian(E), torch.from_numpy(R))
+    torch.testing.assert_close(torch.complex(*cpx.unembed_planes(E)), Rt)
     v = torch.from_numpy(Z[0, 0])
     np.testing.assert_array_equal(cpx.embed_vector(v).numpy(),
                                   np.concatenate([Z[0, 0].real,
@@ -215,7 +216,8 @@ def test_port_never_imports_jax():
         "doa_tpu_torch.ops.cuda.music_scan, doa_tpu_torch.ops.wideband, "
         "doa_tpu_torch.ops.cuda.wideband_cov, "
         "doa_tpu_torch.ops.cuda.wideband_scan, "
-        "doa_tpu_torch.ops.cuda.peaks2d\n"
+        "doa_tpu_torch.ops.cuda.peaks2d, doa_tpu_torch.ops.cuda.covariance, "
+        "doa_tpu_torch.ops.subspace, doa_tpu_torch.calib\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "shared = {'doa_tpu', 'doa_tpu.configs'}\n"
         "extra = {m for m in sys.modules if m.startswith('doa_tpu.')"
@@ -245,8 +247,11 @@ def _c5_with(**wideband):
 
 
 _OUTSIDE = {
-    "c2_ula8_2src": lambda: PRESETS["c2_ula8_2src"],
-    "c3_ula16_calib_smooth": lambda: PRESETS["c3_ula16_calib_smooth"],
+    "c2_ula8_2src": lambda: dataclasses.replace(
+        PRESETS["c2_ula8_2src"],
+        estimators=(Estimator.MUSIC, Estimator.ROOT_MUSIC)),
+    "c3_ula16_calib_smooth": lambda: dataclasses.replace(
+        PRESETS["c3_ula16_calib_smooth"], subspace_method="jacobi"),
     "c5_tops": lambda: _c5_with(fusion="tops"),
     "c5_12_subbands": lambda: _c5_with(num_subbands=12),
     "c5_hierarchical": lambda: dataclasses.replace(
@@ -262,9 +267,211 @@ def test_configs_outside_the_slice_raise(name):
         build_pipeline_torch(_OUTSIDE[name](), device="cpu")
 
 
-@pytest.mark.parametrize("name", ["c1_ula4_tone", "c4_ula16_streaming",
-                                  "fast_bf16", "fast_int8"])
+@pytest.mark.parametrize("name", ["c1_ula4_tone", "c2_ula8_2src",
+                                  "c3_ula16_calib_smooth",
+                                  "c4_ula16_streaming", "fast_bf16",
+                                  "fast_int8"])
 def test_presets_of_the_slice_build(name):
-    pipe = build_pipeline_torch(PRESETS[name], device="cpu")
+    cfg = PRESETS[name]
+    pipe = build_pipeline_torch(cfg, device="cpu")
     assert pipe.steering_planes[0].shape == (
-        PRESETS[name].grid.num_points, PRESETS[name].geometry.num_elements)
+        cfg.grid.num_points, cfg.effective_num_elements)
+    assert pipe.fast_path == (name != "c3_ula16_calib_smooth")
+
+
+# --- the planes path (c3, eigh configs, planes input) and Capon/Bartlett ---
+
+_C3_SOURCES = [SourceSpec(theta_deg=40.0, freq_norm=0.12),
+               SourceSpec(theta_deg=70.0, freq_norm=0.12),   # coherent pair
+               SourceSpec(theta_deg=100.0, freq_norm=0.3)]
+
+
+def _c3_capture(B=24, seed=3):
+    """validate_tpu.py's c3 scene, B windows of 1024 samples."""
+    return synth_ula_iq(_C3_SOURCES, 16, 0.5, B * 1024, snr_db=10,
+                        seed=seed).astype(np.complex64)
+
+
+def _c2_capture(B=32, seed=2):
+    """validate_tpu.py's c2 scene, B windows of 2048 samples."""
+    return synth_ula_iq([SourceSpec(theta_deg=60.0, freq_norm=0.1),
+                         SourceSpec(theta_deg=110.0, freq_norm=0.31)],
+                        8, 0.5, B * 2048, snr_db=10,
+                        seed=seed).astype(np.complex64)
+
+
+def _assert_spectra_match(P, P_ref):
+    """Normalised spectra P = dmin/den. dmin sits at a null, which f32
+    cancellation resolves only to a few percent where the null is deep
+    (S = 2048 at 10 dB), so each row carries its own scale (within 5e-2).
+    After it, den's absolute f32 error ε shows in P as a relative error
+    (ε/dmin)·P: bins agree to 1e-4·P + 5e-2·P² (P ≤ 1; the second term
+    matters only near the peaks, which the angles check to 1e-3°)."""
+    P, P_ref = P.numpy(), np.asarray(P_ref)
+    row = np.median(P / P_ref, axis=-1, keepdims=True)
+    np.testing.assert_allclose(row, 1.0, rtol=5e-2)
+    assert np.all(np.abs(P / row - P_ref) <= 1e-4 * P_ref + 5e-2 * P_ref ** 2)
+
+
+def _assert_matches(out, ref, keys, spectra, sort=False):
+    """Angles within 1e-3° (each window's sorted, where two peaks of equal
+    height may swap rank on rounding), equal escalation counts, and the
+    same spectra when returned."""
+    for key in keys:
+        a = out.peak_angles[key].numpy()
+        a_ref = np.asarray(ref.peak_angles[key])
+        if sort:
+            a, a_ref = np.sort(a, -1), np.sort(a_ref, -1)
+        assert a.shape == a_ref.shape
+        np.testing.assert_allclose(a, a_ref, atol=1e-3)
+        if spectra:
+            _assert_spectra_match(out.spectra[key], ref.spectra[key])
+        else:
+            assert key not in out.spectra
+    assert int(out.escalation_flagged) == int(ref.escalation_flagged)
+    assert int(out.escalation_overflow) == int(ref.escalation_overflow)
+
+
+@pytest.mark.parametrize("return_spectra", [True, False])
+def test_c3_planes_path_matches_reference(return_spectra):
+    """c3 (calibration correction, FB, smoothing to L = 12, cold MGS,
+    K3 or K2) against doa_tpu's planes path with its Pallas chunk kernel."""
+    cfg = PRESETS["c3_ula16_calib_smooth"]
+    x = _c3_capture()
+    c = _correction(16, seed=1)
+    ref = build_pipeline_tpu(dataclasses.replace(cfg, cov_impl="pallas"),
+                             return_spectra=return_spectra)(x, c)
+    pipe = build_pipeline_torch(cfg, device="cpu",
+                                return_spectra=return_spectra)
+    assert not pipe.fast_path
+    out = pipe(x, c)
+    assert out.peak_angles["music"].shape == (24, 3)
+    _assert_matches(out, ref, ["music"], return_spectra)
+
+
+def test_c3_eigh_overlap_matches_reference():
+    """doa_tpu's test_tpu_path_overlap_and_smoothing config (c3 with
+    subspace_method="eigh", overlap 512): the eigh noise projector and its
+    dense denominator."""
+    cfg = dataclasses.replace(PRESETS["c3_ula16_calib_smooth"], overlap=512,
+                              subspace_method="eigh")
+    x = synth_ula_iq([SourceSpec(theta_deg=70.0, freq_norm=0.1),
+                      SourceSpec(theta_deg=100.0, freq_norm=0.1),
+                      SourceSpec(theta_deg=40.0, freq_norm=0.33)],
+                     16, 0.5, 16 * 1024, snr_db=15, seed=2,
+                     correlated_pairs=[(0, 1)]).astype(np.complex64)
+    ref = build_pipeline_tpu(dataclasses.replace(cfg, cov_impl="pallas"))(x)
+    out = build_pipeline_torch(cfg, device="cpu")(x)
+    assert out.peak_angles["music"].shape == (31, 3)
+    _assert_matches(out, ref, ["music"], True)
+
+
+@pytest.mark.parametrize("return_spectra", [True, False])
+def test_c2_music_capon_matches_reference(return_spectra):
+    """c2 on the fused path (K1, warm MGS, K3/K2) with Capon on
+    R = unembed(E)."""
+    cfg = PRESETS["c2_ula8_2src"]
+    x = _c2_capture()
+    c = _correction(8, seed=2)
+    ref = build_pipeline_tpu(dataclasses.replace(cfg, cov_impl="pallas"),
+                             return_spectra=return_spectra)(x, c)
+    pipe = build_pipeline_torch(cfg, device="cpu",
+                                return_spectra=return_spectra)
+    assert pipe.fast_path
+    out = pipe(x, c)
+    assert out.peak_angles["capon"].shape == (32, 2)
+    _assert_matches(out, ref, ["music", "capon"], return_spectra, sort=True)
+
+
+@pytest.mark.parametrize("smooth", [False, True])
+def test_bartlett_and_capon_newton_free_paths_match_reference(smooth):
+    """Bartlett and Capon beside MUSIC, on the fused path (R from E) and
+    on the planes path (R from kernel 8), with return_covariance: the
+    covariance windows within 1e-5·max|R|."""
+    cfg = dataclasses.replace(
+        PRESETS["c3_ula16_calib_smooth"],
+        estimators=(Estimator.MUSIC, Estimator.CAPON, Estimator.BARTLETT),
+        **({} if smooth else dict(smoothing=dataclasses.replace(
+            PRESETS["c3_ula16_calib_smooth"].smoothing, subarray_size=0))))
+    x = _c3_capture(B=12, seed=5)
+    c = _correction(16, seed=4)
+    ref = build_pipeline_tpu(dataclasses.replace(cfg, cov_impl="pallas"),
+                             return_covariance=True)(x, c)
+    pipe = build_pipeline_torch(cfg, device="cpu", return_covariance=True)
+    assert pipe.fast_path == (not smooth)
+    out = pipe(x, c)
+    _assert_matches(out, ref, ["music", "capon", "bartlett"], True,
+                    sort=True)
+    R_re, R_im = (np.asarray(p) for p in ref.covariance)
+    n = 12 if smooth else 16
+    assert out.covariance.shape == (12, n, n)
+    assert out.covariance.dtype == torch.complex64
+    scale = np.abs(R_re).max()
+    np.testing.assert_allclose(out.covariance.real.numpy(), R_re, rtol=0,
+                               atol=1e-5 * scale)
+    np.testing.assert_allclose(out.covariance.imag.numpy(), R_im, rtol=0,
+                               atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("name", ["c3_ula16_calib_smooth", "c2_ula8_2src"])
+def test_planes_input_matches_reference(name):
+    """A (re, im) pair of f32[T, N] planes — numpy arrays, contiguous
+    tensors and the strided views of one complex64 buffer — against doa_tpu
+    on its Cpx input: on c3 the planes path, on c2 the fused path's planes
+    route (f32 Grams through kernel 8, embedded, fused downstream)."""
+    from doa_tpu.cpx import Cpx as CpxJ
+    cfg = PRESETS[name]
+    x = _c3_capture(B=12) if name.startswith("c3") else _c2_capture(B=12)
+    c = _correction(cfg.geometry.num_elements, seed=6)
+    ref = build_pipeline_tpu(dataclasses.replace(cfg, cov_impl="pallas"))(
+        CpxJ.from_complex(x), c)
+    pipe = build_pipeline_torch(cfg, device="cpu")
+    xr = np.ascontiguousarray(x.real)
+    xi = np.ascontiguousarray(x.imag)
+    v = torch.from_numpy(x.view(np.float32)).view(x.shape[0], -1, 2)
+    keys = [e.value for e in cfg.estimators]
+    first = None
+    for planes in ((xr, xi), (torch.from_numpy(xr), torch.from_numpy(xi)),
+                   (v[..., 0], v[..., 1])):
+        out = pipe(planes, c)
+        _assert_matches(out, ref, keys, True, sort=True)
+        if first is None:
+            first = out
+        else:
+            for key in keys:
+                torch.testing.assert_close(out.peak_angles[key],
+                                           first.peak_angles[key])
+
+
+def test_complex128_capture_matches_reference():
+    """A complex128 numpy capture is cast to complex64 once and takes the
+    planes route, as doa_tpu's split_c64 entry does."""
+    cfg = PRESETS["c2_ula8_2src"]
+    x = _c2_capture(B=12).astype(np.complex128)
+    ref = build_pipeline_tpu(dataclasses.replace(cfg, cov_impl="pallas"))(x)
+    out = build_pipeline_torch(cfg, device="cpu")(x)
+    _assert_matches(out, ref, ["music", "capon"], True, sort=True)
+
+
+def test_planes_config_has_no_interleaved_entry():
+    pipe = build_pipeline_torch(PRESETS["c3_ula16_calib_smooth"],
+                                device="cpu")
+    with pytest.raises(ValueError, match="fused"):
+        pipe.interleaved(_c3_capture(B=2).view(np.float32))
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "int8"])
+def test_dense_quantized_scan_on_fused_path_matches_reference(compute_dtype):
+    """scan_mode="dense" with a bfloat16/int8 compute_dtype on a fused
+    config: the reference scans the subspace in that precision
+    (music_denominator_subspace), not with its f32 scan kernel."""
+    cfg = dataclasses.replace(_cfg(), scan_mode="dense",
+                              compute_dtype=compute_dtype)
+    x = _capture()
+    # angles only: the quantized den reaches 0 at the peaks, where both
+    # clamp it to tiny; the reference flushes the resulting denormal bins
+    # of P/max P to zero
+    ref = build_pipeline_tpu(dataclasses.replace(cfg, cov_impl="pallas"),
+                             return_spectra=False)(x)
+    out = build_pipeline_torch(cfg, device="cpu", return_spectra=False)(x)
+    _assert_matches(out, ref, ["music"], False)
