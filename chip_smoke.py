@@ -53,9 +53,31 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    T=2^24 on validate_tpu.py's c2 scene: every window within 0.5 deg of
    60/110, the card against the CPU on 64 windows; the cov_windows entry
    driven at gcd 8 (kernel 12).
+10. the wideband front end at any F: kernel 7 (embedded subband Grams of
+   the channelized stream) and kernel 10 (interleaved subband Grams)
+   exact on integer-valued streams at every tile form; kernel 7 at
+   c5_f12's full shape (12 subbands, 2048 chunks of 64) and at N=16,
+   F=10, 13 chunks, kernel 10 at c5's (F=16; sb_group 2 equal to 1),
+   each within 1e-5 of max|E| of its plain version; the three
+   front-end routes (fft, embedded, uhat) on one c5 capture within 2e-5
+   of max|E|; each kernel's time beside its plain version's, the library
+   call's and the channelizer matmul's.
+11. the paths at full width, each driven once with counts from zero, then
+   20 timed calls and a profile window: c5_f12 (c5 at S=768, 12 subbands:
+   the channelizer and kernel 7, incoherent fusion; 2048 windows, median
+   within 0.5 deg), its planes input (equal angles); c5 with
+   fusion="cssm" and "cssm_auto" (kernel 4, R_coh, cold K4, K3, 2-D
+   peaks; 2048 windows, medians within 2.0 deg) and the cssm layer times;
+   the uhat entry (kernel 10); ULA-16 cssm with FB, smoothing to L=12,
+   MUSIC + Capon on a 65/115 deg wideband scene (1024 windows, medians
+   within 2.0 deg); the card against the CPU on 32 windows of each path.
 
-The last two lines: one JSON object with the kernels, then
-{"ok": true, "device": {...}}.
+Each kernel record gives its bound (the larger of its bytes over
+3.35 TB/s and the FP32 operations the function needs over 67 TFLOP/s,
+the published H100 peaks; a symmetric or Hermitian Gram counts the half
+its output determines) and the time of one PyTorch call computing the same function
+(library_ms; null where there is none). The last two lines: one JSON
+object with the kernels, then {"ok": true, "device": {...}}.
 """
 
 import dataclasses
@@ -80,8 +102,15 @@ C5_BW = 0.5                # each source's band, centred on 0 (exp_r5.py)
 T_C5 = 1 << 21             # 2048 windows of 1024 samples
 T_C5_SMALL = 32 * 1024     # the card against the CPU
 C5_ANGLE_TOL = 0.5         # degrees, the median window
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
 SOURCES = ("cov_gram", "music_scan", "subspace", "wideband_cov",
-           "wideband_scan", "peaks2d", "covariance")
+           "wideband_scan", "peaks2d", "covariance", "subband_gram")
+# the published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s,
+# FP32 FLOP/s outside the tensor cores (every kernel here multiplies in FP32 on the CUDA cores)
+H100_BYTES_PER_S = 3.35e12
+H100_FP32_PER_S = 67e12
 
 
 def log(msg):
@@ -176,9 +205,32 @@ def check(cond, msg):
         fail(msg)
 
 
+def bound(nbytes, flops):
+    """The least time the card could take: the larger of `nbytes` (each
+    input read once, each output written once) over the memory rate and
+    `flops` (the least arithmetic the function needs: a symmetric or
+    Hermitian Gram counts only the half its output determines) over the
+    FP32 peak → {"bound_ms", "bound_by"}."""
+    tb = nbytes / H100_BYTES_PER_S * 1e3
+    tf = flops / H100_FP32_PER_S * 1e3
+    return {"bound_ms": max(tb, tf),
+            "bound_by": "bytes" if tb >= tf else "operations"}
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def scan_flops(B, G, k2, n2):
+    """den = ‖a‖² − ‖Vᵀã‖² for B windows × G bins: the (k2 × n2)
+    products, the squares and sums, the subtraction and reciprocal."""
+    return 2 * B * G * k2 * (n2 + 1) + 2 * B * G
+
+
 def kernel_parity(torch, dev, x, Vt, At, nrm, card):
     """Phase 3 → the kernel records for the JSON line (launches filled in
     after the main path)."""
+    from doa_tpu_torch.cpx import fp32_matmuls
     from doa_tpu_torch.io.native import quantize_interleaved_int8
     from doa_tpu_torch.ops.cuda import cov_embedded as ce
     from doa_tpu_torch.ops.cuda import music_scan as ms
@@ -221,14 +273,21 @@ def kernel_parity(torch, dev, x, Vt, At, nrm, card):
                          lambda: ce.chunk_grams_uhat_plain(x, g))
     kq_ms, pq_ms = pair_ms(torch, lambda: ce.chunk_grams_uhat(xq, g),
                            lambda: ce.chunk_grams_uhat_plain(xq, g))
+    xv = x.view(-1, g, x.shape[1])
+    with fp32_matmuls():
+        lib_ms = time_ms(torch, lambda: torch.bmm(xv.transpose(1, 2), xv))
     log(f"K1 time f32 [{x.shape[0]}, 32] g={g}: kernel {k_ms:.4f} ms, plain "
-        f"{p_ms:.4f} ms; int8: kernel {kq_ms:.4f} ms, plain (f64 bmm) "
-        f"{pq_ms:.4f} ms  [{card}]")
+        f"{p_ms:.4f} ms, library (one torch.bmm) {lib_ms:.4f} ms; int8: "
+        f"kernel {kq_ms:.4f} ms, plain (f64 bmm) {pq_ms:.4f} ms  [{card}]")
+    n2 = x.shape[1]
     recs["chunk_gram"] = dict(
         name="chunk_gram", route="cuda",
         source="doa_tpu_torch/csrc/cov_gram.cu",
         replaces="doa_tpu/ops/pallas/cov_embedded.py:191",
-        max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+        # the symmetric Gram: n2·(n2+1)/2 entries, 2 FLOP a sample each
+        **bound(nbytes(x, Uk), x.shape[0] * n2 * (n2 + 1)),
+        library_ms=lib_ms)
 
     # K3 / K2 exact: Vt in quarter steps, A integer, den = nrm − Σ y² all
     # multiples of 1/16 far below 2^24 — exact in FP32 in any order, so
@@ -266,11 +325,14 @@ def kernel_parity(torch, dev, x, Vt, At, nrm, card):
     k3_ms, p3_ms = pair_ms(torch, lambda: ms.music_scan(Vt, At, nrm),
                            lambda: ms.music_scan_plain(Vt, At, nrm))
     log(f"K3 time: kernel {k3_ms:.4f} ms, plain {p3_ms:.4f} ms  [{card}]")
+    (B, k2, n2), G = Vt.shape, At.shape[0]
     recs["music_scan"] = dict(
         name="music_scan", route="cuda",
         source="doa_tpu_torch/csrc/music_scan.cu",
         replaces="doa_tpu/ops/pallas/music_scan.py:56",
-        max_abs_err=e3, ms=k3_ms, plain_ms=p3_ms)
+        max_abs_err=e3, ms=k3_ms, plain_ms=p3_ms,
+        **bound(nbytes(Vt, At, nrm, Pk), scan_flops(B, G, k2, n2)),
+        library_ms=None)
     vk, lk = ms.music_scan_peaks(Vt, At, 2, 0.0, 180.0, True, nrm)
     vp, lp = ms.music_scan_peaks_plain(Vt, At, 2, 0.0, 180.0, True, nrm)
     # the two planted sources have equal power, so which peak ranks first
@@ -287,12 +349,13 @@ def kernel_parity(torch, dev, x, Vt, At, nrm, card):
         name="music_scan_peaks", route="cuda",
         source="doa_tpu_torch/csrc/music_scan.cu",
         replaces="doa_tpu/ops/pallas/music_scan.py:138",
-        max_abs_err=e2, ms=k2_ms, plain_ms=p2_ms)
+        max_abs_err=e2, ms=k2_ms, plain_ms=p2_ms,
+        **bound(nbytes(Vt, At, nrm, vk, lk), scan_flops(B, G, k2, n2)),
+        library_ms=None)
 
     # K4 on the scene's windows: the pipeline's warm refine (3 rounds from
     # the capture-mean subspace) and a cold 8-round start; rsqrt and the
     # sums' order differ, so projectors VᵀV are held to 1e-5
-    from doa_tpu_torch.cpx import fp32_matmuls
     from doa_tpu_torch.ops import cpx_ops
     with fp32_matmuls():
         E = ce.cov_embedded(x, torch.ones(16, device=dev),
@@ -319,11 +382,17 @@ def kernel_parity(torch, dev, x, Vt, At, nrm, card):
             lambda: cpx_ops.mgs_iterate_plain(E, 2, 3, init))
     log(f"K4 time (warm, 3 rounds, B={E.shape[0]}): kernel {k4_ms:.4f} ms, "
         f"plain {p4_ms:.4f} ms  [{card}]")
+    (B, n2, _), k2 = E.shape, 4
     recs["mgs_iterate"] = dict(
         name="mgs_iterate", route="cuda",
         source="doa_tpu_torch/csrc/subspace.cu",
         replaces="doa_tpu/ops/cpx_ops.py:347",
-        max_abs_err=e4, ms=k4_ms, plain_ms=p4_ms)
+        max_abs_err=e4, ms=k4_ms, plain_ms=p4_ms,
+        # 3 rounds of W = E·V (2·n2²·k2) and MGS (~4·k2²·n2) a window; E
+        # read once, Vt, W, Vt_prev written
+        **bound(nbytes(E) + 3 * B * k2 * n2 * 4,
+                3 * B * (2 * n2 * n2 * k2 + 4 * k2 * k2 * n2)),
+        library_ms=None)
     return recs
 
 
@@ -376,7 +445,12 @@ def stage_times(torch, pipe, cfg, x, card):
 
 def profile_window(torch, fn, card, calls=3):
     """Device busy share of whole calls and the top device ops, from a
-    short torch.profiler window."""
+    short torch.profiler window. Only the device's own events count
+    (kernels, copies, fills; not CUPTI's buffer requests), and busy time
+    is the union of their intervals on the timeline: the host op that
+    launches a kernel carries the same device time as the kernel's own
+    row, so summing every row's device time counts a torch op twice."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -387,17 +461,26 @@ def profile_window(torch, fn, card, calls=3):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows.append((dev_us, ev.count, ev.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
+
+    def on_device(ev):
+        return (ev.device_type == DeviceType.CUDA
+                and ev.key != "Activity Buffer Request")
+
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events() if on_device(ev))
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:                   # the union of the intervals
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy_ms = busy_us / 1e3
+    check(busy_ms > 0, "the profile window saw no device work")
+    rows = sorted(((ev.self_device_time_total, ev.count, ev.key)
+                   for ev in prof.key_averages() if on_device(ev)),
+                  reverse=True)
     log(f"profile of {calls} calls: wall {wall_ms:.3f} ms, device busy "
         f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}; "
-        f"{sum(r[1] for r in rows)} device ops  [{card}]")
+        f"{len(spans)} device ops  [{card}]")
     for dev_us, count, key in rows[:10]:
         log(f"  {dev_us / 1e3 / calls:9.4f} ms/call  x{count // calls:<4d} "
             f"{key[:90]}")
@@ -447,11 +530,11 @@ def pair_sorted(torch, ang):
     return torch.gather(ang, 1, order[..., None].expand(ang.shape))
 
 
-def c5_errors(torch, ang):
+def c5_errors(torch, ang, truth=C5_TRUTH):
     """→ (max, median) over windows of the largest |angle − truth| of a
     window, and the median pair-sorted (az, el) f32[2, 2]."""
     a = pair_sorted(torch, ang)
-    truth = torch.tensor(C5_TRUTH, device=a.device)
+    truth = torch.tensor(truth, device=a.device)
     if not bool(torch.isfinite(a).all()):
         fail("non-finite c5 angles")
     per = (a - truth).abs().amax(dim=(1, 2))
@@ -516,11 +599,17 @@ def wideband_parity(torch, dev, x, cfg, pipe, card):
                                                               **kw))
     log(f"wideband_fft_gram time [{M}, {F * 2 * N}] g={g}: kernel "
         f"{k_ms:.4f} ms, plain (torch.fft + cuBLAS) {p_ms:.4f} ms  [{card}]")
+    n = E_sub.shape[1]
     recs["wideband_fft_gram"] = dict(
         name="wideband_fft_gram", route="cuda",
         source="doa_tpu_torch/csrc/wideband_cov.cu",
         replaces="doa_tpu/ops/pallas/wideband_cov.py:162",
-        max_abs_err=e1, ms=k_ms, plain_ms=p_ms)
+        max_abs_err=e1, ms=k_ms, plain_ms=p_ms,
+        # an F-point FFT (5·F·log2 F) per frame and element, then the
+        # Hermitian Grams (4·g·N² a chunk and subband: the half)
+        **bound(nbytes(xf, E_sub),
+                5 * F * math.log2(F) * M * N + 4 * g * N * N * F * n),
+        library_ms=None)
 
     # K4 at 2N = 128 on the c5 windows: warm from one init per subband
     # (3 rounds, as the pipeline) and cold (8 rounds); projectors to 1e-5
@@ -590,7 +679,13 @@ def wideband_parity(torch, dev, x, cfg, pipe, card):
         name="wideband_fusion", route="cuda",
         source="doa_tpu_torch/csrc/wideband_scan.cu",
         replaces="doa_tpu/ops/pallas/wideband_scan.py:51",
-        max_abs_err=e5, ms=k_ms, plain_ms=p_ms)
+        max_abs_err=e5, ms=k_ms, plain_ms=p_ms,
+        # one den per (subband, window, bin), as the plain version; then
+        # dmin/den, the sum over subbands
+        **bound(nbytes(Vt, At, nrm, P),
+                F * (scan_flops(P.shape[0], P.shape[1], Vt.shape[2],
+                                Vt.shape[3]) + 2 * P.numel())),
+        library_ms=None)
 
     # 2-D peaks, exact: integer spectra full of ties and plateaus, a
     # strictly rising window (no interior peak) and a flat one
@@ -622,7 +717,10 @@ def wideband_parity(torch, dev, x, cfg, pipe, card):
     recs["peaks2d"] = dict(
         name="peaks2d", route="cuda", source="doa_tpu_torch/csrc/peaks2d.cu",
         replaces="doa_tpu/ops/pallas/peaks2d.py:42",
-        max_abs_err=e6, ms=k_ms, plain_ms=p_ms)
+        max_abs_err=e6, ms=k_ms, plain_ms=p_ms,
+        # four neighbour comparisons a bin; the top-k and refine are per
+        # window
+        **bound(nbytes(P2, *got), 4 * P2.numel()), library_ms=None)
     return recs, (E_sub, Vt, At, nrm, P2)
 
 
@@ -876,15 +974,27 @@ def planes_parity(torch, dev, x3, card):
         torch, lambda: cv.chunk_grams(xr, xi, 1024, "bfloat16"),
         lambda: cv.chunk_grams_plain(xr, xi, 1024, "bfloat16"))
     del xp
-    log(f"kernel 8 time [{xr.shape[0]}, 16] x2 g=1024: f32 stride-2 kernel "
-        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; f32 planar kernel "
-        f"{kp_ms:.4f} ms; bf16 kernel {kb_ms:.4f} ms, plain {pb_ms:.4f} ms"
-        f"  [{card}]")
+    T3, N3 = xr.shape
+    # the library's form: one complex batched product of the chunks,
+    # R = Σ x xᴴ, whose (re, im) are kernel 8's (Rr, Ri)
+    xc = torch.view_as_complex(x3).view(-1, 1024, N3)
+    with fp32_matmuls():
+        lib8_ms = time_ms(torch, lambda: torch.matmul(xc.mT, xc.conj()))
+    del xc
+    log(f"kernel 8 time [{T3}, 16] x2 g=1024: f32 stride-2 kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library (one complex "
+        f"torch.matmul) {lib8_ms:.4f} ms; f32 planar kernel {kp_ms:.4f} ms; "
+        f"bf16 kernel {kb_ms:.4f} ms, plain {pb_ms:.4f} ms  [{card}]")
     recs["planes_chunk_gram"] = dict(
         name="planes_chunk_gram", route="cuda",
         source="doa_tpu_torch/csrc/covariance.cu",
         replaces="doa_tpu/ops/pallas/covariance.py:34",
-        max_abs_err=e8, ms=k_ms, plain_ms=p_ms)
+        max_abs_err=e8, ms=k_ms, plain_ms=p_ms,
+        # the planes read once; (Rr, Ri) a chunk; R = Σ x xᴴ Hermitian,
+        # 4·N² FLOP a sample for its half
+        **bound(2 * T3 * N3 * 4 + 2 * (T3 // 1024) * N3 * N3 * 4,
+                4 * T3 * N3 * N3),
+        library_ms=lib8_ms)
 
     # kernel 12: N = 16, S = 1024, overlap 1000 (hop 24, gcd 8)
     S, ov = 1024, 1000
@@ -907,13 +1017,29 @@ def planes_parity(torch, dev, x3, card):
     del ref
     k_ms, p_ms = pair_ms(torch, lambda: cv.cov_windows(xr, xi, S, ov),
                          lambda: cv.cov_windows_plain(xr, xi, S, ov),)
+    # the library's form: one complex batched product over the windows of
+    # the capture's unfold view, R = Σ x xᴴ a window (the 1/S the kernel
+    # folds in is left out: one multiply an output value)
+    xw = torch.view_as_complex(x3[:T_K12]).unfold(0, S, S - ov)
+    with fp32_matmuls():
+        lib12_ms = time_ms(torch, lambda: torch.matmul(xw, xw.mT.conj()))
+    del xw
     log(f"kernel 12 time ({B12} windows of {S}x16, hop {S - ov}): kernel "
-        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms  [{card}]")
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library (one complex "
+        f"torch.matmul on the unfold view) {lib12_ms:.4f} ms  [{card}]")
+    n12 = T_K12 // math.gcd(S, S - ov)
     recs["planes_cov_windows"] = dict(
         name="planes_cov_windows", route="cuda",
         source="doa_tpu_torch/csrc/covariance.cu",
         replaces="doa_tpu/ops/pallas/covariance.py:94",
-        max_abs_err=e12, ms=k_ms, plain_ms=p_ms)
+        max_abs_err=e12, ms=k_ms, plain_ms=p_ms,
+        # the capture read once, (Rr, Ri) a window; the least arithmetic
+        # is the Hermitian chunk Grams at the windows' gcd (4·N² FLOP a
+        # sample), a running sum over chunks and one difference a window
+        # (N² distinct reals each)
+        **bound(T_K12 * 32 * 4 + B12 * 2 * 256 * 4,
+                4 * T_K12 * 256 + (n12 + B12) * 256),
+        library_ms=lib12_ms)
 
     # K4 at the planes path's new shapes, exact: E a signed permutation per
     # window (every MGS dot product 0, every norm 1, every sum exact)
@@ -1187,6 +1313,400 @@ def planes_phases(torch, dev, card):
     return recs, n3["mgs_iterate"] + n2["mgs_iterate"]
 
 
+# ---------------------------------------------------------------------
+# 10-11: the wideband front end at any F (kernels 7, 10) and the coherent
+# fusions (cssm, cssm_auto)
+# ---------------------------------------------------------------------
+
+T_F12 = 2048 * 768                 # c5_f12: 2048 windows of 768 samples
+B_CSSM_CPU = 32                    # the card against the CPU, each path
+ULA_TRUTH = (65.0, 115.0)          # tests/test_cssm.py's ULA-16 scene
+T_ULA = 1 << 20                    # 1024 windows of 1024
+CSSM_ANGLE_TOL = 2.0               # degrees, the median (test_cssm.py)
+
+
+def c5_variant(**over):
+    """PRESETS["c5_ura64_wideband"] with fields of its WidebandSpec (and
+    snapshot_size) replaced."""
+    from doa_tpu_torch import PRESETS
+    c5 = PRESETS["c5_ura64_wideband"]
+    S = over.pop("snapshot_size", c5.snapshot_size)
+    return dataclasses.replace(
+        c5, snapshot_size=S,
+        wideband=dataclasses.replace(c5.wideband, **over))
+
+
+def make_wideband_ula_capture(torch, T, N, thetas, bw, fbw, snr_db, device,
+                              seed, tones=12):
+    """A wideband ULA capture by the model of
+    doa_tpu.io.synthetic.synth_wideband_ula_iq as the interleaved buffer
+    x f32[T, 2N], made on the device: each source's band (centred on 0,
+    width bw) as `tones` unit-power tones with random start phases, tone f
+    steered at the effective spacing 0.5·(1 + f·fbw); complex white noise
+    of power 10^(−snr/10) per element."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((T, N, 2), generator=gen, device=device)
+    x *= math.sqrt(10.0 ** (-snr_db / 10.0) / 2.0)
+    xc = torch.view_as_complex(x)
+    t = torch.arange(T, device=device, dtype=torch.float64)
+    k = torch.arange(N, device=device, dtype=torch.float64)
+    for theta in thetas:
+        for f in bw * np.linspace(-0.5, 0.5, tones):
+            ph = 2.0 * math.pi * torch.frac(t * f) + rng.uniform(0, 2 * math.pi)
+            s = torch.polar(torch.full_like(ph, 1.0 / math.sqrt(tones)), ph)
+            d_eff = 0.5 * (1.0 + f * fbw)
+            a = torch.polar(torch.ones_like(k), -2.0 * math.pi * d_eff
+                            * math.cos(math.radians(theta)) * k)
+            xc += (s[:, None] * a[None, :]).to(torch.complex64)
+    return x.reshape(T, 2 * N)
+
+
+def subband_parity(torch, dev, x12, x16, card):
+    """Phase 10 → the records of kernels 7 and 10 (launches filled in
+    later). x12, x16: the c5 scene at T_F12 and T_C5 samples."""
+    from doa_tpu_torch.cpx import fp32_matmuls
+    from doa_tpu_torch.ops.cuda import wideband_cov as wc
+
+    recs = {}
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev).float()
+
+    # exact: integer stream and correction, scale 1/16, every sum an
+    # integer below 2^24; the plain versions in float64, rounded once.
+    # Every tile form of both kernels (N = 64, 36, 16, 6, 5, 1), 16-byte
+    # and 8-byte staging (odd N), several stages (g = 300)
+    for F, N, g, n in ((12, 64, 64, 7), (16, 64, 64, 3), (10, 16, 24, 13),
+                       (4, 36, 16, 5), (4, 6, 100, 5), (2, 32, 300, 3),
+                       (3, 5, 40, 9), (6, 1, 8, 3)):
+        y = ri(-4, 5, (n * g, F * 2 * N))
+        cr, ci = ri(-1, 3, (N,)), ri(-1, 2, (N,))
+        d7 = (wc.subband_embedded(y, cr, ci, F=F, N=N, g=g, scale=1.0 / 16)
+              - wc.subband_embedded_plain(y.double(), cr, ci, F=F, N=N, g=g,
+                                          scale=1.0 / 16)).abs().max().item()
+        d10 = (wc.subband_grams(y, F=F, N=N, g=g)
+               - wc.subband_grams_plain(y.double(), F=F, N=N, g=g)
+               ).abs().max().item()
+        log(f"kernels 7/10 exact-input F={F} N={N} g={g} n={n}: "
+            f"max|kernel-plain| = {d7!r} / {d10!r} (must be 0)")
+        check(d7 == 0.0 and d10 == 0.0,
+              f"kernel 7 or 10 differs on exact inputs at F={F} N={N}")
+
+    # kernel 7 at c5_f12's full shape, on the c5 scene channelized
+    cr1, ci0 = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    S_sub, _, g = wc.subband_framing(12, 768, 0)
+    K12 = torch.from_numpy(wc.channelizer_matrix(12, 64)).to(dev)
+    xf12 = x12.reshape(-1, 12 * 128)
+    Y12 = wc.channelize_frames(xf12, K12)
+    kw7 = dict(F=12, N=64, g=g, scale=1.0 / S_sub)
+    E7 = wc.subband_embedded(Y12, cr1, ci0, **kw7)
+    Ep = wc.subband_embedded_plain(Y12, cr1, ci0, **kw7)
+    e7 = (E7 - Ep).abs().max().item()
+    s7 = Ep.abs().max().item()
+    del Ep
+    log(f"kernel 7 c5_f12 scene {tuple(E7.shape)}: max|kernel-plain| = "
+        f"{e7!r}, max|E| = {s7!r}, tol 1e-5*max|E|")
+    check(e7 <= 1e-5 * s7, "kernel 7 disagrees with plain at c5_f12")
+    # and at an odd small shape: N = 16, F = 10, 13 chunks, g = 24
+    y = torch.randn((13 * 24, 10 * 32), generator=gen, device=dev)
+    cr, ci = torch.randn(16, generator=gen, device=dev), torch.randn(
+        16, generator=gen, device=dev)
+    Eo = wc.subband_embedded(y, cr, ci, F=10, N=16, g=24, scale=1 / 24)
+    Eop = wc.subband_embedded_plain(y, cr, ci, F=10, N=16, g=24, scale=1 / 24)
+    eo = (Eo - Eop).abs().max().item()
+    log(f"kernel 7 N=16 F=10 13 chunks: max|kernel-plain| = {eo!r}, max|E| "
+        f"= {Eop.abs().max().item()!r}, tol 1e-5*max|E|")
+    check(eo <= 1e-5 * Eop.abs().max().item(), "kernel 7 odd shape")
+    k7_ms, p7_ms = pair_ms(torch, lambda: wc.subband_embedded(Y12, cr1, ci0,
+                                                              **kw7),
+                           lambda: wc.subband_embedded_plain(Y12, cr1, ci0,
+                                                             **kw7))
+    ch12_ms = time_ms(torch, lambda: wc.channelize_frames(xf12, K12))
+    log(f"kernel 7 time (c5_f12: [{Y12.shape[0]}, {Y12.shape[1]}], g={g}): "
+        f"kernel {k7_ms:.4f} ms, plain {p7_ms:.4f} ms; the channelizer "
+        f"matmul [{xf12.shape[0]}, 1536] x [1536, 1536] {ch12_ms:.4f} ms  "
+        f"[{card}]")
+    n7 = E7.shape[1]
+    recs["subband_embedded"] = dict(
+        name="subband_embedded", route="cuda",
+        source="doa_tpu_torch/csrc/subband_gram.cu",
+        replaces="doa_tpu/ops/pallas/wideband_cov.py:92",
+        max_abs_err=e7, ms=k7_ms, plain_ms=p7_ms,
+        # the Hermitian Gram's half (4·g·N²) and the correction and scale
+        # (8 FLOP a distinct complex entry) a chunk and subband
+        **bound(nbytes(Y12, E7), 4 * (g + 1) * 64 * 64 * 12 * n7),
+        library_ms=None, channelizer_ms=ch12_ms)
+    del E7, Y12, xf12, K12
+
+    # kernel 10 at c5 (F = 16); the wrapper accepts sb_group and ignores it
+    S_sub, _, g = wc.subband_framing(16, 1024, 0)
+    K16 = torch.from_numpy(wc.channelizer_matrix(16, 64)).to(dev)
+    xf16 = x16.reshape(-1, 16 * 128)
+    Y16 = wc.channelize_frames(xf16, K16)
+    U1 = wc.subband_grams(Y16, F=16, N=64, g=g)
+    d_sbg = (wc.subband_grams(Y16, F=16, N=64, g=g, sb_group=2)
+             - U1).abs().max().item()
+    Up = wc.subband_grams_plain(Y16, F=16, N=64, g=g)
+    e10 = (U1 - Up).abs().max().item()
+    s10 = Up.abs().max().item()
+    del Up
+    log(f"kernel 10 c5 scene {tuple(U1.shape)}: max|kernel-plain| = {e10!r}, "
+        f"max|U| = {s10!r}, tol 1e-5*max|U|; sb_group 2 vs 1: {d_sbg!r} "
+        f"(must be 0)")
+    check(e10 <= 1e-5 * s10 and d_sbg == 0.0, "kernel 10 disagrees")
+    k10_ms, p10_ms = pair_ms(
+        torch, lambda: wc.subband_grams(Y16, F=16, N=64, g=g),
+        lambda: wc.subband_grams_plain(Y16, F=16, N=64, g=g))
+    yv = Y16.view(-1, g, 16, 128).permute(2, 0, 1, 3)
+    with fp32_matmuls():
+        lib10_ms = time_ms(torch, lambda: torch.matmul(yv.transpose(-1, -2),
+                                                       yv))
+    ch16_ms = time_ms(torch, lambda: wc.channelize_frames(xf16, K16))
+    log(f"kernel 10 time (c5: [{Y16.shape[0]}, 2048], g={g}): kernel "
+        f"{k10_ms:.4f} ms, plain {p10_ms:.4f} ms,"
+        f" library (one batched torch.matmul) {lib10_ms:.4f} ms; the "
+        f"channelizer matmul [{xf16.shape[0]}, 2048] x [2048, 2048] "
+        f"{ch16_ms:.4f} ms  [{card}]")
+    recs["subband_gram"] = dict(
+        name="subband_gram", route="cuda",
+        source="doa_tpu_torch/csrc/subband_gram.cu",
+        replaces="doa_tpu/ops/pallas/wideband_cov.py:255",
+        max_abs_err=e10, ms=k10_ms, plain_ms=p10_ms,
+        # the symmetric Gram's half: g·2N·(2N+1) a chunk and subband
+        **bound(nbytes(Y16, U1), g * 128 * 129 * U1.shape[0]
+                * U1.shape[1]),
+        library_ms=lib10_ms, channelizer_ms=ch16_ms)
+    del U1, Y16, yv, xf16
+
+    # the three front-end routes on one c5 capture, F = 16: kernel 4;
+    # channelizer + kernel 7; channelizer + kernel 10 + embedding
+    kw = dict(N=64, F=16, snapshot_size=1024, K=K16)
+    Ef = wc.wideband_cov_embedded(x16, cr1, ci0, variant="fft", **kw)
+    sf = Ef.abs().max().item()
+    for variant in ("embedded", "uhat"):
+        d = (wc.wideband_cov_embedded(x16, cr1, ci0, variant=variant, **kw)
+             - Ef).abs().max().item()
+        log(f"front end c5 F=16: max|{variant} - fft| = {d!r}, max|E| = "
+            f"{sf!r}, tol 2e-5*max|E|")
+        check(d <= 2e-5 * sf, f"front-end routes fft and {variant} disagree")
+    return recs
+
+
+def path_run(torch, name, pipe, x, counters, card, truth, tol, call=None):
+    """Drive one path once with every count from zero → (result, the
+    launches); check the median pair-sorted angles within `tol` of
+    `truth`; then 20 timed calls and a profile window."""
+    call = call or (lambda: pipe.interleaved(x))
+    for f in counters.values():
+        f.launches = 0
+    res = call()
+    torch.cuda.synchronize()
+    launches = {n: f.launches for n, f in counters.items()}
+    log(f"launches in the {name} path: " + json.dumps(launches))
+    ang = res.peak_angles["music"]
+    B = ang.shape[0]
+    if ang.dim() == 3:
+        e_max, e_med, med = c5_errors(torch, ang, truth)
+    else:
+        a = torch.sort(ang, dim=-1).values
+        check(bool(torch.isfinite(a).all()), f"{name}: non-finite angles")
+        per = (a - torch.tensor(truth, device=a.device)).abs().amax(-1)
+        e_max, e_med, med = (float(per.max()), float(per.median()),
+                             a.median(dim=0).values)
+    dmed = float((med - torch.tensor(truth, device=med.device)).abs().max())
+    log(f"{name}: {B} windows, per-window max |angle - truth|: max {e_max!r}"
+        f" deg, median {e_med!r} deg; median {med.tolist()} vs truth "
+        f"{list(truth)} (limit {tol} deg); escalation counts "
+        f"{res.escalation_flagged}, {res.escalation_overflow}")
+    check(dmed <= tol, f"{name} median angle off by {dmed}")
+    ts = call_times(torch, call, reps=20, warm=3)
+    med_ms = 0.5 * (ts[9] + ts[10])
+    log(f"{name}: median {med_ms:.4f} ms per call of {B} windows (20 calls, "
+        f"min {ts[0]:.4f}, max {ts[-1]:.4f}) = {B / (med_ms / 1e3):.1f} "
+        f"snapshots/s  [{card}]")
+    profile_window(torch, call, card)
+    return res, launches
+
+
+def card_vs_cpu(torch, name, cfg, x, B):
+    """The card's pipeline against the same pipeline on the CPU on the
+    first B windows of x: pair-sorted (or sorted) angles within 0.01°."""
+    from doa_tpu_torch.pipeline_torch import build_pipeline_torch
+    xs = x[:B * cfg.snapshot_size]
+    a_gpu = build_pipeline_torch(cfg, device=x.device).interleaved(
+        xs).peak_angles["music"].cpu()
+    t0 = time.perf_counter()
+    a_cpu = build_pipeline_torch(cfg, device="cpu").interleaved(
+        xs.cpu()).peak_angles["music"]
+    if a_cpu.dim() == 3:
+        a_gpu, a_cpu = pair_sorted(torch, a_gpu), pair_sorted(torch, a_cpu)
+    else:
+        a_gpu, a_cpu = a_gpu.sort(-1).values, a_cpu.sort(-1).values
+    d = (a_gpu - a_cpu).abs().max().item()
+    log(f"{name} card vs CPU pipeline on {a_cpu.shape[0]} windows: max angle "
+        f"difference {d!r} deg (tol 1e-2; CPU run "
+        f"{time.perf_counter() - t0:.1f} s)")
+    check(a_cpu.shape[0] == B and d <= 1e-2,
+          f"{name}: card and CPU pipelines disagree")
+
+
+def coherent_phases(torch, dev, card):
+    """Phases 10 and 11 → (the records of kernels 7 and 10, the launches
+    of the earlier kernels in these paths)."""
+    from doa_tpu_torch import AvgMethod, Estimator, SmoothingSpec
+    from doa_tpu_torch.cpx import fp32_matmuls, unembed_planes
+    from doa_tpu_torch.ops import cpx_ops
+    from doa_tpu_torch.ops import wideband as wb
+    from doa_tpu_torch.ops.cuda import music_scan as ms
+    from doa_tpu_torch.ops.cuda import peaks2d as pk
+    from doa_tpu_torch.ops.cuda import wideband_cov as wc
+    from doa_tpu_torch.ops.cuda import wideband_scan as wsc
+    from doa_tpu_torch.pipeline_torch import build_pipeline_torch
+
+    x12 = make_c5_scene(torch, T_F12, dev, seed=4)
+    x16 = make_c5_scene(torch, T_C5, dev, seed=5)
+    torch.cuda.synchronize()
+    recs = subband_parity(torch, dev, x12, x16, card)
+
+    counters = {"subband_embedded": wc.subband_embedded,
+                "subband_gram": wc.subband_grams,
+                "wideband_fft_gram": wc.subband_chunk_grams,
+                "wideband_fusion": wsc.wideband_fused_spectrum,
+                "mgs_iterate": cpx_ops.mgs_iterate,
+                "music_scan": ms.music_scan,
+                "music_scan_peaks": ms.music_scan_peaks,
+                "peaks2d": pk.peaks2d}
+    total = {n: 0 for n in counters}
+
+    def add(launches):
+        for n, v in launches.items():
+            total[n] += v
+
+    # 11a. c5_f12: 12 subbands, incoherent, channelizer + kernel 7
+    cfg12 = c5_variant(snapshot_size=768, num_subbands=12)
+    pipe12 = build_pipeline_torch(cfg12, device=dev)
+    res12, n12 = path_run(torch, "c5_f12", pipe12, x12, counters, card,
+                          C5_TRUTH, C5_ANGLE_TOL)
+    check(n12["subband_embedded"] == 1 and n12["wideband_fft_gram"] == 0
+          and n12["wideband_fusion"] > 0 and n12["mgs_iterate"] > 0
+          and n12["peaks2d"] > 0, "c5_f12 launch counts")
+    add(n12)
+    # planes input: the stride-2 views of the same capture
+    v = x12.view(-1, 64, 2)
+    a_pl = pipe12((v[..., 0], v[..., 1])).peak_angles["music"]
+    d = (a_pl - res12.peak_angles["music"]).abs().max().item()
+    log(f"c5_f12 planes input (stride-2 card views): max|angles - "
+        f"interleaved angles| = {d!r} (must be 0)")
+    check(d == 0.0, "c5_f12 planes input differs from the interleaved input")
+    del res12, a_pl, v
+
+    # 11b. c5 with cssm and cssm_auto: kernel 4, R_coh, cold K4, K3, peaks
+    for fusion in ("cssm", "cssm_auto"):
+        cfg = c5_variant(fusion=fusion)
+        pipe = build_pipeline_torch(cfg, device=dev)
+        res, n = path_run(torch, f"c5 {fusion}", pipe, x16, counters, card,
+                          C5_TRUTH, CSSM_ANGLE_TOL)
+        check(n["wideband_fft_gram"] == 1 and n["mgs_iterate"] > 0
+              and n["music_scan"] > 0 and n["peaks2d"] > 0
+              and n["wideband_fusion"] == 0 and n["subband_embedded"] == 0,
+              f"c5 {fusion} launch counts")
+        add(n)
+        P = res.spectra["music"]
+        check(tuple(P.shape) == (T_C5 // 1024, 181 * 91)
+              and bool(torch.isfinite(P).all()), f"c5 {fusion} spectrum")
+        del res, P
+    # layer times of the c5 cssm call
+    cfg = c5_variant(fusion="cssm")
+    T_foc = torch.from_numpy(wb.focusing_matrices(cfg)).to(dev)
+    At = torch.cat(build_pipeline_torch(cfg, device=dev).steering_planes,
+                   -1).contiguous()
+    nrm = (At * At).sum(-1)
+    cr1, ci0 = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    with fp32_matmuls():
+        E_sub = wc.wideband_cov_embedded(x16, cr1, ci0, N=64, F=16,
+                                         snapshot_size=1024)
+        R_sub = torch.complex(*unembed_planes(E_sub))
+        R = wb.cssm_covariance(R_sub, T_foc)
+        Rr, Ri = R.real.contiguous(), R.imag.contiguous()
+        V = cpx_ops.signal_subspace_embedded(Rr, Ri, 2, iters=8)
+        Vt = V.transpose(-1, -2).contiguous()
+        P = ms.music_scan(Vt, At, nrm)
+        P2 = (P / P.max(-1, keepdim=True).values).reshape(-1, 181, 91)
+        layers = {
+            "front end (kernel 4)": lambda: wc.wideband_cov_embedded(
+                x16, cr1, ci0, N=64, F=16, snapshot_size=1024),
+            "unembed": lambda: torch.complex(*unembed_planes(E_sub)),
+            "R_coh (complex GEMMs)": lambda: wb.cssm_covariance(R_sub, T_foc),
+            "subspace (cold K4 + detector)":
+                lambda: cpx_ops.signal_subspace_embedded(
+                    Rr, Ri, 2, iters=8, return_stats=True,
+                    **cfg.escalate_kwargs),
+            "scan (K3)": lambda: ms.music_scan(Vt, At, nrm),
+            "peaks (2-D)": lambda: pk.peaks2d(P2, 2, (-90.0, 90.0),
+                                              (0.0, 90.0), True),
+        }
+        out = {k: time_ms(torch, f) for k, f in layers.items()}
+    log("c5 cssm layer times, ms: " + ", ".join(f"{k} {v:.4f}"
+                                               for k, v in out.items())
+        + f"  [{card}]")
+    del E_sub, R_sub, R, Rr, Ri, V, Vt, P, P2
+
+    # the uhat entry (kernel 10's route), driven as a user calls it
+    for f in counters.values():
+        f.launches = 0
+    Eu = wc.wideband_cov_embedded(x16, cr1, ci0, N=64, F=16,
+                                  snapshot_size=1024, variant="uhat")
+    torch.cuda.synchronize()
+    log(f"wideband_cov_embedded(variant='uhat') entry: launches kernel 10 "
+        f"{wc.subband_grams.launches}, kernel 7 "
+        f"{wc.subband_embedded.launches}, kernel 4 "
+        f"{wc.subband_chunk_grams.launches}")
+    check(tuple(Eu.shape) == (16, T_C5 // 1024, 128, 128)
+          and wc.subband_grams.launches == 1
+          and wc.subband_chunk_grams.launches == 0, "the uhat entry")
+    add({"subband_gram": wc.subband_grams.launches})
+    del Eu
+
+    # 11c. ULA-16 CSSM with FB, smoothing to L = 12, MUSIC + Capon
+    from doa_tpu_torch import (ArrayGeometry, DoaConfig, WidebandSpec)
+    cfg_u = DoaConfig(
+        geometry=ArrayGeometry(kind="ula", num_elements=16, norm_spacing=0.5),
+        snapshot_size=1024, num_sources=2, num_max_vals=2,
+        estimators=(Estimator.MUSIC, Estimator.CAPON),
+        wideband=WidebandSpec(num_subbands=16, fractional_bw=0.4,
+                              fusion="cssm"),
+        avg_method=AvgMethod.FORWARD_BACKWARD,
+        smoothing=SmoothingSpec(subarray_size=12))
+    xu = make_wideband_ula_capture(torch, T_ULA, 16, ULA_TRUTH, 0.5, 0.4,
+                                   SNR_DB, dev, seed=1)
+    pipe_u = build_pipeline_torch(cfg_u, device=dev)
+    res_u, n_u = path_run(torch, "ULA-16 cssm FB + smoothing", pipe_u, xu,
+                          counters, card, ULA_TRUTH, CSSM_ANGLE_TOL)
+    check(n_u["wideband_fft_gram"] == 1 and n_u["mgs_iterate"] > 0
+          and n_u["music_scan"] > 0, "ULA-16 cssm launch counts")
+    add(n_u)
+    a = torch.sort(res_u.peak_angles["capon"], -1).values
+    dcap = float((a.median(0).values
+                  - torch.tensor(ULA_TRUTH, device=dev)).abs().max())
+    log(f"ULA-16 cssm Capon: median sorted angles {a.median(0).values.tolist()}"
+        f" (limit {CSSM_ANGLE_TOL} deg)")
+    check(dcap <= CSSM_ANGLE_TOL, f"ULA-16 cssm Capon median off by {dcap}")
+    del res_u
+
+    # the card against the CPU, 32 windows of each path
+    card_vs_cpu(torch, "c5_f12", cfg12, x12, B_CSSM_CPU)
+    card_vs_cpu(torch, "c5 cssm", c5_variant(fusion="cssm"), x16, B_CSSM_CPU)
+    card_vs_cpu(torch, "c5 cssm_auto", c5_variant(fusion="cssm_auto"), x16,
+                B_CSSM_CPU)
+    card_vs_cpu(torch, "ULA-16 cssm", cfg_u, xu, B_CSSM_CPU)
+    for name in ("subband_embedded", "subband_gram"):
+        recs[name]["launches"] = total.pop(name)
+    return recs, total
+
+
 def main():
     import torch
 
@@ -1222,7 +1742,8 @@ def main():
     sigs = {"cov_gram": ce._SIG, "music_scan": ms._SIG,
             "subspace": cpx_ops._SIG, "wideband_cov": wideband_cov._SIG,
             "wideband_scan": wideband_scan._SIG, "peaks2d": peaks2d._SIG,
-            "covariance": covariance._SIG}
+            "covariance": covariance._SIG,
+            "subband_gram": wideband_cov._SIG_SUBBAND}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:   # one nvcc per source
         list(pool.map(lambda name: _build.load(name, sigs[name]), SOURCES))
@@ -1331,7 +1852,18 @@ def main():
     pl_recs, k4_planes = planes_phases(torch, dev, card)
     recs["mgs_iterate"]["launches"] += k4_planes
     recs.update(pl_recs)
-    check("jax" not in sys.modules, "jax was imported")
+
+    # 10. kernels 7 and 10, 11. c5_f12, c5 cssm / cssm_auto, ULA-16 cssm
+    sb_recs, sb_launches = coherent_phases(torch, dev, card)
+    for name, n in sb_launches.items():
+        recs[name]["launches"] += n
+    recs.update(sb_recs)
+    check(not any(m == "jax" or m.startswith(("jax.", "doa_tpu."))
+                  or m == "doa_tpu" for m in sys.modules),
+          "jax or doa_tpu was imported")
+    missing = [r["name"] for r in recs.values()
+               if set(KERNEL_KEYS) - set(r)]
+    check(not missing, f"kernel records without every key: {missing}")
 
     print(json.dumps({"kernels": list(recs.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,11 @@ CUDA kernels for the NVIDIA H100 (sm_90a).
 
 A port of the JAX package ``doa_tpu``, which stays the reference. Module
 names mirror ``doa_tpu``; inside, the code is plain functions on torch
-tensors with an explicit ``device``. The configuration system is shared:
-``DoaConfig``, ``PRESETS`` and the enums are ``doa_tpu.configs``'s own
-(that module imports no JAX). This package never imports JAX.
+tensors with an explicit ``device``. The configuration system is the
+port's own copy, ``doa_tpu_torch.configs`` (the same classes, fields,
+validation and ``PRESETS``); ``as_config`` takes a config built with
+``doa_tpu.configs`` too. This package imports neither JAX nor anything of
+``doa_tpu``.
 
 Covered so far (``build_pipeline_torch``):
 
@@ -14,8 +16,13 @@ Covered so far (``build_pipeline_torch``):
   (K4) with the escalation detector → MUSIC scan kernel (K3) or fused
   scan + peaks kernel (K2); on an az/el grid, the 2-D peaks kernel;
 * the wideband incoherent path (the c5 flagship) — FFT-channelizer +
-  subband Gram kernel → per-subband warm-start subspaces (K4, one init
-  per subband) → fused subband scan + fusion kernel → 2-D peaks kernel;
+  subband Gram kernel (power-of-two subband counts; otherwise the dense
+  channelizer + embedded subband Gram kernel 7) → per-subband warm-start
+  subspaces (K4, one init per subband) → fused subband scan + fusion
+  kernel → 2-D peaks kernel;
+* the coherent wideband fusions "cssm" and "cssm_auto" — the same front
+  end → focused covariance mean_f T_f R_f T_fᴴ → FB, smoothing and the
+  narrowband estimators;
 * the narrowband planes path (c3: calibration correction, forward-backward
   averaging, spatial smoothing; subspace_method="eigh"; (re, im) planes
   input) — planes chunk-Gram kernel (kernel 8) → covariance planes →
@@ -28,14 +35,18 @@ Covered so far (``build_pipeline_torch``):
 ROADMAP.md lists what is still to port.
 """
 
-from doa_tpu import configs
-from doa_tpu.configs import (
+from doa_tpu_torch import configs
+from doa_tpu_torch.configs import (
     ArrayGeometry,
     AvgMethod,
     DoaConfig,
     Estimator,
     GridSpec1D,
+    GridSpec2D,
     PRESETS,
+    SmoothingSpec,
+    WidebandSpec,
+    as_config,
 )
 
 
@@ -53,6 +64,10 @@ __all__ = [
     "DoaConfig",
     "Estimator",
     "GridSpec1D",
+    "GridSpec2D",
     "PRESETS",
+    "SmoothingSpec",
+    "WidebandSpec",
+    "as_config",
     "build_pipeline_torch",
 ]

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from doa_tpu.configs import ArrayGeometry, GridSpec1D, GridSpec2D
+from doa_tpu_torch.configs import ArrayGeometry, GridSpec1D, GridSpec2D
 
 
 def grid_angles_1d(grid: GridSpec1D) -> np.ndarray:

@@ -1,27 +1,41 @@
-"""Wideband DoA by per-subband channelization and incoherent fusion —
-port of the power path of doa_tpu/ops/wideband.py.
+"""Wideband DoA by per-subband channelization and incoherent or coherent
+fusion — port of the power path of doa_tpu/ops/wideband.py.
 
 An F-point DFT channelizer splits the capture into F subband streams at
-rate 1/F (ops/cuda/wideband_cov.py); each subband gets its own signal
-subspace (here) and its own steering grid, at the effective spacing
-d·(1 + f·fractional_bw) a subband at baseband offset f sees; the fused
-spectrum is the mean of the subbands' max-normalised MUSIC spectra
-(ops/cuda/wideband_scan.py).
+rate 1/F (ops/cuda/wideband_cov.py); a subband at baseband offset f sees
+the effective element spacing d·(1 + f·fractional_bw).
 
-Ported so far: the steering stack, the subspaces from the front end's
-embedded covariances (warm and cold) and the incoherent fusion. The
-complex-stream channelizer, CSSM, cssm_auto, TOPS and the hierarchical
-scan are not (ROADMAP.md, queue A.4).
+* Incoherent fusion: each subband gets its own signal subspace and its
+  own steering grid; the fused spectrum is the mean of the subbands'
+  max-normalised MUSIC spectra (ops/cuda/wideband_scan.py).
+* CSSM (coherent): unitary focusing matrices T_f rotate each subband
+  covariance onto the reference manifold, R_coh = mean_f T_f R_f T_fᴴ,
+  and the narrowband estimators run on R_coh. "cssm" focuses at a static
+  direction set (focusing_matrices, host numpy, once per pipeline);
+  "cssm_auto" peaks a coarse incoherent spectrum of the capture-mean
+  subband covariances and focuses at runtime (runtime_focusing: steering
+  at the found angles, Newton–Schulz polar factor).
+
+The complex-stream channelizer, TOPS and the hierarchical scan are not
+ported (ROADMAP.md, queue A.4). Complex values are torch complex64; every
+product runs in true FP32 (cpx.fp32_matmuls).
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
-from doa_tpu.configs import DoaConfig
-from doa_tpu_torch.ops.cpx_ops import signal_subspace_from_E_T
+from doa_tpu_torch.configs import DoaConfig
+from doa_tpu_torch.cpx import fp32_matmuls
+from doa_tpu_torch.ops.cpx_ops import (music_denominator_subspace,
+                                       signal_subspace_embedded,
+                                       signal_subspace_from_E_T,
+                                       spectrum_from_den)
 from doa_tpu_torch.ops.cuda.wideband_scan import wideband_fused_spectrum
+from doa_tpu_torch.ops.peaks import find_local_max, find_local_max_2d
 
 
 def subband_center_freqs(num_subbands: int) -> np.ndarray:
@@ -86,3 +100,210 @@ def wideband_music(E_sub: torch.Tensor, At_emb: torch.Tensor,
     (nrm f32[F, G] its squared norms)."""
     return wideband_fused_spectrum(subband_subspaces_from_E(E_sub, cfg),
                                    At_emb, nrm)
+
+
+# ---------------------------------------------------------------------
+# Coherent fusion: CSSM with unitary RSS focusing (Hung & Kaveh)
+# ---------------------------------------------------------------------
+
+def focusing_directions(cfg: DoaConfig):
+    """J focusing directions spanning the scan field of view (doa_tpu's
+    rule: J = num_focus_angles or 2N, interior points of the grid's
+    range) → theta_deg (J,) for a ULA; (az_deg, el_deg) each (J,) for a
+    URA, on a ceil(√J) × ceil(√J) az/el lattice."""
+    J = cfg.wideband.num_focus_angles or 2 * cfg.geometry.num_elements
+    if cfg.geometry.kind == "ula":
+        return np.linspace(cfg.grid.lo_deg, cfg.grid.hi_deg,
+                           J + 2)[1:-1].astype(np.float64)
+    g2 = cfg.grid2d
+    ja = int(np.ceil(np.sqrt(J)))
+    az = np.linspace(g2.az_lo_deg, g2.az_hi_deg, ja + 2)[1:-1]
+    el = np.linspace(g2.el_lo_deg, g2.el_hi_deg, ja + 2)[1:-1]
+    azg, elg = np.meshgrid(az, el, indexing="ij")
+    return azg.ravel(), elg.ravel()
+
+
+def _focus_steering(cfg: DoaConfig, spacing: float) -> np.ndarray:
+    """(N, J) complex128 steering columns of the full array (focusing
+    precedes spatial smoothing) at the focusing directions, at an
+    effective spacing."""
+    dirs = focusing_directions(cfg)
+    N = cfg.geometry.num_elements
+    if cfg.geometry.kind == "ula":
+        theta = np.deg2rad(np.asarray(dirs))
+        k = np.arange(N)
+        A = np.exp(-2j * np.pi * spacing * np.cos(theta)[:, None] * k)
+        return A.T
+    az, el = (np.deg2rad(d) for d in dirs)
+    ux = np.cos(el) * np.sin(az)
+    uy = np.cos(el) * np.cos(az)
+    nx, ny = cfg.geometry.shape
+    ix = np.arange(nx)[:, None]
+    iy = np.arange(ny)[None, :]
+    phase = -2 * np.pi * spacing * (ux[:, None, None] * ix
+                                    + uy[:, None, None] * iy)
+    return np.exp(1j * phase).reshape(len(ux), nx * ny).T
+
+
+def focusing_matrices(cfg: DoaConfig) -> np.ndarray:
+    """Unitary focusing matrices T complex64[F, N, N], host numpy: per
+    subband the unitary Procrustes solution min ‖B₀ − T B_f‖ over unitary
+    T, B_f the (N, J) steering at the focusing directions — T_f = U Vᴴ
+    from the SVD B₀ B_fᴴ = U Σ Vᴴ."""
+    B0 = _focus_steering(cfg, cfg.geometry.norm_spacing)
+    mats = []
+    for d in subband_spacings(cfg):
+        Bf = _focus_steering(cfg, float(d))
+        U, _, Vh = np.linalg.svd(B0 @ Bf.conj().T)
+        mats.append(U @ Vh)
+    return np.stack(mats, axis=0).astype(np.complex64)
+
+
+def device_ula_steering(theta_deg: torch.Tensor, num_elements: int,
+                        spacings: torch.Tensor) -> torch.Tensor:
+    """ULA steering at runtime angles: theta_deg f32[J] × spacings f32[S]
+    → complex64[S, J, N], a[s, j, n] = exp(−j2π·d_s·cos θ_j·n)."""
+    cs = torch.cos(torch.deg2rad(theta_deg))
+    n = torch.arange(num_elements, dtype=torch.float32,
+                     device=theta_deg.device)
+    ph = (-2.0 * math.pi) * (spacings[:, None, None] * cs[None, :, None]
+                             * n[None, None, :])
+    return torch.complex(torch.cos(ph), torch.sin(ph))
+
+
+def device_ura_steering(az_deg: torch.Tensor, el_deg: torch.Tensor, shape,
+                        spacings: torch.Tensor) -> torch.Tensor:
+    """URA steering at runtime (az, el) pairs: f32[J] each × spacings
+    f32[S] → complex64[S, J, N] (x-major flattening, as ura_grid)."""
+    az = torch.deg2rad(az_deg)
+    el = torch.deg2rad(el_deg)
+    ux = torch.cos(el) * torch.sin(az)
+    uy = torch.cos(el) * torch.cos(az)
+    nx, ny = shape
+    ix = torch.arange(nx, dtype=torch.float32, device=az.device)[:, None]
+    iy = torch.arange(ny, dtype=torch.float32, device=az.device)[None, :]
+    grid = ux[:, None, None] * ix + uy[:, None, None] * iy   # (J, nx, ny)
+    ph = (-2.0 * math.pi) * (spacings[:, None, None]
+                             * grid.reshape(grid.shape[0], -1)[None])
+    return torch.complex(torch.cos(ph), torch.sin(ph))
+
+
+def polar_unitary(M: torch.Tensor, iters: int = 20,
+                  eps: float = 1e-4) -> torch.Tensor:
+    """Batched unitary polar factor T = M (MᴴM + ε·tr̄·I)^(−1/2) of
+    complex64[..., N, N] by a coupled Newton–Schulz inverse square root,
+    then two polish steps T ← ½T(3I − TᴴT), in true FP32 (the reference
+    runs it at its TPU's fp32-class "tensorfloat32"). ε regularises
+    rank-deficient direction sets."""
+    N = M.shape[-1]
+    eye = torch.eye(N, dtype=M.dtype, device=M.device)
+    with fp32_matmuls():
+        G = M.mH @ M                                     # MᴴM ⪰ 0
+        trbar = torch.diagonal(G.real, dim1=-2, dim2=-1).sum(-1) / N
+        G = G + (eps * trbar)[..., None, None] * eye
+        # Frobenius scale ≥ λmax puts the spectrum in NS's (0, 1] basin
+        c = (G.real * G.real + G.imag * G.imag).sum((-2, -1)).sqrt()
+        c = c.clamp_min(1e-30)[..., None, None]
+        Y = G / c
+        Z = eye.expand(Y.shape).clone()
+        for _ in range(iters):                           # Z → Y^(−1/2)
+            Tns = 0.5 * (3.0 * eye - Z @ Y)
+            Y = Y @ Tns
+            Z = Tns @ Z
+        T = M @ (Z / c.sqrt())                           # M (MᴴM)^(−1/2)
+        for _ in range(2):
+            T = T @ (0.5 * (3.0 * eye - T.mH @ T))
+    return T
+
+
+def runtime_focusing(P: torch.Tensor, cfg: DoaConfig, spacings,
+                     sector_halfwidth_deg: float = 2.0,
+                     sector_weight: float = 2.0) -> torch.Tensor:
+    """Coarse fused spectrum P f32[1, G] → unitary focusing matrices
+    complex64[len(spacings) − 1, N, N] for spacings[1:] (spacings[0] is
+    the reference): peak P (1-D or 2-D, the plain peak rules), focus at
+    the found sector (each peak ± the half-width, weighted
+    sector_weight) plus the static direction set, steering at runtime
+    angles, Newton–Schulz polar factor."""
+    hw = sector_halfwidth_deg
+    dev = P.device
+    spac = torch.as_tensor(np.asarray(spacings, np.float32), device=dev)
+    K = cfg.num_sources
+    if cfg.geometry.kind == "ura":
+        g2 = cfg.grid2d
+        _, azp, elp = find_local_max_2d(
+            P.reshape(1, g2.num_az, g2.num_el), K,
+            (g2.az_lo_deg, g2.az_hi_deg), (g2.el_lo_deg, g2.el_hi_deg))
+        offs = [(0.0, 0.0), (hw, 0.0), (-hw, 0.0), (0.0, hw), (0.0, -hw)]
+        sec_az = torch.cat([azp[0] + da for da, _ in offs])
+        sec_el = torch.cat([elp[0] + de for _, de in offs])
+        uni_az, uni_el = (torch.from_numpy(d.astype(np.float32)).to(dev)
+                          for d in focusing_directions(cfg))
+        n_sec, n_uni = sec_az.numel(), uni_az.numel()
+        A_all = device_ura_steering(torch.cat([sec_az, uni_az]),
+                                    torch.cat([sec_el, uni_el]),
+                                    cfg.geometry.shape, spac)
+    else:
+        _, th = find_local_max(P, K, cfg.grid.lo_deg, cfg.grid.hi_deg)
+        offs = torch.tensor([-hw, 0.0, hw], dtype=torch.float32, device=dev)
+        sector = (th[0][:, None] + offs[None, :]).reshape(-1)
+        uni = torch.from_numpy(np.asarray(focusing_directions(cfg),
+                                          np.float32)).to(dev)
+        n_sec, n_uni = sector.numel(), uni.numel()
+        A_all = device_ula_steering(torch.cat([sector, uni]),
+                                    cfg.geometry.num_elements, spac)
+    wts = torch.cat([torch.full((n_sec,), sector_weight, device=dev),
+                     torch.ones(n_uni, device=dev)])
+    B0w = A_all[0] * wts[:, None]                         # (J, N)
+    with fp32_matmuls():
+        M = B0w.transpose(0, 1) @ A_all[1:].conj()        # B₀ diag(w) B_fᴴ
+    return polar_unitary(M)
+
+
+def cssm_covariance(R_sub: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """Subband covariances R_sub complex64[F, B, N, N] (Hermitian) and
+    focusing matrices T complex64[F, N, N] → the focused coherent
+    covariance complex64[B, N, N] = mean_f T_f R_f T_fᴴ.
+
+    As GEMMs with no batch broadcast: R_f's windows side by side are
+    (R_f viewed (B·N, N))ᴴ, since each R_f[b] is Hermitian, so T_f R_f[b]
+    for every b is one product (N, N)·(N, B·N); its rows, viewed
+    (N·B, N), times T_fᴴ accumulate over f in one (N·B, N) sum."""
+    F, B, N, _ = R_sub.shape
+    acc = torch.zeros((N * B, N), dtype=R_sub.dtype, device=R_sub.device)
+    with fp32_matmuls():
+        TR = torch.matmul(T, R_sub.reshape(F, B * N, N).mH)  # (F, N, B·N)
+        for f in range(F):
+            acc.addmm_(TR[f].reshape(N * B, N), T[f].mH)
+    return (acc / F).reshape(N, B, N).permute(1, 0, 2).contiguous()
+
+
+def coarse_fused_spectrum(R_mean: torch.Tensor, At_emb: torch.Tensor,
+                          cfg: DoaConfig) -> torch.Tensor:
+    """The coarse pass of "cssm_auto": capture-mean subband covariances
+    R_mean complex64[F, N, N] → the mean over subbands of their
+    max-normalised MUSIC spectra f32[1, G] on the per-subband embedded
+    steering At_emb f32[F, G, 2N] (cold subspaces, max(power_iters, 16)
+    rounds)."""
+    V = signal_subspace_embedded(R_mean.real.contiguous(),
+                                 R_mean.imag.contiguous(), cfg.num_sources,
+                                 iters=max(cfg.power_iters, 16))
+    P = [spectrum_from_den(music_denominator_subspace(V[f:f + 1], At_emb[f]))
+         for f in range(V.shape[0])]
+    return torch.stack(P).mean(dim=0)
+
+
+def auto_focused_covariance(R_sub: torch.Tensor, At_emb: torch.Tensor,
+                            cfg: DoaConfig,
+                            sector_halfwidth_deg: float = 2.0,
+                            sector_weight: float = 2.0) -> torch.Tensor:
+    """Two-pass auto-focused CSSM (fusion="cssm_auto"): the coarse
+    incoherent spectrum of the capture-mean subband covariances, its
+    peaks as runtime focusing directions (runtime_focusing), then
+    R_coh = mean_f T_f R_f T_fᴴ. R_sub complex64[F, B, N, N]; At_emb the
+    per-subband embedded steering f32[F, G, 2N]."""
+    P = coarse_fused_spectrum(R_sub.mean(dim=1), At_emb, cfg)
+    spac = np.concatenate([[cfg.geometry.norm_spacing],
+                           subband_spacings(cfg)]).astype(np.float32)
+    T = runtime_focusing(P, cfg, spac, sector_halfwidth_deg, sector_weight)
+    return cssm_covariance(R_sub, T)

@@ -8,7 +8,7 @@ from typing import Dict, Optional
 
 import torch
 
-from doa_tpu.configs import DoaConfig
+from doa_tpu_torch.configs import DoaConfig
 from doa_tpu_torch.ops import steering as steer_ops
 
 

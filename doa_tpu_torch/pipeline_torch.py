@@ -23,14 +23,22 @@ input on either path):
       (on a fused config, planes input embeds E(R) and joins the fused
       path downstream)
 
-Wideband, incoherent fusion (c5):
+Wideband (c5; planes input is stacked once into the interleaved layout):
     capture x[T, 2N]
-      → FFT channelizer + subband Grams → E_sub f32[F, B, 2N, 2N]
-                                                   ops/cuda/wideband_cov
+      → front end → E_sub f32[F, B, 2N, 2N]         ops/cuda/wideband_cov
+        (power-of-two F: the FFT-channelizer Gram kernel 4; any other F:
+        the dense channelizer matmul + the embedded subband Gram kernel 7)
+    incoherent fusion:
       → per-subband warm-start MGS subspaces (K4) Vt f32[F, B, 2K, 2N]
                                                    ops/wideband
       → fused subband scan + fusion → P f32[B, G]  ops/cuda/wideband_scan
       → 2-D peaks (az/el grids) or find_local_max  ops/cuda/peaks2d
+    coherent fusion ("cssm": static focusing; "cssm_auto": focusing at the
+    peaks of a coarse incoherent spectrum of the capture-mean subband
+    covariances, cold K4 on F matrices):
+      → R_coh = mean_f T_f R_f T_fᴴ c64[B, N, N]    ops/wideband
+      → FB → smoothing → the narrowband estimators (cold K4 + K3/K2,
+        eigh, Capon, Bartlett) as on the planes path
 
 Every product carrying a value runs in true FP32 (cpx.fp32_matmuls). On a
 CUDA device every kernel launch either runs or raises; nothing falls back
@@ -42,7 +50,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from doa_tpu.configs import AvgMethod, DoaConfig, Estimator
+from doa_tpu_torch.configs import AvgMethod, DoaConfig, Estimator, as_config
 from doa_tpu_torch.cpx import embed_planes, fp32_matmuls, unembed_planes
 from doa_tpu_torch.io.native import quantize_interleaved_int8
 from doa_tpu_torch.ops import cpx_ops
@@ -51,9 +59,14 @@ from doa_tpu_torch.ops.cuda.cov_embedded import cov_embedded
 from doa_tpu_torch.ops.cuda.music_scan import (
     MAX_FUSED_G, MAX_FUSED_K, music_scan, music_scan_peaks)
 from doa_tpu_torch.ops.cuda.peaks2d import MAX_PEAKS2D_K, peaks2d
-from doa_tpu_torch.ops.cuda.wideband_cov import wideband_cov_embedded
+from doa_tpu_torch.ops.cuda.wideband_cov import (channelizer_matrix,
+                                                 resolve_variant,
+                                                 wideband_cov_embedded)
 from doa_tpu_torch.ops.peaks import find_local_max, find_local_max_2d
-from doa_tpu_torch.ops.wideband import wideband_music, wideband_steering_stack
+from doa_tpu_torch.ops.wideband import (auto_focused_covariance,
+                                        cssm_covariance, focusing_matrices,
+                                        wideband_music,
+                                        wideband_steering_stack)
 from doa_tpu_torch.pipeline import DoaResult, _steering_fn, _steering_matrix
 
 _ESTIMATORS = (Estimator.MUSIC, Estimator.CAPON, Estimator.BARTLETT)
@@ -65,19 +78,27 @@ def _check_slice(cfg: DoaConfig) -> None:
     todo = []
     wb = cfg.wideband
     if wb.enabled:
-        if wb.fusion != "incoherent":
-            todo.append(f"wideband fusion={wb.fusion!r} (queue A.4)")
-        if wb.num_subbands & (wb.num_subbands - 1):
-            todo.append(f"num_subbands={wb.num_subbands}, not a power of "
-                        "two: the dense-channelizer kernel (queue B.7)")
+        if cfg.snapshot_size % wb.num_subbands:
+            raise ValueError(f"snapshot_size ({cfg.snapshot_size}) must be "
+                             f"divisible by num_subbands ({wb.num_subbands})")
+        if wb.fusion == "tops":
+            todo.append("wideband fusion='tops' (queue A.4)")
         if cfg.compute_dtype != "float32":
-            todo.append(f"wideband compute_dtype={cfg.compute_dtype!r} "
-                        "(queue A.4)")
-        if cfg.smoothing.enabled or cfg.subspace_method != "power":
-            todo.append("wideband with smoothing or subspace_method="
-                        f"{cfg.subspace_method!r} (queue A.4)")
-        if tuple(cfg.estimators) != (Estimator.MUSIC,):
-            todo.append("wideband estimators other than MUSIC (queue A.4)")
+            todo.append(f"the quantized wideband scans, compute_dtype="
+                        f"{cfg.compute_dtype!r} (queue A.4)")
+        if wb.fusion == "incoherent":
+            if cfg.smoothing.enabled or cfg.subspace_method != "power":
+                todo.append("incoherent fusion with smoothing or "
+                            f"subspace_method={cfg.subspace_method!r} "
+                            "(queue A.4)")
+            if tuple(cfg.estimators) != (Estimator.MUSIC,):
+                todo.append("incoherent fusion with estimators other than "
+                            "MUSIC (queue A.4)")
+        if (wb.fusion == "cssm_auto" and cfg.smoothing.enabled
+                and cfg.geometry.kind == "ula"):
+            todo.append("cssm_auto with smoothing: the reference's coarse "
+                        "pass scans the subarray's steering against the "
+                        "full array's covariances (queue A.4)")
     elif cfg.cov_dtype == "int8" and not _fused(cfg):
         todo.append("cov_dtype='int8' on the planes path (ROADMAP.md §C)")
     if cfg.beamspace.enabled:
@@ -97,7 +118,8 @@ def _check_slice(cfg: DoaConfig) -> None:
     if todo:
         raise NotImplementedError(
             "doa_tpu_torch ports the narrowband fused and planes paths and "
-            "the wideband incoherent path; not yet ported: "
+            "the wideband incoherent, cssm and cssm_auto paths; not yet "
+            "ported: "
             + "; ".join(todo) + " — see ROADMAP.md")
 
 
@@ -131,14 +153,16 @@ def _correction_planes(correction, N, device: torch.device):
             torch.from_numpy(np.ascontiguousarray(c.imag)).to(device))
 
 
-def load_state(A_re, A_im, correction=None, *, device,
-               subband_planes=None) -> dict:
+def load_state(A_re, A_im, correction=None, *, device="cuda",
+               subband_planes=None, focusing=None) -> dict:
     """The pipeline's state — steering planes A_re, A_im f32[G, N_eff], the
     calibration correction c64[N] (None = no correction) and, for a
     wideband config, the per-subband steering planes
     subband_planes = (re, im) f32[F, G, N] (doa_tpu's
-    ``call.wb_ilv_args[1:]``; None = build them from the config), all
-    numpy — as device tensors, for build_pipeline_torch(state=...)."""
+    ``call.wb_ilv_args[1:]``; incoherent and cssm_auto) or the focusing
+    matrices focusing = (re, im) f32[F, N, N] (doa_tpu's
+    ``focusing_matrices(cfg)``; cssm), None = build them from the config,
+    all numpy — as device tensors, for build_pipeline_torch(state=...)."""
     dev = _device(device)
     A_re = np.array(A_re, dtype=np.float32)
     A_im = np.array(A_im, dtype=np.float32)
@@ -159,6 +183,14 @@ def load_state(A_re, A_im, correction=None, *, device,
                              f"{Xi.shape}")
         state["As_re"] = torch.from_numpy(Xr).to(dev)
         state["As_im"] = torch.from_numpy(Xi).to(dev)
+    if focusing is not None:
+        Tr, Ti = (np.array(p, dtype=np.float32) for p in focusing)
+        if (Tr.ndim != 3 or Tr.shape != Ti.shape
+                or Tr.shape[1] != Tr.shape[2]):
+            raise ValueError(f"need focusing planes f32[F, N, N] of one "
+                             f"shape, got {Tr.shape} and {Ti.shape}")
+        state["T"] = torch.complex(torch.from_numpy(Tr),
+                                   torch.from_numpy(Ti)).to(dev)
     return state
 
 
@@ -183,7 +215,8 @@ def compute_covariances(xr: torch.Tensor, xi: torch.Tensor, cfg: DoaConfig,
     return Rr, Ri
 
 
-def build_pipeline_torch(cfg: DoaConfig, *, device, refine_peaks: bool = True,
+def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
+                         refine_peaks: bool = True,
                          return_spectra: bool = True,
                          return_covariance: bool = False,
                          state: dict | None = None):
@@ -222,15 +255,22 @@ def build_pipeline_torch(cfg: DoaConfig, *, device, refine_peaks: bool = True,
     reference's quantized forms as torch ops. subspace_method="eigh" scans
     the eigh noise projector. Capon (Cholesky) and Bartlett scan R.
 
-    Wideband (cfg.wideband.enabled; incoherent fusion, power-of-two
-    num_subbands): the FFT-channelizer front end, the per-subband
-    subspaces, the fused subband scan and the peaks; the fused spectrum
-    is always returned and the escalation counts are None, as in the
-    reference. cov_dtype and forward-backward averaging do not apply
-    there, as in the reference. The reference's wb_fusion_impl and
-    peaks_impl switches choose between its TPU kernels and XLA; here the
-    kernels always run."""
+    Wideband (cfg.wideband.enabled; S divisible by num_subbands): the
+    front end (FFT-channelizer kernel for a power-of-two num_subbands,
+    dense channelizer + kernel 7 otherwise). Incoherent fusion: the
+    per-subband subspaces, the fused subband scan and the peaks; the
+    fused spectrum is always returned and the escalation counts are None,
+    as in the reference; forward-backward averaging does not apply there.
+    "cssm" / "cssm_auto": R_coh, then FB, smoothing and the narrowband
+    estimators on the planes path's route, escalation counts included.
+    cov_dtype does not apply to the wideband path, as in the reference.
+    The reference's wb_fusion_impl and peaks_impl switches choose between
+    its TPU kernels and XLA; here the kernels always run.
+
+    `cfg` may be a doa_tpu_torch or a doa_tpu DoaConfig; call.config is
+    the port's own (as_config(cfg))."""
     dev = _device(device)
+    cfg = as_config(cfg)
     _check_slice(cfg)
     N = cfg.geometry.num_elements
     K = cfg.num_sources
@@ -264,6 +304,18 @@ def build_pipeline_torch(cfg: DoaConfig, *, device, refine_peaks: bool = True,
     subband_planes = None
     if wb:
         F = cfg.wideband.num_subbands
+        fusion = cfg.wideband.fusion
+        K_chan = (torch.from_numpy(channelizer_matrix(F, N)).to(dev)
+                  if resolve_variant(F, "auto") != "fft" else None)
+    if wb and fusion == "cssm":
+        T_foc = state.get("T")
+        if T_foc is None:
+            T_foc = torch.from_numpy(focusing_matrices(cfg)).to(dev)
+        elif tuple(T_foc.shape) != (F, N, N):
+            raise ValueError(f"state focusing {tuple(T_foc.shape)} does not "
+                             f"match ({F}, {N}, {N})")
+        T_foc = T_foc.to(dev)
+    elif wb:
         if "As_re" in state:
             Xr, Xi = state["As_re"].to(dev), state["As_im"].to(dev)
             if tuple(Xr.shape) != (F,) + A_host.shape:
@@ -358,12 +410,30 @@ def build_pipeline_torch(cfg: DoaConfig, *, device, refine_peaks: bool = True,
             covariance=torch.complex(*R) if return_covariance else None,
             escalation_flagged=stats[0], escalation_overflow=stats[1])
 
+    def _coherent(E_sub):
+        """E_sub → the focused covariance planes after FB and smoothing."""
+        R_sub = torch.complex(*unembed_planes(E_sub))
+        if fusion == "cssm_auto":
+            R = auto_focused_covariance(R_sub, As_emb, cfg)
+        else:
+            R = cssm_covariance(R_sub, T_foc)
+        del R_sub
+        Rr, Ri = R.real.contiguous(), R.imag.contiguous()
+        if fb:
+            Rr, Ri = cpx_ops.forward_backward(Rr, Ri)
+        if cfg.smoothing.enabled:
+            Rr, Ri = cpx_ops.spatial_smooth(Rr, Ri,
+                                            cfg.smoothing.subarray_size)
+        return Rr, Ri
+
     def run_interleaved(x: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor):
         with fp32_matmuls():
             if wb:
                 E_sub = wideband_cov_embedded(
-                    x, cr, ci, N=N, F=cfg.wideband.num_subbands,
-                    snapshot_size=cfg.snapshot_size, overlap=cfg.overlap)
+                    x, cr, ci, N=N, F=F, snapshot_size=cfg.snapshot_size,
+                    overlap=cfg.overlap, K=K_chan)
+                if fusion != "incoherent":
+                    return _estimate(_coherent(E_sub), None)
                 P = wideband_music(E_sub, As_emb, As_nrm, cfg)
                 v, l = _peaks(P)
                 return DoaResult(spectra={"music": P},
@@ -377,9 +447,9 @@ def build_pipeline_torch(cfg: DoaConfig, *, device, refine_peaks: bool = True,
     def run_planes(xr: torch.Tensor, xi: torch.Tensor, cr: torch.Tensor,
                    ci: torch.Tensor):
         if wb:
-            raise NotImplementedError(
-                "planes input on the wideband path (queue A.4, ROADMAP.md): "
-                "pass a complex64 capture or use call.interleaved")
+            # the front end reads the interleaved layout: stack once
+            return run_interleaved(torch.stack([xr, xi], dim=-1).reshape(
+                -1, 2 * N), cr, ci)
         with fp32_matmuls():
             # the fused path's planes route: f32 Grams whatever cov_dtype,
             # as the reference's XLA stacked Gram

@@ -128,7 +128,11 @@ def test_interleaved_entry_takes_both_layouts():
                           ).peak_angles["music"]
     torch.testing.assert_close(a1, a, rtol=0, atol=0)
     torch.testing.assert_close(a2, a, rtol=0, atol=0)
-    assert pipe.fast_path and pipe.config is cfg
+    assert pipe.fast_path
+    # the port hands back its own config, equal to the one passed
+    from doa_tpu_torch import configs as configs_t
+    assert type(pipe.config) is configs_t.DoaConfig
+    assert pipe.config == configs_t.as_config(cfg)
 
 
 def test_load_state_with_reference_steering():
@@ -208,21 +212,19 @@ def test_fp32_matmuls_scope():
 
 
 def test_port_never_imports_jax():
-    """In a fresh interpreter the port's pipeline loads no jax, and of
-    doa_tpu only the modules shared by design."""
+    """In a fresh interpreter every module of the port, and chip_smoke
+    (imported, not run), load neither jax nor any module of doa_tpu."""
     code = (
-        "import sys, doa_tpu_torch.pipeline_torch, "
-        "doa_tpu_torch.ops.cuda.cov_embedded, "
-        "doa_tpu_torch.ops.cuda.music_scan, doa_tpu_torch.ops.wideband, "
-        "doa_tpu_torch.ops.cuda.wideband_cov, "
-        "doa_tpu_torch.ops.cuda.wideband_scan, "
-        "doa_tpu_torch.ops.cuda.peaks2d, doa_tpu_torch.ops.cuda.covariance, "
-        "doa_tpu_torch.ops.subspace, doa_tpu_torch.calib\n"
-        "assert 'jax' not in sys.modules, 'jax imported'\n"
-        "shared = {'doa_tpu', 'doa_tpu.configs'}\n"
-        "extra = {m for m in sys.modules if m.startswith('doa_tpu.')"
-        " or m == 'doa_tpu'} - shared\n"
-        "assert not extra, extra\n"
+        "import importlib, pkgutil, sys\n"
+        "import doa_tpu_torch, chip_smoke\n"
+        "for m in pkgutil.walk_packages(doa_tpu_torch.__path__, "
+        "'doa_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'doa_tpu' or "
+        "m.startswith('doa_tpu.'))\n"
+        "assert not bad, bad\n"
+        "assert 'doa_tpu_torch.ops.wideband' in sys.modules\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -240,6 +242,54 @@ def test_cuda_device_raises_without_a_card():
         load_state(np.ones((4, 8)), np.zeros((4, 8)), device="cuda")
 
 
+@pytest.mark.parametrize("name", sorted(PRESETS))
+def test_as_config_gives_the_ports_presets(name):
+    """doa_tpu_torch.configs is a copy of doa_tpu.configs: as_config of
+    each reference preset equals the port's own preset, class for
+    class."""
+    from doa_tpu_torch import configs as configs_t
+    got = configs_t.as_config(PRESETS[name])
+    assert type(got) is configs_t.DoaConfig
+    assert got == configs_t.PRESETS[name]
+    assert type(got.geometry) is configs_t.ArrayGeometry
+    assert all(type(e) is configs_t.Estimator for e in got.estimators)
+    assert configs_t.as_config(got) is got
+
+
+def test_config_of_either_module_gives_the_same_result():
+    """One config built with doa_tpu.configs and with the port's own gives
+    the same DoaResult from build_pipeline_torch."""
+    from doa_tpu_torch import configs as configs_t
+    cfg_j = _cfg(overlap=128)
+    cfg_t = configs_t.DoaConfig(
+        geometry=configs_t.ArrayGeometry(kind="ula", num_elements=8,
+                                         norm_spacing=0.5),
+        snapshot_size=256, overlap=128, num_sources=2,
+        estimators=(configs_t.Estimator.MUSIC,),
+        grid=configs_t.GridSpec1D(num_points=256), num_max_vals=2)
+    assert configs_t.as_config(cfg_j) == cfg_t
+    x, c = _capture(B=12), _correction()
+    out_j = build_pipeline_torch(cfg_j, device="cpu")(x, c)
+    out_t = build_pipeline_torch(cfg_t, device="cpu")(x, c)
+    for f in dataclasses.fields(out_t):
+        a, b = getattr(out_j, f.name), getattr(out_t, f.name)
+        if isinstance(a, dict):
+            assert a.keys() == b.keys()
+            for k in a:
+                torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
+        elif isinstance(a, torch.Tensor):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        else:
+            assert a is None and b is None
+    with pytest.raises(TypeError, match="DoaConfig"):
+        configs_t.as_config(cfg_j.geometry)
+
+
+def test_subbands_must_divide_the_snapshot():
+    with pytest.raises(ValueError, match="divisible"):
+        build_pipeline_torch(_c5_with(num_subbands=12), device="cpu")
+
+
 def _c5_with(**wideband):
     c5 = PRESETS["c5_ura64_wideband"]
     return dataclasses.replace(
@@ -253,7 +303,11 @@ _OUTSIDE = {
     "c3_ula16_calib_smooth": lambda: dataclasses.replace(
         PRESETS["c3_ula16_calib_smooth"], subspace_method="jacobi"),
     "c5_tops": lambda: _c5_with(fusion="tops"),
-    "c5_12_subbands": lambda: _c5_with(num_subbands=12),
+    "c5_eigh": lambda: dataclasses.replace(
+        PRESETS["c5_ura64_wideband"], subspace_method="eigh"),
+    "c5_cssm_esprit": lambda: dataclasses.replace(
+        _c5_with(fusion="cssm"), estimators=(Estimator.MUSIC,
+                                             Estimator.ESPRIT)),
     "c5_hierarchical": lambda: dataclasses.replace(
         PRESETS["c5_ura64_wideband"], scan_mode="hierarchical"),
     "c5_bf16_scan": lambda: dataclasses.replace(

@@ -18,11 +18,13 @@ import jax.numpy as jnp
 
 from doa_tpu.configs import (ArrayGeometry, DoaConfig, Estimator, GridSpec2D,
                              PRESETS, WidebandSpec)
+from doa_tpu.cpx import Cpx
 from doa_tpu.io.synthetic import SourceSpec, synth_wideband_ura_iq
 from doa_tpu.ops import peaks as peaks_jax
 from doa_tpu.ops import wideband as wideband_jax
 from doa_tpu.ops.pallas.cov_embedded import interleave_factor
 from doa_tpu.ops.pallas.peaks2d import find_local_max_2d_pallas
+from doa_tpu.ops.pallas import wideband_cov as wideband_cov_jax
 from doa_tpu.ops.pallas.wideband_cov import wideband_cov_embedded_pallas
 from doa_tpu.ops.pallas.wideband_scan import wideband_fused_spectrum_pallas
 from doa_tpu.pipeline_tpu import build_pipeline_tpu
@@ -113,15 +115,126 @@ def test_front_end_exact_on_integer_frames():
 def test_front_end_rules():
     x = torch.zeros((4096, 16))
     one, zero = torch.ones(8), torch.zeros(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # a non-power-of-two F takes the dense channelizer ("auto"); the fft
+    # variant refuses it, as the reference's
+    assert wideband_cov.resolve_variant(12, "auto") == "embedded"
+    assert wideband_cov.resolve_variant(16, "auto") == "fft"
+    with pytest.raises(ValueError, match="power-of-two"):
         wideband_cov.wideband_cov_embedded(x, one, zero, N=8, F=12,
-                                           snapshot_size=240)
+                                           snapshot_size=240, variant="fft")
+    with pytest.raises(ValueError, match="variant"):
+        wideband_cov.wideband_cov_embedded(x, one, zero, N=8, F=8,
+                                           snapshot_size=256, variant="dft")
     with pytest.raises(ValueError, match="divisible"):
         wideband_cov.wideband_cov_embedded(x, one, zero, N=8, F=8,
                                            snapshot_size=100)
     with pytest.raises(ValueError, match="shorter"):
         wideband_cov.wideband_cov_embedded(x[:200], one, zero, N=8, F=8,
                                            snapshot_size=256)
+
+
+def _stream(F, N, g, n, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n * g, F * 2 * N)).astype(np.float32),
+            _correction(N, seed).real.copy(), _correction(N, seed).imag.copy())
+
+
+@pytest.mark.parametrize("F", [6, 8])
+def test_subband_embedded_matches_reference(F):
+    """Kernel 7's plain version against subband_embedded_pallas (interpret
+    mode, one chunk a block) on a channelized stream, correction and scale
+    folded: within 2e-5·max|E| (the reference's bf16 hi/lo Gram keeps ~16
+    mantissa bits of each input)."""
+    N, g, n = 8, 16, 5
+    y, cr, ci = _stream(F, N, g, n, seed=F)
+    E_ref = np.asarray(wideband_cov_jax.subband_embedded_pallas(
+        jnp.asarray(y), jnp.asarray(cr), jnp.asarray(ci), F=F, N=N, g=g,
+        scale=1.0 / g, chunks_per_block=1, interpret=True))
+    E = wideband_cov.subband_embedded(
+        torch.from_numpy(y), torch.from_numpy(cr), torch.from_numpy(ci), F=F,
+        N=N, g=g, scale=1.0 / g).numpy()
+    assert E.shape == E_ref.shape == (F, n, 2 * N, 2 * N)
+    np.testing.assert_allclose(E, E_ref, rtol=0,
+                               atol=2e-5 * np.abs(E_ref).max())
+
+
+@pytest.mark.parametrize("sb_group", [1, 2])
+def test_subband_grams_matches_reference(sb_group):
+    """Kernel 10's plain version against subband_grams_pallas (interpret
+    mode) at both sb_group settings, within 2e-5·max|U|; the port accepts
+    sb_group and its output does not depend on it."""
+    F, N, g, n = 6, 8, 16, 5
+    y, _, _ = _stream(F, N, g, n, seed=7)
+    U_ref = np.asarray(wideband_cov_jax.subband_grams_pallas(
+        jnp.asarray(y), F=F, N=N, g=g, sb_group=sb_group,
+        chunks_per_block=1, interpret=True))
+    U = wideband_cov.subband_grams(torch.from_numpy(y), F=F, N=N, g=g,
+                                   sb_group=sb_group)
+    np.testing.assert_allclose(U.numpy(), U_ref, rtol=0,
+                               atol=2e-5 * np.abs(U_ref).max())
+    torch.testing.assert_close(U, wideband_cov.subband_grams(
+        torch.from_numpy(y), F=F, N=N, g=g), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="sb_group"):
+        wideband_cov.subband_grams(torch.from_numpy(y), F=F, N=N, g=g,
+                                   sb_group=0)
+
+
+@pytest.mark.parametrize("F,N", [(6, 4), (12, 8), (16, 64)])
+def test_channelizer_matrix_bit_equal(F, N):
+    np.testing.assert_array_equal(wideband_cov.channelizer_matrix(F, N),
+                                  wideband_cov_jax.channelizer_matrix(F, N))
+
+
+@pytest.mark.parametrize("variant", ["embedded", "uhat"])
+@pytest.mark.parametrize("F,S,overlap", [(6, 384, 0), (12, 384, 48)])
+def test_front_end_variants_match_xla_reference(variant, F, S, overlap):
+    """The dense-channelizer variants at non-power-of-two F against the
+    reference's split-complex XLA route (subband_covariances on the
+    corrected stream), as tests/test_wideband_fast.py: R within
+    2e-5·max|R|."""
+    N, T = 8, 4096
+    rng = np.random.default_rng(F + overlap)
+    x = (rng.standard_normal((T, N))
+         + 1j * rng.standard_normal((T, N))).astype(np.complex64)
+    c = _correction(N, seed=F)
+    cfg = DoaConfig(geometry=ArrayGeometry(kind="ula", num_elements=N),
+                    snapshot_size=S, overlap=overlap,
+                    wideband=WidebandSpec(num_subbands=F, fractional_bw=0.1))
+    xc = x * c[None, :]
+    W = wideband_jax.dft_matrix(F)
+    R_ref = wideband_jax.subband_covariances(
+        Cpx(jnp.asarray(xc.real), jnp.asarray(xc.imag)),
+        Cpx(jnp.asarray(W.real), jnp.asarray(W.imag)), cfg)
+    E = wideband_cov.wideband_cov_embedded(
+        torch.from_numpy(np.ascontiguousarray(x).view(np.float32)),
+        torch.from_numpy(c.real.copy()), torch.from_numpy(c.imag.copy()),
+        N=N, F=F, snapshot_size=S, overlap=overlap, variant=variant).numpy()
+    Rr, Ri = np.asarray(R_ref.re), np.asarray(R_ref.im)
+    assert E.shape == Rr.shape[:2] + (2 * N, 2 * N)
+    tol = 2e-5 * np.abs(Rr).max()
+    np.testing.assert_allclose(E[..., :N, :N], Rr, rtol=0, atol=tol)
+    np.testing.assert_allclose(E[..., N:, :N], Ri, rtol=0, atol=tol)
+
+
+def test_subband_kernels_exact_on_integer_stream():
+    """Integer stream and correction, a power-of-two scale: every sum is
+    an exact integer, so the float32 plain versions of kernels 7 and 10
+    equal their float64 forms bit for bit (the card's exact check)."""
+    F, N, g = 10, 16, 24
+    rng = np.random.default_rng(9)
+    y = torch.from_numpy(rng.integers(-4, 5, (7 * g, F * 2 * N))
+                         .astype(np.float32))
+    cr = torch.from_numpy(rng.integers(-1, 3, N).astype(np.float32))
+    ci = torch.from_numpy(rng.integers(-1, 2, N).astype(np.float32))
+    kw = dict(F=F, N=N, g=g)
+    E32 = wideband_cov.subband_embedded(y, cr, ci, scale=1.0 / 16, **kw)
+    E64 = wideband_cov.subband_embedded_plain(y.double(), cr, ci,
+                                              scale=1.0 / 16, **kw)
+    torch.testing.assert_close(E32, E64, rtol=0, atol=0)
+    U32 = wideband_cov.subband_grams(y, **kw)
+    U64 = wideband_cov.subband_grams_plain(y.double(), **kw)
+    torch.testing.assert_close(U32, U64, rtol=0, atol=0)
+    assert U32.shape == E32.shape == (F, 7, 2 * N, 2 * N)
 
 
 @pytest.mark.parametrize("F,B,n2,k2,G", [(4, 10, 16, 4, 157),
