@@ -71,6 +71,26 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    the uhat entry (kernel 10); ULA-16 cssm with FB, smoothing to L=12,
    MUSIC + Capon on a 65/115 deg wideband scene (1024 windows, medians
    within 2.0 deg); the card against the CPU on 32 windows of each path.
+12. the fused path's opt-in kernels: kernel 11 (the cold Newton-Schulz
+   subspace) against its plain version on the headline's E (squarings 0,
+   and 2, which is outside the chain's envelope on this scene and held to
+   the plain version's own errors), at (2N, 2K) = (24, 6) and (16, 4) on
+   4096 windows and at (128, 4) on 2048 windows of c5's first subband:
+   projectors and orthonormality within the stated tolerances; kernel 9
+   (chunk Grams with the embedding, correction, FB and 1/S in the
+   epilogue) exact on integer-valued inputs at every tile form, within
+   1e-5 of max|E| at the headline shape (f32, bf16; overlaps 0 and 512),
+   and its route within 2e-5 of max|E| of the stacked K1 route.
+13. the paths: the headline with subspace_impl="pallas" in both
+   return_spectra modes (every window within 0.5 deg, escalation counts
+   0, kernel 11 launched and K4 not; 20 timed calls, a profile window);
+   the headline with subspace_check under both subspace_impl values; the
+   guard's hard scene (30:1 at 60/110 deg, 20 dB, power_iters=4) within
+   0.2 deg of the eigh run; scan_capture on the headline (8 blocks of
+   2^21, overlaps 0 and 512) and on c5 (4 blocks of 2^19, overlap 512),
+   each block equal to a per-block call with its carry; the
+   cov_embedded(variant="chunk") entry at T=2^24; the card against the
+   CPU on 64 windows of the two opt-in stages.
 
 Each kernel record gives its bound (the larger of its bytes over
 3.35 TB/s and the FP32 operations the function needs over 67 TFLOP/s,
@@ -106,7 +126,8 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
 SOURCES = ("cov_gram", "music_scan", "subspace", "wideband_cov",
-           "wideband_scan", "peaks2d", "covariance", "subband_gram")
+           "wideband_scan", "peaks2d", "covariance", "subband_gram",
+           "subspace_ns")
 # the published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s,
 # FP32 FLOP/s outside the tensor cores (every kernel here multiplies in FP32 on the CUDA cores)
 H100_BYTES_PER_S = 3.35e12
@@ -834,9 +855,10 @@ PILOT_DEG = 68.0
 def make_ula_capture(torch, T, N, sources, snr_db, device, seed):
     """A ULA capture by the model of doa_tpu.io.synth_ula_iq as the
     interleaved buffer x f32[T, N, 2] (complex64 bytes), made on the
-    device: each source (theta_deg, num, den) a unit tone of frequency
-    num/den cycles a sample with a random start phase (t·num mod den in
-    integers, so the phase is exact at any T), steered by
+    device: each source (theta_deg, num, den[, amplitude]) a tone of
+    amplitude 1 (or the one given) and frequency num/den cycles a sample
+    with a random start phase (t·num mod den in integers, so the phase is
+    exact at any T), steered by
     a_k = exp(−jπ·cos θ·k); complex white noise of power 10^(−snr/10) per
     element."""
     import numpy as np
@@ -849,10 +871,11 @@ def make_ula_capture(torch, T, N, sources, snr_db, device, seed):
     xc = torch.view_as_complex(x)
     t = torch.arange(T, device=device, dtype=torch.int64)
     k = torch.arange(N, device=device, dtype=torch.float64)
-    for theta, num, den in sources:
+    for theta, num, den, *amp in sources:
         ph = (2.0 * math.pi / den) * ((t * num) % den).to(torch.float64)
         ph += rng.uniform(0.0, 2.0 * math.pi)
-        s = torch.polar(torch.ones_like(ph), ph).to(torch.complex64)
+        s = torch.polar(torch.full_like(ph, amp[0] if amp else 1.0),
+                        ph).to(torch.complex64)
         a = torch.polar(torch.ones_like(k), -math.pi * math.cos(
             math.radians(theta)) * k).to(torch.complex64)
         xc += s[:, None] * a[None, :]
@@ -1707,6 +1730,460 @@ def coherent_phases(torch, dev, card):
     return recs, total
 
 
+# ---------------------------------------------------------------------
+# 12-13: the fused path's opt-in stages (kernel 11 under
+# subspace_impl="pallas", the subspace guard), scan_capture and kernel 9
+# ---------------------------------------------------------------------
+
+T_BLK = 1 << 21                    # scan_capture: 8 blocks of the capture
+T_HARD = 1 << 20                   # the guard's hard scene: 512 windows
+T_WB_BLK = 1 << 19                 # wideband scan_capture: 4 blocks
+B_SUB_SMALL = 4096                 # kernel 11 at (24, 6) and (16, 4)
+B_SUB_C5 = 2048                    # kernel 11 at (128, 4)
+NS_PROJ_TOL = 2e-5                 # kernel 11 vs plain: projectors
+NS_ORTH_TOL = 2e-4                 # ‖Vt Vtᵀ − I‖∞ of the kernel's rows (E⁴
+                                   # at 2N = 128 leaves ~7e-5 on the card)
+HARD_TOL = 0.2                     # guarded vs eigh angles, degrees
+
+
+def ns_flops(B, n2, k2, iters, squarings, ns_iters=12, ns_iters_mid=8):
+    """FP32 operations kernel 11's chain needs for B windows: the trace
+    scale, each squaring (the upper triangle of the symmetric E², n2²(n2+1)),
+    each apply (2·k2·n2²), each round's Gram (its upper triangle,
+    k2(k2+1)·n2) and output product (2·k2²·n2), and each Newton–Schulz
+    step (Z·Y, Y·T and T·Z are symmetric, being polynomials in the
+    preconditioned Gram: the upper triangle of each, 3·k2²(k2+1))."""
+    rounds = max(1, iters // (1 << squarings))
+    steps = (ns_iters * min(rounds, 2)
+             + ns_iters_mid * max(rounds - 2, 0))
+    per = (n2 * n2 + squarings * n2 * n2 * (n2 + 1)
+           + (rounds - 1) * 2 * k2 * n2 * n2
+           + rounds * (k2 * (k2 + 1) * n2 + 2 * k2 * k2 * n2)
+           + steps * 3 * k2 * k2 * (k2 + 1))
+    return B * per
+
+
+def ns_parity(torch, tag, E, K, squarings, iters=8):
+    """Kernel 11 against subspace_ns_plain on E: projectors VᵀV within
+    NS_PROJ_TOL, the kernel's rows orthonormal within NS_ORTH_TOL → the
+    projector error."""
+    from doa_tpu_torch.ops.cuda import subspace_ns as sns
+    Vk = sns.subspace_ns(E, K, iters=iters, squarings=squarings)
+    Vp = sns.subspace_ns_plain(E, K, iters=iters, squarings=squarings)
+    dp = 0.0
+    for lo in range(0, E.shape[0], 4096):            # projectors in slices
+        a, b = Vk[lo:lo + 4096], Vp[lo:lo + 4096]
+        dp = max(dp, (a.transpose(1, 2) @ a - b.transpose(1, 2) @ b)
+                 .abs().max().item())
+    eye = torch.eye(2 * K, device=E.device)
+    do = (Vk @ Vk.transpose(1, 2) - eye).abs().max().item()
+    dq = (Vp @ Vp.transpose(1, 2) - eye).abs().max().item()
+    log(f"kernel 11 {tag} (2N, 2K) = ({E.shape[-1]}, {2 * K}), {E.shape[0]} "
+        f"windows, squarings {squarings}, iters {iters}: max|projector "
+        f"kernel - plain| = {dp!r} (tol {NS_PROJ_TOL}), max|Vt Vtᵀ - I| = "
+        f"{do!r} (tol {NS_ORTH_TOL}; plain {dq!r})")
+    check(dp <= NS_PROJ_TOL and do <= NS_ORTH_TOL,
+          f"kernel 11 disagrees with plain at {tag}")
+    return dp
+
+
+def routes_vs_f64(torch, x, cr, ci, kw):
+    """Both covariance routes on the whole capture x against the same
+    windows summed in float64 (chunk Grams, prefix sums, embedding,
+    correction and FB): logs each route's max error as a fraction of
+    max|E|, and fails past 1e-2."""
+    from doa_tpu_torch.ops.cuda import cov_embedded as ce
+    S, ov = kw["snapshot_size"], kw["overlap"]
+    hop = S - ov
+    g = math.gcd(S, hop)
+    n = x.shape[0] // g
+    xd = x[:n * g].double().view(n, g, -1)
+    U = torch.bmm(xd.transpose(1, 2), xd)
+    del xd
+    Uw = ce.window_sums(U, (x.shape[0] - S) // hop + 1, S // g, hop // g)
+    del U
+    E64 = ce.uhat_windows_to_embedded(
+        Uw, kw["N"], 1.0 / S, ce.correction_pattern(cr.double(), ci.double()),
+        kw["fb"])
+    del Uw
+    sv = E64.abs().max().item()
+    Ev = {v: ce.cov_embedded(x, cr, ci, variant=v, **kw) for v in ce.VARIANTS}
+    errs = {v: (e.double() - E64).abs().max().item() / sv
+            for v, e in Ev.items()}
+    dv = (Ev["chunk"] - Ev["stacked"]).abs().max().item() / sv
+    log(f"cov_embedded overlap {ov}, {x.shape[0]} samples: max|chunk - "
+        f"stacked| / max|E64| = {dv!r}; against a float64 sum, max|E - E64|"
+        f" / max|E64| chunk {errs['chunk']!r}, stacked {errs['stacked']!r} "
+        f"(tol 1e-2)")
+    check(max(errs.values()) <= 1e-2,
+          f"a covariance route drifts from float64 at overlap {ov}")
+
+
+def opt_in_parity(torch, dev, x, card):
+    """Phase 12 → the records of kernels 11 and 9 (launches filled in
+    later). x: the headline capture f32[T_MAIN, 32] on the card."""
+    from doa_tpu_torch.cpx import fp32_matmuls
+    from doa_tpu_torch.ops.cuda import cov_embedded as ce
+    from doa_tpu_torch.ops.cuda import subspace_ns as sns
+    from doa_tpu_torch.ops.cuda import wideband_cov as wc
+
+    recs = {}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cr1, ci0 = torch.ones(16, device=dev), torch.zeros(16, device=dev)
+
+    # kernel 11 at the headline's shape: E of the main path at squarings 0;
+    # squarings 2 on 60/110 deg. The headline's 70 and 110 deg mirror each
+    # other about broadside: E⁴'s first columns then start the chain too
+    # near rank-deficient, and two rounds of it leave rows far from
+    # orthonormal in the reference's kernel as in the plain version
+    # (tests/test_torch_subspace_ns.py)
+    with fp32_matmuls():
+        E = ce.cov_embedded(x, cr1, ci0, N=16, snapshot_size=1024)
+        err = ns_parity(torch, "headline", E, 2, 0)
+        x60 = make_ula_capture(torch, x.shape[0], 16, ((60.0, 1, 10),
+                                                      (110.0, 31, 100)),
+                               SNR_DB, dev, seed=16)
+        E60 = ce.cov_embedded(x60, cr1, ci0, N=16, snapshot_size=1024)
+        del x60
+        ns_parity(torch, "headline shape, 60/110 deg,", E60, 2, 2)
+        # (24, 6): three sources on 12 elements; (16, 4): two on 8
+        for N, srcs in ((12, ((40.0, 1, 10), (70.0, 31, 100),
+                              (100.0, 3, 10))),
+                        (8, ((60.0, 1, 10), (110.0, 31, 100)))):
+            xs = make_ula_capture(torch, B_SUB_SMALL * 256, N, srcs, SNR_DB,
+                                  dev, seed=N)
+            Es = ce.cov_embedded(xs, torch.ones(N, device=dev),
+                                 torch.zeros(N, device=dev), N=N,
+                                 snapshot_size=256)
+            for sq in (0, 2):
+                ns_parity(torch, f"ULA-{N}", Es, len(srcs), sq,
+                          iters=8 if sq == 0 else 16)
+            del xs, Es
+        # (128, 4): c5's first subband, 2048 windows
+        x5 = make_c5_scene(torch, B_SUB_C5 * 1024, dev, seed=8)
+        E5 = wc.wideband_cov_embedded(x5, torch.ones(64, device=dev),
+                                      torch.zeros(64, device=dev), N=64,
+                                      F=16, snapshot_size=1024)[0].contiguous()
+        del x5
+        for sq in (0, 2):
+            ns_parity(torch, "c5 subband 0", E5, 2, sq)
+        del E5
+        k_ms, p_ms = pair_ms(torch, lambda: sns.subspace_ns(E, 2, iters=8,
+                                                            squarings=0),
+                             lambda: sns.subspace_ns_plain(E, 2, iters=8,
+                                                           squarings=0))
+        k2_ms = time_ms(torch, lambda: sns.subspace_ns(E60, 2, iters=8,
+                                                       squarings=2))
+        del E60
+        lib_ms = time_ms(torch, lambda: torch.linalg.eigh(E), reps=5, warm=1)
+    B = E.shape[0]
+    b2 = bound(nbytes(E) + B * 4 * 32 * 4, ns_flops(B, 32, 4, 8, 2))
+    log(f"kernel 11 time (B={B}, 2N=32, 2K=4, 8 rounds, squarings 0): kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library (one torch.linalg.eigh "
+        f"of the stack) {lib_ms:.4f} ms; squarings 2 (2 rounds of E^4): "
+        f"kernel {k2_ms:.4f} ms, bound {b2['bound_ms']:.4f} ms "
+        f"({b2['bound_by']})  [{card}]")
+    recs["subspace_ns"] = dict(
+        name="subspace_ns", route="cuda",
+        source="doa_tpu_torch/csrc/subspace_ns.cu",
+        replaces="doa_tpu/ops/pallas/subspace.py:47",
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+        **bound(nbytes(E) + B * 4 * 32 * 4, ns_flops(B, 32, 4, 8, 0)),
+        library_ms=lib_ms)
+
+    # kernel 9 exact: integer samples |x| ≤ 8 (exact in bf16), integer
+    # correction, scale 1/16: every Gram entry, fold, correction product
+    # and FB half a multiple of 1/32 far below 2^24, so the kernel and the
+    # plain version agree bit for bit (both register-tile forms)
+    ri = lambda lo, hi, shape: torch.randint(  # noqa: E731
+        lo, hi, shape, generator=gen, device=dev).float()
+    for n2 in (6, 16, 30, 32, 64):
+        N = n2 // 2
+        xi = ri(-8, 9, (9 * 256, n2))
+        W = ce.correction_pattern(ri(-1, 3, (N,)), ri(-1, 2, (N,)))
+        for dt in (torch.float32, torch.bfloat16):
+            for fb in (False, True):
+                xk = xi.to(dt)
+                d = (ce.chunk_embedded(xk, 256, N, 1.0 / 16, W, fb)
+                     - ce.chunk_embedded_plain(xk, 256, N, 1.0 / 16, W, fb)
+                     ).abs().max().item()
+                log(f"kernel 9 exact-input 2N={n2} {dt} fb={fb}: "
+                    f"max|kernel-plain| = {d!r} (must be 0)")
+                check(d == 0.0, f"kernel 9 2N={n2} {dt} fb={fb} differs on "
+                                f"exact inputs")
+    # kernel 9 at the headline with a correction and FB, overlaps 0 and 512
+    c = torch.polar(1.0 + 0.1 * torch.randn(16, generator=gen, device=dev),
+                    0.3 * torch.randn(16, generator=gen, device=dev))
+    cr, ci = c.real.contiguous(), c.imag.contiguous()
+    W = ce.correction_pattern(cr, ci)
+    e9 = 0.0
+    for ov in (0, 512):
+        g = math.gcd(1024, 1024 - ov)
+        for dt in (torch.float32, torch.bfloat16):
+            xk = x.to(dt)
+            Ek = ce.chunk_embedded(xk, g, 16, 1.0 / 1024, W, True)
+            Ep = ce.chunk_embedded_plain(xk, g, 16, 1.0 / 1024, W, True)
+            e = (Ek - Ep).abs().max().item()
+            sc = Ep.abs().max().item()
+            log(f"kernel 9 headline overlap {ov} (g={g}) {dt}: "
+                f"max|kernel-plain| = {e!r}, max|E| = {sc!r}, tol "
+                f"1e-5*max|E|")
+            check(e <= 1e-5 * sc, f"kernel 9 disagrees with plain ({dt}, "
+                                  f"overlap {ov})")
+            if dt == torch.float32 and ov == 0:
+                e9 = e
+            del Ek, Ep, xk
+        # the route against the stacked K1 route (test_fused_path.py's
+        # variants check on the card). With overlap the windows are
+        # differences of prefix sums over the chunk stack, whose f32
+        # rounding grows with the chunk count in both routes: that case is
+        # held on the first 2^17 samples (256 chunks), and at 2^24 each
+        # route is logged against a float64 sum
+        xo = x if ov == 0 else x[:1 << 17]
+        kw = dict(N=16, snapshot_size=1024, overlap=ov, fb=True)
+        Ec = ce.cov_embedded(xo, cr, ci, variant="chunk", **kw)
+        Es = ce.cov_embedded(xo, cr, ci, variant="stacked", **kw)
+        dv = (Ec - Es).abs().max().item()
+        sv = Es.abs().max().item()
+        log(f"cov_embedded overlap {ov}, {xo.shape[0]} samples: max|chunk - "
+            f"stacked| = {dv!r}, max|E| = {sv!r}, tol 2e-5*max|E|")
+        check(dv <= 2e-5 * sv, f"variants chunk and stacked disagree at "
+                               f"overlap {ov}")
+        del Ec, Es
+        if ov:
+            routes_vs_f64(torch, x, cr, ci, kw)
+    k_ms, p_ms = pair_ms(
+        torch, lambda: ce.chunk_embedded(x, 1024, 16, 1.0 / 1024, W, True),
+        lambda: ce.chunk_embedded_plain(x, 1024, 16, 1.0 / 1024, W, True))
+    xv = x.view(-1, 1024, 32)
+    with fp32_matmuls():
+        lib9_ms = time_ms(torch, lambda: torch.bmm(xv.transpose(1, 2), xv))
+    n = x.shape[0] // 1024
+    log(f"kernel 9 time [{x.shape[0]}, 32] g=1024, correction + FB: kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library (one torch.bmm of "
+        f"the chunks) {lib9_ms:.4f} ms  [{card}]")
+    recs["chunk_embedded"] = dict(
+        name="chunk_embedded", route="cuda",
+        source="doa_tpu_torch/csrc/cov_gram.cu",
+        replaces="doa_tpu/ops/pallas/cov_embedded.py:99",
+        max_abs_err=e9, ms=k_ms, plain_ms=p_ms,
+        # the symmetric Gram's half (K1's count); the fold, correction and
+        # FB: about 12 FLOP a (rr, ri) pair of the chunk
+        **bound(x.numel() * 4 + n * 32 * 32 * 4,
+                x.shape[0] * 32 * 33 + n * 12 * 16 * 16),
+        library_ms=lib9_ms)
+    return recs
+
+
+def opt_in_phases(torch, dev, card):
+    """Phases 12 and 13 → (the records of kernels 11 and 9, the launches
+    of the earlier kernels in these paths)."""
+    from doa_tpu_torch import PRESETS, Estimator
+    from doa_tpu_torch.ops import cpx_ops
+    from doa_tpu_torch.ops.cuda import cov_embedded as ce
+    from doa_tpu_torch.ops.cuda import music_scan as ms
+    from doa_tpu_torch.ops.cuda import peaks2d as pk
+    from doa_tpu_torch.ops.cuda import subspace_ns as sns
+    from doa_tpu_torch.ops.cuda import wideband_cov as wc
+    from doa_tpu_torch.ops.cuda import wideband_scan as wsc
+    from doa_tpu_torch.pipeline_torch import build_pipeline_torch
+
+    x = make_scene(torch, T_MAIN, 16, dev, seed=12)
+    torch.cuda.synchronize()
+    recs = opt_in_parity(torch, dev, x, card)
+
+    counters = {"subspace_ns": sns.subspace_ns,
+                "chunk_embedded": ce.chunk_embedded,
+                "chunk_gram": ce.chunk_grams_uhat,
+                "mgs_iterate": cpx_ops.mgs_iterate,
+                "music_scan": ms.music_scan,
+                "music_scan_peaks": ms.music_scan_peaks,
+                "wideband_fft_gram": wc.subband_chunk_grams,
+                "wideband_fusion": wsc.wideband_fused_spectrum,
+                "peaks2d": pk.peaks2d}
+    total = {n: 0 for n in counters}
+
+    def drive(call):
+        for f in counters.values():
+            f.launches = 0
+        res = call()
+        torch.cuda.synchronize()
+        n = {k: f.launches for k, f in counters.items()}
+        for k, v in n.items():
+            total[k] += v
+        return res, n
+
+    cfg = headline_config()
+    B = T_MAIN // 1024
+
+    # 13a. the headline with subspace_impl="pallas": kernel 11, cold
+    cfg_ns = dataclasses.replace(cfg, subspace_impl="pallas")
+    for rs in (False, True):
+        pipe = build_pipeline_torch(cfg_ns, device=dev, return_spectra=rs)
+        res, n = drive(lambda: pipe.interleaved(x))
+        log(f"launches in the headline path, subspace_impl='pallas', "
+            f"return_spectra={rs}: " + json.dumps(n))
+        check(n["subspace_ns"] > 0 and n["chunk_gram"] > 0
+              and n["mgs_iterate"] == 0
+              and n["music_scan" if rs else "music_scan_peaks"] > 0,
+              "launch counts of the subspace_impl='pallas' path")
+        err = angle_err(torch, res.peak_angles["music"])
+        log(f"headline subspace_impl='pallas' return_spectra={rs}: {B} "
+            f"windows, max angle error {err!r} deg (limit {ANGLE_TOL}), "
+            f"escalation flagged {int(res.escalation_flagged)}, overflow "
+            f"{int(res.escalation_overflow)}")
+        check(res.peak_angles["music"].shape[0] == B and err <= ANGLE_TOL,
+              f"subspace_impl='pallas' angle error {err}")
+        check(int(res.escalation_flagged) == 0
+              and int(res.escalation_overflow) == 0,
+              "subspace_impl='pallas' escalation counts are not zero")
+        ts = call_times(torch, lambda: pipe.interleaved(x), reps=20, warm=3)
+        med = 0.5 * (ts[9] + ts[10])
+        log(f"headline subspace_impl='pallas' return_spectra={rs}: median "
+            f"{med:.4f} ms per call of {B} windows (20 calls, min "
+            f"{ts[0]:.4f}, max {ts[-1]:.4f}) = {B / (med / 1e3):.1f} "
+            f"snapshots/s  [{card}]")
+        if not rs:
+            profile_window(torch, lambda: pipe.interleaved(x), card)
+    del res
+
+    # 13b. subspace_check under both subspace_impl values
+    for impl in ("auto", "pallas"):
+        c = dataclasses.replace(cfg, subspace_check=True, subspace_impl=impl)
+        pipe = build_pipeline_torch(c, device=dev, return_spectra=False)
+        res, n = drive(lambda: pipe.interleaved(x))
+        r = res.subspace_residual
+        check(r is not None and tuple(r.shape) == (B,)
+              and bool(torch.isfinite(r).all()), "subspace_residual")
+        err = angle_err(torch, res.peak_angles["music"])
+        ts = call_times(torch, lambda: pipe.interleaved(x), reps=10, warm=2)
+        log(f"headline subspace_check, subspace_impl={impl!r}: launches "
+            f"{json.dumps(n)}; {int((r >= 1).sum())} of {B} windows "
+            f"replaced, max residual of the rest "
+            f"{float(r[r < 1].max()) if bool((r < 1).any()) else 0.0!r}; "
+            f"max angle error {err!r} deg (limit {ANGLE_TOL}); median "
+            f"{0.5 * (ts[4] + ts[5]):.4f} ms per call (10 calls)  [{card}]")
+        check(err <= ANGLE_TOL, f"subspace_check angle error {err}")
+        check(n["subspace_ns" if impl == "pallas" else "mgs_iterate"] > 0,
+              f"subspace_check ({impl}): the subspace kernel never ran")
+    del res
+
+    # 13c. the guard's hard scene (tests/test_power_subspace.py): 30 : 1 at
+    # 60/110 deg, 20 dB, c2 with MUSIC only and power_iters=4
+    xh = make_ula_capture(torch, T_HARD, 8, ((60.0, 1, 10, 30.0),
+                                             (110.0, 31, 100, 1.0)),
+                          20.0, dev, seed=6)
+    base = dataclasses.replace(PRESETS["c2_ula8_2src"],
+                               estimators=(Estimator.MUSIC,), power_iters=4)
+    a_eigh = build_pipeline_torch(dataclasses.replace(
+        base, subspace_method="eigh"), device=dev, return_spectra=False)(
+        (xh[..., 0], xh[..., 1])).peak_angles["music"].sort(-1).values
+    for impl in ("auto", "pallas"):
+        c = dataclasses.replace(base, subspace_check=True,
+                                subspace_impl=impl)
+        res, n = drive(lambda: build_pipeline_torch(
+            c, device=dev, return_spectra=False).interleaved(xh))
+        a = res.peak_angles["music"].sort(-1).values
+        d = (a - a_eigh).abs().max().item()
+        r = res.subspace_residual
+        log(f"hard scene (30:1, 20 dB, power_iters=4, {a.shape[0]} windows) "
+            f"subspace_impl={impl!r}: {int((r >= 1).sum())} windows "
+            f"replaced; max|guarded - eigh| = {d!r} deg (tol {HARD_TOL}); "
+            f"launches {json.dumps(n)}")
+        check(d <= HARD_TOL, f"hard scene ({impl}): guarded angles off eigh")
+    del xh
+
+    # 13d. scan_capture on the headline, 8 blocks of 2^21, overlaps 0, 512
+    blocks = x.view(-1, T_BLK, 32)
+    M = blocks.shape[0]
+    for ov in (0, 512):
+        c = dataclasses.replace(cfg, overlap=ov)
+        pipe = build_pipeline_torch(c, device=dev, return_spectra=False)
+        out, n = drive(lambda: pipe.scan_capture(blocks))
+        angs = out["peak_angles"]["music"]
+        hop, pre = c.hop, pipe.scan_capture.prefix_windows
+        C = hop * -(-ov // hop)
+        d = 0.0
+        for m in range(1, M):
+            r = pipe.interleaved(x[m * T_BLK - C:(m + 1) * T_BLK])
+            d = max(d, (angs[m] - r.peak_angles["music"]).abs().max().item())
+        # block 0 beyond the prefix holds the plain call's windows, but one
+        # window more (the zero-prefix one) moves the warm start's capture
+        # mean: each window's sorted angles, within 1e-3 deg
+        r0 = pipe.interleaved(blocks[0]).peak_angles["music"]
+        d0 = (angs[0, pre:].sort(-1).values
+              - r0[:angs.shape[1] - pre].sort(-1).values).abs().max().item()
+        err = angle_err(torch, angs[:, pre:].reshape(-1, 2))
+        ts = call_times(torch, lambda: pipe.scan_capture(blocks), reps=5,
+                        warm=1)
+        log(f"scan_capture headline overlap {ov}: {M} blocks of {T_BLK} "
+            f"samples, {angs.shape[1]} windows each (prefix {pre}); "
+            f"launches {json.dumps(n)}; max|block m - per-block call| = "
+            f"{d!r} (tol 1e-4 deg), block 0 beyond the prefix {d0!r} (tol "
+            f"1e-3 deg); max angle error {err!r} deg; median {ts[2]:.4f} ms "
+            f"per capture (5 captures)  [{card}]")
+        check(d <= 1e-4 and d0 <= 1e-3 and err <= ANGLE_TOL,
+              f"scan_capture headline overlap {ov}")
+
+    # 13e. a c5-shaped wideband scan_capture: overlap 512 (F | overlap), 4
+    # blocks of 2^19 samples
+    c5 = dataclasses.replace(PRESETS["c5_ura64_wideband"], overlap=512)
+    xw = make_c5_scene(torch, 4 * T_WB_BLK, dev, seed=13)
+    pipe = build_pipeline_torch(c5, device=dev, return_spectra=False)
+    wblocks = xw.view(4, T_WB_BLK, 128)
+    out, n = drive(lambda: pipe.scan_capture(wblocks))
+    angs = out["peak_angles"]["music"]
+    C = 512
+    d = 0.0
+    for m in range(1, 4):
+        r = pipe.interleaved(xw[m * T_WB_BLK - C:(m + 1) * T_WB_BLK])
+        d = max(d, (angs[m] - r.peak_angles["music"]).abs().max().item())
+    e_max, e_med, med = c5_errors(torch, angs[1:].reshape(-1, 2, 2))
+    ts = call_times(torch, lambda: pipe.scan_capture(wblocks), reps=3, warm=1)
+    log(f"scan_capture c5 overlap 512: 4 blocks of {T_WB_BLK} samples, "
+        f"{angs.shape[1]} windows each; launches {json.dumps(n)}; max|block "
+        f"m - per-block call| = {d!r} (tol 1e-4 deg); median pair-sorted "
+        f"(az, el) {med.tolist()}; median {ts[1]:.4f} ms per capture (3 "
+        f"captures)  [{card}]")
+    dmed = float((med - torch.tensor(C5_TRUTH, device=dev)).abs().max())
+    check(d <= 1e-4 and dmed <= C5_ANGLE_TOL, "scan_capture c5")
+    check(n["wideband_fft_gram"] == 4 and n["wideband_fusion"] > 0,
+          "scan_capture c5 launch counts")
+    del xw, wblocks, out
+
+    # 13f. the chunk entry, cov_embedded(variant="chunk"), at T = 2^24
+    c = torch.polar(torch.ones(16, device=dev),
+                    torch.linspace(-0.3, 0.3, 16, device=dev))
+    E9, n = drive(lambda: ce.cov_embedded(
+        x, c.real.contiguous(), c.imag.contiguous(), N=16,
+        snapshot_size=1024, fb=True, variant="chunk"))
+    log(f"cov_embedded(variant='chunk') entry at T={T_MAIN}: launches "
+        f"{json.dumps(n)}")
+    check(tuple(E9.shape) == (B, 32, 32) and bool(torch.isfinite(E9).all())
+          and n["chunk_embedded"] == 1 and n["chunk_gram"] == 0,
+          "the chunk entry")
+    del E9
+
+    # the card against the CPU, 64 windows of each path
+    xs = x[:B_CPU * 1024]
+    for tag, c in (("subspace_impl='pallas'", cfg_ns),
+                   ("subspace_check", dataclasses.replace(
+                       cfg, subspace_check=True))):
+        g = build_pipeline_torch(c, device=dev, return_spectra=False
+                                 ).interleaved(xs)
+        h = build_pipeline_torch(c, device="cpu", return_spectra=False
+                                 ).interleaved(xs.cpu())
+        d = (g.peak_angles["music"].cpu().sort(-1).values
+             - h.peak_angles["music"].sort(-1).values).abs().max().item()
+        log(f"{tag} card vs CPU pipeline on {B_CPU} windows: max sorted "
+            f"angle difference {d!r} deg (tol 1e-3)")
+        check(d <= 1e-3, f"{tag}: card and CPU pipelines disagree")
+    del x
+    for name in ("subspace_ns", "chunk_embedded"):
+        recs[name]["launches"] = total.pop(name)
+    return recs, total
+
+
 def main():
     import torch
 
@@ -1737,9 +2214,10 @@ def main():
 
     # 2. build
     from concurrent.futures import ThreadPoolExecutor
-    from doa_tpu_torch.ops.cuda import (covariance, peaks2d, wideband_cov,
-                                        wideband_scan)
+    from doa_tpu_torch.ops.cuda import (covariance, peaks2d, subspace_ns,
+                                        wideband_cov, wideband_scan)
     sigs = {"cov_gram": ce._SIG, "music_scan": ms._SIG,
+            "subspace_ns": subspace_ns._SIG,
             "subspace": cpx_ops._SIG, "wideband_cov": wideband_cov._SIG,
             "wideband_scan": wideband_scan._SIG, "peaks2d": peaks2d._SIG,
             "covariance": covariance._SIG,
@@ -1858,6 +2336,13 @@ def main():
     for name, n in sb_launches.items():
         recs[name]["launches"] += n
     recs.update(sb_recs)
+
+    # 12. kernels 11 and 9, 13. subspace_impl="pallas", subspace_check,
+    # the hard scene, scan_capture (narrowband and c5), the chunk entry
+    op_recs, op_launches = opt_in_phases(torch, dev, card)
+    for name, n in op_launches.items():
+        recs[name]["launches"] += n
+    recs.update(op_recs)
     check(not any(m == "jax" or m.startswith(("jax.", "doa_tpu."))
                   or m == "doa_tpu" for m in sys.modules),
           "jax or doa_tpu was imported")

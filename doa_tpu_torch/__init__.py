@@ -30,7 +30,14 @@ Covered so far (``build_pipeline_torch``):
   projector; Capon and Bartlett on either narrowband path; the public
   ``cov_windows`` entry (window-Gram kernel 12 below gcd 64);
 * the calibration stage (``doa_tpu_torch.calib``): chain phase offsets,
-  element gains/phases, and the .npz artifact both packages share.
+  element gains/phases, and the .npz artifact both packages share;
+* the fused path's opt-in stages — ``subspace_impl="pallas"`` (the cold
+  Newton–Schulz subspace kernel 11), ``subspace_check`` (the subspace
+  guard, with ``DoaResult.subspace_residual``), the chunk covariance
+  kernel 9 behind ``cov_embedded(variant="chunk")``, ``donate_inputs`` and
+  ``call.scan_capture`` (a capture staged as blocks, framed as one
+  stream). These are options and methods of what ``build_pipeline_torch``
+  returns, so the package exports nothing new for them.
 
 ROADMAP.md lists what is still to port.
 """

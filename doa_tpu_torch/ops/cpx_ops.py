@@ -5,7 +5,10 @@
   rounds of the iteration run in one CUDA kernel per call (K4,
   csrc/subspace.cu; `mgs_iterate`), whose plain version is the same
   schedule as batched torch ops; the detector and the rare escalation
-  batch are torch ops.
+  batch are torch ops. orth="ns" is the reference's Newton–Schulz chain
+  as torch ops (ops/cuda/subspace_ns.py holds it and kernel 11).
+* The subspace guard: invariance residual, capture gap and the eigh
+  fallback for flagged windows (guarded_signal_subspace).
 * The planes path: covariance windows from sample planes (kernel 8,
   ops/cuda/covariance.py), the correction folded into R, forward-backward
   averaging, spatial smoothing; the eigh noise projector; the dense MUSIC
@@ -24,6 +27,7 @@ import torch
 from doa_tpu_torch import _build
 from doa_tpu_torch.cpx import embed_planes, fp32_matmuls, unembed_planes
 from doa_tpu_torch.ops.cuda.covariance import cov_from_stream  # noqa: F401
+from doa_tpu_torch.ops.cuda.subspace_ns import ns_subspace
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -238,26 +242,47 @@ def _subspace_E_T_mgs(E, num_sources: int, iters: int, squarings: int,
 
 
 def signal_subspace_from_E_T(E, num_sources: int, iters: int = 8,
-                             squarings: int = 0, orth: str = "mgs",
-                             init=None, escalate_extra: int = 0,
+                             ns_iters: int = 12, ns_iters_mid: int = 8,
+                             squarings: int = 0, pack: int = 4,
+                             orth: str = "mgs", init=None,
+                             escalate_extra: int = 0,
                              escalate_gap: float = 3.0,
                              escalate_tol: float = 0.05,
                              escalate_signal_floor: float = 2.5,
                              escalate_capacity: int = 1024,
                              return_stats: bool = False):
     """Embedded signal subspace in transposed layout: Vt f32[B, 2K, 2N]
-    with Vt·Vtᵀ = I, from E f32[B, 2N, 2N]. Only orth="mgs" is ported
-    (the reference default); the packed Newton–Schulz variant raises."""
-    if orth != "mgs":
-        raise NotImplementedError(
-            f"orth={orth!r}: only 'mgs' is ported (ROADMAP.md, queue A.3)")
-    with fp32_matmuls():
-        return _subspace_E_T_mgs(
-            E, num_sources, iters, squarings, init=init,
-            escalate_extra=escalate_extra, escalate_gap=escalate_gap,
-            escalate_tol=escalate_tol,
-            escalate_signal_floor=escalate_signal_floor,
-            escalate_capacity=escalate_capacity, return_stats=return_stats)
+    with Vt·Vtᵀ = I, from E f32[B, 2N, 2N].
+
+    orth="mgs" (the reference default): the MGS iteration above, with warm
+    start and escalation. orth="ns": the reference's packed Newton–Schulz
+    chain (Jacobi-preconditioned, per-window Frobenius scale; ns_iters in
+    the first and last rounds, ns_iters_mid between), cold only. `pack` is
+    the reference's count of windows whose chains it stacks into one
+    block-diagonal Gram on the TPU; the block mask makes each window's
+    chain exact, so every pack ≥ 1 gives the same numbers and the chain
+    here runs per window."""
+    if orth == "mgs":
+        with fp32_matmuls():
+            return _subspace_E_T_mgs(
+                E, num_sources, iters, squarings, init=init,
+                escalate_extra=escalate_extra, escalate_gap=escalate_gap,
+                escalate_tol=escalate_tol,
+                escalate_signal_floor=escalate_signal_floor,
+                escalate_capacity=escalate_capacity,
+                return_stats=return_stats)
+    if orth != "ns":
+        raise ValueError(f"unknown orth {orth!r}; 'mgs' or 'ns'")
+    if init is not None:
+        raise ValueError("warm-start init requires orth='mgs'")
+    if escalate_extra > 0:
+        raise ValueError("escalation requires orth='mgs'")
+    if return_stats:
+        raise ValueError("escalation stats require orth='mgs'")
+    if pack < 1:
+        raise ValueError(f"pack must be ≥ 1, got {pack}")
+    return ns_subspace(E, num_sources, iters, ns_iters, ns_iters_mid,
+                       squarings, symmetrize=False)
 
 
 def signal_subspace_from_E(E, num_sources: int, **kw):
@@ -274,6 +299,82 @@ def signal_subspace_embedded(Rr, Ri, num_sources: int, **kw):
     subspace of the covariance planes (Rr, Ri): the cold MGS iteration of
     signal_subspace_from_E on E(R) (kwargs as there)."""
     return signal_subspace_from_E(embed_planes(Rr, Ri), num_sources, **kw)
+
+
+# ---------------------------------------------------------------------
+# The subspace guard (subspace_check)
+# ---------------------------------------------------------------------
+
+def subspace_residual(E, V_emb):
+    """Invariance residual r = ‖(I − V Vᵀ) E V‖_F / ‖E V‖_F ∈ [0, 1] per
+    window of E f32[B, 2N, 2N], V_emb f32[B, 2N, 2K] → f32[B]: 0 for an
+    invariant subspace, larger while the iteration has not converged."""
+    with fp32_matmuls():
+        EV = torch.matmul(E, V_emb)
+        coef = torch.matmul(V_emb.transpose(-1, -2), EV)        # Vᵀ E V
+        resid = EV - torch.matmul(V_emb, coef)
+    num = torch.sqrt((resid * resid).sum(dim=(-2, -1)))
+    den = torch.sqrt((EV * EV).sum(dim=(-2, -1)))
+    return num / den.clamp_min(1e-30)
+
+
+def eigh_signal_subspace_from_E(E, num_sources: int):
+    """The exact embedded signal subspace (the guard's fallback): the top
+    2K eigenvectors of E f32[B, 2N, 2N] → f32[B, 2N, 2K]."""
+    _, vecs = torch.linalg.eigh(E)
+    return vecs[..., :, -2 * num_sources:]
+
+
+def capture_gap(E, V_emb, probe_iters: int = 8):
+    """Wrong-subspace detector: a few power steps of the deflated matrix
+    (I − V Vᵀ) E from u = E·1 estimate the largest eigenvalue V does not
+    capture → (lam_missed, lam_min_captured) f32[B] each."""
+    with fp32_matmuls():
+        EV = torch.matmul(E, V_emb)
+        lam = (V_emb * EV).sum(-2)                              # Rayleighs
+        lam_min = lam.min(dim=-1).values
+        Vt = V_emb.transpose(-1, -2)
+        u = E.sum(dim=-1)                                       # E @ ones
+
+        def deflate(u):
+            c = torch.matmul(Vt, u[..., None])                  # (B, 2K, 1)
+            return u - torch.matmul(V_emb, c)[..., 0]
+
+        for _ in range(probe_iters):
+            u = torch.matmul(E, deflate(u)[..., None])[..., 0]
+            u = u / torch.sqrt((u * u).sum(-1, keepdim=True)).clamp_min(1e-30)
+        u = deflate(u)
+        nrm = (u * u).sum(-1)
+        Eu = torch.matmul(E, u[..., None])[..., 0]
+    lam_missed = (u * Eu).sum(-1) / nrm.clamp_min(1e-30)
+    return lam_missed, lam_min
+
+
+def guarded_signal_subspace(E, V_emb, num_sources: int, tol: float = 0.05,
+                            gap_margin: float = 1.05):
+    """The subspace guard: a window is flagged when (a) its invariance
+    residual exceeds tol, (b) its orthonormality error ‖VᵀV − I‖∞ exceeds
+    tol, or (c) the capture gap finds an uncaptured eigenvalue
+    ≥ gap_margin × the smallest captured Rayleigh value. Flagged windows
+    take the exact eigh subspace → (V_emb f32[B, 2N, 2K], max(residual,
+    flag) f32[B]: ≥ 1 marks a replaced window).
+
+    One host sync per call decides whether any window was flagged (lax.cond
+    in the reference); eigh then runs on the flagged windows only, which
+    gives the reference's where() over all of them."""
+    res = subspace_residual(E, V_emb)
+    k2 = V_emb.shape[-1]
+    with fp32_matmuls():
+        G = torch.matmul(V_emb.transpose(-1, -2), V_emb)
+    eye = torch.eye(k2, dtype=G.dtype, device=G.device)
+    orth_err = (G - eye).abs().amax(dim=(-2, -1))
+    lam_missed, lam_min = capture_gap(E, V_emb)
+    bad = (res > tol) | (orth_err > tol) | (lam_missed > gap_margin * lam_min)
+    if bool(bad.any()):
+        idx = bad.nonzero()[:, 0]
+        V_emb = V_emb.clone()
+        V_emb[idx] = eigh_signal_subspace_from_E(E[idx], num_sources)
+    return V_emb, torch.maximum(res, bad.to(res.dtype))
 
 
 # ---------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Interleaved-ingest covariance: raw capture → embedded windows E(R).
 
-Port of doa_tpu/ops/pallas/cov_embedded.py (the stacked variant). A
+Port of doa_tpu/ops/pallas/cov_embedded.py (both variants). A
 C-ordered complex64 capture (T, N) is, byte for byte, the float32 array
 x[T, 2N] = [t0c0.re, t0c0.im, t0c1.re, …], so the capture enters with no
 copy. The chunk-Gram kernel K1 (csrc/cov_gram.cu) reads it once and writes
@@ -12,6 +12,12 @@ planar basis, the embedding E = [[Rr, −Ri], [Ri, Rr]], the calibration
 correction W = c cᴴ folded as (c cᴴ) ∘ R, forward-backward averaging and
 the 1/S scale. All of these are permutations, sign flips and elementwise
 products, so no matmul and no TF32 question arises there.
+
+The "chunk" variant (kernel 9, the second entry of csrc/cov_gram.cu) does
+the embedding, the correction, FB and the 1/S scale in the kernel's
+epilogue, chunk by chunk, and the windows are summed from the chunks' E.
+No pipeline selects it (the reference's pipelines do not either); it is
+reached through cov_embedded(..., variant="chunk").
 """
 
 from __future__ import annotations
@@ -28,9 +34,11 @@ from doa_tpu_torch.cpx import fp32_matmuls
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "int8": torch.int8}
 _KERNEL_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_SIG = {"doa_chunk_gram": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p]}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIG = {"doa_chunk_gram": [_P, _P, _I, _I, _I, _I, _P],
+        "doa_chunk_embedded": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               ctypes.c_float, _P]}
+VARIANTS = ("stacked", "chunk")
 
 
 def _perm_interleaved_to_planar(N: int) -> np.ndarray:
@@ -79,9 +87,7 @@ def chunk_grams_uhat(x: torch.Tensor, g: int) -> torch.Tensor:
         return chunk_grams_uhat_plain(x, g)
     if not x.is_cuda:
         raise ValueError(f"unsupported device {x.device}")
-    if not (n2 % 4 == 0 and n2 <= 64 or n2 % 2 == 0 and n2 <= 30):
-        raise ValueError(f"chunk_gram kernel takes 2N a multiple of 4 up to "
-                         f"64 or even up to 30, got 2N = {n2}")
+    _check_gram_width(n2, "chunk_gram")
     x = x[:n * g].contiguous()
     lib = _build.load("cov_gram", _SIG)
     out = torch.empty((n, n2, n2), dtype=torch.float32, device=x.device)
@@ -126,6 +132,62 @@ def correction_pattern(cr: torch.Tensor, ci: torch.Tensor):
             ci[:, None] * cr[None, :] - cr[:, None] * ci[None, :])
 
 
+def _check_gram_width(n2: int, what: str) -> None:
+    if not (n2 % 4 == 0 and n2 <= 64 or n2 % 2 == 0 and n2 <= 30):
+        raise ValueError(f"{what} kernel takes 2N a multiple of 4 up to "
+                         f"64 or even up to 30, got 2N = {n2}")
+
+
+def chunk_embedded_plain(x: torch.Tensor, g: int, N: int, scale: float,
+                         W, fb: bool) -> torch.Tensor:
+    """Plain PyTorch version of kernel 9: x[n·g, 2N] → each chunk's
+    embedded covariance f32[n, 2N, 2N], K1's plain Gram followed by
+    uhat_windows_to_embedded on every chunk (scale, the correction
+    W = (Wre, Wim), FB)."""
+    return uhat_windows_to_embedded(chunk_grams_uhat_plain(x, g), N, scale,
+                                    W, fb)
+
+
+def chunk_embedded(x: torch.Tensor, g: int, N: int, scale: float, W,
+                   fb: bool) -> torch.Tensor:
+    """Kernel 9: per chunk of g rows of x[n·g, 2N] (float32 or bfloat16,
+    contiguous rows) the Gram, the planar fold, the correction
+    W = (Wre, Wim) f32[N, N] of c cᴴ, FB and the scale → E f32[n, 2N, 2N]
+    (csrc/cov_gram.cu, doa_chunk_embedded), as chunk_embedded_plain.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel and raises if that fails."""
+    if (x.dim() != 2 or x.shape[1] != 2 * N
+            or x.dtype not in (torch.float32, torch.bfloat16)):
+        raise ValueError(f"need x[T, {2 * N}] float32|bfloat16, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    n = x.shape[0] // g
+    if n < 1:
+        raise ValueError(f"capture of {x.shape[0]} samples holds no chunk "
+                         f"of {g}")
+    if x.device.type == "cpu":
+        return chunk_embedded_plain(x, g, N, scale, W, fb)
+    if not x.is_cuda:
+        raise ValueError(f"unsupported device {x.device}")
+    _check_gram_width(2 * N, "chunk_embedded")
+    x = x[:n * g].contiguous()
+    Wre, Wim = (w.to(device=x.device, dtype=torch.float32).contiguous()
+                for w in W)
+    lib = _build.load("cov_gram", _SIG)
+    out = torch.empty((n, 2 * N, 2 * N), dtype=torch.float32,
+                      device=x.device)
+    err = lib.doa_chunk_embedded(
+        x.data_ptr(), Wre.data_ptr(), Wim.data_ptr(), out.data_ptr(), n, g,
+        2 * N, _KERNEL_DTYPE_CODE[x.dtype], int(fb), scale,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "doa_chunk_embedded")
+    chunk_embedded.launches += 1
+    return out
+
+
+chunk_embedded.launches = 0
+
+
 def window_sums(U: torch.Tensor, B: int, n_win: int,
                 stride: int) -> torch.Tensor:
     """Chunk stack U f32[..., n, 2N, 2N] → B windows f32[..., B, 2N, 2N],
@@ -143,7 +205,8 @@ def window_sums(U: torch.Tensor, B: int, n_win: int,
 
 def cov_embedded(xil: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor, *,
                  N: int, snapshot_size: int, overlap: int = 0,
-                 fb: bool = False, compute_dtype="float32") -> torch.Tensor:
+                 fb: bool = False, compute_dtype="float32",
+                 variant: str = "stacked") -> torch.Tensor:
     """xil: the capture as x[T, 2N] (or any shape with the same bytes,
     e.g. doa_tpu's (T/TPACK, 2N·TPACK)); cr/ci: f32[N] correction →
     E(R) windows f32[B, 2N, 2N], normalised by S, with the correction
@@ -153,13 +216,22 @@ def cov_embedded(xil: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor, *,
     compute_dtype "float32" | "bfloat16" | "int8" (or the torch dtype):
     bfloat16 rounds a float32 capture to bfloat16 before the Gram (f32
     accumulation); int8 is the ingest-quantized mode and needs an int8
-    capture (io.native.quantize_interleaved_int8)."""
+    capture (io.native.quantize_interleaved_int8).
+
+    variant "stacked": K1's interleaved-basis chunk Grams, windows, then
+    the embedding, correction and FB on the windows; "chunk": kernel 9's
+    per-chunk E (embedding, correction, FB and 1/S in the kernel), then
+    the windows. The int8 mode takes the stacked variant only."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
     dt = _DTYPES.get(compute_dtype, compute_dtype)
     S = snapshot_size
     hop = S - overlap
     g = math.gcd(S, hop)
     x = xil.reshape(-1, 2 * N)
     if dt == torch.int8:
+        if variant != "stacked":
+            raise ValueError("int8 ingest supports the stacked variant")
         if x.dtype != torch.int8:
             raise ValueError(
                 "cov_dtype='int8' is the ingest-quantized mode: feed an "
@@ -178,8 +250,13 @@ def cov_embedded(xil: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor, *,
     B = (T - S) // hop + 1
     n_win = S // g
     stride = hop // g
+    W = correction_pattern(cr, ci)
+    if variant == "chunk":
+        # every step is linear in the chunk's Gram: E of a window is the
+        # sum of its chunks' E
+        E = chunk_embedded(x[:n * g], g, N, 1.0 / S, W, fb)
+        return window_sums(E, B, n_win, stride)
     U = chunk_grams_uhat(x[:n * g], g)           # interleaved basis
     # windows first: every later step is linear in the chunk sum
     Uw = window_sums(U, B, n_win, stride)
-    W = correction_pattern(cr, ci)
     return uhat_windows_to_embedded(Uw, N, 1.0 / S, W, fb)

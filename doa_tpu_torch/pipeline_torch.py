@@ -6,6 +6,10 @@ Narrowband, fused path (no smoothing, subspace_method="power"):
     capture x[T, 2N] (the bytes of a complex64 (T, N) buffer)
       → K1 chunk Grams → windows E(R) f32[B, 2N, 2N]   ops/cuda/cov_embedded
       → warm-start MGS subspace (K4) Vt f32[B, 2K, 2N] ops/cpx_ops
+        or, under subspace_impl="pallas", the cold Newton–Schulz
+        subspace (kernel 11)                           ops/cuda/subspace_ns
+      → under subspace_check, the guard (residual, capture gap, eigh for
+        flagged windows)                               ops/cpx_ops
       → K2 scan + peaks (return_spectra=False, 1-D)     ops/cuda/music_scan
         or K3 scan → normalise → find_local_max          ops/peaks
            (2-D grids: the 2-D peaks kernel)            ops/cuda/peaks2d
@@ -18,8 +22,9 @@ input on either path):
       → kernel 8 chunk Grams → windows (Rr, Ri) f32[B, N, N]
                                                    ops/cuda/covariance
       → correction (c cᴴ) ∘ R → FB → spatial smoothing  ops/cpx_ops
-      → cold MGS subspace of E(R) (K4) → K3 / K2 scan, or the eigh noise
-        projector and its dense denominator; Capon, Bartlett
+      → cold MGS subspace of E(R) (K4; the guard under subspace_check)
+        → K3 / K2 scan, or the eigh noise projector and its dense
+        denominator; Capon, Bartlett
       (on a fused config, planes input embeds E(R) and joins the fused
       path downstream)
 
@@ -40,6 +45,9 @@ Wideband (c5; planes input is stacked once into the interleaved layout):
       → FB → smoothing → the narrowband estimators (cold K4 + K3/K2,
         eigh, Capon, Bartlett) as on the planes path
 
+call.scan_capture runs a capture staged as M blocks through the fused or
+wideband path, block by block with the continuous-framing carry.
+
 Every product carrying a value runs in true FP32 (cpx.fp32_matmuls). On a
 CUDA device every kernel launch either runs or raises; nothing falls back
 to the CPU or to a plain version.
@@ -59,6 +67,7 @@ from doa_tpu_torch.ops.cuda.cov_embedded import cov_embedded
 from doa_tpu_torch.ops.cuda.music_scan import (
     MAX_FUSED_G, MAX_FUSED_K, music_scan, music_scan_peaks)
 from doa_tpu_torch.ops.cuda.peaks2d import MAX_PEAKS2D_K, peaks2d
+from doa_tpu_torch.ops.cuda.subspace_ns import subspace_ns
 from doa_tpu_torch.ops.cuda.wideband_cov import (channelizer_matrix,
                                                  resolve_variant,
                                                  wideband_cov_embedded)
@@ -105,14 +114,10 @@ def _check_slice(cfg: DoaConfig) -> None:
         todo.append("beamspace (queue A.3)")
     if cfg.subspace_method == "jacobi":
         todo.append("subspace_method='jacobi' (queue A.3)")
-    if cfg.subspace_impl == "pallas":
-        todo.append("subspace_impl='pallas' (queue B.11)")
     other = [e.value for e in cfg.estimators if e not in _ESTIMATORS]
     if other:
         todo.append(f"estimators {other} (root-MUSIC, ESPRIT, Unitary "
                     "ESPRIT, min-norm: queue A.3)")
-    if cfg.subspace_check:
-        todo.append("subspace_check (queue A.3)")
     if cfg.scan_mode == "hierarchical":
         todo.append("scan_mode='hierarchical' (queue A.3)")
     if todo:
@@ -219,6 +224,7 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
                          refine_peaks: bool = True,
                          return_spectra: bool = True,
                          return_covariance: bool = False,
+                         donate_inputs: bool = False,
                          state: dict | None = None):
     """→ callable(x, correction=None) → DoaResult. x is one of
 
@@ -239,12 +245,27 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
       bytes), numpy or torch; under cov_dtype="int8" a float buffer is
       quantized on the device (narrowband), an int8 buffer passes as it
       is;
+    * ``call.scan_capture(blocks, correction=None)`` (fused and wideband
+      paths): a capture staged as M blocks, (M, T_blk, 2N) or doa_tpu's
+      (M, T_blk/TPACK, 2N·TPACK), numpy or torch, hop | T_blk (wideband:
+      also F | overlap) → {"peak_values": {est: (M, B_blk, k)},
+      "peak_angles": {est: (M, B_blk, k[, 2])}}. Block m is computed
+      with the carry of the hop·ceil(overlap/hop) samples before it, so
+      windows are framed as in one continuous stream; block 0's carry is
+      zeros, and its first ``call.scan_capture.prefix_windows`` windows,
+      which reach into that zero prefix, are the ones callers drop. Blocks
+      in one contiguous device tensor are read in place (block 0 aside);
+      the blocks run one by one (each call syncs with the host on the
+      escalation check and the guard);
     * ``call.steering_planes`` (A_re, A_im), ``call.subband_planes``
       (wideband: (re, im) f32[F, G, N]; else None), ``call.fast_path``
       (True on the fused path), ``call.config``.
 
     `state` (load_state) replaces the steering built from cfg and gives
-    the default correction. Peak angles are (B, k) on a 1-D grid and
+    the default correction. donate_inputs=True is the caller's promise
+    that the capture tensor may be consumed (doa_tpu lets XLA reuse the
+    capture's buffer under it); the port reuses no input buffer, so the
+    results are those with False. Peak angles are (B, k) on a 1-D grid and
     (B, k, 2) az/el on a 2-D one.
 
     Narrowband MUSIC: with the power subspace, K3 scans the spectrum
@@ -254,6 +275,12 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
     an explicit size rule; a dense scan in bfloat16/int8 runs the
     reference's quantized forms as torch ops. subspace_method="eigh" scans
     the eigh noise projector. Capon (Cholesky) and Bartlett scan R.
+    subspace_impl="pallas" replaces the fused path's warm MGS by kernel
+    11's cold Newton–Schulz subspace (power_iters, power_squarings; the
+    escalation counts are then zeros); the planes route keeps its cold
+    MGS. subspace_check=True guards the subspace on either route (E, or
+    E(R) of the planes) and returns the residual in
+    DoaResult.subspace_residual.
 
     Wideband (cfg.wideband.enabled; S divisible by num_subbands): the
     front end (FFT-channelizer kernel for a power-of-two num_subbands,
@@ -343,9 +370,14 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
         return v, torch.stack([az, el], dim=-1)
 
     def _subspace(E):
-        """Fused path → (Vt, (flagged, overflow)); warm start from the
-        capture-mean subspace when the batch has ≥ 32 windows (as the
-        reference)."""
+        """Fused path → (Vt, (flagged, overflow)): kernel 11 cold under
+        subspace_impl="pallas" (no warm start and zero counts, as the
+        reference); else warm start from the capture-mean subspace when
+        the batch has ≥ 32 windows (as the reference)."""
+        if cfg.subspace_impl == "pallas":
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            return subspace_ns(E, K, iters=cfg.power_iters,
+                               squarings=cfg.power_squarings), (zero, zero)
         if cfg.subspace_warm_start and E.shape[0] >= 32:
             Vt_bar = signal_subspace_from_E_T(
                 E.mean(dim=0, keepdim=True), K,
@@ -380,7 +412,7 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
         None, E(R) windows (fused path) or None."""
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         stats = (zero, zero)
-        Vt = None
+        Vt = sub_res = None
         if use_power and Estimator.MUSIC in cfg.estimators:
             if E is not None:
                 Vt, stats = _subspace(E)
@@ -389,6 +421,11 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
                     *R, K, iters=cfg.power_iters,
                     squarings=cfg.power_squarings, return_stats=True,
                     **(esc if cfg.power_squarings == 0 else {}))
+                Vt = V.transpose(-1, -2)
+            if cfg.subspace_check:
+                V, sub_res = cpx_ops.guarded_signal_subspace(
+                    E if E is not None else embed_planes(*R),
+                    Vt.transpose(-1, -2), K, tol=cfg.subspace_tol)
                 Vt = V.transpose(-1, -2)
         spectra, pvals, pangs = {}, {}, {}
         for est in cfg.estimators:
@@ -408,7 +445,8 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
         return DoaResult(
             spectra=spectra, peak_values=pvals, peak_angles=pangs,
             covariance=torch.complex(*R) if return_covariance else None,
-            escalation_flagged=stats[0], escalation_overflow=stats[1])
+            subspace_residual=sub_res, escalation_flagged=stats[0],
+            escalation_overflow=stats[1])
 
     def _coherent(E_sub):
         """E_sub → the focused covariance planes after FB and smoothing."""
@@ -516,7 +554,47 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
             xil, np.ndarray) else xil
         return run_interleaved(_ingest(xt), *_planes(correction))
 
+    # windows start at global multiples of hop, so the earliest window
+    # spanning a block boundary starts hop·ceil(overlap/hop) samples
+    # before it: the carry (overlap itself only when hop | overlap)
+    carry = cfg.hop * -(-cfg.overlap // cfg.hop)
+
+    def scan_capture(blocks, correction=None) -> dict:
+        if not (fused or wb):
+            raise ValueError("scan_capture requires the fused path (power "
+                             "subspace, no smoothing) or the wideband path")
+        if wb and cfg.overlap % cfg.wideband.num_subbands:
+            raise ValueError("wideband scan_capture needs subbands | "
+                             "overlap (else the effective subband hop "
+                             "misaligns with the input-domain carry)")
+        xt = torch.from_numpy(np.ascontiguousarray(blocks)) if isinstance(
+            blocks, np.ndarray) else blocks
+        M = xt.shape[0]
+        x = _ingest(xt)                                # (M·T_blk, 2N)
+        T_blk = x.shape[0] // M
+        if T_blk % cfg.hop:
+            raise ValueError(f"scan_capture needs hop ({cfg.hop}) | "
+                             f"block samples ({T_blk})")
+        cr, ci = _planes(correction)
+        outs = []
+        for m in range(M):
+            # block m and its carry: the stream behind a zero prefix of
+            # `carry` samples, a contiguous slice once m·T_blk ≥ carry
+            lo = m * T_blk - carry
+            xb = x[max(lo, 0):(m + 1) * T_blk]
+            if lo < 0:
+                xb = torch.cat([xb.new_zeros((-lo, xb.shape[1])), xb])
+            r = run_interleaved(xb, cr, ci)
+            outs.append({"peak_values": r.peak_values,
+                         "peak_angles": r.peak_angles})
+        return {key: {est: torch.stack([o[key][est] for o in outs])
+                      for est in outs[0][key]} for key in outs[0]}
+
+    # windows of block 0 that reach into the zero prefix (drop them)
+    scan_capture.prefix_windows = carry // cfg.hop
+
     call.interleaved = call_interleaved
+    call.scan_capture = scan_capture
     call.steering_planes = (A_re, A_im)
     call.subband_planes = subband_planes
     call.fast_path = fused

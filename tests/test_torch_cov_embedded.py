@@ -159,3 +159,92 @@ def test_embedding_transform_matches_permutation_form():
                                     fb=True).numpy()
     np.testing.assert_allclose(E, E_ref, rtol=1e-5,
                                atol=1e-6 * np.abs(E_ref).max())
+
+
+def _jax_E_chunk(xil, cr, ci, N, overlap, fb, dtype=jnp.float32):
+    tp = ce_jax.interleave_factor(N)
+    x = jnp.asarray(np.asarray(xil).reshape(-1, 2 * N * tp))
+    return np.asarray(ce_jax.cov_embedded_pallas(
+        x, jnp.asarray(cr), jnp.asarray(ci), N=N, snapshot_size=S,
+        overlap=overlap, fb=fb, compute_dtype=dtype, variant="chunk",
+        interpret=True))
+
+
+@pytest.mark.parametrize("overlap,fb", [(0, False), (128, True)])
+def test_chunk_variant_matches_pallas(overlap, fb):
+    """Kernel 9's route (its plain version here): variant="chunk" against
+    cov_embedded_pallas(variant="chunk") in interpret mode on
+    tests/test_fused_path.py's case (N = 16, T = 8·S + 100, a random
+    correction): rtol 1e-4, atol 1e-5·max|E| (the Grams' summation order
+    differs); and against the port's stacked variant within rtol 1e-5,
+    atol 1e-5 (test_fused_path.py's stacked-vs-chunk tolerance)."""
+    N = 16
+    xil = _capture(N, T=8 * S + 100).view(np.float32)
+    rng = np.random.default_rng(7)
+    cr = rng.standard_normal(N).astype(np.float32)
+    ci = rng.standard_normal(N).astype(np.float32)
+    E_ref = _jax_E_chunk(xil, cr, ci, N, overlap, fb)
+    E = ce.cov_embedded(torch.from_numpy(xil), torch.from_numpy(cr),
+                        torch.from_numpy(ci), N=N, snapshot_size=S,
+                        overlap=overlap, fb=fb, variant="chunk").numpy()
+    assert E.shape == E_ref.shape
+    np.testing.assert_allclose(E, E_ref, rtol=1e-4,
+                               atol=1e-5 * np.abs(E_ref).max())
+    E_st = _torch_E(xil, cr, ci, N, overlap, fb)
+    np.testing.assert_allclose(E, E_st, rtol=1e-5, atol=1e-5)
+
+
+def test_chunk_variant_bf16_matches_pallas():
+    """bf16 ingest through the chunk route: both round the samples to
+    bf16 and accumulate in f32 (rtol 1e-3, atol 1e-4·max|E|, as the
+    stacked bf16 case)."""
+    N = 16
+    xil = _capture(N, T=4 * S).view(np.float32)
+    cr, ci = _correction(N, seed=1)
+    E_ref = _jax_E_chunk(xil, cr, ci, N, 128, True, dtype=jnp.bfloat16)
+    E = ce.cov_embedded(torch.from_numpy(xil), torch.from_numpy(cr),
+                        torch.from_numpy(ci), N=N, snapshot_size=S,
+                        overlap=128, fb=True, compute_dtype="bfloat16",
+                        variant="chunk").numpy()
+    np.testing.assert_allclose(E, E_ref, rtol=1e-3,
+                               atol=1e-4 * np.abs(E_ref).max())
+
+
+def test_chunk_embedded_plain_is_k1_then_the_embedding():
+    """chunk_embedded_plain = K1's plain Gram, then uhat_windows_to_embedded
+    on every chunk, bit for bit; the wrapper takes it for a CPU tensor and
+    counts no launch."""
+    N, g = 8, 64
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((5 * g + 3, 2 * N)).astype(
+        np.float32))
+    cr, ci = (torch.from_numpy(p) for p in _correction(N, seed=5))
+    W = ce.correction_pattern(cr, ci)
+    ref = ce.uhat_windows_to_embedded(ce.chunk_grams_uhat_plain(x, g), N,
+                                      1.0 / g, W, True)
+    before = ce.chunk_embedded.launches
+    E = ce.chunk_embedded(x, g, N, 1.0 / g, W, True)
+    assert ce.chunk_embedded.launches == before
+    assert E.shape == (5, 2 * N, 2 * N)
+    torch.testing.assert_close(E, ref, rtol=0, atol=0)
+    torch.testing.assert_close(ce.chunk_embedded_plain(x, g, N, 1.0 / g, W,
+                                                       True), ref, rtol=0,
+                               atol=0)
+
+
+def test_chunk_variant_rejects_int8_and_unknown_variants():
+    N = 16
+    xil = _capture(N).view(np.float32)
+    cr, ci = _correction(N)
+    q, _ = quantize_interleaved_int8(torch.from_numpy(xil))
+    kw = dict(N=N, snapshot_size=S)
+    with pytest.raises(ValueError, match="stacked"):
+        ce.cov_embedded(q, torch.from_numpy(cr), torch.from_numpy(ci),
+                        compute_dtype="int8", variant="chunk", **kw)
+    with pytest.raises(ValueError, match="variant"):
+        ce.cov_embedded(torch.from_numpy(xil), torch.from_numpy(cr),
+                        torch.from_numpy(ci), variant="planar", **kw)
+    with pytest.raises(ValueError, match="device"):
+        ce.chunk_embedded(torch.empty((256, 32), device="meta"), 64, 16,
+                          1.0, (torch.ones(16, 16), torch.zeros(16, 16)),
+                          False)

@@ -529,3 +529,222 @@ def test_dense_quantized_scan_on_fused_path_matches_reference(compute_dtype):
                              return_spectra=False)(x)
     out = build_pipeline_torch(cfg, device="cpu", return_spectra=False)(x)
     _assert_matches(out, ref, ["music"], False)
+
+
+# --- slice 5: subspace_impl="pallas" (kernel 11), subspace_check (the
+# guard), scan_capture, donate_inputs ---
+
+def _assert_residual_match(out, ref):
+    """subspace_residual f32[B]: the same replaced windows (≥ 1); the
+    residual within 1e-4 relative + 1e-5 (a converged window's residual is
+    f32 cancellation noise of ~1e-7)."""
+    r = out.subspace_residual.numpy()
+    r_ref = np.asarray(ref.subspace_residual)
+    assert r.shape == r_ref.shape
+    np.testing.assert_array_equal(r >= 1.0, r_ref >= 1.0)
+    np.testing.assert_allclose(r, r_ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("return_spectra,schedule", [(True, "e1"),
+                                                     (False, "e2")])
+def test_subspace_impl_pallas_matches_reference(return_spectra, schedule):
+    """subspace_impl="pallas": kernel 11's cold Newton–Schulz subspace
+    (its plain version here) against the reference's Pallas subspace
+    kernel in interpret mode, K3/K2 downstream: angles within 1e-3°,
+    spectra as test_slice_matches_reference, escalation counts zeros."""
+    cfg = dataclasses.replace(_cfg(128), subspace_impl="pallas",
+                              power_schedule=schedule,
+                              subspace_escalate=schedule == "e1")
+    x, c = _capture(), _correction()
+    ref = build_pipeline_tpu(
+        dataclasses.replace(cfg, cov_impl="pallas", scan_mode="pallas"),
+        return_spectra=return_spectra)(x, c)
+    out = build_pipeline_torch(cfg, device="cpu",
+                               return_spectra=return_spectra)(x, c)
+    _assert_matches(out, ref, ["music"], return_spectra)
+    assert out.escalation_flagged.dtype == torch.int32
+    assert int(out.escalation_flagged) == int(out.escalation_overflow) == 0
+    assert out.subspace_residual is None and ref.subspace_residual is None
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+def test_subspace_check_fused_route_matches_reference(impl):
+    """subspace_check on the fused path (warm MGS, or kernel 11): the
+    guarded subspace feeds the scans; angles, spectra, escalation counts
+    and the residual as the reference."""
+    cfg = dataclasses.replace(_cfg(), subspace_check=True,
+                              subspace_impl=impl)
+    x, c = _capture(), _correction()
+    ref = build_pipeline_tpu(
+        dataclasses.replace(cfg, cov_impl="pallas", scan_mode="pallas"))(x, c)
+    out = build_pipeline_torch(cfg, device="cpu")(x, c)
+    _assert_matches(out, ref, ["music"], True)
+    _assert_residual_match(out, ref)
+
+
+def test_subspace_check_planes_route_matches_reference():
+    """subspace_check on the planes path (c3: cold MGS of the smoothed
+    E(R), guarded on E(R))."""
+    cfg = dataclasses.replace(PRESETS["c3_ula16_calib_smooth"],
+                              subspace_check=True)
+    x, c = _c3_capture(B=12), _correction(16, seed=1)
+    ref = build_pipeline_tpu(dataclasses.replace(cfg, cov_impl="pallas"))(x,
+                                                                          c)
+    pipe = build_pipeline_torch(cfg, device="cpu")
+    assert not pipe.fast_path
+    out = pipe(x, c)
+    _assert_matches(out, ref, ["music"], True)
+    _assert_residual_match(out, ref)
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+def test_subspace_check_hard_scene_matches_reference(impl):
+    """tests/test_power_subspace.py's guard scene (amplitude 30 : 1 at
+    60°/110°, 20 dB, power_iters=4, c2 with MUSIC only): the guarded
+    angles as the reference's (1e-3°) and within 0.2° of the eigh run; the
+    4-iteration Newton–Schulz subspace fails the guard in every window
+    and takes eigh's."""
+    x = synth_ula_iq(
+        [SourceSpec(theta_deg=60.0, freq_norm=0.1, amplitude=30.0),
+         SourceSpec(theta_deg=110.0, freq_norm=0.31, amplitude=1.0)],
+        8, 0.5, 16 * 2048, snr_db=20, seed=6).astype(np.complex64)
+    base = dataclasses.replace(PRESETS["c2_ula8_2src"],
+                               estimators=(Estimator.MUSIC,), power_iters=4,
+                               subspace_impl=impl)
+    guard = dataclasses.replace(base, subspace_check=True)
+    # peaks only: the dominant source's nulls are ~1e-33 of the peak
+    ref = build_pipeline_tpu(dataclasses.replace(guard, cov_impl="pallas"),
+                             return_spectra=False)(x)
+    out = build_pipeline_torch(guard, device="cpu", return_spectra=False)(x)
+    _assert_matches(out, ref, ["music"], False, sort=True)
+    _assert_residual_match(out, ref)
+    a_eigh = build_pipeline_torch(dataclasses.replace(
+        base, subspace_method="eigh"), device="cpu")(x).peak_angles["music"]
+    np.testing.assert_allclose(
+        np.sort(out.peak_angles["music"].numpy(), -1),
+        np.sort(a_eigh.numpy(), -1), atol=0.2)
+    if impl == "pallas":
+        assert bool((out.subspace_residual >= 1.0).all())
+
+
+def _scan_capture_case(wideband):
+    """tests/test_streaming_tracking.py's scan_capture cases → (cfg,
+    blocks (M, T_blk, 2N) float32, hop)."""
+    N, S = 8, 256
+    if wideband:
+        from doa_tpu.configs import WidebandSpec
+        from doa_tpu.io.synthetic import synth_wideband_ula_iq
+        OV = 128
+        cfg = DoaConfig(
+            geometry=ArrayGeometry(kind="ula", num_elements=N,
+                                   norm_spacing=0.5),
+            snapshot_size=S, overlap=OV, num_sources=2,
+            estimators=(Estimator.MUSIC,), grid=GridSpec1D(num_points=181),
+            wideband=WidebandSpec(num_subbands=8, fractional_bw=0.1),
+            num_max_vals=2)
+        M, T_blk = 3, 8 * (S - OV)
+        x = synth_wideband_ula_iq(
+            [SourceSpec(theta_deg=62.0, freq_norm=0.0, bandwidth_norm=0.5),
+             SourceSpec(theta_deg=111.0, freq_norm=0.0,
+                        bandwidth_norm=0.5)],
+            N, 0.5, M * T_blk, fractional_bw=0.1, snr_db=15, seed=3)
+    else:
+        OV = 64                       # hop = 192 does not divide overlap
+        cfg = DoaConfig(
+            geometry=ArrayGeometry(kind="ula", num_elements=N,
+                                   norm_spacing=0.5),
+            snapshot_size=S, overlap=OV, num_sources=2,
+            estimators=(Estimator.MUSIC,), grid=GridSpec1D(num_points=361),
+            num_max_vals=2, scan_mode="pallas")
+        M, T_blk = 3, 5 * (S - OV)
+        x = synth_ula_iq([SourceSpec(theta_deg=70.0, freq_norm=0.12),
+                          SourceSpec(theta_deg=120.0, freq_norm=0.3)],
+                         N, 0.5, M * T_blk, snr_db=15, seed=9)
+    blocks = np.ascontiguousarray(x.astype(np.complex64)).view(
+        np.float32).reshape(M, T_blk, 2 * N)
+    return cfg, blocks, S - OV
+
+
+@pytest.mark.parametrize("wideband", [False, True])
+def test_scan_capture_matches_reference_and_per_block_calls(wideband):
+    """call.scan_capture against the reference's scan_capture (angles
+    within 1e-3°; the reference takes its (M, T_blk/TPACK, 2N·TPACK)
+    layout, the port both layouts) and, as
+    tests/test_streaming_tracking.py, against per-block calls: blocks
+    1..M−1 equal call.interleaved on the block with its carry, block 0
+    beyond prefix_windows equals the plain call on block 0."""
+    from doa_tpu.ops.pallas.cov_embedded import interleave_factor
+    cfg, blocks, hop = _scan_capture_case(wideband)
+    M, T_blk, n2 = blocks.shape
+    tp = interleave_factor(n2 // 2)
+    ref = build_pipeline_tpu(dataclasses.replace(cfg, cov_impl="pallas"),
+                             return_spectra=False)
+    out_ref = ref.scan_capture(blocks.reshape(M, T_blk // tp, n2 * tp))
+    pipe = build_pipeline_torch(cfg, device="cpu", return_spectra=False)
+    out = pipe.scan_capture(blocks)
+    assert set(out) == {"peak_values", "peak_angles"}
+    angs = out["peak_angles"]["music"].numpy()
+    assert angs.shape == (M, (T_blk + pipe.scan_capture.prefix_windows * hop
+                              - cfg.snapshot_size) // hop + 1, 2)
+    np.testing.assert_allclose(angs, np.asarray(
+        out_ref["peak_angles"]["music"]), atol=1e-3)
+    assert pipe.scan_capture.prefix_windows == ref.scan_capture.prefix_windows
+    # the reference's layout, as a torch tensor: the same numbers
+    again = pipe.scan_capture(torch.from_numpy(
+        blocks.reshape(M, T_blk // tp, n2 * tp)))
+    torch.testing.assert_close(again["peak_angles"]["music"],
+                               out["peak_angles"]["music"], rtol=0, atol=0)
+    C = hop * -(-cfg.overlap // hop)
+    for m in range(1, M):
+        xb = np.concatenate([blocks[m - 1][-C:], blocks[m]]) if C else \
+            blocks[m]
+        r = pipe.interleaved(xb).peak_angles["music"].numpy()
+        np.testing.assert_allclose(angs[m], r, atol=1e-4)
+    n_pre = pipe.scan_capture.prefix_windows
+    r0 = pipe.interleaved(blocks[0]).peak_angles["music"].numpy()
+    np.testing.assert_allclose(angs[0, n_pre:], r0[:angs.shape[1] - n_pre],
+                               atol=1e-4)
+
+
+def test_scan_capture_checks():
+    cfg, blocks, hop = _scan_capture_case(False)
+    pipe = build_pipeline_torch(cfg, device="cpu")
+    with pytest.raises(ValueError, match="hop"):
+        pipe.scan_capture(blocks[:, :-8])
+    with pytest.raises(ValueError, match="fused"):
+        build_pipeline_torch(PRESETS["c3_ula16_calib_smooth"],
+                             device="cpu").scan_capture(blocks)
+    wb_cfg, _, _ = _scan_capture_case(True)
+    with pytest.raises(ValueError, match="overlap"):
+        build_pipeline_torch(dataclasses.replace(wb_cfg, overlap=100),
+                             device="cpu").scan_capture(blocks)
+
+
+def test_donate_inputs_gives_equal_results():
+    cfg = dataclasses.replace(_cfg(), subspace_check=True)
+    x = _capture(B=12)
+    a = build_pipeline_torch(cfg, device="cpu")(x)
+    b = build_pipeline_torch(cfg, device="cpu", donate_inputs=True)(x)
+    for f in dataclasses.fields(a):
+        u, v = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(u, dict):
+            for k in u:
+                torch.testing.assert_close(u[k], v[k], rtol=0, atol=0)
+        elif isinstance(u, torch.Tensor):
+            torch.testing.assert_close(u, v, rtol=0, atol=0)
+        else:
+            assert u is None and v is None
+
+
+@pytest.mark.parametrize("name", ["c2_ula8_2src", "c4_ula16_streaming"])
+def test_as_config_carries_subspace_impl_and_check(name):
+    from doa_tpu_torch import configs as configs_t
+    cfg = dataclasses.replace(PRESETS[name], subspace_impl="pallas",
+                              subspace_check=True, subspace_tol=0.03)
+    got = configs_t.as_config(cfg)
+    assert (got.subspace_impl, got.subspace_check, got.subspace_tol) == (
+        "pallas", True, 0.03)
+    assert got == dataclasses.replace(configs_t.PRESETS[name],
+                                      subspace_impl="pallas",
+                                      subspace_check=True, subspace_tol=0.03)
+    assert build_pipeline_torch(cfg, device="cpu").config == got

@@ -145,9 +145,14 @@ def test_detector_and_flags_match():
 
 
 def test_only_mgs_is_ported():
-    with pytest.raises(NotImplementedError, match="mgs"):
-        cpx_ops.signal_subspace_from_E_T(torch.zeros((1, 8, 8)), 1,
-                                         orth="ns")
+    """The two orthonormalisations of the reference, 'mgs' and 'ns', are
+    ported (tests/test_torch_subspace_ns.py holds 'ns'); any other name
+    raises."""
+    E = torch.from_numpy(_E_scene(N=8, B=4))
+    assert cpx_ops.signal_subspace_from_E_T(E, 2, orth="ns").shape == (
+        4, 4, 16)
+    with pytest.raises(ValueError, match="mgs"):
+        cpx_ops.signal_subspace_from_E_T(E, 2, orth="qr")
 
 
 def test_init_per_group_of_windows():
