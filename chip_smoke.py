@@ -91,6 +91,17 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    each block equal to a per-block call with its carry; the
    cov_embedded(variant="chunk") entry at T=2^24; the card against the
    CPU on 64 windows of the two opt-in stages.
+14. the time-sharded pipeline: PRESETS["c4_ula16_streaming"] (overlap
+   512, so the halo is not empty) at T=2^24 on R = 2 and 4 ranks, each
+   a process on cuda:0 started by parallel.launch.spawn_ranks (gloo,
+   whose collectives the port stages through the host; kernel 13 writes
+   each halo through a CUDA IPC peer pointer): kernel 13 bit-equal to
+   its plain version on every rank, its public result unchanged by the
+   next exchange, its time alone, the exchange's, the default halo's; the sharded fused path under halo_impl "pallas" and
+   "xla", equal bit for bit on the valid windows, within 5e-3 deg of the
+   single-card path on the same capture, every window within 0.5 deg,
+   equal escalation counts, launch counts of kernel 13, K1, K4 and K2;
+   the ms of a call with the R ranks time-sliced on one card.
 
 Each kernel record gives its bound (the larger of its bytes over
 3.35 TB/s and the FP32 operations the function needs over 67 TFLOP/s,
@@ -127,7 +138,7 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "library_ms")
 SOURCES = ("cov_gram", "music_scan", "subspace", "wideband_cov",
            "wideband_scan", "peaks2d", "covariance", "subband_gram",
-           "subspace_ns")
+           "subspace_ns", "ring")
 # the published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s,
 # FP32 FLOP/s outside the tensor cores (every kernel here multiplies in FP32 on the CUDA cores)
 H100_BYTES_PER_S = 3.35e12
@@ -2184,6 +2195,258 @@ def opt_in_phases(torch, dev, card):
     return recs, total
 
 
+# ---------------------------------------------------------------------
+# 14. the time-sharded pipeline on R ranks of one card (kernel 13)
+# ---------------------------------------------------------------------
+T_SHARD = 1 << 24                  # c4 at the single-card path's width
+SHARD_RANKS = (2, 4)
+SHARD_SEED = 14
+SHARD_TOL = 5e-3                   # deg, sharded vs single card
+#                                    (tests/test_sharded.py:376)
+SHARD_REPS = 10
+
+
+def shard_block(torch, T_loc, s, device):
+    """Rank s's block of phase 14's capture: the planted scene on T_loc
+    samples from seed SHARD_SEED + s. T_loc is a multiple of PERIOD, so
+    the tones' phases run on across blocks and the blocks in rank order
+    are one capture, which the single-card path reads whole."""
+    return make_scene(torch, T_loc, 16, device, seed=SHARD_SEED + s)
+
+
+def shard_rank(device, R, card):
+    """Phase 14 on one of R ranks (a spawn_ranks target; every rank on
+    cuda:0): kernel 13 against its plain version, the kernel's, the
+    exchange's, the plain version's and the default halo's times, then the
+    c4 preset's sharded fused path under halo_impl "pallas" and "xla",
+    each driven once with the counts from zero, then timed, and under
+    "pallas" a profile window of rank 0's calls."""
+    import torch
+    import torch.distributed as dist
+    from doa_tpu_torch import PRESETS, _build
+    from doa_tpu_torch.ops import cpx_ops
+    from doa_tpu_torch.ops.cuda import cov_embedded as ce
+    from doa_tpu_torch.ops.cuda import music_scan as ms
+    from doa_tpu_torch.ops.cuda import ring as rg
+    from doa_tpu_torch.parallel import (MeshSpec, build_sharded_pipeline,
+                                        make_mesh)
+
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(MeshSpec(R, 1), device=device)
+    s = mesh.axis_index("snap")
+    T_loc = T_SHARD // R
+    cfg = PRESETS["c4_ula16_streaming"]
+    ov = cfg.overlap
+    x = shard_block(torch, T_loc, s, mesh.device)
+    torch.cuda.synchronize()
+    out = {"device": str(mesh.device), "backend": mesh.backend}
+
+    def barrier():
+        dist.barrier(group=mesh.halo_group)
+
+    def together(fn, reps):
+        """ms of each of reps calls of fn, every rank at once (a barrier
+        before each call; host clock to the device's synchronize), after
+        one warm call."""
+        ts = []
+        for _ in range(reps + 1):
+            barrier()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return ts[1:]
+
+    # kernel 13 against its plain version (the ring through ppermute on
+    # the host copy): every row, the wrap included; then a second
+    # exchange of the same shape (on -x) must leave the first's result
+    # as it was, since the public entry hands out a copy of the window
+    k_out = rg.halo_ring(x, ov, mesh)
+    k_next = rg.halo_ring(-x, ov, mesh)
+    lib = _build.load("ring", rg._SIG)
+    w = next(iter(mesh.halo_windows.values()))
+    plain = rg.halo_ring_plain(x.cpu(), ov, mesh)
+    k_cpu = k_out.cpu()
+    out["ring_equal"] = bool(torch.equal(k_cpu, plain))
+    out["ring_err"] = float((k_cpu - plain).abs().max())
+    out["ring_own"] = (k_out.data_ptr() != w.own
+                       and bool(torch.equal(k_next.cpu().neg_(), plain)))
+    del k_out, k_next, k_cpu, plain
+    # the kernel alone, one rank at a time (the card time-slices the
+    # ranks' contexts, so concurrent events would count the others' work)
+    stream = torch.cuda.current_stream().cuda_stream
+    nb_halo = ov * x.shape[1] * 4
+
+    def raw():
+        _build.check(lib.doa_halo(x.data_ptr(), w.own, w.left + w.halo_offset,
+                                  w.halo_offset, nb_halo, stream), "doa_halo")
+    for r in range(R):
+        barrier()
+        if r == s:
+            out["kernel_ms"] = time_ms(torch, raw)
+        torch.cuda.synchronize()
+    barrier()
+    out["exchange_ms"] = together(lambda: rg._ring(x, ov, mesh),
+                                  SHARD_REPS)
+    out["xla_ms"] = together(
+        lambda: rg.halo_exchange(x, ov, mesh, impl="xla"), SHARD_REPS)
+    xc = x.cpu()
+    out["plain_ms"] = together(lambda: rg.halo_ring_plain(xc, ov, mesh), 3)
+    del xc
+
+    counters = {"halo_ring": rg.halo_ring,
+                "chunk_gram": ce.chunk_grams_uhat,
+                "mgs_iterate": cpx_ops.mgs_iterate,
+                "music_scan": ms.music_scan,
+                "music_scan_peaks": ms.music_scan_peaks}
+    for impl in ("pallas", "xla"):
+        pipe = build_sharded_pipeline(
+            dataclasses.replace(cfg, halo_impl=impl), mesh,
+            return_spectra=False)
+        barrier()
+        for f in counters.values():
+            f.launches = 0
+        res = pipe.local(x)
+        torch.cuda.synchronize()
+        out[impl] = {
+            "launches": {k: f.launches for k, f in counters.items()},
+            "angles": res["peak_angles_music"].cpu().numpy(),
+            "values": res["peak_values_music"].cpu().numpy(),
+            "flagged": int(res["escalation_flagged"]),
+            "overflow": int(res["escalation_overflow"]),
+            "ms": together(lambda: pipe.local(x), SHARD_REPS)}
+        del res
+        if impl == "pallas":
+            # rank 0's device share; the other ranks make the same calls
+            barrier()
+            if s == 0:
+                log(f"R={R} profile of rank 0, halo_impl='pallas':")
+                profile_window(torch, lambda: pipe.local(x), card)
+            else:
+                for _ in range(4):
+                    pipe.local(x)
+                torch.cuda.synchronize()
+    mesh.close()
+    return out
+
+
+def sharded_phases(torch, dev, card):
+    """Phase 14 → (kernel 13's record, the launches of the earlier
+    kernels in the ranks' main-path runs)."""
+    import numpy as np
+    from doa_tpu_torch import PRESETS
+    from doa_tpu_torch.parallel.launch import spawn_ranks
+    from doa_tpu_torch.parallel.sharded import num_valid_windows
+    from doa_tpu_torch.pipeline_torch import build_pipeline_torch
+
+    cfg = PRESETS["c4_ula16_streaming"]
+    B = num_valid_windows(T_SHARD, cfg)
+    log(f"phase 14: c4_ula16_streaming (S={cfg.snapshot_size}, overlap "
+        f"{cfg.overlap}, G={cfg.grid.num_points}) at T={T_SHARD} ({B} "
+        f"windows) on R ranks, each a process on {dev} (one card: gloo, "
+        f"whose collectives the port stages through the host explicitly; "
+        f"kernel 13 writes each halo through a CUDA IPC peer pointer)")
+    total = {"chunk_gram": 0, "mgs_iterate": 0, "music_scan": 0,
+             "music_scan_peaks": 0}
+    ring_launches = 0
+    rec = None
+    for R in SHARD_RANKS:
+        T_loc = T_SHARD // R
+        x = torch.cat([shard_block(torch, T_loc, s, dev) for s in range(R)])
+        pipe = build_pipeline_torch(cfg, device=dev, return_spectra=False)
+        one = pipe.interleaved(x)
+        a_one = one.peak_angles["music"].sort(-1).values.cpu().numpy()
+        flagged_one = int(one.escalation_flagged)
+        ts = call_times(torch, lambda: pipe.interleaved(x), reps=10, warm=2)
+        m = 0.5 * (ts[4] + ts[5])
+        log(f"R={R} the single-card path on the same capture, one process: "
+            f"median {m:.4f} ms per call of {B} windows (10 calls, min "
+            f"{ts[0]:.4f}, max {ts[-1]:.4f}) = {B / (m / 1e3):.1f} "
+            f"snapshots/s  [{card}]")
+        del x, one, pipe
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        outs = spawn_ranks(shard_rank, R, (R, card), device="cuda",
+                           timeout=900)
+        log(f"R={R}: {R} ranks ran in {time.perf_counter() - t0:.1f} s on "
+            f"{sorted({o['device'] for o in outs})}, backend "
+            f"{outs[0]['backend']}")
+        err = max(o["ring_err"] for o in outs)
+        log(f"R={R} kernel 13 vs plain (ring through ppermute): bit-equal "
+            f"on every rank {[o['ring_equal'] for o in outs]}, max|diff| "
+            f"{err!r}")
+        check(all(o["ring_equal"] for o in outs),
+              f"R={R}: kernel 13 differs from its plain version")
+        log(f"R={R} halo_ring's result survives the next exchange of its "
+            f"shape on every rank: {[o['ring_own'] for o in outs]}")
+        check(all(o["ring_own"] for o in outs),
+              f"R={R}: halo_ring's result aliases the rank's window")
+        k_ms = max(o["kernel_ms"] for o in outs)
+        med = lambda key: float(np.median(  # noqa: E731
+            np.max([o[key] for o in outs], axis=0)))
+        ex_ms, xla_ms, plain_ms = med("exchange_ms"), med("xla_ms"), \
+            med("plain_ms")
+        C = 32
+        b = bound(2 * T_loc * C * 4 + 2 * cfg.overlap * C * 4, 0)
+        log(f"R={R} kernel 13 [{T_loc}, {C}] overlap {cfg.overlap}: kernel "
+            f"alone {k_ms:.4f} ms (slowest rank; ranks "
+            f"{[round(o['kernel_ms'], 4) for o in outs]}), the exchange "
+            f"into the window (the pipeline's route) with its two host "
+            f"barriers {ex_ms:.4f} ms, the default "
+            f"impl='xla' halo (host-staged ppermute + cat) {xla_ms:.4f} ms, "
+            f"the plain version on the host {plain_ms:.4f} ms; bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
+        for impl in ("pallas", "xla"):
+            for o in outs:
+                n = o[impl]["launches"]
+                check(n["chunk_gram"] > 0 and n["mgs_iterate"] > 0
+                      and n["music_scan_peaks"] > 0
+                      and n["halo_ring"] == (1 if impl == "pallas" else 0),
+                      f"R={R} {impl}: launch counts {n}")
+                for k in total:
+                    total[k] += n[k]
+            ring_launches += sum(o[impl]["launches"]["halo_ring"]
+                                 for o in outs)
+            log(f"R={R} launches in the sharded path, halo_impl={impl!r}, "
+                f"rank 0: " + json.dumps(outs[0][impl]["launches"]))
+        ang = {impl: np.concatenate([o[impl]["angles"] for o in outs])[:B]
+               for impl in ("pallas", "xla")}
+        vals = {impl: np.concatenate([o[impl]["values"] for o in outs])[:B]
+                for impl in ("pallas", "xla")}
+        same = (np.array_equal(ang["pallas"], ang["xla"])
+                and np.array_equal(vals["pallas"], vals["xla"]))
+        d = float(np.abs(np.sort(ang["pallas"], -1) - a_one).max())
+        terr = angle_err(torch, torch.from_numpy(ang["pallas"]))
+        flagged = {o[i]["flagged"] for o in outs for i in ("pallas", "xla")}
+        log(f"R={R} sharded fused path: pallas == xla on the {B} valid "
+            f"windows: {same}; max|sorted sharded - single card| {d!r} deg "
+            f"(tol {SHARD_TOL}); max angle error {terr!r} deg (limit "
+            f"{ANGLE_TOL}); escalation flagged {sorted(flagged)}, single "
+            f"card {flagged_one}")
+        check(same, f"R={R}: halo_impl pallas and xla differ")
+        check(d <= SHARD_TOL, f"R={R}: sharded vs single card {d}")
+        check(terr <= ANGLE_TOL, f"R={R}: angle error {terr}")
+        check(flagged == {flagged_one}, f"R={R}: escalation counts")
+        for impl in ("pallas", "xla"):
+            ts = np.max([o[impl]["ms"] for o in outs], axis=0)
+            m = float(np.median(ts))
+            log(f"R={R} ranks time-sliced on one card (not scaling), "
+                f"halo_impl={impl!r}: median {m:.4f} ms per call of {B} "
+                f"windows ({SHARD_REPS} calls, slowest rank each; min "
+                f"{ts.min():.4f}, max {ts.max():.4f}) = {B / (m / 1e3):.1f} "
+                f"snapshots/s  [{card}]")
+        rec = dict(name="halo_ring", route="cuda",
+                   source="doa_tpu_torch/csrc/ring.cu",
+                   replaces="doa_tpu/ops/pallas/ring.py:35",
+                   max_abs_err=err, ms=k_ms, plain_ms=plain_ms, **b,
+                   library_ms=xla_ms)
+    rec["launches"] = ring_launches
+    return rec, total
+
+
 def main():
     import torch
 
@@ -2214,9 +2477,10 @@ def main():
 
     # 2. build
     from concurrent.futures import ThreadPoolExecutor
-    from doa_tpu_torch.ops.cuda import (covariance, peaks2d, subspace_ns,
-                                        wideband_cov, wideband_scan)
-    sigs = {"cov_gram": ce._SIG, "music_scan": ms._SIG,
+    from doa_tpu_torch.ops.cuda import (covariance, peaks2d, ring,
+                                        subspace_ns, wideband_cov,
+                                        wideband_scan)
+    sigs = {"cov_gram": ce._SIG, "music_scan": ms._SIG, "ring": ring._SIG,
             "subspace_ns": subspace_ns._SIG,
             "subspace": cpx_ops._SIG, "wideband_cov": wideband_cov._SIG,
             "wideband_scan": wideband_scan._SIG, "peaks2d": peaks2d._SIG,
@@ -2343,6 +2607,12 @@ def main():
     for name, n in op_launches.items():
         recs[name]["launches"] += n
     recs.update(op_recs)
+
+    # 14. the time-sharded pipeline on 2 and 4 ranks of this card
+    torch.cuda.empty_cache()
+    recs["halo_ring"], sh_launches = sharded_phases(torch, dev, card)
+    for name, n in sh_launches.items():
+        recs[name]["launches"] += n
     check(not any(m == "jax" or m.startswith(("jax.", "doa_tpu."))
                   or m == "doa_tpu" for m in sys.modules),
           "jax or doa_tpu was imported")

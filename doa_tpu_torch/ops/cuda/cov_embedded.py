@@ -41,6 +41,13 @@ _SIG = {"doa_chunk_gram": [_P, _P, _I, _I, _I, _I, _P],
 VARIANTS = ("stacked", "chunk")
 
 
+def interleave_factor(N: int) -> int:
+    """doa_tpu's TPACK: time steps per 128-lane row of the TPU layout (1
+    when 2N ≥ 128). Nothing here is laid out by it; the pipelines' route
+    rule reads it (pipeline_torch._fused)."""
+    return max(1, 128 // (2 * N))
+
+
 def _perm_interleaved_to_planar(N: int) -> np.ndarray:
     """(2N, 2N) permutation P with (P u)[planar] = u[interleaved]:
     planar row c ← interleaved row 2c (re), planar row N+c ← 2c+1."""

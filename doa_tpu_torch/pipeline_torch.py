@@ -2,7 +2,8 @@
 planes branches and the wideband incoherent branch of
 doa_tpu/pipeline_tpu.py::build_pipeline_tpu).
 
-Narrowband, fused path (no smoothing, subspace_method="power"):
+Narrowband, fused path (no smoothing, subspace_method="power",
+TPACK | gcd(S, hop): _fused, the reference's route rule):
     capture x[T, 2N] (the bytes of a complex64 (T, N) buffer)
       → K1 chunk Grams → windows E(R) f32[B, 2N, 2N]   ops/cuda/cov_embedded
       → warm-start MGS subspace (K4) Vt f32[B, 2K, 2N] ops/cpx_ops
@@ -15,8 +16,8 @@ Narrowband, fused path (no smoothing, subspace_method="power"):
            (2-D grids: the 2-D peaks kernel)            ops/cuda/peaks2d
       Capon / Bartlett on R = unembed(E).
 
-Narrowband, planes path (smoothing, subspace_method="eigh", or planes
-input on either path):
+Narrowband, planes path (smoothing, subspace_method="eigh", a hop outside
+the route rule, or planes input on either path):
     planes xr, xi f32[T, N] (separate, or strided views of a complex64
     capture)
       → kernel 8 chunk Grams → windows (Rr, Ri) f32[B, N, N]
@@ -55,6 +56,8 @@ to the CPU or to a plain version.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -63,7 +66,8 @@ from doa_tpu_torch.cpx import embed_planes, fp32_matmuls, unembed_planes
 from doa_tpu_torch.io.native import quantize_interleaved_int8
 from doa_tpu_torch.ops import cpx_ops
 from doa_tpu_torch.ops.cpx_ops import signal_subspace_from_E_T
-from doa_tpu_torch.ops.cuda.cov_embedded import cov_embedded
+from doa_tpu_torch.ops.cuda.cov_embedded import (cov_embedded,
+                                                  interleave_factor)
 from doa_tpu_torch.ops.cuda.music_scan import (
     MAX_FUSED_G, MAX_FUSED_K, music_scan, music_scan_peaks)
 from doa_tpu_torch.ops.cuda.peaks2d import MAX_PEAKS2D_K, peaks2d
@@ -129,11 +133,18 @@ def _check_slice(cfg: DoaConfig) -> None:
 
 
 def _fused(cfg: DoaConfig) -> bool:
-    """The fused-path rule: narrowband, power subspace, no smoothing. The
-    reference also asks gcd(S, hop) % TPACK == 0 (pipeline_tpu.py:164-166),
-    a TPU lane rule with no counterpart here, so it is dropped."""
+    """The fused-path rule, the reference's (pipeline_tpu.py:164-166):
+    narrowband, power subspace, no smoothing, and TPACK | gcd(S, hop) with
+    TPACK = interleave_factor(N). The last condition comes from the TPU's
+    128-lane layout, but it is kept as a route choice, not as a layout
+    rule: the route sets the numbers (the fused route warm-starts from the
+    capture mean, the planes route runs a cold subspace), so a config
+    outside it takes the planes route here as there."""
+    S = cfg.snapshot_size
     return (not cfg.wideband.enabled and cfg.subspace_method == "power"
-            and not cfg.smoothing.enabled)
+            and not cfg.smoothing.enabled
+            and math.gcd(S, cfg.hop)
+            % interleave_factor(cfg.geometry.num_elements) == 0)
 
 
 def _device(device) -> torch.device:
@@ -248,7 +259,8 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
     * ``call.scan_capture(blocks, correction=None)`` (fused and wideband
       paths): a capture staged as M blocks, (M, T_blk, 2N) or doa_tpu's
       (M, T_blk/TPACK, 2N·TPACK), numpy or torch, hop | T_blk (wideband:
-      also F | overlap) → {"peak_values": {est: (M, B_blk, k)},
+      also F | overlap; under cov_dtype="int8" the blocks must be int8,
+      as the reference's) → {"peak_values": {est: (M, B_blk, k)},
       "peak_angles": {est: (M, B_blk, k[, 2])}}. Block m is computed
       with the carry of the hop·ceil(overlap/hop) samples before it, so
       windows are framed as in one continuous stream; block 0's carry is
@@ -548,8 +560,9 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
     def call_interleaved(xil, correction=None) -> DoaResult:
         if not (fused or wb):
             raise ValueError("the interleaved entry needs the fused path "
-                             "(power subspace, no smoothing) or the "
-                             "wideband path; this config takes planes")
+                             "(power subspace, no smoothing, TPACK | "
+                             "gcd(S, hop)) or the wideband path; this "
+                             "config takes planes")
         xt = torch.from_numpy(np.ascontiguousarray(xil)) if isinstance(
             xil, np.ndarray) else xil
         return run_interleaved(_ingest(xt), *_planes(correction))
@@ -562,13 +575,20 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
     def scan_capture(blocks, correction=None) -> dict:
         if not (fused or wb):
             raise ValueError("scan_capture requires the fused path (power "
-                             "subspace, no smoothing) or the wideband path")
+                             "subspace, no smoothing, TPACK | gcd(S, hop)) "
+                             "or the wideband path")
         if wb and cfg.overlap % cfg.wideband.num_subbands:
             raise ValueError("wideband scan_capture needs subbands | "
                              "overlap (else the effective subband hop "
                              "misaligns with the input-domain carry)")
         xt = torch.from_numpy(np.ascontiguousarray(blocks)) if isinstance(
             blocks, np.ndarray) else blocks
+        if not wb and cfg.cov_dtype == "int8" and xt.is_floating_point():
+            # as the reference: one scale for the whole capture would make
+            # block m differ from a per-block call, so blocks come quantized
+            raise ValueError("cov_dtype='int8' scan_capture takes int8 "
+                             "blocks (io.native.quantize_interleaved_int8 "
+                             "per block), not a float buffer")
         M = xt.shape[0]
         x = _ingest(xt)                                # (M·T_blk, 2N)
         T_blk = x.shape[0] // M

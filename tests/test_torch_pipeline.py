@@ -225,6 +225,8 @@ def test_port_never_imports_jax():
         "m.startswith('doa_tpu.'))\n"
         "assert not bad, bad\n"
         "assert 'doa_tpu_torch.ops.wideband' in sys.modules\n"
+        "assert 'doa_tpu_torch.parallel.sharded' in sys.modules\n"
+        "assert 'doa_tpu_torch.ops.cuda.ring' in sys.modules\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -748,3 +750,98 @@ def test_as_config_carries_subspace_impl_and_check(name):
                                       subspace_impl="pallas",
                                       subspace_check=True, subspace_tol=0.03)
     assert build_pipeline_torch(cfg, device="cpu").config == got
+
+
+def _route_case(overlap):
+    """ULA-8, S = 256, K = 2, G = 256, 64 windows: 60° at amplitude 1.0
+    and 68° at 0.3 (tones 0.1 and 0.3), 10 dB, seed 5."""
+    S, B = 256, 64
+    cfg = DoaConfig(
+        geometry=ArrayGeometry(kind="ula", num_elements=8, norm_spacing=0.5),
+        snapshot_size=S, overlap=overlap, num_sources=2,
+        estimators=(Estimator.MUSIC,), grid=GridSpec1D(num_points=256),
+        num_max_vals=2)
+    x = synth_ula_iq([SourceSpec(theta_deg=60.0, amplitude=1.0,
+                                 freq_norm=0.1),
+                      SourceSpec(theta_deg=68.0, amplitude=0.3,
+                                 freq_norm=0.3)],
+                     8, 0.5, (B - 1) * (S - overlap) + S, snr_db=10,
+                     seed=5).astype(np.complex64)
+    return cfg, x
+
+
+@pytest.mark.parametrize("overlap,fused", [(252, False), (248, True)])
+def test_route_rule_matches_reference(overlap, fused):
+    """The reference's route rule, TPACK | gcd(S, hop): at overlap 252
+    (hop 4, gcd 4, TPACK 8) both packages take the planes route and its
+    cold subspace; at 248 (gcd 8) both take the fused route and its warm
+    start. Angles within 1e-3°, equal escalation counts."""
+    cfg, x = _route_case(overlap)
+    ref_pipe = build_pipeline_tpu(dataclasses.replace(cfg, cov_impl="pallas"))
+    assert (ref_pipe.jitted_ilv is not None) == fused
+    ref = ref_pipe(x)
+    pipe = build_pipeline_torch(cfg, device="cpu")
+    assert pipe.fast_path == fused
+    out = pipe(x)
+    a = out.peak_angles["music"].numpy()
+    assert a.shape == (64, 2)
+    np.testing.assert_allclose(a, np.asarray(ref.peak_angles["music"]),
+                               atol=1e-3)
+    assert int(out.escalation_flagged) == int(ref.escalation_flagged)
+    assert int(out.escalation_overflow) == int(ref.escalation_overflow)
+    xil = x.view(np.float32)
+    if fused:
+        pipe.interleaved(xil)
+    else:
+        with pytest.raises(ValueError, match="gcd"):
+            pipe.interleaved(xil)
+        with pytest.raises(ValueError, match="gcd"):
+            pipe.scan_capture(xil.reshape(2, -1, 16))
+
+
+def test_wideband_outside_the_reference_fast_rule_matches_reference():
+    """ULA-8 (TPACK 8) with F = 4 subbands, incoherent: F % TPACK ≠ 0, so
+    the reference channelizes the complex stream (pipeline_tpu.py:172-176)
+    while the port runs its FFT-channelizer front end (kernel 4's route);
+    40 windows (warm start), a correction; pair-sorted angles within
+    5e-3°."""
+    from doa_tpu.configs import WidebandSpec
+    from doa_tpu.io.synthetic import synth_wideband_ula_iq
+    cfg = DoaConfig(
+        geometry=ArrayGeometry(kind="ula", num_elements=8, norm_spacing=0.5),
+        snapshot_size=256, num_sources=2, num_max_vals=2,
+        estimators=(Estimator.MUSIC,), grid=GridSpec1D(num_points=256),
+        wideband=WidebandSpec(num_subbands=4, fractional_bw=0.1))
+    x = synth_wideband_ula_iq(
+        [SourceSpec(theta_deg=t, freq_norm=0.0, bandwidth_norm=0.5)
+         for t in (62.0, 111.0)], 8, 0.5, 40 * 256, fractional_bw=0.1,
+        snr_db=15, seed=3).astype(np.complex64)
+    c = _correction()
+    ref_pipe = build_pipeline_tpu(dataclasses.replace(cfg, cov_impl="pallas"))
+    assert not ref_pipe.wb_fast
+    ref = ref_pipe(x, c)
+    out = build_pipeline_torch(cfg, device="cpu")(x, c)
+    a = np.sort(out.peak_angles["music"].numpy(), -1)
+    assert a.shape == (40, 2)
+    np.testing.assert_allclose(
+        a, np.sort(np.asarray(ref.peak_angles["music"]), -1), atol=5e-3)
+
+
+def test_scan_capture_int8_takes_int8_blocks_only():
+    """Under cov_dtype="int8" scan_capture raises on float blocks, as the
+    reference (its covariance kernel takes int8 only), and runs int8
+    blocks: each block equal to call.interleaved on that block with its
+    carry."""
+    from doa_tpu_torch.io.native import quantize_interleaved_int8
+    cfg = _cfg(overlap=128, cov_dtype="int8")
+    x = _capture(B=12).view(np.float32).reshape(-1, 16)
+    pipe = build_pipeline_torch(cfg, device="cpu", return_spectra=False)
+    with pytest.raises(ValueError, match="int8"):
+        pipe.scan_capture(x.reshape(3, -1, 16))
+    q = quantize_interleaved_int8(torch.from_numpy(x))[0]
+    out = pipe.scan_capture(q.reshape(3, -1, 16))["peak_angles"]["music"]
+    T_blk = q.shape[0] // 3
+    for m in (1, 2):
+        r = pipe.interleaved(q[m * T_blk - 128:(m + 1) * T_blk])
+        torch.testing.assert_close(out[m], r.peak_angles["music"], rtol=0,
+                                   atol=0)
