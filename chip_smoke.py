@@ -12,7 +12,13 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    version: exact on integer-valued inputs (every sum exact in FP32, so
    any difference is a bug), and at the main path's shapes on the planted
    scene within the stated tolerances. Each kernel's time beside the
-   plain version's.
+   plain version's. K1 (`gram_parity`) is exact at every 2N it takes,
+   chunks of 1, 3, 4, 7, 512 and 1024 rows and f32, bf16 and int8, also
+   on views at row 1 and at element 1 (off the 16-byte alignment of its
+   bulk copies); timed at f32, bf16 and int8 (g = 1024) and f32 at
+   g = 512 and g = 8 (where each row class takes whole chunks), each in
+   turns with its plain version and one f32 torch.bmm;
+   then the prefix-sum windows (`window_sums`) alone at c4's shape.
 4. main path: the headline configuration (ULA-16, S=1024, K=2, G=1024,
    MUSIC, e1 power schedule, warm start + escalation) at T=2^24 samples
    (16384 windows) through build_pipeline_torch(...).interleaved, with
@@ -61,7 +67,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    each within 1e-5 of max|E| of its plain version; the three
    front-end routes (fft, embedded, uhat) on one c5 capture within 2e-5
    of max|E|; each kernel's time beside its plain version's, the library
-   call's and the channelizer matmul's.
+   call's (one batched torch.matmul of the subband Grams, both kernels)
+   and the channelizer matmul's.
 11. the paths at full width, each driven once with counts from zero, then
    20 timed calls and a profile window: c5_f12 (c5 at S=768, 12 subbands:
    the channelizer and kernel 7, incoherent fusion; 2048 windows, median
@@ -77,10 +84,13 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    the plain version's own errors), at (2N, 2K) = (24, 6) and (16, 4) on
    4096 windows and at (128, 4) on 2048 windows of c5's first subband:
    projectors and orthonormality within the stated tolerances; kernel 9
-   (chunk Grams with the embedding, correction, FB and 1/S in the
-   epilogue) exact on integer-valued inputs at every tile form, within
-   1e-5 of max|E| at the headline shape (f32, bf16; overlaps 0 and 512),
-   and its route within 2e-5 of max|E| of the stacked K1 route.
+   (`embedded_parity`: chunk Grams with the embedding, correction, FB
+   and 1/S in the epilogue) exact on integer-valued inputs at every tile
+   form, at g = 256, 7 and 1, FB on and off, also on views at row 1 and
+   element 1, within 1e-5 of max|E| at the headline shape (f32, bf16;
+   overlaps 0 and 512), and its route within 2e-5 of max|E| of the
+   stacked K1 route; timed in turns with its plain version and one
+   torch.bmm.
 13. the paths: the headline with subspace_impl="pallas" in both
    return_spectra modes (every window within 0.5 deg, escalation counts
    0, kernel 11 launched and K4 not; 20 timed calls, a profile window);
@@ -105,8 +115,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 
 Each kernel record gives its bound (the larger of its bytes over
 3.35 TB/s and the FP32 operations the function needs over 67 TFLOP/s,
-the published H100 peaks; a symmetric or Hermitian Gram counts the half
-its output determines) and the time of one PyTorch call computing the same function
+int8 products over 1979 TOP/s, the published H100 peaks; a symmetric or
+Hermitian Gram counts the half its output determines) and the time of one PyTorch call computing the same function
 (library_ms; null where there is none). The last two lines: one JSON
 object with the kernels, then {"ok": true, "device": {...}}.
 """
@@ -139,10 +149,13 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
 SOURCES = ("cov_gram", "music_scan", "subspace", "wideband_cov",
            "wideband_scan", "peaks2d", "covariance", "subband_gram",
            "subspace_ns", "ring")
-# the published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s,
-# FP32 FLOP/s outside the tensor cores (every kernel here multiplies in FP32 on the CUDA cores)
+# the published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, FP32
+# FLOP/s outside the tensor cores, and int8 OP/s (the card's exact integer
+# rate, on its tensor cores: the bound of a product of int8 inputs even
+# where a kernel multiplies them on the CUDA cores)
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_PER_S = 67e12
+H100_INT8_PER_S = 1979e12
 
 
 def log(msg):
@@ -222,14 +235,19 @@ def call_times(torch, fn, reps, warm):
     return sorted(ts)
 
 
+def turns_ms(torch, *fns):
+    """ms of each fn measured in turns: f0 … fn, fn … f0; each figure
+    is the mean of its two medians."""
+    first = [time_ms(torch, f) for f in fns]
+    last = [time_ms(torch, f) for f in reversed(fns)][::-1]
+    return [0.5 * (a + b) for a, b in zip(first, last)]
+
+
 def pair_ms(torch, kernel, plain):
     """(kernel ms, plain ms) measured in turns: plain, kernel, kernel,
-    plain; each figure is the mean of its two medians."""
-    p0 = time_ms(torch, plain)
-    k0 = time_ms(torch, kernel)
-    k1 = time_ms(torch, kernel)
-    p1 = time_ms(torch, plain)
-    return 0.5 * (k0 + k1), 0.5 * (p0 + p1)
+    plain."""
+    p, k = turns_ms(torch, plain, kernel)
+    return k, p
 
 
 def check(cond, msg):
@@ -237,14 +255,15 @@ def check(cond, msg):
         fail(msg)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=H100_FP32_PER_S):
     """The least time the card could take: the larger of `nbytes` (each
     input read once, each output written once) over the memory rate and
     `flops` (the least arithmetic the function needs: a symmetric or
-    Hermitian Gram counts only the half its output determines) over the
-    FP32 peak → {"bound_ms", "bound_by"}."""
+    Hermitian Gram counts only the half its output determines) over
+    `peak`, the card's rate for the inputs' type (FP32 unless given)
+    → {"bound_ms", "bound_by"}."""
     tb = nbytes / H100_BYTES_PER_S * 1e3
-    tf = flops / H100_FP32_PER_S * 1e3
+    tf = flops / peak * 1e3
     return {"bound_ms": max(tb, tf),
             "bound_by": "bytes" if tb >= tf else "operations"}
 
@@ -259,31 +278,50 @@ def scan_flops(B, G, k2, n2):
     return 2 * B * G * k2 * (n2 + 1) + 2 * B * G
 
 
-def kernel_parity(torch, dev, x, Vt, At, nrm, card):
-    """Phase 3 → the kernel records for the JSON line (launches filled in
-    after the main path)."""
+GRAM_GS = (1, 3, 4, 7, 512, 1024)   # K1 exact: chunk lengths
+GRAM_WIDTHS = (6, 16, 30, 32, 64)   # every register-tile form
+T_WSUM = 1 << 24                    # window_sums alone at c4's shape
+
+
+def gram_views(x, n2, g, n):
+    """K1's inputs from x[rows, n2]: n chunks of g rows at row 0, at row 1
+    (int8 or bf16 rows then break the 16-byte alignment of a bulk copy)
+    and at element 1 of the flat buffer (the kernel's element-load
+    route: its rows are not aligned to a register tile's vector)."""
+    flat = x.reshape(-1)
+    return (("row 0", x[:n * g]), ("row 1", x[1:1 + n * g]),
+            ("element 1", flat[1:1 + n * g * n2].view(n * g, n2)))
+
+
+def gram_parity(torch, dev, x, card):
+    """Phase 3's K1 part → its kernel record (launches filled in after the
+    main path). x: the headline capture f32[T_MAIN, 32] on the card."""
     from doa_tpu_torch.cpx import fp32_matmuls
     from doa_tpu_torch.io.native import quantize_interleaved_int8
     from doa_tpu_torch.ops.cuda import cov_embedded as ce
-    from doa_tpu_torch.ops.cuda import music_scan as ms
 
-    g = 1024
-    recs = {}
     gen = torch.Generator(device=dev).manual_seed(1)
-
-    # K1 exact: integer-valued samples, every partial sum an integer
-    # below 2^24, so FP32 sums are exact in any order
-    # (every 2N the kernel takes: its 4x4 and 2x2 register-tile forms)
-    for n2 in (6, 16, 30, 32, 64):
-        xi = torch.randint(-20, 21, (64 * g, n2), generator=gen, device=dev)
-        for dt in (torch.float32, torch.bfloat16, torch.int8):
-            xk = xi.to(dt)
-            d = (ce.chunk_grams_uhat(xk, g)
-                 - ce.chunk_grams_uhat_plain(xk, g)).abs().max().item()
-            log(f"K1 exact-input 2N={n2} {dt}: max|kernel-plain| = {d!r} "
-                f"(must be 0)")
-            check(d == 0.0, f"K1 2N={n2} {dt} differs on exact inputs")
-    # K1 at the main path's shape on the planted scene
+    # exact: integer-valued samples, every partial sum an integer below
+    # 2^24, so FP32 sums are exact in any order. Every 2N the kernel takes
+    # (its 4x4 and 2x2 register-tile forms), chunks from 1 row to 1024,
+    # and views that start off the 16-byte alignment
+    for n2 in GRAM_WIDTHS:
+        for g in GRAM_GS:
+            n = min(64 * 1024 // g, 4096)
+            xi = torch.randint(-20, 21, (n * g + 1, n2), generator=gen,
+                               device=dev)
+            for dt in (torch.float32, torch.bfloat16, torch.int8):
+                views = gram_views(xi.to(dt), n2, g, n)
+                for where, xk in views if g in (7, 1024) else views[:1]:
+                    d = (ce.chunk_grams_uhat(xk, g)
+                         - ce.chunk_grams_uhat_plain(xk, g)
+                         ).abs().max().item()
+                    log(f"K1 exact-input 2N={n2} g={g} {dt} at {where}: "
+                        f"max|kernel-plain| = {d!r} (must be 0)")
+                    check(d == 0.0, f"K1 2N={n2} g={g} {dt} at {where} "
+                                    f"differs on exact inputs")
+    # at the main path's shape on the planted scene
+    g = 1024
     Uk = ce.chunk_grams_uhat(x, g)
     Up = ce.chunk_grams_uhat_plain(x, g)
     err = (Uk - Up).abs().max().item()
@@ -291,6 +329,7 @@ def kernel_parity(torch, dev, x, Vt, At, nrm, card):
     log(f"K1 f32 scene T={x.shape[0]}: max|kernel-plain| = {err!r}, "
         f"max|U| = {scale!r}, tol 1e-5*max|U|")
     check(err <= 1e-5 * scale, "K1 f32 disagrees with plain")
+    del Up
     xb = x.to(torch.bfloat16)
     eb = (ce.chunk_grams_uhat(xb, g)
           - ce.chunk_grams_uhat_plain(xb, g)).abs().max().item()
@@ -301,25 +340,59 @@ def kernel_parity(torch, dev, x, Vt, At, nrm, card):
           - ce.chunk_grams_uhat_plain(xq, g)).abs().max().item()
     log(f"K1 int8 scene: max|kernel-plain| = {eq!r} (must be 0)")
     check(eq == 0.0, "K1 int8 is not bit-exact")
-    k_ms, p_ms = pair_ms(torch, lambda: ce.chunk_grams_uhat(x, g),
-                         lambda: ce.chunk_grams_uhat_plain(x, g))
-    kq_ms, pq_ms = pair_ms(torch, lambda: ce.chunk_grams_uhat(xq, g),
-                           lambda: ce.chunk_grams_uhat_plain(xq, g))
-    xv = x.view(-1, g, x.shape[1])
-    with fp32_matmuls():
-        lib_ms = time_ms(torch, lambda: torch.bmm(xv.transpose(1, 2), xv))
-    log(f"K1 time f32 [{x.shape[0]}, 32] g={g}: kernel {k_ms:.4f} ms, plain "
-        f"{p_ms:.4f} ms, library (one torch.bmm) {lib_ms:.4f} ms; int8: "
-        f"kernel {kq_ms:.4f} ms, plain (f64 bmm) {pq_ms:.4f} ms  [{card}]")
-    n2 = x.shape[1]
-    recs["chunk_gram"] = dict(
+
+    # times: kernel, plain version and one torch.bmm of the f32 chunks in
+    # turns; the bound counts the input read, U written and the
+    # symmetric Gram's half (n2·(n2+1)/2 entries, 2 operations a sample
+    # each) at the card's rate for the input type
+    T, n2 = x.shape
+    times = {}
+    for tag, xk, gk in (("f32", x, 1024), ("bf16", xb, 1024),
+                        ("int8", xq, 1024), ("f32 g=512", x, 512),
+                        ("f32 g=8", x, 8)):
+        xv = x.view(-1, gk, n2)
+        with fp32_matmuls():
+            k_ms, p_ms, lib_ms = turns_ms(
+                torch, lambda: ce.chunk_grams_uhat(xk, gk),
+                lambda: ce.chunk_grams_uhat_plain(xk, gk),
+                lambda: torch.bmm(xv.transpose(1, 2), xv))
+        b = bound(nbytes(xk) + (T // gk) * n2 * n2 * 4, T * n2 * (n2 + 1),
+                  H100_INT8_PER_S if tag == "int8" else H100_FP32_PER_S)
+        times[tag] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, **b)
+        log(f"K1 time {tag} [{T}, {n2}] g={gk}: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, library (one f32 torch.bmm of the chunks) "
+            f"{lib_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']})  [{card}]")
+    del xb, xq
+    # the prefix-sum windows alone at c4's shape (S = 1024, overlap 512:
+    # 32768 chunks of 512, windows of 2 chunks at stride 1); a measurement
+    # only, for ROADMAP's overlap > 0 item
+    Uc = torch.randn((T_WSUM // 512, n2, n2), generator=gen, device=dev)
+    B = (T_WSUM - 1024) // 512 + 1
+    ws_ms = time_ms(torch, lambda: ce.window_sums(Uc, B, 2, 1))
+    wb = bound(nbytes(Uc) + B * n2 * n2 * 4, 0)
+    log(f"window_sums alone (c4: {Uc.shape[0]} chunks, {B} windows, n_win "
+        f"2, stride 1): {ws_ms:.4f} ms, bytes bound {wb['bound_ms']:.4f} ms "
+        f" [{card}]")
+    del Uc
+    return dict(
         name="chunk_gram", route="cuda",
         source="doa_tpu_torch/csrc/cov_gram.cu",
         replaces="doa_tpu/ops/pallas/cov_embedded.py:191",
-        max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-        # the symmetric Gram: n2·(n2+1)/2 entries, 2 FLOP a sample each
-        **bound(nbytes(x, Uk), x.shape[0] * n2 * (n2 + 1)),
-        library_ms=lib_ms)
+        max_abs_err=err, **times["f32"],
+        by_input={k: v for k, v in times.items() if k != "f32"},
+        window_sums_c4_ms=ws_ms)
+
+
+def kernel_parity(torch, dev, x, Vt, At, nrm, card):
+    """Phase 3 → the kernel records for the JSON line (launches filled in
+    after the main path)."""
+    from doa_tpu_torch.cpx import fp32_matmuls
+    from doa_tpu_torch.ops.cuda import cov_embedded as ce
+    from doa_tpu_torch.ops.cuda import music_scan as ms
+
+    recs = {"chunk_gram": gram_parity(torch, dev, x, card)}
+    gen = torch.Generator(device=dev).manual_seed(1)
 
     # K3 / K2 exact: Vt in quarter steps, A integer, den = nrm − Σ y² all
     # multiples of 1/16 far below 2^24 — exact in FP32 in any order, so
@@ -1459,10 +1532,17 @@ def subband_parity(torch, dev, x12, x16, card):
                            lambda: wc.subband_embedded_plain(Y12, cr1, ci0,
                                                              **kw7))
     ch12_ms = time_ms(torch, lambda: wc.channelize_frames(xf12, K12))
+    # the library: one batched torch.matmul of the 12 subbands' chunk
+    # Grams (interleaved basis; kernel 7 adds the planar fold, correction
+    # and scale in its epilogue), as kernel 10's below
+    yv12 = Y12.view(-1, g, 12, 128).permute(2, 0, 1, 3)
+    with fp32_matmuls():
+        lib7_ms = time_ms(torch, lambda: torch.matmul(
+            yv12.transpose(-1, -2), yv12))
     log(f"kernel 7 time (c5_f12: [{Y12.shape[0]}, {Y12.shape[1]}], g={g}): "
-        f"kernel {k7_ms:.4f} ms, plain {p7_ms:.4f} ms; the channelizer "
-        f"matmul [{xf12.shape[0]}, 1536] x [1536, 1536] {ch12_ms:.4f} ms  "
-        f"[{card}]")
+        f"kernel {k7_ms:.4f} ms, plain {p7_ms:.4f} ms, library (one batched "
+        f"torch.matmul) {lib7_ms:.4f} ms; the channelizer matmul "
+        f"[{xf12.shape[0]}, 1536] x [1536, 1536] {ch12_ms:.4f} ms  [{card}]")
     n7 = E7.shape[1]
     recs["subband_embedded"] = dict(
         name="subband_embedded", route="cuda",
@@ -1472,8 +1552,8 @@ def subband_parity(torch, dev, x12, x16, card):
         # the Hermitian Gram's half (4·g·N²) and the correction and scale
         # (8 FLOP a distinct complex entry) a chunk and subband
         **bound(nbytes(Y12, E7), 4 * (g + 1) * 64 * 64 * 12 * n7),
-        library_ms=None, channelizer_ms=ch12_ms)
-    del E7, Y12, xf12, K12
+        library_ms=lib7_ms, channelizer_ms=ch12_ms)
+    del E7, Y12, yv12, xf12, K12
 
     # kernel 10 at c5 (F = 16); the wrapper accepts sb_group and ignores it
     S_sub, _, g = wc.subband_framing(16, 1024, 0)
@@ -1830,6 +1910,102 @@ def routes_vs_f64(torch, x, cr, ci, kw):
           f"a covariance route drifts from float64 at overlap {ov}")
 
 
+def embedded_parity(torch, dev, x, card):
+    """Phase 12's kernel-9 part → its record (launches filled in later).
+    x: the headline capture f32[T_MAIN, 32] on the card."""
+    from doa_tpu_torch.cpx import fp32_matmuls
+    from doa_tpu_torch.ops.cuda import cov_embedded as ce
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    # kernel 9 exact: integer samples |x| ≤ 8 (exact in bf16), integer
+    # correction, scale 1/16: every Gram entry, fold, correction product
+    # and FB half a multiple of 1/32 far below 2^24, so the kernel and the
+    # plain version agree bit for bit (both register-tile forms; odd and
+    # one-row chunks; views off the 16-byte alignment)
+    ri = lambda lo, hi, shape: torch.randint(  # noqa: E731
+        lo, hi, shape, generator=gen, device=dev).float()
+    for n2 in GRAM_WIDTHS:
+        N = n2 // 2
+        W = ce.correction_pattern(ri(-1, 3, (N,)), ri(-1, 2, (N,)))
+        for g, n in ((256, 9), (7, 300), (1, 700)):
+            xi = ri(-8, 9, (n * g + 1, n2))
+            for dt in (torch.float32, torch.bfloat16):
+                views = gram_views(xi.to(dt), n2, g, n)
+                for where, xk in views if g == 7 else views[:1]:
+                    for fb in (False, True):
+                        d = (ce.chunk_embedded(xk, g, N, 1.0 / 16, W, fb)
+                             - ce.chunk_embedded_plain(xk, g, N, 1.0 / 16,
+                                                       W, fb)
+                             ).abs().max().item()
+                        log(f"kernel 9 exact-input 2N={n2} g={g} {dt} at "
+                            f"{where} fb={fb}: max|kernel-plain| = {d!r} "
+                            f"(must be 0)")
+                        check(d == 0.0, f"kernel 9 2N={n2} g={g} {dt} at "
+                                        f"{where} fb={fb} differs on exact "
+                                        f"inputs")
+    # kernel 9 at the headline with a correction and FB, overlaps 0 and 512
+    c = torch.polar(1.0 + 0.1 * torch.randn(16, generator=gen, device=dev),
+                    0.3 * torch.randn(16, generator=gen, device=dev))
+    cr, ci = c.real.contiguous(), c.imag.contiguous()
+    W = ce.correction_pattern(cr, ci)
+    e9 = 0.0
+    for ov in (0, 512):
+        g = math.gcd(1024, 1024 - ov)
+        for dt in (torch.float32, torch.bfloat16):
+            xk = x.to(dt)
+            Ek = ce.chunk_embedded(xk, g, 16, 1.0 / 1024, W, True)
+            Ep = ce.chunk_embedded_plain(xk, g, 16, 1.0 / 1024, W, True)
+            e = (Ek - Ep).abs().max().item()
+            sc = Ep.abs().max().item()
+            log(f"kernel 9 headline overlap {ov} (g={g}) {dt}: "
+                f"max|kernel-plain| = {e!r}, max|E| = {sc!r}, tol "
+                f"1e-5*max|E|")
+            check(e <= 1e-5 * sc, f"kernel 9 disagrees with plain ({dt}, "
+                                  f"overlap {ov})")
+            if dt == torch.float32 and ov == 0:
+                e9 = e
+            del Ek, Ep, xk
+        # the route against the stacked K1 route (test_fused_path.py's
+        # variants check on the card). With overlap the windows are
+        # differences of prefix sums over the chunk stack, whose f32
+        # rounding grows with the chunk count in both routes: that case is
+        # held on the first 2^17 samples (256 chunks), and at 2^24 each
+        # route is logged against a float64 sum
+        xo = x if ov == 0 else x[:1 << 17]
+        kw = dict(N=16, snapshot_size=1024, overlap=ov, fb=True)
+        Ec = ce.cov_embedded(xo, cr, ci, variant="chunk", **kw)
+        Es = ce.cov_embedded(xo, cr, ci, variant="stacked", **kw)
+        dv = (Ec - Es).abs().max().item()
+        sv = Es.abs().max().item()
+        log(f"cov_embedded overlap {ov}, {xo.shape[0]} samples: max|chunk - "
+            f"stacked| = {dv!r}, max|E| = {sv!r}, tol 2e-5*max|E|")
+        check(dv <= 2e-5 * sv, f"variants chunk and stacked disagree at "
+                               f"overlap {ov}")
+        del Ec, Es
+        if ov:
+            routes_vs_f64(torch, x, cr, ci, kw)
+    xv = x.view(-1, 1024, 32)
+    with fp32_matmuls():
+        k_ms, p_ms, lib9_ms = turns_ms(
+            torch, lambda: ce.chunk_embedded(x, 1024, 16, 1.0 / 1024, W, True),
+            lambda: ce.chunk_embedded_plain(x, 1024, 16, 1.0 / 1024, W, True),
+            lambda: torch.bmm(xv.transpose(1, 2), xv))
+    n = x.shape[0] // 1024
+    # the symmetric Gram's half (K1's count); the fold, correction and
+    # FB: about 12 FLOP a (rr, ri) pair of the chunk
+    b9 = bound(x.numel() * 4 + n * 32 * 32 * 4,
+               x.shape[0] * 32 * 33 + n * 12 * 16 * 16)
+    log(f"kernel 9 time [{x.shape[0]}, 32] g=1024, correction + FB: kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library (one torch.bmm of "
+        f"the chunks) {lib9_ms:.4f} ms, bound {b9['bound_ms']:.4f} ms "
+        f"({b9['bound_by']})  [{card}]")
+    return dict(
+        name="chunk_embedded", route="cuda",
+        source="doa_tpu_torch/csrc/cov_gram.cu",
+        replaces="doa_tpu/ops/pallas/cov_embedded.py:99",
+        max_abs_err=e9, ms=k_ms, plain_ms=p_ms, **b9, library_ms=lib9_ms)
+
+
 def opt_in_parity(torch, dev, x, card):
     """Phase 12 → the records of kernels 11 and 9 (launches filled in
     later). x: the headline capture f32[T_MAIN, 32] on the card."""
@@ -1902,87 +2078,7 @@ def opt_in_parity(torch, dev, x, card):
         **bound(nbytes(E) + B * 4 * 32 * 4, ns_flops(B, 32, 4, 8, 0)),
         library_ms=lib_ms)
 
-    # kernel 9 exact: integer samples |x| ≤ 8 (exact in bf16), integer
-    # correction, scale 1/16: every Gram entry, fold, correction product
-    # and FB half a multiple of 1/32 far below 2^24, so the kernel and the
-    # plain version agree bit for bit (both register-tile forms)
-    ri = lambda lo, hi, shape: torch.randint(  # noqa: E731
-        lo, hi, shape, generator=gen, device=dev).float()
-    for n2 in (6, 16, 30, 32, 64):
-        N = n2 // 2
-        xi = ri(-8, 9, (9 * 256, n2))
-        W = ce.correction_pattern(ri(-1, 3, (N,)), ri(-1, 2, (N,)))
-        for dt in (torch.float32, torch.bfloat16):
-            for fb in (False, True):
-                xk = xi.to(dt)
-                d = (ce.chunk_embedded(xk, 256, N, 1.0 / 16, W, fb)
-                     - ce.chunk_embedded_plain(xk, 256, N, 1.0 / 16, W, fb)
-                     ).abs().max().item()
-                log(f"kernel 9 exact-input 2N={n2} {dt} fb={fb}: "
-                    f"max|kernel-plain| = {d!r} (must be 0)")
-                check(d == 0.0, f"kernel 9 2N={n2} {dt} fb={fb} differs on "
-                                f"exact inputs")
-    # kernel 9 at the headline with a correction and FB, overlaps 0 and 512
-    c = torch.polar(1.0 + 0.1 * torch.randn(16, generator=gen, device=dev),
-                    0.3 * torch.randn(16, generator=gen, device=dev))
-    cr, ci = c.real.contiguous(), c.imag.contiguous()
-    W = ce.correction_pattern(cr, ci)
-    e9 = 0.0
-    for ov in (0, 512):
-        g = math.gcd(1024, 1024 - ov)
-        for dt in (torch.float32, torch.bfloat16):
-            xk = x.to(dt)
-            Ek = ce.chunk_embedded(xk, g, 16, 1.0 / 1024, W, True)
-            Ep = ce.chunk_embedded_plain(xk, g, 16, 1.0 / 1024, W, True)
-            e = (Ek - Ep).abs().max().item()
-            sc = Ep.abs().max().item()
-            log(f"kernel 9 headline overlap {ov} (g={g}) {dt}: "
-                f"max|kernel-plain| = {e!r}, max|E| = {sc!r}, tol "
-                f"1e-5*max|E|")
-            check(e <= 1e-5 * sc, f"kernel 9 disagrees with plain ({dt}, "
-                                  f"overlap {ov})")
-            if dt == torch.float32 and ov == 0:
-                e9 = e
-            del Ek, Ep, xk
-        # the route against the stacked K1 route (test_fused_path.py's
-        # variants check on the card). With overlap the windows are
-        # differences of prefix sums over the chunk stack, whose f32
-        # rounding grows with the chunk count in both routes: that case is
-        # held on the first 2^17 samples (256 chunks), and at 2^24 each
-        # route is logged against a float64 sum
-        xo = x if ov == 0 else x[:1 << 17]
-        kw = dict(N=16, snapshot_size=1024, overlap=ov, fb=True)
-        Ec = ce.cov_embedded(xo, cr, ci, variant="chunk", **kw)
-        Es = ce.cov_embedded(xo, cr, ci, variant="stacked", **kw)
-        dv = (Ec - Es).abs().max().item()
-        sv = Es.abs().max().item()
-        log(f"cov_embedded overlap {ov}, {xo.shape[0]} samples: max|chunk - "
-            f"stacked| = {dv!r}, max|E| = {sv!r}, tol 2e-5*max|E|")
-        check(dv <= 2e-5 * sv, f"variants chunk and stacked disagree at "
-                               f"overlap {ov}")
-        del Ec, Es
-        if ov:
-            routes_vs_f64(torch, x, cr, ci, kw)
-    k_ms, p_ms = pair_ms(
-        torch, lambda: ce.chunk_embedded(x, 1024, 16, 1.0 / 1024, W, True),
-        lambda: ce.chunk_embedded_plain(x, 1024, 16, 1.0 / 1024, W, True))
-    xv = x.view(-1, 1024, 32)
-    with fp32_matmuls():
-        lib9_ms = time_ms(torch, lambda: torch.bmm(xv.transpose(1, 2), xv))
-    n = x.shape[0] // 1024
-    log(f"kernel 9 time [{x.shape[0]}, 32] g=1024, correction + FB: kernel "
-        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library (one torch.bmm of "
-        f"the chunks) {lib9_ms:.4f} ms  [{card}]")
-    recs["chunk_embedded"] = dict(
-        name="chunk_embedded", route="cuda",
-        source="doa_tpu_torch/csrc/cov_gram.cu",
-        replaces="doa_tpu/ops/pallas/cov_embedded.py:99",
-        max_abs_err=e9, ms=k_ms, plain_ms=p_ms,
-        # the symmetric Gram's half (K1's count); the fold, correction and
-        # FB: about 12 FLOP a (rr, ri) pair of the chunk
-        **bound(x.numel() * 4 + n * 32 * 32 * 4,
-                x.shape[0] * 32 * 33 + n * 12 * 16 * 16),
-        library_ms=lib9_ms)
+    recs["chunk_embedded"] = embedded_parity(torch, dev, x, card)
     return recs
 
 

@@ -78,10 +78,13 @@ def chunk_grams_uhat_plain(x: torch.Tensor, g: int) -> torch.Tensor:
 
 def chunk_grams_uhat(x: torch.Tensor, g: int) -> torch.Tensor:
     """K1: per-chunk Grams Û_c = Σ_t u_t u_tᵀ of x[n·g, 2N] (float32,
-    bfloat16 or int8; contiguous rows) → f32[n, 2N, 2N].
+    bfloat16 or int8; rows made contiguous here, at any element offset)
+    → f32[n, 2N, 2N].
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (csrc/cov_gram.cu) and raises if that fails."""
+    kernel (csrc/cov_gram.cu: a persistent grid over the chunks, 1-D bulk
+    async copies into a shared-memory ring, the Gram's upper triangle,
+    mirrored) and raises if that fails."""
     if x.dim() != 2 or x.dtype not in _KERNEL_DTYPE_CODE:
         raise ValueError(f"need x[T, 2N] float32|bfloat16|int8, got "
                          f"{tuple(x.shape)} {x.dtype}")

@@ -248,3 +248,103 @@ def test_chunk_variant_rejects_int8_and_unknown_variants():
         ce.chunk_embedded(torch.empty((256, 32), device="meta"), 64, 16,
                           1.0, (torch.ones(16, 16), torch.zeros(16, 16)),
                           False)
+
+
+def _views(x, g, n):
+    """n chunks of g rows of x[rows, n2] at row 0, at row 1 and at
+    element 1 of the flat buffer (the offsets that break a 16-byte bulk
+    copy's alignment on the card)."""
+    n2 = x.shape[1]
+    return [x[:n * g], x[1:1 + n * g],
+            x.reshape(-1)[1:1 + n * g * n2].view(n * g, n2)]
+
+
+def _np_gram(x, g):
+    xs = x.to(torch.float64).numpy()
+    xs = xs[:xs.shape[0] // g * g].reshape(-1, g, xs.shape[1])
+    return np.einsum("ntc,ntd->ncd", xs, xs)
+
+
+def _np_embedded(U, N, scale, Wre, Wim, fb):
+    """uhat_windows_to_embedded in float64 numpy: the planar fold of the
+    interleaved Gram, the correction, FB, the block embedding."""
+    rr = (U[:, 0::2, 0::2] + U[:, 1::2, 1::2]) * scale
+    ri = (U[:, 1::2, 0::2] - U[:, 0::2, 1::2]) * scale
+    rr, ri = rr * Wre - ri * Wim, rr * Wim + ri * Wre
+    if fb:
+        rr = 0.5 * (rr + rr[:, ::-1, ::-1])
+        ri = 0.5 * (ri - ri[:, ::-1, ::-1])
+    return np.concatenate([np.concatenate([rr, -ri], -1),
+                           np.concatenate([ri, rr], -1)], -2)
+
+
+@pytest.mark.parametrize("n2", [6, 16, 30, 32, 64])
+@pytest.mark.parametrize("g", [1, 3, 4, 7])
+def test_chunk_grams_plain_against_float64(g, n2):
+    """K1's plain version at every register-tile width of the kernel and
+    short, odd chunks, on views at a row and an element offset, against a
+    float64 numpy Gram of the same (dtype-rounded) samples: int8 equal to
+    the float64 sum rounded once to f32, f32 and bf16 within rtol 1e-5,
+    atol 1e-5·max|U| (f32 rounding of sums of at most 7 products)."""
+    rng = np.random.default_rng(100 * g + n2)
+    n = 5
+    x = torch.from_numpy(
+        (rng.standard_normal((n * g + 1, n2)) * 20).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for xv in _views(x.to(dtype), g, n):
+            U = ce.chunk_grams_uhat_plain(xv, g)
+            assert U.shape == (n, n2, n2) and U.dtype == torch.float32
+            U_ref = _np_gram(xv, g)
+            if dtype == torch.int8:
+                np.testing.assert_array_equal(U.numpy(),
+                                              U_ref.astype(np.float32))
+            else:
+                np.testing.assert_allclose(U.numpy(), U_ref, rtol=1e-5,
+                                           atol=1e-5 * np.abs(U_ref).max())
+
+
+@pytest.mark.parametrize("n2", [6, 16, 30, 32, 64])
+@pytest.mark.parametrize("g", [1, 3, 4, 7])
+def test_chunk_embedded_plain_against_float64(g, n2):
+    """Kernel 9's plain version (f32 and bf16, FB on and off, a random
+    correction) on the same chunks and views as K1's case, against the
+    float64 Gram folded, corrected and averaged in numpy: rtol 1e-5,
+    atol 1e-5·max|E|."""
+    N = n2 // 2
+    rng = np.random.default_rng(200 * g + n2)
+    n = 5
+    x = torch.from_numpy(rng.standard_normal((n * g + 1, n2)).astype(
+        np.float32))
+    cr, ci = (torch.from_numpy(p) for p in _correction(N, seed=g))
+    W = ce.correction_pattern(cr, ci)
+    Wre, Wim = (w.to(torch.float64).numpy() for w in W)
+    for dtype in (torch.float32, torch.bfloat16):
+        for xv in _views(x.to(dtype), g, n):
+            for fb in (False, True):
+                E = ce.chunk_embedded_plain(xv, g, N, 1.0 / g, W, fb)
+                assert E.shape == (n, n2, n2) and E.dtype == torch.float32
+                E_ref = _np_embedded(_np_gram(xv, g), N, 1.0 / g, Wre, Wim,
+                                     fb)
+                np.testing.assert_allclose(E.numpy(), E_ref, rtol=1e-5,
+                                           atol=1e-5 * np.abs(E_ref).max())
+
+
+@pytest.mark.parametrize("variant", ["4 x 16 KiB", "no FMAs",
+                                     "no chunk-end reduction",
+                                     "no whole-chunk stores"])
+def test_timing_experiment_patches_the_kernel_source(variant):
+    """exp_cov_gram.py times patched copies of csrc/cov_gram.cu: each
+    patch finds its anchor lines in the source exactly once and changes
+    the copy, never the package's own file."""
+    import os
+    import exp_cov_gram
+    from doa_tpu_torch import _build
+
+    path = os.path.join(_build.CSRC, "cov_gram.cu")
+    with open(path) as f:
+        src = f.read()
+    patch, whole = exp_cov_gram.VARIANTS[variant]
+    out = patch(src)
+    assert out != src and ("KiB" in variant) == whole
+    with open(path) as f:
+        assert f.read() == src
