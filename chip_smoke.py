@@ -33,7 +33,10 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    FFT-channelizer Gram, the fused subband-scan fusion and the 2-D peaks
    kernels, and the subspace kernel at 2N = 128 with one init per
    subband; exact on integer-valued inputs, within the stated tolerances
-   on the scene; each kernel's time beside its plain version's.
+   on the scene; each kernel's time beside its plain version's. The
+   fusion kernel (3xTF32 on the tensor cores) also in window groups
+   (bit-equal), its workspace's bytes, and the kernel's and the plain
+   version's errors against float64 on 64 windows (logged).
 7. the c5 path: PRESETS["c5_ura64_wideband"] at B = 2048 windows
    (T = 2^21 samples) through build_pipeline_torch(...).interleaved;
    launch counts reset before and read after; the median pair-sorted
@@ -115,10 +118,12 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 
 Each kernel record gives its bound (the larger of its bytes over
 3.35 TB/s and the FP32 operations the function needs over 67 TFLOP/s,
-int8 products over 1979 TOP/s, the published H100 peaks; a symmetric or
-Hermitian Gram counts the half its output determines) and the time of one PyTorch call computing the same function
-(library_ms; null where there is none). The last two lines: one JSON
-object with the kernels, then {"ok": true, "device": {...}}.
+int8 products over 1979 TOP/s, the fusion kernel's three TF32 products
+over 495 TFLOP/s with its FP32 figure beside as bound_fp32_ms, the
+published H100 peaks; a symmetric or Hermitian Gram counts the half its
+output determines) and the time of one PyTorch call computing the same
+function (library_ms; null where there is none). The last two lines: one
+JSON object with the kernels, then {"ok": true, "device": {...}}.
 """
 
 import dataclasses
@@ -150,12 +155,14 @@ SOURCES = ("cov_gram", "music_scan", "subspace", "wideband_cov",
            "wideband_scan", "peaks2d", "covariance", "subband_gram",
            "subspace_ns", "ring")
 # the published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, FP32
-# FLOP/s outside the tensor cores, and int8 OP/s (the card's exact integer
+# FLOP/s outside the tensor cores, int8 OP/s (the card's exact integer
 # rate, on its tensor cores: the bound of a product of int8 inputs even
-# where a kernel multiplies them on the CUDA cores)
+# where a kernel multiplies them on the CUDA cores), and dense TF32 FLOP/s
+# on the tensor cores
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_PER_S = 67e12
 H100_INT8_PER_S = 1979e12
+H100_TF32_PER_S = 495e12
 
 
 def log(msg):
@@ -487,18 +494,22 @@ def kernel_parity(torch, dev, x, Vt, At, nrm, card):
             lambda: cpx_ops.mgs_iterate_plain(E, 2, 3, init))
     log(f"K4 time (warm, 3 rounds, B={E.shape[0]}): kernel {k4_ms:.4f} ms, "
         f"plain {p4_ms:.4f} ms  [{card}]")
-    (B, n2, _), k2 = E.shape, 4
     recs["mgs_iterate"] = dict(
         name="mgs_iterate", route="cuda",
         source="doa_tpu_torch/csrc/subspace.cu",
         replaces="doa_tpu/ops/cpx_ops.py:347",
-        max_abs_err=e4, ms=k4_ms, plain_ms=p4_ms,
-        # 3 rounds of W = E·V (2·n2²·k2) and MGS (~4·k2²·n2) a window; E
-        # read once, Vt, W, Vt_prev written
-        **bound(nbytes(E) + 3 * B * k2 * n2 * 4,
-                3 * B * (2 * n2 * n2 * k2 + 4 * k2 * k2 * n2)),
+        max_abs_err=e4, ms=k4_ms, plain_ms=p4_ms, **mgs_bound(E, 4, 3),
         library_ms=None)
     return recs
+
+
+def mgs_bound(E, k2, rounds):
+    """K4's bound on E f32[B, n2, n2]: `rounds` rounds of W = E·V
+    (2·n2²·k2) and MGS (~4·k2²·n2) a window; E read once, Vt, W, Vt_prev
+    written."""
+    B, n2, _ = E.shape
+    return bound(nbytes(E) + 3 * B * k2 * n2 * 4,
+                 rounds * B * (2 * n2 * n2 * k2 + 4 * k2 * k2 * n2))
 
 
 def headline_config():
@@ -741,7 +752,8 @@ def wideband_parity(torch, dev, x, cfg, pipe, card):
             torch, lambda: cpx_ops.mgs_iterate(E, 2, 3, init),
             lambda: cpx_ops.mgs_iterate_plain(E, 2, 3, init))
     log(f"K4 time (c5: warm, 3 rounds, {E.shape[0]} windows of 2N=128): "
-        f"kernel {k4_ms:.4f} ms, plain {p4_ms:.4f} ms  [{card}]")
+        f"kernel {k4_ms:.4f} ms, plain {p4_ms:.4f} ms, bound "
+        f"{mgs_bound(E, 4, 3)}  [{card}]")
 
     # fusion, exact: Vt in quarter steps, A integer, nrm above every
     # Σ y²: den = nrm − Σ y² are multiples of 1/16 below 2^24, exact in any
@@ -766,30 +778,51 @@ def wideband_parity(torch, dev, x, cfg, pipe, card):
     nrm = (At * At).sum(dim=-1)
     P = wsc.wideband_fused_spectrum(Vt, At, nrm)
     Pp = wsc.wideband_fused_spectrum_plain(Vt, At, nrm)
+    B5, G5 = P.shape
     e5 = (P - Pp).abs().max().item()
     r5 = ((P - Pp).abs() / Pp).max().item()
-    log(f"wideband_fusion c5 scene B={P.shape[0]} G={P.shape[1]}: "
+    log(f"wideband_fusion c5 scene B={B5} G={G5}: "
         f"max|P kernel - P plain| = {e5!r}, max relative {r5!r}; tol "
         f"2e-4 + 2e-4*|P|")
     check(bool(((P - Pp).abs() <= 2e-4 + 2e-4 * Pp.abs()).all()),
           "wideband_fusion disagrees with plain")
+    # the evidence for 3xTF32 (logged, no tolerance): 64 windows of the
+    # kernel and of the FP32 plain version against float64
+    P64 = fusion_f64(torch, Vt[:, :64], At, nrm)
+    log(f"wideband_fusion precision, 64 c5 windows against float64: max "
+        f"relative error kernel (3xTF32) "
+        f"{((P[:64] - P64).abs() / P64).max().item()!r}, plain (FP32) "
+        f"{((Pp[:64] - P64).abs() / P64).max().item()!r}")
+    del P64
+    # windows in groups (the workspace cap): exact, dmin being per window
+    cap = wsc.workspace_bytes(F, B5, G5) // 5
+    Pg = wsc._fused_cuda(Vt, At, nrm, cap=cap)
+    log(f"wideband_fusion workspace: {wsc.workspace_bytes(F, B5, G5)} bytes "
+        f"at c5 (cap {wsc.WORKSPACE_CAP}); in groups of "
+        f"{wsc._group_windows(F, B5, G5, cap)} "
+        f"windows bit-equal: {bool(torch.equal(Pg, P))}")
+    check(torch.equal(Pg, P), "wideband_fusion differs in window groups")
+    del Pg
     k_ms, p_ms = pair_ms(torch, lambda: wsc.wideband_fused_spectrum(Vt, At,
                                                                    nrm),
                          lambda: wsc.wideband_fused_spectrum_plain(Vt, At,
                                                                    nrm))
-    log(f"wideband_fusion time (F={F}, B={P.shape[0]}, 2K=4, 2N=128, "
-        f"G={P.shape[1]}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms  "
-        f"[{card}]")
+    log(f"wideband_fusion time (F={F}, B={B5}, 2K=4, 2N=128, G={G5}): "
+        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms  [{card}]")
+    # the products the function needs (2K x 2N a den), three times over
+    # on the tensor cores at the TF32 rate; beside it one FP32 pass of the
+    # plain version's arithmetic (den, then dmin/den and the sum)
+    prod = 2 * F * B5 * G5 * Vt.shape[2] * Vt.shape[3]
+    io = nbytes(Vt, At, nrm, P)
     recs["wideband_fusion"] = dict(
         name="wideband_fusion", route="cuda",
         source="doa_tpu_torch/csrc/wideband_scan.cu",
         replaces="doa_tpu/ops/pallas/wideband_scan.py:51",
         max_abs_err=e5, ms=k_ms, plain_ms=p_ms,
-        # one den per (subband, window, bin), as the plain version; then
-        # dmin/den, the sum over subbands
-        **bound(nbytes(Vt, At, nrm, P),
-                F * (scan_flops(P.shape[0], P.shape[1], Vt.shape[2],
-                                Vt.shape[3]) + 2 * P.numel())),
+        **bound(io, 3 * prod, peak=H100_TF32_PER_S),
+        bound_fp32_ms=bound(io, F * (scan_flops(B5, G5, Vt.shape[2],
+                                                Vt.shape[3])
+                                     + 2 * P.numel()))["bound_ms"],
         library_ms=None)
 
     # 2-D peaks, exact: integer spectra full of ties and plateaus, a
@@ -827,6 +860,18 @@ def wideband_parity(torch, dev, x, cfg, pipe, card):
         # window
         **bound(nbytes(P2, *got), 4 * P2.numel()), library_ms=None)
     return recs, (E_sub, Vt, At, nrm, P2)
+
+
+def fusion_f64(torch, Vt, At, nrm):
+    """The fused spectrum of the plain version's arithmetic in float64 on
+    the card (its products in full float64) → P f64[B, G]."""
+    acc = 0.0
+    for f in range(Vt.shape[0]):
+        y = torch.matmul(Vt[f].double(), At[f].double().T)    # (B, 2K, G)
+        den = (nrm[f].double() - (y * y).sum(dim=-2)).clamp_min(
+            torch.finfo(torch.float32).tiny)
+        acc = acc + den.min(dim=-1, keepdim=True).values / den
+    return acc / Vt.shape[0]
 
 
 def c5_phases(torch, dev, card, counters):
@@ -895,8 +940,8 @@ def c5_phases(torch, dev, card, counters):
                 x, cr1, ci0, N=64, F=16, snapshot_size=1024),
             "subspace (per-subband warm MGS + detector)":
                 lambda: wb.subband_subspaces_from_E(E_sub, cfg),
-            "fusion (two passes)": lambda: wsc.wideband_fused_spectrum(
-                Vt, At, nrm),
+            "fusion (den once on the tensor cores, then P)":
+                lambda: wsc.wideband_fused_spectrum(Vt, At, nrm),
             "peaks (2-D)": lambda: pk.peaks2d(P2, 2, az_rng, el_rng, True),
         }
         out = {k: time_ms(torch, f) for k, f in layers.items()}
@@ -1187,7 +1232,8 @@ def planes_parity(torch, dev, x3, card):
         k4_ms, p4_ms = pair_ms(torch, lambda: cpx_ops.mgs_iterate(E, 3, 8),
                                lambda: cpx_ops.mgs_iterate_plain(E, 3, 8))
     log(f"K4 time (c3: cold, 8 rounds, {E.shape[0]} windows of 2N=24): "
-        f"kernel {k4_ms:.4f} ms, plain {p4_ms:.4f} ms  [{card}]")
+        f"kernel {k4_ms:.4f} ms, plain {p4_ms:.4f} ms, bound "
+        f"{mgs_bound(E, 6, 8)}  [{card}]")
     return recs
 
 
