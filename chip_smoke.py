@@ -279,12 +279,31 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def fft_gram_bound(M, F, N, g):
+    """Kernel 4's bound for M frames of F subbands of N elements, chunks
+    of g: the frames read and E f32[F, M // g, 2N, 2N] written once,
+    against an F-point FFT (5·F·log2 F) per frame and element and the
+    Hermitian Grams (4·g·N² a chunk and subband: the half)."""
+    n = M // g
+    return bound(M * F * 2 * N * 4 + F * n * 4 * N * N * 4,
+                 5 * F * math.log2(F) * M * N + 4 * g * N * N * F * n)
+
+
 def scan_flops(B, G, k2, n2):
     """den = ‖a‖² − ‖Vᵀã‖² for B windows × G bins: the (k2 × n2)
     products, the squares and sums, the subtraction and reciprocal."""
     return 2 * B * G * k2 * (n2 + 1) + 2 * B * G
 
 
+# kernel 4 exact: (F, N, g, chunks, offset in floats of the view into
+# its buffer): every register-tile form; g = 100 runs two stages at
+# N = 64; g = 1 and 3, where a stage holds many chunks and a block walks
+# many units; a chunk count that is no multiple of the resident blocks;
+# views one complex element in, which break a bulk copy's 16 bytes
+FFT_GRAM_EXACT = ((1, 64, 100, 5, 0), (2, 16, 16, 5, 0), (4, 64, 100, 5, 0),
+                  (4, 6, 16, 5, 0), (4, 5, 16, 5, 0), (4, 64, 1, 2000, 0),
+                  (4, 64, 3, 700, 0), (4, 16, 64, 1009, 0), (2, 6, 7, 60, 2),
+                  (1, 5, 5, 70, 2))
 GRAM_GS = (1, 3, 4, 7, 512, 1024)   # K1 exact: chunk lengths
 GRAM_WIDTHS = (6, 16, 30, 32, 64)   # every register-tile form
 T_WSUM = 1 << 24                    # window_sums alone at c4's shape
@@ -679,20 +698,22 @@ def wideband_parity(torch, dev, x, cfg, pipe, card):
 
     # front end, exact: F ≤ 4 (twiddles ±1, ±j), integer samples and
     # correction, every sum an integer below 2^24; the plain version in
-    # float64, rounded once (every register-tile form; g = 100 runs two
-    # stages at N = 64)
-    for Fx, Nx, gx in ((1, 64, 100), (2, 16, 16), (4, 64, 100), (4, 6, 16),
-                       (4, 5, 16)):
-        xf = ri(-4, 5, (5 * gx, Fx * 2 * Nx))
+    # float64, rounded once (FFT_GRAM_EXACT's cases)
+    for Fx, Nx, gx, nx, off in FFT_GRAM_EXACT:
+        size = nx * gx * Fx * 2 * Nx
+        xf = ri(-4, 5, (size + 2,))[off:off + size].view(nx * gx,
+                                                          Fx * 2 * Nx)
         cr, ci = ri(-1, 3, (Nx,)), ri(-1, 2, (Nx,))
         kw = dict(F=Fx, N=Nx, g=gx, scale=1.0 / 16)
         d = (wc.subband_chunk_grams(xf, cr, ci, **kw)
              - wc.subband_chunk_grams_plain(xf.double(), cr, ci, **kw)
              ).abs().max().item()
-        log(f"wideband_fft_gram exact-input F={Fx} N={Nx} g={gx}: "
-            f"max|kernel-plain| = {d!r} (must be 0)")
-        check(d == 0.0, f"wideband_fft_gram F={Fx} N={Nx} differs on exact "
-                        f"inputs")
+        log(f"wideband_fft_gram exact-input F={Fx} N={Nx} g={gx} "
+            f"chunks={nx} offset={off * 4} bytes: max|kernel-plain| = "
+            f"{d!r} (must be 0)")
+        check(d == 0.0, f"wideband_fft_gram F={Fx} N={Nx} g={gx} differs "
+                        f"on exact inputs")
+        del xf
 
     # front end on the c5 scene (no correction, as the main path)
     S_sub, hop_sub, g = wc.subband_framing(F, cfg.snapshot_size, cfg.overlap)
@@ -715,17 +736,35 @@ def wideband_parity(torch, dev, x, cfg, pipe, card):
                                                               **kw))
     log(f"wideband_fft_gram time [{M}, {F * 2 * N}] g={g}: kernel "
         f"{k_ms:.4f} ms, plain (torch.fft + cuBLAS) {p_ms:.4f} ms  [{card}]")
-    n = E_sub.shape[1]
+    # the ULA-16 cssm front end's shape (N = 16, F = 16, g = 64): another
+    # register-tile form and subband grouping than c5's
+    xu = torch.randn((T_ULA // 16, 16 * 32), generator=gen, device=dev)
+    ku = dict(F=16, N=16, g=64, scale=1.0 / 64)
+    cu1, cu0 = torch.ones(16, device=dev), torch.zeros(16, device=dev)
+    Eu = wc.subband_chunk_grams(xu, cu1, cu0, **ku)
+    Eup = wc.subband_chunk_grams_plain(xu, cu1, cu0, **ku)
+    eu, su = (Eu - Eup).abs().max().item(), Eup.abs().max().item()
+    del Eu, Eup
+    log(f"wideband_fft_gram ULA-16 cssm shape {tuple(xu.shape)} g=64: "
+        f"max|kernel-plain| = {eu!r}, max|E| = {su!r}, tol 1e-5*max|E|")
+    check(eu <= 1e-5 * su, "wideband_fft_gram disagrees with plain at the "
+                           "ULA-16 cssm shape")
+    ku_ms, pu_ms = pair_ms(
+        torch, lambda: wc.subband_chunk_grams(xu, cu1, cu0, **ku),
+        lambda: wc.subband_chunk_grams_plain(xu, cu1, cu0, **ku))
+    bu = fft_gram_bound(xu.shape[0], 16, 16, 64)
+    log(f"wideband_fft_gram time ULA-16 cssm shape: kernel {ku_ms:.4f} ms, "
+        f"plain {pu_ms:.4f} ms, bound {bu['bound_ms']:.4f} ms "
+        f"({bu['bound_by']})  [{card}]")
+    del xu
     recs["wideband_fft_gram"] = dict(
         name="wideband_fft_gram", route="cuda",
         source="doa_tpu_torch/csrc/wideband_cov.cu",
         replaces="doa_tpu/ops/pallas/wideband_cov.py:162",
         max_abs_err=e1, ms=k_ms, plain_ms=p_ms,
-        # an F-point FFT (5·F·log2 F) per frame and element, then the
-        # Hermitian Grams (4·g·N² a chunk and subband: the half)
-        **bound(nbytes(xf, E_sub),
-                5 * F * math.log2(F) * M * N + 4 * g * N * N * F * n),
-        library_ms=None)
+        **fft_gram_bound(M, F, N, g), library_ms=None,
+        by_shape={"ULA-16 cssm": dict(ms=ku_ms, plain_ms=pu_ms,
+                                      max_abs_err=eu, **bu)})
 
     # K4 at 2N = 128 on the c5 windows: warm from one init per subband
     # (3 rounds, as the pipeline) and cold (8 rounds); projectors to 1e-5

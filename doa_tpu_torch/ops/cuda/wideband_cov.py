@@ -56,6 +56,18 @@ def dft_twiddles(F: int) -> np.ndarray:
     return np.where(snap, np.round(tw), tw).astype(np.float32)
 
 
+_TWIDDLES: dict = {}
+
+
+def twiddles_on(F: int, device) -> torch.Tensor:
+    """dft_twiddles(F) on `device`, copied there once a (F, device)."""
+    key = (F, torch.device(device))
+    tw = _TWIDDLES.get(key)
+    if tw is None:
+        tw = _TWIDDLES[key] = torch.from_numpy(dft_twiddles(F)).to(device)
+    return tw
+
+
 def _kernel_takes(N: int) -> bool:
     """The element counts the front-end kernels (4, 7, 10) are built for."""
     return N % 4 == 0 and N <= 64 or N % 2 == 0 and N <= 32 or N <= 16
@@ -138,7 +150,10 @@ def subband_chunk_grams(xf: torch.Tensor, cr: torch.Tensor,
         return subband_chunk_grams_plain(xf, cr, ci, F=F, N=N, g=g,
                                          scale=scale)
     xf = _kernel_stream(xf, F, N, n, g)
-    tw = torch.from_numpy(dft_twiddles(F)).to(xf.device)
+    if xf.data_ptr() % 8:
+        raise ValueError("the kernel reads complex samples: the frames must "
+                         "start on an 8-byte boundary")
+    tw = twiddles_on(F, xf.device)
     cr = cr.to(torch.float32).contiguous()
     ci = ci.to(torch.float32).contiguous()
     out = torch.empty((F, n, 2 * N, 2 * N), dtype=torch.float32,

@@ -1,0 +1,348 @@
+"""The work partition of the wideband front-end kernel
+(doa_tpu_torch/csrc/wideband_cov.cu, kernel 4) on the CPU.
+
+The kernel runs only on the card. Here its launch plan (`make_plan`,
+`Layout`), its persistent walk over (chunk, subband group) units, its
+Gram items (`decode`: row class, upper-triangle tile, subband), its
+stages and its chunk-end epilogue are transcribed from the source and
+run in torch: every unit is walked once for any grid, every i <= j is
+one tile entry, every entry of E is written once, and on integer frames
+(F <= 4: twiddles +-1, +-j) the model gives `subband_chunk_grams_plain`'s
+E bit for bit."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from doa_tpu_torch.ops.cuda import wideband_cov as wc
+
+# the constants of csrc/wideband_cov.cu
+MAXT, J, STAGES, STAGE_BYTES, Y_BYTES, MAX_P = 192, 3, 2, 32768, 8192, 16
+BAND = 2
+HEAD, MAX_SMEM = 128, 232448
+SM_BYTES, BLOCK_RESERVED = 233472, 1024     # an H100 SM's shared memory
+
+
+def round16(b):
+    return (b + 15) & ~15
+
+
+def tile_form(N):
+    """RT of the register tiles (the C entry's dispatch)."""
+    if N % 4 == 0 and N <= 64:
+        return 4
+    if N % 2 == 0 and N <= 32:
+        return 2
+    assert N <= 16
+    return 1
+
+
+def make_plan(F, N, g, rt):
+    """→ (P, C, threads, items, TS), as make_plan in the source."""
+    nt = N // rt
+    ntri = nt * (nt + 1) // 2
+    best = dict(P=0, C=0, threads=0, items=0)
+    P = 1
+    while P <= F and P <= MAX_P and P * N * 8 <= Y_BYTES:
+        if F % P == 0:
+            C = 1
+            while C <= 32 and C <= g:
+                items = P * ntri * C
+                if items > J * MAXT:
+                    break
+                threads = (items + 32 * J - 1) // (32 * J) * 32
+                lhs, rhs = items * best["threads"], best["items"] * threads
+                if (best["P"] == 0 or lhs > rhs or
+                        (lhs == rhs and (P > best["P"] or (
+                            P == best["P"] and items > best["items"])))):
+                    best = dict(P=P, C=C, threads=threads, items=items)
+                C *= 2
+        P += 1
+    rb = F * N * 8
+    ts = min(STAGE_BYTES // rb, Y_BYTES // (best["P"] * N * 8))
+    return best["P"], best["C"], best["threads"], best["items"], max(ts, 1)
+
+
+def layout(F, N, P, TS):
+    """→ the bytes of shared memory of a launch, as Layout."""
+    rb = F * N * 8
+    ybuf = HEAD + round16((((P + 3) // 4) * 4 * F + F + 16) * 8)
+    ring = ybuf + 2 * round16(P * TS * N * 8)
+    return ring + STAGES * (round16(TS * rb) + 16)
+
+
+def walk(n, G, fit):
+    """The grid of the launch (runs of chunks x groups) and each block's
+    (group, first chunk, end chunk), as launch() and the kernel's head."""
+    runs = max(1, min(fit // G, n))
+    grid = runs * G
+    out = []
+    for b in range(grid):
+        q, s = b % G, b // G
+        out.append((q, n * s // runs, n * (s + 1) // runs))
+    return grid, out
+
+
+def decode(it, C, nt, ntri):
+    """Gram item `it` → (row class, subband, tile row ib, tile column
+    jb), as decode in the source."""
+    rest = it // C
+    rem, s = rest % ntri, rest // ntri
+    r0, h = 0, min(BAND, nt)
+    while rem >= h * (h + 1) // 2 + h * (nt - r0 - h):
+        rem -= h * (h + 1) // 2 + h * (nt - r0 - h)
+        r0 += h
+        h = min(BAND, nt - r0)
+    if rem < h * (h + 1) // 2:
+        k = 0
+        while rem > k:
+            rem -= k + 1
+            k += 1
+        return it % C, s, r0 + rem, r0 + k
+    rem -= h * (h + 1) // 2
+    return it % C, s, r0 + rem % h, r0 + h + rem // h
+
+
+def stage_segments(R0, R1, g, TS):
+    """Each stage's (first row, rows) and its chunk segments (stage row,
+    rows, chunk offset before, chunk ends), as the kernel's stage loop."""
+    nst = -(-(R1 - R0) // TS)
+    coff, out = 0, []
+    for k in range(nst):
+        rows = min(TS, R1 - R0 - k * TS)
+        segs, pos = [], 0
+        while pos < rows:
+            seg = min(rows - pos, g - coff)
+            segs.append((pos, seg, coff, coff + seg == g))
+            pos += seg
+            coff = 0 if coff + seg == g else coff + seg
+        out.append((R0 + k * TS, rows, segs))
+    return out
+
+
+def kernel_model(xf, cr, ci, F, N, g, scale, fit):
+    """E f32[F, n, 2N, 2N] by the kernel's plan, walk, stages, items and
+    epilogue (sums in float64: exact on exact inputs), and the count of
+    writes of every entry of E."""
+    rt = tile_form(N)
+    P, C, threads, items, TS = make_plan(F, N, g, rt)
+    n = xf.shape[0] // g
+    nt = N // rt
+    ntri = nt * (nt + 1) // 2
+    tw = torch.from_numpy(wc.dft_twiddles(F).astype(np.float64))
+    x = xf[:n * g].double().reshape(n * g, F, N, 2)
+    xc = torch.complex(x[..., 0], x[..., 1])
+    out = np.zeros((F, n, 2 * N, 2 * N), np.float32)
+    writes = np.zeros((F, n, 2 * N, 2 * N), np.int64)
+    cr32, ci32 = cr.numpy().astype(np.float32), ci.numpy().astype(np.float32)
+    _, blocks = walk(n, F // P, fit)
+    its = [decode(it, C, nt, ntri) for it in range(items)]
+    for q, c0, c1 in blocks:
+        if c0 >= c1:
+            continue
+        G = F // P
+        fs = [q + G * s for s in range(P)]      # the group: a residue class
+        W = torch.stack([torch.complex(tw[f * np.arange(F) % F, 0],
+                                       tw[f * np.arange(F) % F, 1])
+                         for f in fs])                         # (P, F)
+        acc = torch.zeros((C, P, N, N), dtype=torch.complex128)
+        cc = c0
+        for r, rows, segs in stage_segments(c0 * g, c1 * g, g, TS):
+            yb = torch.einsum("st,mtc->smc", W, xc[r:r + rows])
+            for pos, seg, coff, ends in segs:
+                for cls in range(C):
+                    first = pos + ((cls - coff) & (C - 1))
+                    y = yb[:, first:pos + seg:C]               # (P, rows, N)
+                    acc[cls] += torch.einsum("smi,smj->sij", y, y.conj())
+                if ends:
+                    R = acc.sum(0).numpy()
+                    for cls, s, ib, jb in its:
+                        if cls == 0:
+                            store_tile(out[fs[s], cc], writes[fs[s], cc],
+                                       N, ib * rt, jb * rt, rt, R[s], cr32,
+                                       ci32, scale)
+                    acc.zero_()
+                    cc += 1
+    return torch.from_numpy(out), writes
+
+
+def store_tile(oc, wc_, N, i0, j0, rt, R, cr, ci, scale):
+    """One tile's entries and (off the diagonal) their mirror, as
+    store_tile: numpy float32 scalars, each operation rounded once (R's
+    entries are exact, so this is the plain version's rounding of the
+    correction and scale); a diagonal tile's lower half from its upper."""
+    f32 = np.float32
+    scale = f32(scale)
+    for u in range(rt):
+        for v in range(rt):
+            i, j = i0 + u, j0 + v
+            if i0 == j0 and u > v:
+                continue
+            rr = f32(R[i, j].real)
+            ri = f32(0.0) if i == j else f32(R[i, j].imag)
+            wre = cr[i] * cr[j] + ci[i] * ci[j]
+            wim = ci[i] * cr[j] - cr[i] * ci[j]
+            er = (rr * wre - ri * wim) * scale
+            ei = (rr * wim + ri * wre) * scale
+            for a, b, val in ((i, j, er), (i, N + j, -ei), (N + i, j, ei),
+                              (N + i, N + j, er)):
+                oc[a, b] = val
+                wc_[a, b] += 1
+            if i != j:
+                for a, b, val in ((j, i, er), (j, N + i, ei), (N + j, i, -ei),
+                                  (N + j, N + i, er)):
+                    oc[a, b] = val
+                    wc_[a, b] += 1
+
+
+@pytest.mark.parametrize("F", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("fit", [1, 7, 132, 264, 1000])
+def test_walk_covers_every_unit_once(F, fit):
+    for N in (5, 16, 64):
+        P = make_plan(F, N, 64, tile_form(N))[0]
+        G = F // P
+        for n in (1, 3, 67, 2048 + 5):
+            grid, blocks = walk(n, G, fit)
+            assert grid % G == 0 and grid >= G
+            seen = np.zeros((n, G), np.int64)
+            for q, c0, c1 in blocks:
+                seen[c0:c1, q] += 1
+            assert (seen == 1).all(), (N, n, fit)
+
+
+@pytest.mark.parametrize("N", [1, 3, 5, 6, 8, 12, 16, 18, 30, 32, 36, 64])
+def test_tile_map_covers_each_pair_once(N):
+    rt = tile_form(N)
+    nt = N // rt
+    ntri = nt * (nt + 1) // 2
+    for F, g in ((1, 1), (4, 64), (16, 64), (16, 3)):
+        P, C, threads, items, TS = make_plan(F, N, g, rt)
+        cover = np.zeros((C, P, N, N), np.int64)
+        for it in range(items):
+            cls, s, ib, jb = decode(it, C, nt, ntri)
+            assert ib <= jb and s < P
+            # a tile's classes in adjacent lanes of one warp
+            assert cls == it % C and it // 32 == (it - cls) // 32
+            for u in range(rt):
+                for v in range(rt):
+                    i, j = ib * rt + u, jb * rt + v
+                    if i <= j:
+                        cover[cls, s, i, j] += 1
+        iu = np.triu_indices(N)
+        assert (cover[:, :, iu[0], iu[1]] == 1).all()
+        assert cover.sum() == C * P * N * (N + 1) // 2
+    # tile rows in bands: the tiles of a band's column are neighbours, in
+    # order of their rows
+    tiles = [decode(ti, 1, nt, ntri)[2:] for ti in range(ntri)]
+    for ti, (ib, jb) in enumerate(tiles):
+        if ib % BAND and ti:
+            assert tiles[ti - 1] == (ib - 1, jb)
+        if ib % BAND == 0:
+            last = min(ib + BAND - 1, jb, nt - 1)
+            assert tiles[ti:ti + last - ib + 1] == [
+                (r, jb) for r in range(ib, last + 1)]
+
+
+@pytest.mark.parametrize("F,N,g", [(16, 64, 64), (16, 16, 64), (4, 64, 1),
+                                   (4, 64, 3), (4, 16, 64), (2, 6, 7),
+                                   (1, 5, 5), (1, 64, 100), (32, 64, 64)])
+def test_plan_fits_the_card(F, N, g):
+    rt = tile_form(N)
+    P, C, threads, items, TS = make_plan(F, N, g, rt)
+    assert F % P == 0 and C & (C - 1) == 0 and 1 <= C <= min(32, g)
+    assert threads % 32 == 0 and items <= J * threads <= J * MAXT
+    assert threads >= 32 and 32 % C == 0
+    assert layout(F, N, P, TS) <= MAX_SMEM
+    assert P * TS * N * 8 <= Y_BYTES and (TS * F * N * 8 <= STAGE_BYTES
+                                          or TS == 1)
+
+
+def test_c5_plan():
+    """c5: four subbands a group (each chunk leaves L2 4 times, not 16),
+    one row class, 192 threads for 544 items, 4 frames a stage, and two
+    blocks a SM."""
+    assert make_plan(16, 64, 64, 4) == (4, 1, 192, 544, 4)
+    assert 2 * (layout(16, 64, 4, 4) + BLOCK_RESERVED) <= SM_BYTES
+    # the ULA-16 cssm front end: one group of all 16 subbands, two row
+    # classes
+    assert make_plan(16, 16, 64, 4)[:3] == (16, 2, 128)
+
+
+@pytest.mark.parametrize("g,TS", [(1, 4), (3, 4), (4, 4), (7, 4), (64, 4),
+                                  (5, 1), (100, 8)])
+def test_stage_segments_cover_each_row_once(g, TS):
+    for c0, c1 in ((0, 1), (3, 11), (5, 40)):
+        rows_seen, chunk_ends = [], 0
+        coff_next = 0
+        for r, rows, segs in stage_segments(c0 * g, c1 * g, g, TS):
+            assert 1 <= rows <= TS
+            covered = 0
+            for pos, seg, coff, ends in segs:
+                assert pos == covered and seg >= 1 and coff == coff_next
+                assert coff + seg <= g
+                rows_seen += [r + pos + i for i in range(seg)]
+                covered += seg
+                coff_next = 0 if ends else coff + seg
+                chunk_ends += ends
+            assert covered == rows
+        assert rows_seen == list(range(c0 * g, c1 * g))
+        assert chunk_ends == c1 - c0
+
+
+@pytest.mark.parametrize("F,N,g,n,fit", [
+    (4, 8, 16, 3, 264), (4, 8, 1, 10, 4), (4, 8, 3, 7, 3), (2, 6, 7, 4, 2),
+    (1, 5, 5, 6, 5), (4, 16, 5, 5, 2), (2, 12, 9, 3, 264), (1, 4, 2, 9, 4)])
+def test_model_gives_plain_bit_for_bit(F, N, g, n, fit):
+    """Integer frames and correction, F <= 4: every sum is exact, so the
+    model's E (the kernel's addressing and epilogue) equals the float64
+    plain version's, and every entry is written once."""
+    rng = np.random.default_rng(F * 1000 + N * 10 + g)
+    xf = torch.from_numpy(rng.integers(-4, 5, (n * g, F * 2 * N))
+                          .astype(np.float32))
+    cr = torch.from_numpy(rng.integers(-1, 3, N).astype(np.float32))
+    ci = torch.from_numpy(rng.integers(-1, 2, N).astype(np.float32))
+    kw = dict(F=F, N=N, g=g, scale=1.0 / 16)
+    E, writes = kernel_model(xf, cr, ci, fit=fit, **kw)
+    assert (writes == 1).all()
+    Ep = wc.subband_chunk_grams_plain(xf.double(), cr, ci, **kw)
+    torch.testing.assert_close(E, Ep, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("F", [8, 16, 32])
+def test_split_dft_matches_the_direct_sum(F):
+    """Four subbands a group (F = 4G, the residue class q mod G): the
+    kernel's split DFT, z_t1 = sum_t2 W_G^(q t2) x_(t1 + 4 t2) and
+    y_k = sum_t1 W[q + G k, t1] z_t1, from the snapped twiddles by the
+    kernel's indices, is the DFT of subbands q + G k."""
+    G = F // 4
+    w = wc.dft_twiddles(F).astype(np.float64)
+    tw = w[:, 0] + 1j * w[:, 1]
+    rng = np.random.default_rng(F)
+    x = rng.standard_normal(F) + 1j * rng.standard_normal(F)
+    direct = np.fft.fft(x)
+    for q in range(G):
+        z = [sum(tw[q * t2 * 4 % F] * x[t1 + 4 * t2] for t2 in range(G))
+             for t1 in range(4)]
+        y = [sum(tw[(q + G * k) * t1 % F] * z[t1] for t1 in range(4))
+             for k in range(4)]
+        # the twiddles are float32 (2^-24 relative)
+        np.testing.assert_allclose(y, direct[[q + G * k for k in range(4)]],
+                                   rtol=0, atol=1e-6)
+
+
+def test_model_matches_plain_on_a_scene():
+    """F = 16 (non-trivial twiddles), normal samples: the model within
+    float32 rounding of the plain version."""
+    F, N, g, n = 16, 8, 8, 3
+    rng = np.random.default_rng(2)
+    xf = torch.from_numpy(rng.standard_normal((n * g, F * 2 * N))
+                          .astype(np.float32))
+    one, zero = torch.ones(N), torch.zeros(N)
+    kw = dict(F=F, N=N, g=g, scale=1.0 / 8)
+    E, writes = kernel_model(xf, one, zero, fit=5, **kw)
+    assert (writes == 1).all()
+    Ep = wc.subband_chunk_grams_plain(xf, one, zero, **kw)
+    assert (E - Ep).abs().max().item() <= 1e-5 * Ep.abs().max().item()
+    assert math.isfinite(E.abs().max().item())
