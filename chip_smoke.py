@@ -18,13 +18,21 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    bulk copies); timed at f32, bf16 and int8 (g = 1024) and f32 at
    g = 512 and g = 8 (where each row class takes whole chunks), each in
    turns with its plain version and one f32 torch.bmm;
-   then the prefix-sum windows (`window_sums`) alone at c4's shape.
+   then the prefix-sum windows (`window_sums`) alone at c4's shape. K3
+   (3xTF32 on the tensor cores, csrc/scan_tc.cuh's mainloop) exact at
+   (2K, 2N) = (4, 32), (6, 24) and (4, 128), ragged B and odd G, and on
+   the headline's subspaces within 1e-5·max‖a‖² of its plain version's
+   den, timed in turns with the plain version and one FP32
+   torch.matmul(Vt, At.T) (the product alone; no torch call computes
+   den).
 4. main path: the headline configuration (ULA-16, S=1024, K=2, G=1024,
    MUSIC, e1 power schedule, warm start + escalation) at T=2^24 samples
    (16384 windows) through build_pipeline_torch(...).interleaved, with
    return_spectra False (fused scan + peaks, K2) and True (K3); launch
    counts reset before and read after; every window within 0.5° of the
-   planted 70°/110°; the median call time from CUDA events.
+   planted 70°/110°; the median call time from CUDA events. Each path's
+   call.plan is logged (here and below), and every preset's kernel_plan,
+   with the c5 variants driven here, must name a kernel for every stage.
 5. the same scene check on the c4_ula16_streaming, fast_bf16 and
    fast_int8 presets at T=2^20, and the card's pipeline against the same
    pipeline on the CPU on a small capture.
@@ -77,7 +85,9 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    the channelizer and kernel 7, incoherent fusion; 2048 windows, median
    within 0.5 deg), its planes input (equal angles); c5 with
    fusion="cssm" and "cssm_auto" (kernel 4, R_coh, cold K4, K3, 2-D
-   peaks; 2048 windows, medians within 2.0 deg) and the cssm layer times;
+   peaks; 2048 windows, medians within 2.0 deg) and the cssm layer times,
+   K3 on c5 cssm's own subspaces (den within 1e-5·max‖a‖², its time
+   beside the plain version's and the FP32 product's);
    the uhat entry (kernel 10); ULA-16 cssm with FB, smoothing to L=12,
    MUSIC + Capon on a 65/115 deg wideband scene (1024 windows, medians
    within 2.0 deg); the card against the CPU on 32 windows of each path.
@@ -115,14 +125,25 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    single-card path on the same capture, every window within 0.5 deg,
    equal escalation counts, launch counts of kernel 13, K1, K4 and K2;
    the ms of a call with the R ranks time-sliced on one card.
+15. fault C.5: ULA-48 (2N = 96, beyond K1 and kernel 8) and ULA-16 at
+   K = 5 (2K = 10, beyond K4; K3 takes it in its CUDA-core form), the
+   latter also under subspace_impl="pallas" (kernel 11), through
+   build_pipeline_torch on the card in both return_spectra modes: the
+   plan names "plain" for those stages, their kernels launch no time and
+   the planned ones launch (K3 wherever spectra are returned); the angles
+   equal the CPU pipeline's within 1e-3 deg; and each kernel wrapper (K1,
+   8, K4, K3, 5, 4) still raises on a CUDA tensor of a shape it does not
+   take.
 
 Each kernel record gives its bound (the larger of its bytes over
 3.35 TB/s and the FP32 operations the function needs over 67 TFLOP/s,
-int8 products over 1979 TOP/s, the fusion kernel's three TF32 products
-over 495 TFLOP/s with its FP32 figure beside as bound_fp32_ms, the
-published H100 peaks; a symmetric or Hermitian Gram counts the half its
-output determines) and the time of one PyTorch call computing the same
-function (library_ms; null where there is none). The last two lines: one
+int8 products over 1979 TOP/s, the three TF32 products of the fusion
+kernel and K3 over 495 TFLOP/s with the FP32 figure beside as
+bound_fp32_ms, the published H100 peaks; a symmetric or Hermitian Gram
+counts the half its output determines) and the time of one PyTorch call
+computing the same function (library_ms; null where there is none; K3's
+record gives the FP32 product alone as product_ms, and its figures at c5
+cssm's shapes as the keys ending in _c5_cssm). The last two lines: one
 JSON object with the kernels, then {"ok": true, "device": {...}}.
 """
 
@@ -305,6 +326,10 @@ FFT_GRAM_EXACT = ((1, 64, 100, 5, 0), (2, 16, 16, 5, 0), (4, 64, 100, 5, 0),
                   (4, 64, 3, 700, 0), (4, 16, 64, 1009, 0), (2, 6, 7, 60, 2),
                   (1, 5, 5, 70, 2))
 GRAM_GS = (1, 3, 4, 7, 512, 1024)   # K1 exact: chunk lengths
+# K3 exact beyond the headline's (4, 32): (2K, 2N, B, G); the last two
+# are beyond the tensor-core form's shapes and run the CUDA-core form
+K3_EXACT = ((6, 24, 1000, 1001), (4, 128, 2048, 16471),
+            (10, 32, 1000, 1001), (4, 240, 100, 1001))
 GRAM_WIDTHS = (6, 16, 30, 32, 64)   # every register-tile form
 T_WSUM = 1 << 24                    # window_sums alone at c4's shape
 
@@ -432,8 +457,23 @@ def kernel_parity(torch, dev, x, Vt, At, nrm, card):
                                 device=dev).float()
     d3 = (ms.music_scan(Vq, Aq, nq) - ms.music_scan_plain(Vq, Aq, nq)
           ).abs().max().item()
-    log(f"K3 exact-input: max|kernel-plain| = {d3!r} (must be 0)")
+    log(f"K3 exact-input (2K, 2N) = (4, 32): max|kernel-plain| = {d3!r} "
+        f"(must be 0)")
     check(d3 == 0.0, "K3 differs on exact inputs")
+    # K3's tensor-core form at c3's (2K, 2N) = (6, 24) (2N padded to 32,
+    # 32 bins a warpgroup; a ragged B and an odd G) and c5's 2N = 128
+    for k2, n2, Bq, Gq in K3_EXACT:
+        Vs = torch.randint(-2, 3, (Bq, k2, n2), generator=gen,
+                           device=dev).float() / 4
+        As = torch.randint(-3, 4, (Gq, n2), generator=gen,
+                           device=dev).float()
+        ns = 300000.0 + torch.randint(0, 64, (Gq,), generator=gen,
+                                      device=dev).float()
+        d = (ms.music_scan(Vs, As, ns) - ms.music_scan_plain(Vs, As, ns)
+             ).abs().max().item()
+        log(f"K3 exact-input (2K, 2N) = ({k2}, {n2}), B={Bq}, G={Gq}: "
+            f"max|kernel-plain| = {d!r} (must be 0)")
+        check(d == 0.0, f"K3 differs on exact inputs at ({k2}, {n2})")
     for k in (1, 2, 4):
         for refine in (False, True):
             vk, lk = ms.music_scan_peaks(Vq, Aq, k, 0.0, 180.0, refine, nq)
@@ -446,24 +486,21 @@ def kernel_parity(torch, dev, x, Vt, At, nrm, card):
             check(dv == 0.0 and dl == 0.0, "K2 differs on exact inputs")
 
     # K3 / K2 at the main path's shapes on the scene's subspaces
-    Pk = ms.music_scan(Vt, At, nrm)
-    Pp = ms.music_scan_plain(Vt, At, nrm)
-    e3 = (1.0 / Pk - 1.0 / Pp).abs().max().item()
-    tol3 = 1e-5 * nrm.max().item()
-    log(f"K3 scene B={Vt.shape[0]} G={At.shape[0]}: max|den kernel - den "
-        f"plain| = {e3!r}, tol 1e-5*max‖a‖² = {tol3!r}")
-    check(e3 <= tol3, "K3 disagrees with plain")
-    k3_ms, p3_ms = pair_ms(torch, lambda: ms.music_scan(Vt, At, nrm),
-                           lambda: ms.music_scan_plain(Vt, At, nrm))
-    log(f"K3 time: kernel {k3_ms:.4f} ms, plain {p3_ms:.4f} ms  [{card}]")
-    (B, k2, n2), G = Vt.shape, At.shape[0]
+    e3, k3 = k3_scene(torch, "headline", Vt, At, nrm, card)
+    # K3's CUDA-core form (2K of 10 to 16) at the headline's B, 2N and G,
+    # on random orthonormal subspaces at 2K = 10 (its bound: the FP32
+    # figure)
+    Q = torch.linalg.qr(torch.randn((Vt.shape[0], Vt.shape[2], 10),
+                                    generator=gen, device=dev)).Q
+    k3_scene(torch, "headline at 2K = 10 (CUDA-core form)",
+             Q.transpose(1, 2).contiguous(), At, nrm, card)
+    del Q
     recs["music_scan"] = dict(
         name="music_scan", route="cuda",
         source="doa_tpu_torch/csrc/music_scan.cu",
         replaces="doa_tpu/ops/pallas/music_scan.py:56",
-        max_abs_err=e3, ms=k3_ms, plain_ms=p3_ms,
-        **bound(nbytes(Vt, At, nrm, Pk), scan_flops(B, G, k2, n2)),
-        library_ms=None)
+        max_abs_err=e3, library_ms=None, **k3)
+    (B, k2, n2), G = Vt.shape, At.shape[0]
     vk, lk = ms.music_scan_peaks(Vt, At, 2, 0.0, 180.0, True, nrm)
     vp, lp = ms.music_scan_peaks_plain(Vt, At, 2, 0.0, 180.0, True, nrm)
     # the two planted sources have equal power, so which peak ranks first
@@ -520,6 +557,55 @@ def kernel_parity(torch, dev, x, Vt, At, nrm, card):
         max_abs_err=e4, ms=k4_ms, plain_ms=p4_ms, **mgs_bound(E, 4, 3),
         library_ms=None)
     return recs
+
+
+def k3_scene(torch, tag, Vt, At, nrm, card):
+    """K3 on a path's own subspaces: den within 1e-5·max‖a‖² of the plain
+    version's, then timed in turns with its plain version and one FP32
+    product Vt·Ãᵀ (the product alone: no single torch call computes den)
+    → (the error, {ms, plain_ms, product_ms, bound_ms, bound_by,
+    bound_fp32_ms}). The kernel is called as the pipelines call it, with
+    the grid's A' made once; its bound is the three TF32 products at the
+    TF32 rate (or the bytes), its FP32 figure beside."""
+    from doa_tpu_torch.cpx import fp32_matmuls
+    from doa_tpu_torch.ops.cuda import music_scan as ms
+
+    (B, k2, n2), G = Vt.shape, At.shape[0]
+    tiles = ms.scan_tiles(At, k2)
+    Pk = ms.music_scan(Vt, At, nrm, tiles)
+    e3 = (1.0 / Pk - 1.0 / ms.music_scan_plain(Vt, At, nrm)).abs().max()
+    e3, tol3 = e3.item(), 1e-5 * nrm.max().item()
+    log(f"K3 {tag} (2N, 2K) = ({n2}, {k2}), G={G}, {B} windows: "
+        f"max|den kernel - den plain| = {e3!r}, tol 1e-5*max‖a‖² = "
+        f"{tol3!r}")
+    check(e3 <= tol3, f"K3 disagrees with plain at {tag}'s shapes")
+
+    def product():
+        with fp32_matmuls():
+            return torch.matmul(Vt, At.T)
+    p_ms, k_ms, prod_ms = turns_ms(
+        torch, lambda: ms.music_scan_plain(Vt, At, nrm),
+        lambda: ms.music_scan(Vt, At, nrm, tiles), product)
+    moved = nbytes(Vt, At, nrm, Pk)
+    rec = dict(ms=k_ms, plain_ms=p_ms, product_ms=prod_ms,
+               **bound(moved, 3 * 2 * B * k2 * n2 * G, H100_TF32_PER_S),
+               bound_fp32_ms=bound(moved, scan_flops(B, G, k2, n2))[
+                   "bound_ms"])
+    log(f"K3 time at {tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        f"one FP32 torch.matmul(Vt, At.T) (product only, not the same "
+        f"function) {prod_ms:.4f} ms; bound {rec['bound_ms']:.4f} ms (3 "
+        f"TF32 products), {rec['bound_fp32_ms']:.4f} ms at the FP32 rate  "
+        f"[{card}]")
+    return e3, rec
+
+
+def show_plan(name, pipe, all_kernel=True):
+    """Log a pipeline's call.plan; a preset's path must plan a kernel for
+    every stage."""
+    log(f"plan of {name}: {json.dumps(pipe.plan)}")
+    if all_kernel:
+        check("plain" not in pipe.plan.values(),
+              f"{name} plans a plain stage on the card")
 
 
 def mgs_bound(E, k2, rounds):
@@ -928,6 +1014,7 @@ def c5_phases(torch, dev, card, counters):
 
     cfg = PRESETS["c5_ura64_wideband"]
     pipe = build_pipeline_torch(cfg, device=dev)
+    show_plan("c5", pipe)
     x = make_c5_scene(torch, T_C5, dev)
     torch.cuda.synchronize()
     recs, (E_sub, Vt, At, nrm, P2) = wideband_parity(torch, dev, x, cfg,
@@ -1088,7 +1175,7 @@ def scan_parity(torch, tag, Vt, At, nrm, k):
     peak angles within 0.01°."""
     from doa_tpu_torch.ops.cuda import music_scan as ms
 
-    e3 = (1.0 / ms.music_scan(Vt, At, nrm)
+    e3 = (1.0 / ms.music_scan(Vt, At, nrm, ms.scan_tiles(At, Vt.shape[1]))
           - 1.0 / ms.music_scan_plain(Vt, At, nrm)).abs().max().item()
     tol3 = 1e-5 * nrm.max().item()
     _, lk = ms.music_scan_peaks(Vt, At, k, 0.0, 180.0, True, nrm)
@@ -1345,6 +1432,8 @@ def planes_phases(torch, dev, card):
     cfg3 = PRESETS["c3_ula16_calib_smooth"]
     pipes = {rs: build_pipeline_torch(cfg3, device=dev, return_spectra=rs)
              for rs in (False, True)}
+    for rs, p in pipes.items():
+        show_plan(f"c3 return_spectra={rs}", p)
     counters = {"planes_chunk_gram": cv.chunk_grams,
                 "planes_cov_windows": cv.cov_windows,
                 "mgs_iterate": cpx_ops.mgs_iterate,
@@ -1444,6 +1533,7 @@ def planes_phases(torch, dev, card):
     x2 = make_ula_capture(torch, T_C2, 8, ((60.0, 1, 10), (110.0, 31, 100)),
                           SNR_DB, dev, seed=2)
     pipe2 = build_pipeline_torch(cfg2, device=dev, return_spectra=False)
+    show_plan("c2", pipe2)
     for f in counters.values():
         f.launches = 0
     r2 = pipe2.interleaved(x2)
@@ -1754,7 +1844,8 @@ def card_vs_cpu(torch, name, cfg, x, B):
 
 def coherent_phases(torch, dev, card):
     """Phases 10 and 11 → (the records of kernels 7 and 10, the launches
-    of the earlier kernels in these paths)."""
+    of the earlier kernels in these paths, K3's figures at c5 cssm's
+    shapes)."""
     from doa_tpu_torch import AvgMethod, Estimator, SmoothingSpec
     from doa_tpu_torch.cpx import fp32_matmuls, unembed_planes
     from doa_tpu_torch.ops import cpx_ops
@@ -1787,6 +1878,7 @@ def coherent_phases(torch, dev, card):
     # 11a. c5_f12: 12 subbands, incoherent, channelizer + kernel 7
     cfg12 = c5_variant(snapshot_size=768, num_subbands=12)
     pipe12 = build_pipeline_torch(cfg12, device=dev)
+    show_plan("c5_f12", pipe12)
     res12, n12 = path_run(torch, "c5_f12", pipe12, x12, counters, card,
                           C5_TRUTH, C5_ANGLE_TOL)
     check(n12["subband_embedded"] == 1 and n12["wideband_fft_gram"] == 0
@@ -1806,6 +1898,7 @@ def coherent_phases(torch, dev, card):
     for fusion in ("cssm", "cssm_auto"):
         cfg = c5_variant(fusion=fusion)
         pipe = build_pipeline_torch(cfg, device=dev)
+        show_plan(f"c5 {fusion}", pipe)
         res, n = path_run(torch, f"c5 {fusion}", pipe, x16, counters, card,
                           C5_TRUTH, CSSM_ANGLE_TOL)
         check(n["wideband_fft_gram"] == 1 and n["mgs_iterate"] > 0
@@ -1832,7 +1925,10 @@ def coherent_phases(torch, dev, card):
         Rr, Ri = R.real.contiguous(), R.imag.contiguous()
         V = cpx_ops.signal_subspace_embedded(Rr, Ri, 2, iters=8)
         Vt = V.transpose(-1, -2).contiguous()
-        P = ms.music_scan(Vt, At, nrm)
+        # K3 on c5 cssm's own subspaces: den, and its time
+        e_c5, k3_c5 = k3_scene(torch, "c5 cssm", Vt, At, nrm, card)
+        tiles = ms.scan_tiles(At, 4)
+        P = ms.music_scan(Vt, At, nrm, tiles)
         P2 = (P / P.max(-1, keepdim=True).values).reshape(-1, 181, 91)
         layers = {
             "front end (kernel 4)": lambda: wc.wideband_cov_embedded(
@@ -1843,7 +1939,7 @@ def coherent_phases(torch, dev, card):
                 lambda: cpx_ops.signal_subspace_embedded(
                     Rr, Ri, 2, iters=8, return_stats=True,
                     **cfg.escalate_kwargs),
-            "scan (K3)": lambda: ms.music_scan(Vt, At, nrm),
+            "scan (K3)": lambda: ms.music_scan(Vt, At, nrm, tiles),
             "peaks (2-D)": lambda: pk.peaks2d(P2, 2, (-90.0, 90.0),
                                               (0.0, 90.0), True),
         }
@@ -1851,7 +1947,7 @@ def coherent_phases(torch, dev, card):
     log("c5 cssm layer times, ms: " + ", ".join(f"{k} {v:.4f}"
                                                for k, v in out.items())
         + f"  [{card}]")
-    del E_sub, R_sub, R, Rr, Ri, V, Vt, P, P2
+    del E_sub, R_sub, R, Rr, Ri, V, Vt, P, P2, tiles
 
     # the uhat entry (kernel 10's route), driven as a user calls it
     for f in counters.values():
@@ -1882,6 +1978,7 @@ def coherent_phases(torch, dev, card):
     xu = make_wideband_ula_capture(torch, T_ULA, 16, ULA_TRUTH, 0.5, 0.4,
                                    SNR_DB, dev, seed=1)
     pipe_u = build_pipeline_torch(cfg_u, device=dev)
+    show_plan("ULA-16 cssm", pipe_u)
     res_u, n_u = path_run(torch, "ULA-16 cssm FB + smoothing", pipe_u, xu,
                           counters, card, ULA_TRUTH, CSSM_ANGLE_TOL)
     check(n_u["wideband_fft_gram"] == 1 and n_u["mgs_iterate"] > 0
@@ -1903,7 +2000,9 @@ def coherent_phases(torch, dev, card):
     card_vs_cpu(torch, "ULA-16 cssm", cfg_u, xu, B_CSSM_CPU)
     for name in ("subband_embedded", "subband_gram"):
         recs[name]["launches"] = total.pop(name)
-    return recs, total
+    k3_c5 = {f"{key}_c5_cssm": v for key, v in k3_c5.items()}
+    k3_c5["max_abs_err_c5_cssm"] = e_c5
+    return recs, total, k3_c5
 
 
 # ---------------------------------------------------------------------
@@ -2212,6 +2311,8 @@ def opt_in_phases(torch, dev, card):
     cfg_ns = dataclasses.replace(cfg, subspace_impl="pallas")
     for rs in (False, True):
         pipe = build_pipeline_torch(cfg_ns, device=dev, return_spectra=rs)
+        show_plan(f"headline subspace_impl='pallas' return_spectra={rs}",
+                  pipe)
         res, n = drive(lambda: pipe.interleaved(x))
         log(f"launches in the headline path, subspace_impl='pallas', "
             f"return_spectra={rs}: " + json.dumps(n))
@@ -2497,6 +2598,7 @@ def shard_rank(device, R, card):
             "values": res["peak_values_music"].cpu().numpy(),
             "flagged": int(res["escalation_flagged"]),
             "overflow": int(res["escalation_overflow"]),
+            "plan": pipe.plan,
             "ms": together(lambda: pipe.local(x), SHARD_REPS)}
         del res
         if impl == "pallas":
@@ -2593,6 +2695,10 @@ def sharded_phases(torch, dev, card):
                                  for o in outs)
             log(f"R={R} launches in the sharded path, halo_impl={impl!r}, "
                 f"rank 0: " + json.dumps(outs[0][impl]["launches"]))
+            log(f"R={R} plan of the sharded path, halo_impl={impl!r}, "
+                f"rank 0: " + json.dumps(outs[0][impl]["plan"]))
+            check(all("plain" not in o[impl]["plan"].values() for o in outs),
+                  f"R={R} {impl}: a rank plans a plain stage")
         ang = {impl: np.concatenate([o[impl]["angles"] for o in outs])[:B]
                for impl in ("pallas", "xla")}
         vals = {impl: np.concatenate([o[impl]["values"] for o in outs])[:B]
@@ -2626,6 +2732,127 @@ def sharded_phases(torch, dev, card):
                    library_ms=xla_ms)
     rec["launches"] = ring_launches
     return rec, total
+
+
+# ---------------------------------------------------------------------
+# 15: fault C.5 — shapes doa_tpu runs that a kernel is not built for
+# ---------------------------------------------------------------------
+
+T_FAULT = 64 * 1024                # 64 windows of 1024, card and CPU
+FAULT_TOL = 1e-3                   # deg, card against CPU (phase 5's)
+# (name, N, sources (theta, num, den, amplitude), peaks, config fields):
+# ULA-48 (2N = 96: K1 and kernel 8 do not take it) and ULA-16 at K = 5
+# (2K = 10: K4 does not take it; K3 takes it in its CUDA-core form, K2
+# and kernel 11 take it), distinct amplitudes so that the peaks rank
+# alike on both devices. Under kernel 11 (a cold Newton-Schulz subspace,
+# within 2e-5 of its plain version's projector) the 4th and 5th peaks
+# come within rounding of each other, so that case asks for all five
+FAULT_K5 = ((30.0, 3, 64, 1.0), (55.0, 7, 64, 0.8), (80.0, 11, 64, 0.65),
+            (105.0, 17, 64, 0.5), (135.0, 23, 64, 0.4))
+FAULT_CASES = (
+    ("ULA-48", 48, ((60.0, 5, 64), (110.0, 9, 64)), 2, {}),
+    ("ULA-16 K=5", 16, FAULT_K5, 4, {}),
+    ("ULA-16 K=5 subspace_impl=pallas", 16, FAULT_K5, 5,
+     {"subspace_impl": "pallas"}),
+)
+
+
+def raises(fn, what):
+    """Check that fn() raises ValueError: a kernel wrapper given a CUDA
+    tensor of a shape its kernel does not take."""
+    try:
+        fn()
+    except ValueError as e:
+        log(f"{what}: ValueError ({e})")
+        return
+    fail(f"{what} did not raise")
+
+
+def fault_phase(torch, dev, card):
+    """Phase 15: the configs of fault C.5 through build_pipeline_torch on
+    the card: each plan names "plain" for the stages whose kernel does not
+    take the shape, those kernels launch no time and the planned ones
+    launch; angles equal to the CPU pipeline's within FAULT_TOL; and each
+    kernel wrapper still raises on a CUDA tensor of such a shape."""
+    from doa_tpu_torch import ArrayGeometry, DoaConfig, Estimator, GridSpec1D
+    from doa_tpu_torch.ops import cpx_ops
+    from doa_tpu_torch.ops.cuda import cov_embedded as ce
+    from doa_tpu_torch.ops.cuda import covariance as cv
+    from doa_tpu_torch.ops.cuda import music_scan as ms
+    from doa_tpu_torch.ops.cuda import subspace_ns as sn
+    from doa_tpu_torch.ops.cuda import wideband_cov as wc
+    from doa_tpu_torch.ops.cuda import wideband_scan as wsc
+    from doa_tpu_torch.pipeline_torch import build_pipeline_torch
+
+    counters = {"chunk_gram": ce.chunk_grams_uhat,
+                "planes_chunk_gram": cv.chunk_grams,
+                "mgs_iterate": cpx_ops.mgs_iterate,
+                "subspace_ns": sn.subspace_ns,
+                "music_scan": ms.music_scan,
+                "music_scan_peaks": ms.music_scan_peaks}
+    for name, N, sources, k, fields in FAULT_CASES:
+        cfg = DoaConfig(
+            geometry=ArrayGeometry(kind="ula", num_elements=N,
+                                   norm_spacing=0.5),
+            snapshot_size=1024, num_sources=len(sources),
+            estimators=(Estimator.MUSIC,), grid=GridSpec1D(num_points=1024),
+            num_max_vals=k, power_schedule="e1", power_iters=8, **fields)
+        x = make_ula_capture(torch, T_FAULT, N, sources, SNR_DB, dev,
+                             seed=N).reshape(T_FAULT, 2 * N)
+        for rs in (True, False):
+            pipe = build_pipeline_torch(cfg, device=dev, return_spectra=rs)
+            show_plan(f"{name} return_spectra={rs}", pipe, all_kernel=False)
+            for f in counters.values():
+                f.launches = 0
+            a_gpu = pipe.interleaved(x).peak_angles["music"]
+            torch.cuda.synchronize()
+            n = {key: f.launches for key, f in counters.items()}
+            log(f"launches in the {name} path, return_spectra={rs}: "
+                + json.dumps(n))
+            # the interleaved entry drives every stage but planes input's
+            planned = {v for key, v in pipe.plan.items()
+                       if v != "plain" and key != "covariance_planes"}
+            for key, count in n.items():
+                check((count > 0) == (key in planned),
+                      f"{name}: {key} launched {count} times against the "
+                      f"plan {pipe.plan}")
+            if rs and len(sources) == 5:
+                # K3 at 2K = 10: its CUDA-core form, where K3's first form
+                # also ran
+                check(n["music_scan"] == 1, f"{name}: K3 did not launch")
+            a_cpu = build_pipeline_torch(
+                cfg, device="cpu", return_spectra=rs).interleaved(
+                x.cpu()).peak_angles["music"]
+            a_gpu = a_gpu.cpu().sort(-1).values
+            d = (a_gpu - a_cpu.sort(-1).values).abs().max().item()
+            truth = sorted(s[0] for s in sources)
+            near = (a_gpu[:, :, None] - torch.tensor(truth)).abs().amin(
+                -1).max().item()
+            log(f"{name} return_spectra={rs}: {a_gpu.shape[0]} windows, "
+                f"card vs CPU max angle difference {d!r} deg (tol "
+                f"{FAULT_TOL}); every peak within {near!r} deg of a "
+                f"source  [{card}]")
+            check(bool(torch.isfinite(a_gpu).all()) and d <= FAULT_TOL,
+                  f"{name}: card and CPU pipelines disagree")
+            check(near <= ANGLE_TOL, f"{name}: a peak is {near} deg off")
+        del x
+    x48 = torch.zeros((4096, 96), device=dev)
+    raises(lambda: ce.chunk_grams_uhat(x48, 1024), "K1 at 2N = 96")
+    raises(lambda: cv.chunk_grams(x48[:, :48], x48[:, 48:], 1024),
+           "kernel 8 at N = 48")
+    E = torch.eye(32, device=dev).expand(64, 32, 32).contiguous()
+    raises(lambda: cpx_ops.mgs_iterate(E, 5, 3), "K4 at 2K = 10")
+    Vt = torch.zeros((64, 10, 32), device=dev)
+    At = torch.ones((256, 32), device=dev)
+    raises(lambda: wsc.wideband_fused_spectrum(Vt[None], At[None]),
+           "kernel 5 at 2K = 10")
+    Vt = torch.zeros((64, 16, 160), device=dev)
+    At = torch.ones((256, 160), device=dev)
+    raises(lambda: ms.music_scan(Vt, At), "K3 at 2K = 16, 2N = 160")
+    raises(lambda: wc.subband_chunk_grams(
+        torch.zeros((64, 16 * 200), device=dev), torch.ones(100, device=dev),
+        torch.zeros(100, device=dev), F=16, N=100, g=4, scale=1.0),
+        "kernel 4 at N = 100")
 
 
 def main():
@@ -2683,6 +2910,20 @@ def main():
     x = make_scene(torch, T_MAIN, 16, dev)
     pipe_f = build_pipeline_torch(cfg, device=dev, return_spectra=False)
     pipe_s = build_pipeline_torch(cfg, device=dev, return_spectra=True)
+    show_plan("headline return_spectra=False", pipe_f)
+    show_plan("headline return_spectra=True", pipe_s)
+    # every preset's plan (a pure function of its config) is all-kernel,
+    # in both return_spectra modes, and so are the c5 variants driven here
+    from doa_tpu_torch.pipeline_torch import kernel_plan
+    for name, c in (*PRESETS.items(), ("c5_f12", c5_variant(
+            snapshot_size=768, num_subbands=12)),
+            ("c5 cssm", c5_variant(fusion="cssm")),
+            ("c5 cssm_auto", c5_variant(fusion="cssm_auto"))):
+        for rs in (True, False):
+            plan = kernel_plan(c, return_spectra=rs)
+            check("plain" not in plan.values(),
+                  f"{name} return_spectra={rs} plans a plain stage: {plan}")
+    log("every preset plans a kernel for every stage (kernel_plan)")
     Ar, Ai = pipe_f.steering_planes
     At = torch.cat([Ar, Ai], -1).contiguous()
     nrm = (At * At).sum(-1)
@@ -2749,6 +2990,7 @@ def main():
     for name, spectra, run in runs:
         pipe = build_pipeline_torch(PRESETS[name], device=dev,
                                     return_spectra=spectra)
+        show_plan(f"preset {name}", pipe)
         res = run(pipe)
         err = angle_err(torch, res.peak_angles["music"])
         log(f"preset {name}: {res.peak_angles['music'].shape[0]} windows, "
@@ -2777,10 +3019,11 @@ def main():
     recs.update(pl_recs)
 
     # 10. kernels 7 and 10, 11. c5_f12, c5 cssm / cssm_auto, ULA-16 cssm
-    sb_recs, sb_launches = coherent_phases(torch, dev, card)
+    sb_recs, sb_launches, k3_c5 = coherent_phases(torch, dev, card)
     for name, n in sb_launches.items():
         recs[name]["launches"] += n
     recs.update(sb_recs)
+    recs["music_scan"].update(k3_c5)
 
     # 12. kernels 11 and 9, 13. subspace_impl="pallas", subspace_check,
     # the hard scene, scan_capture (narrowband and c5), the chunk entry
@@ -2794,6 +3037,8 @@ def main():
     recs["halo_ring"], sh_launches = sharded_phases(torch, dev, card)
     for name, n in sh_launches.items():
         recs[name]["launches"] += n
+    # 15. fault C.5: ULA-48 and ULA-16 at K = 5 on the card
+    fault_phase(torch, dev, card)
     check(not any(m == "jax" or m.startswith(("jax.", "doa_tpu."))
                   or m == "doa_tpu" for m in sys.modules),
           "jax or doa_tpu was imported")

@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface (pointers and the
 stream as ``void*``, sizes as ``int``; every entry returns the
 ``cudaGetLastError()`` of its launch), so the build needs no PyTorch
 headers and takes seconds. The shared object lands in ``_build/`` next to
-this file, named by the hash of its source and flags: an edited source
+this file, named by the hash of its source (with the ``csrc/`` headers it
+includes, expanded in place) and flags: an edited source or header
 rebuilds, an unchanged one is loaded as it is. A failed build raises.
 """
 
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -45,6 +47,30 @@ def nvcc_path() -> str:
                        "the doa_tpu_torch CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(r'^#include "([^"]+)"[^\n]*$', re.M)
+
+
+def expanded_source(path: str, _seen=None) -> str:
+    """The text of the CUDA source at `path` with each ``#include "x"`` of
+    a file beside it replaced by that file's text (recursively, each file
+    once): what the build's hash covers, and a source that compiles in
+    any directory."""
+    seen = set() if _seen is None else _seen
+    here = os.path.dirname(path)
+    with open(path) as f:
+        text = f.read()
+
+    def sub(m):
+        inc = os.path.join(here, m.group(1))
+        if not os.path.exists(inc):
+            return m.group(0)
+        if inc in seen:
+            return ""
+        seen.add(inc)
+        return expanded_source(inc, seen).replace("#pragma once\n", "")
+    return _INCLUDE.sub(sub, text)
+
+
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """→ the loaded library built from ``csrc/<name>.cu``, with
     ``argtypes`` set from ``signatures`` (C entry name → ctypes argument
@@ -53,8 +79,8 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     if lib is not None:
         return lib
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(
+        (expanded_source(src) + " ".join(NVCC_FLAGS)).encode())
     so = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
     build_seconds[name] = 0.0
     if not os.path.exists(so):

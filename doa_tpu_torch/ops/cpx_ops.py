@@ -36,6 +36,12 @@ MGS_MAX_N2 = 128        # csrc/subspace.cu: four elements of a row per lane
 MGS_MAX_K2 = 8          # csrc/subspace.cu: rows of W a lane keeps
 
 
+def mgs_takes(n2: int, k2: int) -> bool:
+    """The shapes K4 is built for: an even 2N ≤ MGS_MAX_N2 and
+    2K ≤ min(2N, MGS_MAX_K2)."""
+    return n2 <= MGS_MAX_N2 and n2 % 2 == 0 and k2 <= min(n2, MGS_MAX_K2)
+
+
 def _mgs_rows(Vt: torch.Tensor, passes: int = 1) -> torch.Tensor:
     """Modified Gram-Schmidt over the K2 rows of Vt f32[B, K2, 2N]:
     exact sequential deflation, robust at any eigenvalue spread."""
@@ -111,7 +117,7 @@ def mgs_iterate(E: torch.Tensor, num_sources: int, rounds: int,
         return mgs_iterate_plain(E, num_sources, rounds, init)
     if not E.is_cuda:
         raise ValueError(f"unsupported device {E.device}")
-    if n2 > MGS_MAX_N2 or n2 % 2 or K2 > min(n2, MGS_MAX_K2) or rounds < 1:
+    if not mgs_takes(n2, K2) or rounds < 1:
         raise ValueError(f"mgs_iterate kernel takes an even 2N ≤ "
                          f"{MGS_MAX_N2}, 2K ≤ min(2N, {MGS_MAX_K2}), "
                          f"rounds ≥ 1 (2N={n2}, 2K={K2}, rounds={rounds})")
@@ -197,13 +203,14 @@ def _subspace_E_T_mgs(E, num_sources: int, iters: int, squarings: int,
                       escalate_gap: float = 3.0, escalate_tol: float = 0.05,
                       escalate_signal_floor: float = 2.5,
                       escalate_capacity: int = 1024,
-                      return_stats: bool = False):
+                      return_stats: bool = False, iterate=None):
     """MGS-orthonormalised subspace iteration (see the reference's
     docstring for the measured design). init: an orthonormal starting
     basis f32[m, 2K, 2N], m | B, shared by groups of B // m consecutive
     windows (warm start; `iters` then counts E-applies from it).
     escalate_extra > 0 (squarings == 0 only) arms the detector and the
-    pay-per-window escalation.
+    pay-per-window escalation. iterate: the rounds, mgs_iterate (K4) by
+    default or its plain version.
 
     One host sync per call: whether any window was flagged decides
     whether the escalation batch runs at all (lax.cond in the reference)."""
@@ -223,7 +230,8 @@ def _subspace_E_T_mgs(E, num_sources: int, iters: int, squarings: int,
         rounds = iters // (1 << squarings) + 1
     else:
         rounds = max(1, iters // (1 << squarings))
-    Vt, W, Vt_prev = mgs_iterate(Ep, num_sources, rounds, init)
+    Vt, W, Vt_prev = (iterate or mgs_iterate)(Ep, num_sources, rounds,
+                                              init)
     zero = torch.zeros((), dtype=torch.int32, device=E.device)
     if escalate_extra <= 0 or squarings > 0:
         return (Vt, (zero, zero)) if return_stats else Vt
@@ -250,12 +258,14 @@ def signal_subspace_from_E_T(E, num_sources: int, iters: int = 8,
                              escalate_tol: float = 0.05,
                              escalate_signal_floor: float = 2.5,
                              escalate_capacity: int = 1024,
-                             return_stats: bool = False):
+                             return_stats: bool = False, iterate=None):
     """Embedded signal subspace in transposed layout: Vt f32[B, 2K, 2N]
     with Vt·Vtᵀ = I, from E f32[B, 2N, 2N].
 
     orth="mgs" (the reference default): the MGS iteration above, with warm
-    start and escalation. orth="ns": the reference's packed Newton–Schulz
+    start and escalation, its rounds by `iterate` (mgs_iterate, K4, by
+    default; the pipelines pass its plain version where their kernel plan
+    says so). orth="ns": the reference's packed Newton–Schulz
     chain (Jacobi-preconditioned, per-window Frobenius scale; ns_iters in
     the first and last rounds, ns_iters_mid between), cold only. `pack` is
     the reference's count of windows whose chains it stacks into one
@@ -270,7 +280,7 @@ def signal_subspace_from_E_T(E, num_sources: int, iters: int = 8,
                 escalate_tol=escalate_tol,
                 escalate_signal_floor=escalate_signal_floor,
                 escalate_capacity=escalate_capacity,
-                return_stats=return_stats)
+                return_stats=return_stats, iterate=iterate)
     if orth != "ns":
         raise ValueError(f"unknown orth {orth!r}; 'mgs' or 'ns'")
     if init is not None:

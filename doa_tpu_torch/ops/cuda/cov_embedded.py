@@ -44,7 +44,7 @@ VARIANTS = ("stacked", "chunk")
 def interleave_factor(N: int) -> int:
     """doa_tpu's TPACK: time steps per 128-lane row of the TPU layout (1
     when 2N ≥ 128). Nothing here is laid out by it; the pipelines' route
-    rule reads it (pipeline_torch._fused)."""
+    rule reads it (plan.fused_route)."""
     return max(1, 128 // (2 * N))
 
 
@@ -142,8 +142,14 @@ def correction_pattern(cr: torch.Tensor, ci: torch.Tensor):
             ci[:, None] * cr[None, :] - cr[:, None] * ci[None, :])
 
 
+def gram_takes(n2: int) -> bool:
+    """The widths K1 and kernel 9 are built for: 2N a multiple of 4 up to
+    64, or even up to 30 (csrc/cov_gram.cu's register-tile forms)."""
+    return n2 % 4 == 0 and n2 <= 64 or n2 % 2 == 0 and n2 <= 30
+
+
 def _check_gram_width(n2: int, what: str) -> None:
-    if not (n2 % 4 == 0 and n2 <= 64 or n2 % 2 == 0 and n2 <= 30):
+    if not gram_takes(n2):
         raise ValueError(f"{what} kernel takes 2N a multiple of 4 up to "
                          f"64 or even up to 30, got 2N = {n2}")
 
@@ -216,7 +222,8 @@ def window_sums(U: torch.Tensor, B: int, n_win: int,
 def cov_embedded(xil: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor, *,
                  N: int, snapshot_size: int, overlap: int = 0,
                  fb: bool = False, compute_dtype="float32",
-                 variant: str = "stacked") -> torch.Tensor:
+                 variant: str = "stacked",
+                 kernel=None) -> torch.Tensor:
     """xil: the capture as x[T, 2N] (or any shape with the same bytes,
     e.g. doa_tpu's (T/TPACK, 2N·TPACK)); cr/ci: f32[N] correction →
     E(R) windows f32[B, 2N, 2N], normalised by S, with the correction
@@ -231,7 +238,11 @@ def cov_embedded(xil: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor, *,
     variant "stacked": K1's interleaved-basis chunk Grams, windows, then
     the embedding, correction and FB on the windows; "chunk": kernel 9's
     per-chunk E (embedding, correction, FB and 1/S in the kernel), then
-    the windows. The int8 mode takes the stacked variant only."""
+    the windows. The int8 mode takes the stacked variant only.
+
+    kernel: the variant's kernel stage, chunk_grams_uhat ("stacked") or
+    chunk_embedded ("chunk") by default; the pipelines pass its plain
+    version where their kernel plan says so."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
     dt = _DTYPES.get(compute_dtype, compute_dtype)
@@ -264,9 +275,9 @@ def cov_embedded(xil: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor, *,
     if variant == "chunk":
         # every step is linear in the chunk's Gram: E of a window is the
         # sum of its chunks' E
-        E = chunk_embedded(x[:n * g], g, N, 1.0 / S, W, fb)
+        E = (kernel or chunk_embedded)(x[:n * g], g, N, 1.0 / S, W, fb)
         return window_sums(E, B, n_win, stride)
-    U = chunk_grams_uhat(x[:n * g], g)           # interleaved basis
+    U = (kernel or chunk_grams_uhat)(x[:n * g], g)   # interleaved basis
     # windows first: every later step is linear in the chunk sum
     Uw = window_sums(U, B, n_win, stride)
     return uhat_windows_to_embedded(Uw, N, 1.0 / S, W, fb)

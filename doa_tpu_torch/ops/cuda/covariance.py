@@ -68,6 +68,12 @@ def _fold(G: torch.Tensor, N: int):
     return (G[..., :N, :N] + G[..., N:, N:], G[..., N:, :N] - G[..., :N, N:])
 
 
+def planes_takes(N: int) -> bool:
+    """The element counts kernels 8 and 12 are built for: 2N a multiple of
+    4 up to 64, or N ≤ 15."""
+    return 2 * N % 4 == 0 and 2 * N <= 64 or N <= 15
+
+
 def _kernel_args(xr: torch.Tensor, xi: torch.Tensor, N: int):
     """→ (xr, xi, row stride, element stride, load form) for the C entries.
     Both planes must share their strides (else both are made contiguous).
@@ -77,7 +83,7 @@ def _kernel_args(xr: torch.Tensor, xi: torch.Tensor, N: int):
     16-byte aligned rows and 4 | N, 3 anything else."""
     if not (xr.is_cuda and xi.is_cuda):
         raise ValueError(f"unsupported device {xr.device}")
-    if not (2 * N % 4 == 0 and 2 * N <= 64 or N <= 15):
+    if not planes_takes(N):
         raise ValueError(f"the planes Gram kernels take 2N a multiple of 4 "
                          f"up to 64 or N ≤ 15, got N = {N}")
     if xr.stride() != xi.stride():
@@ -153,15 +159,17 @@ def _framing(T: int, S: int, overlap: int):
 
 
 def cov_from_stream(xr, xi, snapshot_size: int, overlap: int,
-                    compute_dtype="float32"):
+                    compute_dtype="float32", grams=None):
     """Sample planes xr, xi f32[T, N] → covariance planes (Rr, Ri)
     f32[B, N, N], normalised by S (doa_tpu cpx_ops.cov_from_stream_cpx):
     chunk Grams of g = gcd(S, hop) samples (kernel 8), then strided
     prefix-sum differences give the windows at every hop for any
-    0 ≤ overlap < S (n_win == 1: the chunks are the windows)."""
+    0 ≤ overlap < S (n_win == 1: the chunks are the windows). grams:
+    chunk_grams by default; the pipelines pass its plain version where
+    their kernel plan says so."""
     S = snapshot_size
     hop, g, B = _framing(xr.shape[0], S, overlap)
-    C = chunk_grams(xr, xi, g, compute_dtype)
+    C = (grams or chunk_grams)(xr, xi, g, compute_dtype)
     return tuple(window_sums(c, B, S // g, hop // g) / S for c in C)
 
 

@@ -46,6 +46,12 @@ NS_MAX_N2 = 128          # csrc/subspace_ns.cu: E and its square in shared
 NS_MAX_K2 = 16           # csrc/subspace_ns.cu: the 2K x 2K chain in shared
 
 
+def ns_takes(n2: int, k2: int) -> bool:
+    """The shapes kernel 11 is built for: an even 2N ≤ NS_MAX_N2 and
+    2K ≤ NS_MAX_K2."""
+    return n2 <= NS_MAX_N2 and n2 % 2 == 0 and k2 <= NS_MAX_K2
+
+
 def ns_rounds(iters: int, squarings: int) -> int:
     """Rounds of apply + orthonormalise: max(1, iters // 2^squarings)."""
     return max(1, iters // (1 << squarings))
@@ -137,7 +143,7 @@ def subspace_ns(E: torch.Tensor, num_sources: int, iters: int = 8,
         raise ValueError(f"unsupported device {E.device}")
     B, n2 = E.shape[0], E.shape[-1]
     k2 = 2 * num_sources
-    if n2 > NS_MAX_N2 or n2 % 2 or k2 > NS_MAX_K2:
+    if not ns_takes(n2, k2):
         raise ValueError(f"subspace_ns kernel takes an even 2N ≤ {NS_MAX_N2} "
                          f"and 2K ≤ {NS_MAX_K2} (2N={n2}, 2K={k2})")
     E = E.contiguous()

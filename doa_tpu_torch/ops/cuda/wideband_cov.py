@@ -26,6 +26,7 @@ path, as in the reference. The correction c cᴴ is folded per subband
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -68,7 +69,7 @@ def twiddles_on(F: int, device) -> torch.Tensor:
     return tw
 
 
-def _kernel_takes(N: int) -> bool:
+def kernel_takes(N: int) -> bool:
     """The element counts the front-end kernels (4, 7, 10) are built for."""
     return N % 4 == 0 and N <= 64 or N % 2 == 0 and N <= 32 or N <= 16
 
@@ -96,7 +97,7 @@ def _kernel_stream(y: torch.Tensor, F: int, N: int, n: int, g: int):
         raise ValueError(f"unsupported device {y.device}")
     if y.dtype != torch.float32:
         raise ValueError(f"the kernel takes float32 input, got {y.dtype}")
-    if not _kernel_takes(N):
+    if not kernel_takes(N):
         raise ValueError(f"the front-end kernels take N a multiple of 4 up "
                          f"to 64, even up to 32, or up to 16; got {N}")
     if F * n > 2 ** 31 - 1:
@@ -314,14 +315,19 @@ def wideband_cov_embedded(xil: torch.Tensor, cr: torch.Tensor,
                           ci: torch.Tensor, *, N: int, F: int,
                           snapshot_size: int, overlap: int = 0,
                           variant: str = "auto", sb_group: int = 1,
-                          K: torch.Tensor | None = None) -> torch.Tensor:
+                          K: torch.Tensor | None = None,
+                          kernel=None) -> torch.Tensor:
     """xil: the capture as x[T, 2N] (or any shape with the same bytes);
     cr/ci: f32[N] correction → per-subband embedded covariance windows
     E_sub f32[F, B, 2N, 2N], normalised by S_sub, the correction folded
     per subband. variant: "auto" | "fft" | "embedded" | "uhat" (module
     docstring); sb_group: the reference's subband grouping ("uhat"; a
     positive int, no effect on the result); K: the channelizer matrix on xil's device
-    (channelizer_matrix; None builds it) for "embedded" and "uhat"."""
+    (channelizer_matrix; None builds it) for "embedded" and "uhat";
+    kernel: the variant's Gram stage, subband_chunk_grams ("fft"),
+    subband_embedded ("embedded") or subband_grams ("uhat") by default;
+    the pipelines pass its plain version where their kernel plan says
+    so."""
     variant = resolve_variant(F, variant)
     _check_sb_group(sb_group)
     S_sub, hop_sub, g = subband_framing(F, snapshot_size, overlap)
@@ -335,15 +341,18 @@ def wideband_cov_embedded(xil: torch.Tensor, cr: torch.Tensor,
     n_win, stride = S_sub // g, hop_sub // g
     xf = x[:n * g * F].reshape(n * g, F * 2 * N)         # frames (free)
     if variant == "fft":
-        E = subband_chunk_grams(xf, cr, ci, F=F, N=N, g=g, scale=1.0 / S_sub)
+        E = (kernel or subband_chunk_grams)(xf, cr, ci, F=F, N=N, g=g,
+                                           scale=1.0 / S_sub)
         return window_sums(E, B, n_win, stride)
     if K is None:
         K = torch.from_numpy(channelizer_matrix(F, N)).to(x.device)
     Y = channelize_frames(xf, K)                         # (n·g, F·2N)
     if variant == "embedded":
-        E = subband_embedded(Y, cr, ci, F=F, N=N, g=g, scale=1.0 / S_sub)
+        E = (kernel or subband_embedded)(Y, cr, ci, F=F, N=N, g=g,
+                                        scale=1.0 / S_sub)
         return window_sums(E, B, n_win, stride)
-    U = subband_grams(Y, F=F, N=N, g=g, sb_group=sb_group)
+    U = (kernel or functools.partial(subband_grams, sb_group=sb_group))(
+        Y, F=F, N=N, g=g)
     return uhat_windows_to_embedded(window_sums(U, B, n_win, stride), N,
                                     1.0 / S_sub, correction_pattern(cr, ci),
                                     fb=False)

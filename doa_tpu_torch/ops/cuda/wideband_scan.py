@@ -10,7 +10,7 @@ swapped) and the embedded per-subband steering Ã f32[F, G, 2N]:
 
 — the mean over subbands of the max-normalised reciprocal MUSIC spectra
 (P_f / max P_f = dmin_f / den_f). On the card each den is computed once,
-its products on the tensor cores in 3×TF32 (`tf32_split`), into a
+its products on the tensor cores in 3×TF32 (scan_tc.tf32_split), into a
 workspace f32[F, B, G] that a second kernel streams into P; the plain
 version is true FP32.
 """
@@ -23,35 +23,24 @@ import torch
 
 from doa_tpu_torch import _build
 from doa_tpu_torch.ops.cuda.music_scan import music_den_plain
+from doa_tpu_torch.ops.cuda.scan_tc import (
+    TC_K2, WINDOW_TILE, fusion_bins, fusion_kp, most_n2, steering_tiles,
+    subspace_fragments, tc_takes)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {"doa_fusion_den": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
         "doa_fusion_sum": [_P, _P, _P] + [_I] * 6 + [_P]}
-FUSION_K2 = (2, 4, 6, 8)        # subspace ranks the kernel is built for
-WINDOW_TILE = 32                # windows a tile of the kernel's V' layout
-SMEM_MAX = 232448               # a block's shared memory on sm_90
+FUSION_K2 = TC_K2              # subspace ranks the kernel is built for
 # the most workspace (den, F·B·G f32) one launch holds; beyond it the
 # windows run in groups (dmin is per window, so grouping is exact)
 WORKSPACE_CAP = 4 << 30
 
 
-def fusion_bins(k2: int) -> int:
-    """Bins a warpgroup of the kernel covers at 2K = k2 (csrc's bins_of);
-    a block covers twice as many."""
-    return 64 if k2 <= 4 else 32
-
-
-def fusion_kp(n2: int) -> int:
-    """The contraction 2N padded to whole pairs of the kernel's k-steps
-    (16)."""
-    return -(-n2 // 16) * 16
-
-
-def _smem_bytes(k2, n2):
-    """Pass A's shared memory: barrier and nrm (1 KiB), then the A'
-    stretch of 2·fusion_bins(k2) bins, both planes."""
-    return 1024 + 8 * fusion_kp(n2) * 2 * fusion_bins(k2)
+def fusion_takes(k2: int, n2: int) -> bool:
+    """The shapes kernel 5 is built for: its mainloop's (scan_tc.tc_takes:
+    2K in FUSION_K2, 2N under the shared-memory cap)."""
+    return tc_takes(k2, n2)
 
 
 def _check_args(Vt, At_emb, nrm):
@@ -82,53 +71,6 @@ def wideband_fused_spectrum_plain(Vt, At_emb, nrm=None):
         q = den.min(dim=-1, keepdim=True).values / den
         acc = q if acc is None else acc + q
     return acc * (1.0 / F)
-
-
-def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """f32 x → (hi, lo), both TF32 values (the low 13 bits zero): hi =
-    x rounded to 10 mantissa bits, half away from zero (cvt.rna.tf32.f32),
-    lo = x − hi rounded the same way. hi·b + (hi·b_lo + lo·b) is the
-    3×TF32 product; hi + lo is x to within 2^-22·|x| (exactly where x has
-    at most 22 significant bits). The kernel splits its V' fragments with
-    the same bit operations."""
-    def rna(v):
-        return ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
-    x = x.contiguous()
-    hi = rna(x)
-    return hi, rna(x - hi)
-
-
-def steering_tiles(At_emb: torch.Tensor, k2: int) -> torch.Tensor:
-    """The kernel's A' of At_emb f32[F, G, 2N] at 2K = k2: split by
-    tf32_split and laid out per stretch of GB = 2·fusion_bins(k2) bins as
-    [plane hi, lo][KP/4 k-columns][GB/8 row groups][8 rows][4], zero past
-    G and 2N → f32[F, ceil(G/GB), 2, KP/4, GB/8, 8, 4]."""
-    F, G, n2 = At_emb.shape
-    GB, KP = 2 * fusion_bins(k2), fusion_kp(n2)
-    nJ = -(-G // GB)
-    planes = At_emb.new_zeros((F, nJ * GB, 2, KP))
-    planes[:, :G, 0, :n2], planes[:, :G, 1, :n2] = tf32_split(At_emb)
-    # g = GB·j + 8r + row, n = 4c + e
-    return planes.view(F, nJ, GB // 8, 8, 2, KP // 4, 4).permute(
-        0, 1, 4, 5, 2, 3, 6).contiguous()
-
-
-def subspace_fragments(Vt: torch.Tensor) -> torch.Tensor:
-    """The kernel's V' of Vt f32[F, B, 2K, 2N]: per tile of 32 windows the
-    A fragments of wgmma's register layout, [k-step s][m64 tile i][warp w]
-    [lane (g, t)][4] with (v[8w+g, 2i, 8s+t], v[8w+g, 2i+1, 8s+t],
-    v[8w+g, 2i, 8s+t+4], v[8w+g, 2i+1, 8s+t+4]), zero past B and 2N →
-    f32[F, ceil(B/32), KP/8, 2K/2, 4, 32, 4]."""
-    F, B, K2, n2 = Vt.shape
-    KP, Bp = fusion_kp(n2), -(-B // WINDOW_TILE) * WINDOW_TILE
-    V = Vt.contiguous()
-    if (Bp, KP) != (B, n2):
-        V = Vt.new_zeros((F, Bp, K2, KP))
-        V[:, :B, :, :n2] = Vt
-    # b = 32T + 8w + g, k = 2i + h, n = 8s + 4e + t
-    V = V.view(F, Bp // WINDOW_TILE, 4, 8, K2 // 2, 2, KP // 8, 2, 4)
-    return V.permute(0, 1, 6, 4, 2, 3, 8, 7, 5).contiguous().view(
-        F, Bp // WINDOW_TILE, KP // 8, K2 // 2, 4, 32, 4)
 
 
 def _tiles_of(At_emb, k2):
@@ -162,10 +104,6 @@ def _fused_cuda(Vt, At_emb, nrm, cap=WORKSPACE_CAP):
     F, B, K2, n2 = Vt.shape
     G = At_emb.shape[1]
     KP = fusion_kp(n2)
-    if _smem_bytes(K2, n2) > SMEM_MAX:
-        most = (SMEM_MAX - 1024) // (16 * fusion_bins(K2)) // 16 * 16
-        raise ValueError(f"wideband_fusion kernel takes 2N <= {most} at "
-                         f"2K={K2}, got {n2}")
     Af = _tiles_of(At_emb, K2)
     Vf = subspace_fragments(Vt)
     nrm = nrm.to(device=Vt.device, dtype=torch.float32).contiguous()
@@ -205,9 +143,11 @@ def wideband_fused_spectrum(Vt: torch.Tensor, At_emb: torch.Tensor,
         return wideband_fused_spectrum_plain(Vt, At_emb, nrm)
     if not Vt.is_cuda:
         raise ValueError(f"unsupported device {Vt.device}")
-    if Vt.shape[2] not in FUSION_K2:
-        raise ValueError(f"wideband_fusion kernel takes 2K in {FUSION_K2}, "
-                         f"got {Vt.shape[2]}")
+    K2, n2 = Vt.shape[2:]
+    if not fusion_takes(K2, n2):
+        raise ValueError(f"wideband_fusion kernel takes 2K in {FUSION_K2} "
+                         f"and 2N ≤ {most_n2(K2)} there, got 2K = {K2}, "
+                         f"2N = {n2}")
     P = _fused_cuda(Vt, At_emb, nrm)
     wideband_fused_spectrum.launches += 1
     return P

@@ -34,7 +34,6 @@ from doa_tpu_torch.ops.cpx_ops import (music_denominator_subspace,
                                        signal_subspace_embedded,
                                        signal_subspace_from_E_T,
                                        spectrum_from_den)
-from doa_tpu_torch.ops.cuda.wideband_scan import wideband_fused_spectrum
 from doa_tpu_torch.ops.peaks import find_local_max, find_local_max_2d
 
 
@@ -61,8 +60,8 @@ def wideband_steering_stack(cfg: DoaConfig, A_fn) -> np.ndarray:
                      for fn in freqs], axis=0)
 
 
-def subband_subspaces_from_E(E_sub: torch.Tensor,
-                             cfg: DoaConfig) -> torch.Tensor:
+def subband_subspaces_from_E(E_sub: torch.Tensor, cfg: DoaConfig,
+                             iterate=None) -> torch.Tensor:
     """Embedded per-subband covariances f32[F, B, 2N, 2N] → signal
     subspaces Vt f32[F, B, 2K, 2N] (transposed: rows orthonormal; the
     reference returns the swap, f32[F, B, 2N, 2K]). The (F, B) axes merge
@@ -75,7 +74,8 @@ def subband_subspaces_from_E(E_sub: torch.Tensor,
     init is one row per subband, shared by that subband's B windows in
     the subspace kernel. Otherwise a cold start with power_iters and the
     config's squarings, detector off — as the reference. No escalation
-    counts are returned, as in the reference."""
+    counts are returned, as in the reference. iterate: the MGS rounds
+    (signal_subspace_from_E_T)."""
     F, B, n2, _ = E_sub.shape
     K = cfg.num_sources
     E = E_sub.reshape(F * B, n2, n2)
@@ -83,23 +83,15 @@ def subband_subspaces_from_E(E_sub: torch.Tensor,
         esc = cfg.escalate_kwargs_for(
             cfg.snapshot_size // cfg.wideband.num_subbands, n2=n2)
         Vt_bar = signal_subspace_from_E_T(
-            E_sub.mean(dim=1), K, iters=max(cfg.power_iters, 8), **esc)
+            E_sub.mean(dim=1), K, iters=max(cfg.power_iters, 8),
+            iterate=iterate, **esc)
         Vt = signal_subspace_from_E_T(E, K, iters=cfg.power_iters_warm,
-                                      init=Vt_bar, **esc)
+                                      init=Vt_bar, iterate=iterate, **esc)
     else:
         Vt = signal_subspace_from_E_T(E, K, iters=cfg.power_iters,
-                                      squarings=cfg.power_squarings)
+                                      squarings=cfg.power_squarings,
+                                      iterate=iterate)
     return Vt.reshape(F, B, 2 * K, n2)
-
-
-def wideband_music(E_sub: torch.Tensor, At_emb: torch.Tensor,
-                   nrm: torch.Tensor, cfg: DoaConfig) -> torch.Tensor:
-    """The power path of wideband_music_cpx with E_sub given:
-    per-subband subspaces, then the fused incoherent spectrum
-    P f32[B, G] from the embedded steering stack At_emb f32[F, G, 2N]
-    (nrm f32[F, G] its squared norms)."""
-    return wideband_fused_spectrum(subband_subspaces_from_E(E_sub, cfg),
-                                   At_emb, nrm)
 
 
 # ---------------------------------------------------------------------
@@ -279,15 +271,16 @@ def cssm_covariance(R_sub: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
 
 
 def coarse_fused_spectrum(R_mean: torch.Tensor, At_emb: torch.Tensor,
-                          cfg: DoaConfig) -> torch.Tensor:
+                          cfg: DoaConfig, iterate=None) -> torch.Tensor:
     """The coarse pass of "cssm_auto": capture-mean subband covariances
     R_mean complex64[F, N, N] → the mean over subbands of their
     max-normalised MUSIC spectra f32[1, G] on the per-subband embedded
     steering At_emb f32[F, G, 2N] (cold subspaces, max(power_iters, 16)
-    rounds)."""
+    rounds by `iterate`, as signal_subspace_from_E_T)."""
     V = signal_subspace_embedded(R_mean.real.contiguous(),
                                  R_mean.imag.contiguous(), cfg.num_sources,
-                                 iters=max(cfg.power_iters, 16))
+                                 iters=max(cfg.power_iters, 16),
+                                 iterate=iterate)
     P = [spectrum_from_den(music_denominator_subspace(V[f:f + 1], At_emb[f]))
          for f in range(V.shape[0])]
     return torch.stack(P).mean(dim=0)
@@ -296,13 +289,15 @@ def coarse_fused_spectrum(R_mean: torch.Tensor, At_emb: torch.Tensor,
 def auto_focused_covariance(R_sub: torch.Tensor, At_emb: torch.Tensor,
                             cfg: DoaConfig,
                             sector_halfwidth_deg: float = 2.0,
-                            sector_weight: float = 2.0) -> torch.Tensor:
+                            sector_weight: float = 2.0,
+                            iterate=None) -> torch.Tensor:
     """Two-pass auto-focused CSSM (fusion="cssm_auto"): the coarse
     incoherent spectrum of the capture-mean subband covariances, its
     peaks as runtime focusing directions (runtime_focusing), then
     R_coh = mean_f T_f R_f T_fᴴ. R_sub complex64[F, B, N, N]; At_emb the
-    per-subband embedded steering f32[F, G, 2N]."""
-    P = coarse_fused_spectrum(R_sub.mean(dim=1), At_emb, cfg)
+    per-subband embedded steering f32[F, G, 2N]; iterate: the coarse
+    pass's MGS rounds (signal_subspace_from_E_T)."""
+    P = coarse_fused_spectrum(R_sub.mean(dim=1), At_emb, cfg, iterate)
     spac = np.concatenate([[cfg.geometry.norm_spacing],
                            subband_spacings(cfg)]).astype(np.float32)
     T = runtime_focusing(P, cfg, spac, sector_halfwidth_deg, sector_weight)

@@ -17,7 +17,7 @@ merge over the grid axis. Windows at the global tail whose halo ran past
 the capture end are invalid: callers keep the first num_valid_windows(T,
 cfg) rows of the concatenated blocks.
 
-Fused path (the single-card fused route's rule, pipeline_torch._fused),
+Fused path (the single-card fused route's rule, plan.fused_route),
 per rank:
     x_blk[T_loc, 2N] → halo → K1 (cov_embedded) → E f32[B_loc, 2N, 2N]
       → the last rank's tail windows zeroed for the subspace stage
@@ -41,6 +41,8 @@ Jacobi subspace (queue A.3).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -49,15 +51,15 @@ from doa_tpu_torch.cpx import fp32_matmuls, unembed_planes
 from doa_tpu_torch.ops import cpx_ops
 from doa_tpu_torch.ops.cpx_ops import signal_subspace_from_E_T
 from doa_tpu_torch.ops.cuda.cov_embedded import cov_embedded
-from doa_tpu_torch.ops.cuda.music_scan import (MAX_FUSED_G, MAX_FUSED_K,
-                                               music_scan, music_scan_peaks)
+from doa_tpu_torch.ops.cuda.music_scan import scan_tiles
 from doa_tpu_torch.ops.cuda import ring
 from doa_tpu_torch.ops.peaks import (_refine_frac, _topk_lastaxis,
                                      find_local_max_2d)
 from doa_tpu_torch.parallel.collectives import all_gather, ppermute, psum
 from doa_tpu_torch.parallel.mesh import GRID_AXIS, SNAP_AXIS, Mesh
 from doa_tpu_torch.pipeline import _steering_matrix
-from doa_tpu_torch.pipeline_torch import _correction_planes, _fused
+from doa_tpu_torch.pipeline_torch import _correction_planes
+from doa_tpu_torch.plan import Plan, sharded_kernel_routes
 
 _ESTIMATORS = (Estimator.MUSIC, Estimator.CAPON, Estimator.BARTLETT)
 
@@ -301,7 +303,11 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
 
     return_spectra=False on the fused path with an unsharded 1-D grid
     fuses normalise + peaks into the scan kernel (K2; k ≤ 4, G ≤ 8192),
-    as the single-card pipeline does. cfg.halo_impl picks the halo
+    as the single-card pipeline does. ``call.plan`` is
+    sharded_kernel_plan on a CUDA mesh (every stage "plain" on the CPU;
+    plan.py): the pipeline takes each stage's route and callable from it,
+    so a stage takes its plain torch version on the card only where it
+    says so. cfg.halo_impl picks the halo
     exchange ("xla" ppermute, or "pallas": kernel 13). The pipeline runs
     on the mesh rank's device (make_mesh: the card unless the caller asks
     for the CPU).
@@ -311,10 +317,13 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
     cfg = as_config(cfg)
     _check_sharded_slice(cfg)
     dev = mesh.device
+    n_snap, n_grid = mesh.axis_size(SNAP_AXIS), mesh.axis_size(GRID_AXIS)
+    plan = Plan(sharded_kernel_routes(cfg, n_snap, n_grid, return_spectra),
+                on_card=dev.type == "cuda")
+    route = plan.kernels
     A_host, x_rng = _steering_matrix(cfg)
     S, hop, overlap = cfg.snapshot_size, cfg.hop, cfg.overlap
     fb = cfg.avg_method == AvgMethod.FORWARD_BACKWARD
-    n_snap, n_grid = mesh.axis_size(SNAP_AXIS), mesh.axis_size(GRID_AXIS)
     G = A_host.shape[0]
     if G % n_grid:
         raise ValueError(f"grid size {G} not divisible by n_grid {n_grid}")
@@ -324,7 +333,7 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
     use_power = cfg.subspace_method == "power"
     g2 = cfg.grid2d if cfg.geometry.kind == "ura" else None
     use_2d_merge = g2 is not None and (G // n_grid) % g2.num_el == 0
-    fast = _fused(cfg)
+    fast = route["covariance"] == "chunk_gram"
     esc = cfg.escalate_kwargs
     G_loc = G // n_grid
     g = mesh.axis_index(GRID_AXIS)
@@ -335,8 +344,10 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
         A_blk.imag, dtype=np.float32)).to(dev)
     At_emb = torch.cat([A_re, A_im], dim=-1).contiguous()   # (G_loc, 2N)
     nrm = (At_emb * At_emb).sum(dim=-1)
-    fuse_peaks = (fast and not return_spectra and n_grid == 1 and g2 is None
-                  and k <= MAX_FUSED_K and 3 <= G <= MAX_FUSED_G)
+    scan = plan.op("scan") if "scan" in plan else None
+    if plan.get("scan") == "music_scan":
+        # K3's A' of the rank's grid block, made once
+        scan = functools.partial(scan, tiles=scan_tiles(At_emb, 2 * K))
     need_R = (Estimator.CAPON in cfg.estimators
               or Estimator.BARTLETT in cfg.estimators)
 
@@ -390,7 +401,8 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
     def run_fast(x_ext, T, cr, ci):
         E_win = cov_embedded(x_ext, cr, ci, N=N, snapshot_size=S,
                              overlap=overlap, fb=fb,
-                             compute_dtype=cfg.cov_dtype)  # (B_loc, 2N, 2N)
+                             compute_dtype=cfg.cov_dtype,
+                             kernel=plan.op("covariance"))  # (B_loc, 2N, 2N)
         B_loc = E_win.shape[0]
         B_valid = num_valid_windows(T, cfg)
         n_invalid = B_loc * n_snap - B_valid
@@ -403,28 +415,30 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
             E_sub = torch.cat([E_win[:B_loc - n_invalid],
                                E_win.new_zeros((n_invalid,)
                                                + E_win.shape[1:])])
+        it = plan.op("subspace")
         if cfg.subspace_warm_start and B_valid >= 32:
             Ebar = psum(E_sub.sum(dim=0), mesh, SNAP_AXIS) / B_valid
             Vt_bar = signal_subspace_from_E_T(
-                Ebar[None], K, iters=max(cfg.power_iters, 8), **esc)
+                Ebar[None], K, iters=max(cfg.power_iters, 8), iterate=it,
+                **esc)
             Vt, stats = signal_subspace_from_E_T(
                 E_sub, K, iters=cfg.power_iters_warm, init=Vt_bar,
-                return_stats=True, **esc)
+                return_stats=True, iterate=it, **esc)
         else:
             Vt, stats = signal_subspace_from_E_T(
                 E_sub, K, iters=cfg.power_iters,
-                squarings=cfg.power_squarings, return_stats=True,
+                squarings=cfg.power_squarings, return_stats=True, iterate=it,
                 **(esc if cfg.power_squarings == 0 else {}))
         out = {}
 
         def music():
-            if fuse_peaks:
-                v, l = music_scan_peaks(Vt, At_emb, k, x_rng[0], x_rng[1],
-                                        refine=refine_peaks, nrm=nrm)
+            if route["scan"] == "music_scan_peaks":
+                v, l = scan(Vt, At_emb, k, x_rng[0], x_rng[1],
+                            refine=refine_peaks, nrm=nrm)
                 out["peak_values_music"] = v
                 out["peak_angles_music"] = l
                 return None
-            return music_scan(Vt, At_emb, nrm)
+            return scan(Vt, At_emb, nrm)
 
         _spectra(out, unembed_planes(E_win) if need_R else None, music)
         counts = psum(torch.stack(stats).reshape(2), mesh, SNAP_AXIS)
@@ -434,7 +448,8 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
 
     def run_general(x_ext, cr, ci):
         xv = x_ext.reshape(-1, N, 2)
-        R = cpx_ops.cov_from_stream(xv[..., 0], xv[..., 1], S, overlap)
+        R = cpx_ops.cov_from_stream(xv[..., 0], xv[..., 1], S, overlap,
+                                    grams=plan.op("covariance"))
         R = cpx_ops.apply_correction_to_cov(*R, cr, ci)
         if fb:
             R = cpx_ops.forward_backward(*R)
@@ -447,6 +462,7 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
                 V_emb = cpx_ops.signal_subspace_embedded(
                     *R, K, iters=cfg.power_iters,
                     squarings=cfg.power_squarings,
+                    iterate=plan.op("subspace"),
                     **(esc if cfg.power_squarings == 0 else {}))
                 den = cpx_ops.music_denominator_subspace(
                     V_emb, At_emb, cfg.compute_dtype)
@@ -474,8 +490,9 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
                              f"by n_snap*hop={n_snap * hop}")
         cr, ci = _correction_planes(correction, N, dev)
         with fp32_matmuls():
-            x_ext = ring._halo_exchange(xt, overlap, mesh,
-                                        impl=cfg.halo_impl)
+            x_ext = ring._halo_exchange(
+                xt, overlap, mesh,
+                impl="pallas" if "halo" in route else "xla")
             if fast:
                 return run_fast(x_ext, T_loc * n_snap, cr, ci)
             return run_general(x_ext, cr, ci)
@@ -494,6 +511,7 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
     call.fast = fast
     call.config = cfg
     call.steering_planes = (A_re, A_im)
+    call.plan = plan
     return call
 
 

@@ -3,7 +3,7 @@ planes branches and the wideband incoherent branch of
 doa_tpu/pipeline_tpu.py::build_pipeline_tpu).
 
 Narrowband, fused path (no smoothing, subspace_method="power",
-TPACK | gcd(S, hop): _fused, the reference's route rule):
+TPACK | gcd(S, hop): plan.fused_route, the reference's route rule):
     capture x[T, 2N] (the bytes of a complex64 (T, N) buffer)
       → K1 chunk Grams → windows E(R) f32[B, 2N, 2N]   ops/cuda/cov_embedded
       → warm-start MGS subspace (K4) Vt f32[B, 2K, 2N] ops/cpx_ops
@@ -56,7 +56,7 @@ to the CPU or to a plain version.
 
 from __future__ import annotations
 
-import math
+import functools
 
 import numpy as np
 import torch
@@ -66,20 +66,17 @@ from doa_tpu_torch.cpx import embed_planes, fp32_matmuls, unembed_planes
 from doa_tpu_torch.io.native import quantize_interleaved_int8
 from doa_tpu_torch.ops import cpx_ops
 from doa_tpu_torch.ops.cpx_ops import signal_subspace_from_E_T
-from doa_tpu_torch.ops.cuda.cov_embedded import (cov_embedded,
-                                                  interleave_factor)
-from doa_tpu_torch.ops.cuda.music_scan import (
-    MAX_FUSED_G, MAX_FUSED_K, music_scan, music_scan_peaks)
-from doa_tpu_torch.ops.cuda.peaks2d import MAX_PEAKS2D_K, peaks2d
-from doa_tpu_torch.ops.cuda.subspace_ns import subspace_ns
+from doa_tpu_torch.ops.cuda.cov_embedded import cov_embedded
+from doa_tpu_torch.ops.cuda.music_scan import scan_tiles
 from doa_tpu_torch.ops.cuda.wideband_cov import (channelizer_matrix,
-                                                 resolve_variant,
                                                  wideband_cov_embedded)
-from doa_tpu_torch.ops.peaks import find_local_max, find_local_max_2d
+from doa_tpu_torch.ops.peaks import find_local_max
 from doa_tpu_torch.ops.wideband import (auto_focused_covariance,
                                         cssm_covariance, focusing_matrices,
-                                        wideband_music,
+                                        subband_subspaces_from_E,
                                         wideband_steering_stack)
+from doa_tpu_torch.plan import (Plan, fused_route, kernel_plan,  # noqa: F401
+                                kernel_routes)
 from doa_tpu_torch.pipeline import DoaResult, _steering_fn, _steering_matrix
 
 _ESTIMATORS = (Estimator.MUSIC, Estimator.CAPON, Estimator.BARTLETT)
@@ -112,7 +109,7 @@ def _check_slice(cfg: DoaConfig) -> None:
             todo.append("cssm_auto with smoothing: the reference's coarse "
                         "pass scans the subarray's steering against the "
                         "full array's covariances (queue A.4)")
-    elif cfg.cov_dtype == "int8" and not _fused(cfg):
+    elif cfg.cov_dtype == "int8" and not fused_route(cfg):
         todo.append("cov_dtype='int8' on the planes path (ROADMAP.md §C)")
     if cfg.beamspace.enabled:
         todo.append("beamspace (queue A.3)")
@@ -130,21 +127,6 @@ def _check_slice(cfg: DoaConfig) -> None:
             "the wideband incoherent, cssm and cssm_auto paths; not yet "
             "ported: "
             + "; ".join(todo) + " — see ROADMAP.md")
-
-
-def _fused(cfg: DoaConfig) -> bool:
-    """The fused-path rule, the reference's (pipeline_tpu.py:164-166):
-    narrowband, power subspace, no smoothing, and TPACK | gcd(S, hop) with
-    TPACK = interleave_factor(N). The last condition comes from the TPU's
-    128-lane layout, but it is kept as a route choice, not as a layout
-    rule: the route sets the numbers (the fused route warm-starts from the
-    capture mean, the planes route runs a cold subspace), so a config
-    outside it takes the planes route here as there."""
-    S = cfg.snapshot_size
-    return (not cfg.wideband.enabled and cfg.subspace_method == "power"
-            and not cfg.smoothing.enabled
-            and math.gcd(S, cfg.hop)
-            % interleave_factor(cfg.geometry.num_elements) == 0)
 
 
 def _device(device) -> torch.device:
@@ -211,17 +193,18 @@ def load_state(A_re, A_im, correction=None, *, device="cuda",
 
 
 def compute_covariances(xr: torch.Tensor, xi: torch.Tensor, cfg: DoaConfig,
-                        correction=None, compute_dtype=None):
+                        correction=None, compute_dtype=None,
+                        grams=None):
     """Covariance planes (Rr, Ri) of the sample planes xr, xi f32[T, N]
     (doa_tpu's compute_covariances_cpx): kernel 8 chunk Grams and strided
     prefix-sum windows, then, in this fixed order, the correction
     (cr, ci) folded as (c cᴴ) ∘ R, forward-backward averaging and spatial
     smoothing. compute_dtype: the Gram's input precision (default
-    cfg.cov_dtype)."""
+    cfg.cov_dtype); grams: kernel 8's stage (cov_from_stream)."""
     Rr, Ri = cpx_ops.cov_from_stream(
         xr, xi, cfg.snapshot_size, cfg.overlap,
         compute_dtype=cfg.cov_dtype if compute_dtype is None
-        else compute_dtype)
+        else compute_dtype, grams=grams)
     if correction is not None:
         Rr, Ri = cpx_ops.apply_correction_to_cov(Rr, Ri, *correction)
     if cfg.avg_method == AvgMethod.FORWARD_BACKWARD:
@@ -271,7 +254,13 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
       escalation check and the guard);
     * ``call.steering_planes`` (A_re, A_im), ``call.subband_planes``
       (wideband: (re, im) f32[F, G, N]; else None), ``call.fast_path``
-      (True on the fused path), ``call.config``.
+      (True on the fused path), ``call.config``;
+    * ``call.plan``: {stage: kernel name or "plain"}, kernel_plan(cfg) on
+      a CUDA device, every stage "plain" on the CPU (plan.py). The
+      pipeline takes each stage's route and callable from it: a stage
+      runs its plain torch version on the card only where the plan says
+      so, and a kernel wrapper given a shape its kernel does not take
+      still raises.
 
     `state` (load_state) replaces the steering built from cfg and gives
     the default correction. donate_inputs=True is the caller's promise
@@ -311,11 +300,14 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
     dev = _device(device)
     cfg = as_config(cfg)
     _check_slice(cfg)
+    plan = Plan(kernel_routes(cfg, return_spectra=return_spectra),
+                on_card=dev.type == "cuda")
+    route = plan.kernels
     N = cfg.geometry.num_elements
     K = cfg.num_sources
     k = cfg.num_max_vals
     wb = cfg.wideband.enabled
-    fused = _fused(cfg)
+    fused = route["covariance"] == "chunk_gram"
     g2 = cfg.grid2d if cfg.geometry.kind == "ura" else None
     A_host, x_rng = _steering_matrix(cfg)
     if state is None:
@@ -328,14 +320,10 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
     A_im = state["A_im"].to(dev)
     At_emb = torch.cat([A_re, A_im], dim=-1).contiguous()      # (G, 2N)
     nrm = (At_emb * At_emb).sum(dim=-1)
-    G = At_emb.shape[0]
-    fuse_peaks = (not return_spectra and g2 is None and k <= MAX_FUSED_K
-                  and 3 <= G <= MAX_FUSED_G)
-    scan_mode = cfg.scan_mode
-    if scan_mode == "auto":
-        scan_mode = "pallas" if fused else "dense"
-    music_kernel = scan_mode == "pallas" or cfg.compute_dtype == "float32"
-    use_power = cfg.subspace_method == "power"
+    scan = plan.op("scan") if "scan" in plan else None
+    if plan.get("scan") == "music_scan":
+        # K3's A' of the grid, made once (scan_tc's layout)
+        scan = functools.partial(scan, tiles=scan_tiles(At_emb, 2 * K))
     need_R = (Estimator.CAPON in cfg.estimators
               or Estimator.BARTLETT in cfg.estimators or return_covariance)
     fb = cfg.avg_method == AvgMethod.FORWARD_BACKWARD
@@ -344,8 +332,10 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
     if wb:
         F = cfg.wideband.num_subbands
         fusion = cfg.wideband.fusion
+        variant = {"wideband_fft_gram": "fft",
+                   "subband_embedded": "embedded"}[route["covariance"]]
         K_chan = (torch.from_numpy(channelizer_matrix(F, N)).to(dev)
-                  if resolve_variant(F, "auto") != "fft" else None)
+                  if variant == "embedded" else None)
     if wb and fusion == "cssm":
         T_foc = state.get("T")
         if T_foc is None:
@@ -377,8 +367,8 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
         P2 = P.reshape(P.shape[0], g2.num_az, g2.num_el)
         az_rng = (g2.az_lo_deg, g2.az_hi_deg)
         el_rng = (g2.el_lo_deg, g2.el_hi_deg)
-        find = peaks2d if k <= MAX_PEAKS2D_K else find_local_max_2d
-        v, az, el = find(P2, k, az_rng, el_rng, refine=refine_peaks)
+        v, az, el = plan.op("peaks")(P2, k, az_rng, el_rng,
+                                     refine=refine_peaks)
         return v, torch.stack([az, el], dim=-1)
 
     def _subspace(E):
@@ -386,31 +376,33 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
         subspace_impl="pallas" (no warm start and zero counts, as the
         reference); else warm start from the capture-mean subspace when
         the batch has ≥ 32 windows (as the reference)."""
-        if cfg.subspace_impl == "pallas":
+        if route["subspace"] == "subspace_ns":
             zero = torch.zeros((), dtype=torch.int32, device=dev)
-            return subspace_ns(E, K, iters=cfg.power_iters,
-                               squarings=cfg.power_squarings), (zero, zero)
+            return plan.op("subspace")(
+                E, K, iters=cfg.power_iters,
+                squarings=cfg.power_squarings), (zero, zero)
+        it = plan.op("subspace")
         if cfg.subspace_warm_start and E.shape[0] >= 32:
             Vt_bar = signal_subspace_from_E_T(
                 E.mean(dim=0, keepdim=True), K,
-                iters=max(cfg.power_iters, 8), **esc)
+                iters=max(cfg.power_iters, 8), iterate=it, **esc)
             return signal_subspace_from_E_T(
                 E, K, iters=cfg.power_iters_warm, init=Vt_bar,
-                return_stats=True, **esc)
+                return_stats=True, iterate=it, **esc)
         return signal_subspace_from_E_T(
             E, K, iters=cfg.power_iters, squarings=cfg.power_squarings,
-            return_stats=True, **(esc if cfg.power_squarings == 0 else {}))
+            return_stats=True, iterate=it,
+            **(esc if cfg.power_squarings == 0 else {}))
 
     def _music(R, Vt):
         """→ (P or None, (values, angles) or None)."""
-        if use_power and music_kernel:
-            if fuse_peaks:
-                return None, music_scan_peaks(Vt, At_emb, k, x_rng[0],
-                                              x_rng[1], refine=refine_peaks,
-                                              nrm=nrm)
-            P = music_scan(Vt, At_emb, nrm)
+        if route.get("scan") == "music_scan_peaks":
+            return None, scan(Vt, At_emb, k, x_rng[0], x_rng[1],
+                              refine=refine_peaks, nrm=nrm)
+        if scan is not None:
+            P = scan(Vt, At_emb, nrm)
             return P / P.max(dim=-1, keepdim=True).values, None
-        if use_power:
+        if "subspace" in route:
             den = cpx_ops.music_denominator_subspace(
                 Vt.transpose(-1, -2), At_emb, cfg.compute_dtype)
         else:
@@ -425,13 +417,14 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         stats = (zero, zero)
         Vt = sub_res = None
-        if use_power and Estimator.MUSIC in cfg.estimators:
+        if "subspace" in route:
             if E is not None:
                 Vt, stats = _subspace(E)
             else:
                 V, stats = cpx_ops.signal_subspace_embedded(
                     *R, K, iters=cfg.power_iters,
                     squarings=cfg.power_squarings, return_stats=True,
+                    iterate=plan.op("subspace"),
                     **(esc if cfg.power_squarings == 0 else {}))
                 Vt = V.transpose(-1, -2)
             if cfg.subspace_check:
@@ -463,8 +456,9 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
     def _coherent(E_sub):
         """E_sub → the focused covariance planes after FB and smoothing."""
         R_sub = torch.complex(*unembed_planes(E_sub))
-        if fusion == "cssm_auto":
-            R = auto_focused_covariance(R_sub, As_emb, cfg)
+        if "coarse_subspace" in route:
+            R = auto_focused_covariance(R_sub, As_emb, cfg,
+                                        iterate=plan.op("coarse_subspace"))
         else:
             R = cssm_covariance(R_sub, T_foc)
         del R_sub
@@ -481,17 +475,21 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
             if wb:
                 E_sub = wideband_cov_embedded(
                     x, cr, ci, N=N, F=F, snapshot_size=cfg.snapshot_size,
-                    overlap=cfg.overlap, K=K_chan)
-                if fusion != "incoherent":
+                    overlap=cfg.overlap, variant=variant, K=K_chan,
+                    kernel=plan.op("covariance"))
+                if "fusion" not in route:
                     return _estimate(_coherent(E_sub), None)
-                P = wideband_music(E_sub, As_emb, As_nrm, cfg)
+                Vt = subband_subspaces_from_E(E_sub, cfg,
+                                              iterate=plan.op("subspace"))
+                P = plan.op("fusion")(Vt, As_emb, As_nrm)
                 v, l = _peaks(P)
                 return DoaResult(spectra={"music": P},
                                  peak_values={"music": v},
                                  peak_angles={"music": l})
             E = cov_embedded(x, cr, ci, N=N, snapshot_size=cfg.snapshot_size,
                              overlap=cfg.overlap, fb=fb,
-                             compute_dtype=cfg.cov_dtype)
+                             compute_dtype=cfg.cov_dtype,
+                             kernel=plan.op("covariance"))
             return _estimate(unembed_planes(E) if need_R else None, E)
 
     def run_planes(xr: torch.Tensor, xi: torch.Tensor, cr: torch.Tensor,
@@ -503,8 +501,10 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
         with fp32_matmuls():
             # the fused path's planes route: f32 Grams whatever cov_dtype,
             # as the reference's XLA stacked Gram
-            R = compute_covariances(xr, xi, cfg, (cr, ci),
-                                    "float32" if fused else None)
+            R = compute_covariances(
+                xr, xi, cfg, (cr, ci), "float32" if fused else None,
+                grams=plan.op("covariance_planes" if fused
+                              else "covariance"))
             if fused:
                 return _estimate(R if need_R else None, embed_planes(*R))
             return _estimate(R, None)
@@ -619,4 +619,5 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
     call.subband_planes = subband_planes
     call.fast_path = fused
     call.config = cfg
+    call.plan = plan
     return call

@@ -1,0 +1,220 @@
+"""The build-time kernel plan: which hand-written kernel each stage of a
+pipeline launches on the card.
+
+A kernel is built for some shapes only, and its wrapper's predicate
+(`gram_takes`, `planes_takes`, `mgs_takes`, `kernel_takes`,
+`fusion_takes`, `ns_takes`, `scan_takes`) states which; given a CUDA tensor
+of another shape the wrapper raises. The plan is worked out once, from
+the config alone (no card needed), when a pipeline is built: {stage: the
+kernel's name}, or "plain" where the predicate says no, and there the
+stage runs the kernel's plain torch version on the card. The pipelines
+take each stage's route (`Plan.kernels`) and callable (`Plan.op`) from
+it, so the plan they expose as ``call.plan`` is what they run.
+
+The route rules the plan reads are stated here once: the fused-path rule
+(`fused_route`), the fused-peaks rule (`fuses_peaks`) and the scan rule
+(`scans_music_kernel`).
+"""
+
+from __future__ import annotations
+
+import math
+
+from doa_tpu_torch.configs import DoaConfig, Estimator, as_config
+from doa_tpu_torch.ops.cpx_ops import (mgs_iterate, mgs_iterate_plain,
+                                       mgs_takes)
+from doa_tpu_torch.ops.cuda.cov_embedded import (chunk_grams_uhat,
+                                                  chunk_grams_uhat_plain,
+                                                  gram_takes,
+                                                  interleave_factor)
+from doa_tpu_torch.ops.cuda.covariance import (chunk_grams,
+                                               chunk_grams_plain,
+                                               planes_takes)
+from doa_tpu_torch.ops.cuda.music_scan import (MAX_FUSED_G, MAX_FUSED_K,
+                                               music_scan, music_scan_peaks,
+                                               music_scan_peaks_plain,
+                                               music_scan_plain, scan_takes)
+from doa_tpu_torch.ops.cuda.peaks2d import MAX_PEAKS2D_K, peaks2d
+from doa_tpu_torch.ops.cuda.subspace_ns import (ns_takes, subspace_ns,
+                                                subspace_ns_plain)
+from doa_tpu_torch.ops.cuda.wideband_cov import (kernel_takes,
+                                                 resolve_variant,
+                                                 subband_chunk_grams,
+                                                 subband_chunk_grams_plain,
+                                                 subband_embedded,
+                                                 subband_embedded_plain)
+from doa_tpu_torch.ops.cuda.wideband_scan import (
+    fusion_takes, wideband_fused_spectrum, wideband_fused_spectrum_plain)
+from doa_tpu_torch.ops.peaks import find_local_max_2d
+
+# kernel name → (its wrapper, its plain version: the same signature)
+KERNELS = {
+    "chunk_gram": (chunk_grams_uhat, chunk_grams_uhat_plain),
+    "planes_chunk_gram": (chunk_grams, chunk_grams_plain),
+    "wideband_fft_gram": (subband_chunk_grams, subband_chunk_grams_plain),
+    "subband_embedded": (subband_embedded, subband_embedded_plain),
+    "mgs_iterate": (mgs_iterate, mgs_iterate_plain),
+    "subspace_ns": (subspace_ns, subspace_ns_plain),
+    "music_scan": (music_scan, music_scan_plain),
+    "music_scan_peaks": (music_scan_peaks, music_scan_peaks_plain),
+    "wideband_fusion": (wideband_fused_spectrum,
+                        wideband_fused_spectrum_plain),
+    "peaks2d": (peaks2d, find_local_max_2d),
+}
+
+
+class Plan(dict):
+    """{stage: the kernel's name, or "plain"} from routes {stage: (kernel,
+    whether it takes the config's shapes)}; on_card=False (a pipeline on
+    the CPU) makes every stage "plain". `kernels` keeps each stage's
+    kernel, planned or not: the stage's route."""
+
+    def __init__(self, routes: dict, on_card: bool = True):
+        super().__init__((stage, kernel if takes and on_card else "plain")
+                         for stage, (kernel, takes) in routes.items())
+        self.kernels = {stage: kernel for stage, (kernel, _) in
+                        routes.items()}
+
+    def op(self, stage: str):
+        """The stage's callable: its kernel's wrapper where planned, else
+        the kernel's plain version."""
+        wrapper, plain = KERNELS[self.kernels[stage]]
+        return plain if self[stage] == "plain" else wrapper
+
+
+def fused_route(cfg: DoaConfig) -> bool:
+    """The fused-path rule, the reference's (pipeline_tpu.py:164-166):
+    narrowband, power subspace, no smoothing, and TPACK | gcd(S, hop) with
+    TPACK = interleave_factor(N). The last condition comes from the TPU's
+    128-lane layout, but it is kept as a route choice, not as a layout
+    rule: the route sets the numbers (the fused route warm-starts from the
+    capture mean, the planes route runs a cold subspace), so a config
+    outside it takes the planes route here as there."""
+    S = cfg.snapshot_size
+    return (not cfg.wideband.enabled and cfg.subspace_method == "power"
+            and not cfg.smoothing.enabled
+            and math.gcd(S, cfg.hop)
+            % interleave_factor(cfg.geometry.num_elements) == 0)
+
+
+def _grid_size(cfg: DoaConfig) -> int:
+    if cfg.geometry.kind == "ura":
+        return cfg.grid2d.num_az * cfg.grid2d.num_el
+    return cfg.grid.num_points
+
+
+def fuses_peaks(cfg: DoaConfig, return_spectra: bool) -> bool:
+    """The fused-peaks rule: K2 writes the peaks (no spectrum) when the
+    spectra are not returned, the grid is 1-D, k ≤ MAX_FUSED_K and
+    3 ≤ G ≤ MAX_FUSED_G."""
+    G = _grid_size(cfg)
+    return (not return_spectra and cfg.geometry.kind != "ura"
+            and cfg.num_max_vals <= MAX_FUSED_K and 3 <= G <= MAX_FUSED_G)
+
+
+def scans_music_kernel(cfg: DoaConfig) -> bool:
+    """MUSIC on the power subspace runs the scan kernels (K3 or K2) under
+    scan_mode "pallas" ("auto" picks it on the fused path) or
+    compute_dtype float32; else the dense quantized scan (torch ops)."""
+    scan_mode = cfg.scan_mode
+    if scan_mode == "auto":
+        scan_mode = "pallas" if fused_route(cfg) else "dense"
+    return (cfg.subspace_method == "power"
+            and Estimator.MUSIC in cfg.estimators
+            and (scan_mode == "pallas" or cfg.compute_dtype == "float32"))
+
+
+def kernel_routes(cfg, *, return_spectra: bool = True) -> dict:
+    """{stage: (kernel, whether it takes the config's shapes)} of a
+    single-card pipeline of `cfg`, each stage only where the config's
+    route runs it:
+
+    * "covariance": K1 "chunk_gram" (fused route), kernel 8
+      "planes_chunk_gram" (planes route), kernel 4 "wideband_fft_gram"
+      (power-of-two subbands) or kernel 7 "subband_embedded" (wideband);
+    * "covariance_planes": kernel 8 for planes input on the fused route
+      (the interleaved entry does not run it);
+    * "coarse_subspace": K4 "mgs_iterate" in cssm_auto's coarse pass;
+    * "subspace": K4, or kernel 11 "subspace_ns" (fused route,
+      subspace_impl="pallas"), for MUSIC on the power subspace;
+    * "scan": K2 "music_scan_peaks" (the fused-peaks rule) or K3
+      "music_scan", where MUSIC runs the scan kernels;
+    * "fusion": kernel 5 "wideband_fusion" (incoherent wideband);
+    * "peaks": kernel 6 "peaks2d" on a 2-D grid (k ≤ MAX_PEAKS2D_K)."""
+    cfg = as_config(cfg)
+    N, K = cfg.geometry.num_elements, cfg.num_sources
+    n2, k2 = 2 * cfg.effective_num_elements, 2 * K
+    routes = {}
+    wb = cfg.wideband
+    incoherent = wb.enabled and wb.fusion == "incoherent"
+    if wb.enabled:
+        fft = resolve_variant(wb.num_subbands, "auto") == "fft"
+        routes["covariance"] = ("wideband_fft_gram" if fft
+                                else "subband_embedded", kernel_takes(N))
+        if incoherent:
+            routes["subspace"] = ("mgs_iterate", mgs_takes(2 * N, k2))
+            routes["fusion"] = ("wideband_fusion", fusion_takes(k2, 2 * N))
+        elif wb.fusion == "cssm_auto":
+            routes["coarse_subspace"] = ("mgs_iterate", mgs_takes(2 * N, k2))
+    elif fused_route(cfg):
+        routes["covariance"] = ("chunk_gram", gram_takes(2 * N))
+        routes["covariance_planes"] = ("planes_chunk_gram", planes_takes(N))
+    else:
+        routes["covariance"] = ("planes_chunk_gram", planes_takes(N))
+    if (not incoherent and cfg.subspace_method == "power"
+            and Estimator.MUSIC in cfg.estimators):
+        if fused_route(cfg) and cfg.subspace_impl == "pallas":
+            routes["subspace"] = ("subspace_ns", ns_takes(n2, k2))
+        else:
+            routes["subspace"] = ("mgs_iterate", mgs_takes(n2, k2))
+        if scans_music_kernel(cfg):
+            routes["scan"] = (("music_scan_peaks", True)
+                              if fuses_peaks(cfg, return_spectra)
+                              else ("music_scan", scan_takes(k2, n2)))
+    if cfg.geometry.kind == "ura":
+        routes["peaks"] = ("peaks2d", cfg.num_max_vals <= MAX_PEAKS2D_K)
+    return routes
+
+
+def sharded_kernel_routes(cfg, n_snap: int, n_grid: int,
+                          return_spectra: bool = True) -> dict:
+    """kernel_routes of a sharded pipeline of `cfg` on an (n_snap, n_grid)
+    mesh, per rank: "halo" (kernel 13 "halo_ring" under halo_impl="pallas"
+    with a halo to exchange), "covariance" (K1 on the fused route, kernel
+    8 on the general route), "subspace" (K4: on the fused route, and for
+    MUSIC on the power subspace) and, for MUSIC on the fused route, "scan"
+    (K2 under the fused-peaks rule on an unsharded grid, else K3)."""
+    cfg = as_config(cfg)
+    N, fast = cfg.geometry.num_elements, fused_route(cfg)
+    n2, k2 = 2 * cfg.effective_num_elements, 2 * cfg.num_sources
+    routes = {}
+    if cfg.halo_impl == "pallas" and cfg.overlap > 0 and n_snap > 1:
+        routes["halo"] = ("halo_ring", True)
+    routes["covariance"] = (("chunk_gram", gram_takes(2 * N)) if fast
+                            else ("planes_chunk_gram", planes_takes(N)))
+    music = Estimator.MUSIC in cfg.estimators
+    if fast or (music and cfg.subspace_method == "power"):
+        # the fused route runs its subspace (and escalation counts) always
+        routes["subspace"] = ("mgs_iterate", mgs_takes(n2, k2))
+    if music and fast:
+        routes["scan"] = (("music_scan_peaks", True)
+                          if n_grid == 1 and fuses_peaks(cfg, return_spectra)
+                          else ("music_scan", scan_takes(k2, n2)))
+    return routes
+
+
+def kernel_plan(cfg, *, return_spectra: bool = True) -> dict:
+    """The kernels a single-card pipeline of `cfg` launches on the card:
+    {stage: the kernel's name, or "plain"} (kernel_routes' stages). A
+    pure function of the config. Every preset plans a kernel for every
+    stage; the plain versions take what the kernels do not: a ULA of
+    N > 32 (K1), K ≥ 5 (K4), a wideband array of N > 64 (kernels 4, 7;
+    2N > 128 for K4)."""
+    return dict(Plan(kernel_routes(cfg, return_spectra=return_spectra)))
+
+
+def sharded_kernel_plan(cfg, n_snap: int, n_grid: int,
+                        return_spectra: bool = True) -> dict:
+    """kernel_plan of a sharded pipeline (sharded_kernel_routes)."""
+    return dict(Plan(sharded_kernel_routes(cfg, n_snap, n_grid,
+                                           return_spectra)))

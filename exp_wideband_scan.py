@@ -67,7 +67,7 @@ OLD_SIG = {"doa_wideband_fusion": [_P] * 5 + [_I] * 5 + [_P]}
 def once(src, text):
     if src.count(text) != 1:
         sys.exit(f"exp_wideband_scan.py: {text!r} is not in "
-                 f"wideband_scan.cu once")
+                 f"wideband_scan.cu (with scan_tc.cuh) once")
     return text
 
 
@@ -131,6 +131,11 @@ def build(tmp, name, src):
                            cu], capture_output=True, text=True)
     if proc.returncode != 0:
         sys.exit(f"{name}: nvcc failed\n{proc.stdout}{proc.stderr}")
+    if name == "package" or name.startswith("against"):
+        for ln in (proc.stdout + proc.stderr).splitlines():
+            if any(w in ln for w in ("entry function", "spill",
+                                     "registers")):
+                print(f"ptxas {name}: {ln.strip()}")
     lib = ctypes.CDLL(so)
     sig = OLD_SIG if "doa_wideband_fusion" in src else wsc._SIG
     for fn, argtypes in sig.items():
@@ -202,8 +207,9 @@ def main():
     for name, sig in (("wideband_cov", wc._SIG), ("subspace", cpx_ops._SIG),
                       ("subband_gram", wc._SIG_SUBBAND)):
         _build.load(name, sig)
-    with open(os.path.join(_build.CSRC, "wideband_scan.cu")) as f:
-        src = f.read()
+    # the source with csrc/scan_tc.cuh expanded in place: the patches
+    # reach the shared mainloop, and a copy compiles in any directory
+    src = _build.expanded_source(os.path.join(_build.CSRC, "wideband_scan.cu"))
     srcs = {n: (patch(src), whole) for n, (patch, whole) in VARIANTS.items()}
     for path in args.against:
         with open(path) as f:

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 from doa_tpu.ops.pallas.wideband_scan import wideband_fused_spectrum_pallas
 from doa_tpu_torch.ops.cuda import wideband_scan as ws
+from doa_tpu_torch.ops.cuda.scan_tc import tf32_split
 
 
 def _normal_floats(n, seed):
@@ -37,7 +38,7 @@ def test_split_hi_lo_are_tf32_and_round_half_away():
     ties = (torch.arange(1, 1025, dtype=torch.int32) << 13) | 0x1000
     ties = (ties + (127 << 23)).view(torch.float32)
     x = torch.cat([x, ties, -ties, torch.tensor([1.0, -2.0, 0.75])])
-    hi, lo = ws.tf32_split(x)
+    hi, lo = tf32_split(x)
     assert int((hi.view(torch.int32) & 0x1FFF).abs().max()) == 0
     assert int((lo.view(torch.int32) & 0x1FFF).abs().max()) == 0
     np.testing.assert_array_equal(hi.numpy().astype(np.float64),
@@ -56,10 +57,10 @@ def test_split_sum_gives_x():
     x22 = (rng.choice([-1.0, 1.0], n) * mant
            * 2.0 ** rng.integers(-100, 100, n)).astype(np.float32)
     x22 = torch.from_numpy(x22)
-    hi, lo = ws.tf32_split(x22)
+    hi, lo = tf32_split(x22)
     assert torch.equal(hi + lo, x22)
     x = _normal_floats(n, 2)
-    hi, lo = ws.tf32_split(x)
+    hi, lo = tf32_split(x)
     err = np.abs(hi.numpy().astype(np.float64) + lo.numpy() - x.numpy())
     assert (err <= 2.0 ** -22 * np.abs(x.numpy())).all()
 
@@ -79,8 +80,8 @@ def test_split_product_den_against_float64():
     V, At = _scene(4, 10, 16, 4, 157, 4)
     Vt = torch.from_numpy(np.ascontiguousarray(np.swapaxes(V, -1, -2)))
     A = torch.from_numpy(At)
-    vh, vl = (t.double() for t in ws.tf32_split(Vt))
-    ah, al = (t.double() for t in ws.tf32_split(A))
+    vh, vl = (t.double() for t in tf32_split(Vt))
+    ah, al = (t.double() for t in tf32_split(A))
     y3 = (torch.einsum("fbkn,fgn->fbkg", vh, ah)
           + torch.einsum("fbkn,fgn->fbkg", vh, al)
           + torch.einsum("fbkn,fgn->fbkg", vl, ah))
@@ -92,21 +93,34 @@ def test_split_product_den_against_float64():
 
 
 def _kernel_model(Vt, At, nrm):
-    """P as the kernel forms it from V' and A': each thread's A fragments
+    """P as the kernel forms it: den by the mainloop's model
+    (_kernel_den) from the wrapper's layouts, then pass B in FP32."""
+    F, B, K2, n2 = Vt.shape
+    den = _kernel_den(ws.subspace_fragments(Vt), ws.steering_tiles(At, K2),
+                      nrm, K2, n2)[:, :B]
+    acc = torch.zeros(den.shape[1:])
+    for f in range(F):
+        acc = acc + den[f].min(-1, keepdim=True).values / den[f]
+    return acc * (1.0 / F)
+
+
+def _kernel_den(Vf, tiles, nrm, K2, n2):
+    """den f32[F, 32·tiles, G] as the shared mainloop (csrc/scan_tc.cuh)
+    forms it from V' (Vf: F stacks of window tiles) and A' (tiles: F
+    stacks of stretches): each thread's A fragments
     (lane (g, t) of warp w: rows 16w+g, 16w+g+8 at columns t, t+4 of a
     k-step), each warpgroup's B operand read through its descriptors (no
     swizzle: 16-byte core-matrix rows, LBO = GB/8·128 bytes a k-column,
     SBO = 128 a row group, the lo plane KP/4·LBO on), hi·hi and the two
     correction terms in their own sums (float64 here: exact on exact
     inputs), then the epilogue's map (row 16w+g+8h of m64 tile i is
-    window 8w+g at k = 2i+h; column n of warpgroup h is bin h·NT+n) and
-    the two passes in FP32."""
-    F, B, K2, n2 = Vt.shape
-    G = At.shape[1]
+    window 8w+g at k = 2i+h; column n of warpgroup h is bin h·NT+n), the
+    sum over k in k order and max(nrm − Σ, tiny) in FP32."""
+    F, G = nrm.shape
     NT, KP = ws.fusion_bins(K2), ws.fusion_kp(n2)
     GB, MT, S = 2 * NT, K2 // 2, KP // 8
-    nT, nJ = -(-B // 32), -(-G // GB)
-    V4 = ws.subspace_fragments(Vt).reshape(F, nT, S, MT, 4, 32, 4)
+    nT, nJ = Vf.shape[1], tiles.shape[1]
+    V4 = Vf.reshape(F, nT, S, MT, 4, 32, 4)
     A = torch.zeros((F, nT, MT, 64, KP))
     for w in range(4):
         for lane in range(32):
@@ -114,7 +128,7 @@ def _kernel_model(Vt, At, nrm):
             for e, (dr, dc) in enumerate(((0, 0), (8, 0), (0, 4), (8, 4))):
                 A[:, :, :, 16 * w + g + dr, t + dc::8] = (
                     V4[:, :, :, :, w, lane, e].permute(0, 1, 3, 2))
-    tiles = ws.steering_tiles(At, K2).reshape(F, nJ, -1)
+    tiles = tiles.reshape(F, nJ, -1)
     lbo = GB // 8 * 128
     h, p, r, e, s, c, q = np.meshgrid(
         np.arange(2), np.arange(2), np.arange(NT // 8), np.arange(8),
@@ -124,7 +138,7 @@ def _kernel_model(Vt, At, nrm):
     idx = torch.zeros((2, 2, NT, KP), dtype=torch.int64)
     idx[h, p, 8 * r + e, 8 * s + 4 * c + q] = torch.from_numpy(off)
     Bm = tiles[:, :, idx].double()              # (F, nJ, h, p, NT, KP)
-    ah, al = (t.double() for t in ws.tf32_split(A))
+    ah, al = (t.double() for t in tf32_split(A))
     bh, bl = Bm[:, :, :, 0], Bm[:, :, :, 1]
     mm = "ftirk,fjhnk->ftijhrn"
     hh = torch.einsum(mm, ah, bh).float()
@@ -135,13 +149,9 @@ def _kernel_model(Vt, At, nrm):
     for k in range(K2):
         yk = y[:, :, k // 2, :, :, :, k % 2]      # (F, nT, nJ, 2, w, g, NT)
         part = part + (yk * yk).permute(0, 1, 4, 5, 2, 3, 6)
-    part = part.reshape(F, nT * 32, nJ * GB)[:, :B, :G]
-    den = torch.clamp_min(nrm[:, None, :] - part,
-                          torch.finfo(torch.float32).tiny)
-    acc = torch.zeros((B, G))
-    for f in range(F):
-        acc = acc + den[f].min(-1, keepdim=True).values / den[f]
-    return acc * (1.0 / F)
+    part = part.reshape(F, nT * 32, nJ * GB)[:, :, :G]
+    return torch.clamp_min(nrm[:, None, :] - part,
+                           torch.finfo(torch.float32).tiny)
 
 
 @pytest.mark.parametrize("k2,n2,B,G", [(2, 16, 37, 300), (4, 20, 100, 1000),
