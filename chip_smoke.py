@@ -39,9 +39,13 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 6. wideband kernel parity at c5's shapes (8x8 URA, 16 subbands,
    181x91 az/el grid) on a wideband planar scene made on the card: the
    FFT-channelizer Gram, the fused subband-scan fusion and the 2-D peaks
-   kernels, and the subspace kernel at 2N = 128 with one init per
-   subband; exact on integer-valued inputs, within the stated tolerances
-   on the scene; each kernel's time beside its plain version's. The
+   kernels, and the subspace kernel K4 at 2N = 128 with one init per
+   subband (its block form: 8 warps a window, E held on chip for every
+   round); exact on integer-valued inputs (K4: signed-permutation windows
+   at (2K, 2N) = (2, 66), (4, 128), (8, 128), (6, 96), B = 1001, cold and
+   from each init grouping), within the stated tolerances on the scene;
+   each kernel's time beside its plain version's (K4 also on the
+   per-subband means and, in phase 11, on c5 cssm's R_coh windows). The
    fusion kernel (3xTF32 on the tensor cores) also in window groups
    (bit-equal), its workspace's bytes, and the kernel's and the plain
    version's errors against float64 on 64 windows (logged).
@@ -192,7 +196,54 @@ def log(msg):
 
 def fail(msg):
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    stop_resource_tracker()
     sys.exit(1)
+
+
+def stop_resource_tracker():
+    """End multiprocessing's resource tracker, if this process started
+    one. Phase 14's ranks are spawned processes, and spawning starts the
+    tracker, a process that would otherwise outlive this one: it exits
+    only once it reads the end of its pipe. Waits for it to exit. Call it
+    when no queue or lock of multiprocessing is alive any more (the
+    collection first frees those still in reference cycles: each
+    unregisters from the tracker as it goes, and one freed after the
+    tracker ended would start another)."""
+    rt_mod = sys.modules.get("multiprocessing.resource_tracker")
+    if rt_mod is None:
+        return
+    import gc
+    gc.collect()
+    rt = rt_mod._resource_tracker
+    if getattr(rt, "_pid", None) is None:
+        return
+    if hasattr(rt, "_stop"):
+        rt._stop()
+    else:                   # an older 3.12: what _stop does
+        os.close(rt._fd)
+        rt._fd = None
+        os.waitpid(rt._pid, 0)
+        rt._pid = None
+
+
+def live_children():
+    """→ ["pid: command line"] of this process's children still running
+    (a zombie, ended but not yet reaped, is not running)."""
+    me, out = os.getpid(), []
+    for p in os.listdir("/proc"):
+        if not p.isdigit():
+            continue
+        try:
+            with open(f"/proc/{p}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            if int(fields[1]) != me or fields[0] == "Z":
+                continue
+            with open(f"/proc/{p}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+            out.append(f"{p}: {cmd.strip()}")
+        except (OSError, IndexError, ValueError):
+            pass                            # ended while we looked
+    return out
 
 
 def card_line():
@@ -545,17 +596,14 @@ def kernel_parity(torch, dev, x, Vt, At, nrm, card):
                 f"max|W kernel - plain|/max|W| = {dw!r} (tol 1e-5)")
             check(dp <= 1e-5 and dw <= 1e-5, "K4 disagrees with plain")
             e4 = max(e4, dp)
-        k4_ms, p4_ms = pair_ms(
-            torch, lambda: cpx_ops.mgs_iterate(E, 2, 3, init),
-            lambda: cpx_ops.mgs_iterate_plain(E, 2, 3, init))
-    log(f"K4 time (warm, 3 rounds, B={E.shape[0]}): kernel {k4_ms:.4f} ms, "
-        f"plain {p4_ms:.4f} ms  [{card}]")
+        t4 = k4_times(torch, "headline", E, 2, 3, init, card)
     recs["mgs_iterate"] = dict(
         name="mgs_iterate", route="cuda",
         source="doa_tpu_torch/csrc/subspace.cu",
-        replaces="doa_tpu/ops/cpx_ops.py:347",
-        max_abs_err=e4, ms=k4_ms, plain_ms=p4_ms, **mgs_bound(E, 4, 3),
-        library_ms=None)
+        replaces="doa_tpu/ops/cpx_ops.py:347", max_abs_err=e4,
+        **{k: t4[k] for k in ("ms", "plain_ms", "product_ms", "bound_ms",
+                              "bound_by")},
+        library_ms=None, by_shape={"headline": t4})
     return recs
 
 
@@ -608,13 +656,91 @@ def show_plan(name, pipe, all_kernel=True):
               f"{name} plans a plain stage on the card")
 
 
-def mgs_bound(E, k2, rounds):
-    """K4's bound on E f32[B, n2, n2]: `rounds` rounds of W = E·V
-    (2·n2²·k2) and MGS (~4·k2²·n2) a window; E read once, Vt, W, Vt_prev
-    written."""
+def mgs_bound(E, k2, rounds, *, cold):
+    """K4's bound on E f32[B, n2, n2]: what the kernel runs a window,
+    max(1, rounds − 1) applies W = Vt·E (2·n2²·k2 each) and its MGS passes
+    (~4·k2²·n2 each: one over E's rows when cold, one after each apply but
+    the last, two after the last, none when rounds = 1); E read once, Vt,
+    W, Vt_prev written."""
     B, n2, _ = E.shape
+    applies = max(1, rounds - 1)
+    passes = int(cold) + (rounds if rounds > 1 else 0)
     return bound(nbytes(E) + 3 * B * k2 * n2 * 4,
-                 rounds * B * (2 * n2 * n2 * k2 + 4 * k2 * k2 * n2))
+                 B * (applies * 2 * n2 * n2 * k2 + passes * 4 * k2 * k2 * n2))
+
+
+def k4_times(torch, tag, E, K, rounds, init, card):
+    """K4 at `tag`'s shape (E f32[B, n2, n2], 2K = 2·K, `rounds`, warm from
+    `init` or cold) timed in turns with its plain version and one FP32
+    torch.matmul(Vt, E) (the apply's product alone, not the same
+    function) → {ms, plain_ms, product_ms, form, bound_ms, bound_by}, an
+    entry of K4's record's by_shape."""
+    from doa_tpu_torch.cpx import fp32_matmuls
+    from doa_tpu_torch.ops import cpx_ops
+
+    Vt = cpx_ops.mgs_iterate(E, K, rounds, init)[0]
+
+    def product():
+        with fp32_matmuls():
+            return torch.matmul(Vt, E)
+    p_ms, k_ms, prod_ms = turns_ms(
+        torch, lambda: cpx_ops.mgs_iterate_plain(E, K, rounds, init),
+        lambda: cpx_ops.mgs_iterate(E, K, rounds, init), product)
+    rec = dict(ms=k_ms, plain_ms=p_ms, product_ms=prod_ms,
+               form=cpx_ops.mgs_form(E.shape[-1], 2 * K),
+               **mgs_bound(E, 2 * K, rounds, cold=init is None))
+    log(f"K4 time ({tag}: {'warm' if init is not None else 'cold'}, "
+        f"{rounds} rounds, {E.shape[0]} windows of 2N={E.shape[-1]}, 2K="
+        f"{2 * K}, {rec['form']} form): kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms, one FP32 torch.matmul(Vt, E) (product only, not "
+        f"the same function) {prod_ms:.4f} ms, bound {rec['bound_ms']:.4f} "
+        f"ms ({rec['bound_by']})  [{card}]")
+    return rec
+
+
+# K4 exact: (2K, 2N) of the block form (2N > 64)
+K4_EXACT = ((2, 66), (4, 128), (8, 128), (6, 96))
+B_K4_EXACT = 1001                   # 7 · 11 · 13 windows: ragged
+
+
+def signed_permutations(torch, B, n2, gen, dev):
+    """B windows f32[B, n2, n2], each a signed permutation: K4's exact
+    inputs (every MGS dot product 0, every norm 1, every sum exact)."""
+    perm = torch.argsort(torch.rand((B, n2), generator=gen, device=dev),
+                         dim=-1)
+    sign = torch.randint(0, 2, (B, n2), generator=gen,
+                         device=dev).float() * 2 - 1
+    Eq = torch.zeros((B, n2, n2), device=dev)
+    Eq.scatter_(2, perm[..., None], sign[..., None])
+    return Eq
+
+
+def k4_exact(torch, dev, gen):
+    """K4 bit-equal to mgs_iterate_plain on exact inputs (signed
+    permutations) at each K4_EXACT shape, cold (1 and 8 rounds) and warm
+    (3 rounds) from inits that are rows of E: one for all, one per group
+    of 143 windows, one per window, and one expanded over the windows
+    (stride 0)."""
+    from doa_tpu_torch.ops import cpx_ops
+
+    B = B_K4_EXACT
+    for k2, n2 in K4_EXACT:
+        Eq = signed_permutations(torch, B, n2, gen, dev)
+        rows = Eq[:, :k2, :]
+        cases = [("cold", 1, None), ("cold", 8, None),
+                 ("one init", 3, rows[:1].clone()),
+                 ("per group", 3, rows[::143].clone()),
+                 ("per window", 3, rows.clone()),
+                 ("expanded", 3, rows[:1].expand(B, -1, -1))]
+        for start, rounds, ini in cases:
+            outk = cpx_ops.mgs_iterate(Eq, k2 // 2, rounds, ini)
+            outp = cpx_ops.mgs_iterate_plain(Eq, k2 // 2, rounds, ini)
+            d = max((a - b).abs().max().item() for a, b in zip(outk, outp))
+            log(f"K4 exact-input (2K, 2N) = ({k2}, {n2}), B={B}, {start}, "
+                f"{rounds} rounds, {cpx_ops.mgs_form(n2, k2)} form: "
+                f"max|kernel-plain| over Vt, W, Vt_prev = {d!r} (must be 0)")
+            check(d == 0.0, f"K4 ({k2}, {n2}) {start} differs on exact "
+                  f"inputs")
 
 
 def headline_config():
@@ -762,9 +888,10 @@ def c5_errors(torch, ang, truth=C5_TRUTH):
     return float(per.max()), float(per.median()), a.median(dim=0).values
 
 
-def wideband_parity(torch, dev, x, cfg, pipe, card):
+def wideband_parity(torch, dev, x, cfg, pipe, card, k4_shapes=None):
     """Phase 6 → the records of the three wideband kernels, and the
-    per-subband inputs of the c5 path (E_sub, Vt, P) for later phases."""
+    per-subband inputs of the c5 path (E_sub, Vt, P) for later phases;
+    K4's times at c5 go into `k4_shapes` (K4's by_shape) if given."""
     from doa_tpu_torch.cpx import fp32_matmuls
     from doa_tpu_torch.ops import cpx_ops
     from doa_tpu_torch.ops import wideband as wb
@@ -873,12 +1000,14 @@ def wideband_parity(torch, dev, x, cfg, pipe, card):
                 f"= {dw!r} (tol 1e-5)")
             check(dp <= 1e-5 and dw <= 1e-5, "K4 at 2N=128 disagrees")
         del outk, outp
-        k4_ms, p4_ms = pair_ms(
-            torch, lambda: cpx_ops.mgs_iterate(E, 2, 3, init),
-            lambda: cpx_ops.mgs_iterate_plain(E, 2, 3, init))
-    log(f"K4 time (c5: warm, 3 rounds, {E.shape[0]} windows of 2N=128): "
-        f"kernel {k4_ms:.4f} ms, plain {p4_ms:.4f} ms, bound "
-        f"{mgs_bound(E, 4, 3)}  [{card}]")
+        t_c5 = k4_times(torch, "c5", E, 2, 3, init, card)
+        # the per-subband capture means (the warm start's init): F windows
+        Em = E_sub.mean(dim=1)
+        t_means = k4_times(torch, "c5 subband means", Em, 2, 8, None, card)
+        del Em
+    if k4_shapes is not None:
+        k4_shapes.update({"c5": t_c5, "c5 subband means": t_means})
+    k4_exact(torch, dev, gen)
 
     # fusion, exact: Vt in quarter steps, A integer, nrm above every
     # Σ y²: den = nrm − Σ y² are multiples of 1/16 below 2^24, exact in any
@@ -999,10 +1128,11 @@ def fusion_f64(torch, Vt, At, nrm):
     return acc / Vt.shape[0]
 
 
-def c5_phases(torch, dev, card, counters):
+def c5_phases(torch, dev, card, counters, k4_shapes=None):
     """Phases 6 and 7 → (the wideband kernels' records, the subspace
     kernel's launches in the c5 path). `counters`: the narrowband
-    kernels' wrappers, which must not launch in the c5 path."""
+    kernels' wrappers, which must not launch in the c5 path; K4's times
+    at c5 go into `k4_shapes` if given."""
     from doa_tpu_torch import PRESETS
     from doa_tpu_torch.cpx import fp32_matmuls
     from doa_tpu_torch.ops import cpx_ops
@@ -1018,7 +1148,7 @@ def c5_phases(torch, dev, card, counters):
     x = make_c5_scene(torch, T_C5, dev)
     torch.cuda.synchronize()
     recs, (E_sub, Vt, At, nrm, P2) = wideband_parity(torch, dev, x, cfg,
-                                                     pipe, card)
+                                                     pipe, card, k4_shapes)
 
     # 7. the c5 path, counts from zero just before it
     wb_counters = {"wideband_fft_gram": wc.subband_chunk_grams,
@@ -1189,9 +1319,10 @@ def scan_parity(torch, tag, Vt, At, nrm, k):
     check(e2 <= 0.01, f"K2 disagrees with plain at {tag}'s shapes")
 
 
-def planes_parity(torch, dev, x3, card):
+def planes_parity(torch, dev, x3, card, k4_shapes=None):
     """Phase 8 → the records of kernels 8 and 12 (launches filled in
-    later). x3: the c3 capture f32[T, 16, 2] on the card."""
+    later). x3: the c3 capture f32[T, 16, 2] on the card. K4's time at c3
+    goes into `k4_shapes` (K4's by_shape) if given."""
     from doa_tpu_torch.cpx import embed_planes, fp32_matmuls
     from doa_tpu_torch.ops import cpx_ops
     from doa_tpu_torch.ops.cuda import covariance as cv
@@ -1322,13 +1453,7 @@ def planes_parity(torch, dev, x3, card):
     # K4 at the planes path's new shapes, exact: E a signed permutation per
     # window (every MGS dot product 0, every norm 1, every sum exact)
     for n2, K in ((24, 3), (16, 2)):
-        Bq = 4096
-        perm = torch.argsort(torch.rand((Bq, n2), generator=gen, device=dev),
-                             dim=-1)
-        sign = torch.randint(0, 2, (Bq, n2), generator=gen,
-                             device=dev).float() * 2 - 1
-        Eq = torch.zeros((Bq, n2, n2), device=dev)
-        Eq.scatter_(2, perm[..., None], sign[..., None])
+        Eq = signed_permutations(torch, 4096, n2, gen, dev)
         starts = [("cold", None)]
         if K == 2:
             starts.append(("warm", Eq[:1, :2 * K, :].clone()))
@@ -1355,11 +1480,9 @@ def planes_parity(torch, dev, x3, card):
         log(f"K4 c3 scene (2N, 2K) = (24, 6) cold 8 rounds, {E.shape[0]} "
             f"windows: max|projector kernel - plain| = {dp!r} (tol 1e-5)")
         check(dp <= 1e-5, "K4 at (24, 6) disagrees with plain")
-        k4_ms, p4_ms = pair_ms(torch, lambda: cpx_ops.mgs_iterate(E, 3, 8),
-                               lambda: cpx_ops.mgs_iterate_plain(E, 3, 8))
-    log(f"K4 time (c3: cold, 8 rounds, {E.shape[0]} windows of 2N=24): "
-        f"kernel {k4_ms:.4f} ms, plain {p4_ms:.4f} ms, bound "
-        f"{mgs_bound(E, 6, 8)}  [{card}]")
+        t4 = k4_times(torch, "c3", E, 3, 8, None, card)
+    if k4_shapes is not None:
+        k4_shapes["c3"] = t4
     return recs
 
 
@@ -1406,9 +1529,9 @@ def calibrate(torch, dev, factor, card):
     return corr
 
 
-def planes_phases(torch, dev, card):
+def planes_phases(torch, dev, card, k4_shapes=None):
     """Phases 8 and 9 → (kernel records, the launches of K4 in the c3 and
-    c2 paths)."""
+    c2 paths); K4's time at c3 goes into `k4_shapes` if given."""
     import numpy as np
     from doa_tpu_torch import PRESETS
     from doa_tpu_torch.cpx import embed_planes, fp32_matmuls
@@ -1423,7 +1546,7 @@ def planes_phases(torch, dev, card):
     factor = impairments(16)
     x3 = make_ula_capture(torch, T_C3, 16, c3_sources(), SNR_DB, dev, seed=3)
     torch.cuda.synchronize()
-    recs = planes_parity(torch, dev, x3, card)
+    recs = planes_parity(torch, dev, x3, card, k4_shapes)
 
     # 9. the slice's paths
     corr = calibrate(torch, dev, factor, card)
@@ -1842,12 +1965,13 @@ def card_vs_cpu(torch, name, cfg, x, B):
           f"{name}: card and CPU pipelines disagree")
 
 
-def coherent_phases(torch, dev, card):
+def coherent_phases(torch, dev, card, k4_shapes=None):
     """Phases 10 and 11 → (the records of kernels 7 and 10, the launches
     of the earlier kernels in these paths, K3's figures at c5 cssm's
-    shapes)."""
+    shapes); K4's time on c5 cssm's R_coh windows goes into `k4_shapes`
+    (K4's by_shape) if given."""
     from doa_tpu_torch import AvgMethod, Estimator, SmoothingSpec
-    from doa_tpu_torch.cpx import fp32_matmuls, unembed_planes
+    from doa_tpu_torch.cpx import embed_planes, fp32_matmuls, unembed_planes
     from doa_tpu_torch.ops import cpx_ops
     from doa_tpu_torch.ops import wideband as wb
     from doa_tpu_torch.ops.cuda import music_scan as ms
@@ -1925,6 +2049,11 @@ def coherent_phases(torch, dev, card):
         Rr, Ri = R.real.contiguous(), R.imag.contiguous()
         V = cpx_ops.signal_subspace_embedded(Rr, Ri, 2, iters=8)
         Vt = V.transpose(-1, -2).contiguous()
+        # K4 on the R_coh windows, as the subspace layer launches it
+        t4 = k4_times(torch, "c5 cssm R_coh", embed_planes(Rr, Ri), 2, 8,
+                      None, card)
+        if k4_shapes is not None:
+            k4_shapes["c5 cssm R_coh"] = t4
         # K3 on c5 cssm's own subspaces: den, and its time
         e_c5, k3_c5 = k3_scene(torch, "c5 cssm", Vt, At, nrm, card)
         tiles = ms.scan_tiles(At, 4)
@@ -3009,17 +3138,19 @@ def main():
     del xs, xc64
 
     # 6. wideband kernel parity at c5's shapes, 7. the c5 path
-    wb_recs, k4_c5 = c5_phases(torch, dev, card, counters)
+    k4_shapes = recs["mgs_iterate"]["by_shape"]
+    wb_recs, k4_c5 = c5_phases(torch, dev, card, counters, k4_shapes)
     recs["mgs_iterate"]["launches"] += k4_c5    # the c5 path's, counted apart
     recs.update(wb_recs)
 
     # 8. planes kernel parity, 9. the c3, c2, eigh paths and calibration
-    pl_recs, k4_planes = planes_phases(torch, dev, card)
+    pl_recs, k4_planes = planes_phases(torch, dev, card, k4_shapes)
     recs["mgs_iterate"]["launches"] += k4_planes
     recs.update(pl_recs)
 
     # 10. kernels 7 and 10, 11. c5_f12, c5 cssm / cssm_auto, ULA-16 cssm
-    sb_recs, sb_launches, k3_c5 = coherent_phases(torch, dev, card)
+    sb_recs, sb_launches, k3_c5 = coherent_phases(torch, dev, card,
+                                                  k4_shapes)
     for name, n in sb_launches.items():
         recs[name]["launches"] += n
     recs.update(sb_recs)
@@ -3045,6 +3176,11 @@ def main():
     missing = [r["name"] for r in recs.values()
                if set(KERNEL_KEYS) - set(r)]
     check(not missing, f"kernel records without every key: {missing}")
+    # every process this run started has ended: nvcc and nvidia-smi were
+    # waited for, the ranks joined, and the ranks' resource tracker ends here
+    stop_resource_tracker()
+    left = live_children()
+    check(not left, f"processes still running: {left}")
 
     print(json.dumps({"kernels": list(recs.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

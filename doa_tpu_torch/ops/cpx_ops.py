@@ -34,12 +34,24 @@ _I = ctypes.c_int
 _SIG = {"doa_mgs_iterate": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]}
 MGS_MAX_N2 = 128        # csrc/subspace.cu: four elements of a row per lane
 MGS_MAX_K2 = 8          # csrc/subspace.cu: rows of W a lane keeps
+MGS_WARP_MAX_N2 = 64    # csrc/subspace.cu WARP_MAX_N2: the warp form's 2N
+
+
+def mgs_form(n2: int, k2: int) -> str | None:
+    """The form of K4 that takes (2N, 2K), as csrc/subspace.cu dispatches
+    (`block_form`): "warp" (one warp a window, 2N ≤ MGS_WARP_MAX_N2),
+    "block" (a block of 8 warps a window, E held in shared memory for
+    every round, MGS_WARP_MAX_N2 < 2N ≤ MGS_MAX_N2), or None for a shape
+    K4 does not take (an odd 2N, 2N > MGS_MAX_N2 or 2K > min(2N,
+    MGS_MAX_K2))."""
+    if not (n2 <= MGS_MAX_N2 and n2 % 2 == 0 and k2 <= min(n2, MGS_MAX_K2)):
+        return None
+    return "warp" if n2 <= MGS_WARP_MAX_N2 else "block"
 
 
 def mgs_takes(n2: int, k2: int) -> bool:
-    """The shapes K4 is built for: an even 2N ≤ MGS_MAX_N2 and
-    2K ≤ min(2N, MGS_MAX_K2)."""
-    return n2 <= MGS_MAX_N2 and n2 % 2 == 0 and k2 <= min(n2, MGS_MAX_K2)
+    """The shapes K4 is built for: those mgs_form gives a form."""
+    return mgs_form(n2, k2) is not None
 
 
 def _mgs_rows(Vt: torch.Tensor, passes: int = 1) -> torch.Tensor:
@@ -99,9 +111,10 @@ def mgs_iterate(E: torch.Tensor, num_sources: int, rounds: int,
                 init: torch.Tensor | None = None):
     """K4: every round of the MGS subspace iteration of each window in one
     launch (csrc/subspace.cu) → (Vt, W, Vt_prev) as mgs_iterate_plain.
-    E f32[B, 2N, 2N] (2N ≤ 128); init f32[m, 2K, 2N] with m | B (window b
-    starts from row b // (B // m): one init, one per subband of a
-    subband-major stack, or one per window) or None (cold).
+    E f32[B, 2N, 2N] (2N ≤ 128; the form mgs_form names); init
+    f32[m, 2K, 2N] with m | B (window b starts from row b // (B // m): one
+    init, one per subband of a subband-major stack, or one per window) or
+    None (cold).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel and raises if that fails."""
@@ -122,7 +135,7 @@ def mgs_iterate(E: torch.Tensor, num_sources: int, rounds: int,
                          f"{MGS_MAX_N2}, 2K ≤ min(2N, {MGS_MAX_K2}), "
                          f"rounds ≥ 1 (2N={n2}, 2K={K2}, rounds={rounds})")
     E = E.contiguous()
-    if E.data_ptr() % 16:               # the kernel reads E as float4
+    if E.data_ptr() % 16:       # float4 loads and bulk copies of E
         E = E.clone()
     group = 0
     if init is not None:
