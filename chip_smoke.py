@@ -24,12 +24,22 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    the headline's subspaces within 1e-5·max‖a‖² of its plain version's
    den, timed in turns with the plain version and one FP32
    torch.matmul(Vt, At.T) (the product alone; no torch call computes
-   den).
+   den). K2 (`k2_exact`): both forms (tensor-core, on K3's mainloop with
+   den held in shared memory; CUDA-core) bit-equal to the plain version on
+   exact inputs at (2K, 2N, G) = (4, 32, 1024), (6, 24, 1024),
+   (4, 16, 181), (2, 8, 250), k = 1 to 4, refine off and on, and on the
+   made-to-order den rows of `peak_rows` (ties, plateaus, fallbacks,
+   subnormal quotients); the wrapper at 2K = 10 and at G = 2048 past the
+   den tile, where it must take the CUDA-core form; on the headline's
+   subspaces (`k2_scene`) within 0.01° of the plain version's sorted
+   angles and 0.5° of the planted scene, timed in turns with its plain
+   version, its CUDA-core form and the unfused route (K3, normalise,
+   find_local_max).
 4. main path: the headline configuration (ULA-16, S=1024, K=2, G=1024,
    MUSIC, e1 power schedule, warm start + escalation) at T=2^24 samples
    (16384 windows) through build_pipeline_torch(...).interleaved, with
    return_spectra False (fused scan + peaks, K2) and True (K3); launch
-   counts reset before and read after; every window within 0.5° of the
+   counts reset before and read after (K2's all of its tensor-core form); every window within 0.5° of the
    planted 70°/110°; the median call time from CUDA events. Each path's
    call.plan is logged (here and below), and every preset's kernel_plan,
    with the c5 variants driven here, must name a kernel for every stage.
@@ -69,10 +79,14 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    impaired by chain phases and element gains/phases, through
    call((xr, xi), correction) on strided card views: every window within
    0.5 deg, launch counts, median call time, layer times, a profile
-   window; c3 with eigh at overlap 512 (1024 windows); the card against
+   window (K2's launches all of its tensor-core form); K3 and K2 on c3's
+   own subspaces (`scan_parity`: den, sorted angles within 0.01° of plain
+   and 0.5° of the scene, K2 timed as in phase 3); c3 with eigh at
+   overlap 512 (1024 windows); the card against
    the CPU on 64 c3 windows; PRESETS["c2_ula8_2src"] (MUSIC + Capon) at
    T=2^24 on validate_tpu.py's c2 scene: every window within 0.5 deg of
-   60/110, the card against the CPU on 64 windows; the cov_windows entry
+   60/110 (K2 in its tensor-core form; `scan_parity` on c2's subspaces),
+   the card against the CPU on 64 windows; the cov_windows entry
    driven at gcd 8 (kernel 12).
 10. the wideband front end at any F: kernel 7 (embedded subband Grams of
    the channelized stream) and kernel 10 (interleaved subband Grams)
@@ -134,10 +148,10 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    latter also under subspace_impl="pallas" (kernel 11), through
    build_pipeline_torch on the card in both return_spectra modes: the
    plan names "plain" for those stages, their kernels launch no time and
-   the planned ones launch (K3 wherever spectra are returned); the angles
-   equal the CPU pipeline's within 1e-3 deg; and each kernel wrapper (K1,
-   8, K4, K3, 5, 4) still raises on a CUDA tensor of a shape it does not
-   take.
+   the planned ones launch (K3 wherever spectra are returned; K2 in its
+   CUDA-core form, never its tensor-core form); the angles equal the CPU
+   pipeline's within 1e-3 deg; and each kernel wrapper (K1, 8, K4, K3, K2,
+   5, 4) still raises on a CUDA tensor of a shape it does not take.
 
 Each kernel record gives its bound (the larger of its bytes over
 3.35 TB/s and the FP32 operations the function needs over 67 TFLOP/s,
@@ -147,7 +161,10 @@ bound_fp32_ms, the published H100 peaks; a symmetric or Hermitian Gram
 counts the half its output determines) and the time of one PyTorch call
 computing the same function (library_ms; null where there is none; K3's
 record gives the FP32 product alone as product_ms, and its figures at c5
-cssm's shapes as the keys ending in _c5_cssm). The last two lines: one
+cssm's shapes as the keys ending in _c5_cssm; K2's record gives its
+tensor-core form's count as tc_launches, both forms' times as by_form,
+the unfused route's as unfused_ms and its c3 and c2 figures in
+by_shape). The last two lines: one
 JSON object with the kernels, then {"ok": true, "device": {...}}.
 """
 
@@ -535,6 +552,7 @@ def kernel_parity(torch, dev, x, Vt, At, nrm, card):
             log(f"K2 exact-input k={k} refine={refine}: max|dval| = {dv!r}, "
                 f"max|dloc| = {dl!r} (must be 0)")
             check(dv == 0.0 and dl == 0.0, "K2 differs on exact inputs")
+    k2_exact(torch, dev, gen)
 
     # K3 / K2 at the main path's shapes on the scene's subspaces
     e3, k3 = k3_scene(torch, "headline", Vt, At, nrm, card)
@@ -551,26 +569,12 @@ def kernel_parity(torch, dev, x, Vt, At, nrm, card):
         source="doa_tpu_torch/csrc/music_scan.cu",
         replaces="doa_tpu/ops/pallas/music_scan.py:56",
         max_abs_err=e3, library_ms=None, **k3)
-    (B, k2, n2), G = Vt.shape, At.shape[0]
-    vk, lk = ms.music_scan_peaks(Vt, At, 2, 0.0, 180.0, True, nrm)
-    vp, lp = ms.music_scan_peaks_plain(Vt, At, 2, 0.0, 180.0, True, nrm)
-    # the two planted sources have equal power, so which peak ranks first
-    # may flip on rounding: compare each window's sorted angles
-    e2 = (lk.sort(-1).values - lp.sort(-1).values).abs().max().item()
-    log(f"K2 scene: max|sorted loc kernel - plain| = {e2!r} deg, tol 0.01; "
-        f"max angle error vs truth {angle_err(torch, lk)!r}")
-    check(e2 <= 0.01, "K2 disagrees with plain")
-    k2_ms, p2_ms = pair_ms(
-        torch, lambda: ms.music_scan_peaks(Vt, At, 2, 0.0, 180.0, True, nrm),
-        lambda: ms.music_scan_peaks_plain(Vt, At, 2, 0.0, 180.0, True, nrm))
-    log(f"K2 time: kernel {k2_ms:.4f} ms, plain {p2_ms:.4f} ms  [{card}]")
+    e2, k2_rec = k2_scene(torch, "headline", Vt, At, nrm, 2, THETA, card)
     recs["music_scan_peaks"] = dict(
         name="music_scan_peaks", route="cuda",
         source="doa_tpu_torch/csrc/music_scan.cu",
         replaces="doa_tpu/ops/pallas/music_scan.py:138",
-        max_abs_err=e2, ms=k2_ms, plain_ms=p2_ms,
-        **bound(nbytes(Vt, At, nrm, vk, lk), scan_flops(B, G, k2, n2)),
-        library_ms=None)
+        max_abs_err=e2, library_ms=None, **k2_rec)
 
     # K4 on the scene's windows: the pipeline's warm refine (3 rounds from
     # the capture-mean subspace) and a cold 8-round start; rsqrt and the
@@ -645,6 +649,179 @@ def k3_scene(torch, tag, Vt, At, nrm, card):
         f"TF32 products), {rec['bound_fp32_ms']:.4f} ms at the FP32 rate  "
         f"[{card}]")
     return e3, rec
+
+
+# K2 exact, both forms: the (2K, 2N, G) of its CPU model (the headline's,
+# c3's, c2's, a ULA-4 at K = 1); and through the wrapper the shapes it
+# gives the CUDA-core form: 2K = 10, and a G past the den tile
+K2_EXACT = ((4, 32, 1024), (6, 24, 1024), (4, 16, 181), (2, 8, 250))
+K2_FMA_EXACT = ((10, 32, 1024), (4, 32, 2048))
+
+
+def peak_rows(torch, dev, gen, G=181):
+    """Den rows f32[9, G] for K2's peak rule: small integers, a plateau at
+    the minimum, four equal isolated minima, a monotone row (no interior
+    peak: the fallback), a flat row (value 1 at bin 0), a peak every
+    other bin, the minimum at both edges; then bins 1e-5 of themselves
+    above their right neighbour (1001, 1000.01, 1000 repeated), once at a
+    normal dmin and once at FLT_MIN (an exact null, clamped), where those
+    quotients are subnormal and round equal: peaks that a test in den
+    alone would miss."""
+    rows = torch.randint(2, 7, (9, G), generator=gen, device=dev).float()
+    rows[1, 40:44] = 1.0
+    rows[2, [5, 60, 120, 170]] = 1.0
+    rows[3] = torch.arange(G, 0, -1, device=dev).float()
+    rows[4] = 3.0
+    rows[5, ::2] = 1.0
+    rows[6, [0, G - 1]] = 0.5
+    rows[7:] = 1000.0
+    rows[7:, 1::3] = 1000.01
+    rows[7:, 0::3] = 1001.0
+    rows[7, 90] = 1.0
+    rows[8, 90] = torch.finfo(torch.float32).tiny
+    return rows
+
+
+def k2_exact(torch, dev, gen):
+    """K2 bit-equal to its plain version on exact inputs (quarter-step V,
+    integer A, a constant nrm above every Σy², so den has plateaus and
+    equal peaks; window 0 zero: a flat row, the fallback) at B = 1000 (a
+    ragged last tile): both forms at K2_EXACT, k = 1 to 4, refine off and
+    on, and on the den rows of peak_rows; the wrapper at K2_FMA_EXACT,
+    where it must take the CUDA-core form."""
+    from doa_tpu_torch.ops.cuda import music_scan as ms
+
+    def inputs(k2, n2, G):
+        Vq = torch.randint(-2, 3, (1000, k2, n2), generator=gen,
+                           device=dev).float() / 4
+        Vq[0] = 0.0
+        Aq = torch.randint(-3, 4, (G, n2), generator=gen, device=dev).float()
+        return Vq, Aq, torch.full((G,), 300000.0, device=dev)
+
+    def diff(a, b):
+        return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+    for k2, n2, G in K2_EXACT:
+        Vq, Aq, nq = inputs(k2, n2, G)
+        forms = {"tensor-core": (ms._peaks_tc, ms.scan_tiles(Aq, k2)),
+                 "CUDA-core": (ms._peaks_fma, Aq.T.contiguous())}
+        worst = {form: 0.0 for form in forms}
+        for k in (1, 2, 3, 4):
+            for refine in (False, True):
+                plain = ms.music_scan_peaks_plain(Vq, Aq, k, 0.0, 180.0,
+                                                  refine, nq)
+                for form, (fn, op) in forms.items():
+                    d = diff(fn(Vq, op, nq, k, 0.0, 180.0 / (G - 1), refine),
+                             plain)
+                    worst[form] = max(worst[form], d)
+                    check(d == 0.0, f"K2's {form} form differs on exact "
+                          f"inputs at (2K, 2N, G) = ({k2}, {n2}, {G}), k={k}, "
+                          f"refine={refine}")
+        log(f"K2 exact-input (2K, 2N, G) = ({k2}, {n2}, {G}), B=1000, k=1-4, "
+            f"refine off and on: max|kernel - plain| (vals, locs) "
+            + ", ".join(f"{f} form {w!r}" for f, w in worst.items())
+            + " (must be 0)")
+    # den rows made to order: with Vt = 0, den = max(nrm, tiny), so each
+    # row of peak_rows, given as nrm, is every window's den
+    rows = peak_rows(torch, dev, gen)
+    Vz = torch.zeros((64, 4, 32), device=dev)
+    Az = torch.ones((rows.shape[1], 32), device=dev)
+    worst = 0.0
+    for r, nr in enumerate(rows):
+        for k in (1, 2, 3, 4):
+            for refine in (False, True):
+                plain = ms.music_scan_peaks_plain(Vz, Az, k, 0.0, 180.0,
+                                                  refine, nr)
+                for form, fn, op in (
+                        ("tensor-core", ms._peaks_tc, ms.scan_tiles(Az, 4)),
+                        ("CUDA-core", ms._peaks_fma, Az.T.contiguous())):
+                    d = diff(fn(Vz, op, nr, k, 0.0, 180.0 / (rows.shape[1]
+                                                            - 1), refine),
+                             plain)
+                    worst = max(worst, d)
+                    check(d == 0.0, f"K2's {form} form differs on den row "
+                          f"{r} of peak_rows, k={k}, refine={refine}")
+    log(f"K2 on the {rows.shape[0]} den rows of peak_rows (ties, plateaus, "
+        f"fallbacks, quotients one rounding apart, subnormal quotients), "
+        f"k=1-4, refine off and on, both forms: max|kernel - plain| "
+        f"{worst!r} (must be 0)")
+    for k2, n2, G in K2_FMA_EXACT:
+        Vq, Aq, nq = inputs(k2, n2, G)
+        tc0, all0 = (ms.music_scan_peaks.tc_launches,
+                     ms.music_scan_peaks.launches)
+        worst = 0.0
+        for k in (1, 2, 3, 4):
+            for refine in (False, True):
+                d = diff(ms.music_scan_peaks(Vq, Aq, k, 0.0, 180.0, refine,
+                                             nq),
+                         ms.music_scan_peaks_plain(Vq, Aq, k, 0.0, 180.0,
+                                                   refine, nq))
+                worst = max(worst, d)
+                check(d == 0.0, f"K2 differs on exact inputs at (2K, 2N, G) "
+                      f"= ({k2}, {n2}, {G}), k={k}, refine={refine}")
+        log(f"K2 exact-input (2K, 2N, G) = ({k2}, {n2}, {G}) through the "
+            f"wrapper: max|kernel - plain| {worst!r} (must be 0); launches "
+            f"{ms.music_scan_peaks.launches - all0}, of the tensor-core "
+            f"form {ms.music_scan_peaks.tc_launches - tc0} (must be 0)")
+        check(ms.music_scan_peaks.tc_launches == tc0
+              and ms.music_scan_peaks.launches == all0 + 8,
+              f"K2 did not take its CUDA-core form at ({k2}, {n2}, {G})")
+
+
+def k2_scene(torch, tag, Vt, At, nrm, k, truth, card):
+    """K2 on a path's own subspaces, called as the pipelines call it (its
+    grid operand made once): each window's sorted peak angles within
+    0.01° of its plain version's and within ANGLE_TOL of the planted
+    truth; then timed in turns with its plain version, its CUDA-core form
+    on the same inputs and the unfused route (K3, normalise,
+    find_local_max) → (the error, {ms, plain_ms, bound_ms, bound_by,
+    bound_fp32_ms, by_form, unfused_ms}). Its bound is the three TF32
+    products at the TF32 rate (or the bytes), the FP32 figure beside."""
+    from doa_tpu_torch.ops.cuda import music_scan as ms
+    from doa_tpu_torch.ops.peaks import find_local_max
+
+    (B, k2, n2), G = Vt.shape, At.shape[0]
+    tiles = ms.peaks_tiles(At, k2)
+    vk, lk = ms.music_scan_peaks(Vt, At, k, 0.0, 180.0, True, nrm, tiles)
+    _, lp = ms.music_scan_peaks_plain(Vt, At, k, 0.0, 180.0, True, nrm)
+    # equal-power sources: which peak ranks first may flip on rounding,
+    # so each window's sorted angles are compared
+    e2 = (lk.sort(-1).values - lp.sort(-1).values).abs().max().item()
+    et = sorted_err(torch, lk, truth)
+    log(f"K2 {tag} (2K, 2N, G) = ({k2}, {n2}, {G}), k={k}, {B} windows: "
+        f"max|sorted loc kernel - plain| = {e2!r} deg (tol 0.01); max "
+        f"sorted angle error vs the planted {truth} {et!r} deg (limit "
+        f"{ANGLE_TOL})")
+    check(e2 <= 0.01, f"K2 disagrees with plain at {tag}'s shapes")
+    check(et <= ANGLE_TOL, f"K2 misses the planted scene at {tag}")
+    At_T = At.T.contiguous()
+    nrm = nrm.contiguous()
+    dx = 180.0 / (G - 1)
+    k3_tiles = ms.scan_tiles(At, k2)
+
+    def unfused():
+        P = ms.music_scan(Vt, At, nrm, k3_tiles)
+        return find_local_max(P / P.max(-1, keepdim=True).values, k, 0.0,
+                              180.0, refine=True)
+    p_ms, tc_ms, fma_ms, un_ms = turns_ms(
+        torch, lambda: ms.music_scan_peaks_plain(Vt, At, k, 0.0, 180.0,
+                                                 True, nrm),
+        lambda: ms.music_scan_peaks(Vt, At, k, 0.0, 180.0, True, nrm,
+                                    tiles),
+        lambda: ms._peaks_fma(Vt, At_T, nrm, k, 0.0, dx, True), unfused)
+    moved = nbytes(Vt, At, nrm, vk, lk)
+    rec = dict(ms=tc_ms, plain_ms=p_ms,
+               **bound(moved, 3 * 2 * B * k2 * n2 * G, H100_TF32_PER_S),
+               bound_fp32_ms=bound(moved, scan_flops(B, G, k2, n2))[
+                   "bound_ms"],
+               by_form={"tensor-core": tc_ms, "CUDA-core": fma_ms},
+               unfused_ms=un_ms)
+    log(f"K2 time at {tag}: tensor-core form {tc_ms:.4f} ms, CUDA-core form "
+        f"{fma_ms:.4f} ms, plain {p_ms:.4f} ms, unfused route (K3, "
+        f"normalise, find_local_max) {un_ms:.4f} ms; bound "
+        f"{rec['bound_ms']:.4f} ms (3 TF32 products), "
+        f"{rec['bound_fp32_ms']:.4f} ms at the FP32 rate  [{card}]")
+    return e2, rec
 
 
 def show_plan(name, pipe, all_kernel=True):
@@ -759,7 +936,8 @@ def stage_times(torch, pipe, cfg, x, card):
     from doa_tpu_torch.cpx import fp32_matmuls
     from doa_tpu_torch.ops.cpx_ops import signal_subspace_from_E_T
     from doa_tpu_torch.ops.cuda.cov_embedded import cov_embedded
-    from doa_tpu_torch.ops.cuda.music_scan import music_scan_peaks
+    from doa_tpu_torch.ops.cuda.music_scan import (music_scan_peaks,
+                                                   peaks_tiles)
 
     Ar, Ai = pipe.steering_planes
     At = torch.cat([Ar, Ai], -1).contiguous()
@@ -781,9 +959,10 @@ def stage_times(torch, pipe, cfg, x, card):
                 return_stats=True, **esc)
         Vt = sub()[0]
         out["subspace (warm MGS + detector)"] = time_ms(torch, sub)
+        tiles = peaks_tiles(At, 4)
         out["scan + peaks (K2)"] = time_ms(
             torch, lambda: music_scan_peaks(Vt, At, 2, 0.0, 180.0, True,
-                                            nrm))
+                                            nrm, tiles))
     log("layer times, ms: " + ", ".join(f"{k} {v:.4f}"
                                         for k, v in out.items())
         + f"  [{card}]")
@@ -1299,24 +1478,24 @@ def sorted_err(torch, ang, truth):
     return float((a - torch.tensor(truth, device=a.device)).abs().max())
 
 
-def scan_parity(torch, tag, Vt, At, nrm, k):
+def scan_parity(torch, tag, Vt, At, nrm, k, truth, card, k2_shapes=None):
     """K3 and K2 against their plain versions on a path's own subspaces
     (its 2N, 2K, G and k): den within 1e-5·max‖a‖², each window's sorted
-    peak angles within 0.01°."""
+    peak angles within 0.01° and within ANGLE_TOL of the planted truth
+    (k2_scene, which also times K2; its record goes into k2_shapes[tag]
+    if given)."""
     from doa_tpu_torch.ops.cuda import music_scan as ms
 
     e3 = (1.0 / ms.music_scan(Vt, At, nrm, ms.scan_tiles(At, Vt.shape[1]))
           - 1.0 / ms.music_scan_plain(Vt, At, nrm)).abs().max().item()
     tol3 = 1e-5 * nrm.max().item()
-    _, lk = ms.music_scan_peaks(Vt, At, k, 0.0, 180.0, True, nrm)
-    _, lp = ms.music_scan_peaks_plain(Vt, At, k, 0.0, 180.0, True, nrm)
-    e2 = (lk.sort(-1).values - lp.sort(-1).values).abs().max().item()
-    log(f"K3/K2 {tag} (2N, 2K) = ({Vt.shape[2]}, {Vt.shape[1]}), "
-        f"G={At.shape[0]}, k={k}, {Vt.shape[0]} windows: max|den kernel - "
-        f"den plain| = {e3!r} (tol 1e-5*max‖a‖² = {tol3!r}); max|sorted "
-        f"loc kernel - plain| = {e2!r} deg (tol 0.01)")
+    log(f"K3 {tag} (2N, 2K) = ({Vt.shape[2]}, {Vt.shape[1]}), "
+        f"G={At.shape[0]}, {Vt.shape[0]} windows: max|den kernel - "
+        f"den plain| = {e3!r} (tol 1e-5*max‖a‖² = {tol3!r})")
     check(e3 <= tol3, f"K3 disagrees with plain at {tag}'s shapes")
-    check(e2 <= 0.01, f"K2 disagrees with plain at {tag}'s shapes")
+    _, rec = k2_scene(torch, tag, Vt, At, nrm, k, truth, card)
+    if k2_shapes is not None:
+        k2_shapes[tag] = rec
 
 
 def planes_parity(torch, dev, x3, card, k4_shapes=None):
@@ -1529,9 +1708,10 @@ def calibrate(torch, dev, factor, card):
     return corr
 
 
-def planes_phases(torch, dev, card, k4_shapes=None):
+def planes_phases(torch, dev, card, k4_shapes=None, k2_shapes=None):
     """Phases 8 and 9 → (kernel records, the launches of K4 in the c3 and
-    c2 paths); K4's time at c3 goes into `k4_shapes` if given."""
+    c2 paths); K4's time at c3 goes into `k4_shapes` and K2's records at
+    c3 and c2 into `k2_shapes` if given."""
     import numpy as np
     from doa_tpu_torch import PRESETS
     from doa_tpu_torch.cpx import embed_planes, fp32_matmuls
@@ -1565,11 +1745,16 @@ def planes_phases(torch, dev, card, k4_shapes=None):
                 "chunk_gram": ce.chunk_grams_uhat}
     for f in counters.values():
         f.launches = 0
+    ms.music_scan_peaks.tc_launches = 0
     res = {rs: p((xr, xi), corr) for rs, p in pipes.items()}
     torch.cuda.synchronize()
     n3 = {k: f.launches for k, f in counters.items()}
+    n3["music_scan_peaks (tensor-core form)"] = (
+        ms.music_scan_peaks.tc_launches)
     log("launches in the c3 path (both return_spectra modes): "
         + json.dumps(n3))
+    check(n3["music_scan_peaks (tensor-core form)"]
+          == n3["music_scan_peaks"], "K2 left its tensor-core form at c3")
     check(n3["planes_chunk_gram"] > 0 and n3["mgs_iterate"] > 0
           and n3["music_scan"] > 0 and n3["music_scan_peaks"] > 0,
           "a kernel of the c3 path never ran")
@@ -1606,9 +1791,11 @@ def planes_phases(torch, dev, card, k4_shapes=None):
         R = compute_covariances(xr, xi, cfg3, (cr, ci))
         E = embed_planes(*R)
         Vt = cpx_ops.signal_subspace_from_E_T(E, 3, iters=8)
-        scan_parity(torch, "c3", Vt, At, nrm, 3)
+        scan_parity(torch, "c3", Vt, At, nrm, 3, C3_TRUTH, card,
+                    k2_shapes)
         P = ms.music_scan(Vt, At, nrm)
         Pn = P / P.max(-1, keepdim=True).values
+        k2_tiles = ms.peaks_tiles(At, 6)
         layers = {
             "covariance (kernel 8 + windows + correction, FB, smoothing)":
                 lambda: compute_covariances(xr, xi, cfg3, (cr, ci)),
@@ -1620,7 +1807,7 @@ def planes_phases(torch, dev, card, k4_shapes=None):
             "peaks (find_local_max)": lambda: find_local_max(
                 Pn, 3, 0.0, 180.0, refine=True),
             "scan + peaks (K2)": lambda: ms.music_scan_peaks(
-                Vt, At, 3, 0.0, 180.0, True, nrm),
+                Vt, At, 3, 0.0, 180.0, True, nrm, k2_tiles),
         }
         out = {k: time_ms(torch, f) for k, f in layers.items()}
     log("c3 layer times, ms: " + ", ".join(f"{k} {v:.4f}"
@@ -1659,10 +1846,15 @@ def planes_phases(torch, dev, card, k4_shapes=None):
     show_plan("c2", pipe2)
     for f in counters.values():
         f.launches = 0
+    ms.music_scan_peaks.tc_launches = 0
     r2 = pipe2.interleaved(x2)
     torch.cuda.synchronize()
     n2 = {k: f.launches for k, f in counters.items()}
+    n2["music_scan_peaks (tensor-core form)"] = (
+        ms.music_scan_peaks.tc_launches)
     log("launches in the c2 path: " + json.dumps(n2))
+    check(n2["music_scan_peaks (tensor-core form)"]
+          == n2["music_scan_peaks"], "K2 left its tensor-core form at c2")
     check(n2["chunk_gram"] > 0 and n2["mgs_iterate"] > 0
           and n2["music_scan_peaks"] > 0, "a kernel of the c2 path never ran")
     B2 = T_C2 // 2048
@@ -1679,7 +1871,8 @@ def planes_phases(torch, dev, card, k4_shapes=None):
                              torch.zeros(8, device=dev), N=8,
                              snapshot_size=2048)
         Vt2 = cpx_ops.signal_subspace_from_E_T(E2, 2, iters=8)
-        scan_parity(torch, "c2", Vt2, At2, (At2 * At2).sum(-1), 2)
+        scan_parity(torch, "c2", Vt2, At2, (At2 * At2).sum(-1), 2,
+                    C2_TRUTH, card, k2_shapes)
     del E2, Vt2
     ts = call_times(torch, lambda: pipe2.interleaved(x2), reps=20, warm=3)
     med = 0.5 * (ts[9] + ts[10])
@@ -2933,11 +3126,16 @@ def fault_phase(torch, dev, card):
             show_plan(f"{name} return_spectra={rs}", pipe, all_kernel=False)
             for f in counters.values():
                 f.launches = 0
+            ms.music_scan_peaks.tc_launches = 0
             a_gpu = pipe.interleaved(x).peak_angles["music"]
             torch.cuda.synchronize()
             n = {key: f.launches for key, f in counters.items()}
             log(f"launches in the {name} path, return_spectra={rs}: "
-                + json.dumps(n))
+                + json.dumps(n) + ", of K2's tensor-core form "
+                f"{ms.music_scan_peaks.tc_launches}")
+            # K2 here (2N = 96 at G = 1024, or 2K = 10): its CUDA-core form
+            check(ms.music_scan_peaks.tc_launches == 0,
+                  f"{name}: K2 took its tensor-core form")
             # the interleaved entry drives every stage but planes input's
             planned = {v for key, v in pipe.plan.items()
                        if v != "plain" and key != "covariance_planes"}
@@ -2978,6 +3176,10 @@ def fault_phase(torch, dev, card):
     Vt = torch.zeros((64, 16, 160), device=dev)
     At = torch.ones((256, 160), device=dev)
     raises(lambda: ms.music_scan(Vt, At), "K3 at 2K = 16, 2N = 160")
+    Vt = torch.zeros((64, 16, 3600), device=dev)
+    At = torch.ones((1024, 3600), device=dev)
+    raises(lambda: ms.music_scan_peaks(Vt, At, 2, 0.0, 180.0),
+           "K2 at 2K = 16, 2N = 3600")
     raises(lambda: wc.subband_chunk_grams(
         torch.zeros((64, 16 * 200), device=dev), torch.ones(100, device=dev),
         torch.zeros(100, device=dev), F=16, N=100, g=4, scale=1.0),
@@ -3074,11 +3276,16 @@ def main():
                 "mgs_iterate": cpx_ops.mgs_iterate}
     for f in counters.values():
         f.launches = 0
+    ms.music_scan_peaks.tc_launches = 0
     res_f = pipe_f.interleaved(x)
     res_s = pipe_s.interleaved(x)
     torch.cuda.synchronize()
     for name, f in counters.items():
         recs[name]["launches"] = f.launches
+    recs["music_scan_peaks"]["tc_launches"] = ms.music_scan_peaks.tc_launches
+    check(ms.music_scan_peaks.tc_launches
+          == ms.music_scan_peaks.launches > 0,
+          "K2 did not run its tensor-core form on the headline path")
     log("launches in the main path: " + json.dumps(
         {n: r["launches"] for n, r in recs.items()}))
     for name, r in recs.items():
@@ -3144,7 +3351,9 @@ def main():
     recs.update(wb_recs)
 
     # 8. planes kernel parity, 9. the c3, c2, eigh paths and calibration
-    pl_recs, k4_planes = planes_phases(torch, dev, card, k4_shapes)
+    pl_recs, k4_planes = planes_phases(
+        torch, dev, card, k4_shapes,
+        recs["music_scan_peaks"].setdefault("by_shape", {}))
     recs["mgs_iterate"]["launches"] += k4_planes
     recs.update(pl_recs)
 

@@ -63,6 +63,8 @@
 #include <float.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace scan_tc {
 
 constexpr int THREADS = 256;        // two warpgroups
@@ -118,6 +120,35 @@ __device__ __forceinline__ float4 ld_policy(const float4* p, uint64_t pol) {
       "ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
       : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p), "l"(pol));
   return v;
+}
+
+// V' staged in shared memory (K2 stages each window tile's fragments
+// there): its "policy load" is a plain shared-memory load.
+struct SharedV {
+  const float4* p;
+  __device__ __forceinline__ SharedV operator+(int i) const {
+    return {p + i};
+  }
+};
+__device__ __forceinline__ float4 ld_policy(SharedV v, uint64_t) {
+  return *v.p;
+}
+
+// Have a fragment set computed by here: an empty volatile use, which
+// the asm statements around it keep in order. The split is plain
+// arithmetic, free to move past wgmma_fence into the stage of wgmma it
+// feeds; with V' from shared memory the compiler did that (a lo half
+// computed in its hi half's registers after the hi wgmma had issued),
+// and ptxas then waited on every wgmma (C7513). K2 uses it before the
+// fence; K3 and kernel 5 (V' from global memory) keep their code.
+template <int MT>
+__device__ __forceinline__ void hold(const uint32_t (&ah)[MT][4],
+                                     const uint32_t (&al)[MT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      asm volatile("" :: "r"(ah[i][e]), "r"(al[i][e]));
 }
 
 // x rounded to TF32 (10 mantissa bits), half away from zero.
@@ -201,16 +232,22 @@ __device__ __forceinline__ void mma(float (&d)[NT / 2],
 }
 
 // One k-step s of a window tile, with fragment register set P (= s & 1):
-// split the fragments loaded two steps ago, load step s + 2's, issue
-// hi.hi into hh and hi.lo, lo.hi into cr.
-template <int K2, int P>
+// split the fragments loaded two steps ago (a SharedV's: loaded now),
+// load step s + 2's, issue hi.hi into hh and hi.lo, lo.hi into cr.
+template <int K2, int P, class VP>
 __device__ __forceinline__ void k_step(
-    int s, int S, const float4* vp, uint64_t pol, float4 (&raw)[2][K2 / 2],
+    int s, int S, VP vp, uint64_t pol, float4 (&raw)[2][K2 / 2],
     uint32_t (&ah)[2][K2 / 2][4], uint32_t (&al)[2][K2 / 2][4],
     float (&hh)[K2 / 2][bins_of(K2) / 2],
     float (&cr)[K2 / 2][bins_of(K2) / 2], uint64_t d_hi, uint64_t d_lo) {
   constexpr int MT = K2 / 2, NT = bins_of(K2);
+  constexpr bool shared_v = std::is_same<VP, SharedV>::value;
   wgmma_wait<1>();                  // step s - 2, which read set P, is done
+  if constexpr (shared_v) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      raw[P][i] = ld_policy(vp + (s * MT + i) * 128, pol);
+  }
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
     const float v[4] = {raw[P][i].x, raw[P][i].y, raw[P][i].z, raw[P][i].w};
@@ -220,11 +257,12 @@ __device__ __forceinline__ void k_step(
       al[P][i][e] = rna_tf32(v[e] - __uint_as_float(ah[P][i][e]));
     }
   }
-  if (s + 2 < S) {
+  if (!shared_v && s + 2 < S) {
 #pragma unroll
     for (int i = 0; i < MT; ++i)
       raw[P][i] = ld_policy(vp + ((s + 2) * MT + i) * 128, pol);
   }
+  if constexpr (shared_v) hold(ah[P], al[P]);
   wgmma_fence();
 #pragma unroll
   for (int i = 0; i < MT; ++i) mma<NT>(hh[i], ah[P][i], d_hi);
@@ -251,11 +289,12 @@ __device__ __forceinline__ void k_step(
 // bins gw + 8j + 2tq + c, gw = g0 + wg NT, c = 0, 1.
 
 // One window tile: hi.hi into hh, hi.lo + lo.hi into cr, over the S =
-// KP/8 k-steps, from the thread's V' fragments at vp (loaded under the
-// L2 policy pol); returns when every wgmma of the tile is done.
-template <int K2>
+// KP/8 k-steps, from the thread's V' fragments at vp (a global pointer,
+// loaded under the L2 policy pol, or a SharedV); returns when every wgmma
+// of the tile is done.
+template <int K2, class VP>
 __device__ __forceinline__ void tile_products(
-    const float4* vp, int S, uint64_t pol, uint64_t d0, uint64_t d_step,
+    VP vp, int S, uint64_t pol, uint64_t d0, uint64_t d_step,
     uint64_t d_plane, float (&hh)[K2 / 2][bins_of(K2) / 2],
     float (&cr)[K2 / 2][bins_of(K2) / 2]) {
   constexpr int MT = K2 / 2, NA = bins_of(K2) / 2;
@@ -268,10 +307,12 @@ __device__ __forceinline__ void tile_products(
   }
   float4 raw[2][MT];
   uint32_t ah[2][MT][4], al[2][MT][4];
+  if constexpr (!std::is_same<VP, SharedV>::value) {
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    raw[0][i] = ld_policy(vp + i * 128, pol);
-    raw[1][i] = ld_policy(vp + (MT + i) * 128, pol);
+    for (int i = 0; i < MT; ++i) {
+      raw[0][i] = ld_policy(vp + i * 128, pol);
+      raw[1][i] = ld_policy(vp + (MT + i) * 128, pol);
+    }
   }
   for (int s = 0; s < S; s += 2) {
     const uint64_t dh = d0 + s * d_step;

@@ -14,18 +14,26 @@ passes in; V' of the subspaces every call), with 2K in {2, 4, 6, 8}
 (`scan_tc.tc_takes`). Other shapes (2K of 10 to 16, or 2N past the
 mainloop's shared-memory cap) take K3's CUDA-core form, FP32 FMAs on
 tiles of Aᵀ and Vt in shared memory (`fma_takes`); `scan_takes` is the
-union of the two. K2 reads Vt f32[B, 2K, 2N] and Aᵀ f32[2N, G] as they are,
-FP32 FMAs on the CUDA cores; it keeps the whole grid of one window in
-shared memory and writes only (B, k) peak values and angles; its rule is
+union of the two.
+
+K2 writes only (B, k) peak values and angles; its rule is
 ops/peaks.py::find_local_max on Pn = dmin/den (normalisation is free:
 P/max P = dmin/den), with the reference's sentinels: _NEG marks "no
 peak", and a bin past the grid never exists here (no padding), so it is
 never a peak nor the minimum — what the TPU kernel's _PAD_NRM ensured.
+Its tensor-core form runs K3's mainloop on the same A' (V' it stages
+from Vt itself) and keeps den of a tile of 32 windows × G bins in shared
+memory through the peak rule (`peaks_tc_takes`: the mainloop's shapes
+with that tile within a block's shared memory); its CUDA-core form, one
+window a block in FP32 FMAs on Aᵀ f32[2N, G], takes the other shapes
+(`peaks_fma_takes`); `peaks_takes` is the union. `peaks_tiles` makes
+the form's grid operand (A' or Aᵀ) once per grid.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -47,9 +55,13 @@ _I = ctypes.c_int
 _SIG = {
     "doa_music_scan": [_P, _P, _P, _P] + [_I] * 6 + [_P],
     "doa_music_scan_fma": [_P, _P, _P, _P] + [_I] * 4 + [_P],
-    "doa_music_scan_peaks": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             ctypes.c_float, ctypes.c_float, _I, _P],
+    "doa_music_scan_peaks_tc": [_P, _P, _P, _P, _P] + [_I] * 7
+                               + [ctypes.c_float, ctypes.c_float, _I, _I,
+                                  _P],
+    "doa_music_scan_peaks_fma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 ctypes.c_float, ctypes.c_float, _I, _P],
 }
+DEN_PAD = 8             # K2's den rows in shared memory: nJ·GB + 8 floats
 
 
 def _check_args(Vt, At_emb, nrm):
@@ -63,6 +75,19 @@ def _check_args(Vt, At_emb, nrm):
     if nrm is None:
         nrm = (At_emb * At_emb).sum(dim=-1)
     return nrm
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _check_tiles(tiles, shape, Vt, what, G, n2, k2):
+    if (tuple(tiles.shape) != shape or tiles.device != Vt.device
+            or not tiles.is_contiguous()):
+        raise ValueError(f"tiles {tuple(tiles.shape)} on {tiles.device} "
+                         f"are not {what} of a ({G}, {n2}) grid at "
+                         f"2K = {k2}")
 
 
 def music_den_plain(Vt: torch.Tensor, At_emb: torch.Tensor,
@@ -136,16 +161,11 @@ def music_scan(Vt: torch.Tensor, At_emb: torch.Tensor,
         GB, KP = 2 * fusion_bins(K2), fusion_kp(n2)
         if tiles is None:
             tiles = scan_tiles(At_emb, K2)
-        elif (tuple(tiles.shape) != (-(-G // GB), 2, KP // 4, GB // 8, 8, 4)
-              or tiles.device != Vt.device or not tiles.is_contiguous()):
-            raise ValueError(f"tiles {tuple(tiles.shape)} on {tiles.device} "
-                             f"are not scan_tiles of a ({G}, {n2}) grid at "
-                             f"2K = {K2}")
+        _check_tiles(tiles, (-(-G // GB), 2, KP // 4, GB // 8, 8, 4), Vt,
+                     "scan_tiles", G, n2, K2)
         Vf = subspace_fragments(Vt[None])
         nT = -(-B // WINDOW_TILE)
-        sms = torch.cuda.get_device_properties(
-            Vt.device).multi_processor_count
-        _, per = window_groups(-(-G // GB), nT, sms)
+        _, per = window_groups(-(-G // GB), nT, _sm_count(Vt.device))
         err = lib.doa_music_scan(
             Vf.data_ptr(), tiles.data_ptr(), nrm.data_ptr(), P.data_ptr(), B,
             K2, fusion_bins(K2), KP, G, per, stream)
@@ -172,7 +192,13 @@ def music_scan_peaks_plain(Vt, At_emb, k: int, x_min: float, x_max: float,
     """Plain PyTorch version of K2 → (vals, locs) each f32[B, k]: the
     exact rule of doa_tpu's _scan_peaks_kernel."""
     nrm = _check_args(Vt, At_emb, nrm)
-    den = music_den_plain(Vt, At_emb, nrm)
+    return peaks_from_den_plain(music_den_plain(Vt, At_emb, nrm), k, x_min,
+                                x_max, refine)
+
+
+def peaks_from_den_plain(den, k: int, x_min: float, x_max: float,
+                         refine: bool = True):
+    """K2's peak rule on den f32[B, G] → (vals, locs) each f32[B, k]."""
     B, G = den.shape
     dmin = den.min(dim=-1, keepdim=True).values
     Pn = dmin / den
@@ -213,16 +239,103 @@ def music_scan_peaks_plain(Vt, At_emb, k: int, x_min: float, x_max: float,
     return vals, x_min + frac * dx
 
 
+def peaks_smem_bytes(k2: int, n2: int, G: int) -> int:
+    """Shared memory of K2's tensor-core form (csrc's peaks_smem_of):
+    barriers and the dmin merge (1 KiB), two A' stretches, a window
+    tile's V', nrm and the den tile of 32 rows of Gp + DEN_PAD floats,
+    Gp = G in whole stretches."""
+    GB, KP = 2 * fusion_bins(k2), fusion_kp(n2)
+    Gp = -(-G // GB) * GB
+    return (1024 + 2 * 8 * KP * GB + 4 * WINDOW_TILE * k2 * KP + 4 * Gp
+            + 4 * WINDOW_TILE * (Gp + DEN_PAD))
+
+
+def peaks_tc_takes(k2: int, n2: int, G: int) -> bool:
+    """The shapes K2's tensor-core form takes: the mainloop's (tc_takes)
+    with the den tile, the two-stretch ring, V' and nrm within a block's
+    shared memory (G ≤ 1024 at the headline's 2K = 4, 2N = 32)."""
+    return (tc_takes(k2, n2) and 3 <= G <= 2048
+            and peaks_smem_bytes(k2, n2, G) <= SMEM_MAX)
+
+
+def peaks_fma_takes(k2: int, n2: int, G: int) -> bool:
+    """The shapes K2's CUDA-core form takes: one window a block with den,
+    its masked row and the window's Vt in shared memory, G ≤ MAX_FUSED_G."""
+    return (k2 >= 1 and n2 >= 1 and 3 <= G <= MAX_FUSED_G
+            and 4 * (2 * G + k2 * n2) <= SMEM_MAX)
+
+
+def peaks_takes(k2: int, n2: int, G: int) -> bool:
+    """The shapes K2 is built for: its tensor-core form's or its CUDA-core
+    form's."""
+    return peaks_tc_takes(k2, n2, G) or peaks_fma_takes(k2, n2, G)
+
+
+def peaks_tiles(At_emb: torch.Tensor, k2: int) -> torch.Tensor:
+    """K2's grid operand at 2K = k2, made once per grid and passed to
+    music_scan_peaks: A' (scan_tiles) where the tensor-core form takes the
+    shape, else Aᵀ f32[2N, G] for the CUDA-core form."""
+    G, n2 = At_emb.shape
+    if peaks_tc_takes(k2, n2, G):
+        return scan_tiles(At_emb, k2)
+    return At_emb.T.contiguous()
+
+
+def _peaks_tc(Vt, tiles, nrm, k, x_min, dx, refine, lib=None):
+    """K2's tensor-core form on the card → (vals, locs); nrm f32[G]
+    contiguous, tiles = scan_tiles(At_emb, 2K); `lib` another build of
+    this source's C ABI (the package's if None). No launch count."""
+    B, K2, n2 = Vt.shape
+    G = nrm.shape[0]
+    GB, KP = 2 * fusion_bins(K2), fusion_kp(n2)
+    _check_tiles(tiles, (-(-G // GB), 2, KP // 4, GB // 8, 8, 4), Vt,
+                 "scan_tiles", G, n2, K2)
+    Vt = Vt.contiguous()
+    vals = torch.empty((B, k), dtype=torch.float32, device=Vt.device)
+    locs = torch.empty((B, k), dtype=torch.float32, device=Vt.device)
+    lib = lib or _build.load("music_scan", _SIG)
+    err = lib.doa_music_scan_peaks_tc(
+        Vt.data_ptr(), tiles.data_ptr(), nrm.data_ptr(), vals.data_ptr(),
+        locs.data_ptr(), B, K2, fusion_bins(K2), n2, KP, G, k, x_min, dx,
+        int(refine), min(-(-B // WINDOW_TILE), _sm_count(Vt.device)),
+        torch.cuda.current_stream(Vt.device).cuda_stream)
+    _build.check(err, "doa_music_scan_peaks_tc")
+    return vals, locs
+
+
+def _peaks_fma(Vt, At_T, nrm, k, x_min, dx, refine, lib=None):
+    """K2's CUDA-core form on the card → (vals, locs); nrm f32[G]
+    contiguous, At_T = Aᵀ f32[2N, G]; `lib` as _peaks_tc's. No launch
+    count."""
+    B, K2, n2 = Vt.shape
+    G = nrm.shape[0]
+    _check_tiles(At_T, (n2, G), Vt, "Aᵀ", G, n2, K2)
+    Vt = Vt.contiguous()
+    vals = torch.empty((B, k), dtype=torch.float32, device=Vt.device)
+    locs = torch.empty((B, k), dtype=torch.float32, device=Vt.device)
+    lib = lib or _build.load("music_scan", _SIG)
+    err = lib.doa_music_scan_peaks_fma(
+        Vt.data_ptr(), At_T.data_ptr(), nrm.data_ptr(), vals.data_ptr(),
+        locs.data_ptr(), B, K2, n2, G, k, x_min, dx, int(refine),
+        torch.cuda.current_stream(Vt.device).cuda_stream)
+    _build.check(err, "doa_music_scan_peaks_fma")
+    return vals, locs
+
+
 def music_scan_peaks(Vt: torch.Tensor, At_emb: torch.Tensor, k: int,
                      x_min: float, x_max: float, refine: bool = True,
-                     nrm: torch.Tensor | None = None):
+                     nrm: torch.Tensor | None = None,
+                     tiles: torch.Tensor | None = None):
     """K2: fused scan + normalise + peaks → (vals, locs) each f32[B, k];
-    the (B, G) spectrum never leaves shared memory. Needs
-    k ≤ MAX_FUSED_K and 3 ≤ G ≤ MAX_FUSED_G (the pipeline's size rule
-    picks K3 + find_local_max otherwise).
+    the (B, G) spectrum never leaves the chip. Needs k ≤ MAX_FUSED_K and
+    3 ≤ G ≤ MAX_FUSED_G (the pipeline's size rule picks K3 +
+    find_local_max otherwise); tiles = peaks_tiles(At_emb, 2K) (made here
+    if None).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel and raises if that fails."""
+    tensor-core form where peaks_tc_takes(2K, 2N, G) holds, else the
+    CUDA-core form where peaks_fma_takes does, and raises otherwise or if
+    the launch fails."""
     nrm = _check_args(Vt, At_emb, nrm)
     G = At_emb.shape[0]
     if not 1 <= k <= MAX_FUSED_K or not 3 <= G <= MAX_FUSED_G:
@@ -234,20 +347,22 @@ def music_scan_peaks(Vt: torch.Tensor, At_emb: torch.Tensor, k: int,
     if not Vt.is_cuda:
         raise ValueError(f"unsupported device {Vt.device}")
     B, K2, n2 = Vt.shape
-    Vt = Vt.contiguous()
-    At_T = At_emb.T.contiguous()
+    if not peaks_takes(K2, n2, G):
+        raise ValueError(f"music_scan_peaks kernel does not take 2K = {K2} "
+                         f"at 2N = {n2}, G = {G} (peaks_takes)")
+    if tiles is None:
+        tiles = peaks_tiles(At_emb, K2)
     nrm = nrm.to(torch.float32).contiguous()
-    lib = _build.load("music_scan", _SIG)
-    vals = torch.empty((B, k), dtype=torch.float32, device=Vt.device)
-    locs = torch.empty((B, k), dtype=torch.float32, device=Vt.device)
     dx = (x_max - x_min) / (G - 1)
-    err = lib.doa_music_scan_peaks(
-        Vt.data_ptr(), At_T.data_ptr(), nrm.data_ptr(), vals.data_ptr(),
-        locs.data_ptr(), B, K2, n2, G, k, x_min, dx, int(refine),
-        torch.cuda.current_stream(Vt.device).cuda_stream)
-    _build.check(err, "doa_music_scan_peaks")
+    if peaks_tc_takes(K2, n2, G):
+        out = _peaks_tc(Vt, tiles, nrm, k, x_min, dx, refine)
+        music_scan_peaks.tc_launches += 1
+    else:
+        out = _peaks_fma(Vt, tiles, nrm, k, x_min, dx, refine)
     music_scan_peaks.launches += 1
-    return vals, locs
+    return out
 
 
+# launches in all, and of the tensor-core form
 music_scan_peaks.launches = 0
+music_scan_peaks.tc_launches = 0

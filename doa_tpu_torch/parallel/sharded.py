@@ -51,7 +51,7 @@ from doa_tpu_torch.cpx import fp32_matmuls, unembed_planes
 from doa_tpu_torch.ops import cpx_ops
 from doa_tpu_torch.ops.cpx_ops import signal_subspace_from_E_T
 from doa_tpu_torch.ops.cuda.cov_embedded import cov_embedded
-from doa_tpu_torch.ops.cuda.music_scan import scan_tiles
+from doa_tpu_torch.ops.cuda.music_scan import peaks_tiles, scan_tiles
 from doa_tpu_torch.ops.cuda import ring
 from doa_tpu_torch.ops.peaks import (_refine_frac, _topk_lastaxis,
                                      find_local_max_2d)
@@ -348,6 +348,9 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
     if plan.get("scan") == "music_scan":
         # K3's A' of the rank's grid block, made once
         scan = functools.partial(scan, tiles=scan_tiles(At_emb, 2 * K))
+    elif plan.get("scan") == "music_scan_peaks":
+        # K2's grid operand (A', or Aᵀ for its CUDA-core form), made once
+        scan = functools.partial(scan, tiles=peaks_tiles(At_emb, 2 * K))
     need_R = (Estimator.CAPON in cfg.estimators
               or Estimator.BARTLETT in cfg.estimators)
 

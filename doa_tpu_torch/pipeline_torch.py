@@ -67,7 +67,7 @@ from doa_tpu_torch.io.native import quantize_interleaved_int8
 from doa_tpu_torch.ops import cpx_ops
 from doa_tpu_torch.ops.cpx_ops import signal_subspace_from_E_T
 from doa_tpu_torch.ops.cuda.cov_embedded import cov_embedded
-from doa_tpu_torch.ops.cuda.music_scan import scan_tiles
+from doa_tpu_torch.ops.cuda.music_scan import peaks_tiles, scan_tiles
 from doa_tpu_torch.ops.cuda.wideband_cov import (channelizer_matrix,
                                                  wideband_cov_embedded)
 from doa_tpu_torch.ops.peaks import find_local_max
@@ -324,6 +324,9 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
     if plan.get("scan") == "music_scan":
         # K3's A' of the grid, made once (scan_tc's layout)
         scan = functools.partial(scan, tiles=scan_tiles(At_emb, 2 * K))
+    elif plan.get("scan") == "music_scan_peaks":
+        # K2's grid operand (A', or Aᵀ for its CUDA-core form), made once
+        scan = functools.partial(scan, tiles=peaks_tiles(At_emb, 2 * K))
     need_R = (Estimator.CAPON in cfg.estimators
               or Estimator.BARTLETT in cfg.estimators or return_covariance)
     fb = cfg.avg_method == AvgMethod.FORWARD_BACKWARD

@@ -3,13 +3,14 @@ pipeline launches on the card.
 
 A kernel is built for some shapes only, and its wrapper's predicate
 (`gram_takes`, `planes_takes`, `mgs_takes`, `kernel_takes`,
-`fusion_takes`, `ns_takes`, `scan_takes`) states which; given a CUDA tensor
-of another shape the wrapper raises. The plan is worked out once, from
-the config alone (no card needed), when a pipeline is built: {stage: the
-kernel's name}, or "plain" where the predicate says no, and there the
-stage runs the kernel's plain torch version on the card. The pipelines
-take each stage's route (`Plan.kernels`) and callable (`Plan.op`) from
-it, so the plan they expose as ``call.plan`` is what they run.
+`fusion_takes`, `ns_takes`, `scan_takes`, `peaks_takes`) states which;
+given a CUDA tensor of another shape the wrapper raises. The plan is
+worked out once, from the config alone (no card needed), when a pipeline
+is built: {stage: the kernel's name}, or "plain" where the predicate says
+no, and there the stage runs the kernel's plain torch version on the
+card. The pipelines take each stage's route (`Plan.kernels`) and callable
+(`Plan.op`) from it, so the plan they expose as ``call.plan`` is what
+they run.
 
 The route rules the plan reads are stated here once: the fused-path rule
 (`fused_route`), the fused-peaks rule (`fuses_peaks`) and the scan rule
@@ -33,7 +34,8 @@ from doa_tpu_torch.ops.cuda.covariance import (chunk_grams,
 from doa_tpu_torch.ops.cuda.music_scan import (MAX_FUSED_G, MAX_FUSED_K,
                                                music_scan, music_scan_peaks,
                                                music_scan_peaks_plain,
-                                               music_scan_plain, scan_takes)
+                                               music_scan_plain, peaks_takes,
+                                               scan_takes)
 from doa_tpu_torch.ops.cuda.peaks2d import MAX_PEAKS2D_K, peaks2d
 from doa_tpu_torch.ops.cuda.subspace_ns import (ns_takes, subspace_ns,
                                                 subspace_ns_plain)
@@ -168,9 +170,10 @@ def kernel_routes(cfg, *, return_spectra: bool = True) -> dict:
         else:
             routes["subspace"] = ("mgs_iterate", mgs_takes(n2, k2))
         if scans_music_kernel(cfg):
-            routes["scan"] = (("music_scan_peaks", True)
-                              if fuses_peaks(cfg, return_spectra)
-                              else ("music_scan", scan_takes(k2, n2)))
+            routes["scan"] = (
+                ("music_scan_peaks", peaks_takes(k2, n2, _grid_size(cfg)))
+                if fuses_peaks(cfg, return_spectra)
+                else ("music_scan", scan_takes(k2, n2)))
     if cfg.geometry.kind == "ura":
         routes["peaks"] = ("peaks2d", cfg.num_max_vals <= MAX_PEAKS2D_K)
     return routes
@@ -197,9 +200,10 @@ def sharded_kernel_routes(cfg, n_snap: int, n_grid: int,
         # the fused route runs its subspace (and escalation counts) always
         routes["subspace"] = ("mgs_iterate", mgs_takes(n2, k2))
     if music and fast:
-        routes["scan"] = (("music_scan_peaks", True)
-                          if n_grid == 1 and fuses_peaks(cfg, return_spectra)
-                          else ("music_scan", scan_takes(k2, n2)))
+        routes["scan"] = (
+            ("music_scan_peaks", peaks_takes(k2, n2, _grid_size(cfg)))
+            if n_grid == 1 and fuses_peaks(cfg, return_spectra)
+            else ("music_scan", scan_takes(k2, n2)))
     return routes
 
 

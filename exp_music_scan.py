@@ -56,7 +56,9 @@ def build(tmp, path):
         sys.exit(f"{path}: nvcc failed\n{proc.stdout}{proc.stderr}")
     old = "SCAN_GT" in src
     lib = ctypes.CDLL(so)
-    for fn, argtypes in (OLD_SIG if old else ms._SIG).items():
+    # K3's entry only: another source need not have the package's others
+    sig = OLD_SIG if old else {"doa_music_scan": ms._SIG["doa_music_scan"]}
+    for fn, argtypes in sig.items():
         getattr(lib, fn).argtypes = argtypes
     return lib, old, ptxas_lines(proc.stdout + proc.stderr)
 

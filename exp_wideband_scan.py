@@ -212,8 +212,7 @@ def main():
     src = _build.expanded_source(os.path.join(_build.CSRC, "wideband_scan.cu"))
     srcs = {n: (patch(src), whole) for n, (patch, whole) in VARIANTS.items()}
     for path in args.against:
-        with open(path) as f:
-            srcs[f"against {path}"] = (f.read(), True)
+        srcs[f"against {path}"] = (_build.expanded_source(path), True)
 
     cfg = PRESETS["c5_ura64_wideband"]
     pipe = build_pipeline_torch(cfg, device=dev)

@@ -236,3 +236,282 @@ def test_k3_model_within_tolerance_of_float64_on_c5_scene():
     err = float((den.double() - den64.clamp_min(0)).abs().max())
     assert err <= 1e-5 * float(nrm.max()), err
     assert float(den64.min()) < 1e-3           # the scene reaches its nulls
+
+
+# K2's tensor-core form on the CPU: a model of its walk, den tile, dmin
+# merge and warp peak rule, bit-equal to the plain version on exact inputs
+
+_NEG = -1e30
+_IMAX = 0x7FFFFFFF
+
+
+def _better(v, i, bv, bi):
+    return v > bv or (v == bv and i < bi)
+
+
+def _warp_peaks(row, G, dmin, gfirst, k, x_min, dx, refine):
+    """csrc's warp_peaks on one den row f32[Gp]: lane l takes bins
+    4(l + 32m) to 4(l + 32m) + 3 in order (the kernel marks them in a
+    first pass and tests the marked ones in a second, in the same order);
+    a bin with den[g] >= den[g-1], or with den[g] >
+    den[g+1]·(1 + 2^-20) while den[g] <= dmin·2^100, is ruled out without
+    dividing; the others take Pn = dmin / den of the bin and its two
+    neighbours in FP32 (IEEE division, as torch's) and the exact test;
+    each lane keeps its 4 best interior peaks by (value, index); a round
+    is the xor butterfly of the lanes' heads, whose lane moves its list
+    up."""
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+    dnormal = dmin * f32(2.0 ** 100)
+    lists = []
+    for lane in range(32):
+        lst = [(_NEG, _IMAX)] * 4
+        for g in (g0 + e for g0 in range(4 * lane, G, 128)
+                  for e in range(4)):
+            if not 1 <= g <= G - 2:
+                continue
+            d, dl, dr = row[g], row[g - 1], row[g + 1]
+            if not d < dl or (d > dr * f32(1.0 + 2.0 ** -20)
+                              and d <= dnormal):
+                continue
+            pc = dmin / d
+            if not (pc > dmin / dl and pc >= dmin / dr):
+                continue
+            c = (float(pc), g)
+            for s in range(4):
+                if _better(*c, *lst[s]):
+                    lst[s], c = c, lst[s]
+        lists.append(lst)
+    pv, pi = [], []
+    for _ in range(k):
+        heads = [lst[0] for lst in lists]
+        for off in (16, 8, 4, 2, 1):
+            heads = [h if not _better(*heads[l ^ off], *h) else
+                     heads[l ^ off] for l, h in enumerate(heads)]
+        v, i = heads[0]
+        assert all(h == (v, i) for h in heads)
+        for lst in lists:
+            if lst[0][1] == i:
+                lst[:] = lst[1:] + [(_NEG, _IMAX)]
+        pv.append(v)
+        pi.append(i)
+    have_any = pv[0] > 0.5 * _NEG
+    best = (pv[0], pi[0]) if have_any else (1.0, gfirst)
+    vals, locs = [], []
+    for v, i in zip(pv, pi):
+        v, i = (v, i) if v > 0.5 * _NEG else best
+        delta = f32(0.0)
+        if refine and 0 < i < G - 1:
+            q0, qm, qp = row[i], row[i - 1], row[i + 1]
+            dd = (qm - f32(2.0) * q0) + qp
+            d = (f32(0.5) * (qm - qp)) / dd if dd.abs() > 0 else f32(0.0)
+            delta = d.clamp(-0.5, 0.5)
+        frac = f32(float(i)) + delta
+        vals.append(f32(v))
+        locs.append(f32(x_min) + frac * f32(dx))
+    return torch.stack(vals), torch.stack(locs)
+
+
+def _thread_dmin(den_tile, G, NT, nJ):
+    """(dmin, first bin of it) of each of the tile's 32 windows as the
+    kernel forms it: each thread (warpgroup wg, lane quad tq) scans its
+    bins j·GB + wg·NT + 8jj + 2tq + c in order keeping the first least
+    den; the 4 lanes of a window merge by xor shuffles, then the two
+    warpgroups through shared memory."""
+    out = []
+    for r in range(32):
+        best = {}
+        for wg in range(2):
+            for tq in range(4):
+                v, i = float("inf"), _IMAX
+                for j in range(nJ):
+                    for jj in range(NT // 8):
+                        for c in range(2):
+                            g = j * 2 * NT + wg * NT + 8 * jj + 2 * tq + c
+                            if g < G and float(den_tile[r, g]) < v:
+                                v, i = float(den_tile[r, g]), g
+                best[wg, tq] = (v, i)
+        lt = lambda a, b: a[0] < b[0] or (a[0] == b[0] and a[1] < b[1])  # noqa
+        for wg in range(2):
+            for off in (1, 2):
+                for tq in range(4):
+                    o = best[wg, tq ^ off]
+                    if tq < tq ^ off:
+                        a = best[wg, tq]
+                        m = o if lt(o, a) else a
+                        best[wg, tq] = best[wg, tq ^ off] = m
+        a, b = best[0, 0], best[1, 0]
+        out.append(b if lt(b, a) else a)
+    return out
+
+
+def _stage_tile(Vt, T, KP):
+    """The tile's V' as K2's kernel stages it in shared memory from Vt read
+    in place: element (window wl, k, n) of the tile at float
+    ((n/8·MT + k/2)·128 + 32·(wl/8) + 4·(wl%8) + n%4)·4 + k%2 + 2·(n/4%2),
+    zero past B and 2N → f32[KP/8, 2K/2, 4, 32, 4]."""
+    B, k2, n2 = Vt.shape
+    MT = k2 // 2
+    wl, kk, n = np.meshgrid(np.arange(32), np.arange(k2), np.arange(KP),
+                            indexing="ij")
+    b = 32 * T + wl
+    off = ((((n >> 3) * MT + (kk >> 1)) * 128 + 32 * (wl >> 3)
+            + 4 * (wl & 7) + (n & 3)) * 4 + (kk & 1) + 2 * ((n >> 2) & 1))
+    ok = (b < B) & (n < n2)
+    vs = torch.full((32 * k2 * KP,), float("nan"))
+    vs[torch.from_numpy(off.ravel())] = 0.0
+    vs[torch.from_numpy(off[ok])] = Vt[b[ok], kk[ok], n[ok]]
+    assert not bool(vs.isnan().any())
+    return vs.view(KP // 8, MT, 4, 32, 4)
+
+
+def _k2_model(Vt, At, nrm, k, x_min, x_max, refine, sms=132):
+    """(vals, locs) as K2's tensor-core form forms them: a persistent grid
+    of min(tiles, sms) blocks, block x walking tiles x, x + grid, … and for
+    each every stretch j in order (each (tile, stretch) reached once), the
+    tile's V' staged from Vt (_stage_tile, which must equal the wrapper
+    layout subspace_fragments), the stretch's den by the shared mainloop's
+    model (_kernel_den) from it and the wrapper's A' written into the
+    tile's den rows of
+    nJ·GB + DEN_PAD floats, then after the last stretch the dmin merge and
+    the warp peak rule on each window's row."""
+    B, k2, n2 = Vt.shape
+    G = At.shape[0]
+    assert ms.peaks_tc_takes(k2, n2, G)
+    tiles = ms.peaks_tiles(At, k2)
+    Vf = subspace_fragments(Vt[None])
+    NT = fusion_bins(k2)
+    GB, nT, nJ = 2 * NT, Vf.shape[1], tiles.shape[0]
+    nrm_p = torch.zeros(nJ * GB)
+    nrm_p[:G] = nrm
+    dx = (x_max - x_min) / (G - 1)
+    grid = min(nT, sms)
+    vals = torch.full((B, k), float("nan"))
+    locs = torch.full((B, k), float("nan"))
+    seen = []
+    for x in range(grid):
+        units = (-(-(nT - x) // grid)) * nJ
+        for u in range(units):
+            T, j = x + (u // nJ) * grid, u % nJ
+            seen.append((T, j))
+            if j == 0:
+                den_tile = torch.full((32, nJ * GB + ms.DEN_PAD),
+                                      float("nan"))
+                vs = _stage_tile(Vt, T, fusion_kp(n2))
+                assert torch.equal(vs, Vf[0, T])
+            den_tile[:, j * GB:(j + 1) * GB] = _kernel_den(
+                vs[None, None], tiles[None, j:j + 1],
+                nrm_p[None, j * GB:(j + 1) * GB], k2, n2)[0]
+            if j < nJ - 1:
+                continue
+            assert not bool(den_tile[:, :nJ * GB].isnan().any())
+            mins = _thread_dmin(den_tile, G, NT, nJ)
+            for r in range(32):
+                b = 32 * T + r
+                if b < B:
+                    vals[b], locs[b] = _warp_peaks(
+                        den_tile[r], G, torch.tensor(mins[r][0]),
+                        mins[r][1], k, x_min, dx, refine)
+    assert sorted(seen) == [(T, j) for T in range(nT) for j in range(nJ)]
+    return vals, locs
+
+
+def _exact_k2_inputs(k2, n2, G, B, seed):
+    """Quarter-step V, integer A, a constant nrm above every Σy²: every sum
+    exact (den a multiple of 1/16 below 2^24), many equal den values
+    (plateaus, equal peaks); window 0 is zero, so its den is flat (no peak:
+    the fallback, value 1 at bin 0)."""
+    rng = np.random.default_rng(seed)
+    Vt = torch.from_numpy(rng.integers(-2, 3, (B, k2, n2))
+                          .astype(np.float32) / 4)
+    Vt[0] = 0.0
+    At = torch.from_numpy(rng.integers(-3, 4, (G, n2)).astype(np.float32))
+    return Vt, At, torch.full((G,), 300000.0)
+
+
+# (2K, 2N, G, k): the headline's, c3's, c2's and a ULA-4 at K = 1
+K2_TC_SHAPES = [(4, 32, 1024, 2), (6, 24, 1024, 3), (4, 16, 181, 2),
+                (2, 8, 250, 1)]
+
+
+@pytest.mark.parametrize("refine", [False, True])
+@pytest.mark.parametrize("k2,n2,G,k", K2_TC_SHAPES)
+def test_k2_model_exact_inputs_equal_plain(k2, n2, G, k, refine):
+    """K2's tensor-core form, modelled (walk, den tile, dmin merge, warp
+    peak rule), gives music_scan_peaks_plain bit for bit on exact inputs
+    (chip_smoke's exact-input case): a ragged B over several tiles a
+    block, the flat window's fallback."""
+    B = 70
+    Vt, At, nrm = _exact_k2_inputs(k2, n2, G, B, k2 * n2 + G)
+    v, l = _k2_model(Vt, At, nrm, k, 0.0, 180.0, refine, sms=2)
+    vp, lp = ms.music_scan_peaks_plain(Vt, At, k, 0.0, 180.0, refine, nrm)
+    assert torch.equal(v, vp) and torch.equal(l, lp)
+    assert float(v[0, 0]) == 1.0 and float(l[0, 0]) == 0.0
+    # the data has ties: some window's best two peaks are equal
+    if k > 1:
+        assert bool((vp[:, 0] == vp[:, 1]).any())
+
+
+def _tie_rows(G=181, seed=11):
+    """Integer den rows: plateaus at the minimum, equal isolated minima,
+    a monotone row (no interior peak), a flat row, a row whose every
+    second bin is a peak and ragged rows; then rows whose den differ from
+    their neighbours' by 1 to 3 units in the last place or by 1e-5 of
+    themselves, once at a normal dmin and once at FLT_MIN (an exact null,
+    clamped), where the quotients are subnormal and 1e-5 apart round
+    equal, so a bin above its right neighbour in den is still a peak."""
+    rng = np.random.default_rng(seed)
+    den = rng.integers(2, 7, size=(14, G)).astype(np.float32)
+    den[1, 40:44] = 1.0                       # a plateau at the minimum
+    den[2, [5, 60, 120, 170]] = 1.0           # four equal peaks
+    den[3] = np.arange(G, 0, -1)              # monotone: fallback
+    den[4] = 3.0                              # flat: fallback, value 1
+    den[5, ::2] = 1.0                         # a peak every other bin
+    den[6, [0, G - 1]] = 0.5                  # the minimum at both edges
+    ulps = rng.integers(0, 4, size=(2, G)).astype(np.int32)
+    den[12:] = (np.float32(1000.0).view(np.int32) + ulps).view(np.float32)
+    den[12:, 1::3] = 1000.01                  # ≥ 2^-20 above the right
+    den[12:, 0::3] = 1001.0                   # neighbour, 1e-5 relative
+    den[12, 90] = 1.0
+    den[13, 90] = np.finfo(np.float32).tiny
+    return torch.from_numpy(den)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("refine", [False, True])
+def test_k2_warp_peak_rule_equals_plain_on_ties(k, refine):
+    """The warp peak rule (lane-strided bins, shuffled neighbours, the
+    lanes' top-4 lists and their (value, index) merge) against the plain
+    rule on den rows full of ties."""
+    den = _tie_rows()
+    G = den.shape[1]
+    vp, lp = ms.peaks_from_den_plain(den, k, -90.0, 90.0, refine)
+    for r in range(den.shape[0]):
+        row = den[r]
+        dmin = row.min()
+        gfirst = int((row == dmin).nonzero()[0])
+        v, l = _warp_peaks(row, G, dmin, gfirst, k, -90.0, 180.0 / (G - 1),
+                           refine)
+        assert torch.equal(v, vp[r]) and torch.equal(l, lp[r]), r
+
+
+@pytest.mark.parametrize("k2,n2,G,k", [(6, 24, 1024, 3), (4, 16, 181, 2)])
+def test_k2_at_c3_c2_shapes_matches_pallas(k2, n2, G, k):
+    """At c3's and c2's (2K, 2N, G, k): the port's K2 (its plain version
+    here) and the model of its tensor-core form against doa_tpu's
+    _scan_peaks_kernel in interpret mode: the same bins with refine off,
+    locs within 1e-4° with refine on."""
+    V, At = _setup(B=40, N=n2 // 2, G=G, K=k2 // 2)
+    Vj, Aj = jnp.asarray(V), jnp.asarray(At)
+    Vt, At_t = _vt(V), torch.from_numpy(At)
+    nrm = (At_t * At_t).sum(-1)
+    for refine in (False, True):
+        _, l_ref = music_scan_peaks_pallas(Vj, Aj, k, 0.0, 180.0,
+                                           refine=refine, interpret=True)
+        l_ref = np.asarray(l_ref)
+        _, l = ms.music_scan_peaks(Vt, At_t, k, 0.0, 180.0, refine=refine)
+        _, lm = _k2_model(Vt, At_t, nrm, k, 0.0, 180.0, refine)
+        for got in (l, lm):
+            if refine:
+                np.testing.assert_allclose(got.numpy(), l_ref, atol=1e-4)
+            else:
+                np.testing.assert_array_equal(got.numpy(), l_ref)

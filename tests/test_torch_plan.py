@@ -20,7 +20,9 @@ from doa_tpu.pipeline_tpu import build_pipeline_tpu
 from doa_tpu_torch.ops.cpx_ops import mgs_takes
 from doa_tpu_torch.ops.cuda.cov_embedded import gram_takes
 from doa_tpu_torch.ops.cuda.covariance import planes_takes
-from doa_tpu_torch.ops.cuda.music_scan import fma_takes, scan_takes
+from doa_tpu_torch.ops.cuda.music_scan import (fma_takes, peaks_fma_takes,
+                                               peaks_takes, peaks_tc_takes,
+                                               scan_takes)
 from doa_tpu_torch.ops.cuda.subspace_ns import ns_takes
 from doa_tpu_torch.ops.cuda.wideband_cov import kernel_takes
 from doa_tpu_torch.ops.cuda.wideband_scan import fusion_takes
@@ -124,6 +126,61 @@ def test_plan_is_plain_exactly_where_a_predicate_says_no(name):
 ])
 def test_predicates_at_their_edges(pred, args, takes):
     assert pred(*args) is takes
+
+
+@pytest.mark.parametrize("pred,args,takes", [
+    (peaks_tc_takes, (4, 32, 1024), True),
+    (peaks_tc_takes, (4, 32, 1025), False),
+    (peaks_tc_takes, (6, 24, 1280), True),
+    (peaks_tc_takes, (6, 24, 1281), False),
+    (peaks_tc_takes, (4, 16, 181), True), (peaks_tc_takes, (2, 8, 3), True),
+    (peaks_tc_takes, (2, 8, 2), False), (peaks_tc_takes, (10, 32, 64), False),
+    (peaks_tc_takes, (4, 240, 64), False),
+    (peaks_fma_takes, (10, 32, 1024), True),
+    (peaks_fma_takes, (4, 32, 8192), True),
+    (peaks_fma_takes, (4, 32, 8193), False),
+    (peaks_fma_takes, (16, 3504, 1024), True),
+    (peaks_fma_takes, (16, 3505, 1024), False),
+    (peaks_fma_takes, (4, 32, 2), False),
+    (peaks_takes, (4, 32, 1025), True), (peaks_takes, (10, 32, 8192), True),
+    (peaks_takes, (16, 3505, 1024), False),
+    (peaks_takes, (4, 32, 8193), False),
+])
+def test_peaks_predicates_at_their_edges(pred, args, takes):
+    """K2's two forms: the tensor-core form where the mainloop takes
+    (2K, 2N) and the den tile of 32 × G bins, the ring, V' and nrm fit a
+    block's shared memory; the CUDA-core form for 2K of 10 to 16 and G up
+    to MAX_FUSED_G; peaks_takes their union."""
+    assert pred(*args) is takes
+
+
+def _k2_shape(cfg):
+    return (2 * cfg.num_sources, 2 * cfg.effective_num_elements,
+            cfg.grid.num_points)
+
+
+def test_every_preset_k2_stage_takes_the_tensor_core_form():
+    """Every preset whose plan runs K2 (return_spectra=False, 1-D grid)
+    takes K2's tensor-core form, on one card and sharded; the shapes no
+    preset has take its CUDA-core form: ULA-16 at K = 5 (2K = 10) and a
+    grid past the den tile (G = 2048 at the headline's widths)."""
+    fused = []
+    for name, cfg in sorted(PRESETS.items()):
+        if kernel_plan(cfg, return_spectra=False).get("scan") != (
+                "music_scan_peaks"):
+            continue
+        fused.append(name)
+        assert peaks_tc_takes(*_k2_shape(cfg)), name
+    assert {"c1_ula4_tone", "c2_ula8_2src", "c3_ula16_calib_smooth",
+            "c4_ula16_streaming", "fast_bf16", "fast_int8"} <= set(fused)
+    for cfg in (_ula(16, K=5), dataclasses.replace(
+            _ula(16), grid=GridSpec1D(num_points=2048))):
+        shape = _k2_shape(cfg)
+        assert not peaks_tc_takes(*shape) and peaks_fma_takes(*shape)
+        assert kernel_plan(cfg, return_spectra=False)["scan"] == (
+            "music_scan_peaks")
+        assert sharded_kernel_plan(cfg, 2, 1, False)["scan"] == (
+            "music_scan_peaks")
 
 
 _CSSM_PATHS = {"c5_f12": lambda: _c5(num_subbands=12, snapshot_size=768),
