@@ -88,20 +88,29 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    60/110 (K2 in its tensor-core form; `scan_parity` on c2's subspaces),
    the card against the CPU on 64 windows; the cov_windows entry
    driven at gcd 8 (kernel 12).
-10. the wideband front end at any F: kernel 7 (embedded subband Grams of
-   the channelized stream) and kernel 10 (interleaved subband Grams)
-   exact on integer-valued streams at every tile form; kernel 7 at
-   c5_f12's full shape (12 subbands, 2048 chunks of 64) and at N=16,
+10. the wideband front end at any F: kernel 7 (the ring kernel of
+   csrc/wideband_cov.cu on the channelized stream) and kernel 10
+   (interleaved subband Grams) exact on integer-valued streams at every
+   tile form (kernel 7 also on views one complex element in); kernel 7
+   at c5_f12's full shape (12 subbands, 2048 chunks of 64) and at N=16,
    F=10, 13 chunks, kernel 10 at c5's (F=16; sb_group 2 equal to 1),
-   each within 1e-5 of max|E| of its plain version; the three
+   each within 1e-5 of max|E| of its plain version; the "embedded"
+   variant's stage on the card (the ring kernel on the frames, its split
+   DFT at F = 12 = 4 x 3) within 1e-5 of max|E| of the reference
+   composition (channelizer + kernel 7's plain version) at c5_f12, and
+   the card's "embedded" route at F = 12, 10, 6 within 2e-5; the three
    front-end routes (fft, embedded, uhat) on one c5 capture within 2e-5
-   of max|E|; each kernel's time beside its plain version's, the library
-   call's (one batched torch.matmul of the subband Grams, both kernels)
-   and the channelizer matmul's.
+   of max|E|; times in turns: kernel 7 beside its plain version and the
+   library call (one batched torch.matmul of the subband Grams; kernel 10
+   likewise), the frames launch beside the composition, its plain version
+   and the channelizer matmul alone.
 11. the paths at full width, each driven once with counts from zero, then
    20 timed calls and a profile window: c5_f12 (c5 at S=768, 12 subbands:
-   the channelizer and kernel 7, incoherent fusion; 2048 windows, median
-   within 0.5 deg), its planes input (equal angles); c5 with
+   the ring kernel once on the frames, no channelizer call, kernel 7's
+   stream entry not launched; incoherent fusion; 2048 windows, median
+   within 0.5 deg; its peak memory and layers, the reference
+   composition's front end beside the card's), its planes input (equal
+   angles); the kernel 7 entry on a channelized stream; c5 with
    fusion="cssm" and "cssm_auto" (kernel 4, R_coh, cold K4, K3, 2-D
    peaks; 2048 windows, medians within 2.0 deg) and the cssm layer times,
    K3 on c5 cssm's own subspaces (den within 1e-5·max‖a‖², its time
@@ -151,7 +160,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    the planned ones launch (K3 wherever spectra are returned; K2 in its
    CUDA-core form, never its tensor-core form); the angles equal the CPU
    pipeline's within 1e-3 deg; and each kernel wrapper (K1, 8, K4, K3, K2,
-   5, 4) still raises on a CUDA tensor of a shape it does not take.
+   5, 4, 7 and the frames launch) still raises on a CUDA tensor of a
+   shape it does not take.
 
 Each kernel record gives its bound (the larger of its bytes over
 3.35 TB/s and the FP32 operations the function needs over 67 TFLOP/s,
@@ -1961,9 +1971,22 @@ def make_wideband_ula_capture(torch, T, N, thetas, bw, fbw, snr_db, device,
     return x.reshape(T, 2 * N)
 
 
+# kernel 7 exact: (F, N, g, chunks, offset in floats of the view into its
+# buffer): every tile form of the ring kernel (N = 64, 36, 16 at RT = 4;
+# 6, 32 at 2; 5, 1 at 1), several stages a chunk (g = 300), and views one
+# complex element in, which break a bulk copy's 16 bytes; kernel 10 takes
+# the same streams at offset 0
+SUBBAND_EXACT = ((12, 64, 64, 7, 0), (16, 64, 64, 3, 0), (10, 16, 24, 13, 0),
+                 (4, 36, 16, 5, 0), (4, 6, 100, 5, 0), (2, 32, 300, 3, 0),
+                 (3, 5, 40, 9, 0), (6, 1, 8, 3, 0), (12, 64, 64, 7, 2),
+                 (5, 6, 7, 60, 2), (10, 16, 3, 40, 2), (3, 5, 40, 9, 2))
+
+
 def subband_parity(torch, dev, x12, x16, card):
-    """Phase 10 → the records of kernels 7 and 10 (launches filled in
-    later). x12, x16: the c5 scene at T_F12 and T_C5 samples."""
+    """Phase 10 → the records of kernel 7 (the ring kernel's stream
+    source), the "embedded" variant's frames launch and kernel 10
+    (launches filled in later). x12, x16: the c5 scene at T_F12 and T_C5
+    samples."""
     from doa_tpu_torch.cpx import fp32_matmuls
     from doa_tpu_torch.ops.cuda import wideband_cov as wc
 
@@ -1974,29 +1997,29 @@ def subband_parity(torch, dev, x12, x16, card):
         return torch.randint(lo, hi, shape, generator=gen, device=dev).float()
 
     # exact: integer stream and correction, scale 1/16, every sum an
-    # integer below 2^24; the plain versions in float64, rounded once.
-    # Every tile form of both kernels (N = 64, 36, 16, 6, 5, 1), 16-byte
-    # and 8-byte staging (odd N), several stages (g = 300)
-    for F, N, g, n in ((12, 64, 64, 7), (16, 64, 64, 3), (10, 16, 24, 13),
-                       (4, 36, 16, 5), (4, 6, 100, 5), (2, 32, 300, 3),
-                       (3, 5, 40, 9), (6, 1, 8, 3)):
-        y = ri(-4, 5, (n * g, F * 2 * N))
+    # integer below 2^24; the plain versions in float64, rounded once
+    for F, N, g, n, off in SUBBAND_EXACT:
+        buf = ri(-4, 5, (n * g * F * 2 * N + 2,))
+        y = buf[off:off + n * g * F * 2 * N].view(n * g, F * 2 * N)
         cr, ci = ri(-1, 3, (N,)), ri(-1, 2, (N,))
         d7 = (wc.subband_embedded(y, cr, ci, F=F, N=N, g=g, scale=1.0 / 16)
               - wc.subband_embedded_plain(y.double(), cr, ci, F=F, N=N, g=g,
                                           scale=1.0 / 16)).abs().max().item()
-        d10 = (wc.subband_grams(y, F=F, N=N, g=g)
-               - wc.subband_grams_plain(y.double(), F=F, N=N, g=g)
-               ).abs().max().item()
-        log(f"kernels 7/10 exact-input F={F} N={N} g={g} n={n}: "
+        d10 = 0.0
+        if off == 0:
+            d10 = (wc.subband_grams(y, F=F, N=N, g=g)
+                   - wc.subband_grams_plain(y.double(), F=F, N=N, g=g)
+                   ).abs().max().item()
+        log(f"kernels 7/10 exact-input F={F} N={N} g={g} n={n} offset {off}: "
             f"max|kernel-plain| = {d7!r} / {d10!r} (must be 0)")
         check(d7 == 0.0 and d10 == 0.0,
-              f"kernel 7 or 10 differs on exact inputs at F={F} N={N}")
+              f"kernel 7 or 10 differs on exact inputs at F={F} N={N} "
+              f"offset {off}")
 
     # kernel 7 at c5_f12's full shape, on the c5 scene channelized
     cr1, ci0 = torch.ones(64, device=dev), torch.zeros(64, device=dev)
     S_sub, _, g = wc.subband_framing(12, 768, 0)
-    K12 = torch.from_numpy(wc.channelizer_matrix(12, 64)).to(dev)
+    K12 = wc.channelizer_on(12, 64, dev)
     xf12 = x12.reshape(-1, 12 * 128)
     Y12 = wc.channelize_frames(xf12, K12)
     kw7 = dict(F=12, N=64, g=g, scale=1.0 / S_sub)
@@ -2018,37 +2041,81 @@ def subband_parity(torch, dev, x12, x16, card):
     log(f"kernel 7 N=16 F=10 13 chunks: max|kernel-plain| = {eo!r}, max|E| "
         f"= {Eop.abs().max().item()!r}, tol 1e-5*max|E|")
     check(eo <= 1e-5 * Eop.abs().max().item(), "kernel 7 odd shape")
-    k7_ms, p7_ms = pair_ms(torch, lambda: wc.subband_embedded(Y12, cr1, ci0,
-                                                              **kw7),
-                           lambda: wc.subband_embedded_plain(Y12, cr1, ci0,
-                                                             **kw7))
-    ch12_ms = time_ms(torch, lambda: wc.channelize_frames(xf12, K12))
-    # the library: one batched torch.matmul of the 12 subbands' chunk
-    # Grams (interleaved basis; kernel 7 adds the planar fold, correction
-    # and scale in its epilogue), as kernel 10's below
+    # kernel 7, its plain version and the library in turns
     yv12 = Y12.view(-1, g, 12, 128).permute(2, 0, 1, 3)
-    with fp32_matmuls():
-        lib7_ms = time_ms(torch, lambda: torch.matmul(
-            yv12.transpose(-1, -2), yv12))
+
+    def lib7():
+        # one batched torch.matmul of the 12 subbands' chunk Grams
+        # (interleaved basis; kernel 7 adds the planar fold, correction and
+        # scale in its epilogue), as kernel 10's below
+        with fp32_matmuls():
+            return torch.matmul(yv12.transpose(-1, -2), yv12)
+    p7_ms, k7_ms, lib7_ms = turns_ms(
+        torch, lambda: wc.subband_embedded_plain(Y12, cr1, ci0, **kw7),
+        lambda: wc.subband_embedded(Y12, cr1, ci0, **kw7), lib7)
+    # the "embedded" variant's stage on the card: the ring kernel on the
+    # frames, against the reference's composition (the channelizer matmul,
+    # then kernel 7 on Y) and the composition's plain version, in turns
+    Ef = wc.subband_embedded_frames(xf12, cr1, ci0, **kw7)
+    Efp = wc.subband_embedded_frames_plain(xf12, cr1, ci0, **kw7)
+    ef = (Ef - Efp).abs().max().item()
+    sf = Efp.abs().max().item()
+    del Efp
+    log(f"the ring kernel on the c5_f12 frames (F = 12: four subbands a "
+        f"group, G = 3, the split DFT): max|kernel - (channelizer + kernel "
+        f"7's plain version)| = {ef!r}, max|E| = {sf!r}, tol 1e-5*max|E|")
+    check(ef <= 1e-5 * sf, "the frames launch disagrees with the "
+          "reference composition at c5_f12")
+    ch12_ms, fr_ms, comp_ms, frp_ms = turns_ms(
+        torch, lambda: wc.channelize_frames(xf12, K12),
+        lambda: wc.subband_embedded_frames(xf12, cr1, ci0, **kw7),
+        lambda: wc.subband_embedded(wc.channelize_frames(xf12, K12), cr1,
+                                    ci0, **kw7),
+        lambda: wc.subband_embedded_frames_plain(xf12, cr1, ci0, **kw7))
     log(f"kernel 7 time (c5_f12: [{Y12.shape[0]}, {Y12.shape[1]}], g={g}): "
         f"kernel {k7_ms:.4f} ms, plain {p7_ms:.4f} ms, library (one batched "
-        f"torch.matmul) {lib7_ms:.4f} ms; the channelizer matmul "
-        f"[{xf12.shape[0]}, 1536] x [1536, 1536] {ch12_ms:.4f} ms  [{card}]")
+        f"torch.matmul) {lib7_ms:.4f} ms  [{card}]")
+    log(f"c5_f12 front-end stage: the ring kernel on the frames {fr_ms:.4f} "
+        f"ms; the composition (the channelizer matmul [{xf12.shape[0]}, "
+        f"1536] x [1536, 1536] {ch12_ms:.4f} ms, then kernel 7) "
+        f"{comp_ms:.4f} ms; its plain version {frp_ms:.4f} ms  [{card}]")
     n7 = E7.shape[1]
     recs["subband_embedded"] = dict(
         name="subband_embedded", route="cuda",
-        source="doa_tpu_torch/csrc/subband_gram.cu",
+        source="doa_tpu_torch/csrc/wideband_cov.cu",
         replaces="doa_tpu/ops/pallas/wideband_cov.py:92",
         max_abs_err=e7, ms=k7_ms, plain_ms=p7_ms,
         # the Hermitian Gram's half (4·g·N²) and the correction and scale
         # (8 FLOP a distinct complex entry) a chunk and subband
         **bound(nbytes(Y12, E7), 4 * (g + 1) * 64 * 64 * 12 * n7),
         library_ms=lib7_ms, channelizer_ms=ch12_ms)
-    del E7, Y12, yv12, xf12, K12
+    recs["subband_embedded_frames"] = dict(
+        name="subband_embedded_frames", route="cuda",
+        source="doa_tpu_torch/csrc/wideband_cov.cu",
+        replaces="doa_tpu/ops/pallas/wideband_cov.py:92",
+        max_abs_err=ef, ms=fr_ms, plain_ms=frp_ms,
+        **fft_gram_bound(xf12.shape[0], 12, 64, g),
+        library_ms=None, composition_ms=comp_ms, channelizer_ms=ch12_ms)
+    del E7, Ef, Y12, yv12, xf12, K12
+
+    # the card's "embedded" route (wideband_cov_embedded) at F = 12, 10, 6
+    # against the reference composition's plain version
+    for F, x, S in ((12, x12, 768), (10, x16, 640), (6, x16, 384)):
+        kw = dict(N=64, F=F, snapshot_size=S, variant="embedded")
+        Ee = wc.wideband_cov_embedded(x, cr1, ci0, **kw)
+        Er = wc.wideband_cov_embedded(
+            x, cr1, ci0, kernel=wc.subband_embedded_frames_plain, **kw)
+        d = (Ee - Er).abs().max().item()
+        se = Er.abs().max().item()
+        log(f"front end \"embedded\" F={F} {tuple(Ee.shape)}: max|card - "
+            f"reference composition| = {d!r}, max|E| = {se!r}, tol "
+            f"2e-5*max|E|")
+        check(d <= 2e-5 * se, f"the embedded route disagrees at F={F}")
+        del Ee, Er
 
     # kernel 10 at c5 (F = 16); the wrapper accepts sb_group and ignores it
     S_sub, _, g = wc.subband_framing(16, 1024, 0)
-    K16 = torch.from_numpy(wc.channelizer_matrix(16, 64)).to(dev)
+    K16 = wc.channelizer_on(16, 64, dev)
     xf16 = x16.reshape(-1, 16 * 128)
     Y16 = wc.channelize_frames(xf16, K16)
     U1 = wc.subband_grams(Y16, F=16, N=64, g=g)
@@ -2179,6 +2246,7 @@ def coherent_phases(torch, dev, card, k4_shapes=None):
     recs = subband_parity(torch, dev, x12, x16, card)
 
     counters = {"subband_embedded": wc.subband_embedded,
+                "subband_embedded_frames": wc.subband_embedded_frames,
                 "subband_gram": wc.subband_grams,
                 "wideband_fft_gram": wc.subband_chunk_grams,
                 "wideband_fusion": wsc.wideband_fused_spectrum,
@@ -2192,16 +2260,71 @@ def coherent_phases(torch, dev, card, k4_shapes=None):
         for n, v in launches.items():
             total[n] += v
 
-    # 11a. c5_f12: 12 subbands, incoherent, channelizer + kernel 7
+    cr1, ci0 = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    # 11a. c5_f12: 12 subbands, incoherent; the front end is one launch of
+    # the ring kernel on the frames: no channelizer matmul, no Y
     cfg12 = c5_variant(snapshot_size=768, num_subbands=12)
     pipe12 = build_pipeline_torch(cfg12, device=dev)
     show_plan("c5_f12", pipe12)
-    res12, n12 = path_run(torch, "c5_f12", pipe12, x12, counters, card,
-                          C5_TRUTH, C5_ANGLE_TOL)
-    check(n12["subband_embedded"] == 1 and n12["wideband_fft_gram"] == 0
+    check(pipe12.plan["covariance"] == "subband_embedded_frames",
+          "c5_f12 does not plan the frames launch")
+    channelized = []
+    channelize = wc.channelize_frames
+
+    def counted(*a, **k):
+        channelized.append(1)
+        return channelize(*a, **k)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    wc.channelize_frames = counted
+    try:
+        res12, n12 = path_run(torch, "c5_f12", pipe12, x12, counters, card,
+                              C5_TRUTH, C5_ANGLE_TOL)
+    finally:
+        wc.channelize_frames = channelize
+    log(f"c5_f12: channelizer calls {len(channelized)}; peak memory above "
+        f"the capture and state {torch.cuda.max_memory_allocated() - base} "
+        f"bytes (a Y would be {x12.numel() * 4})")
+    check(n12["subband_embedded_frames"] == 1 and n12["subband_embedded"] == 0
+          and n12["wideband_fft_gram"] == 0 and not channelized
           and n12["wideband_fusion"] > 0 and n12["mgs_iterate"] > 0
           and n12["peaks2d"] > 0, "c5_f12 launch counts")
     add(n12)
+    # its layers, and the reference composition's front end beside the
+    # card's
+    As12 = torch.cat(pipe12.subband_planes, -1).contiguous()   # (F, G, 2N)
+    nrm12 = (As12 * As12).sum(-1)
+
+    def composition(xf, cr, ci, K=None, **kw):
+        return wc.subband_embedded(wc.channelize_frames(
+            xf, wc.channelizer_on(12, 64, dev)), cr, ci, **kw)
+    with fp32_matmuls():
+        E12 = wc.wideband_cov_embedded(x12, cr1, ci0, N=64, F=12,
+                                       snapshot_size=768)
+        Vt12 = wb.subband_subspaces_from_E(E12, cfg12)
+        P12 = wsc.wideband_fused_spectrum(Vt12, As12, nrm12)
+        P12 = P12.reshape(-1, 181, 91)
+        layers = {
+            "front end (the ring kernel on the frames)":
+                lambda: wc.wideband_cov_embedded(x12, cr1, ci0, N=64, F=12,
+                                                 snapshot_size=768),
+            "front end, the reference composition (channelizer + kernel 7)":
+                lambda: wc.wideband_cov_embedded(
+                    x12, cr1, ci0, N=64, F=12, snapshot_size=768,
+                    kernel=composition),
+            "subspace (per-subband warm MGS + detector)":
+                lambda: wb.subband_subspaces_from_E(E12, cfg12),
+            "fusion (kernel 5)":
+                lambda: wsc.wideband_fused_spectrum(Vt12, As12, nrm12),
+            "peaks (2-D)": lambda: pk.peaks2d(P12, 2, (-90.0, 90.0),
+                                              (0.0, 90.0), True),
+        }
+        out = {k: time_ms(torch, f) for k, f in layers.items()}
+    log("c5_f12 layer times, ms: " + ", ".join(f"{k} {v:.4f}"
+                                              for k, v in out.items())
+        + f"  [{card}]")
+    del E12, Vt12, P12, As12, nrm12
     # planes input: the stride-2 views of the same capture
     v = x12.view(-1, 64, 2)
     a_pl = pipe12((v[..., 0], v[..., 1])).peak_angles["music"]
@@ -2233,7 +2356,6 @@ def coherent_phases(torch, dev, card, k4_shapes=None):
     At = torch.cat(build_pipeline_torch(cfg, device=dev).steering_planes,
                    -1).contiguous()
     nrm = (At * At).sum(-1)
-    cr1, ci0 = torch.ones(64, device=dev), torch.zeros(64, device=dev)
     with fp32_matmuls():
         E_sub = wc.wideband_cov_embedded(x16, cr1, ci0, N=64, F=16,
                                          snapshot_size=1024)
@@ -2286,6 +2408,22 @@ def coherent_phases(torch, dev, card, k4_shapes=None):
           and wc.subband_chunk_grams.launches == 0, "the uhat entry")
     add({"subband_gram": wc.subband_grams.launches})
     del Eu
+    # kernel 7's entry: a caller that holds a channelized stream Y
+    Y12 = wc.channelize_frames(x12.reshape(-1, 12 * 128),
+                               wc.channelizer_on(12, 64, dev))
+    for f in counters.values():
+        f.launches = 0
+    E7 = wc.subband_embedded(Y12, cr1, ci0, F=12, N=64, g=64, scale=1 / 64)
+    torch.cuda.synchronize()
+    log(f"subband_embedded entry (a channelized stream {tuple(Y12.shape)}): "
+        f"launches kernel 7 {wc.subband_embedded.launches}, the frames "
+        f"launch {wc.subband_embedded_frames.launches}")
+    check(tuple(E7.shape) == (12, T_F12 // 768, 128, 128)
+          and wc.subband_embedded.launches == 1
+          and wc.subband_embedded_frames.launches == 0,
+          "the kernel 7 entry")
+    add({"subband_embedded": wc.subband_embedded.launches})
+    del E7, Y12
 
     # 11c. ULA-16 CSSM with FB, smoothing to L = 12, MUSIC + Capon
     from doa_tpu_torch import (ArrayGeometry, DoaConfig, WidebandSpec)
@@ -2320,7 +2458,8 @@ def coherent_phases(torch, dev, card, k4_shapes=None):
     card_vs_cpu(torch, "c5 cssm_auto", c5_variant(fusion="cssm_auto"), x16,
                 B_CSSM_CPU)
     card_vs_cpu(torch, "ULA-16 cssm", cfg_u, xu, B_CSSM_CPU)
-    for name in ("subband_embedded", "subband_gram"):
+    for name in ("subband_embedded", "subband_embedded_frames",
+                 "subband_gram"):
         recs[name]["launches"] = total.pop(name)
     k3_c5 = {f"{key}_c5_cssm": v for key, v in k3_c5.items()}
     k3_c5["max_abs_err_c5_cssm"] = e_c5
@@ -3184,6 +3323,13 @@ def fault_phase(torch, dev, card):
         torch.zeros((64, 16 * 200), device=dev), torch.ones(100, device=dev),
         torch.zeros(100, device=dev), F=16, N=100, g=4, scale=1.0),
         "kernel 4 at N = 100")
+    for fn, what in ((wc.subband_embedded, "kernel 7 at N = 100"),
+                     (wc.subband_embedded_frames,
+                      "the frames launch at F = 12, N = 100")):
+        raises(lambda: fn(torch.zeros((64, 12 * 200), device=dev),
+                          torch.ones(100, device=dev),
+                          torch.zeros(100, device=dev), F=12, N=100, g=4,
+                          scale=1.0), what)
 
 
 def main():

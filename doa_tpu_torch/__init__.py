@@ -15,9 +15,9 @@ Covered so far (``build_pipeline_torch``):
   (K1) → embedded covariance windows → warm-start MGS subspace iteration
   (K4) with the escalation detector → MUSIC scan kernel (K3) or fused
   scan + peaks kernel (K2); on an az/el grid, the 2-D peaks kernel;
-* the wideband incoherent path (the c5 flagship) — FFT-channelizer +
-  subband Gram kernel (power-of-two subband counts; otherwise the dense
-  channelizer + embedded subband Gram kernel 7) → per-subband warm-start
+* the wideband incoherent path (the c5 flagship) — the front-end ring
+  kernel (the DFT channelizer and the subband Grams in one kernel, at any
+  subband count on the card) → per-subband warm-start
   subspaces (K4, one init per subband) → fused subband scan + fusion
   kernel → 2-D peaks kernel;
 * the coherent wideband fusions "cssm" and "cssm_auto" — the same front

@@ -1,9 +1,15 @@
-// Kernel 4, the wideband front end: the F-point DFT channelizer and every
-// chunk's embedded subband Gram, straight from the interleaved capture.
+// Kernels 4 and 7, the wideband front end: every chunk's embedded subband
+// Gram, from the interleaved capture (kernel 4: the F-point DFT
+// channelizer in the kernel) or from the channelized stream (kernel 7).
+// One ring kernel, doa_fft_gram_ring<RT, SRC>, serves both: SRC is where
+// its y-buffer comes from, and everything after the y-buffer is shared.
 //
-// Replaces the Pallas kernel doa_tpu/ops/pallas/wideband_cov.py:162
-// `_wideband_fft_gram_kernel` (variant "fft" of
-// wideband_cov_embedded_pallas, launched at :425). Frames are
+// Kernel 4 (SRC = Src::Frames) replaces the Pallas kernel
+// doa_tpu/ops/pallas/wideband_cov.py:162 `_wideband_fft_gram_kernel`
+// (variant "fft" of wideband_cov_embedded_pallas, launched at :425). It
+// takes any F (the reference's radix-2 FFT takes powers of two only): the
+// port's "embedded" variant launches it on the frames at any other F, so
+// the card forms no channelized stream there. Frames are
 // x f32[M, F*2N]: row m holds F consecutive complex sample vectors (the
 // bytes of a complex64 capture). Subband f of frame m is
 // y_f[m, c] = sum_t W[f,t] x[m, t, c] with the unnormalised forward DFT
@@ -13,7 +19,13 @@
 //   R = sum_m y_f[m] y_f[m]^H,   E = embed(R o (c c^H)) * scale
 //
 // with embed(R) = [[Rr, -Ri], [Ri, Rr]] and scale = 1 / S_sub, written
-// once per chunk into E f32[F, n_chunks, 2N, 2N]. The TPU kernel
+// once per chunk into E f32[F, n_chunks, 2N, 2N].
+//
+// Kernel 7 (SRC = Src::Stream) replaces
+// doa_tpu/ops/pallas/wideband_cov.py:92 `_subband_gram_kernel_embedded`
+// (variant "embedded"): the same E from the channelized stream
+// Y f32[M, F*2N], whose row m holds subband f's complex samples in
+// column block f (Y = frames @ K, the channelizer matrix). The TPU kernel
 // planarizes with permute matmuls, runs a radix-2 FFT on whole tiles and
 // a bf16 hi/lo Gram; here every product is a true FP32 FMA on the CUDA
 // cores (no tensor cores, no TF32) and the DFT is a direct F-term sum.
@@ -24,13 +36,19 @@
 // complex MACs' worth of FMAs, and the DFT) about 0.8 ms at 67 TFLOP/s.
 // Both fit under the bytes bound when they overlap; torch.cat((x, x), 1)
 // moves the same bytes in ~1.5 ms on the card (exp_wideband_cov.py).
+// Kernel 7 at c5_f12 (M = 131072, F = 12, N = 64, g = 64): Y read once
+// (805 MB) and E written once (1.61 GB), 0.72 ms; its Grams 0.38 ms at
+// 67 TFLOP/s.
 //
-// What held the earlier form back (one block per (chunk, subband), the
-// whole chunk staged synchronously; exp_wideband_cov.py at c5, PERF.md):
-// 7.36 ms, of which the 16 reads of each chunk with the DFT beside them
-// ~4.0 ms (one subband read: 3.39), the DFT's twiddle loads, modulo and
-// 3-operation complex products ~2.2, the whole-square Gram, with no copy
-// in flight while it ran, ~3.5, and E's stores ~0.7.
+// What held the earlier forms back (one block per (chunk, subband), the
+// whole chunk staged synchronously, with no copy in flight while it
+// computed; exp_wideband_cov.py, PERF.md): kernel 4 took 7.36 ms at c5,
+// of which the 16 reads of each chunk with the DFT beside them ~4.0 ms
+// (one subband read: 3.39), the DFT's twiddle loads, modulo and
+// 3-operation complex products ~2.2, the whole-square Gram ~3.5, and E's
+// stores ~0.7. Kernel 7 (csrc/subband_gram.cu until it moved here) took
+// 2.27 ms at c5_f12: the whole square, the row classes summed through
+// shared memory, E stored as scalars in four mirrored quadrants.
 //
 // Design (each part's measured effect: PERF.md, kernel 4's findings):
 // - Subband groups: a unit of work is (chunk, group of P subbands, the
@@ -45,14 +63,17 @@
 //   async copies (cp.async.bulk ... mbarrier::complete_tx, one mbarrier a
 //   slot) of TS whole frames; the head and tail of a stage that break the
 //   copy's 16-byte rule are plain loads. A slot is refilled as soon as the
-//   DFT has read it, so the next stage's copy runs under the Gram and the
-//   epilogue.
-// - The DFT out of the ring into a double y-buffer of P x TS x N complex
-//   values: a thread takes one (frame, element) and four subbands, four
-//   FMAs a complex product, the twiddles in shared memory (no modulo, no
-//   global load a term). With four subbands a group the sum is split
-//   (F + 16 products a point, not 4F); the snapped twiddles of
-//   dft_twiddles stay (exactly +-1, +-j at F <= 4, where it is direct).
+//   y-buffer has been filled from it, so the next stage's copy runs under
+//   the Gram and the epilogue.
+// - The y-buffer, double, of P x TS x N complex values, filled out of the
+//   ring. Kernel 7 copies the group's P subband column blocks of each row
+//   (no twiddles). Kernel 4 takes the DFT: a thread takes one (frame,
+//   element) and four subbands, four FMAs a complex product, the
+//   twiddles in shared memory (no modulo, no global load a term). With
+//   four subbands a group the sum is split
+//   (F + 16 products a point, not 4F, for any G = F / 4); the snapped
+//   twiddles of dft_twiddles stay (exactly +-1, +-j at F <= 4, where it
+//   is direct). Everything below is the same for both sources.
 // - The Hermitian half: each Gram item is (subband, RT x RT register tile
 //   with i0 <= j0, row class), J items a thread (RT = 4 where 4 | N <= 64,
 //   2 for even N <= 32, 1 for N <= 16). 192 threads with 3 items (168
@@ -297,7 +318,11 @@ __device__ __forceinline__ void store_tile(
   }
 }
 
-template <int RT>
+// The source of the y-buffer: the frames (kernel 4, the group's subbands
+// by the DFT) or the channelized stream (kernel 7, copied).
+enum class Src { Frames, Stream };
+
+template <int RT, Src SRC>
 __global__ void __launch_bounds__(MAXT, 2)
 doa_fft_gram_ring(const float* __restrict__ x, const float2* __restrict__ tw,
                   const float* __restrict__ cr, const float* __restrict__ ci,
@@ -373,16 +398,18 @@ doa_fft_gram_ring(const float* __restrict__ x, const float2* __restrict__ tw,
   const bool split = P == 4 && G > 1;
   float2* twz = twb + nq * 4 * F;
   float2* twy = twz + F;
-  for (int i = tid; i < nq * 4 * F + F + 16; i += nthr) {
-    const int s = i / F, e = i - nq * 4 * F;
-    long long ft = 0;                          // the power of tw[1]
-    if (e < 0)
-      ft = (long long)(q + G * s) * (i - s * F);
-    else if (e < F)
-      ft = (long long)q * e * P;
-    else
-      ft = (long long)(q + G * ((e - F) / 4)) * ((e - F) % 4);
-    twb[i] = e < 0 && s >= P ? make_float2(0.f, 0.f) : tw[(int)(ft % F)];
+  if constexpr (SRC == Src::Frames) {
+    for (int i = tid; i < nq * 4 * F + F + 16; i += nthr) {
+      const int s = i / F, e = i - nq * 4 * F;
+      long long ft = 0;                        // the power of tw[1]
+      if (e < 0)
+        ft = (long long)(q + G * s) * (i - s * F);
+      else if (e < F)
+        ft = (long long)q * e * P;
+      else
+        ft = (long long)(q + G * ((e - F) / 4)) * ((e - F) % 4);
+      twb[i] = e < 0 && s >= P ? make_float2(0.f, 0.f) : tw[(int)(ft % F)];
+    }
   }
   __syncthreads();
 
@@ -517,17 +544,31 @@ doa_fft_gram_ring(const float* __restrict__ x, const float2* __restrict__ tw,
     const unsigned char* data =
         ring + sl * lay.slot + ((xb + (uintptr_t)(r * rb)) & 15);
     float2* yb = ybuf + (k & 1) * ystride;
-    // the DFT: point w is element c of frame m in subband quad w / (rows N)
-    for (int w = tid; w < rows * N * nq; w += nthr) {
-      const int c = w % N, mq = w / N;
-      const int m = mq % rows, qd = mq / rows;
-      const float2* src = reinterpret_cast<const float2*>(data + m * rb) + c;
-      const float2* tws = twb + qd * 4 * F;
-      float2 yv[4];
-      dft_point(src, N, tws, yv);
+    if constexpr (SRC == Src::Frames) {
+      // the DFT: point w is element c of frame m in subband quad
+      // w / (rows N)
+      for (int w = tid; w < rows * N * nq; w += nthr) {
+        const int c = w % N, mq = w / N;
+        const int m = mq % rows, qd = mq / rows;
+        const float2* src =
+            reinterpret_cast<const float2*>(data + m * rb) + c;
+        const float2* tws = twb + qd * 4 * F;
+        float2 yv[4];
+        dft_point(src, N, tws, yv);
 #pragma unroll
-      for (int s = 0; s < 4; ++s)
-        if (qd * 4 + s < P) yb[(qd * 4 + s) * TS * N + m * N + c] = yv[s];
+        for (int s = 0; s < 4; ++s)
+          if (qd * 4 + s < P) yb[(qd * 4 + s) * TS * N + m * N + c] = yv[s];
+      }
+    } else {
+      // the copy: point w is element c of row m in the group's P
+      // subbands, q + G s (column block q + G s of the row)
+      for (int w = tid; w < rows * N; w += nthr) {
+        const int c = w % N, m = w / N;
+        const float2* src =
+            reinterpret_cast<const float2*>(data + m * rb) + q * N + c;
+        float2* dst = yb + m * N + c;
+        for (int s = 0; s < P; ++s) dst[s * TS * N] = src[s * G * N];
+      }
     }
     __syncthreads();
     // every thread is done with slot sl (and with the other y-buffer)
@@ -564,7 +605,7 @@ int sm_count(int dev, int* sms) {
 
 // The persistent grid: the groups of as many runs as fit on the card at
 // once (one run at least), and no more runs than chunks.
-template <int RT>
+template <int RT, Src SRC>
 int launch(const void* x, const void* tw, const void* cr, const void* ci,
            void* out, int F, int N, int g, int n_chunks, float scale,
            cudaStream_t stream) {
@@ -578,14 +619,14 @@ int launch(const void* x, const void* tw, const void* cr, const void* ci,
   const int se = sm_count(dev, &sms);
   if (se) return se;
   if (!attr[dev]) {
-    e = cudaFuncSetAttribute(doa_fft_gram_ring<RT>,
+    e = cudaFuncSetAttribute(doa_fft_gram_ring<RT, SRC>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              MAX_SMEM);
     if (e != cudaSuccess) return (int)e;
     attr[dev] = true;
   }
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, doa_fft_gram_ring<RT>, p.threads, lay.smem);
+      &per_sm, doa_fft_gram_ring<RT, SRC>, p.threads, lay.smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int G = F / p.P;
@@ -593,33 +634,54 @@ int launch(const void* x, const void* tw, const void* cr, const void* ci,
   if (runs > n_chunks) runs = n_chunks;
   if (runs < 1) runs = 1;
   if (runs * G > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  doa_fft_gram_ring<RT><<<(unsigned)(runs * G), p.threads, lay.smem,
-                          stream>>>(
+  doa_fft_gram_ring<RT, SRC><<<(unsigned)(runs * G), p.threads, lay.smem,
+                               stream>>>(
       (const float*)x, (const float2*)tw, (const float*)cr, (const float*)ci,
       (float*)out, F, N, g, n_chunks, scale, p.P, p.C, p.TS);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// x: frames f32[n_chunks * g, F * 2N] contiguous, 8-byte aligned; tw:
-// f32[F, 2], the twiddles exp(-2 pi j k / F); cr, ci: f32[N] correction;
-// out: f32[F, n_chunks, 2N, 2N]. N: 4 | N <= 64, 2 | N <= 32, or N <= 16.
-extern "C" int doa_wideband_fft_gram(const void* x, const void* tw,
-                                     const void* cr, const void* ci,
-                                     void* out, int F, int N, int g,
-                                     int n_chunks, float scale,
-                                     void* stream) {
+// The checks both entries share, and the register-tile form of N.
+template <Src SRC>
+int dispatch(const void* x, const void* tw, const void* cr, const void* ci,
+             void* out, int F, int N, int g, int n_chunks, float scale,
+             void* stream) {
   if (F < 1 || N < 1 || g < 1 || n_chunks < 1 ||
       reinterpret_cast<uintptr_t>(x) % 8 != 0 ||
       (long long)F * N * 8 > 0x7fffffffLL / 4)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (N % 4 == 0 && N <= 64)
-    return launch<4>(x, tw, cr, ci, out, F, N, g, n_chunks, scale, s);
+    return launch<4, SRC>(x, tw, cr, ci, out, F, N, g, n_chunks, scale, s);
   if (N % 2 == 0 && N <= 32)
-    return launch<2>(x, tw, cr, ci, out, F, N, g, n_chunks, scale, s);
+    return launch<2, SRC>(x, tw, cr, ci, out, F, N, g, n_chunks, scale, s);
   if (N <= 16)
-    return launch<1>(x, tw, cr, ci, out, F, N, g, n_chunks, scale, s);
+    return launch<1, SRC>(x, tw, cr, ci, out, F, N, g, n_chunks, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Both entries: cr, ci f32[N] correction; out f32[F, n_chunks, 2N, 2N].
+// N: 4 | N <= 64, 2 | N <= 32, or N <= 16.
+
+// Kernel 4. x: frames f32[n_chunks * g, F * 2N] contiguous, 8-byte
+// aligned; tw: f32[F, 2], the twiddles exp(-2 pi j k / F).
+extern "C" int doa_wideband_fft_gram(const void* x, const void* tw,
+                                     const void* cr, const void* ci,
+                                     void* out, int F, int N, int g,
+                                     int n_chunks, float scale,
+                                     void* stream) {
+  return dispatch<Src::Frames>(x, tw, cr, ci, out, F, N, g, n_chunks, scale,
+                               stream);
+}
+
+// Kernel 7. y: the channelized stream f32[n_chunks * g, F * 2N]
+// contiguous, 8-byte aligned.
+extern "C" int doa_subband_embedded(const void* y, const void* cr,
+                                    const void* ci, void* out, int F, int N,
+                                    int g, int n_chunks, float scale,
+                                    void* stream) {
+  return dispatch<Src::Stream>(y, nullptr, cr, ci, out, F, N, g, n_chunks,
+                               scale, stream);
 }

@@ -11,13 +11,18 @@ g = gcd(S_sub, hop_sub). There is no forward-backward averaging on this
 path, as in the reference. The correction c cᴴ is folded per subband
 (exact: it commutes with the per-channel DFT). The variants:
 
-* "fft" (power-of-two F; "auto" picks it there): kernel 4
-  (csrc/wideband_cov.cu) takes the F-point DFT of every frame and, per
-  chunk and subband, the Gram with the correction and 1/S_sub folded in.
-* "embedded" ("auto" for any other F): the dense channelizer
-  Y = frames @ K (channelizer_matrix; a plain true-FP32 matmul, as the
-  reference leaves it to XLA), then kernel 7 (csrc/subband_gram.cu): per
-  chunk and subband the embedded Gram with the correction and 1/S_sub.
+* "fft" (power-of-two F; "auto" picks it there): kernel 4, the ring
+  kernel of csrc/wideband_cov.cu on the frames, takes the F-point DFT of
+  every frame and, per chunk and subband, the Gram with the correction
+  and 1/S_sub folded in.
+* "embedded" ("auto" for any other F): the reference's composition, the
+  dense channelizer Y = frames @ K (channelizer_matrix; a plain true-FP32
+  matmul, as the reference leaves it to XLA), then kernel 7's function on
+  Y: per chunk and subband the embedded Gram with the correction and
+  1/S_sub. On the card the stage (subband_embedded_frames) is one launch
+  of the ring kernel on the frames, whose direct DFT takes any F: no
+  channelizer matrix and no Y. Kernel 7 itself (subband_embedded, the
+  ring kernel's stream source) serves a caller that has a Y.
 * "uhat": the same channelizer, kernel 10 (csrc/subband_gram.cu): per
   chunk and subband the interleaved-basis Gram, then window sums and
   uhat_windows_to_embedded (FB off).
@@ -41,10 +46,10 @@ from doa_tpu_torch.ops.cuda.cov_embedded import (correction_pattern,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {"doa_wideband_fft_gram": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  ctypes.c_float, _P]}
-_SIG_SUBBAND = {"doa_subband_gram": [_P, _P, _I, _I, _I, _I, _P],
-                "doa_subband_embedded": [_P, _P, _P, _P, _I, _I, _I, _I,
-                                         ctypes.c_float, _P]}
+                                  ctypes.c_float, _P],
+        "doa_subband_embedded": [_P, _P, _P, _P, _I, _I, _I, _I,
+                                 ctypes.c_float, _P]}
+_SIG_SUBBAND = {"doa_subband_gram": [_P, _P, _I, _I, _I, _I, _P]}
 
 
 def dft_twiddles(F: int) -> np.ndarray:
@@ -70,7 +75,8 @@ def twiddles_on(F: int, device) -> torch.Tensor:
 
 
 def kernel_takes(N: int) -> bool:
-    """The element counts the front-end kernels (4, 7, 10) are built for."""
+    """The element counts the front-end kernels (the ring kernel: 4 and
+    7; 10) are built for."""
     return N % 4 == 0 and N <= 64 or N % 2 == 0 and N <= 32 or N <= 16
 
 
@@ -103,6 +109,36 @@ def _kernel_stream(y: torch.Tensor, F: int, N: int, n: int, g: int):
     if F * n > 2 ** 31 - 1:
         raise ValueError(f"{F} subbands x {n} chunks exceed one launch")
     return y[:n * g].contiguous()
+
+
+def _ring(x: torch.Tensor, cr, ci, *, F: int, N: int, g: int, n: int,
+          scale: float, frames: bool) -> torch.Tensor:
+    """One launch of the ring kernel (csrc/wideband_cov.cu) on a CUDA
+    tensor x f32[M, F·2N] → E f32[F, n, 2N, 2N]: on the frames, the group's
+    subbands by the DFT (frames=True, kernel 4's entry), or on the
+    channelized stream, its column blocks (kernel 7's entry)."""
+    x = _kernel_stream(x, F, N, n, g)
+    if x.data_ptr() % 8:
+        raise ValueError("the kernel reads complex samples: its input must "
+                         "start on an 8-byte boundary")
+    cr = cr.to(torch.float32).contiguous()
+    ci = ci.to(torch.float32).contiguous()
+    out = torch.empty((F, n, 2 * N, 2 * N), dtype=torch.float32,
+                      device=x.device)
+    lib = _build.load("wideband_cov", _SIG)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if frames:
+        tw = twiddles_on(F, x.device)
+        err = lib.doa_wideband_fft_gram(
+            x.data_ptr(), tw.data_ptr(), cr.data_ptr(), ci.data_ptr(),
+            out.data_ptr(), F, N, g, n, scale, stream)
+        _build.check(err, "doa_wideband_fft_gram")
+    else:
+        err = lib.doa_subband_embedded(
+            x.data_ptr(), cr.data_ptr(), ci.data_ptr(), out.data_ptr(), F, N,
+            g, n, scale, stream)
+        _build.check(err, "doa_subband_embedded")
+    return out
 
 
 def _embedded_grams(Yr, Yi, cr, ci, scale: float) -> torch.Tensor:
@@ -150,21 +186,7 @@ def subband_chunk_grams(xf: torch.Tensor, cr: torch.Tensor,
     if xf.device.type == "cpu":
         return subband_chunk_grams_plain(xf, cr, ci, F=F, N=N, g=g,
                                          scale=scale)
-    xf = _kernel_stream(xf, F, N, n, g)
-    if xf.data_ptr() % 8:
-        raise ValueError("the kernel reads complex samples: the frames must "
-                         "start on an 8-byte boundary")
-    tw = twiddles_on(F, xf.device)
-    cr = cr.to(torch.float32).contiguous()
-    ci = ci.to(torch.float32).contiguous()
-    out = torch.empty((F, n, 2 * N, 2 * N), dtype=torch.float32,
-                      device=xf.device)
-    lib = _build.load("wideband_cov", _SIG)
-    err = lib.doa_wideband_fft_gram(
-        xf.data_ptr(), tw.data_ptr(), cr.data_ptr(), ci.data_ptr(),
-        out.data_ptr(), F, N, g, n, scale,
-        torch.cuda.current_stream(xf.device).cuda_stream)
-    _build.check(err, "doa_wideband_fft_gram")
+    out = _ring(xf, cr, ci, F=F, N=N, g=g, n=n, scale=scale, frames=True)
     subband_chunk_grams.launches += 1
     return out
 
@@ -190,6 +212,20 @@ def channelizer_matrix(F: int, N: int) -> np.ndarray:
     K = (np.einsum("ft,ab->tafb", Wc.real, eye)
          + np.einsum("ft,ab->tafb", Wc.imag, Sw))
     return K.reshape(F * 2 * N, F * 2 * N).astype(np.float32)
+
+
+_CHANNELIZERS: dict = {}
+
+
+def channelizer_on(F: int, N: int, device) -> torch.Tensor:
+    """channelizer_matrix(F, N) on `device`, copied there once a
+    (F, N, device)."""
+    key = (F, N, torch.device(device))
+    K = _CHANNELIZERS.get(key)
+    if K is None:
+        K = _CHANNELIZERS[key] = torch.from_numpy(
+            channelizer_matrix(F, N)).to(device)
+    return K
 
 
 def channelize_frames(xf: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
@@ -219,26 +255,56 @@ def subband_embedded(y: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor,
     embedded subband covariances f32[F, n, 2N, 2N], n = M // g, with the
     correction (cr, ci f32[N]) and `scale` folded in.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (csrc/subband_gram.cu) and raises if that fails."""
+    A CPU tensor takes the plain version; a CUDA tensor launches the ring
+    kernel's stream source (csrc/wideband_cov.cu) and raises if that
+    fails."""
     n = _check_stream(y, F, N, g, cr, ci)
     if y.device.type == "cpu":
         return subband_embedded_plain(y, cr, ci, F=F, N=N, g=g, scale=scale)
-    y = _kernel_stream(y, F, N, n, g)
-    cr = cr.to(torch.float32).contiguous()
-    ci = ci.to(torch.float32).contiguous()
-    out = torch.empty((F, n, 2 * N, 2 * N), dtype=torch.float32,
-                      device=y.device)
-    lib = _build.load("subband_gram", _SIG_SUBBAND)
-    err = lib.doa_subband_embedded(
-        y.data_ptr(), cr.data_ptr(), ci.data_ptr(), out.data_ptr(), F, N, g,
-        n, scale, torch.cuda.current_stream(y.device).cuda_stream)
-    _build.check(err, "doa_subband_embedded")
+    out = _ring(y, cr, ci, F=F, N=N, g=g, n=n, scale=scale, frames=False)
     subband_embedded.launches += 1
     return out
 
 
 subband_embedded.launches = 0
+
+
+def subband_embedded_frames_plain(xf: torch.Tensor, cr, ci, *, F: int,
+                                  N: int, g: int, scale: float,
+                                  K: torch.Tensor | None = None
+                                  ) -> torch.Tensor:
+    """Plain PyTorch version of the "embedded" variant's stage on the
+    frames xf f32[M, F·2N] → f32[F, n, 2N, 2N]: the reference's
+    composition, channelize_frames with K (channelizer_on where None),
+    then subband_embedded_plain."""
+    if K is None:
+        K = channelizer_on(F, N, xf.device)
+    return subband_embedded_plain(channelize_frames(xf, K), cr, ci, F=F,
+                                  N=N, g=g, scale=scale)
+
+
+def subband_embedded_frames(xf: torch.Tensor, cr: torch.Tensor,
+                            ci: torch.Tensor, *, F: int, N: int, g: int,
+                            scale: float,
+                            K: torch.Tensor | None = None) -> torch.Tensor:
+    """The "embedded" variant's stage: frames xf f32[M, F·2N] → per-chunk
+    embedded subband covariances f32[F, n, 2N, 2N], kernel 7's function
+    of the channelized frames.
+
+    A CPU tensor takes the plain version (the reference's composition,
+    with K); a CUDA tensor launches the ring kernel once on the frames
+    (csrc/wideband_cov.cu, the direct DFT at any F: no channelizer, no Y;
+    K is not read) and raises if that fails."""
+    n = _check_stream(xf, F, N, g, cr, ci)
+    if xf.device.type == "cpu":
+        return subband_embedded_frames_plain(xf, cr, ci, F=F, N=N, g=g,
+                                             scale=scale, K=K)
+    out = _ring(xf, cr, ci, F=F, N=N, g=g, n=n, scale=scale, frames=True)
+    subband_embedded_frames.launches += 1
+    return out
+
+
+subband_embedded_frames.launches = 0
 
 
 def _check_sb_group(sb_group) -> None:
@@ -322,12 +388,13 @@ def wideband_cov_embedded(xil: torch.Tensor, cr: torch.Tensor,
     E_sub f32[F, B, 2N, 2N], normalised by S_sub, the correction folded
     per subband. variant: "auto" | "fft" | "embedded" | "uhat" (module
     docstring); sb_group: the reference's subband grouping ("uhat"; a
-    positive int, no effect on the result); K: the channelizer matrix on xil's device
-    (channelizer_matrix; None builds it) for "embedded" and "uhat";
+    positive int, no effect on the result); K: the channelizer matrix on
+    xil's device (channelizer_matrix; None takes channelizer_on's) for
+    "uhat" and the plain "embedded" stage (the card's does not read it);
     kernel: the variant's Gram stage, subband_chunk_grams ("fft"),
-    subband_embedded ("embedded") or subband_grams ("uhat") by default;
-    the pipelines pass its plain version where their kernel plan says
-    so."""
+    subband_embedded_frames ("embedded", on the frames) or subband_grams
+    ("uhat", on Y) by default; the pipelines pass its plain version where
+    their kernel plan says so."""
     variant = resolve_variant(F, variant)
     _check_sb_group(sb_group)
     S_sub, hop_sub, g = subband_framing(F, snapshot_size, overlap)
@@ -344,13 +411,12 @@ def wideband_cov_embedded(xil: torch.Tensor, cr: torch.Tensor,
         E = (kernel or subband_chunk_grams)(xf, cr, ci, F=F, N=N, g=g,
                                            scale=1.0 / S_sub)
         return window_sums(E, B, n_win, stride)
-    if K is None:
-        K = torch.from_numpy(channelizer_matrix(F, N)).to(x.device)
-    Y = channelize_frames(xf, K)                         # (n·g, F·2N)
     if variant == "embedded":
-        E = (kernel or subband_embedded)(Y, cr, ci, F=F, N=N, g=g,
-                                        scale=1.0 / S_sub)
+        E = (kernel or subband_embedded_frames)(xf, cr, ci, F=F, N=N, g=g,
+                                               scale=1.0 / S_sub, K=K)
         return window_sums(E, B, n_win, stride)
+    Y = channelize_frames(xf, K if K is not None
+                          else channelizer_on(F, N, x.device))
     U = (kernel or functools.partial(subband_grams, sb_group=sb_group))(
         Y, F=F, N=N, g=g)
     return uhat_windows_to_embedded(window_sums(U, B, n_win, stride), N,

@@ -32,8 +32,9 @@ the route rule, or planes input on either path):
 Wideband (c5; planes input is stacked once into the interleaved layout):
     capture x[T, 2N]
       → front end → E_sub f32[F, B, 2N, 2N]         ops/cuda/wideband_cov
-        (power-of-two F: the FFT-channelizer Gram kernel 4; any other F:
-        the dense channelizer matmul + the embedded subband Gram kernel 7)
+        (the ring kernel's in-kernel DFT and subband Grams, kernel 4, at
+        any F on the card; the CPU, at F not a power of two, the
+        reference's dense channelizer matmul + kernel 7's plain version)
     incoherent fusion:
       → per-subband warm-start MGS subspaces (K4) Vt f32[F, B, 2K, 2N]
                                                    ops/wideband
@@ -68,8 +69,7 @@ from doa_tpu_torch.ops import cpx_ops
 from doa_tpu_torch.ops.cpx_ops import signal_subspace_from_E_T
 from doa_tpu_torch.ops.cuda.cov_embedded import cov_embedded
 from doa_tpu_torch.ops.cuda.music_scan import peaks_tiles, scan_tiles
-from doa_tpu_torch.ops.cuda.wideband_cov import (channelizer_matrix,
-                                                 wideband_cov_embedded)
+from doa_tpu_torch.ops.cuda.wideband_cov import wideband_cov_embedded
 from doa_tpu_torch.ops.peaks import find_local_max
 from doa_tpu_torch.ops.wideband import (auto_focused_covariance,
                                         cssm_covariance, focusing_matrices,
@@ -284,8 +284,10 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
     DoaResult.subspace_residual.
 
     Wideband (cfg.wideband.enabled; S divisible by num_subbands): the
-    front end (FFT-channelizer kernel for a power-of-two num_subbands,
-    dense channelizer + kernel 7 otherwise). Incoherent fusion: the
+    front end (on the card one launch of the ring kernel on the frames,
+    its DFT in the kernel, at any num_subbands; the plain route, at
+    num_subbands not a power of two, the reference's dense channelizer +
+    kernel 7's plain version). Incoherent fusion: the
     per-subband subspaces, the fused subband scan and the peaks; the
     fused spectrum is always returned and the escalation counts are None,
     as in the reference; forward-backward averaging does not apply there.
@@ -336,9 +338,7 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
         F = cfg.wideband.num_subbands
         fusion = cfg.wideband.fusion
         variant = {"wideband_fft_gram": "fft",
-                   "subband_embedded": "embedded"}[route["covariance"]]
-        K_chan = (torch.from_numpy(channelizer_matrix(F, N)).to(dev)
-                  if variant == "embedded" else None)
+                   "subband_embedded_frames": "embedded"}[route["covariance"]]
     if wb and fusion == "cssm":
         T_foc = state.get("T")
         if T_foc is None:
@@ -478,7 +478,7 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
             if wb:
                 E_sub = wideband_cov_embedded(
                     x, cr, ci, N=N, F=F, snapshot_size=cfg.snapshot_size,
-                    overlap=cfg.overlap, variant=variant, K=K_chan,
+                    overlap=cfg.overlap, variant=variant,
                     kernel=plan.op("covariance"))
                 if "fusion" not in route:
                     return _estimate(_coherent(E_sub), None)

@@ -43,8 +43,8 @@ from doa_tpu_torch.ops.cuda.wideband_cov import (kernel_takes,
                                                  resolve_variant,
                                                  subband_chunk_grams,
                                                  subband_chunk_grams_plain,
-                                                 subband_embedded,
-                                                 subband_embedded_plain)
+                                                 subband_embedded_frames,
+                                                 subband_embedded_frames_plain)
 from doa_tpu_torch.ops.cuda.wideband_scan import (
     fusion_takes, wideband_fused_spectrum, wideband_fused_spectrum_plain)
 from doa_tpu_torch.ops.peaks import find_local_max_2d
@@ -54,7 +54,8 @@ KERNELS = {
     "chunk_gram": (chunk_grams_uhat, chunk_grams_uhat_plain),
     "planes_chunk_gram": (chunk_grams, chunk_grams_plain),
     "wideband_fft_gram": (subband_chunk_grams, subband_chunk_grams_plain),
-    "subband_embedded": (subband_embedded, subband_embedded_plain),
+    "subband_embedded_frames": (subband_embedded_frames,
+                                subband_embedded_frames_plain),
     "mgs_iterate": (mgs_iterate, mgs_iterate_plain),
     "subspace_ns": (subspace_ns, subspace_ns_plain),
     "music_scan": (music_scan, music_scan_plain),
@@ -133,7 +134,9 @@ def kernel_routes(cfg, *, return_spectra: bool = True) -> dict:
 
     * "covariance": K1 "chunk_gram" (fused route), kernel 8
       "planes_chunk_gram" (planes route), kernel 4 "wideband_fft_gram"
-      (power-of-two subbands) or kernel 7 "subband_embedded" (wideband);
+      (power-of-two subbands) or "subband_embedded_frames" (any other
+      subband count: the ring kernel on the frames, whose plain version
+      is the reference's channelizer + kernel 7);
     * "covariance_planes": kernel 8 for planes input on the fused route
       (the interleaved entry does not run it);
     * "coarse_subspace": K4 "mgs_iterate" in cssm_auto's coarse pass;
@@ -152,7 +155,8 @@ def kernel_routes(cfg, *, return_spectra: bool = True) -> dict:
     if wb.enabled:
         fft = resolve_variant(wb.num_subbands, "auto") == "fft"
         routes["covariance"] = ("wideband_fft_gram" if fft
-                                else "subband_embedded", kernel_takes(N))
+                                else "subband_embedded_frames",
+                                kernel_takes(N))
         if incoherent:
             routes["subspace"] = ("mgs_iterate", mgs_takes(2 * N, k2))
             routes["fusion"] = ("wideband_fusion", fusion_takes(k2, 2 * N))
@@ -212,8 +216,8 @@ def kernel_plan(cfg, *, return_spectra: bool = True) -> dict:
     {stage: the kernel's name, or "plain"} (kernel_routes' stages). A
     pure function of the config. Every preset plans a kernel for every
     stage; the plain versions take what the kernels do not: a ULA of
-    N > 32 (K1), K ≥ 5 (K4), a wideband array of N > 64 (kernels 4, 7;
-    2N > 128 for K4)."""
+    N > 32 (K1), K ≥ 5 (K4), a wideband array of N > 64 (the ring
+    kernel; 2N > 128 for K4)."""
     return dict(Plan(kernel_routes(cfg, return_spectra=return_spectra)))
 
 

@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Time the wideband front-end kernel (doa_tpu_torch/csrc/wideband_cov.cu,
-kernel 4: the F-point DFT channelizer and each chunk's embedded subband
-Grams) by parts, and with parts of it cut out, on one NVIDIA GPU.
+"""Time the wideband front-end ring kernel (doa_tpu_torch/csrc/
+wideband_cov.cu: kernel 4, the F-point DFT channelizer and each chunk's
+embedded subband Grams from the frames; kernel 7, the same Grams from the
+channelized stream) by parts, and with parts of it cut out, on one NVIDIA
+GPU.
 
     python3 exp_wideband_cov.py [--against OTHER/wideband_cov.cu ...]
+                                [--against OTHER/subband_gram.cu ...]
 
 Each variant is a copy of a source with a few lines patched, built by nvcc
 into a temporary directory (all builds at once) and loaded with ctypes.
-Every source (the package's and each `--against`, an earlier commit's
-wideband_cov.cu with the same C ABI) is timed whole, and cut where its
-form is known:
+Every source (the package's and each `--against`: an earlier commit's
+wideband_cov.cu, whose kernel 4 entry has this C ABI, or subband_gram.cu,
+whose kernel 7 entry does) is timed whole through each entry it has, and
+cut where its form is known:
 
 * the block-per-(chunk, subband) form (the kernel before the ring):
   "no Gram" keeps the DFT and the stage and drops the accumulation;
@@ -29,18 +33,25 @@ form is known:
   and items a thread (MAXT, J) and the tile order (BAND) other than the
   source's are variants too.
 
-The torch lines are yardsticks of the memory system: E written alone
-(zero_), and the capture read once with twice its bytes written (cat).
+The ring form's cuts act on both of its sources (the y-buffer's DFT or
+copy, then the same Gram, epilogue and ring); kernel 7 (the stream) is
+timed whole and by "no Gram", "no E stores", "copies only" and "stores
+only". The torch lines are yardsticks of the memory system: E written
+alone (zero_), and the input read once with twice its bytes written
+(cat).
 
 Whole variants are first held bit-equal to the float64 plain version on
-exact inputs (F <= 4, integer samples and correction; the chip_smoke.py
-cases, a view one complex element into the capture among them) and to
-1e-5 max|E| on the c5 scene; cut variants compute wrong Grams by design
-and are only timed. Shapes: c5 (M = 131072 frames of F = 16 subbands of
-N = 64 elements, g = 64, the chip_smoke.py c5 scene) and the ULA-16 cssm
-front end (N = 16, F = 16, g = 64, M = 65536, normal samples). Each time
-is the mean of two medians of 10 calls (CUDA events), the variants and
-the plain version in turns.
+exact inputs (frames: F <= 4, integer samples and correction; streams:
+any F, integer values; the chip_smoke.py cases, views one complex element
+in among them) and to 1e-5 max|E| on the c5 scene (frames) and the
+c5_f12 scene channelized (streams); cut variants compute wrong Grams by
+design and are only timed. Shapes: c5 (M = 131072 frames of F = 16
+subbands of N = 64 elements, g = 64, the chip_smoke.py c5 scene), the
+ULA-16 cssm front end (N = 16, F = 16, g = 64, M = 65536, normal
+samples) and c5_f12 (M = 131072 frames of F = 12, g = 64: kernel 7 on
+the channelized stream; the frames launch against the channelizer matmul
+followed by each source's kernel 7). Each time is the mean of two medians
+of 10 calls (CUDA events), the variants and the plain version in turns.
 """
 
 import argparse
@@ -88,7 +99,7 @@ B_STORES = ("    oc[i * n2 + j] = er;\n", "    oc[(N + i) * n2 + N + j] = er;\n"
 RING_FORM = "        store_tiles(cc);\n"
 BANDS = "constexpr int BAND = "
 R_GRAM = "      gram_rows(yb, first, pos + seg);\n"
-R_DFT = "      dft_point(src, N, tws, yv);\n"
+R_DFT = "      dft_point(src, N, tws, yv);\n"   # any indent
 R_SUM = """      {
         float2 z = make_float2(0.f, 0.f);
         for (int t = 0; t < F; ++t) {
@@ -187,10 +198,17 @@ CUTS = {
 }
 
 
+# the ring form's cuts that kernel 7's stream source is timed by
+STREAM_CUTS = ("no Gram", "no E stores", "copies only", "stores only")
+
+
 def variants(tag, src):
     """→ {name: (source, whole)}: the source whole, then its cuts (but a
-    ring shape it already has)."""
+    ring shape it already has); a subband_gram.cu (kernels 10 and the
+    first kernel 7) whole only."""
     out = {tag: (src, True)}
+    if "doa_wideband_fft_gram" not in src:
+        return out
     for marker, cuts in CUTS.items():
         if marker in src:
             for n, p in cuts.items():
@@ -212,10 +230,11 @@ def build(tmp, i, name, src):
     if proc.returncode != 0:
         sys.exit(f"{name}: nvcc failed\n{proc.stdout}{proc.stderr}")
     regs = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "registers" in ln or "spill" in ln or "entry function" in ln]
     lib = ctypes.CDLL(so)
-    for fn, argtypes in wc._SIG.items():
-        getattr(lib, fn).argtypes = argtypes
+    for fn, argtypes in {**wc._SIG, **wc._SIG_SUBBAND}.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
     return lib, regs
 
 
@@ -235,10 +254,24 @@ def grams(lib, xf, cr, ci, F, N, g, scale, out=None):
     return out
 
 
+def stream_grams(lib, y, cr, ci, F, N, g, scale, out=None):
+    """Kernel 7's E f32[F, n, 2N, 2N] of the channelized stream y through
+    `lib`, as the package's wrapper calls it."""
+    n = y.shape[0] // g
+    if out is None:
+        out = torch.empty((F, n, 2 * N, 2 * N), device=y.device)
+    _build.check(lib.doa_subband_embedded(
+        y.data_ptr(), cr.data_ptr(), ci.data_ptr(), out.data_ptr(), F, N, g,
+        n, scale, torch.cuda.current_stream().cuda_stream),
+        "doa_subband_embedded")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", action="append", default=[],
-                    help="another wideband_cov.cu, same C ABI (repeatable)")
+                    help="another wideband_cov.cu or subband_gram.cu, "
+                         "same C ABI (repeatable)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("exp_wideband_cov.py needs an NVIDIA GPU")
@@ -269,22 +302,50 @@ def main():
             return torch.randint(lo, hi, shape, generator=gen,
                                  device=dev).float()
 
-        for name, lib in libs.items():
-            if not srcs[name][1]:
-                continue
-            for Fx, Nx, gx, n, off in cs.FFT_GRAM_EXACT:
+        frames = {n: lib for n, lib in libs.items()
+                  if hasattr(lib, "doa_wideband_fft_gram")}
+        streams = {n: lib for n, lib in libs.items()
+                   if hasattr(lib, "doa_subband_embedded")}
+        whole = {n for n in libs if srcs[n][1]}
+        for name in whole:
+            for Fx, Nx, gx, n, off in (cs.FFT_GRAM_EXACT if name in frames
+                                       else ()):
                 buf = ri(-4, 5, (n * gx * Fx * 2 * Nx + 2,))
                 xf = buf[off:off + n * gx * Fx * 2 * Nx].view(
                     n * gx, Fx * 2 * Nx)
                 cr, ci = ri(-1, 3, (Nx,)), ri(-1, 2, (Nx,))
                 kw = dict(F=Fx, N=Nx, g=gx, scale=1.0 / 16)
-                d = (grams(lib, xf, cr, ci, **kw)
+                d = (grams(frames[name], xf, cr, ci, **kw)
                      - wc.subband_chunk_grams_plain(xf.double(), cr, ci,
                                                     **kw)
                      ).abs().max().item()
                 if d != 0.0:
-                    sys.exit(f"{name}: exact inputs F={Fx} N={Nx} g={gx} "
+                    sys.exit(f"{name}: exact frames F={Fx} N={Nx} g={gx} "
                              f"n={n} offset {off} differ by {d!r}")
+            for Fx, Nx, gx, n, off in (cs.SUBBAND_EXACT if name in streams
+                                       else ()):
+                buf = ri(-4, 5, (n * gx * Fx * 2 * Nx + 2,))
+                y = buf[off:off + n * gx * Fx * 2 * Nx].view(
+                    n * gx, Fx * 2 * Nx)
+                cr, ci = ri(-1, 3, (Nx,)), ri(-1, 2, (Nx,))
+                kw = dict(F=Fx, N=Nx, g=gx, scale=1.0 / 16)
+                d = (stream_grams(streams[name], y, cr, ci, **kw)
+                     - wc.subband_embedded_plain(y.double(), cr, ci, **kw)
+                     ).abs().max().item()
+                if d != 0.0:
+                    sys.exit(f"{name}: exact stream F={Fx} N={Nx} g={gx} "
+                             f"n={n} offset {off} differ by {d!r}")
+        print("exact cases: every whole source bit-equal to the float64 "
+              "plain version")
+
+        def held(tag, fn, Ep, names):
+            tol = 1e-5 * Ep.abs().max().item()
+            for name in names:
+                e = (fn(name) - Ep).abs().max().item()
+                print(f"{tag} {name}: max|kernel - plain| = {e!r} (tol "
+                      f"{tol!r})")
+                if e > tol:
+                    sys.exit(f"{name}: disagrees with plain at {tag}")
 
         x = cs.make_c5_scene(torch, cs.T_C5, dev)
         shapes = {"c5": (x.reshape(-1, 16 * 128), 16, 64, 64),
@@ -295,19 +356,12 @@ def main():
             cr, ci = torch.ones(N, device=dev), torch.zeros(N, device=dev)
             kw = dict(F=F, N=N, g=g, scale=1.0 / 64)
             Ep = wc.subband_chunk_grams_plain(xf, cr, ci, **kw)
-            tol = 1e-5 * Ep.abs().max().item()
             out = torch.empty_like(Ep)
-            for name, lib in libs.items():
-                if not srcs[name][1]:
-                    continue
-                e = (grams(lib, xf, cr, ci, out=out, **kw) - Ep).abs().max()
-                print(f"{tag} {name}: max|kernel - plain| = {e.item()!r} "
-                      f"(tol {tol!r})")
-                if e.item() > tol:
-                    sys.exit(f"{name}: disagrees with plain at {tag}")
+            held(tag, lambda n: grams(frames[n], xf, cr, ci, out=out, **kw),
+                 Ep, sorted(whole & set(frames)))
             del Ep
             fns = {n: (lambda lib=lib: grams(lib, xf, cr, ci, out=out, **kw))
-                   for n, lib in libs.items()}
+                   for n, lib in frames.items()}
             fns["plain"] = lambda: wc.subband_chunk_grams_plain(xf, cr, ci,
                                                                 **kw)
             # the memory system's yardsticks: E's bytes written alone, and
@@ -321,6 +375,61 @@ def main():
             M = xf.shape[0]
             res[tag]["bound"] = cs.fft_gram_bound(M, F, N, g)["bound_ms"]
             del out
+        del x, shapes, xf
+
+        # c5_f12: kernel 7 on the channelized stream, whole and by parts,
+        # against each other source's kernel 7; then the frames launch
+        # against the channelizer followed by each source's kernel 7
+        F, N, g = 12, 64, 64
+        xf = cs.make_c5_scene(torch, cs.T_F12, dev, seed=4).reshape(
+            -1, F * 2 * N)
+        K = wc.channelizer_on(F, N, dev)
+        y = wc.channelize_frames(xf, K)
+        cr, ci = torch.ones(N, device=dev), torch.zeros(N, device=dev)
+        kw = dict(F=F, N=N, g=g, scale=1.0 / 64)
+        Ep = wc.subband_embedded_plain(y, cr, ci, **kw)
+        out = torch.empty_like(Ep)
+        held("c5_f12 stream", lambda n: stream_grams(streams[n], y, cr, ci,
+                                                     out=out, **kw),
+             Ep, sorted(whole & set(streams)))
+        del Ep
+        timed = {n: lib for n, lib in streams.items() if n in whole or any(
+            n.endswith(": " + c) for c in STREAM_CUTS)}
+        fns = {n: (lambda lib=lib: stream_grams(lib, y, cr, ci, out=out,
+                                                **kw))
+               for n, lib in timed.items()}
+        fns["plain"] = lambda: wc.subband_embedded_plain(y, cr, ci, **kw)
+        fns["torch: E.zero_()"] = out.zero_
+        two = out.view(-1)[:2 * y.numel()].view(y.shape[0], -1)
+        fns["torch: cat((y, y), 1) into E"] = (
+            lambda: torch.cat((y, y), 1, out=two))
+        tag = "c5_f12 kernel 7 (stream)"
+        res[tag] = dict(zip(fns, cs.turns_ms(torch, *fns.values())))
+        res[tag]["bound"] = cs.bound(
+            cs.nbytes(y, out), 4 * (g + 1) * N * N * F * out.shape[1]
+        )["bound_ms"]
+        Ep = wc.subband_embedded_frames_plain(xf, cr, ci, **kw)
+        held("c5_f12 frames", lambda n: grams(frames[n], xf, cr, ci,
+                                              out=out, **kw),
+             Ep, sorted(whole & set(frames)))
+        del Ep, y
+        fns = {f"frames: {n}": (lambda lib=lib: grams(lib, xf, cr, ci,
+                                                      out=out, **kw))
+               for n, lib in frames.items() if n in whole}
+        for n, lib in streams.items():
+            if n in whole:
+                fns[f"channelizer + kernel 7 of {n}"] = (
+                    lambda lib=lib: stream_grams(
+                        lib, wc.channelize_frames(xf, K), cr, ci, out=out,
+                        **kw))
+        fns["channelizer alone"] = lambda: wc.channelize_frames(xf, K)
+        fns["plain (channelizer + kernel 7's plain version)"] = (
+            lambda: wc.subband_embedded_frames_plain(xf, cr, ci, **kw))
+        tag = "c5_f12 front-end stage (frames)"
+        res[tag] = dict(zip(fns, cs.turns_ms(torch, *fns.values())))
+        res[tag]["bound"] = cs.fft_gram_bound(xf.shape[0], F, N, g)[
+            "bound_ms"]
+        del out, xf
     for tag, row in res.items():
         for n, t in row.items():
             print(f"{tag} {n}: {t:.4f} ms  [{card}]")

@@ -1,14 +1,19 @@
-"""The work partition of the wideband front-end kernel
-(doa_tpu_torch/csrc/wideband_cov.cu, kernel 4) on the CPU.
+"""The work partition of the wideband front-end ring kernel
+(doa_tpu_torch/csrc/wideband_cov.cu: kernel 4 on the frames, kernel 7 on
+the channelized stream) on the CPU.
 
 The kernel runs only on the card. Here its launch plan (`make_plan`,
 `Layout`), its persistent walk over (chunk, subband group) units, its
-Gram items (`decode`: row class, upper-triangle tile, subband), its
-stages and its chunk-end epilogue are transcribed from the source and
-run in torch: every unit is walked once for any grid, every i <= j is
-one tile entry, every entry of E is written once, and on integer frames
-(F <= 4: twiddles +-1, +-j) the model gives `subband_chunk_grams_plain`'s
-E bit for bit."""
+y-buffer (the group's split or direct DFT of the frames, or the group's
+column blocks of the stream), its Gram items (`decode`: row class,
+upper-triangle tile, subband), its stages and its chunk-end epilogue are
+transcribed from the source and run in torch: every unit is walked once
+for any grid, every i <= j is one tile entry, every entry of E is written
+once; on integer frames (F <= 4: twiddles +-1, +-j) the model gives
+`subband_chunk_grams_plain`'s E bit for bit, on integer streams (any F)
+`subband_embedded_plain`'s, and at F not a power of two (the split DFT at
+G = F / 4 = 3) it is within float32 twiddle rounding of the float64 plain
+version."""
 
 import math
 
@@ -122,16 +127,39 @@ def stage_segments(R0, R1, g, TS):
     return out
 
 
-def kernel_model(xf, cr, ci, F, N, g, scale, fit):
-    """E f32[F, n, 2N, 2N] by the kernel's plan, walk, stages, items and
-    epilogue (sums in float64: exact on exact inputs), and the count of
-    writes of every entry of E."""
+def y_buffer(xc, q, G, P, F, tw, stream):
+    """The group's y-buffer (P, rows, N) of rows xc (rows, F, N) complex:
+    the stream's column blocks q + G s (kernel 7), or the frames' DFT
+    (kernel 4) from the float32 twiddles by the kernel's indices, split
+    with four subbands a group (z_t1 = sum_t2 W_G^(q t2) x_(t1 + 4 t2),
+    y_k = sum_t1 W[q + G k, t1] z_t1), else direct."""
+    fs = [q + G * s for s in range(P)]
+    if stream:
+        return xc[:, fs].permute(1, 0, 2)
+    t = torch.arange(F)
+    if P == 4 and G > 1:
+        twz = tw[q * torch.arange(G) * P % F]                  # (G,)
+        z = torch.einsum("u,mtuc->tmc", twz,
+                         xc.reshape(-1, G, 4, xc.shape[-1]).transpose(1, 2))
+        twy = torch.stack([tw[f * torch.arange(4) % F] for f in fs])
+        return torch.einsum("kt,tmc->kmc", twy, z)
+    W = torch.stack([tw[f * t % F] for f in fs])               # (P, F)
+    return torch.einsum("st,mtc->smc", W, xc)
+
+
+def kernel_model(xf, cr, ci, F, N, g, scale, fit, stream=False):
+    """E f32[F, n, 2N, 2N] by the kernel's plan, walk, stages, y-buffer,
+    items and epilogue (sums in float64: exact on exact inputs), and the
+    count of writes of every entry of E; xf holds frames, or with
+    stream=True the channelized stream."""
     rt = tile_form(N)
     P, C, threads, items, TS = make_plan(F, N, g, rt)
     n = xf.shape[0] // g
     nt = N // rt
     ntri = nt * (nt + 1) // 2
-    tw = torch.from_numpy(wc.dft_twiddles(F).astype(np.float64))
+    tw64 = wc.dft_twiddles(F).astype(np.float64)
+    tw = torch.complex(torch.from_numpy(tw64[:, 0]),
+                       torch.from_numpy(tw64[:, 1]))
     x = xf[:n * g].double().reshape(n * g, F, N, 2)
     xc = torch.complex(x[..., 0], x[..., 1])
     out = np.zeros((F, n, 2 * N, 2 * N), np.float32)
@@ -144,13 +172,10 @@ def kernel_model(xf, cr, ci, F, N, g, scale, fit):
             continue
         G = F // P
         fs = [q + G * s for s in range(P)]      # the group: a residue class
-        W = torch.stack([torch.complex(tw[f * np.arange(F) % F, 0],
-                                       tw[f * np.arange(F) % F, 1])
-                         for f in fs])                         # (P, F)
         acc = torch.zeros((C, P, N, N), dtype=torch.complex128)
         cc = c0
         for r, rows, segs in stage_segments(c0 * g, c1 * g, g, TS):
-            yb = torch.einsum("st,mtc->smc", W, xc[r:r + rows])
+            yb = y_buffer(xc[r:r + rows], q, G, P, F, tw, stream)
             for pos, seg, coff, ends in segs:
                 for cls in range(C):
                     first = pos + ((cls - coff) & (C - 1))
@@ -270,6 +295,14 @@ def test_c5_plan():
     assert make_plan(16, 16, 64, 4)[:3] == (16, 2, 128)
 
 
+def test_c5_f12_plan():
+    """c5_f12 (F = 12, both sources): four subbands a group (G = 3, the
+    split DFT on the frames), one row class, 192 threads for 544 items,
+    4 rows a stage, two blocks a SM."""
+    assert make_plan(12, 64, 64, 4) == (4, 1, 192, 544, 4)
+    assert 2 * (layout(12, 64, 4, 4) + BLOCK_RESERVED) <= SM_BYTES
+
+
 @pytest.mark.parametrize("g,TS", [(1, 4), (3, 4), (4, 4), (7, 4), (64, 4),
                                   (5, 1), (100, 8)])
 def test_stage_segments_cover_each_row_once(g, TS):
@@ -310,12 +343,13 @@ def test_model_gives_plain_bit_for_bit(F, N, g, n, fit):
     torch.testing.assert_close(E, Ep, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("F", [8, 16, 32])
+@pytest.mark.parametrize("F", [8, 12, 16, 20, 32])
 def test_split_dft_matches_the_direct_sum(F):
     """Four subbands a group (F = 4G, the residue class q mod G): the
     kernel's split DFT, z_t1 = sum_t2 W_G^(q t2) x_(t1 + 4 t2) and
     y_k = sum_t1 W[q + G k, t1] z_t1, from the snapped twiddles by the
-    kernel's indices, is the DFT of subbands q + G k."""
+    kernel's indices, is the DFT of subbands q + G k, for G a power of
+    two or not."""
     G = F // 4
     w = wc.dft_twiddles(F).astype(np.float64)
     tw = w[:, 0] + 1j * w[:, 1]
@@ -346,3 +380,47 @@ def test_model_matches_plain_on_a_scene():
     Ep = wc.subband_chunk_grams_plain(xf, one, zero, **kw)
     assert (E - Ep).abs().max().item() <= 1e-5 * Ep.abs().max().item()
     assert math.isfinite(E.abs().max().item())
+
+
+@pytest.mark.parametrize("F,N,g,n,fit", [
+    (12, 8, 16, 3, 264), (12, 6, 7, 4, 5), (12, 5, 9, 3, 3),
+    (10, 12, 5, 4, 264), (10, 6, 3, 7, 4), (10, 3, 8, 3, 2),
+    (6, 16, 4, 5, 264), (6, 2, 5, 6, 3), (6, 5, 16, 2, 7),
+    (5, 4, 9, 3, 2), (5, 10, 3, 5, 264), (5, 1, 7, 4, 1)])
+def test_stream_model_gives_plain_bit_for_bit(F, N, g, n, fit):
+    """Kernel 7 (the stream source): integer stream and correction at
+    F = 12, 10, 6, 5 and every register-tile form (RT = 4, 2, 1): every sum
+    is exact, so the model's E equals the float64 plain version's, and
+    every entry is written once."""
+    rng = np.random.default_rng(F * 1000 + N * 10 + g)
+    y = torch.from_numpy(rng.integers(-4, 5, (n * g, F * 2 * N))
+                         .astype(np.float32))
+    cr = torch.from_numpy(rng.integers(-1, 3, N).astype(np.float32))
+    ci = torch.from_numpy(rng.integers(-1, 2, N).astype(np.float32))
+    kw = dict(F=F, N=N, g=g, scale=1.0 / 16)
+    E, writes = kernel_model(y, cr, ci, fit=fit, stream=True, **kw)
+    assert (writes == 1).all()
+    Ep = wc.subband_embedded_plain(y.double(), cr, ci, **kw)
+    torch.testing.assert_close(E, Ep, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("F,N,g,n,split", [
+    (12, 5, 16, 3, True), (12, 8, 8, 2, False), (6, 12, 8, 3, False),
+    (10, 6, 5, 4, False)])
+def test_frames_model_at_f_not_a_power_of_two(F, N, g, n, split):
+    """Kernel 4 on the frames at F = 12 (four subbands a group, G = 3: the
+    split DFT; and twelve a group: direct), 6 and 10, normal samples and a
+    correction: the model within 1e-6·max|E| of the float64 plain version
+    (the float32 twiddles are within 2^-24 of the DFT's)."""
+    P = make_plan(F, N, g, tile_form(N))[0]
+    assert (P == 4 and F // P > 1) == split
+    rng = np.random.default_rng(F + N)
+    xf = torch.from_numpy(rng.standard_normal((n * g, F * 2 * N))
+                          .astype(np.float32))
+    cr = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+    ci = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+    kw = dict(F=F, N=N, g=g, scale=1.0 / g)
+    E, writes = kernel_model(xf, cr, ci, fit=7, **kw)
+    assert (writes == 1).all()
+    Ep = wc.subband_chunk_grams_plain(xf.double(), cr, ci, **kw)
+    assert (E - Ep).abs().max().item() <= 1e-6 * Ep.abs().max().item()

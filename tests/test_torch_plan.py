@@ -24,6 +24,8 @@ from doa_tpu_torch.ops.cuda.music_scan import (fma_takes, peaks_fma_takes,
                                                peaks_takes, peaks_tc_takes,
                                                scan_takes)
 from doa_tpu_torch.ops.cuda.subspace_ns import ns_takes
+from doa_tpu_torch import pipeline_torch
+from doa_tpu_torch.ops.cuda import wideband_cov
 from doa_tpu_torch.ops.cuda.wideband_cov import kernel_takes
 from doa_tpu_torch.ops.cuda.wideband_scan import fusion_takes
 from doa_tpu_torch.pipeline_torch import build_pipeline_torch, kernel_plan
@@ -255,6 +257,31 @@ def test_plan_ops_are_the_kernels_or_their_plain_versions(name):
     if not cfg.wideband.enabled:
         for stage, (kernel, _) in sharded_kernel_routes(cfg, 2, 1).items():
             assert kernel in KERNELS or stage == "halo"
+
+
+@pytest.mark.parametrize("F", [6, 10, 12])
+def test_non_power_of_two_front_end_plans_the_frames_launch(F, monkeypatch):
+    """At F not a power of two the covariance stage is the ring kernel's
+    launch on the frames ("subband_embedded_frames", the "embedded"
+    variant's stage), whose plain version is the reference's channelizer
+    + kernel 7; no stage names kernel 7's stream entry, and building the
+    pipeline builds no channelizer matrix."""
+    cfg = _c5(num_subbands=F, snapshot_size=64 * F)
+    plan = Plan(kernel_routes(cfg))
+    assert plan["covariance"] == "subband_embedded_frames"
+    assert plan.op("covariance") is wideband_cov.subband_embedded_frames
+    assert Plan(kernel_routes(cfg), on_card=False).op("covariance") is (
+        wideband_cov.subband_embedded_frames_plain)
+    assert "subband_embedded" not in plan.values()
+    assert "subband_embedded" not in KERNELS
+
+    def no_channelizer(*a, **k):
+        raise AssertionError("the pipeline built a channelizer matrix")
+    monkeypatch.setattr(wideband_cov, "channelizer_matrix", no_channelizer)
+    monkeypatch.setattr(pipeline_torch, "channelizer_matrix", no_channelizer,
+                        raising=False)
+    pipe = build_pipeline_torch(cfg, device="cpu")
+    assert pipe.plan["covariance"] == "plain"
 
 
 @pytest.mark.parametrize("name", ["c2_ula8_2src", "c3_ula16_calib_smooth",

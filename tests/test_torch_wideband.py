@@ -29,7 +29,8 @@ from doa_tpu.ops.pallas.wideband_cov import wideband_cov_embedded_pallas
 from doa_tpu.ops.pallas.wideband_scan import wideband_fused_spectrum_pallas
 from doa_tpu.pipeline_tpu import build_pipeline_tpu
 from doa_tpu_torch.ops import peaks, wideband
-from doa_tpu_torch.ops.cuda import peaks2d, wideband_cov, wideband_scan
+from doa_tpu_torch.ops.cuda import (cov_embedded, peaks2d, wideband_cov,
+                                    wideband_scan)
 from doa_tpu_torch.pipeline_torch import build_pipeline_torch, load_state
 
 AZ_RNG, EL_RNG = (-90.0, 90.0), (0.0, 90.0)
@@ -115,7 +116,7 @@ def test_front_end_exact_on_integer_frames():
 def test_front_end_rules():
     x = torch.zeros((4096, 16))
     one, zero = torch.ones(8), torch.zeros(8)
-    # a non-power-of-two F takes the dense channelizer ("auto"); the fft
+    # a non-power-of-two F takes the "embedded" variant ("auto"); the fft
     # variant refuses it, as the reference's
     assert wideband_cov.resolve_variant(12, "auto") == "embedded"
     assert wideband_cov.resolve_variant(16, "auto") == "fft"
@@ -214,6 +215,53 @@ def test_front_end_variants_match_xla_reference(variant, F, S, overlap):
     tol = 2e-5 * np.abs(Rr).max()
     np.testing.assert_allclose(E[..., :N, :N], Rr, rtol=0, atol=tol)
     np.testing.assert_allclose(E[..., N:, :N], Ri, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("F,N,S,overlap", [(6, 32, 192, 0),
+                                           (12, 16, 384, 96)])
+def test_embedded_front_end_matches_reference(F, N, S, overlap):
+    """The "embedded" variant ("auto" at F not a power of two) on the CPU
+    against the reference's own (dense channelizer + its kernel 7 in
+    interpret mode, one chunk a block), correction folded: within
+    2e-5·max|E|. On the CPU the stage is the reference's composition,
+    channelize_frames then subband_embedded_plain, bit for bit, with the
+    channelizer matrix given or taken from channelizer_on. (The
+    reference's channelizer needs its row packing, TPACK, to divide F.)"""
+    T = 4096
+    rng = np.random.default_rng(F + overlap)
+    x = (rng.standard_normal((T, N))
+         + 1j * rng.standard_normal((T, N))).astype(np.complex64)
+    c = _correction(N, seed=F)
+    tp = interleave_factor(N)
+    xil = np.ascontiguousarray(x).view(np.float32)
+    E_ref = np.asarray(wideband_cov_embedded_pallas(
+        jnp.asarray(xil.reshape(T // tp, 2 * N * tp)),
+        jnp.asarray(wideband_cov_jax.channelizer_matrix(F, N)),
+        jnp.asarray(c.real), jnp.asarray(c.imag), N=N, F=F,
+        snapshot_size=S, overlap=overlap, variant="embedded",
+        chunks_per_block=1, interpret=True))
+    cr, ci = torch.from_numpy(c.real.copy()), torch.from_numpy(c.imag.copy())
+    kw = dict(N=N, F=F, snapshot_size=S, overlap=overlap)
+    E = wideband_cov.wideband_cov_embedded(torch.from_numpy(xil), cr, ci,
+                                           **kw)
+    assert E.shape == E_ref.shape
+    np.testing.assert_allclose(E.numpy(), E_ref,
+                               atol=2e-5 * np.abs(E_ref).max())
+    # the composition, spelled out
+    S_sub, hop_sub, g = wideband_cov.subband_framing(F, S, overlap)
+    M = T // F
+    n = M // g
+    xf = torch.from_numpy(xil)[:n * g * F].reshape(n * g, F * 2 * N)
+    K = torch.from_numpy(wideband_cov.channelizer_matrix(F, N))
+    Y = wideband_cov.channelize_frames(xf, K)
+    Ec = wideband_cov.subband_embedded_plain(Y, cr, ci, F=F, N=N, g=g,
+                                             scale=1.0 / S_sub)
+    Ec = cov_embedded.window_sums(Ec, (M - S_sub) // hop_sub + 1,
+                                  S_sub // g, hop_sub // g)
+    torch.testing.assert_close(E, Ec, rtol=0, atol=0)
+    for kwk in (dict(K=K), dict(variant="embedded")):
+        torch.testing.assert_close(wideband_cov.wideband_cov_embedded(
+            torch.from_numpy(xil), cr, ci, **kw, **kwk), E, rtol=0, atol=0)
 
 
 def test_subband_kernels_exact_on_integer_stream():
