@@ -66,28 +66,41 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    call time, per-layer times and a profile window; then the card's
    pipeline against the same pipeline on the CPU on 32 windows.
 8. planes-path kernel parity: kernel 8 (chunk Grams of sample planes, f32
-   and bf16, separate planes and the stride-2 views of a complex64
-   capture, 63 chunks + a tail) and kernel 12 (one Gram per window, N=16,
-   S=1024, overlap 1000: 43649 windows of 2^20 samples) exact on
-   integer-valued inputs and within 1e-5 of max|R| on the c3 scene; K4
-   exact at (2N, 2K) = (24, 6) and (16, 4) on signed-permutation windows
-   and within 1e-5 on the c3 scene's smoothed windows; each kernel's time
-   beside its plain version's.
+   and bf16) in each of its forms (`form_of` reads the form of each
+   launch from the wrapper's by_form counts): the ring form on the
+   stride-2 views of a complex64 capture (also 8 bytes off a 16-byte
+   boundary) and on separate planes (4 | N), the staged form on rows
+   padded by one element, every third value and separate planes at odd
+   N; exact on integer-valued inputs at 2N = 16, 30, 32, 64, chunks of
+   128 and 7 rows, 63 chunks + a tail; at c3's shape within 1e-5 of
+   max|R| on the c3 scene, each form timed in turns with the plain
+   versions (f32 and bf16). Kernel 12 in each of its forms (K12_EXACT:
+   the chunk-sum form at N = 16, 8, 4 with hops of 24, 56, 200, 6 and 1,
+   on the stride-2 views, separate planes and every third value; the
+   per-window form at hop 4 and at N = 15; at N = 16 also the per-window
+   form through its C entry) exact on integer-valued inputs, and at S =
+   96 the card's plain version equal to the CPU's on them; both forms
+   within 1e-5 of max|R| on the c3 scene at N=16, S=1024, overlap 1000
+   (43649 windows of 2^20 samples) and timed in turns with the plain
+   version. K4 exact at (2N, 2K) = (24, 6) and (16, 4) on
+   signed-permutation windows and within 1e-5 on the c3 scene's smoothed
+   windows; each kernel's time beside its plain version's.
 9. the planes path: the two-stage calibration on the card (common tone,
    pilot at 68 deg, artifact round trip); PRESETS["c3_ula16_calib_smooth"]
    at T=2^24 on validate_tpu.py's c3 scene (40/70 deg coherent, 100 deg),
    impaired by chain phases and element gains/phases, through
    call((xr, xi), correction) on strided card views: every window within
    0.5 deg, launch counts, median call time, layer times, a profile
-   window (K2's launches all of its tensor-core form); K3 and K2 on c3's
-   own subspaces (`scan_parity`: den, sorted angles within 0.01° of plain
-   and 0.5° of the scene, K2 timed as in phase 3); c3 with eigh at
+   window (K2's launches all of its tensor-core form, kernel 8's all of
+   its ring form on the interleaved views, as the plan names); K3 and K2
+   on c3's own subspaces (`scan_parity`: den, sorted angles within 0.01°
+   of plain and 0.5° of the scene, K2 timed as in phase 3); c3 with eigh at
    overlap 512 (1024 windows); the card against
    the CPU on 64 c3 windows; PRESETS["c2_ula8_2src"] (MUSIC + Capon) at
    T=2^24 on validate_tpu.py's c2 scene: every window within 0.5 deg of
    60/110 (K2 in its tensor-core form; `scan_parity` on c2's subspaces),
    the card against the CPU on 64 windows; the cov_windows entry
-   driven at gcd 8 (kernel 12).
+   driven at gcd 8 (kernel 12, all of its chunk-sum form).
 10. the wideband front end at any F: kernel 7 (the ring kernel of
    csrc/wideband_cov.cu on the channelized stream) and kernel 10
    (interleaved subband Grams) exact on integer-valued streams at every
@@ -1420,6 +1433,14 @@ C2_TRUTH = (60.0, 110.0)           # validate_tpu.py's c2 scene
 T_C3 = 1 << 24                     # 16384 windows of 1024: 2 GiB
 T_C2 = 1 << 24                     # 8192 windows of 2048: 1 GiB
 T_K12 = 1 << 20                    # kernel 12: S = 1024, overlap 1000
+# kernel 12 exact: (N, S, overlap, T, the form windows_form names)
+K12_EXACT = ((16, 1024, 1000, T_K12, "chunk_sums"),
+             (16, 256, 200, 1 << 16, "chunk_sums"),
+             (16, 256, 56, 1 << 16, "chunk_sums"),     # hop 200 > S/2
+             (8, 256, 250, 1 << 16, "chunk_sums"),
+             (4, 96, 95, 1 << 14, "chunk_sums"),       # hop 1, g 1
+             (16, 1024, 1020, 1 << 15, "per_window"),  # 256 open windows
+             (15, 1024, 1000, 1 << 16, "per_window"))  # N odd
 B_EIGH = 1024                      # c3 with eigh at overlap 512
 B_CPU = 64                         # the card against the CPU
 T_CAL = 1 << 20                    # each calibration capture
@@ -1508,6 +1529,38 @@ def scan_parity(torch, tag, Vt, At, nrm, k, truth, card, k2_shapes=None):
         k2_shapes[tag] = rec
 
 
+def form_of(fn, counter):
+    """fn() → (its result, the form of its one launch of the wrapper
+    `counter`, from the wrapper's `by_form` counts)."""
+    before = dict(counter.by_form)
+    out = fn()
+    moved = {f: n - before[f] for f, n in counter.by_form.items()
+             if n != before[f]}
+    check(len(moved) == 1 and list(moved.values()) == [1],
+          f"not one launch of one form: {moved}")
+    return out, next(iter(moved), None)
+
+
+def k12_per_window(torch, xr, xi, S, ov):
+    """Kernel 12's per-window form at any shape, through its C entry (the
+    wrapper takes it only where windows_form names it)."""
+    from doa_tpu_torch import _build
+    from doa_tpu_torch.ops.cuda import covariance as cv
+
+    lib = _build.load("covariance", cv._SIG)
+    N = xr.shape[1]
+    hop, _, B = cv._framing(xr.shape[0], S, ov)
+    xr, xi, rs, es, load, _ = cv._kernel_args(xr, xi, N)
+    rr = torch.empty((B, N, N), device=xr.device)
+    ri = torch.empty_like(rr)
+    _build.check(lib.doa_planes_cov_windows(
+        xr.data_ptr(), xi.data_ptr(), rs, es, load, rr.data_ptr(),
+        ri.data_ptr(), B, S, hop, N,
+        torch.cuda.current_stream(xr.device).cuda_stream),
+        "doa_planes_cov_windows")
+    return rr, ri
+
+
 def planes_parity(torch, dev, x3, card, k4_shapes=None):
     """Phase 8 → the records of kernels 8 and 12 (launches filled in
     later). x3: the c3 capture f32[T, 16, 2] on the card. K4's time at c3
@@ -1524,97 +1577,170 @@ def planes_parity(torch, dev, x3, card, k4_shapes=None):
 
     # kernel 8 exact: integer samples |x| ≤ 20 (exact in bf16 too), every
     # sum an integer below 2^24; both register-tile forms (2N = 16, 32, 64;
-    # 2N = 30) and every load form: separate planes (float4), the stride-2
-    # views of an interleaved buffer (float4; float2 when it starts 8 bytes
-    # off a 16-byte boundary or N is odd), every third value (one value a
-    # thread); 63 chunks + a tail
+    # 2N = 30), chunks of 128 and 7 rows, 63 chunks + a tail, and every
+    # layout with the form it takes: the stride-2 views of an interleaved
+    # buffer (the ring's rows; also 8 bytes off a 16-byte boundary, whose
+    # stages take plain loads for their heads and tails), separate planes
+    # (the ring's planes where 4 | N, else staged), the stride-2 views of
+    # rows padded by one element and every third value (staged)
     for N in (8, 15, 16, 32):
-        g = 128
-        T8 = 63 * g + 17
-        buf = torch.randint(-20, 21, (T8 * 3 * N + 2,), generator=gen,
-                            device=dev).float()
-        xq = buf[:T8 * 2 * N].view(T8, N, 2)
-        xo = buf[2:2 + T8 * 2 * N].view(T8, N, 2)
-        x3v = buf[:T8 * 3 * N].view(T8, N, 3)
-        layouts = (("planar", (xq[..., 0].contiguous(),
-                               xq[..., 1].contiguous())),
-                   ("stride2", (xq[..., 0], xq[..., 1])),
-                   ("stride2 8-byte offset", (xo[..., 0], xo[..., 1])),
-                   ("stride3", (x3v[..., 0], x3v[..., 2])))
-        for dt in ("float32", "bfloat16"):
-            for name, (xr, xi) in layouts:
-                d = dmax(cv.chunk_grams(xr, xi, g, dt),
-                         cv.chunk_grams_plain(xr, xi, g, dt))
-                log(f"kernel 8 exact-input N={N} {dt} {name}: "
-                    f"max|kernel-plain| = {d!r} (must be 0)")
-                check(d == 0.0, f"kernel 8 N={N} {dt} {name} differs on "
-                                f"exact inputs")
-    # kernel 8 at c3's shape on the c3 scene (stride-2 views, g = S = 1024)
+        for g in (128, 7):
+            T8 = 63 * g + 17
+            buf = torch.randint(-20, 21, (T8 * 3 * N + 2,), generator=gen,
+                                device=dev).float()
+            xq = buf[:T8 * 2 * N].view(T8, N, 2)
+            xo = buf[2:2 + T8 * 2 * N].view(T8, N, 2)
+            x3v = buf[:T8 * 3 * N].view(T8, N, 3)
+            xpad = buf[:T8 * 2 * (N + 1)].view(T8, N + 1, 2)[:, :N]
+            layouts = (
+                ("planar", (xq[..., 0].contiguous(), xq[..., 1].contiguous()),
+                 "ring_planar" if N % 4 == 0 else "staged"),
+                ("stride2", (xq[..., 0], xq[..., 1]), "ring_interleaved"),
+                ("stride2 8-byte offset", (xo[..., 0], xo[..., 1]),
+                 "ring_interleaved"),
+                ("stride2 padded rows", (xpad[..., 0], xpad[..., 1]),
+                 "staged"),
+                ("stride3", (x3v[..., 0], x3v[..., 2]), "staged"))
+            for dt in ("float32", "bfloat16"):
+                for name, (xr, xi), want in layouts:
+                    got, form = form_of(
+                        lambda: cv.chunk_grams(xr, xi, g, dt), cv.chunk_grams)
+                    d = dmax(got, cv.chunk_grams_plain(xr, xi, g, dt))
+                    log(f"kernel 8 exact-input N={N} g={g} {dt} {name} "
+                        f"({form}): max|kernel-plain| = {d!r} (must be 0)")
+                    check(form == want, f"kernel 8 {name} took {form}, "
+                                        f"not {want}")
+                    check(d == 0.0, f"kernel 8 N={N} g={g} {dt} {name} "
+                                    f"differs on exact inputs")
+    # kernel 8 at c3's shape on the c3 scene (g = S = 1024), each form:
+    # the stride-2 views (c3's own planes, the ring's rows), separate
+    # planes (the ring's planes), rows padded by one element (staged)
     xr, xi = x3[..., 0], x3[..., 1]
+    T3, N3 = xr.shape
+    xp = (xr.contiguous(), xi.contiguous())
+    xpad = torch.empty((T3, N3 + 1, 2), device=dev)
+    xpad[:, :N3] = x3
+    xs = (xpad[:, :N3, 0], xpad[:, :N3, 1])
     ref = cv.chunk_grams_plain(xr, xi, 1024)
     scale = ref[0].abs().max().item()
-    e8 = dmax(cv.chunk_grams(xr, xi, 1024), ref)
-    log(f"kernel 8 f32 c3 scene T={xr.shape[0]} N=16: max|kernel-plain| = "
-        f"{e8!r}, max|Rr| = {scale!r}, tol 1e-5*max|Rr|")
-    check(e8 <= 1e-5 * scale, "kernel 8 f32 disagrees with plain")
+    k8 = {}
+    for form, planes, dt in (("ring_interleaved", (xr, xi), "float32"),
+                             ("ring_planar", xp, "float32"),
+                             ("staged", xs, "float32"),
+                             ("ring_interleaved", (xr, xi), "bfloat16")):
+        got, took = form_of(lambda: cv.chunk_grams(*planes, 1024, dt),
+                            cv.chunk_grams)
+        want = ref if dt == "float32" else cv.chunk_grams_plain(
+            xr, xi, 1024, dt)
+        e = dmax(got, want)
+        tag = form + (" bf16" if dt == "bfloat16" else "")
+        k8[tag] = {"max_abs_err": e}
+        log(f"kernel 8 {tag} c3 scene T={T3} N={N3}: max|kernel-plain| = "
+            f"{e!r}, max|Rr| = {scale!r}, tol 1e-5*max|Rr|")
+        check(took == form, f"kernel 8 at c3 took {took}, not {form}")
+        check(e <= 1e-5 * scale, f"kernel 8 {tag} disagrees with plain")
+        del got, want
     del ref
-    eb = dmax(cv.chunk_grams(xr, xi, 1024, "bfloat16"),
-              cv.chunk_grams_plain(xr, xi, 1024, "bfloat16"))
-    log(f"kernel 8 bf16 c3 scene: max|kernel-plain| = {eb!r}, tol "
-        f"1e-5*max|Rr|")
-    check(eb <= 1e-5 * scale, "kernel 8 bf16 disagrees with plain")
-    xp = (xr.contiguous(), xi.contiguous())
-    k_ms, p_ms = pair_ms(torch, lambda: cv.chunk_grams(xr, xi, 1024),
-                         lambda: cv.chunk_grams_plain(xr, xi, 1024))
-    kp_ms, _ = pair_ms(torch, lambda: cv.chunk_grams(*xp, 1024),
-                       lambda: cv.chunk_grams(xr, xi, 1024))
-    kb_ms, pb_ms = pair_ms(
-        torch, lambda: cv.chunk_grams(xr, xi, 1024, "bfloat16"),
-        lambda: cv.chunk_grams_plain(xr, xi, 1024, "bfloat16"))
-    del xp
-    T3, N3 = xr.shape
+    fns = {"plain": lambda: cv.chunk_grams_plain(xr, xi, 1024),
+           "ring_interleaved": lambda: cv.chunk_grams(xr, xi, 1024),
+           "ring_planar": lambda: cv.chunk_grams(*xp, 1024),
+           "staged": lambda: cv.chunk_grams(*xs, 1024),
+           "ring_interleaved bf16": lambda: cv.chunk_grams(
+               xr, xi, 1024, "bfloat16"),
+           "plain bf16": lambda: cv.chunk_grams_plain(xr, xi, 1024,
+                                                      "bfloat16")}
+    t8 = dict(zip(fns, turns_ms(torch, *fns.values())))
+    for tag in k8:
+        k8[tag]["ms"] = t8[tag]
+    del xp, xs, xpad
     # the library's form: one complex batched product of the chunks,
     # R = Σ x xᴴ, whose (re, im) are kernel 8's (Rr, Ri)
     xc = torch.view_as_complex(x3).view(-1, 1024, N3)
     with fp32_matmuls():
         lib8_ms = time_ms(torch, lambda: torch.matmul(xc.mT, xc.conj()))
     del xc
-    log(f"kernel 8 time [{T3}, 16] x2 g=1024: f32 stride-2 kernel "
-        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library (one complex "
-        f"torch.matmul) {lib8_ms:.4f} ms; f32 planar kernel {kp_ms:.4f} ms; "
-        f"bf16 kernel {kb_ms:.4f} ms, plain {pb_ms:.4f} ms  [{card}]")
+    log(f"kernel 8 time [{T3}, 16] x2 g=1024 (in turns): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in t8.items())
+        + f"; library (one complex torch.matmul) {lib8_ms:.4f} ms  [{card}]")
     recs["planes_chunk_gram"] = dict(
         name="planes_chunk_gram", route="cuda",
         source="doa_tpu_torch/csrc/covariance.cu",
         replaces="doa_tpu/ops/pallas/covariance.py:34",
-        max_abs_err=e8, ms=k_ms, plain_ms=p_ms,
+        max_abs_err=k8["ring_interleaved"]["max_abs_err"],
+        ms=t8["ring_interleaved"], plain_ms=t8["plain"],
         # the planes read once; (Rr, Ri) a chunk; R = Σ x xᴴ Hermitian,
         # 4·N² FLOP a sample for its half
         **bound(2 * T3 * N3 * 4 + 2 * (T3 // 1024) * N3 * N3 * 4,
                 4 * T3 * N3 * N3),
-        library_ms=lib8_ms)
+        library_ms=lib8_ms, by_form=k8, plain_bf16_ms=t8["plain bf16"])
 
-    # kernel 12: N = 16, S = 1024, overlap 1000 (hop 24, gcd 8)
+    # kernel 12 exact, each form on integer samples: (N, S, overlap, T,
+    # the form windows_form names); the chunk-sum form also on separate
+    # planes and on every third value (its planar and one-value loads)
+    def per_window(xr, xi, S, ov):
+        return k12_per_window(torch, xr, xi, S, ov)
+
+    for N, S, ov, T12, want in K12_EXACT:
+        xq = torch.randint(-20, 21, (T12 * 3 * N,), generator=gen,
+                           device=dev).float()
+        x2v = xq[:T12 * 2 * N].view(T12, N, 2)
+        x3v = xq.view(T12, N, 3)
+        layouts = [("stride2", (x2v[..., 0], x2v[..., 1]))]
+        if (N, S) == (16, 256):
+            layouts += [("planar", (x2v[..., 0].contiguous(),
+                                    x2v[..., 1].contiguous())),
+                        ("stride3", (x3v[..., 0], x3v[..., 2]))]
+        for name, (xr, xi) in layouts:
+            got, form = form_of(lambda: cv.cov_windows(xr, xi, S, ov),
+                                cv.cov_windows)
+            d = dmax(got, cv.cov_windows_plain(xr, xi, S, ov))
+            B12 = got[0].shape[0]
+            log(f"kernel 12 exact-input N={N} S={S} overlap={ov} {name} "
+                f"({B12} windows, {form}): max|kernel-plain| = {d!r} "
+                f"(must be 0)")
+            check(form == want, f"kernel 12 took {form}, not {want}")
+            check(d == 0.0, f"kernel 12 {form} differs on exact inputs")
+        if want == "chunk_sums" and N == 16:      # the other form, too
+            xr, xi = x2v[..., 0], x2v[..., 1]
+            d = dmax(per_window(xr, xi, S, ov),
+                     cv.cov_windows_plain(xr, xi, S, ov))
+            log(f"kernel 12 exact-input N={N} S={S} overlap={ov} stride2 "
+                f"(per_window, its C entry): max|kernel-plain| = {d!r} "
+                f"(must be 0)")
+            check(d == 0.0, "kernel 12 per_window differs on exact inputs")
+        if S == 96:     # the yardstick: the card's plain version, the CPU's
+            xr, xi = x2v[..., 0], x2v[..., 1]
+            d = dmax(cv.cov_windows_plain(xr, xi, S, ov),
+                     [t.to(dev) for t in cv.cov_windows_plain(
+                         xr.cpu(), xi.cpu(), S, ov)])
+            log(f"cov_windows_plain N={N} S={S} overlap={ov}, card against "
+                f"CPU: max|card-cpu| = {d!r} (must be 0)")
+            check(d == 0.0, "cov_windows_plain differs from the CPU's")
+        del xq, x2v, x3v
+    # on the c3 scene: N = 16, S = 1024, overlap 1000 (hop 24, gcd 8)
     S, ov = 1024, 1000
-    xq = torch.randint(-20, 21, (T_K12, 16, 2), generator=gen,
-                       device=dev).float()
-    d = dmax(cv.cov_windows(xq[..., 0], xq[..., 1], S, ov),
-             cv.cov_windows_plain(xq[..., 0], xq[..., 1], S, ov))
-    B12 = (T_K12 - S) // (S - ov) + 1
-    log(f"kernel 12 exact-input N=16 S={S} overlap={ov} ({B12} windows): "
-        f"max|kernel-plain| = {d!r} (must be 0)")
-    check(d == 0.0, "kernel 12 differs on exact inputs")
-    del xq
     xr, xi = x3[:T_K12, :, 0], x3[:T_K12, :, 1]
+    B12 = (T_K12 - S) // (S - ov) + 1
     ref = cv.cov_windows_plain(xr, xi, S, ov)
     s12 = ref[0].abs().max().item()
-    e12 = dmax(cv.cov_windows(xr, xi, S, ov), ref)
-    log(f"kernel 12 c3 scene: max|kernel-plain| = {e12!r}, max|Rr| = "
-        f"{s12!r}, tol 1e-5*max|Rr|")
-    check(e12 <= 1e-5 * s12, "kernel 12 disagrees with plain")
-    del ref
-    k_ms, p_ms = pair_ms(torch, lambda: cv.cov_windows(xr, xi, S, ov),
-                         lambda: cv.cov_windows_plain(xr, xi, S, ov),)
+    got, form = form_of(lambda: cv.cov_windows(xr, xi, S, ov),
+                        cv.cov_windows)
+    k12 = {"chunk_sums": {"max_abs_err": dmax(got, ref)},
+           "per_window": {"max_abs_err": dmax(per_window(xr, xi, S, ov),
+                                              ref)}}
+    del got, ref
+    for f, r in k12.items():
+        log(f"kernel 12 {f} c3 scene ({B12} windows): max|kernel-plain| = "
+            f"{r['max_abs_err']!r}, max|Rr| = {s12!r}, tol 1e-5*max|Rr|")
+        check(r["max_abs_err"] <= 1e-5 * s12, f"kernel 12 {f} disagrees "
+                                              f"with plain")
+    check(form == "chunk_sums", f"kernel 12 at c3's shape took {form}")
+    fns = {"plain": lambda: cv.cov_windows_plain(xr, xi, S, ov),
+           "chunk_sums": lambda: cv.cov_windows(xr, xi, S, ov),
+           "per_window": lambda: per_window(xr, xi, S, ov)}
+    t12 = dict(zip(fns, turns_ms(torch, *fns.values())))
+    for f in k12:
+        k12[f]["ms"] = t12[f]
     # the library's form: one complex batched product over the windows of
     # the capture's unfold view, R = Σ x xᴴ a window (the 1/S the kernel
     # folds in is left out: one multiply an output value)
@@ -1622,22 +1748,24 @@ def planes_parity(torch, dev, x3, card, k4_shapes=None):
     with fp32_matmuls():
         lib12_ms = time_ms(torch, lambda: torch.matmul(xw, xw.mT.conj()))
     del xw
-    log(f"kernel 12 time ({B12} windows of {S}x16, hop {S - ov}): kernel "
-        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library (one complex "
-        f"torch.matmul on the unfold view) {lib12_ms:.4f} ms  [{card}]")
+    log(f"kernel 12 time ({B12} windows of {S}x16, hop {S - ov}, in turns): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in t12.items())
+        + f"; library (one complex torch.matmul on the unfold view) "
+        f"{lib12_ms:.4f} ms  [{card}]")
     n12 = T_K12 // math.gcd(S, S - ov)
     recs["planes_cov_windows"] = dict(
         name="planes_cov_windows", route="cuda",
         source="doa_tpu_torch/csrc/covariance.cu",
         replaces="doa_tpu/ops/pallas/covariance.py:94",
-        max_abs_err=e12, ms=k_ms, plain_ms=p_ms,
+        max_abs_err=k12["chunk_sums"]["max_abs_err"],
+        ms=t12["chunk_sums"], plain_ms=t12["plain"],
         # the capture read once, (Rr, Ri) a window; the least arithmetic
         # is the Hermitian chunk Grams at the windows' gcd (4·N² FLOP a
         # sample), a running sum over chunks and one difference a window
         # (N² distinct reals each)
         **bound(T_K12 * 32 * 4 + B12 * 2 * 256 * 4,
                 4 * T_K12 * 256 + (n12 + B12) * 256),
-        library_ms=lib12_ms)
+        library_ms=lib12_ms, by_form=k12)
 
     # K4 at the planes path's new shapes, exact: E a signed permutation per
     # window (every MGS dot product 0, every norm 1, every sum exact)
@@ -1756,13 +1884,22 @@ def planes_phases(torch, dev, card, k4_shapes=None, k2_shapes=None):
     for f in counters.values():
         f.launches = 0
     ms.music_scan_peaks.tc_launches = 0
+    for by_form in (cv.chunk_grams.by_form, cv.cov_windows.by_form):
+        by_form.update(dict.fromkeys(by_form, 0))
     res = {rs: p((xr, xi), corr) for rs, p in pipes.items()}
     torch.cuda.synchronize()
     n3 = {k: f.launches for k, f in counters.items()}
     n3["music_scan_peaks (tensor-core form)"] = (
         ms.music_scan_peaks.tc_launches)
+    k8_forms = dict(cv.chunk_grams.by_form)
     log("launches in the c3 path (both return_spectra modes): "
-        + json.dumps(n3))
+        + json.dumps(n3) + "; kernel 8 by form " + json.dumps(k8_forms)
+        + "; the plan's kernel 8 forms "
+        + json.dumps(pipes[False].plan.forms))
+    check(k8_forms["ring_interleaved"] == n3["planes_chunk_gram"],
+          "kernel 8 left its ring form on c3's strided views")
+    check(pipes[False].plan.forms.get("covariance") == "ring_interleaved",
+          "c3's plan does not name the ring form")
     check(n3["music_scan_peaks (tensor-core form)"]
           == n3["music_scan_peaks"], "K2 left its tensor-core form at c3")
     check(n3["planes_chunk_gram"] > 0 and n3["mgs_iterate"] > 0
@@ -1771,6 +1908,7 @@ def planes_phases(torch, dev, card, k4_shapes=None, k2_shapes=None):
     check(n3["planes_cov_windows"] == 0 and n3["chunk_gram"] == 0,
           "kernel 12 or K1 ran in the c3 path")
     recs["planes_chunk_gram"]["launches"] = n3["planes_chunk_gram"]
+    recs["planes_chunk_gram"]["launches_by_form"] = k8_forms
     B3 = T_C3 // 1024
     for rs, r in res.items():
         ang = r.peak_angles["music"]
@@ -1907,17 +2045,24 @@ def planes_phases(torch, dev, card, k4_shapes=None, k2_shapes=None):
                           seed=6)
     for f in counters.values():
         f.launches = 0
+    for by_form in (cv.chunk_grams.by_form, cv.cov_windows.by_form):
+        by_form.update(dict.fromkeys(by_form, 0))
     Rw = cv.cov_windows(xq[..., 0], xq[..., 1], 1024, 1000)
     torch.cuda.synchronize()
     B12 = (T_K12 - 1024) // 24 + 1
     check(tuple(Rw[0].shape) == (B12, 16, 16)
           and bool(torch.isfinite(Rw[0]).all()), "cov_windows output")
     log(f"cov_windows entry (S=1024, overlap 1000, {B12} windows): launches "
-        f"kernel 12 {cv.cov_windows.launches}, kernel 8 "
+        f"kernel 12 {cv.cov_windows.launches} (by form "
+        f"{json.dumps(cv.cov_windows.by_form)}), kernel 8 "
         f"{cv.chunk_grams.launches}")
     check(cv.cov_windows.launches > 0 and cv.chunk_grams.launches == 0,
           "the cov_windows entry did not take kernel 12")
+    check(cv.cov_windows.by_form["chunk_sums"] == cv.cov_windows.launches,
+          "the cov_windows entry left kernel 12's chunk-sum form")
     recs["planes_cov_windows"]["launches"] = cv.cov_windows.launches
+    recs["planes_cov_windows"]["launches_by_form"] = dict(
+        cv.cov_windows.by_form)
     return recs, n3["mgs_iterate"] + n2["mgs_iterate"]
 
 

@@ -59,7 +59,7 @@ from doa_tpu_torch.parallel.collectives import all_gather, ppermute, psum
 from doa_tpu_torch.parallel.mesh import GRID_AXIS, SNAP_AXIS, Mesh
 from doa_tpu_torch.pipeline import _steering_matrix
 from doa_tpu_torch.pipeline_torch import _correction_planes
-from doa_tpu_torch.plan import Plan, sharded_kernel_routes
+from doa_tpu_torch.plan import Plan, kernel_forms, sharded_kernel_routes
 
 _ESTIMATORS = (Estimator.MUSIC, Estimator.CAPON, Estimator.BARTLETT)
 
@@ -318,8 +318,9 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
     _check_sharded_slice(cfg)
     dev = mesh.device
     n_snap, n_grid = mesh.axis_size(SNAP_AXIS), mesh.axis_size(GRID_AXIS)
-    plan = Plan(sharded_kernel_routes(cfg, n_snap, n_grid, return_spectra),
-                on_card=dev.type == "cuda")
+    routes = sharded_kernel_routes(cfg, n_snap, n_grid, return_spectra)
+    plan = Plan(routes, on_card=dev.type == "cuda",
+                forms=kernel_forms(cfg, routes))
     route = plan.kernels
     A_host, x_rng = _steering_matrix(cfg)
     S, hop, overlap = cfg.snapshot_size, cfg.hop, cfg.overlap

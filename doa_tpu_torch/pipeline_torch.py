@@ -75,8 +75,8 @@ from doa_tpu_torch.ops.wideband import (auto_focused_covariance,
                                         cssm_covariance, focusing_matrices,
                                         subband_subspaces_from_E,
                                         wideband_steering_stack)
-from doa_tpu_torch.plan import (Plan, fused_route, kernel_plan,  # noqa: F401
-                                kernel_routes)
+from doa_tpu_torch.plan import (Plan, fused_route, kernel_forms,  # noqa: F401
+                                kernel_plan, kernel_routes)
 from doa_tpu_torch.pipeline import DoaResult, _steering_fn, _steering_matrix
 
 _ESTIMATORS = (Estimator.MUSIC, Estimator.CAPON, Estimator.BARTLETT)
@@ -260,7 +260,9 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
       pipeline takes each stage's route and callable from it: a stage
       runs its plain torch version on the card only where the plan says
       so, and a kernel wrapper given a shape its kernel does not take
-      still raises.
+      still raises. ``call.plan.forms`` names kernel 8's form on the
+      views of a complex64 capture (plan.kernel_forms) where the plan
+      runs it.
 
     `state` (load_state) replaces the steering built from cfg and gives
     the default correction. donate_inputs=True is the caller's promise
@@ -302,8 +304,9 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
     dev = _device(device)
     cfg = as_config(cfg)
     _check_slice(cfg)
-    plan = Plan(kernel_routes(cfg, return_spectra=return_spectra),
-                on_card=dev.type == "cuda")
+    routes = kernel_routes(cfg, return_spectra=return_spectra)
+    plan = Plan(routes, on_card=dev.type == "cuda",
+                forms=kernel_forms(cfg, routes))
     route = plan.kernels
     N = cfg.geometry.num_elements
     K = cfg.num_sources

@@ -28,7 +28,7 @@ from doa_tpu_torch.ops.cuda.cov_embedded import (chunk_grams_uhat,
                                                   chunk_grams_uhat_plain,
                                                   gram_takes,
                                                   interleave_factor)
-from doa_tpu_torch.ops.cuda.covariance import (chunk_grams,
+from doa_tpu_torch.ops.cuda.covariance import (chunk_form, chunk_grams,
                                                chunk_grams_plain,
                                                planes_takes)
 from doa_tpu_torch.ops.cuda.music_scan import (MAX_FUSED_G, MAX_FUSED_K,
@@ -70,13 +70,18 @@ class Plan(dict):
     """{stage: the kernel's name, or "plain"} from routes {stage: (kernel,
     whether it takes the config's shapes)}; on_card=False (a pipeline on
     the CPU) makes every stage "plain". `kernels` keeps each stage's
-    kernel, planned or not: the stage's route."""
+    kernel, planned or not: the stage's route. `forms` names, for each
+    planned stage whose kernel has named forms, the form a launch takes
+    (kernel_forms)."""
 
-    def __init__(self, routes: dict, on_card: bool = True):
+    def __init__(self, routes: dict, on_card: bool = True,
+                 forms: dict | None = None):
         super().__init__((stage, kernel if takes and on_card else "plain")
                          for stage, (kernel, takes) in routes.items())
         self.kernels = {stage: kernel for stage, (kernel, _) in
                         routes.items()}
+        self.forms = {stage: f for stage, f in (forms or {}).items()
+                      if self[stage] != "plain"}
 
     def op(self, stage: str):
         """The stage's callable: its kernel's wrapper where planned, else
@@ -209,6 +214,19 @@ def sharded_kernel_routes(cfg, n_snap: int, n_grid: int,
             if n_grid == 1 and fuses_peaks(cfg, return_spectra)
             else ("music_scan", scan_takes(k2, n2)))
     return routes
+
+
+def kernel_forms(cfg, routes: dict) -> dict:
+    """{stage: form} for the stages of `routes` whose kernel has named
+    forms: kernel 8 ("planes_chunk_gram"), in the form it takes on the
+    two views of an interleaved complex64 capture (covariance.chunk_form
+    of the "interleaved" layout): the planes a pipeline makes of its
+    complex capture, and planes input passed as such views. Planes of
+    another layout take that layout's form; chunk_grams.by_form counts
+    the form of each launch."""
+    form = chunk_form(as_config(cfg).geometry.num_elements, "interleaved")
+    return {stage: form for stage, (kernel, _) in routes.items()
+            if kernel == "planes_chunk_gram"}
 
 
 def kernel_plan(cfg, *, return_spectra: bool = True) -> dict:

@@ -5,8 +5,12 @@ NVIDIA GPU.
 
     python3 exp_cov_gram.py [--against OTHER/cov_gram.cu ...]
 
-Each variant is a copy of the source with a few lines patched, built by
-nvcc into a temporary directory and loaded with ctypes: the ring's STAGES
+Each variant is a copy of the source (with csrc/gram_ring.cuh, the ring
+mainloop it shares with kernel 8, expanded in place) with a few lines
+patched, built by nvcc into a temporary directory and loaded with ctypes,
+and each whole variant's ptxas lines (registers, spills) are printed a
+kernel each, and for each `--against` source how many of its kernels
+compile to the package's SASS word for word: the ring's STAGES
 and STAGE_BYTES; "no FMAs" skips the mainloop's multiply-adds (the
 copies, the walk and the chunk-end work remain); "no chunk-end
 reduction" cuts the class sums, their barriers and the entry stores
@@ -27,9 +31,12 @@ import argparse
 import ctypes
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -49,6 +56,62 @@ def once(src, text):
     if src.count(text) != 1:
         sys.exit(f"exp_cov_gram.py: {text!r} is not in cov_gram.cu once")
     return src.index(text)
+
+
+def ptxas_summary(log):
+    """nvcc -Xptxas=-v output → one line a kernel: its (demangled) name,
+    registers and spill bytes."""
+    rows, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            rows.append([name, "", ""])
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and rows:
+            rows[-1][2] = f"spill {m.group(1)}/{m.group(2)} bytes"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows:
+            rows[-1][1] = f"{m.group(1)} registers"
+    filt = shutil.which("cu++filt") or shutil.which("c++filt")
+    nvcc_dir = os.path.dirname(_build.nvcc_path())
+    if os.path.exists(os.path.join(nvcc_dir, "cu++filt")):
+        filt = os.path.join(nvcc_dir, "cu++filt")
+    names = [r[0] for r in rows]
+    if filt and names:
+        out = subprocess.run([filt], input="\n".join(names),
+                             capture_output=True, text=True).stdout
+        names = out.splitlines() if out.count("\n") >= len(names) - 1 \
+            else names
+    return [f"{n}: {r[1]}, {r[2]}" for n, r in zip(names, rows)]
+
+
+# the translation unit's tag nvcc puts in the names of an anonymous
+# namespace (it differs between two files of the same code)
+_ANON = re.compile(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}")
+
+
+def sass(so):
+    """{kernel name, the TU tag cut: its SASS, addresses and encodings
+    included} of a built library (cuobjdump -sass)."""
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", so], capture_output=True,
+                         text=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = _ANON.sub("ANON", m.group(1))
+            funcs[name] = []
+        elif name and line.strip().startswith("/*"):
+            funcs[name].append(line.strip())
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+def same_sass(a, b):
+    """→ (kernels of `a` whose SASS `b` has word for word, kernels of a)."""
+    return sum(b.get(k) == v for k, v in a.items()), len(a)
 
 
 def ring(stages, stage_bytes):
@@ -87,7 +150,7 @@ VARIANTS = {            # name: (patch, whole)
 def build(tmp, name, src):
     from doa_tpu_torch.ops.cuda import cov_embedded as ce
 
-    cu = os.path.join(tmp, f"cov_gram_{len(os.listdir(tmp))}.cu")
+    cu = os.path.join(tmp, f"cov_gram_{abs(hash(name))}.cu")
     with open(cu, "w") as f:
         f.write(src)
     so = cu[:-3] + ".so"
@@ -96,6 +159,8 @@ def build(tmp, name, src):
     if proc.returncode != 0:
         sys.exit(f"{name}: nvcc failed\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(so)
+    lib.ptxas = ptxas_summary(proc.stdout + proc.stderr)
+    lib.sass = sass(so)
     for fn, argtypes in ce._SIG.items():
         getattr(lib, fn).argtypes = argtypes
     return lib
@@ -137,14 +202,23 @@ def main():
 
     card = cs.card_line()
     dev = torch.device("cuda", 0)
-    with open(os.path.join(_build.CSRC, "cov_gram.cu")) as f:
-        src = f.read()
+    src = _build.expanded_source(os.path.join(_build.CSRC, "cov_gram.cu"))
     srcs = {n: (patch(src), whole) for n, (patch, whole) in VARIANTS.items()}
     for path in args.against:
-        with open(path) as f:
-            srcs[f"against {path}"] = (f.read(), True)
+        srcs[f"against {path}"] = (_build.expanded_source(path), True)
     with tempfile.TemporaryDirectory() as tmp:
-        libs = {n: build(tmp, n, s) for n, (s, _) in srcs.items()}
+        with ThreadPoolExecutor(len(srcs)) as pool:    # nvcc in parallel
+            libs = dict(zip(srcs, pool.map(
+                lambda n: build(tmp, n, srcs[n][0]), srcs)))
+        for n, lib in libs.items():
+            if srcs[n][1]:
+                for line in lib.ptxas:
+                    print(f"ptxas {n}: {line}")
+        for path in args.against:
+            same, of = same_sass(libs[f"against {path}"].sass,
+                                 libs["package (3 x 32 KiB)"].sass)
+            print(f"SASS: {same} of the {of} kernels of {path} are the "
+                  f"package's word for word")
         gen = torch.Generator(device=dev).manual_seed(5)
         for name, lib in libs.items():
             if not srcs[name][1]:

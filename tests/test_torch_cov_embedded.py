@@ -333,18 +333,24 @@ def test_chunk_embedded_plain_against_float64(g, n2):
                                      "no chunk-end reduction",
                                      "no whole-chunk stores"])
 def test_timing_experiment_patches_the_kernel_source(variant):
-    """exp_cov_gram.py times patched copies of csrc/cov_gram.cu: each
-    patch finds its anchor lines in the source exactly once and changes
-    the copy, never the package's own file."""
+    """exp_cov_gram.py times patched copies of csrc/cov_gram.cu with the
+    ring mainloop it includes (csrc/gram_ring.cuh) expanded in place: each
+    patch finds its anchor lines in that source exactly once and changes
+    the copy, never the package's own files."""
     import os
     import exp_cov_gram
     from doa_tpu_torch import _build
 
-    path = os.path.join(_build.CSRC, "cov_gram.cu")
-    with open(path) as f:
-        src = f.read()
+    paths = [os.path.join(_build.CSRC, f) for f in ("cov_gram.cu",
+                                                    "gram_ring.cuh")]
+    files = []
+    for path in paths:
+        with open(path) as f:
+            files.append(f.read())
+    src = _build.expanded_source(paths[0])
     patch, whole = exp_cov_gram.VARIANTS[variant]
     out = patch(src)
     assert out != src and ("KiB" in variant) == whole
-    with open(path) as f:
-        assert f.read() == src
+    for path, text in zip(paths, files):
+        with open(path) as f:
+            assert f.read() == text

@@ -19,7 +19,7 @@ from doa_tpu.io import SourceSpec, synth_ula_iq
 from doa_tpu.pipeline_tpu import build_pipeline_tpu
 from doa_tpu_torch.ops.cpx_ops import mgs_takes
 from doa_tpu_torch.ops.cuda.cov_embedded import gram_takes
-from doa_tpu_torch.ops.cuda.covariance import planes_takes
+from doa_tpu_torch.ops.cuda.covariance import chunk_form, planes_takes
 from doa_tpu_torch.ops.cuda.music_scan import (fma_takes, peaks_fma_takes,
                                                peaks_takes, peaks_tc_takes,
                                                scan_takes)
@@ -29,7 +29,7 @@ from doa_tpu_torch.ops.cuda import wideband_cov
 from doa_tpu_torch.ops.cuda.wideband_cov import kernel_takes
 from doa_tpu_torch.ops.cuda.wideband_scan import fusion_takes
 from doa_tpu_torch.pipeline_torch import build_pipeline_torch, kernel_plan
-from doa_tpu_torch.plan import (KERNELS, Plan, kernel_routes,
+from doa_tpu_torch.plan import (KERNELS, Plan, kernel_forms, kernel_routes,
                                 sharded_kernel_plan, sharded_kernel_routes)
 
 
@@ -199,10 +199,38 @@ def test_every_preset_plans_a_kernel_for_every_stage(name, spectra):
     assert "plain" not in plan.values(), plan
 
 
-@pytest.mark.parametrize("name", ["c1_ula4_tone", "c2_ula8_2src",
-                                  "c3_ula16_calib_smooth",
-                                  "c4_ula16_streaming", "fast_bf16",
-                                  "fast_int8"])
+_NARROWBAND = ["c1_ula4_tone", "c2_ula8_2src", "c3_ula16_calib_smooth",
+               "c4_ula16_streaming", "fast_bf16", "fast_int8"]
+
+
+@pytest.mark.parametrize("spectra", [True, False])
+@pytest.mark.parametrize("name", _NARROWBAND)
+def test_every_preset_names_kernel_8_forms(name, spectra):
+    """Kernel 8 runs on every narrowband preset: for its planes on the
+    planes route ("covariance") or for planes input on the fused route
+    ("covariance_planes"). The plan names the form it takes on the views
+    of a complex64 capture, the ring mainloop, one card and sharded
+    alike. On the CPU no stage runs a kernel, so no form is named."""
+    cfg = PRESETS[name]
+    N = cfg.geometry.num_elements
+    want = "ring_interleaved"
+    routes = kernel_routes(cfg, return_spectra=spectra)
+    plan = Plan(routes, forms=kernel_forms(cfg, routes))
+    stages = [st for st in ("covariance", "covariance_planes")
+              if plan.get(st) == "planes_chunk_gram"]
+    assert stages, dict(plan)
+    assert plan.forms == {st: want for st in stages}
+    assert chunk_form(N, "interleaved") == want
+    sh = sharded_kernel_routes(cfg, 2, 1, spectra)
+    splan = Plan(sh, forms=kernel_forms(cfg, sh))
+    assert splan.forms == {st: want for st, k in splan.items()
+                           if k == "planes_chunk_gram"}
+    assert Plan(routes, on_card=False,
+                forms=kernel_forms(cfg, routes)).forms == {}
+    assert build_pipeline_torch(cfg, device="cpu").plan.forms == {}
+
+
+@pytest.mark.parametrize("name", _NARROWBAND)
 def test_every_preset_plans_kernels_sharded(name):
     cfg = dataclasses.replace(PRESETS[name], halo_impl="pallas")
     plan = sharded_kernel_plan(cfg, 2, 1, return_spectra=False)
