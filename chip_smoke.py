@@ -132,11 +132,13 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    MUSIC + Capon on a 65/115 deg wideband scene (1024 windows, medians
    within 2.0 deg); the card against the CPU on 32 windows of each path.
 12. the fused path's opt-in kernels: kernel 11 (the cold Newton-Schulz
-   subspace) against its plain version on the headline's E (squarings 0,
-   and 2, which is outside the chain's envelope on this scene and held to
-   the plain version's own errors), at (2N, 2K) = (24, 6) and (16, 4) on
-   4096 windows and at (128, 4) on 2048 windows of c5's first subband:
-   projectors and orthonormality within the stated tolerances; kernel 9
+   subspace) in each form that takes the shape (the warp form up to
+   (2N, 2K) = (64, 8), the block form at every shape) against its plain
+   version on the headline's E at squarings 0, on a 60/110 deg scene of
+   its shape at squarings 2, at (24, 6) and (16, 4) on 4096 windows and
+   at (128, 4) on 2048 windows of c5's first subband: projectors and
+   orthonormality within the stated tolerances; both forms timed on the
+   headline's E in turns with the plain version; kernel 9
    (`embedded_parity`: chunk Grams with the embedding, correction, FB
    and 1/S in the epilogue) exact on integer-valued inputs at every tile
    form, at g = 256, 7 and 1, FB on and off, also on views at row 1 and
@@ -146,7 +148,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    torch.bmm.
 13. the paths: the headline with subspace_impl="pallas" in both
    return_spectra modes (every window within 0.5 deg, escalation counts
-   0, kernel 11 launched and K4 not; 20 timed calls, a profile window);
+   0, kernel 11 launched in its warp form alone, as call.plan.forms
+   names, and K4 not; 20 timed calls, a profile window);
    the headline with subspace_check under both subspace_impl values; the
    guard's hard scene (30:1 at 60/110 deg, 20 dB, power_iters=4) within
    0.2 deg of the eigh run; scan_capture on the headline (8 blocks of
@@ -172,9 +175,10 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    plan names "plain" for those stages, their kernels launch no time and
    the planned ones launch (K3 wherever spectra are returned; K2 in its
    CUDA-core form, never its tensor-core form); the angles equal the CPU
-   pipeline's within 1e-3 deg; and each kernel wrapper (K1, 8, K4, K3, K2,
-   5, 4, 7 and the frames launch) still raises on a CUDA tensor of a
-   shape it does not take.
+   pipeline's within 1e-3 deg; kernel 11 launched in the form the plan
+   names (the block form at 2K = 10); and each kernel wrapper (K1, 8,
+   K4, K3, K2, 5, 4, 7, the frames launch, kernel 11 and its warp form)
+   still raises on a CUDA tensor of a shape it does not take.
 
 Each kernel record gives its bound (the larger of its bytes over
 3.35 TB/s and the FP32 operations the function needs over 67 TFLOP/s,
@@ -185,7 +189,8 @@ counts the half its output determines) and the time of one PyTorch call
 computing the same function (library_ms; null where there is none; K3's
 record gives the FP32 product alone as product_ms, and its figures at c5
 cssm's shapes as the keys ending in _c5_cssm; K2's record gives its
-tensor-core form's count as tc_launches, both forms' times as by_form,
+tensor-core form's count as tc_launches, both forms' times as by_form
+(kernel 11's record its forms' launches and times),
 the unfused route's as unfused_ms and its c3 and c2 figures in
 by_shape). The last two lines: one
 JSON object with the kernels, then {"ok": true, "device": {...}}.
@@ -2644,12 +2649,12 @@ def ns_flops(B, n2, k2, iters, squarings, ns_iters=12, ns_iters_mid=8):
     return B * per
 
 
-def ns_parity(torch, tag, E, K, squarings, iters=8):
-    """Kernel 11 against subspace_ns_plain on E: projectors VᵀV within
-    NS_PROJ_TOL, the kernel's rows orthonormal within NS_ORTH_TOL → the
-    projector error."""
+def ns_parity(torch, tag, E, K, squarings, iters, form):
+    """Kernel 11 in `form` against subspace_ns_plain on E: projectors VᵀV
+    within NS_PROJ_TOL, the kernel's rows orthonormal within NS_ORTH_TOL
+    → the projector error."""
     from doa_tpu_torch.ops.cuda import subspace_ns as sns
-    Vk = sns.subspace_ns(E, K, iters=iters, squarings=squarings)
+    Vk = sns._launch(E, K, form, iters=iters, squarings=squarings)
     Vp = sns.subspace_ns_plain(E, K, iters=iters, squarings=squarings)
     dp = 0.0
     for lo in range(0, E.shape[0], 4096):            # projectors in slices
@@ -2659,13 +2664,52 @@ def ns_parity(torch, tag, E, K, squarings, iters=8):
     eye = torch.eye(2 * K, device=E.device)
     do = (Vk @ Vk.transpose(1, 2) - eye).abs().max().item()
     dq = (Vp @ Vp.transpose(1, 2) - eye).abs().max().item()
-    log(f"kernel 11 {tag} (2N, 2K) = ({E.shape[-1]}, {2 * K}), {E.shape[0]} "
-        f"windows, squarings {squarings}, iters {iters}: max|projector "
-        f"kernel - plain| = {dp!r} (tol {NS_PROJ_TOL}), max|Vt Vtᵀ - I| = "
-        f"{do!r} (tol {NS_ORTH_TOL}; plain {dq!r})")
+    log(f"kernel 11 {form} form, {tag} (2N, 2K) = ({E.shape[-1]}, {2 * K}), "
+        f"{E.shape[0]} windows, squarings {squarings}, iters {iters}: "
+        f"max|projector kernel - plain| = {dp!r} (tol {NS_PROJ_TOL}), "
+        f"max|Vt Vtᵀ - I| = {do!r} (tol {NS_ORTH_TOL}; plain {dq!r})")
     check(dp <= NS_PROJ_TOL and do <= NS_ORTH_TOL,
-          f"kernel 11 disagrees with plain at {tag}")
+          f"kernel 11 ({form} form) disagrees with plain at {tag}")
     return dp
+
+
+def ns_scenes(torch, dev, x):
+    """Kernel 11's scenes → [(tag, E, K, squarings, iters)]: the headline
+    capture x's E at squarings 0, and at squarings 2 a 60/110 deg scene
+    of its shape (the headline's 70 and 110 deg mirror each other about
+    broadside: E⁴'s first columns then start the chain too near
+    rank-deficient, and two rounds of it leave rows far from orthonormal
+    in the reference's kernel as in the plain version;
+    tests/test_torch_subspace_ns.py); three sources on 12 elements (24, 6)
+    and two on 8 (16, 4), B_SUB_SMALL windows each, at squarings 0 (8
+    rounds) and 2 (iters 16: 4 rounds); c5's first subband (128, 4),
+    B_SUB_C5 windows, at squarings 0 and 2."""
+    from doa_tpu_torch.ops.cuda import cov_embedded as ce
+    from doa_tpu_torch.ops.cuda import wideband_cov as wc
+
+    def ones(n):
+        return torch.ones(n, device=dev), torch.zeros(n, device=dev)
+    out = [("headline", ce.cov_embedded(x, *ones(16), N=16,
+                                        snapshot_size=1024), 2, 0, 8)]
+    x60 = make_ula_capture(torch, x.shape[0], 16, ((60.0, 1, 10),
+                                                  (110.0, 31, 100)),
+                           SNR_DB, dev, seed=16)
+    out.append(("headline shape, 60/110 deg,", ce.cov_embedded(
+        x60, *ones(16), N=16, snapshot_size=1024), 2, 2, 8))
+    del x60
+    for N, srcs in ((12, ((40.0, 1, 10), (70.0, 31, 100), (100.0, 3, 10))),
+                    (8, ((60.0, 1, 10), (110.0, 31, 100)))):
+        xs = make_ula_capture(torch, B_SUB_SMALL * 256, N, srcs, SNR_DB,
+                              dev, seed=N)
+        Es = ce.cov_embedded(xs, *ones(N), N=N, snapshot_size=256)
+        out += [(f"ULA-{N}", Es, len(srcs), sq, 8 if sq == 0 else 16)
+                for sq in (0, 2)]
+        del xs
+    x5 = make_c5_scene(torch, B_SUB_C5 * 1024, dev, seed=8)
+    E5 = wc.wideband_cov_embedded(x5, *ones(64), N=64, F=16,
+                                  snapshot_size=1024)[0].contiguous()
+    out += [("c5 subband 0", E5, 2, sq, 8) for sq in (0, 2)]
+    return out
 
 
 def routes_vs_f64(torch, x, cr, ci, kw):
@@ -2800,73 +2844,49 @@ def opt_in_parity(torch, dev, x, card):
     """Phase 12 → the records of kernels 11 and 9 (launches filled in
     later). x: the headline capture f32[T_MAIN, 32] on the card."""
     from doa_tpu_torch.cpx import fp32_matmuls
-    from doa_tpu_torch.ops.cuda import cov_embedded as ce
     from doa_tpu_torch.ops.cuda import subspace_ns as sns
-    from doa_tpu_torch.ops.cuda import wideband_cov as wc
 
     recs = {}
-    gen = torch.Generator(device=dev).manual_seed(11)
-    cr1, ci0 = torch.ones(16, device=dev), torch.zeros(16, device=dev)
-
-    # kernel 11 at the headline's shape: E of the main path at squarings 0;
-    # squarings 2 on 60/110 deg. The headline's 70 and 110 deg mirror each
-    # other about broadside: E⁴'s first columns then start the chain too
-    # near rank-deficient, and two rounds of it leave rows far from
-    # orthonormal in the reference's kernel as in the plain version
-    # (tests/test_torch_subspace_ns.py)
+    # every form that takes a shape, against the plain version
     with fp32_matmuls():
-        E = ce.cov_embedded(x, cr1, ci0, N=16, snapshot_size=1024)
-        err = ns_parity(torch, "headline", E, 2, 0)
-        x60 = make_ula_capture(torch, x.shape[0], 16, ((60.0, 1, 10),
-                                                      (110.0, 31, 100)),
-                               SNR_DB, dev, seed=16)
-        E60 = ce.cov_embedded(x60, cr1, ci0, N=16, snapshot_size=1024)
-        del x60
-        ns_parity(torch, "headline shape, 60/110 deg,", E60, 2, 2)
-        # (24, 6): three sources on 12 elements; (16, 4): two on 8
-        for N, srcs in ((12, ((40.0, 1, 10), (70.0, 31, 100),
-                              (100.0, 3, 10))),
-                        (8, ((60.0, 1, 10), (110.0, 31, 100)))):
-            xs = make_ula_capture(torch, B_SUB_SMALL * 256, N, srcs, SNR_DB,
-                                  dev, seed=N)
-            Es = ce.cov_embedded(xs, torch.ones(N, device=dev),
-                                 torch.zeros(N, device=dev), N=N,
-                                 snapshot_size=256)
-            for sq in (0, 2):
-                ns_parity(torch, f"ULA-{N}", Es, len(srcs), sq,
-                          iters=8 if sq == 0 else 16)
-            del xs, Es
-        # (128, 4): c5's first subband, 2048 windows
-        x5 = make_c5_scene(torch, B_SUB_C5 * 1024, dev, seed=8)
-        E5 = wc.wideband_cov_embedded(x5, torch.ones(64, device=dev),
-                                      torch.zeros(64, device=dev), N=64,
-                                      F=16, snapshot_size=1024)[0].contiguous()
-        del x5
-        for sq in (0, 2):
-            ns_parity(torch, "c5 subband 0", E5, 2, sq)
-        del E5
-        k_ms, p_ms = pair_ms(torch, lambda: sns.subspace_ns(E, 2, iters=8,
-                                                            squarings=0),
-                             lambda: sns.subspace_ns_plain(E, 2, iters=8,
-                                                           squarings=0))
-        k2_ms = time_ms(torch, lambda: sns.subspace_ns(E60, 2, iters=8,
-                                                       squarings=2))
+        scenes = ns_scenes(torch, dev, x)
+        err = 0.0
+        for tag, E, K, sq, iters in scenes:
+            forms = (("warp", "block")
+                     if sns.ns_form(E.shape[-1], 2 * K) == "warp"
+                     else ("block",))
+            for form in forms:
+                err = max(err, ns_parity(torch, tag, E, K, sq, iters, form))
+        E, E60 = scenes[0][1], scenes[1][1]
+        del scenes
+
+        # both forms on the same E in turns with the plain version
+        def ns(E, sq, form):
+            return lambda: sns._launch(E, 2, form, iters=8, squarings=sq)
+        p_ms, w_ms, b_ms = turns_ms(
+            torch, lambda: sns.subspace_ns_plain(E, 2, iters=8, squarings=0),
+            ns(E, 0, "warp"), ns(E, 0, "block"))
+        w2_ms, b2_ms = turns_ms(torch, ns(E60, 2, "warp"),
+                                ns(E60, 2, "block"))
         del E60
         lib_ms = time_ms(torch, lambda: torch.linalg.eigh(E), reps=5, warm=1)
     B = E.shape[0]
     b2 = bound(nbytes(E) + B * 4 * 32 * 4, ns_flops(B, 32, 4, 8, 2))
-    log(f"kernel 11 time (B={B}, 2N=32, 2K=4, 8 rounds, squarings 0): kernel "
-        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library (one torch.linalg.eigh "
-        f"of the stack) {lib_ms:.4f} ms; squarings 2 (2 rounds of E^4): "
-        f"kernel {k2_ms:.4f} ms, bound {b2['bound_ms']:.4f} ms "
+    log(f"kernel 11 time (B={B}, 2N=32, 2K=4, 8 rounds, squarings 0): warp "
+        f"form {w_ms:.4f} ms, block form {b_ms:.4f} ms, plain {p_ms:.4f} "
+        f"ms, library (one torch.linalg.eigh of the stack) {lib_ms:.4f} ms; "
+        f"squarings 2 (2 rounds of E^4): warp form {w2_ms:.4f} ms, block "
+        f"form {b2_ms:.4f} ms, bound {b2['bound_ms']:.4f} ms "
         f"({b2['bound_by']})  [{card}]")
     recs["subspace_ns"] = dict(
         name="subspace_ns", route="cuda",
         source="doa_tpu_torch/csrc/subspace_ns.cu",
         replaces="doa_tpu/ops/pallas/subspace.py:47",
-        max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+        max_abs_err=err, ms=w_ms, plain_ms=p_ms,
         **bound(nbytes(E) + B * 4 * 32 * 4, ns_flops(B, 32, 4, 8, 0)),
-        library_ms=lib_ms)
+        library_ms=lib_ms,
+        by_form={"warp": {"ms": w_ms, "ms_squarings_2": w2_ms},
+                 "block": {"ms": b_ms, "ms_squarings_2": b2_ms}})
 
     recs["chunk_embedded"] = embedded_parity(torch, dev, x, card)
     return recs
@@ -2899,15 +2919,19 @@ def opt_in_phases(torch, dev, card):
                 "wideband_fusion": wsc.wideband_fused_spectrum,
                 "peaks2d": pk.peaks2d}
     total = {n: 0 for n in counters}
+    ns_forms = dict.fromkeys(sns.NS_FORMS, 0)     # kernel 11's, by form
 
     def drive(call):
         for f in counters.values():
             f.launches = 0
+        sns.subspace_ns.by_form.update(dict.fromkeys(sns.NS_FORMS, 0))
         res = call()
         torch.cuda.synchronize()
         n = {k: f.launches for k, f in counters.items()}
         for k, v in n.items():
             total[k] += v
+        for f, v in sns.subspace_ns.by_form.items():
+            ns_forms[f] += v
         return res, n
 
     cfg = headline_config()
@@ -2921,11 +2945,17 @@ def opt_in_phases(torch, dev, card):
                   pipe)
         res, n = drive(lambda: pipe.interleaved(x))
         log(f"launches in the headline path, subspace_impl='pallas', "
-            f"return_spectra={rs}: " + json.dumps(n))
+            f"return_spectra={rs}: " + json.dumps(n) + ", kernel 11 by "
+            f"form {json.dumps(sns.subspace_ns.by_form)}, planned "
+            f"{json.dumps(pipe.plan.forms)}")
         check(n["subspace_ns"] > 0 and n["chunk_gram"] > 0
               and n["mgs_iterate"] == 0
               and n["music_scan" if rs else "music_scan_peaks"] > 0,
               "launch counts of the subspace_impl='pallas' path")
+        check(sns.subspace_ns.by_form["warp"] == n["subspace_ns"]
+              and pipe.plan.forms.get("subspace") == "warp",
+              "the subspace_impl='pallas' headline did not launch kernel "
+              "11's warp form alone, as planned")
         err = angle_err(torch, res.peak_angles["music"])
         log(f"headline subspace_impl='pallas' return_spectra={rs}: {B} "
             f"windows, max angle error {err!r} deg (limit {ANGLE_TOL}), "
@@ -3080,6 +3110,8 @@ def opt_in_phases(torch, dev, card):
     del x
     for name in ("subspace_ns", "chunk_embedded"):
         recs[name]["launches"] = total.pop(name)
+    for f, v in ns_forms.items():
+        recs["subspace_ns"]["by_form"][f]["launches"] = v
     return recs, total
 
 
@@ -3411,12 +3443,19 @@ def fault_phase(torch, dev, card):
             for f in counters.values():
                 f.launches = 0
             ms.music_scan_peaks.tc_launches = 0
+            sn.subspace_ns.by_form.update(dict.fromkeys(sn.NS_FORMS, 0))
             a_gpu = pipe.interleaved(x).peak_angles["music"]
             torch.cuda.synchronize()
             n = {key: f.launches for key, f in counters.items()}
             log(f"launches in the {name} path, return_spectra={rs}: "
                 + json.dumps(n) + ", of K2's tensor-core form "
-                f"{ms.music_scan_peaks.tc_launches}")
+                f"{ms.music_scan_peaks.tc_launches}, kernel 11 by form "
+                f"{json.dumps(sn.subspace_ns.by_form)}")
+            if n["subspace_ns"]:
+                check(sn.subspace_ns.by_form[pipe.plan.forms["subspace"]]
+                      == n["subspace_ns"],
+                      f"{name}: kernel 11 launched another form than "
+                      f"the plan's {pipe.plan.forms}")
             # K2 here (2N = 96 at G = 1024, or 2K = 10): its CUDA-core form
             check(ms.music_scan_peaks.tc_launches == 0,
                   f"{name}: K2 took its tensor-core form")
@@ -3449,6 +3488,10 @@ def fault_phase(torch, dev, card):
         del x
     x48 = torch.zeros((4096, 96), device=dev)
     raises(lambda: ce.chunk_grams_uhat(x48, 1024), "K1 at 2N = 96")
+    E = torch.eye(130, device=dev).expand(64, 130, 130).contiguous()
+    raises(lambda: sn.subspace_ns(E, 2), "kernel 11 at 2N = 130")
+    raises(lambda: sn._launch(E[:, :128, :128].contiguous(), 2, "warp"),
+           "kernel 11's warp form at 2N = 128")
     raises(lambda: cv.chunk_grams(x48[:, :48], x48[:, 48:], 1024),
            "kernel 8 at N = 48")
     E = torch.eye(32, device=dev).expand(64, 32, 32).contiguous()

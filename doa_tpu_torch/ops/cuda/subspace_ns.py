@@ -23,8 +23,13 @@ algebra is closed, so each window's result is this per-window chain. The
 port keeps the per-window form and the layout the scan kernels read,
 Vt f32[B, 2K, 2N] (no packed layout).
 
-The kernel (csrc/subspace_ns.cu) runs one window per thread block; its
-plain version is the same chain as batched FP32 torch ops. The XLA chain
+The kernel (csrc/subspace_ns.cu) has two forms, chosen by `ns_form` with
+no fallback: "warp" (one warp a window, the 2K×2K chain in registers on
+half-warps, no block barrier; 2N ≤ 64 and 2K ≤ 8: every preset's shape)
+and "block" (the first form, one window a thread block; every other shape
+`ns_takes` takes). `subspace_ns.by_form` counts the launches of each form
+beside `subspace_ns.launches`. The plain version is the same chain as
+batched FP32 torch ops. The XLA chain
 of doa_tpu's `signal_subspace_from_E_T(orth="ns")` is the same but for
 one step, the symmetrisation after each squaring; `ns_subspace` carries
 both behind its `symmetrize` switch.
@@ -41,15 +46,30 @@ from doa_tpu_torch.cpx import fp32_matmuls
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"doa_subspace_ns": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P]}
+_SIG = {"doa_subspace_ns": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "doa_subspace_ns_form": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 _P]}
 NS_MAX_N2 = 128          # csrc/subspace_ns.cu: E and its square in shared
 NS_MAX_K2 = 16           # csrc/subspace_ns.cu: the 2K x 2K chain in shared
+NS_WARP_MAX_N2 = 64      # csrc/subspace_ns.cu WARP_MAX_N2: the warp form's
+NS_WARP_MAX_K2 = 8       #   shapes (WARP_MAX_K2)
+NS_FORMS = ("warp", "block")
 
 
 def ns_takes(n2: int, k2: int) -> bool:
     """The shapes kernel 11 is built for: an even 2N ≤ NS_MAX_N2 and
     2K ≤ NS_MAX_K2."""
     return n2 <= NS_MAX_N2 and n2 % 2 == 0 and k2 <= NS_MAX_K2
+
+
+def ns_form(n2: int, k2: int) -> str | None:
+    """Kernel 11's form for (2N, 2K) (csrc/subspace_ns.cu `warp_form`):
+    "warp" for 2N ≤ NS_WARP_MAX_N2 and 2K ≤ NS_WARP_MAX_K2, "block" for
+    every other shape ns_takes takes, None where it takes none."""
+    if not ns_takes(n2, k2):
+        return None
+    return ("warp" if n2 <= NS_WARP_MAX_N2 and k2 <= NS_WARP_MAX_K2
+            else "block")
 
 
 def ns_rounds(iters: int, squarings: int) -> int:
@@ -126,6 +146,35 @@ def subspace_ns_plain(E: torch.Tensor, num_sources: int, iters: int = 8,
                        squarings, symmetrize=True)
 
 
+def _launch(E: torch.Tensor, num_sources: int, form: str, iters: int = 8,
+            ns_iters: int = 12, ns_iters_mid: int = 8,
+            squarings: int = 2) -> torch.Tensor:
+    """One launch of kernel 11 in `form` ("warp" or "block", a form that
+    takes E's shape) on a CUDA tensor E → Vt f32[B, 2K, 2N]; counted in
+    subspace_ns.launches and .by_form. subspace_ns launches the form
+    ns_form names; chip_smoke.py and exp_subspace_ns.py call this to time
+    the block form where the warp form runs."""
+    B, n2 = E.shape[0], E.shape[-1]
+    k2 = 2 * num_sources
+    if form not in NS_FORMS or (form == "warp"
+                                and ns_form(n2, k2) != "warp"):
+        raise ValueError(f"subspace_ns has no {form!r} form for 2N={n2}, "
+                         f"2K={k2}")
+    E = E.contiguous()
+    if E.data_ptr() % 16:               # the kernel reads E as float4
+        E = E.clone()
+    out = torch.empty((B, k2, n2), dtype=torch.float32, device=E.device)
+    lib = _build.load("subspace_ns", _SIG)
+    err = lib.doa_subspace_ns_form(
+        E.data_ptr(), out.data_ptr(), B, n2, k2,
+        ns_rounds(iters, squarings), ns_iters, ns_iters_mid, squarings,
+        int(form == "warp"), torch.cuda.current_stream(E.device).cuda_stream)
+    _build.check(err, "doa_subspace_ns_form")
+    subspace_ns.launches += 1
+    subspace_ns.by_form[form] += 1
+    return out
+
+
 def subspace_ns(E: torch.Tensor, num_sources: int, iters: int = 8,
                 ns_iters: int = 12, ns_iters_mid: int = 8,
                 squarings: int = 2) -> torch.Tensor:
@@ -134,30 +183,20 @@ def subspace_ns(E: torch.Tensor, num_sources: int, iters: int = 8,
     (csrc/subspace_ns.cu) → Vt f32[B, 2K, 2N] as subspace_ns_plain.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel and raises if that fails."""
+    kernel in the form ns_form names and raises if that fails."""
     _check(E, num_sources, iters, ns_iters, ns_iters_mid, squarings)
     if E.device.type == "cpu":
         return subspace_ns_plain(E, num_sources, iters, ns_iters,
                                  ns_iters_mid, squarings)
     if not E.is_cuda:
         raise ValueError(f"unsupported device {E.device}")
-    B, n2 = E.shape[0], E.shape[-1]
-    k2 = 2 * num_sources
+    n2, k2 = E.shape[-1], 2 * num_sources
     if not ns_takes(n2, k2):
         raise ValueError(f"subspace_ns kernel takes an even 2N ≤ {NS_MAX_N2} "
                          f"and 2K ≤ {NS_MAX_K2} (2N={n2}, 2K={k2})")
-    E = E.contiguous()
-    if E.data_ptr() % 16:               # the kernel reads E as float4
-        E = E.clone()
-    out = torch.empty((B, k2, n2), dtype=torch.float32, device=E.device)
-    lib = _build.load("subspace_ns", _SIG)
-    err = lib.doa_subspace_ns(
-        E.data_ptr(), out.data_ptr(), B, n2, k2,
-        ns_rounds(iters, squarings), ns_iters, ns_iters_mid, squarings,
-        torch.cuda.current_stream(E.device).cuda_stream)
-    _build.check(err, "doa_subspace_ns")
-    subspace_ns.launches += 1
-    return out
+    return _launch(E, num_sources, ns_form(n2, k2), iters, ns_iters,
+                   ns_iters_mid, squarings)
 
 
 subspace_ns.launches = 0
+subspace_ns.by_form = dict.fromkeys(NS_FORMS, 0)

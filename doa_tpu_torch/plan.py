@@ -37,7 +37,8 @@ from doa_tpu_torch.ops.cuda.music_scan import (MAX_FUSED_G, MAX_FUSED_K,
                                                music_scan_plain, peaks_takes,
                                                scan_takes)
 from doa_tpu_torch.ops.cuda.peaks2d import MAX_PEAKS2D_K, peaks2d
-from doa_tpu_torch.ops.cuda.subspace_ns import (ns_takes, subspace_ns,
+from doa_tpu_torch.ops.cuda.subspace_ns import (ns_form, ns_takes,
+                                                subspace_ns,
                                                 subspace_ns_plain)
 from doa_tpu_torch.ops.cuda.wideband_cov import (kernel_takes,
                                                  resolve_variant,
@@ -218,15 +219,22 @@ def sharded_kernel_routes(cfg, n_snap: int, n_grid: int,
 
 def kernel_forms(cfg, routes: dict) -> dict:
     """{stage: form} for the stages of `routes` whose kernel has named
-    forms: kernel 8 ("planes_chunk_gram"), in the form it takes on the
-    two views of an interleaved complex64 capture (covariance.chunk_form
-    of the "interleaved" layout): the planes a pipeline makes of its
-    complex capture, and planes input passed as such views. Planes of
-    another layout take that layout's form; chunk_grams.by_form counts
-    the form of each launch."""
-    form = chunk_form(as_config(cfg).geometry.num_elements, "interleaved")
-    return {stage: form for stage, (kernel, _) in routes.items()
-            if kernel == "planes_chunk_gram"}
+    forms:
+
+    * kernel 8 ("planes_chunk_gram"), in the form it takes on the two
+      views of an interleaved complex64 capture (covariance.chunk_form of
+      the "interleaved" layout): the planes a pipeline makes of its
+      complex capture, and planes input passed as such views. Planes of
+      another layout take that layout's form; chunk_grams.by_form counts
+      the form of each launch;
+    * kernel 11 ("subspace_ns"): subspace_ns.ns_form of the config's
+      (2N, 2K), the form its wrapper launches (subspace_ns.by_form)."""
+    cfg = as_config(cfg)
+    form = chunk_form(cfg.geometry.num_elements, "interleaved")
+    ns = ns_form(2 * cfg.effective_num_elements, 2 * cfg.num_sources)
+    return {stage: form if kernel == "planes_chunk_gram" else ns
+            for stage, (kernel, _) in routes.items()
+            if kernel in ("planes_chunk_gram", "subspace_ns")}
 
 
 def kernel_plan(cfg, *, return_spectra: bool = True) -> dict:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time whole pipeline calls of two checkouts of the port in turns on one
-NVIDIA GPU: the headline with and without spectra and c5 cssm and
+NVIDIA GPU: the headline with and without spectra, the headline under
+subspace_impl="pallas" (kernel 11, without spectra) and c5 cssm and
 cssm_auto (chip_smoke.py's scenes and configs), and trace one window of
 calls of each.
 
@@ -22,6 +23,7 @@ mean of its two workers' medians) beside the card's name and power limit.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -94,6 +96,9 @@ def worker(root, reps):
         "headline": (build_pipeline_torch(head, device=dev,
                                           return_spectra=False), x),
         "headline spectra": (build_pipeline_torch(head, device=dev), x),
+        "headline pallas": (build_pipeline_torch(
+            dataclasses.replace(head, subspace_impl="pallas"), device=dev,
+            return_spectra=False), x),
         "c5 cssm": (build_pipeline_torch(
             cs.c5_variant(fusion="cssm"), device=dev), x16),
         "c5 cssm_auto": (build_pipeline_torch(
