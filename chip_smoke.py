@@ -49,7 +49,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 6. wideband kernel parity at c5's shapes (8x8 URA, 16 subbands,
    181x91 az/el grid) on a wideband planar scene made on the card: the
    FFT-channelizer Gram, the fused subband-scan fusion and the 2-D peaks
-   kernels, and the subspace kernel K4 at 2N = 128 with one init per
+   kernels (kernel 6 in each of its forms, its ring form and its block
+   form, bit-equal), and the subspace kernel K4 at 2N = 128 with one init per
    subband (its block form: 8 warps a window, E held on chip for every
    round); exact on integer-valued inputs (K4: signed-permutation windows
    at (2K, 2N) = (2, 66), (4, 128), (8, 128), (6, 96), B = 1001, cold and
@@ -61,7 +62,9 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    version's errors against float64 on 64 windows (logged).
 7. the c5 path: PRESETS["c5_ura64_wideband"] at B = 2048 windows
    (T = 2^21 samples) through build_pipeline_torch(...).interleaved;
-   launch counts reset before and read after; the median pair-sorted
+   launch counts reset before and read after (kernel 6's launches all of
+   the form `call.plan.forms["peaks"]` names, as on every path below that
+   runs it: `peaks_forms`); the median pair-sorted
    az/el within 0.5 deg of the planted (-20, 30), (35, 60); the median
    call time, per-layer times and a profile window; then the card's
    pipeline against the same pipeline on the CPU on 32 windows.
@@ -190,7 +193,7 @@ computing the same function (library_ms; null where there is none; K3's
 record gives the FP32 product alone as product_ms, and its figures at c5
 cssm's shapes as the keys ending in _c5_cssm; K2's record gives its
 tensor-core form's count as tc_launches, both forms' times as by_form
-(kernel 11's record its forms' launches and times),
+(kernel 11's and kernel 6's records their forms' launches and times),
 the unfused route's as unfused_ms and its c3 and c2 figures in
 by_shape). The last two lines: one
 JSON object with the kernels, then {"ok": true, "device": {...}}.
@@ -222,8 +225,7 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
 SOURCES = ("cov_gram", "music_scan", "subspace", "wideband_cov",
-           "wideband_scan", "peaks2d", "covariance", "subband_gram",
-           "subspace_ns", "ring")
+           "wideband_scan", "peaks2d", "covariance", "subspace_ns", "ring")
 # the published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, FP32
 # FLOP/s outside the tensor cores, int8 OP/s (the card's exact integer
 # rate, on its tensor cores: the bound of a product of int8 inputs even
@@ -1292,34 +1294,49 @@ def wideband_parity(torch, dev, x, cfg, pipe, card, k4_shapes=None):
     Pq[0] = torch.arange(Pq[0].numel(), device=dev,
                          dtype=torch.float32).reshape(Pq[0].shape)
     Pq[1] = 2.0
-    for k in (1, 2, 4):
-        for refine in (False, True):
-            got = pk.peaks2d(Pq, k, az_rng, el_rng, refine)
-            ref = find_local_max_2d(Pq, k, az_rng, el_rng, refine)
-            d = max((a - b).abs().max().item() for a, b in zip(got, ref))
-            log(f"peaks2d exact-input k={k} refine={refine}: max|kernel - "
-                f"plain| over values, az, el = {d!r} (must be 0)")
-            check(d == 0.0, "peaks2d differs on exact inputs")
-    # on the c5 scene's spectrum: bit for bit
+    forms = {f: (lambda P, k, refine, f=f: pk._launch(P, k, az_rng, el_rng,
+                                                      refine, f))
+             for f in pk.PEAKS_FORMS}
+    check(pk.peaks_form(g2.num_az, g2.num_el) == "ring",
+          "c5's grid does not take kernel 6's ring form")
+    for form, fn in forms.items():
+        for k in (1, 2, 3, 4):
+            for refine in (False, True):
+                got = fn(Pq, k, refine)
+                ref = find_local_max_2d(Pq, k, az_rng, el_rng, refine)
+                d = max((a - b).abs().max().item() for a, b in zip(got, ref))
+                log(f"peaks2d {form} form, exact-input k={k} refine="
+                    f"{refine}: max|kernel - plain| over values, az, el = "
+                    f"{d!r} (must be 0)")
+                check(d == 0.0, f"peaks2d's {form} form differs on exact "
+                      f"inputs")
+    # on the c5 scene's spectrum: bit for bit, each form
     P2 = Pp.reshape(-1, g2.num_az, g2.num_el)
-    got = pk.peaks2d(P2, 2, az_rng, el_rng, True)
     ref = find_local_max_2d(P2, 2, az_rng, el_rng, True)
-    e6 = max((a - b).abs().max().item() for a, b in zip(got, ref))
-    log(f"peaks2d c5 scene: max|kernel - plain| over values, az, el = {e6!r} "
-        f"(must be 0)")
-    check(e6 == 0.0, "peaks2d differs from plain on the scene")
-    k_ms, p_ms = pair_ms(
-        torch, lambda: pk.peaks2d(P2, 2, az_rng, el_rng, True),
-        lambda: find_local_max_2d(P2, 2, az_rng, el_rng, True))
+    e6 = 0.0
+    for form, fn in forms.items():
+        got = fn(P2, 2, True)
+        d = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        log(f"peaks2d {form} form, c5 scene: max|kernel - plain| over "
+            f"values, az, el = {d!r} (must be 0)")
+        check(d == 0.0, f"peaks2d's {form} form differs from plain on the "
+              f"scene")
+        e6 = max(e6, d)
+    p_ms, r_ms, b_ms = turns_ms(
+        torch, lambda: find_local_max_2d(P2, 2, az_rng, el_rng, True),
+        lambda: forms["ring"](P2, 2, True),
+        lambda: forms["block"](P2, 2, True))
     log(f"peaks2d time (B={P2.shape[0]}, {g2.num_az}x{g2.num_el}, k=2): "
-        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms  [{card}]")
+        f"ring form {r_ms:.4f} ms, block form {b_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms  [{card}]")
     recs["peaks2d"] = dict(
         name="peaks2d", route="cuda", source="doa_tpu_torch/csrc/peaks2d.cu",
         replaces="doa_tpu/ops/pallas/peaks2d.py:42",
-        max_abs_err=e6, ms=k_ms, plain_ms=p_ms,
+        max_abs_err=e6, ms=r_ms, plain_ms=p_ms,
         # four neighbour comparisons a bin; the top-k and refine are per
         # window
-        **bound(nbytes(P2, *got), 4 * P2.numel()), library_ms=None)
+        **bound(nbytes(P2, *ref), 4 * P2.numel()), library_ms=None,
+        by_form={"ring": {"ms": r_ms}, "block": {"ms": b_ms}})
     return recs, (E_sub, Vt, At, nrm, P2)
 
 
@@ -1333,6 +1350,24 @@ def fusion_f64(torch, Vt, At, nrm):
             torch.finfo(torch.float32).tiny)
         acc = acc + den.min(dim=-1, keepdim=True).values / den
     return acc / Vt.shape[0]
+
+
+PEAKS_TALLY = {}                   # kernel 6's path launches by form
+
+
+def peaks_forms(name, pipe, n):
+    """Check that a path's n launches of kernel 6 (counted from zero, with
+    its by_form counts) all took the form pipe.plan.forms["peaks"] names,
+    and add them to PEAKS_TALLY."""
+    from doa_tpu_torch.ops.cuda import peaks2d as pk
+    by = dict(pk.peaks2d.by_form)
+    want = pipe.plan.forms.get("peaks")
+    log(f"{name}: kernel 6 by form {json.dumps(by)}, planned {want}")
+    check(n > 0 and want is not None and by[want] == n
+          and sum(by.values()) == n,
+          f"{name} did not launch kernel 6's planned form {want} alone")
+    for f, v in by.items():
+        PEAKS_TALLY[f] = PEAKS_TALLY.get(f, 0) + v
 
 
 def c5_phases(torch, dev, card, counters, k4_shapes=None):
@@ -1363,10 +1398,12 @@ def c5_phases(torch, dev, card, counters, k4_shapes=None):
                    "peaks2d": pk.peaks2d, "mgs_iterate": cpx_ops.mgs_iterate}
     for f in list(counters.values()) + list(wb_counters.values()):
         f.launches = 0
+    pk.peaks2d.by_form.update(dict.fromkeys(pk.PEAKS_FORMS, 0))
     res = pipe.interleaved(x)
     torch.cuda.synchronize()
     launches = {n: f.launches for n, f in wb_counters.items()}
     log("launches in the c5 path: " + json.dumps(launches))
+    peaks_forms("c5 path", pipe, launches["peaks2d"])
     for name, n in launches.items():
         check(n > 0, f"kernel {name} never ran in the c5 path")
         if name in recs:
@@ -2155,11 +2192,9 @@ def subband_parity(torch, dev, x12, x16, card):
         d7 = (wc.subband_embedded(y, cr, ci, F=F, N=N, g=g, scale=1.0 / 16)
               - wc.subband_embedded_plain(y.double(), cr, ci, F=F, N=N, g=g,
                                           scale=1.0 / 16)).abs().max().item()
-        d10 = 0.0
-        if off == 0:
-            d10 = (wc.subband_grams(y, F=F, N=N, g=g)
-                   - wc.subband_grams_plain(y.double(), F=F, N=N, g=g)
-                   ).abs().max().item()
+        d10 = (wc.subband_grams(y, F=F, N=N, g=g)
+               - wc.subband_grams_plain(y.double(), F=F, N=N, g=g)
+               ).abs().max().item()
         log(f"kernels 7/10 exact-input F={F} N={N} g={g} n={n} offset {off}: "
             f"max|kernel-plain| = {d7!r} / {d10!r} (must be 0)")
         check(d7 == 0.0 and d10 == 0.0,
@@ -2294,7 +2329,7 @@ def subband_parity(torch, dev, x12, x16, card):
         f"{ch16_ms:.4f} ms  [{card}]")
     recs["subband_gram"] = dict(
         name="subband_gram", route="cuda",
-        source="doa_tpu_torch/csrc/subband_gram.cu",
+        source="doa_tpu_torch/csrc/wideband_cov.cu",
         replaces="doa_tpu/ops/pallas/wideband_cov.py:255",
         max_abs_err=e10, ms=k10_ms, plain_ms=p10_ms,
         # the symmetric Gram's half: g·2N·(2N+1) a chunk and subband
@@ -2324,10 +2359,14 @@ def path_run(torch, name, pipe, x, counters, card, truth, tol, call=None):
     call = call or (lambda: pipe.interleaved(x))
     for f in counters.values():
         f.launches = 0
+        if hasattr(f, "by_form"):
+            f.by_form.update(dict.fromkeys(f.by_form, 0))
     res = call()
     torch.cuda.synchronize()
     launches = {n: f.launches for n, f in counters.items()}
     log(f"launches in the {name} path: " + json.dumps(launches))
+    if "peaks" in pipe.plan:
+        peaks_forms(name, pipe, launches["peaks2d"])
     ang = res.peak_angles["music"]
     B = ang.shape[0]
     if ang.dim() == 3:
@@ -2925,6 +2964,7 @@ def opt_in_phases(torch, dev, card):
         for f in counters.values():
             f.launches = 0
         sns.subspace_ns.by_form.update(dict.fromkeys(sns.NS_FORMS, 0))
+        pk.peaks2d.by_form.update(dict.fromkeys(pk.PEAKS_FORMS, 0))
         res = call()
         torch.cuda.synchronize()
         n = {k: f.launches for k, f in counters.items()}
@@ -3061,6 +3101,7 @@ def opt_in_phases(torch, dev, card):
     pipe = build_pipeline_torch(c5, device=dev, return_spectra=False)
     wblocks = xw.view(4, T_WB_BLK, 128)
     out, n = drive(lambda: pipe.scan_capture(wblocks))
+    peaks_forms("scan_capture c5", pipe, n["peaks2d"])
     angs = out["peak_angles"]["music"]
     C = 512
     d = 0.0
@@ -3557,8 +3598,7 @@ def main():
             "subspace_ns": subspace_ns._SIG,
             "subspace": cpx_ops._SIG, "wideband_cov": wideband_cov._SIG,
             "wideband_scan": wideband_scan._SIG, "peaks2d": peaks2d._SIG,
-            "covariance": covariance._SIG,
-            "subband_gram": wideband_cov._SIG_SUBBAND}
+            "covariance": covariance._SIG}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:   # one nvcc per source
         list(pool.map(lambda name: _build.load(name, sigs[name]), SOURCES))
@@ -3713,6 +3753,11 @@ def main():
         recs[name]["launches"] += n
     # 15. fault C.5: ULA-48 and ULA-16 at K = 5 on the card
     fault_phase(torch, dev, card)
+    for f, v in PEAKS_TALLY.items():
+        recs["peaks2d"]["by_form"][f]["launches"] = v
+    check(sum(PEAKS_TALLY.values()) == recs["peaks2d"]["launches"],
+          f"kernel 6's launches by form {PEAKS_TALLY} do not add up to its "
+          f"{recs['peaks2d']['launches']} path launches")
     check(not any(m == "jax" or m.startswith(("jax.", "doa_tpu."))
                   or m == "doa_tpu" for m in sys.modules),
           "jax or doa_tpu was imported")

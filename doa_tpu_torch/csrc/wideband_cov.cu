@@ -1,8 +1,10 @@
-// Kernels 4 and 7, the wideband front end: every chunk's embedded subband
-// Gram, from the interleaved capture (kernel 4: the F-point DFT
-// channelizer in the kernel) or from the channelized stream (kernel 7).
-// One ring kernel, doa_fft_gram_ring<RT, SRC>, serves both: SRC is where
-// its y-buffer comes from, and everything after the y-buffer is shared.
+// Kernels 4, 7 and 10, the wideband front end: every chunk's embedded
+// subband Gram, from the interleaved capture (kernel 4: the F-point DFT
+// channelizer in the kernel) or from the channelized stream (kernel 7),
+// and every chunk's real interleaved-basis subband Gram of the stream
+// (kernel 10). One ring kernel, doa_fft_gram_ring<RT, SRC>, serves all
+// three: SRC is where its y-buffer comes from and, for kernel 10, which
+// sums an item keeps and how they are stored; the rest is shared.
 //
 // Kernel 4 (SRC = Src::Frames) replaces the Pallas kernel
 // doa_tpu/ops/pallas/wideband_cov.py:162 `_wideband_fft_gram_kernel`
@@ -29,6 +31,29 @@
 // planarizes with permute matmuls, runs a radix-2 FFT on whole tiles and
 // a bf16 hi/lo Gram; here every product is a true FP32 FMA on the CUDA
 // cores (no tensor cores, no TF32) and the DFT is a direct F-term sum.
+//
+// Kernel 10 (SRC = Src::Uhat) replaces
+// doa_tpu/ops/pallas/wideband_cov.py:255 `_subband_gram_kernel` (variant
+// "uhat"): per chunk and subband the unnormalised Gram U = sum_m y_m y_m^T
+// of the stream's column block in its interleaved basis (2N x 2N, entry
+// (2i + a, 2j + b) = sum y_i.a y_j.b, a, b in {re, im}), into
+// U f32[F, n_chunks, 2N, 2N]. U is not a function of the complex Gram
+// kernels 4 and 7 keep (Re and Im of sum y_i conj(y_j) mix the four
+// products), so its item keeps all four sums of each complex entry (rr,
+// ri, ir, ii): twice the accumulators, so one item a thread (J_U), up to
+// MAXT_U threads and two blocks a SM (P = 2 subbands a group at c5); no
+// correction, no scale; a tile's rows 2i + a and their mirror rows 2j + b
+// as 2 RT-float pieces (store_utile). It has kernel 7's bytes (at c5,
+// F = 16: Y read, 1.07 GB, U written, 2.15 GB: 0.9616 ms). Its first form
+// (csrc/subband_gram.cu, one block per (chunk, subband) staging the chunk
+// synchronously, the whole square) took 3.04-3.18 ms at c5; this one
+// 2.54 (exp_wideband_cov.py on an H100 80GB HBM3 at 700 W; PERF.md). P = 4 in one block a SM (544
+// threads) took 2.84: a chunk's epilogue then has no other block's Gram
+// beside it. Reading each ring row's group columns in place, with no
+// y-buffer and each chunk leaving L2 once, gained nothing at P = 2: the
+// Gram and the stores set the pace. Kernels 4 and 7 compile to the code
+// they had before kernel 10 joined (if constexpr; exp_wideband_cov.py
+// compares their SASS).
 //
 // What bounds it on an H100 at c5 (M = 131072 frames, F = 16, N = 64,
 // g = 64): the capture read once (1.07 GB) and E written once (2.15 GB),
@@ -100,6 +125,9 @@ namespace {
 
 constexpr int MAXT = 192;           // threads a block, at most
 constexpr int J = 3;                // Gram items a thread
+constexpr int MAXT_U = 288;         // kernel 10: threads a block, at most
+constexpr int J_U = 1;              // kernel 10: Gram items a thread
+constexpr int BLOCKS_U = 2;         // kernel 10: blocks a SM, at least
 constexpr int STAGES = 2;
 constexpr int STAGE_BYTES = 32768;  // a stage's frames, at most (one, least)
 constexpr int Y_BYTES = 8192;       // a y-buffer (P x TS x N complex), most
@@ -130,15 +158,15 @@ struct Plan {
   int P = 0, C = 0, threads = 0, items = 0, TS = 0;
 };
 
-Plan make_plan(int F, int N, int g, int rt) {
+Plan make_plan(int F, int N, int g, int rt, int j, int maxt) {
   const int nt = N / rt, ntri = nt * (nt + 1) / 2;
   Plan best;
   for (int P = 1; P <= F && P <= MAX_P && P * N * 8 <= Y_BYTES; ++P) {
     if (F % P) continue;
     for (int C = 1; C <= 32 && C <= g; C *= 2) {
       const int items = P * ntri * C;
-      if (items > J * MAXT) break;
-      const int threads = (items + 32 * J - 1) / (32 * J) * 32;
+      if (items > j * maxt) break;
+      const int threads = (items + 32 * j - 1) / (32 * j) * 32;
       // more of the item slots used, then more subbands a group (fewer
       // reads of each chunk), then more threads
       const long long l = (long long)items * best.threads;
@@ -318,17 +346,84 @@ __device__ __forceinline__ void store_tile(
   }
 }
 
+// 2 RT floats of a U row (8-byte aligned; 16-byte at RT >= 2).
+template <int RT>
+__device__ __forceinline__ void put_row(float* p, const float (&v)[2 * RT]) {
+#pragma unroll
+  for (int h = 0; h < (RT + 1) / 2; ++h) {
+    Vec<RT == 1 ? 2 : 4> w;
+#pragma unroll
+    for (int e = 0; e < (RT == 1 ? 2 : 4); ++e) w.v[e] = v[4 * h + e];
+    put<RT == 1 ? 2 : 4>(p + 4 * h, w);
+  }
+}
+
+// Kernel 10: U's rows 2i + a and columns 2j + b of one tile (sums of
+// y_i.a y_j.b: rr, ri, ir, ii for (a, b) = (re, re), (re, im), (im, re),
+// (im, im)) and, off the diagonal, their mirror U(2j + b, 2i + a) from
+// the same sums. A diagonal tile's entries below its diagonal are sums of
+// the same products in the same order as their mirrors: it is stored
+// whole.
+template <int RT>
+__device__ __forceinline__ void store_utile(
+    float* __restrict__ oc, int N, int i0, int j0, const float (&rr)[RT][RT],
+    const float (&ri)[RT][RT], const float (&ir)[RT][RT],
+    const float (&ii)[RT][RT]) {
+  const int n2 = 2 * N;
+#pragma unroll
+  for (int u = 0; u < RT; ++u) {
+    float re[2 * RT], im[2 * RT];
+#pragma unroll
+    for (int v = 0; v < RT; ++v) {
+      re[2 * v] = rr[u][v];
+      re[2 * v + 1] = ri[u][v];
+      im[2 * v] = ir[u][v];
+      im[2 * v + 1] = ii[u][v];
+    }
+    float* row = oc + (size_t)(2 * (i0 + u)) * n2 + 2 * j0;
+    put_row<RT>(row, re);
+    put_row<RT>(row + n2, im);
+  }
+  if (i0 == j0) return;
+#pragma unroll
+  for (int v = 0; v < RT; ++v) {
+    float re[2 * RT], im[2 * RT];
+#pragma unroll
+    for (int u = 0; u < RT; ++u) {
+      re[2 * u] = rr[u][v];
+      re[2 * u + 1] = ir[u][v];
+      im[2 * u] = ri[u][v];
+      im[2 * u + 1] = ii[u][v];
+    }
+    float* row = oc + (size_t)(2 * (j0 + v)) * n2 + 2 * i0;
+    put_row<RT>(row, re);
+    put_row<RT>(row + n2, im);
+  }
+}
+
 // The source of the y-buffer: the frames (kernel 4, the group's subbands
-// by the DFT) or the channelized stream (kernel 7, copied).
-enum class Src { Frames, Stream };
+// by the DFT) or the channelized stream (kernel 7, copied; kernel 10, the
+// same copy, with the real Gram items of store_utile).
+enum class Src { Frames, Stream, Uhat };
+
+// Kernel 10's items carry four sums a complex entry, not two: one a
+// thread, more threads.
+__host__ __device__ constexpr int items_of(Src s) {
+  return s == Src::Uhat ? J_U : J;
+}
+__host__ __device__ constexpr int maxt_of(Src s) {
+  return s == Src::Uhat ? MAXT_U : MAXT;
+}
 
 template <int RT, Src SRC>
-__global__ void __launch_bounds__(MAXT, 2)
+__global__ void __launch_bounds__(maxt_of(SRC),
+                                  SRC == Src::Uhat ? BLOCKS_U : 2)
 doa_fft_gram_ring(const float* __restrict__ x, const float2* __restrict__ tw,
                   const float* __restrict__ cr, const float* __restrict__ ci,
                   float* __restrict__ out, int F, int N, int g, int n_chunks,
                   float scale, int P, int C, int TS) {
   extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int JJ = items_of(SRC);
   const Layout lay(F, N, P, TS);
   const int tid = threadIdx.x, nthr = blockDim.x;
   // this block's subband group q and run of chunks [c0, c1)
@@ -413,16 +508,16 @@ doa_fft_gram_ring(const float* __restrict__ x, const float2* __restrict__ tw,
   }
   __syncthreads();
 
-  // this thread's J Gram items: the class cls (the same for each, as
+  // this thread's JJ Gram items: the class cls (the same for each, as
   // nthr is a multiple of 32 and C divides 32) and each item's y offsets
   // (subband s's rows at s * TS * N, tile columns i0, j0); a spare item
   // reads item 0's and is never stored
   const int nt = N / RT, ntri = nt * (nt + 1) / 2;
   const int items = P * ntri * C;
   const int cls = tid & (C - 1);
-  int oa[J], ob[J];
+  int oa[JJ], ob[JJ];
 #pragma unroll
-  for (int k = 0; k < J; ++k) {
+  for (int k = 0; k < JJ; ++k) {
     const int it = tid + k * nthr;
     int s, ib, jb;
     decode(it < items ? it : 0, C, nt, ntri, s, ib, jb);
@@ -430,13 +525,24 @@ doa_fft_gram_ring(const float* __restrict__ x, const float2* __restrict__ tw,
     ob[k] = s * TS * N + jb * RT;
   }
 
-  float ar[J][RT][RT], ai[J][RT][RT];
+  // the items' sums: Re and Im of sum y_i conj(y_j) (kernels 4 and 7);
+  // kernel 10's rr, ri in ar, ai and its ir, ii in br, bi
+  constexpr int JB = SRC == Src::Uhat ? JJ : 1;
+  float ar[JJ][RT][RT], ai[JJ][RT][RT], br[JB][RT][RT], bi[JB][RT][RT];
 #pragma unroll
-  for (int k = 0; k < J; ++k)
+  for (int k = 0; k < JJ; ++k)
 #pragma unroll
     for (int u = 0; u < RT; ++u)
 #pragma unroll
       for (int v = 0; v < RT; ++v) ar[k][u][v] = ai[k][u][v] = 0.f;
+  if constexpr (SRC == Src::Uhat) {
+#pragma unroll
+    for (int k = 0; k < JJ; ++k)
+#pragma unroll
+      for (int u = 0; u < RT; ++u)
+#pragma unroll
+        for (int v = 0; v < RT; ++v) br[k][u][v] = bi[k][u][v] = 0.f;
+  }
 
   // y of one (frame, element) in the four subbands of a quad, from the
   // frame's F samples src[t N]: with four subbands a group (F = 4G), split
@@ -485,10 +591,22 @@ doa_fft_gram_ring(const float* __restrict__ x, const float2* __restrict__ tw,
   auto gram_rows = [&](const float2* yb, int m0, int m1) {
     for (int m = m0; m < m1; m += C) {
 #pragma unroll
-      for (int k = 0; k < J; ++k) {
+      for (int k = 0; k < JJ; ++k) {
         float2 a[RT], b[RT];
         load_y<RT>(yb + oa[k] + m * N, a);
         load_y<RT>(yb + ob[k] + m * N, b);
+        if constexpr (SRC == Src::Uhat) {
+#pragma unroll
+          for (int u = 0; u < RT; ++u)
+#pragma unroll
+            for (int v = 0; v < RT; ++v) {
+              ar[k][u][v] = fmaf(a[u].x, b[v].x, ar[k][u][v]);
+              ai[k][u][v] = fmaf(a[u].x, b[v].y, ai[k][u][v]);
+              br[k][u][v] = fmaf(a[u].y, b[v].x, br[k][u][v]);
+              bi[k][u][v] = fmaf(a[u].y, b[v].y, bi[k][u][v]);
+            }
+          continue;
+        }
 #pragma unroll
         for (int u = 0; u < RT; ++u)
 #pragma unroll
@@ -507,31 +625,43 @@ doa_fft_gram_ring(const float* __restrict__ x, const float2* __restrict__ tw,
   auto store_tiles = [&](long long c) {
     for (int o = 1; o < C; o <<= 1)
 #pragma unroll
-      for (int k = 0; k < J; ++k)
+      for (int k = 0; k < JJ; ++k)
 #pragma unroll
         for (int u = 0; u < RT; ++u)
 #pragma unroll
           for (int v = 0; v < RT; ++v) {
             ar[k][u][v] += __shfl_xor_sync(0xffffffffu, ar[k][u][v], o);
             ai[k][u][v] += __shfl_xor_sync(0xffffffffu, ai[k][u][v], o);
+            if constexpr (SRC == Src::Uhat) {
+              br[k][u][v] += __shfl_xor_sync(0xffffffffu, br[k][u][v], o);
+              bi[k][u][v] += __shfl_xor_sync(0xffffffffu, bi[k][u][v], o);
+            }
           }
     if (cls == 0) {
 #pragma unroll
-      for (int k = 0; k < J; ++k) {
+      for (int k = 0; k < JJ; ++k) {
         const int it = tid + k * nthr;
         if (it >= items) continue;
         int s, ib, jb;
         decode(it, C, nt, ntri, s, ib, jb);
         float* oc = out + ((size_t)(q + G * s) * n_chunks + c) * 4 * N * N;
-        store_tile<RT>(oc, N, ib * RT, jb * RT, ar[k], ai[k], cr, ci, scale);
+        if constexpr (SRC == Src::Uhat)
+          store_utile<RT>(oc, N, ib * RT, jb * RT, ar[k], ai[k], br[k],
+                          bi[k]);
+        else
+          store_tile<RT>(oc, N, ib * RT, jb * RT, ar[k], ai[k], cr, ci,
+                         scale);
       }
     }
 #pragma unroll
-    for (int k = 0; k < J; ++k)
+    for (int k = 0; k < JJ; ++k)
 #pragma unroll
       for (int u = 0; u < RT; ++u)
 #pragma unroll
-        for (int v = 0; v < RT; ++v) ar[k][u][v] = ai[k][u][v] = 0.f;
+        for (int v = 0; v < RT; ++v) {
+          ar[k][u][v] = ai[k][u][v] = 0.f;
+          if constexpr (SRC == Src::Uhat) br[k][u][v] = bi[k][u][v] = 0.f;
+        }
   };
 
   long long cc = c0;   // the chunk of the next row, and its rows done
@@ -610,7 +740,7 @@ int launch(const void* x, const void* tw, const void* cr, const void* ci,
            void* out, int F, int N, int g, int n_chunks, float scale,
            cudaStream_t stream) {
   static bool attr[MAX_DEVICES] = {};
-  const Plan p = make_plan(F, N, g, RT);
+  const Plan p = make_plan(F, N, g, RT, items_of(SRC), maxt_of(SRC));
   const Layout lay(F, N, p.P, p.TS);
   if (lay.smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
@@ -684,4 +814,13 @@ extern "C" int doa_subband_embedded(const void* y, const void* cr,
                                     void* stream) {
   return dispatch<Src::Stream>(y, nullptr, cr, ci, out, F, N, g, n_chunks,
                                scale, stream);
+}
+
+// Kernel 10. y: the channelized stream, as kernel 7's; out: the
+// unnormalised interleaved-basis Grams U f32[F, n_chunks, 2N, 2N] (no
+// correction, no scale).
+extern "C" int doa_subband_gram(const void* y, void* out, int F, int N,
+                                int g, int n_chunks, void* stream) {
+  return dispatch<Src::Uhat>(y, nullptr, nullptr, nullptr, out, F, N, g,
+                             n_chunks, 1.f, stream);
 }

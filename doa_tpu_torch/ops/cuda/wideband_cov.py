@@ -23,9 +23,10 @@ path, as in the reference. The correction c cᴴ is folded per subband
   of the ring kernel on the frames, whose direct DFT takes any F: no
   channelizer matrix and no Y. Kernel 7 itself (subband_embedded, the
   ring kernel's stream source) serves a caller that has a Y.
-* "uhat": the same channelizer, kernel 10 (csrc/subband_gram.cu): per
-  chunk and subband the interleaved-basis Gram, then window sums and
-  uhat_windows_to_embedded (FB off).
+* "uhat": the same channelizer, kernel 10 (the ring kernel's third
+  source, csrc/wideband_cov.cu): per chunk and subband the
+  interleaved-basis Gram, then window sums and uhat_windows_to_embedded
+  (FB off).
 """
 
 from __future__ import annotations
@@ -48,8 +49,8 @@ _I = ctypes.c_int
 _SIG = {"doa_wideband_fft_gram": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   ctypes.c_float, _P],
         "doa_subband_embedded": [_P, _P, _P, _P, _I, _I, _I, _I,
-                                 ctypes.c_float, _P]}
-_SIG_SUBBAND = {"doa_subband_gram": [_P, _P, _I, _I, _I, _I, _P]}
+                                 ctypes.c_float, _P],
+        "doa_subband_gram": [_P, _P, _I, _I, _I, _I, _P]}
 
 
 def dft_twiddles(F: int) -> np.ndarray:
@@ -97,8 +98,8 @@ def _check_stream(y, F: int, N: int, g: int, cr=None, ci=None) -> int:
 
 
 def _kernel_stream(y: torch.Tensor, F: int, N: int, n: int, g: int):
-    """The checks every launch of a front-end kernel shares → y's first
-    n·g rows, contiguous."""
+    """The checks every launch of the ring kernel shares → y's first n·g
+    rows, contiguous."""
     if not y.is_cuda:
         raise ValueError(f"unsupported device {y.device}")
     if y.dtype != torch.float32:
@@ -108,7 +109,11 @@ def _kernel_stream(y: torch.Tensor, F: int, N: int, n: int, g: int):
                          f"to 64, even up to 32, or up to 16; got {N}")
     if F * n > 2 ** 31 - 1:
         raise ValueError(f"{F} subbands x {n} chunks exceed one launch")
-    return y[:n * g].contiguous()
+    y = y[:n * g].contiguous()
+    if y.data_ptr() % 8:
+        raise ValueError("the kernel reads complex samples: its input must "
+                         "start on an 8-byte boundary")
+    return y
 
 
 def _ring(x: torch.Tensor, cr, ci, *, F: int, N: int, g: int, n: int,
@@ -118,9 +123,6 @@ def _ring(x: torch.Tensor, cr, ci, *, F: int, N: int, g: int, n: int,
     subbands by the DFT (frames=True, kernel 4's entry), or on the
     channelized stream, its column blocks (kernel 7's entry)."""
     x = _kernel_stream(x, F, N, n, g)
-    if x.data_ptr() % 8:
-        raise ValueError("the kernel reads complex samples: its input must "
-                         "start on an 8-byte boundary")
     cr = cr.to(torch.float32).contiguous()
     ci = ci.to(torch.float32).contiguous()
     out = torch.empty((F, n, 2 * N, 2 * N), dtype=torch.float32,
@@ -330,10 +332,11 @@ def subband_grams(y: torch.Tensor, *, F: int, N: int, g: int,
     per-chunk interleaved-basis Grams f32[F, n, 2N, 2N], n = M // g.
 
     sb_group (a positive int) is accepted for parity with the reference,
-    where it groups subbands into one MXU product; the kernel takes one
-    subband a block, and the output never depends on it. A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel
-    (csrc/subband_gram.cu) and raises if that fails."""
+    where it groups subbands into one MXU product; the kernel groups
+    subbands by its own plan, and the output never depends on it. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel (the
+    ring kernel's uhat source, csrc/wideband_cov.cu) and raises if that
+    fails."""
     n = _check_stream(y, F, N, g)
     _check_sb_group(sb_group)
     if y.device.type == "cpu":
@@ -341,7 +344,7 @@ def subband_grams(y: torch.Tensor, *, F: int, N: int, g: int,
     y = _kernel_stream(y, F, N, n, g)
     out = torch.empty((F, n, 2 * N, 2 * N), dtype=torch.float32,
                       device=y.device)
-    lib = _build.load("subband_gram", _SIG_SUBBAND)
+    lib = _build.load("wideband_cov", _SIG)
     err = lib.doa_subband_gram(
         y.data_ptr(), out.data_ptr(), F, N, g, n,
         torch.cuda.current_stream(y.device).cuda_stream)

@@ -260,9 +260,10 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
       pipeline takes each stage's route and callable from it: a stage
       runs its plain torch version on the card only where the plan says
       so, and a kernel wrapper given a shape its kernel does not take
-      still raises. ``call.plan.forms`` names kernel 8's form on the
-      views of a complex64 capture (plan.kernel_forms) where the plan
-      runs it.
+      still raises. ``call.plan.forms`` names the form each kernel
+      with named forms launches where the plan runs it (plan.kernel_forms:
+      kernel 8's on the views of a complex64 capture, kernel 11's,
+      kernel 6's on a 2-D grid).
 
     `state` (load_state) replaces the steering built from cfg and gives
     the default correction. donate_inputs=True is the caller's promise

@@ -36,7 +36,8 @@ from doa_tpu_torch.ops.cuda.music_scan import (MAX_FUSED_G, MAX_FUSED_K,
                                                music_scan_peaks_plain,
                                                music_scan_plain, peaks_takes,
                                                scan_takes)
-from doa_tpu_torch.ops.cuda.peaks2d import MAX_PEAKS2D_K, peaks2d
+from doa_tpu_torch.ops.cuda.peaks2d import (MAX_PEAKS2D_K, peaks2d,
+                                           peaks_form)
 from doa_tpu_torch.ops.cuda.subspace_ns import (ns_form, ns_takes,
                                                 subspace_ns,
                                                 subspace_ns_plain)
@@ -228,13 +229,18 @@ def kernel_forms(cfg, routes: dict) -> dict:
       another layout take that layout's form; chunk_grams.by_form counts
       the form of each launch;
     * kernel 11 ("subspace_ns"): subspace_ns.ns_form of the config's
-      (2N, 2K), the form its wrapper launches (subspace_ns.by_form)."""
+      (2N, 2K), the form its wrapper launches (subspace_ns.by_form);
+    * kernel 6 ("peaks2d"): peaks2d.peaks_form of the config's az/el
+      grid, the form its wrapper launches (peaks2d.by_form)."""
     cfg = as_config(cfg)
-    form = chunk_form(cfg.geometry.num_elements, "interleaved")
-    ns = ns_form(2 * cfg.effective_num_elements, 2 * cfg.num_sources)
-    return {stage: form if kernel == "planes_chunk_gram" else ns
-            for stage, (kernel, _) in routes.items()
-            if kernel in ("planes_chunk_gram", "subspace_ns")}
+    forms = {"planes_chunk_gram":
+             chunk_form(cfg.geometry.num_elements, "interleaved"),
+             "subspace_ns": ns_form(2 * cfg.effective_num_elements,
+                                    2 * cfg.num_sources)}
+    if cfg.geometry.kind == "ura":
+        forms["peaks2d"] = peaks_form(cfg.grid2d.num_az, cfg.grid2d.num_el)
+    return {stage: forms[kernel] for stage, (kernel, _) in routes.items()
+            if kernel in forms}
 
 
 def kernel_plan(cfg, *, return_spectra: bool = True) -> dict:

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Time whole pipeline calls of two checkouts of the port in turns on one
 NVIDIA GPU: the headline with and without spectra, the headline under
-subspace_impl="pallas" (kernel 11, without spectra) and c5 cssm and
-cssm_auto (chip_smoke.py's scenes and configs), and trace one window of
-calls of each.
+subspace_impl="pallas" (kernel 11, without spectra), c5, c5_f12, c5 cssm
+and cssm_auto (chip_smoke.py's scenes and configs), and trace one window
+of calls of each.
 
     python3 exp_paths.py --against OTHER_ROOT [--reps 20]
 
@@ -82,6 +82,7 @@ def worker(root, reps):
     import torch
     import doa_tpu_torch
     import chip_smoke as cs
+    from doa_tpu_torch import PRESETS
     from doa_tpu_torch.pipeline_torch import build_pipeline_torch
 
     pkg = os.path.dirname(os.path.abspath(doa_tpu_torch.__file__))
@@ -90,6 +91,7 @@ def worker(root, reps):
     dev = torch.device("cuda")
     x = cs.make_scene(torch, cs.T_MAIN, 16, dev)
     x16 = cs.make_c5_scene(torch, cs.T_C5, dev, seed=5)
+    x12 = cs.make_c5_scene(torch, cs.T_F12, dev, seed=4)
     torch.cuda.synchronize()
     head = cs.headline_config()
     paths = {
@@ -99,6 +101,10 @@ def worker(root, reps):
         "headline pallas": (build_pipeline_torch(
             dataclasses.replace(head, subspace_impl="pallas"), device=dev,
             return_spectra=False), x),
+        "c5": (build_pipeline_torch(PRESETS["c5_ura64_wideband"],
+                                    device=dev), x16),
+        "c5_f12": (build_pipeline_torch(cs.c5_variant(
+            snapshot_size=768, num_subbands=12), device=dev), x12),
         "c5 cssm": (build_pipeline_torch(
             cs.c5_variant(fusion="cssm"), device=dev), x16),
         "c5 cssm_auto": (build_pipeline_torch(

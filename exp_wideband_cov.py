@@ -2,11 +2,12 @@
 """Time the wideband front-end ring kernel (doa_tpu_torch/csrc/
 wideband_cov.cu: kernel 4, the F-point DFT channelizer and each chunk's
 embedded subband Grams from the frames; kernel 7, the same Grams from the
-channelized stream) by parts, and with parts of it cut out, on one NVIDIA
-GPU.
+channelized stream; kernel 10, the stream's real interleaved-basis Grams)
+by parts, and with parts of it cut out, on one NVIDIA GPU.
 
     python3 exp_wideband_cov.py [--against OTHER/wideband_cov.cu ...]
                                 [--against OTHER/subband_gram.cu ...]
+                                [--whole]
 
 Each variant is a copy of a source with a few lines patched, built by nvcc
 into a temporary directory (all builds at once) and loaded with ctypes.
@@ -38,7 +39,15 @@ copy, then the same Gram, epilogue and ring); kernel 7 (the stream) is
 timed whole and by "no Gram", "no E stores", "copies only" and "stores
 only". The torch lines are yardsticks of the memory system: E written
 alone (zero_), and the input read once with twice its bytes written
-(cat).
+(cat). Kernel 10 (the C entry doa_subband_gram: the ring kernel's third
+source, or an earlier subband_gram.cu's block-per-(chunk, subband)
+kernel) is held to its plain version on the exact streams and to
+1e-5 max|U| on the c5 scene channelized at F = 16, then timed whole in
+turns with each whole source's kernels 4 and 7 at that shape and one
+batched torch.matmul. For every `--against` wideband_cov.cu the SASS of
+kernels 4 and 7 (each doa_fft_gram_ring<RT, Src::Frames> and
+<RT, Src::Stream> instantiation, from cuobjdump -sass, addresses cut) is
+compared with the package's, function by function.
 
 Whole variants are first held bit-equal to the float64 plain version on
 exact inputs (frames: F <= 4, integer samples and correction; streams:
@@ -232,10 +241,53 @@ def build(tmp, i, name, src):
     regs = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
             if "registers" in ln or "spill" in ln or "entry function" in ln]
     lib = ctypes.CDLL(so)
-    for fn, argtypes in {**wc._SIG, **wc._SIG_SUBBAND}.items():
+    for fn, argtypes in wc._SIG.items():
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = argtypes
-    return lib, regs
+    return lib, regs, so
+
+
+# a kernel instantiation's mangled name without its anonymous namespace
+# (which names the file and a hash of it)
+ANON = re.compile(r"^_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}")
+
+
+def sass(so):
+    """{kernel instantiation: its SASS lines, addresses cut} of a built
+    library (cuobjdump -sass)."""
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = ANON.sub("", m.group(1))
+            funcs[name] = []
+        elif name is not None and "/*" in ln:
+            funcs[name].append(re.sub(r"/\*[0-9a-f]{4}\*/", "", ln).strip())
+    return funcs
+
+
+def ring_sass_diff(pkg_so, other_so):
+    """→ (kernel 4 and 7 instantiations compared, those whose SASS
+    differs): doa_fft_gram_ring<RT, Src::Frames> and <RT, Src::Stream>."""
+    a, b = sass(pkg_so), sass(other_so)
+    keys = sorted(k for k in a if "doa_fft_gram_ring" in k
+                  and re.search(r"SrcE[01]E", k))
+    return keys, [k for k in keys if a[k] != b.get(k)]
+
+
+def subband_gram(lib, y, F, N, g, out=None):
+    """Kernel 10's U f32[F, n, 2N, 2N] of the stream y through `lib`'s
+    doa_subband_gram."""
+    n = y.shape[0] // g
+    if out is None:
+        out = torch.empty((F, n, 2 * N, 2 * N), device=y.device)
+    _build.check(lib.doa_subband_gram(
+        y.data_ptr(), out.data_ptr(), F, N, g, n,
+        torch.cuda.current_stream().cuda_stream), "doa_subband_gram")
+    return out
 
 
 def grams(lib, xf, cr, ci, F, N, g, scale, out=None):
@@ -272,6 +324,8 @@ def main():
     ap.add_argument("--against", action="append", default=[],
                     help="another wideband_cov.cu or subband_gram.cu, "
                          "same C ABI (repeatable)")
+    ap.add_argument("--whole", action="store_true",
+                    help="build and time the whole sources only (no cuts)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("exp_wideband_cov.py needs an NVIDIA GPU")
@@ -286,16 +340,25 @@ def main():
     for path in args.against:
         with open(path) as f:
             srcs.update(variants(f"against {path}", f.read()))
+    if args.whole:
+        srcs = {n: v for n, v in srcs.items() if v[1]}
     with tempfile.TemporaryDirectory() as tmp, \
             ThreadPoolExecutor(len(srcs)) as pool:
         built = dict(zip(srcs, pool.map(
             lambda a: build(tmp, a[0], a[1][0], a[1][1][0]),
             enumerate(srcs.items()))))
-        libs = {n: lib for n, (lib, _) in built.items()}
-        for n, (_, regs) in built.items():
+        libs = {n: lib for n, (lib, _, _) in built.items()}
+        for n, (_, regs, _) in built.items():
             if srcs[n][1]:
                 for ln in regs:
                     print(f"ptxas {n}: {ln}")
+        for n, (lib, _, so) in built.items():
+            if (srcs[n][1] and n != "package"
+                    and hasattr(lib, "doa_wideband_fft_gram")):
+                keys, diff = ring_sass_diff(built["package"][2], so)
+                print(f"SASS of kernels 4 and 7 against {n}: {len(keys)} "
+                      f"instantiations compared, {len(diff)} differ"
+                      + (f": {diff}" if diff else " (word for word)"))
         gen = torch.Generator(device=dev).manual_seed(3)
 
         def ri(lo, hi, shape):
@@ -335,6 +398,17 @@ def main():
                 if d != 0.0:
                     sys.exit(f"{name}: exact stream F={Fx} N={Nx} g={gx} "
                              f"n={n} offset {off} differ by {d!r}")
+            for Fx, Nx, gx, n, off in (cs.SUBBAND_EXACT if hasattr(
+                    libs[name], "doa_subband_gram") else ()):
+                buf = ri(-4, 5, (n * gx * Fx * 2 * Nx + 2,))
+                y = buf[off:off + n * gx * Fx * 2 * Nx].view(
+                    n * gx, Fx * 2 * Nx)
+                d = (subband_gram(libs[name], y, Fx, Nx, gx)
+                     - wc.subband_grams_plain(y.double(), F=Fx, N=Nx, g=gx)
+                     ).abs().max().item()
+                if d != 0.0:
+                    sys.exit(f"{name}: kernel 10 exact F={Fx} N={Nx} g={gx} "
+                             f"n={n} offset {off} differs by {d!r}")
         print("exact cases: every whole source bit-equal to the float64 "
               "plain version")
 
@@ -348,10 +422,41 @@ def main():
                     sys.exit(f"{name}: disagrees with plain at {tag}")
 
         x = cs.make_c5_scene(torch, cs.T_C5, dev)
+        res = {}
+        # kernel 10 at c5 (F = 16, N = 64, g = 64) on the scene channelized,
+        # in turns with each whole source's kernels 4 (the frames) and 7
+        # (the stream) at the same shape
+        F, N, g = 16, 64, 64
+        xf = x.reshape(-1, F * 2 * N)
+        y = wc.channelize_frames(xf, wc.channelizer_on(F, N, dev))
+        Up = wc.subband_grams_plain(y, F=F, N=N, g=g)
+        out = torch.empty_like(Up)
+        k10 = sorted(n for n in whole if hasattr(libs[n], "doa_subband_gram"))
+        held("c5 kernel 10", lambda n: subband_gram(libs[n], y, F, N, g,
+                                                    out=out), Up, k10)
+        del Up
+        cr, ci = torch.ones(N, device=dev), torch.zeros(N, device=dev)
+        kw = dict(F=F, N=N, g=g, scale=1.0 / 16)
+        fns = {f"kernel 10 of {n}": (lambda lib=libs[n]: subband_gram(
+            lib, y, F, N, g, out=out)) for n in k10}
+        for n in sorted(whole & set(frames)):
+            fns[f"kernel 4 of {n}"] = (lambda lib=libs[n]: grams(
+                lib, xf, cr, ci, out=out, **kw))
+        for n in sorted(whole & set(streams)):
+            fns[f"kernel 7 of {n}"] = (lambda lib=libs[n]: stream_grams(
+                lib, y, cr, ci, out=out, **kw))
+        yv = y.view(-1, g, F, 2 * N).permute(2, 0, 1, 3)
+        fns["torch: batched matmul (library)"] = lambda: torch.matmul(
+            yv.transpose(-1, -2), yv)
+        tag = "c5 kernel 10 (stream, F = 16)"
+        res[tag] = dict(zip(fns, cs.turns_ms(torch, *fns.values())))
+        res[tag]["bound"] = cs.bound(
+            cs.nbytes(y, out), g * 2 * N * (2 * N + 1) * F * out.shape[1]
+        )["bound_ms"]
+        del y, yv, out, xf
         shapes = {"c5": (x.reshape(-1, 16 * 128), 16, 64, 64),
                   "ULA-16 cssm": (torch.randn((65536, 16 * 32), generator=gen,
                                               device=dev), 16, 16, 64)}
-        res = {}
         for tag, (xf, F, N, g) in shapes.items():
             cr, ci = torch.ones(N, device=dev), torch.zeros(N, device=dev)
             kw = dict(F=F, N=N, g=g, scale=1.0 / 64)

@@ -204,8 +204,7 @@ def main():
 
     card = cs.card_line()
     dev = torch.device("cuda", 0)
-    for name, sig in (("wideband_cov", wc._SIG), ("subspace", cpx_ops._SIG),
-                      ("subband_gram", wc._SIG_SUBBAND)):
+    for name, sig in (("wideband_cov", wc._SIG), ("subspace", cpx_ops._SIG)):
         _build.load(name, sig)
     # the source with csrc/scan_tc.cuh expanded in place: the patches
     # reach the shared mainloop, and a copy compiles in any directory

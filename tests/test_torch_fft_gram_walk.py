@@ -1,6 +1,6 @@
 """The work partition of the wideband front-end ring kernel
 (doa_tpu_torch/csrc/wideband_cov.cu: kernel 4 on the frames, kernel 7 on
-the channelized stream) on the CPU.
+the channelized stream, kernel 10's real Grams of the stream) on the CPU.
 
 The kernel runs only on the card. Here its launch plan (`make_plan`,
 `Layout`), its persistent walk over (chunk, subband group) units, its
@@ -13,9 +13,14 @@ once; on integer frames (F <= 4: twiddles +-1, +-j) the model gives
 `subband_chunk_grams_plain`'s E bit for bit, on integer streams (any F)
 `subband_embedded_plain`'s, and at F not a power of two (the split DFT at
 G = F / 4 = 3) it is within float32 twiddle rounding of the float64 plain
-version."""
+version. Kernel 10 (kernel 7's y-buffer, items of four sums a complex
+entry, J_U a thread, up to MAXT_U threads) writes every entry of U once,
+each (i0 <= j0) tile's rows and its mirror's, and gives
+`subband_grams_plain`'s U bit for bit on integer streams."""
 
 import math
+import os
+import re
 
 import numpy as np
 import pytest
@@ -25,6 +30,7 @@ from doa_tpu_torch.ops.cuda import wideband_cov as wc
 
 # the constants of csrc/wideband_cov.cu
 MAXT, J, STAGES, STAGE_BYTES, Y_BYTES, MAX_P = 192, 3, 2, 32768, 8192, 16
+MAXT_U, J_U, BLOCKS_U = 288, 1, 2
 BAND = 2
 HEAD, MAX_SMEM = 128, 232448
 SM_BYTES, BLOCK_RESERVED = 233472, 1024     # an H100 SM's shared memory
@@ -44,8 +50,10 @@ def tile_form(N):
     return 1
 
 
-def make_plan(F, N, g, rt):
-    """→ (P, C, threads, items, TS), as make_plan in the source."""
+def make_plan(F, N, g, rt, j=J, maxt=MAXT):
+    """→ (P, C, threads, items, TS), as make_plan in the source (j items
+    a thread and maxt threads at most: J, MAXT for kernels 4 and 7, J_U,
+    MAXT_U for kernel 10)."""
     nt = N // rt
     ntri = nt * (nt + 1) // 2
     best = dict(P=0, C=0, threads=0, items=0)
@@ -55,9 +63,9 @@ def make_plan(F, N, g, rt):
             C = 1
             while C <= 32 and C <= g:
                 items = P * ntri * C
-                if items > J * MAXT:
+                if items > j * maxt:
                     break
-                threads = (items + 32 * J - 1) // (32 * J) * 32
+                threads = (items + 32 * j - 1) // (32 * j) * 32
                 lhs, rhs = items * best["threads"], best["items"] * threads
                 if (best["P"] == 0 or lhs > rhs or
                         (lhs == rhs and (P > best["P"] or (
@@ -424,3 +432,124 @@ def test_frames_model_at_f_not_a_power_of_two(F, N, g, n, split):
     assert (writes == 1).all()
     Ep = wc.subband_chunk_grams_plain(xf.double(), cr, ci, **kw)
     assert (E - Ep).abs().max().item() <= 1e-6 * Ep.abs().max().item()
+
+
+def test_constants_are_the_sources():
+    """The constants transcribed above are csrc/wideband_cov.cu's."""
+    with open(os.path.join(os.path.dirname(wc.__file__), "..", "..", "csrc",
+                           "wideband_cov.cu")) as f:
+        src = f.read()
+    for name, val in dict(MAXT=MAXT, J=J, MAXT_U=MAXT_U, J_U=J_U,
+                          BLOCKS_U=BLOCKS_U,
+                          STAGES=STAGES, STAGE_BYTES=STAGE_BYTES,
+                          Y_BYTES=Y_BYTES, MAX_P=MAX_P, BAND=BAND, HEAD=HEAD,
+                          MAX_SMEM=MAX_SMEM).items():
+        assert re.findall(rf"constexpr int {name} = (\d+);", src) == [
+            str(val)], name
+
+
+def uhat_model(y, F, N, g, fit):
+    """U f32[F, n, 2N, 2N] by kernel 10's plan (J_U items a thread, up to
+    MAXT_U threads), walk, stages, y-buffer (the stream's column blocks, as
+    kernel 7's), items and epilogue (store_utile; sums in float64: exact
+    on exact inputs), and the count of writes of every entry of U."""
+    rt = tile_form(N)
+    P, C, threads, items, TS = make_plan(F, N, g, rt, J_U, MAXT_U)
+    n = y.shape[0] // g
+    nt = N // rt
+    ntri = nt * (nt + 1) // 2
+    yr = y[:n * g].double().reshape(n * g, F, N, 2)
+    out = np.zeros((F, n, 2 * N, 2 * N), np.float32)
+    writes = np.zeros((F, n, 2 * N, 2 * N), np.int64)
+    _, blocks = walk(n, F // P, fit)
+    its = [decode(it, C, nt, ntri) for it in range(items)]
+    for q, c0, c1 in blocks:
+        if c0 >= c1:
+            continue
+        G = F // P
+        fs = [q + G * s for s in range(P)]
+        # (class, subband, i, a, j, b): sum of y_i.a y_j.b
+        acc = torch.zeros((C, P, N, 2, N, 2), dtype=torch.float64)
+        cc = c0
+        for r, rows, segs in stage_segments(c0 * g, c1 * g, g, TS):
+            yb = yr[r:r + rows][:, fs].permute(1, 0, 2, 3)  # the y-buffer
+            for pos, seg, coff, ends in segs:
+                for cls in range(C):
+                    first = pos + ((cls - coff) & (C - 1))
+                    v = yb[:, first:pos + seg:C]
+                    acc[cls] += torch.einsum("smia,smjb->siajb", v, v)
+                if ends:
+                    R = acc.sum(0).numpy()
+                    for cls, s, ib, jb in its:
+                        if cls == 0:
+                            store_utile(out[fs[s], cc], writes[fs[s], cc],
+                                        ib * rt, jb * rt, rt, R[s])
+                    acc.zero_()
+                    cc += 1
+    return torch.from_numpy(out), writes
+
+
+def store_utile(oc, wc_, i0, j0, rt, R):
+    """store_utile: the tile's rows 2i + a, columns 2j + b, and off the
+    diagonal their mirror rows 2j + b, columns 2i + a, from the same sums
+    R[i, a, j, b]; a diagonal tile whole."""
+    for u in range(rt):
+        for v in range(rt):
+            i, j = i0 + u, j0 + v
+            for a in range(2):
+                for b in range(2):
+                    val = np.float32(R[i, a, j, b])
+                    oc[2 * i + a, 2 * j + b] = val
+                    wc_[2 * i + a, 2 * j + b] += 1
+                    if i0 != j0:
+                        oc[2 * j + b, 2 * i + a] = val
+                        wc_[2 * j + b, 2 * i + a] += 1
+
+
+def test_uhat_c5_plan():
+    """Kernel 10 at c5 (F = 16, N = 64, g = 64): two subbands a group, one
+    row class, 288 threads for 272 items (one a thread: 64 sums), 4 frames
+    a stage, BLOCKS_U = 2 blocks a SM."""
+    assert make_plan(16, 64, 64, 4, J_U, MAXT_U) == (2, 1, 288, 272, 4)
+    assert BLOCKS_U * (layout(16, 64, 2, 4) + BLOCK_RESERVED) <= SM_BYTES
+
+
+@pytest.mark.parametrize("N", [1, 3, 5, 6, 8, 12, 16, 18, 30, 32, 36, 64])
+def test_uhat_items_cover_each_tile_and_mirror_once(N):
+    """Kernel 10's plans: every (i0 <= j0) tile of every subband is one
+    item of row class 0, and its rows and (off the diagonal) its mirror's
+    write every entry of U once."""
+    rt = tile_form(N)
+    nt = N // rt
+    ntri = nt * (nt + 1) // 2
+    for F, g in ((1, 1), (4, 64), (16, 64), (12, 64), (16, 3)):
+        P, C, threads, items, TS = make_plan(F, N, g, rt, J_U, MAXT_U)
+        assert threads % 32 == 0 and items <= J_U * threads <= J_U * MAXT_U
+        assert layout(F, N, P, TS) <= MAX_SMEM
+        tiles = [decode(it, C, nt, ntri)[1:] for it in range(items)
+                 if decode(it, C, nt, ntri)[0] == 0]
+        assert sorted(tiles) == sorted(
+            (s, ib, jb) for s in range(P) for ib in range(nt)
+            for jb in range(ib, nt))
+        writes = np.zeros((P, 2 * N, 2 * N), np.int64)
+        for s, ib, jb in tiles:
+            store_utile(np.zeros((2 * N, 2 * N), np.float32), writes[s],
+                        ib * rt, jb * rt, rt, np.zeros((N, 2, N, 2)))
+        assert (writes == 1).all()
+
+
+@pytest.mark.parametrize("F,N,g,n,fit", [
+    (16, 8, 16, 3, 264), (12, 6, 7, 4, 5), (12, 5, 9, 3, 3),
+    (10, 12, 5, 4, 264), (6, 2, 5, 6, 3), (4, 16, 4, 5, 2),
+    (2, 32, 3, 3, 264), (5, 1, 7, 4, 1)])
+def test_uhat_model_gives_plain_bit_for_bit(F, N, g, n, fit):
+    """Kernel 10: integer streams at every register-tile form (RT = 4, 2,
+    1): every sum is exact, so the model's U equals the float64 plain
+    version's, and every entry is written once."""
+    rng = np.random.default_rng(F * 1000 + N * 10 + g + 7)
+    y = torch.from_numpy(rng.integers(-4, 5, (n * g, F * 2 * N))
+                         .astype(np.float32))
+    U, writes = uhat_model(y, F, N, g, fit)
+    assert (writes == 1).all()
+    Up = wc.subband_grams_plain(y.double(), F=F, N=N, g=g)
+    torch.testing.assert_close(U, Up, rtol=0, atol=0)

@@ -212,12 +212,13 @@ def test_fp32_matmuls_scope():
 
 
 def test_port_never_imports_jax():
-    """In a fresh interpreter every module of the port, chip_smoke and
-    exp_subspace_ns (imported, not run) load neither jax nor any module
-    of doa_tpu."""
+    """In a fresh interpreter every module of the port, chip_smoke,
+    exp_subspace_ns, exp_peaks2d and exp_wideband_cov (imported, not run)
+    load neither jax nor any module of doa_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "import doa_tpu_torch, chip_smoke, exp_subspace_ns\n"
+        "import doa_tpu_torch, chip_smoke, exp_subspace_ns, exp_peaks2d\n"
+        "import exp_wideband_cov\n"
         "for m in pkgutil.walk_packages(doa_tpu_torch.__path__, "
         "'doa_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
