@@ -24,7 +24,10 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    the headline's subspaces within 1e-5·max‖a‖² of its plain version's
    den, timed in turns with the plain version and one FP32
    torch.matmul(Vt, At.T) (the product alone; no torch call computes
-   den). K2 (`k2_exact`): both forms (tensor-core, on K3's mainloop with
+   den); their plain den (`music_den_plain`, y rounded once from a
+   float64 sum) on the card bit-equal to the CPU's on the exact inputs
+   and within 2^-23·max‖a‖² on 4096 of the headline's windows. K2
+   (`k2_exact`): both forms (tensor-core, on K3's mainloop with
    den held in shared memory; CUDA-core) bit-equal to the plain version on
    exact inputs at (2K, 2N, G) = (4, 32, 1024), (6, 24, 1024),
    (4, 16, 181), (2, 8, 250), k = 1 to 4, refine off and on, and on the
@@ -182,6 +185,22 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    names (the block form at 2K = 10); and each kernel wrapper (K1, 8,
    K4, K3, K2, 5, 4, 7, the frames launch, kernel 11 and its warp form)
    still raises on a CUDA tensor of a shape it does not take.
+16. the grid-free and projector estimators, each configuration driven
+   once with counts from zero (its plan's kernels launched, no other),
+   its peak allocation, the median of 10 calls, a profile window, each
+   estimator's own time and the card against the CPU on 64 windows
+   (sorted angles within 1e-3 deg narrowband, 5e-3 deg wideband): the
+   headline with MUSIC, root-MUSIC, ESPRIT, Unitary ESPRIT and min-norm
+   at T=2^24 in both return_spectra modes (K1, warm K4, K2 or K3; R
+   unembedded for the grid-free ones), every window of every estimate
+   within 0.5 deg of 70/110, root-MUSIC's every angle within 0.5 deg of
+   a source, the windows where the reference's root rule takes one
+   source twice counted (ROADMAP §C.3); PRESETS["c3_ula16_calib_smooth"]
+   with subspace_method="jacobi" at T=2^24 through strided planes views
+   (kernel 8 alone, Jacobi's noise projector), every window within 0.5
+   deg of 40/70/100; c5 with fusion="cssm" and "cssm_auto" and ESPRIT
+   (kernel 4, R_coh, cold K4, K3, kernel 6; 2-D ESPRIT on R_coh; 2048
+   windows), MUSIC's and ESPRIT's median az/el within 2.0 deg.
 
 Each kernel record gives its bound (the larger of its bytes over
 3.35 TB/s and the FP32 operations the function needs over 67 TFLOP/s,
@@ -221,6 +240,7 @@ C5_BW = 0.5                # each source's band, centred on 0 (exp_r5.py)
 T_C5 = 1 << 21             # 2048 windows of 1024 samples
 T_C5_SMALL = 32 * 1024     # the card against the CPU
 C5_ANGLE_TOL = 0.5         # degrees, the median window
+B_DEN_CPU = 4096           # windows of K2/K3's plain den, card against CPU
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -586,6 +606,7 @@ def kernel_parity(torch, dev, x, Vt, At, nrm, card):
 
     # K3 / K2 at the main path's shapes on the scene's subspaces
     e3, k3 = k3_scene(torch, "headline", Vt, At, nrm, card)
+    plain_den_card_vs_cpu(torch, (Vq, Aq, nq), (Vt[:B_DEN_CPU], At, nrm))
     # K3's CUDA-core form (2K of 10 to 16) at the headline's B, 2N and G,
     # on random orthonormal subspaces at 2K = 10 (its bound: the FP32
     # figure)
@@ -639,6 +660,27 @@ def kernel_parity(torch, dev, x, Vt, At, nrm, card):
                               "bound_by")},
         library_ms=None, by_shape={"headline": t4})
     return recs
+
+
+def plain_den_card_vs_cpu(torch, exact, scene):
+    """The plain den of K3 and K2 (music_den_plain, the yardstick both
+    kernels are held to) on the card against the same function on the
+    CPU (ROADMAP C.4): bit-equal on the exact inputs; on the first
+    B_DEN_CPU windows of the headline's subspaces within one FP32 unit of
+    max‖a‖² (y is rounded once from a float64 sum on either device, so
+    the two differ only where a sum sits within float64 noise of an FP32
+    rounding boundary), with the number of bins that differ at all."""
+    from doa_tpu_torch.ops.cuda import music_scan as ms
+
+    for tag, (V, A, n) in (("exact", exact), ("headline", scene)):
+        d = (ms.music_den_plain(V, A, n).cpu()
+             - ms.music_den_plain(V.cpu(), A.cpu(), n.cpu())).abs()
+        tol = 0.0 if tag == "exact" else 2.0 ** -23 * n.max().item()
+        log(f"plain den card vs CPU, {tag} ({V.shape[0]} windows, G="
+            f"{A.shape[0]}): max|card - CPU| = {d.max().item()!r} (tol "
+            f"{tol!r}), {int((d > 0).sum())} of {d.numel()} bins differ")
+        check(d.max().item() <= tol,
+              f"the card's plain den disagrees with the CPU's ({tag})")
 
 
 def k3_scene(torch, tag, Vt, At, nrm, card):
@@ -3561,6 +3603,318 @@ def fault_phase(torch, dev, card):
                           scale=1.0), what)
 
 
+# ---------------------------------------------------------------------
+# 16: the grid-free and projector estimators (root-MUSIC, ESPRIT, Unitary
+# ESPRIT, min-norm; subspace_method="jacobi") on the fused, planes and
+# coherent paths
+# ---------------------------------------------------------------------
+
+GRID_FREE = ("root_music_angles", "esprit_angles", "unitary_esprit_angles")
+EST_REPS = 10                      # timed calls of each configuration
+B_EST_CPU = 64                     # windows, the card against the CPU
+EST_CPU_TOL = {False: 1e-3, True: 5e-3}   # deg: narrowband, wideband
+
+
+def est_outputs(res):
+    """{name: angles} of every estimate a result holds: each estimator's
+    peak angles and the grid-free angles that are not None."""
+    out = {f"peaks {k}": v for k, v in res.peak_angles.items()}
+    out.update({k: getattr(res, k) for k in GRID_FREE
+                if getattr(res, k) is not None})
+    return out
+
+
+def est_sorted(torch, a):
+    """Each window's angles sorted: (B, K) by value, (B, K, 2) az/el
+    pairs by azimuth."""
+    return pair_sorted(torch, a) if a.dim() == 3 else a.sort(-1).values
+
+
+def est_every_window(torch, name, res, truth, want):
+    """Every window of every estimate in `want` within ANGLE_TOL of the
+    planted truth (sorted angles); root-MUSIC as root_music_windows."""
+    outs = est_outputs(res)
+    check(set(want) <= set(outs), f"{name}: estimates {sorted(outs)}, want "
+          f"{sorted(want)}")
+    for key in want:
+        if key == "root_music_angles":
+            root_music_windows(torch, name, outs[key], truth)
+            continue
+        e = sorted_err(torch, outs[key], truth)
+        log(f"{name} {key}: {outs[key].shape[0]} windows, max |sorted angle "
+            f"- truth| {e!r} deg (limit {ANGLE_TOL})")
+        check(e <= ANGLE_TOL, f"{name} {key} angle error {e}")
+
+
+def root_music_windows(torch, name, ang, truth):
+    """Root-MUSIC's angles: every angle of every window within ANGLE_TOL
+    of a planted source. The reference's rule takes the K roots inside
+    the unit circle nearest it, and where a source's conjugate-reciprocal
+    pair of roots both land inside in FP32, it takes that source twice
+    and loses the other (ROADMAP §C.3; in both packages on the CPU,
+    tests/test_torch_root_music.py): those windows are counted, not
+    failed, and the card against the CPU holds them too."""
+    if not bool(torch.isfinite(ang).all()):
+        fail(f"{name}: non-finite root-MUSIC angles")
+    t = torch.tensor(truth, device=ang.device)
+    d = (ang[..., None] - t).abs()                       # (B, K, K)
+    near = float(d.amin(-1).max())
+    lost = int((d.amin(-2) > ANGLE_TOL).any(-1).sum())
+    log(f"{name} root_music_angles: {ang.shape[0]} windows, every angle "
+        f"within {near!r} deg of a source (limit {ANGLE_TOL}); {lost} "
+        f"windows ({lost / ang.shape[0]:.4f}) take one source twice")
+    check(near <= ANGLE_TOL, f"{name} root-MUSIC angle {near} off")
+
+
+def est_medians(torch, name, res, truth, want, tol):
+    """The median window's pair-sorted (az, el) of every estimate in
+    `want` within `tol` of the planted truth (c5's cssm paths)."""
+    outs = est_outputs(res)
+    for key in want:
+        e_max, e_med, med = c5_errors(torch, outs[key], truth)
+        d = float((med - torch.tensor(truth, device=med.device)).abs().max())
+        log(f"{name} {key}: per-window max |angle - truth| max {e_max!r}, "
+            f"median {e_med!r} deg; median pair-sorted {med.tolist()} "
+            f"(limit {tol} deg)")
+        check(d <= tol, f"{name} {key} median off by {d}")
+
+
+def est_path(torch, name, pipe, call, counters, card, check_angles,
+             interleaved=True):
+    """Drive one configuration once with every count from zero: the plan's
+    kernels each launched (call.interleaved: but for the planes-input
+    stage), no other counted kernel; its peak allocation
+    above what was held before the call; check_angles(result); then
+    EST_REPS timed calls and a profile window (idle share, device ops) →
+    (result, the launches)."""
+    from doa_tpu_torch.ops.cuda import music_scan as ms
+    for f in counters.values():
+        f.launches = 0
+        if hasattr(f, "by_form"):
+            f.by_form.update(dict.fromkeys(f.by_form, 0))
+    ms.music_scan_peaks.tc_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    res = call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    launches = {n: f.launches for n, f in counters.items()}
+    show_plan(name, pipe)
+    log(f"launches in {name}: {json.dumps(launches)} (K2's tensor-core form "
+        f"{ms.music_scan_peaks.tc_launches}); the plan's forms "
+        f"{json.dumps(pipe.plan.forms)}; peak allocation "
+        f"{peak / 2 ** 30:.3f} GiB above the {held / 2 ** 30:.3f} GiB held")
+    # the interleaved entry does not run kernel 8's planes-input stage
+    route = {s: k for s, k in pipe.plan.kernels.items()
+             if not (interleaved and s == "covariance_planes")}
+    for stage, kernel in route.items():
+        check(launches[kernel] > 0,
+              f"{name}: stage {stage}'s kernel {kernel} never launched")
+    others = {n: v for n, v in launches.items()
+              if n not in route.values() and v}
+    check(not others, f"{name}: kernels outside its plan launched: {others}")
+    check(ms.music_scan_peaks.tc_launches == launches["music_scan_peaks"],
+          f"{name}: K2 left its tensor-core form")
+    for stage, form in pipe.plan.forms.items():
+        if stage not in route:
+            continue
+        by = counters[route[stage]].by_form
+        check(by[form] == launches[route[stage]],
+              f"{name}: {stage} launched {dict(by)}, planned {form}")
+    if "peaks" in pipe.plan:
+        peaks_forms(name, pipe, launches["peaks2d"])
+    check_angles(res)
+    ts = call_times(torch, call, reps=EST_REPS, warm=2)
+    med = 0.5 * (ts[EST_REPS // 2 - 1] + ts[EST_REPS // 2])
+    B = res.peak_angles["music"].shape[0]
+    log(f"{name}: median {med:.4f} ms per call of {B} windows ({EST_REPS} "
+        f"calls, min {ts[0]:.4f}, max {ts[-1]:.4f})  [{card}]")
+    profile_window(torch, call, card)
+    return res, launches
+
+
+def est_card_vs_cpu(torch, name, cfg, call_of, x, B, wideband):
+    """Every estimate of the card's pipeline against the same pipeline on
+    the CPU on the first B windows of x, sorted (pair-sorted on az/el),
+    within EST_CPU_TOL."""
+    from doa_tpu_torch.pipeline_torch import build_pipeline_torch
+    xs = x[:B * cfg.snapshot_size]
+    gpu = est_outputs(call_of(build_pipeline_torch(cfg, device=x.device),
+                              xs))
+    t0 = time.perf_counter()
+    cpu = est_outputs(call_of(build_pipeline_torch(cfg, device="cpu"),
+                              xs.cpu()))
+    tol = EST_CPU_TOL[wideband]
+    check(gpu.keys() == cpu.keys(), f"{name}: card {sorted(gpu)}, CPU "
+          f"{sorted(cpu)}")
+    d = {k: (est_sorted(torch, gpu[k].cpu())
+             - est_sorted(torch, cpu[k])).abs().max().item() for k in gpu}
+    log(f"{name} card vs CPU on {B} windows: max angle difference "
+        + ", ".join(f"{k} {v!r}" for k, v in d.items())
+        + f" deg (tol {tol}; CPU run {time.perf_counter() - t0:.1f} s)")
+    check(all(v <= tol for v in d.values()),
+          f"{name}: card and CPU disagree")
+
+
+def est_shares(torch, name, fns, card):
+    """Each estimator's own time on the path's inputs, synced (CUDA
+    events around a call; the host's launches inside)."""
+    out = {k: time_ms(torch, f, reps=EST_REPS) for k, f in fns.items()}
+    log(f"{name} estimator times, ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in out.items()) + f"  [{card}]")
+
+
+def estimator_phase(torch, dev, card):
+    """Phase 16 → the launches of the earlier kernels in these paths."""
+    from doa_tpu_torch import Estimator, PRESETS
+    from doa_tpu_torch.cpx import embed_planes, fp32_matmuls, unembed_planes
+    from doa_tpu_torch.ops import cpx_ops, esprit, min_norm, root_music
+    from doa_tpu_torch.ops import wideband as wb
+    from doa_tpu_torch.ops.cuda import cov_embedded as ce
+    from doa_tpu_torch.ops.cuda import covariance as cv
+    from doa_tpu_torch.ops.cuda import music_scan as ms
+    from doa_tpu_torch.ops.cuda import peaks2d as pk
+    from doa_tpu_torch.ops.cuda import wideband_cov as wc
+    from doa_tpu_torch.ops.jacobi import subspace_projector_jacobi
+    from doa_tpu_torch.ops.peaks import find_local_max
+    from doa_tpu_torch.pipeline_torch import (build_pipeline_torch,
+                                              compute_covariances)
+
+    E_ = Estimator
+    five = (E_.MUSIC, E_.ROOT_MUSIC, E_.ESPRIT, E_.UNITARY_ESPRIT,
+            E_.MIN_NORM)
+    counters = {"chunk_gram": ce.chunk_grams_uhat,
+                "planes_chunk_gram": cv.chunk_grams,
+                "wideband_fft_gram": wc.subband_chunk_grams,
+                "mgs_iterate": cpx_ops.mgs_iterate,
+                "music_scan": ms.music_scan,
+                "music_scan_peaks": ms.music_scan_peaks,
+                "peaks2d": pk.peaks2d}
+    total = {n: 0 for n in counters}
+
+    def add(n):
+        for k, v in n.items():
+            total[k] += v
+
+    # 16a. the headline with the five estimators, both return_spectra
+    cfg1 = dataclasses.replace(headline_config(), estimators=five)
+    x = make_scene(torch, T_MAIN, 16, dev)
+    want1 = ("peaks music", "peaks min_norm") + GRID_FREE
+    for rs in (False, True):
+        pipe = build_pipeline_torch(cfg1, device=dev, return_spectra=rs)
+        name = f"headline + five estimators return_spectra={rs}"
+        res, n = est_path(
+            torch, name, pipe, lambda: pipe.interleaved(x), counters, card,
+            lambda r: est_every_window(torch, name, r, THETA, want1))
+        check(sorted(res.spectra) == (["min_norm", "music"] if rs else []),
+              f"{name}: spectra {sorted(res.spectra)}")
+        add(n)
+        del res
+    cr, ci = torch.ones(16, device=dev), torch.zeros(16, device=dev)
+    with fp32_matmuls():
+        E = ce.cov_embedded(x, cr, ci, N=16, snapshot_size=1024)
+        esc = cfg1.escalate_kwargs
+        vb = cpx_ops.signal_subspace_from_E_T(E.mean(0, keepdim=True), 2,
+                                              iters=8, **esc)
+        Vt = cpx_ops.signal_subspace_from_E_T(
+            E, 2, iters=2, init=vb.expand(E.shape[0], -1, -1), **esc)
+        V = Vt.transpose(-1, -2)
+        R = unembed_planes(E)
+        Ar, Ai = pipe.steering_planes
+
+        def mn():
+            P = cpx_ops.spectrum_from_den(
+                min_norm.min_norm_denominator_subspace(V, Ar, Ai))
+            return find_local_max(P, 2, 0.0, 180.0, refine=True)
+        est_shares(torch, "headline", {
+            "unembed R": lambda: unembed_planes(E),
+            "root-MUSIC (noise projector + Aberth, 60 iterations)":
+                lambda: root_music.root_music_cpx(
+                    *R, 2, 0.5,
+                    noise_proj=cpx_ops.noise_projector_from_signal(V)),
+            "ESPRIT": lambda: esprit.esprit_cpx(*R, 2, 0.5),
+            "Unitary ESPRIT": lambda: esprit.unitary_esprit_cpx(*R, 2, 0.5),
+            "min-norm (den, spectrum, peaks)": mn}, card)
+    del E, Vt, V, R
+    small = x[:B_EST_CPU * 1024]
+    for rs in (False, True):
+        est_card_vs_cpu(torch, f"headline + five estimators return_spectra"
+                        f"={rs}", cfg1, lambda p, xs: p.interleaved(xs),
+                        small, B_EST_CPU, False)
+    del x, small
+
+    # 16b. c3 with subspace_method="jacobi", planes input (strided views)
+    cfg3 = dataclasses.replace(PRESETS["c3_ula16_calib_smooth"],
+                               subspace_method="jacobi")
+    x3 = make_ula_capture(torch, T_C3, 16, c3_sources(), SNR_DB, dev, seed=3)
+    xr, xi = x3[..., 0], x3[..., 1]
+    for rs in (False, True):
+        pipe = build_pipeline_torch(cfg3, device=dev, return_spectra=rs)
+        check(dict(pipe.plan) == {"covariance": "planes_chunk_gram"},
+              f"c3 jacobi plan {dict(pipe.plan)}")
+        name = f"c3 jacobi return_spectra={rs}"
+        res, n = est_path(
+            torch, name, pipe, lambda: pipe((xr, xi)), counters, card,
+            lambda r: est_every_window(torch, name, r, C3_TRUTH,
+                                       ("peaks music",)),
+            interleaved=False)
+        add(n)
+        del res
+    with fp32_matmuls():
+        R3 = compute_covariances(xr, xi, cfg3)
+        E3 = embed_planes(*R3)
+        est_shares(torch, "c3 jacobi", {
+            "covariance (kernel 8 + windows, FB, smoothing)":
+                lambda: compute_covariances(xr, xi, cfg3),
+            "Jacobi noise projector (10 sweeps of 23 rounds, n = 24)":
+                lambda: subspace_projector_jacobi(E3, 2 * (12 - 3)),
+            "eigh noise projector (torch.linalg.eigh, for scale)":
+                lambda: cpx_ops.noise_projector(*R3, 3)}, card)
+    del R3, E3
+    x3c = torch.view_as_complex(x3[:B_EST_CPU * 1024])
+    for rs in (False, True):
+        est_card_vs_cpu(
+            torch, f"c3 jacobi return_spectra={rs}", cfg3,
+            lambda p, xs: p((xs.real, xs.imag)),
+            x3c, B_EST_CPU, False)
+    del x3, xr, xi, x3c
+
+    # 16c. c5 cssm and cssm_auto with MUSIC and 2-D ESPRIT on R_coh
+    x16 = make_c5_scene(torch, T_C5, dev, seed=5)
+    for fusion in ("cssm", "cssm_auto"):
+        cfg5 = dataclasses.replace(c5_variant(fusion=fusion),
+                                   estimators=(E_.MUSIC, E_.ESPRIT))
+        pipe = build_pipeline_torch(cfg5, device=dev)
+        name = f"c5 {fusion} + ESPRIT"
+        res, n = est_path(
+            torch, name, pipe, lambda: pipe.interleaved(x16), counters,
+            card, lambda r: est_medians(torch, name, r, C5_TRUTH,
+                                        ("peaks music", "esprit_angles"),
+                                        CSSM_ANGLE_TOL))
+        check(tuple(res.esprit_angles.shape) == (T_C5 // 1024, 2, 2),
+              f"{name}: esprit_angles {tuple(res.esprit_angles.shape)}")
+        add(n)
+        del res
+        est_card_vs_cpu(torch, name, cfg5, lambda p, xs: p.interleaved(xs),
+                        x16, B_EST_CPU, True)
+    cfg5 = c5_variant(fusion="cssm")
+    T_foc = torch.from_numpy(wb.focusing_matrices(cfg5)).to(dev)
+    with fp32_matmuls():
+        E_sub = wc.wideband_cov_embedded(x16, torch.ones(64, device=dev),
+                                         torch.zeros(64, device=dev), N=64,
+                                         F=16, snapshot_size=1024)
+        R = wb.cssm_covariance(torch.complex(*unembed_planes(E_sub)), T_foc)
+        del E_sub
+        Rr, Ri = R.real.contiguous(), R.imag.contiguous()
+        est_shares(torch, "c5 cssm", {
+            "2-D ESPRIT on R_coh": lambda: esprit.esprit_2d_cpx(
+                Rr, Ri, 2, 0.5, (8, 8))}, card)
+    del R, Rr, Ri, x16
+    torch.cuda.empty_cache()
+    return total
+
+
 def main():
     import torch
 
@@ -3753,6 +4107,10 @@ def main():
         recs[name]["launches"] += n
     # 15. fault C.5: ULA-48 and ULA-16 at K = 5 on the card
     fault_phase(torch, dev, card)
+    # 16. the grid-free and projector estimators: the headline with all
+    # five, c3 with Jacobi, c5 cssm and cssm_auto with 2-D ESPRIT
+    for name, n in estimator_phase(torch, dev, card).items():
+        recs[name]["launches"] += n
     for f, v in PEAKS_TALLY.items():
         recs["peaks2d"]["by_form"][f]["launches"] = v
     check(sum(PEAKS_TALLY.values()) == recs["peaks2d"]["launches"],

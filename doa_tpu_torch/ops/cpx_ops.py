@@ -447,6 +447,17 @@ def noise_projector(Rr, Ri, num_sources: int):
     return unembed_planes(P)
 
 
+def noise_projector_from_signal(V_emb):
+    """Embedded signal basis V_emb f32[B, 2N, 2K] → the complex noise
+    projector M = I − E_s E_sᴴ as planes (Mr, Mi) f32[B, N, N] (for
+    root-MUSIC on the power subspace)."""
+    n2 = V_emb.shape[-2]
+    with fp32_matmuls():
+        P = torch.matmul(V_emb, V_emb.transpose(-1, -2))
+    eye = torch.eye(n2, dtype=V_emb.dtype, device=V_emb.device)
+    return unembed_planes(eye - P)
+
+
 def _cast(t, compute_dtype):
     """The reference's `astype(compute_dtype)` of a matmul input, as f32
     values: bfloat16 rounds to nearest even, int8 truncates toward zero.

@@ -92,10 +92,21 @@ def _check_tiles(tiles, shape, Vt, what, G, n2, k2):
 
 def music_den_plain(Vt: torch.Tensor, At_emb: torch.Tensor,
                     nrm: torch.Tensor) -> torch.Tensor:
-    """den f32[B, G] = max(nrm − Σ_k (Vt·ã)², tiny), in true FP32."""
+    """den f32[B, G] = max(nrm − Σ_k (Vt·ã)², tiny).
+
+    y = Vt·ã is rounded once to FP32 from a float64 sum: each product of
+    two FP32 values is exact in float64 and the sum's error over 2N terms
+    is far below half an FP32 unit, so y is the nearest FP32 value
+    whatever order a BLAS sums in. An FP32 product sums in the BLAS's
+    own order and can sit an FP32 unit off, enough to tie two nulls 1.3
+    units of ‖a‖² apart that the reference's kernel tells apart. Then
+    Σ_k y_k² in FP32 in k order and nrm − Σ in FP32."""
     with fp32_matmuls():
-        y = torch.matmul(Vt, At_emb.T)                  # (B, 2K, G)
-    den = nrm - (y * y).sum(dim=-2)
+        y = torch.matmul(Vt.double(), At_emb.T.double()).float()
+    part = y[..., 0, :] * y[..., 0, :]                  # (B, G)
+    for i in range(1, y.shape[-2]):
+        part = part + y[..., i, :] * y[..., i, :]
+    den = nrm - part
     return den.clamp_min(torch.finfo(torch.float32).tiny)
 
 

@@ -1,5 +1,5 @@
 """The DoA pipelines on torch tensors (port of the narrowband fused and
-planes branches and the wideband incoherent branch of
+planes branches and the wideband incoherent and coherent branches of
 doa_tpu/pipeline_tpu.py::build_pipeline_tpu).
 
 Narrowband, fused path (no smoothing, subspace_method="power",
@@ -14,7 +14,10 @@ TPACK | gcd(S, hop): plan.fused_route, the reference's route rule):
       → K2 scan + peaks (return_spectra=False, 1-D)     ops/cuda/music_scan
         or K3 scan → normalise → find_local_max          ops/peaks
            (2-D grids: the 2-D peaks kernel)            ops/cuda/peaks2d
-      Capon / Bartlett on R = unembed(E).
+      Capon / Bartlett, and the grid-free estimators (root-MUSIC on the
+      power subspace's noise projector, ESPRIT, Unitary ESPRIT), on
+      R = unembed(E); min-norm on the power subspace   ops/{root_music,
+                                                   esprit,min_norm}
 
 Narrowband, planes path (smoothing, subspace_method="eigh", a hop outside
 the route rule, or planes input on either path):
@@ -24,8 +27,9 @@ the route rule, or planes input on either path):
                                                    ops/cuda/covariance
       → correction (c cᴴ) ∘ R → FB → spatial smoothing  ops/cpx_ops
       → cold MGS subspace of E(R) (K4; the guard under subspace_check)
-        → K3 / K2 scan, or the eigh noise projector and its dense
-        denominator; Capon, Bartlett
+        → K3 / K2 scan, or the eigh (or Jacobi: ops/jacobi) noise
+        projector and its dense MUSIC and min-norm denominators; Capon,
+        Bartlett; root-MUSIC, ESPRIT, Unitary ESPRIT
       (on a fused config, planes input embeds E(R) and joins the fused
       path downstream)
 
@@ -45,7 +49,8 @@ Wideband (c5; planes input is stacked once into the interleaved layout):
     covariances, cold K4 on F matrices):
       → R_coh = mean_f T_f R_f T_fᴴ c64[B, N, N]    ops/wideband
       → FB → smoothing → the narrowband estimators (cold K4 + K3/K2,
-        eigh, Capon, Bartlett) as on the planes path
+        eigh, Jacobi, Capon, Bartlett, min-norm, the grid-free ones; 2-D
+        ESPRIT on a URA) as on the planes path
 
 call.scan_capture runs a capture staged as M blocks through the fused or
 wideband path, block by block with the continuous-framing carry.
@@ -70,7 +75,13 @@ from doa_tpu_torch.ops.cpx_ops import signal_subspace_from_E_T
 from doa_tpu_torch.ops.cuda.cov_embedded import cov_embedded
 from doa_tpu_torch.ops.cuda.music_scan import peaks_tiles, scan_tiles
 from doa_tpu_torch.ops.cuda.wideband_cov import wideband_cov_embedded
+from doa_tpu_torch.ops.esprit import (esprit_2d_cpx, esprit_cpx,
+                                      unitary_esprit_cpx)
+from doa_tpu_torch.ops.jacobi import subspace_projector_jacobi
+from doa_tpu_torch.ops.min_norm import (min_norm_denominator_cpx,
+                                        min_norm_denominator_subspace)
 from doa_tpu_torch.ops.peaks import find_local_max
+from doa_tpu_torch.ops.root_music import root_music_cpx
 from doa_tpu_torch.ops.wideband import (auto_focused_covariance,
                                         cssm_covariance, focusing_matrices,
                                         subband_subspaces_from_E,
@@ -78,8 +89,6 @@ from doa_tpu_torch.ops.wideband import (auto_focused_covariance,
 from doa_tpu_torch.plan import (Plan, fused_route, kernel_forms,  # noqa: F401
                                 kernel_plan, kernel_routes)
 from doa_tpu_torch.pipeline import DoaResult, _steering_fn, _steering_matrix
-
-_ESTIMATORS = (Estimator.MUSIC, Estimator.CAPON, Estimator.BARTLETT)
 
 
 def _check_slice(cfg: DoaConfig) -> None:
@@ -113,12 +122,6 @@ def _check_slice(cfg: DoaConfig) -> None:
         todo.append("cov_dtype='int8' on the planes path (ROADMAP.md §C)")
     if cfg.beamspace.enabled:
         todo.append("beamspace (queue A.3)")
-    if cfg.subspace_method == "jacobi":
-        todo.append("subspace_method='jacobi' (queue A.3)")
-    other = [e.value for e in cfg.estimators if e not in _ESTIMATORS]
-    if other:
-        todo.append(f"estimators {other} (root-MUSIC, ESPRIT, Unitary "
-                    "ESPRIT, min-norm: queue A.3)")
     if cfg.scan_mode == "hierarchical":
         todo.append("scan_mode='hierarchical' (queue A.3)")
     if todo:
@@ -127,6 +130,12 @@ def _check_slice(cfg: DoaConfig) -> None:
             "the wideband incoherent, cssm and cssm_auto paths; not yet "
             "ported: "
             + "; ".join(todo) + " — see ROADMAP.md")
+
+
+# what scan_capture keeps of each block's DoaResult, as the reference's
+# (pipeline_tpu.py:652-655): the peaks and the grid-free angles
+_CAPTURE_KEYS = ("peak_values", "peak_angles", "root_music_angles",
+                 "esprit_angles", "unitary_esprit_angles")
 
 
 def _device(device) -> torch.device:
@@ -244,7 +253,10 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
       (M, T_blk/TPACK, 2N·TPACK), numpy or torch, hop | T_blk (wideband:
       also F | overlap; under cov_dtype="int8" the blocks must be int8,
       as the reference's) → {"peak_values": {est: (M, B_blk, k)},
-      "peak_angles": {est: (M, B_blk, k[, 2])}}. Block m is computed
+      "peak_angles": {est: (M, B_blk, k[, 2])}} and, where the config
+      asks for them, the grid-free angles stacked as (M, B_blk, K[, 2])
+      under "root_music_angles", "esprit_angles" and
+      "unitary_esprit_angles", as the reference's. Block m is computed
       with the carry of the hop·ceil(overlap/hop) samples before it, so
       windows are framed as in one continuous stream; block 0's carry is
       zeros, and its first ``call.scan_capture.prefix_windows`` windows,
@@ -277,8 +289,16 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
     compute_dtype float32); return_spectra=False fuses normalise + peaks
     into the scan kernel (K2) when the grid is 1-D, k ≤ 4 and G ≤ 8192,
     an explicit size rule; a dense scan in bfloat16/int8 runs the
-    reference's quantized forms as torch ops. subspace_method="eigh" scans
-    the eigh noise projector. Capon (Cholesky) and Bartlett scan R.
+    reference's quantized forms as torch ops. subspace_method="eigh" or
+    "jacobi" scans that noise projector (the reference's; one a call,
+    shared by MUSIC and min-norm). Capon (Cholesky) and Bartlett scan R.
+    Min-norm scans the power subspace's weight (or the projector's).
+    The grid-free estimators fill DoaResult.root_music_angles (a ULA; on
+    the power subspace's noise projector, else eigh's, as the
+    reference), esprit_angles (f32[B, K] on a ULA, az/el pairs
+    f32[B, K, 2] on a URA) and unitary_esprit_angles (a ULA), each
+    window's angles sorted; they run on R, which the fused path then
+    unembeds from E.
     subspace_impl="pallas" replaces the fused path's warm MGS by kernel
     11's cold Newton–Schulz subspace (power_iters, power_squarings; the
     escalation counts are then zeros); the planes route keeps its cold
@@ -333,8 +353,13 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
     elif plan.get("scan") == "music_scan_peaks":
         # K2's grid operand (A', or Aᵀ for its CUDA-core form), made once
         scan = functools.partial(scan, tiles=peaks_tiles(At_emb, 2 * K))
-    need_R = (Estimator.CAPON in cfg.estimators
-              or Estimator.BARTLETT in cfg.estimators or return_covariance)
+    ests = cfg.estimators
+    ula = cfg.geometry.kind == "ula"
+    want_root = Estimator.ROOT_MUSIC in ests and ula
+    want_unitary = Estimator.UNITARY_ESPRIT in ests and ula
+    need_R = (Estimator.CAPON in ests or Estimator.BARTLETT in ests
+              or Estimator.ESPRIT in ests or want_root or want_unitary
+              or return_covariance)
     fb = cfg.avg_method == AvgMethod.FORWARD_BACKWARD
     esc = cfg.escalate_kwargs
     subband_planes = None
@@ -401,8 +426,19 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
             return_stats=True, iterate=it,
             **(esc if cfg.power_squarings == 0 else {}))
 
-    def _music(R, Vt):
-        """→ (P or None, (values, angles) or None)."""
+    def _noise_projector(R):
+        """The complex noise projector's planes of the eigh and Jacobi
+        routes (the reference's _noise_M): Jacobi's projector onto the
+        2(N − K) smallest eigenvectors of E(R), or eigh's."""
+        if cfg.subspace_method == "jacobi":
+            n_noise = 2 * (R[0].shape[-1] - K)
+            return unembed_planes(subspace_projector_jacobi(
+                embed_planes(*R), n_noise))
+        return cpx_ops.noise_projector(*R, K)
+
+    def _music(Vt, M):
+        """→ (P or None, (values, angles) or None); M the noise projector
+        of the eigh and Jacobi routes."""
         if route.get("scan") == "music_scan_peaks":
             return None, scan(Vt, At_emb, k, x_rng[0], x_rng[1],
                               refine=refine_peaks, nrm=nrm)
@@ -413,10 +449,30 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
             den = cpx_ops.music_denominator_subspace(
                 Vt.transpose(-1, -2), At_emb, cfg.compute_dtype)
         else:
-            M = cpx_ops.noise_projector(*R, K)
             den = cpx_ops.music_denominator_cpx(*M, A_re, A_im,
                                                 cfg.compute_dtype)
         return cpx_ops.spectrum_from_den(den), None
+
+    def _grid_free(R, Vt):
+        """The grid-free angles (root-MUSIC, ESPRIT, Unitary ESPRIT) of the
+        covariance planes R, each None where the config does not ask for
+        it: root-MUSIC (ULA) on the power subspace's noise projector, else
+        eigh's, as the reference; ESPRIT f32[B, K] on a ULA, the az/el
+        pairs f32[B, K, 2] on a URA; Unitary ESPRIT on a ULA."""
+        d = cfg.geometry.norm_spacing
+        root = esp = uni = None
+        if want_root:
+            nproj = (cpx_ops.noise_projector_from_signal(
+                Vt.transpose(-1, -2)) if "subspace" in route else None)
+            root = root_music_cpx(*R, K, d, noise_proj=nproj)
+        if Estimator.ESPRIT in ests and ula:
+            esp = esprit_cpx(*R, K, d)
+        elif Estimator.ESPRIT in ests:
+            esp = torch.stack(esprit_2d_cpx(*R, K, d, cfg.geometry.shape),
+                              dim=-1)
+        if want_unitary:
+            uni = unitary_esprit_cpx(*R, K, d)
+        return root, esp, uni
 
     def _estimate(R, E):
         """Everything downstream of the covariance: R planes (Rr, Ri) or
@@ -440,22 +496,38 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
                     Vt.transpose(-1, -2), K, tol=cfg.subspace_tol)
                 Vt = V.transpose(-1, -2)
         spectra, pvals, pangs = {}, {}, {}
-        for est in cfg.estimators:
+        # the eigh or Jacobi projector, once a call for MUSIC and min-norm
+        M = (_noise_projector(R) if "subspace" not in route and (
+            Estimator.MUSIC in ests or Estimator.MIN_NORM in ests) else None)
+        for est in ests:
             peaks = None
             if est == Estimator.MUSIC:
-                P, peaks = _music(R, Vt)
+                P, peaks = _music(Vt, M)
+            elif est == Estimator.MIN_NORM:
+                if "subspace" in route:
+                    den = min_norm_denominator_subspace(
+                        Vt.transpose(-1, -2), A_re, A_im, cfg.compute_dtype)
+                else:
+                    den = min_norm_denominator_cpx(*M, A_re, A_im,
+                                                   cfg.compute_dtype)
+                P = cpx_ops.spectrum_from_den(den)
             elif est == Estimator.CAPON:
                 P = cpx_ops.capon_spectrum(*R, At_emb,
                                            diag_load=cfg.capon_diag_load)
-            else:
+            elif est == Estimator.BARTLETT:
                 P = cpx_ops.bartlett_spectrum(*R, At_emb)
+            else:       # grid-free: after the scans
+                continue
             if peaks is None:
                 peaks = _peaks(P)
                 if return_spectra:
                     spectra[est.value] = P
             pvals[est.value], pangs[est.value] = peaks
+        root, esp, uni = _grid_free(R, Vt)
         return DoaResult(
             spectra=spectra, peak_values=pvals, peak_angles=pangs,
+            root_music_angles=root, esprit_angles=esp,
+            unitary_esprit_angles=uni,
             covariance=torch.complex(*R) if return_covariance else None,
             subspace_residual=sub_res, escalation_flagged=stats[0],
             escalation_overflow=stats[1])
@@ -612,10 +684,13 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
             if lo < 0:
                 xb = torch.cat([xb.new_zeros((-lo, xb.shape[1])), xb])
             r = run_interleaved(xb, cr, ci)
-            outs.append({"peak_values": r.peak_values,
-                         "peak_angles": r.peak_angles})
-        return {key: {est: torch.stack([o[key][est] for o in outs])
-                      for est in outs[0][key]} for key in outs[0]}
+            outs.append({key: getattr(r, key) for key in _CAPTURE_KEYS
+                         if getattr(r, key) is not None})
+        return {key: ({est: torch.stack([o[key][est] for o in outs])
+                       for est in first}
+                      if isinstance(first, dict)
+                      else torch.stack([o[key] for o in outs]))
+                for key, first in outs[0].items()}
 
     # windows of block 0 that reach into the zero prefix (drop them)
     scan_capture.prefix_windows = carry // cfg.hop

@@ -13,8 +13,8 @@ card. The pipelines take each stage's route (`Plan.kernels`) and callable
 they run.
 
 The route rules the plan reads are stated here once: the fused-path rule
-(`fused_route`), the fused-peaks rule (`fuses_peaks`) and the scan rule
-(`scans_music_kernel`).
+(`fused_route`), the subspace rule (`runs_power_subspace`), the
+fused-peaks rule (`fuses_peaks`) and the scan rule (`scans_music_kernel`).
 """
 
 from __future__ import annotations
@@ -122,6 +122,18 @@ def fuses_peaks(cfg: DoaConfig, return_spectra: bool) -> bool:
             and cfg.num_max_vals <= MAX_FUSED_K and 3 <= G <= MAX_FUSED_G)
 
 
+def runs_power_subspace(cfg: DoaConfig) -> bool:
+    """The rule of the reference (pipeline_tpu.py:289-292): the power
+    subspace runs where subspace_method is "power" and an estimator reads
+    it: MUSIC, root-MUSIC on a ULA (its noise projector) or min-norm (its
+    weight)."""
+    ests = cfg.estimators
+    return (cfg.subspace_method == "power"
+            and (Estimator.MUSIC in ests or Estimator.MIN_NORM in ests
+                 or (Estimator.ROOT_MUSIC in ests
+                     and cfg.geometry.kind == "ula")))
+
+
 def scans_music_kernel(cfg: DoaConfig) -> bool:
     """MUSIC on the power subspace runs the scan kernels (K3 or K2) under
     scan_mode "pallas" ("auto" picks it on the fused path) or
@@ -148,7 +160,8 @@ def kernel_routes(cfg, *, return_spectra: bool = True) -> dict:
       (the interleaved entry does not run it);
     * "coarse_subspace": K4 "mgs_iterate" in cssm_auto's coarse pass;
     * "subspace": K4, or kernel 11 "subspace_ns" (fused route,
-      subspace_impl="pallas"), for MUSIC on the power subspace;
+      subspace_impl="pallas"), for the power subspace's estimators
+      (runs_power_subspace: MUSIC, root-MUSIC on a ULA, min-norm);
     * "scan": K2 "music_scan_peaks" (the fused-peaks rule) or K3
       "music_scan", where MUSIC runs the scan kernels;
     * "fusion": kernel 5 "wideband_fusion" (incoherent wideband);
@@ -174,8 +187,7 @@ def kernel_routes(cfg, *, return_spectra: bool = True) -> dict:
         routes["covariance_planes"] = ("planes_chunk_gram", planes_takes(N))
     else:
         routes["covariance"] = ("planes_chunk_gram", planes_takes(N))
-    if (not incoherent and cfg.subspace_method == "power"
-            and Estimator.MUSIC in cfg.estimators):
+    if not incoherent and runs_power_subspace(cfg):
         if fused_route(cfg) and cfg.subspace_impl == "pallas":
             routes["subspace"] = ("subspace_ns", ns_takes(n2, k2))
         else:

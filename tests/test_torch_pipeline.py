@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from doa_tpu.configs import (ArrayGeometry, DoaConfig, Estimator,
-                             GridSpec1D, GridSpec2D, PRESETS)
+from doa_tpu.configs import (ArrayGeometry, BeamspaceSpec, DoaConfig,
+                             Estimator, GridSpec1D, GridSpec2D, PRESETS)
 from doa_tpu.cpx import Cpx, embed_hermitian as embed_jax
 from doa_tpu.io import SourceSpec, synth_ula_iq
 from doa_tpu.ops import steering as steer_jax
@@ -302,16 +302,15 @@ def _c5_with(**wideband):
 
 _OUTSIDE = {
     "c2_ula8_2src": lambda: dataclasses.replace(
-        PRESETS["c2_ula8_2src"],
-        estimators=(Estimator.MUSIC, Estimator.ROOT_MUSIC)),
+        PRESETS["c2_ula8_2src"], beamspace=BeamspaceSpec(num_beams=4)),
     "c3_ula16_calib_smooth": lambda: dataclasses.replace(
-        PRESETS["c3_ula16_calib_smooth"], subspace_method="jacobi"),
+        PRESETS["c3_ula16_calib_smooth"], scan_mode="hierarchical"),
     "c5_tops": lambda: _c5_with(fusion="tops"),
     "c5_eigh": lambda: dataclasses.replace(
         PRESETS["c5_ura64_wideband"], subspace_method="eigh"),
-    "c5_cssm_esprit": lambda: dataclasses.replace(
-        _c5_with(fusion="cssm"), estimators=(Estimator.MUSIC,
-                                             Estimator.ESPRIT)),
+    "c5_incoherent_esprit": lambda: dataclasses.replace(
+        PRESETS["c5_ura64_wideband"], estimators=(Estimator.MUSIC,
+                                                  Estimator.ESPRIT)),
     "c5_hierarchical": lambda: dataclasses.replace(
         PRESETS["c5_ura64_wideband"], scan_mode="hierarchical"),
     "c5_bf16_scan": lambda: dataclasses.replace(
