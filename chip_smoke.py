@@ -201,6 +201,26 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    deg of 40/70/100; c5 with fusion="cssm" and "cssm_auto" and ESPRIT
    (kernel 4, R_coh, cold K4, K3, kernel 6; 2-D ESPRIT on R_coh; 2048
    windows), MUSIC's and ESPRIT's median az/el within 2.0 deg.
+17. beamspace, the hierarchical scans and model order, each
+   configuration driven once with counts from zero (its plan's kernels
+   launched, no other), its peak allocation, the median of 10 calls, a
+   profile window and the card against the CPU on 64 windows (as phase
+   16): the headline with 8 DFT beams at 90 deg (E projected after K1;
+   K4 and K2 or K3 at 2Nb = 16), MUSIC + Capon, both return_spectra
+   modes, every MUSIC window within 0.5 deg of 70/110 (Capon's error
+   logged: over the full grid the reference's beamspace Capon peaks out
+   of the sector too); the headline with scan_mode="hierarchical" in
+   both modes (K2's coarse peaks, then the refine; no spectrum), every
+   window within 0.5 deg and its largest error within the dense
+   headline's on the same capture + 0.05 deg; estimate_num_sources on
+   the headline's R windows (MDL K = 2 in every window, AIC ≥ MDL, the
+   counts equal to the CPU's); PRESETS["c2_ula8_2src"] hierarchical,
+   MUSIC + Capon, at T=2^24 through strided planes views (kernel 8),
+   every window within 0.5 deg of 60/110; c5 and c5 cssm hierarchical
+   (2048 windows; kernel 5's coarse spectrum and dmin from one launch,
+   dmin within 1e-5·max‖a‖² of its plain version's and P bit-equal to
+   the launch without it; kernel 6 with refine off), medians within 0.5
+   and 2.0 deg.
 
 Each kernel record gives its bound (the larger of its bytes over
 3.35 TB/s and the FP32 operations the function needs over 67 TFLOP/s,
@@ -3683,7 +3703,8 @@ def est_path(torch, name, pipe, call, counters, card, check_angles,
              interleaved=True):
     """Drive one configuration once with every count from zero: the plan's
     kernels each launched (call.interleaved: but for the planes-input
-    stage), no other counted kernel; its peak allocation
+    stage; planes input on a fused config: but for K1's stage), no other
+    counted kernel; its peak allocation
     above what was held before the call; check_angles(result); then
     EST_REPS timed calls and a profile window (idle share, device ops) →
     (result, the launches)."""
@@ -3705,9 +3726,11 @@ def est_path(torch, name, pipe, call, counters, card, check_angles,
         f"{ms.music_scan_peaks.tc_launches}); the plan's forms "
         f"{json.dumps(pipe.plan.forms)}; peak allocation "
         f"{peak / 2 ** 30:.3f} GiB above the {held / 2 ** 30:.3f} GiB held")
-    # the interleaved entry does not run kernel 8's planes-input stage
-    route = {s: k for s, k in pipe.plan.kernels.items()
-             if not (interleaved and s == "covariance_planes")}
+    # the interleaved entry does not run kernel 8's planes-input stage,
+    # and planes input on a fused config does not run K1's
+    skip = ("covariance_planes" if interleaved
+            else "covariance" if "covariance_planes" in pipe.plan else None)
+    route = {s: k for s, k in pipe.plan.kernels.items() if s != skip}
     for stage, kernel in route.items():
         check(launches[kernel] > 0,
               f"{name}: stage {stage}'s kernel {kernel} never launched")
@@ -3727,7 +3750,7 @@ def est_path(torch, name, pipe, call, counters, card, check_angles,
     check_angles(res)
     ts = call_times(torch, call, reps=EST_REPS, warm=2)
     med = 0.5 * (ts[EST_REPS // 2 - 1] + ts[EST_REPS // 2])
-    B = res.peak_angles["music"].shape[0]
+    B = next(iter(res.peak_angles.values())).shape[0]
     log(f"{name}: median {med:.4f} ms per call of {B} windows ({EST_REPS} "
         f"calls, min {ts[0]:.4f}, max {ts[-1]:.4f})  [{card}]")
     profile_window(torch, call, card)
@@ -3911,6 +3934,236 @@ def estimator_phase(torch, dev, card):
             "2-D ESPRIT on R_coh": lambda: esprit.esprit_2d_cpx(
                 Rr, Ri, 2, 0.5, (8, 8))}, card)
     del R, Rr, Ri, x16
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------
+# 17: beamspace, the hierarchical scans (narrowband MUSIC and Capon,
+# wideband MUSIC) and model-order estimation on the fused, planes,
+# coherent and incoherent paths
+# ---------------------------------------------------------------------
+
+HIER_DENSE_SLACK = 0.05            # deg, hierarchical vs dense headline
+#                                    (tests/test_hierarchical.py:196-200)
+B_MDL_CPU = 64                     # windows, MDL counts card against CPU
+
+
+def spectra_keys(torch, name, res, want):
+    check(sorted(res.spectra) == sorted(want),
+          f"{name}: spectra {sorted(res.spectra)}, want {sorted(want)}")
+
+
+def model_order_cell(torch, dev, x, cfg, card):
+    """estimate_num_sources (MDL and AIC) on the headline's R windows:
+    MDL gives K = 2 in every window; the median of EST_REPS calls; the
+    card's counts equal to the CPU's on B_MDL_CPU windows."""
+    from doa_tpu_torch.cpx import fp32_matmuls, unembed_planes
+    from doa_tpu_torch.ops import model_order
+    from doa_tpu_torch.ops.cuda import cov_embedded as ce
+    cr, ci = torch.ones(16, device=dev), torch.zeros(16, device=dev)
+    S = cfg.snapshot_size
+    with fp32_matmuls():
+        Rr, Ri = unembed_planes(ce.cov_embedded(x, cr, ci, N=16,
+                                                snapshot_size=S))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    counts = {c: model_order.estimate_num_sources(Rr, Ri, S, c)
+              for c in ("mdl", "aic")}
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    B = Rr.shape[0]
+    for c, k in counts.items():
+        hist = torch.bincount(k.long(), minlength=4).tolist()
+        log(f"model order {c.upper()} on the headline's {B} windows: counts "
+            f"by K {hist}")
+    check(bool((counts["mdl"] == 2).all()),
+          "MDL does not give K = 2 in every headline window")
+    check(bool((counts["aic"] >= counts["mdl"]).all()),
+          "AIC counts fewer sources than MDL")
+    ts = call_times(torch, lambda: model_order.estimate_num_sources(
+        Rr, Ri, S), reps=EST_REPS, warm=2)
+    med = 0.5 * (ts[EST_REPS // 2 - 1] + ts[EST_REPS // 2])
+    log(f"model order (MDL, eigvalsh of E(R) + criterion): median "
+        f"{med:.4f} ms per call of {B} windows ({EST_REPS} calls, min "
+        f"{ts[0]:.4f}, max {ts[-1]:.4f}); peak allocation "
+        f"{peak / 2 ** 30:.3f} GiB above the {held / 2 ** 30:.3f} GiB held"
+        f"  [{card}]")
+    profile_window(torch, lambda: model_order.estimate_num_sources(
+        Rr, Ri, S), card)
+    for c, k in counts.items():
+        kc = model_order.estimate_num_sources(Rr[:B_MDL_CPU].cpu(),
+                                              Ri[:B_MDL_CPU].cpu(), S, c)
+        same = bool(torch.equal(k[:B_MDL_CPU].cpu(), kc))
+        log(f"model order {c.upper()} card vs CPU on {B_MDL_CPU} windows: "
+            f"equal counts {same}")
+        check(same, f"model order {c}: card and CPU counts differ")
+
+
+def dmin_parity(torch, pipe, x, cfg, card):
+    """Kernel 5 with return_dmin on the c5 scene's subspaces: P bit-equal
+    to the launch without it, dmin f32[F, B] within 1e-5·max‖a‖² of the
+    plain version's (a den value, as K3's den check)."""
+    from doa_tpu_torch.cpx import fp32_matmuls
+    from doa_tpu_torch.ops import wideband as wb
+    from doa_tpu_torch.ops.cuda import wideband_cov as wc
+    from doa_tpu_torch.ops.cuda import wideband_scan as wsc
+    N, F = cfg.geometry.num_elements, cfg.wideband.num_subbands
+    with fp32_matmuls():
+        E_sub = wc.wideband_cov_embedded(
+            x, torch.ones(N, device=x.device), torch.zeros(N, device=x.device),
+            N=N, F=F, snapshot_size=cfg.snapshot_size)
+        Vt = wb.subband_subspaces_from_E(E_sub, cfg)
+    del E_sub
+    At = torch.cat(pipe.subband_planes, dim=-1).contiguous()
+    nrm = (At * At).sum(dim=-1)
+    n0 = wsc.wideband_fused_spectrum.launches
+    P, dmin = wsc.wideband_fused_spectrum(Vt, At, nrm, return_dmin=True)
+    check(wsc.wideband_fused_spectrum.launches == n0 + 1,
+          "return_dmin took more than one launch of kernel 5")
+    P1 = wsc.wideband_fused_spectrum(Vt, At, nrm)
+    wsc.wideband_fused_spectrum.launches = n0
+    _, dmin_p = wsc.wideband_fused_spectrum_plain(Vt, At, nrm,
+                                                  return_dmin=True)
+    e = (dmin - dmin_p).abs().max().item()
+    tol = 1e-5 * nrm.max().item()
+    log(f"wideband_fusion return_dmin at c5 (F={F}, B={Vt.shape[1]}): P "
+        f"bit-equal to the launch without it: {bool(torch.equal(P, P1))}; "
+        f"max|dmin kernel - plain| {e!r} (tol {tol!r}), dmin in "
+        f"[{dmin.min().item()!r}, {dmin.max().item()!r}]")
+    check(torch.equal(P, P1), "kernel 5's P changes under return_dmin")
+    check(tuple(dmin.shape) == tuple(Vt.shape[:2]) and e <= tol,
+          "kernel 5's dmin disagrees with its plain version")
+    del Vt, P, P1, dmin, dmin_p
+
+
+def hier_phase(torch, dev, card):
+    """Phase 17 → the launches of the earlier kernels in these paths."""
+    from doa_tpu_torch import BeamspaceSpec, Estimator, PRESETS
+    from doa_tpu_torch.ops import cpx_ops
+    from doa_tpu_torch.ops.cuda import cov_embedded as ce
+    from doa_tpu_torch.ops.cuda import covariance as cv
+    from doa_tpu_torch.ops.cuda import music_scan as ms
+    from doa_tpu_torch.ops.cuda import peaks2d as pk
+    from doa_tpu_torch.ops.cuda import wideband_cov as wc
+    from doa_tpu_torch.ops.cuda import wideband_scan as wsc
+    from doa_tpu_torch.pipeline_torch import build_pipeline_torch
+
+    E_ = Estimator
+    counters = {"chunk_gram": ce.chunk_grams_uhat,
+                "planes_chunk_gram": cv.chunk_grams,
+                "wideband_fft_gram": wc.subband_chunk_grams,
+                "mgs_iterate": cpx_ops.mgs_iterate,
+                "music_scan": ms.music_scan,
+                "music_scan_peaks": ms.music_scan_peaks,
+                "wideband_fusion": wsc.wideband_fused_spectrum,
+                "peaks2d": pk.peaks2d}
+    total = {n: 0 for n in counters}
+
+    def add(n):
+        for key, v in n.items():
+            total[key] += v
+
+    def every_window(name, keys, truth):
+        return lambda r: est_every_window(torch, name, r, truth,
+                                          [f"peaks {k}" for k in keys])
+
+    mc = (E_.MUSIC, E_.CAPON)
+    x = make_scene(torch, T_MAIN, 16, dev)
+
+    # 17a. the headline + beamspace (8 beams at 90°), MUSIC + Capon
+    cfg_bs = dataclasses.replace(
+        headline_config(), estimators=mc,
+        beamspace=BeamspaceSpec(num_beams=8, center_deg=90.0))
+    for rs in (False, True):
+        pipe = build_pipeline_torch(cfg_bs, device=dev, return_spectra=rs)
+        name = f"headline + beamspace return_spectra={rs}"
+        res, n = est_path(torch, name, pipe, lambda: pipe.interleaved(x),
+                          counters, card, every_window(name, ("music",),
+                                                       THETA))
+        e_c = sorted_err(torch, res.peak_angles["capon"], THETA)
+        log(f"{name} peaks capon: max |sorted angle - truth| {e_c!r} deg")
+        spectra_keys(torch, name, res, ["capon", "music"] if rs else [])
+        add(n)
+        del res
+    for rs in (False, True):
+        est_card_vs_cpu(torch, f"headline + beamspace return_spectra={rs}",
+                        cfg_bs, lambda p, xs: p.interleaved(xs),
+                        x[:B_EST_CPU * 1024], B_EST_CPU, False)
+
+    # 17b. the headline + hierarchical MUSIC, beside the dense headline on
+    # the same capture
+    dense = build_pipeline_torch(headline_config(), device=dev,
+                                 return_spectra=False)
+    e_dense = angle_err(torch, dense.interleaved(x).peak_angles["music"])
+    cfg_h = dataclasses.replace(headline_config(), scan_mode="hierarchical")
+    for rs in (False, True):
+        pipe = build_pipeline_torch(cfg_h, device=dev, return_spectra=rs)
+        name = f"headline + hierarchical return_spectra={rs}"
+        res, n = est_path(torch, name, pipe, lambda: pipe.interleaved(x),
+                          counters, card, every_window(name, ("music",),
+                                                       THETA))
+        e_h = angle_err(torch, res.peak_angles["music"])
+        log(f"{name}: max angle error {e_h!r} deg, the dense headline's "
+            f"{e_dense!r} deg on the same capture (limit dense + "
+            f"{HIER_DENSE_SLACK})")
+        check(e_h <= e_dense + HIER_DENSE_SLACK,
+              f"{name}: hierarchical error {e_h} beyond dense {e_dense}")
+        spectra_keys(torch, name, res, [])
+        add(n)
+        del res
+    for rs in (False, True):
+        est_card_vs_cpu(torch, f"headline + hierarchical return_spectra="
+                        f"{rs}", cfg_h, lambda p, xs: p.interleaved(xs),
+                        x[:B_EST_CPU * 1024], B_EST_CPU, False)
+
+    # 17c. model order on the headline's R windows
+    model_order_cell(torch, dev, x, cfg_h, card)
+    del x, dense
+
+    # 17d. c2 + hierarchical, MUSIC + Capon, planes input (kernel 8)
+    cfg2 = dataclasses.replace(PRESETS["c2_ula8_2src"],
+                               scan_mode="hierarchical")
+    x2 = make_ula_capture(torch, T_C2, 8, ((60.0, 1, 10), (110.0, 31, 100)),
+                          SNR_DB, dev, seed=2)
+    xr, xi = x2[..., 0], x2[..., 1]
+    pipe = build_pipeline_torch(cfg2, device=dev)
+    name = "c2 + hierarchical (planes input)"
+    res, n = est_path(torch, name, pipe, lambda: pipe((xr, xi)), counters,
+                      card, every_window(name, ("music", "capon"),
+                                         C2_TRUTH), interleaved=False)
+    spectra_keys(torch, name, res, [])
+    add(n)
+    del res
+    x2c = torch.view_as_complex(x2[:B_EST_CPU * 2048])
+    est_card_vs_cpu(torch, name, cfg2, lambda p, xs: p((xs.real, xs.imag)),
+                    x2c, B_EST_CPU, False)
+    del x2, xr, xi, x2c
+
+    # 17e. c5 + hierarchical (incoherent; kernel 5's dmin) and c5 cssm +
+    # hierarchical, 2048 windows of exp_r5.py's scene
+    x16 = make_c5_scene(torch, T_C5, dev, seed=5)
+    for fusion in ("incoherent", "cssm"):
+        cfg5 = dataclasses.replace(c5_variant(fusion=fusion),
+                                   scan_mode="hierarchical")
+        pipe = build_pipeline_torch(cfg5, device=dev)
+        name = f"c5 {fusion} + hierarchical"
+        tol = C5_ANGLE_TOL if fusion == "incoherent" else CSSM_ANGLE_TOL
+        res, n = est_path(
+            torch, name, pipe, lambda: pipe.interleaved(x16), counters,
+            card, lambda r: est_medians(torch, name, r, C5_TRUTH,
+                                        ("peaks music",), tol))
+        check(tuple(res.peak_angles["music"].shape) == (T_C5 // 1024, 2, 2),
+              f"{name}: angles {tuple(res.peak_angles['music'].shape)}")
+        spectra_keys(torch, name, res, [])
+        add(n)
+        del res
+        if fusion == "incoherent":
+            dmin_parity(torch, pipe, x16, cfg5, card)
+        est_card_vs_cpu(torch, name, cfg5, lambda p, xs: p.interleaved(xs),
+                        x16, B_EST_CPU, True)
+    del x16
     torch.cuda.empty_cache()
     return total
 
@@ -4110,6 +4363,10 @@ def main():
     # 16. the grid-free and projector estimators: the headline with all
     # five, c3 with Jacobi, c5 cssm and cssm_auto with 2-D ESPRIT
     for name, n in estimator_phase(torch, dev, card).items():
+        recs[name]["launches"] += n
+    # 17. beamspace and the hierarchical scans: the headline with 8 beams
+    # and hierarchical, model order, c2, c5 and c5 cssm hierarchical
+    for name, n in hier_phase(torch, dev, card).items():
         recs[name]["launches"] += n
     for f, v in PEAKS_TALLY.items():
         recs["peaks2d"]["by_form"][f]["launches"] = v

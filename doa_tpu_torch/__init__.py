@@ -37,7 +37,13 @@ Covered so far (``build_pipeline_torch``):
   kernel 9 behind ``cov_embedded(variant="chunk")``, ``donate_inputs`` and
   ``call.scan_capture`` (a capture staged as blocks, framed as one
   stream). These are options and methods of what ``build_pipeline_torch``
-  returns, so the package exports nothing new for them.
+  returns, so the package exports nothing new for them;
+* DFT beamspace (``BeamspaceSpec``: covariance and steering projected
+  onto Nb beams after the covariance stage, the subspace and scans at
+  2·Nb), the hierarchical coarse → refine scans (``scan_mode=
+  "hierarchical"``: MUSIC and Capon narrowband, incoherent wideband
+  MUSIC; ``ops/hierarchical.py``) and source counting by AIC / MDL
+  (``ops/model_order.py``).
 
 ROADMAP.md lists what is still to port.
 """
@@ -46,6 +52,7 @@ from doa_tpu_torch import configs
 from doa_tpu_torch.configs import (
     ArrayGeometry,
     AvgMethod,
+    BeamspaceSpec,
     DoaConfig,
     Estimator,
     GridSpec1D,
@@ -68,6 +75,7 @@ __all__ = [
     "configs",
     "ArrayGeometry",
     "AvgMethod",
+    "BeamspaceSpec",
     "DoaConfig",
     "Estimator",
     "GridSpec1D",

@@ -60,17 +60,22 @@ def _check_args(Vt, At_emb, nrm):
     return nrm
 
 
-def wideband_fused_spectrum_plain(Vt, At_emb, nrm=None):
-    """Plain PyTorch version → P f32[B, G]: a loop over subbands of
-    music_den_plain, accumulating dmin_f / den_f."""
+def wideband_fused_spectrum_plain(Vt, At_emb, nrm=None,
+                                  return_dmin: bool = False):
+    """Plain PyTorch version → P f32[B, G] (and, under return_dmin, dmin
+    f32[F, B]): a loop over subbands of music_den_plain, accumulating
+    dmin_f / den_f."""
     nrm = _check_args(Vt, At_emb, nrm)
     F = Vt.shape[0]
-    acc = None
+    acc, mins = None, []
     for f in range(F):
         den = music_den_plain(Vt[f], At_emb[f], nrm[f])
-        q = den.min(dim=-1, keepdim=True).values / den
+        dm = den.min(dim=-1, keepdim=True).values
+        mins.append(dm[:, 0])
+        q = dm / den
         acc = q if acc is None else acc + q
-    return acc * (1.0 / F)
+    P = acc * (1.0 / F)
+    return (P, torch.stack(mins)) if return_dmin else P
 
 
 def _tiles_of(At_emb, k2):
@@ -100,7 +105,7 @@ def _group_windows(F, B, G, cap):
     return min(B, max(WINDOW_TILE, cap // per // WINDOW_TILE * WINDOW_TILE))
 
 
-def _fused_cuda(Vt, At_emb, nrm, cap=WORKSPACE_CAP):
+def _fused_cuda(Vt, At_emb, nrm, cap=WORKSPACE_CAP, return_dmin=False):
     F, B, K2, n2 = Vt.shape
     G = At_emb.shape[1]
     KP = fusion_kp(n2)
@@ -124,15 +129,18 @@ def _fused_cuda(Vt, At_emb, nrm, cap=WORKSPACE_CAP):
         _build.check(lib.doa_fusion_sum(
             den.data_ptr(), dmin.data_ptr(), P.data_ptr(), F, B, b0, nb, G,
             Gs, stream), "doa_fusion_sum")
-    return P
+    return (P, dmin) if return_dmin else P
 
 
 def wideband_fused_spectrum(Vt: torch.Tensor, At_emb: torch.Tensor,
-                            nrm: torch.Tensor | None = None) -> torch.Tensor:
+                            nrm: torch.Tensor | None = None,
+                            return_dmin: bool = False):
     """The fusion kernel: Vt f32[F, B, 2K, 2N], At_emb f32[F, G, 2N],
     nrm f32[F, G] = ‖a_fg‖² (computed if None) → fused spectrum
-    P f32[B, G]. 2K must be one of FUSION_K2; 2N at most 224 (2K ≤ 4) or
-    448.
+    P f32[B, G]; under return_dmin also dmin f32[F, B], each subband's
+    min_g den_f, the values pass A writes for pass B (the same launch:
+    the hierarchical scan's refine reads them). 2K must be one of
+    FUSION_K2; 2N at most 224 (2K ≤ 4) or 448.
 
     A CPU tensor takes the plain version; a CUDA tensor runs the kernel
     and raises if that fails. `launches` counts one a call, which covers
@@ -140,7 +148,7 @@ def wideband_fused_spectrum(Vt: torch.Tensor, At_emb: torch.Tensor,
     B (P) of every window group."""
     nrm = _check_args(Vt, At_emb, nrm)
     if Vt.device.type == "cpu":
-        return wideband_fused_spectrum_plain(Vt, At_emb, nrm)
+        return wideband_fused_spectrum_plain(Vt, At_emb, nrm, return_dmin)
     if not Vt.is_cuda:
         raise ValueError(f"unsupported device {Vt.device}")
     K2, n2 = Vt.shape[2:]
@@ -148,9 +156,9 @@ def wideband_fused_spectrum(Vt: torch.Tensor, At_emb: torch.Tensor,
         raise ValueError(f"wideband_fusion kernel takes 2K in {FUSION_K2} "
                          f"and 2N ≤ {most_n2(K2)} there, got 2K = {K2}, "
                          f"2N = {n2}")
-    P = _fused_cuda(Vt, At_emb, nrm)
+    out = _fused_cuda(Vt, At_emb, nrm, return_dmin=return_dmin)
     wideband_fused_spectrum.launches += 1
-    return P
+    return out
 
 
 wideband_fused_spectrum.launches = 0

@@ -16,9 +16,14 @@ the effective element spacing d·(1 + f·fractional_bw).
   subband covariances and focuses at runtime (runtime_focusing: steering
   at the found angles, Newton–Schulz polar factor).
 
-The complex-stream channelizer, TOPS and the hierarchical scan are not
-ported (ROADMAP.md, queue A.4). Complex values are torch complex64; every
-product runs in true FP32 (cpx.fp32_matmuls).
+* Hierarchical (incoherent, power subspaces): the coarse fused spectrum's
+  unrefined peaks, then the fused metric (1/F) Σ_f dmin_f / den_f(θ) on
+  a micro-grid around each peak, every subband's exact denominator at
+  its own spacing (wideband_music_hierarchical).
+
+The complex-stream channelizer and TOPS are not ported (ROADMAP.md,
+queue A.4). Complex values are torch complex64; every product runs in
+true FP32 (cpx.fp32_matmuls).
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ from doa_tpu_torch.ops.cpx_ops import (music_denominator_subspace,
                                        signal_subspace_embedded,
                                        signal_subspace_from_E_T,
                                        spectrum_from_den)
+from doa_tpu_torch.ops.hierarchical import (argbest_2d, micro_grid_2d,
+                                            parabolic_vertex)
 from doa_tpu_torch.ops.peaks import find_local_max, find_local_max_2d
 
 
@@ -151,22 +158,22 @@ def focusing_matrices(cfg: DoaConfig) -> np.ndarray:
     return np.stack(mats, axis=0).astype(np.complex64)
 
 
-def device_ula_steering(theta_deg: torch.Tensor, num_elements: int,
-                        spacings: torch.Tensor) -> torch.Tensor:
-    """ULA steering at runtime angles: theta_deg f32[J] × spacings f32[S]
-    → complex64[S, J, N], a[s, j, n] = exp(−j2π·d_s·cos θ_j·n)."""
+def device_ula_phase(theta_deg: torch.Tensor, num_elements: int,
+                     spacings: torch.Tensor) -> torch.Tensor:
+    """The phases of the ULA steering at runtime angles: theta_deg f32[J]
+    × spacings f32[S] → f32[S, J, N], −2π·d_s·cos θ_j·n."""
     cs = torch.cos(torch.deg2rad(theta_deg))
     n = torch.arange(num_elements, dtype=torch.float32,
                      device=theta_deg.device)
-    ph = (-2.0 * math.pi) * (spacings[:, None, None] * cs[None, :, None]
-                             * n[None, None, :])
-    return torch.complex(torch.cos(ph), torch.sin(ph))
+    return (-2.0 * math.pi) * (spacings[:, None, None] * cs[None, :, None]
+                               * n[None, None, :])
 
 
-def device_ura_steering(az_deg: torch.Tensor, el_deg: torch.Tensor, shape,
-                        spacings: torch.Tensor) -> torch.Tensor:
-    """URA steering at runtime (az, el) pairs: f32[J] each × spacings
-    f32[S] → complex64[S, J, N] (x-major flattening, as ura_grid)."""
+def device_ura_phase(az_deg: torch.Tensor, el_deg: torch.Tensor, shape,
+                     spacings: torch.Tensor) -> torch.Tensor:
+    """The phases of the URA steering at runtime (az, el) pairs: f32[J]
+    each × spacings f32[S] → f32[S, J, N] (x-major flattening, as
+    ura_grid)."""
     az = torch.deg2rad(az_deg)
     el = torch.deg2rad(el_deg)
     ux = torch.cos(el) * torch.sin(az)
@@ -175,8 +182,23 @@ def device_ura_steering(az_deg: torch.Tensor, el_deg: torch.Tensor, shape,
     ix = torch.arange(nx, dtype=torch.float32, device=az.device)[:, None]
     iy = torch.arange(ny, dtype=torch.float32, device=az.device)[None, :]
     grid = ux[:, None, None] * ix + uy[:, None, None] * iy   # (J, nx, ny)
-    ph = (-2.0 * math.pi) * (spacings[:, None, None]
-                             * grid.reshape(grid.shape[0], -1)[None])
+    return (-2.0 * math.pi) * (spacings[:, None, None]
+                               * grid.reshape(grid.shape[0], -1)[None])
+
+
+def device_ula_steering(theta_deg: torch.Tensor, num_elements: int,
+                        spacings: torch.Tensor) -> torch.Tensor:
+    """ULA steering at runtime angles: theta_deg f32[J] × spacings f32[S]
+    → complex64[S, J, N], a[s, j, n] = exp(−j2π·d_s·cos θ_j·n)."""
+    ph = device_ula_phase(theta_deg, num_elements, spacings)
+    return torch.complex(torch.cos(ph), torch.sin(ph))
+
+
+def device_ura_steering(az_deg: torch.Tensor, el_deg: torch.Tensor, shape,
+                        spacings: torch.Tensor) -> torch.Tensor:
+    """URA steering at runtime (az, el) pairs: f32[J] each × spacings
+    f32[S] → complex64[S, J, N] (x-major flattening, as ura_grid)."""
+    ph = device_ura_phase(az_deg, el_deg, shape, spacings)
     return torch.complex(torch.cos(ph), torch.sin(ph))
 
 
@@ -302,3 +324,87 @@ def auto_focused_covariance(R_sub: torch.Tensor, At_emb: torch.Tensor,
                            subband_spacings(cfg)]).astype(np.float32)
     T = runtime_focusing(P, cfg, spac, sector_halfwidth_deg, sector_weight)
     return cssm_covariance(R_sub, T)
+
+
+# ---------------------------------------------------------------------
+# Hierarchical (coarse → refine) incoherent wideband MUSIC
+# ---------------------------------------------------------------------
+
+def fused_metric(Vt: torch.Tensor, dmin: torch.Tensor, ang, cfg: DoaConfig,
+                 refine_chunk: int = 128) -> torch.Tensor:
+    """The refine metric of the hierarchical wideband scan: the mean over
+    subbands of dmin_f / max(den_f(angle), tiny) ∈ (0, 1], den_f the exact
+    MUSIC denominator at subband f's spacing. Vt f32[F, B, 2K, 2N], dmin
+    f32[F, B] (each subband's coarse minimum, kernel 5's), angles θ
+    f32[B, ...] (ULA) or (az, el) f32[B, ...] each (URA) → f32[B, ...].
+
+    The window axis runs in chunks of refine_chunk (the reference's), so
+    the steering of one chunk, f32[F, chunk, ..., 2N], is all that is
+    live: 0.6 GB at c5's micro-grids."""
+    F, B, _, n2 = Vt.shape
+    spac = torch.from_numpy(subband_spacings(cfg)).to(Vt.device)
+    tiny = torch.finfo(torch.float32).tiny
+    ula = cfg.geometry.kind == "ula"
+    lead = (ang if ula else ang[0]).shape[1:]
+    out = []
+    for b0 in range(0, B, refine_chunk):
+        b1 = min(B, b0 + refine_chunk)
+        if ula:
+            ph = device_ula_phase(ang[b0:b1].reshape(-1), n2 // 2, spac)
+        else:
+            ph = device_ura_phase(ang[0][b0:b1].reshape(-1),
+                                  ang[1][b0:b1].reshape(-1),
+                                  cfg.geometry.shape, spac)
+        # the embedded rows [cos; sin], written in place: no complex or
+        # concatenated copy of the chunk's steering
+        at = ph.new_empty(ph.shape[:-1] + (n2,))
+        torch.cos(ph, out=at[..., :n2 // 2])
+        torch.sin(ph, out=at[..., n2 // 2:])
+        del ph
+        at = at.reshape(F, b1 - b0, -1, n2)
+        with fp32_matmuls():
+            Y = torch.matmul(at, Vt[:, b0:b1].transpose(-1, -2))
+        den = ((n2 // 2) - (Y * Y).sum(-1)).clamp_min(tiny)  # (F, CH, M)
+        out.append((dmin[:, b0:b1, None] / den).mean(dim=0))
+    return torch.cat(out).reshape(B, *lead)
+
+
+def wideband_music_hierarchical(Vt: torch.Tensor, P: torch.Tensor,
+                                dmin: torch.Tensor, cfg: DoaConfig,
+                                num_peaks: int, x_rng=(0.0, 180.0),
+                                peaks2d=None, half_width_deg: float = 1.5,
+                                num_points: int = 17,
+                                refine_chunk: int = 128):
+    """Coarse → refine incoherent wideband MUSIC (the power path). From
+    the coarse fused spectrum P f32[B, G] ((1/F) Σ_f dmin_f / den_f on the
+    config's grid) and its per-subband minima dmin f32[F, B] — both from
+    one launch of kernel 5 (wideband_fused_spectrum(return_dmin=True)) —
+    and the subspaces Vt f32[F, B, 2K, 2N]: the unrefined peaks of P,
+    then the fused metric (fused_metric) on a micro-grid around each:
+    on a ULA its argmax on num_points angles and the parabolic vertex, on
+    a URA (cfg.grid2d) its argmax on the num_points² grid, no parabola.
+    peaks2d: the 2-D peak rule (the pipeline's kernel 6; None takes
+    find_local_max_2d). → (values f32[B, k], angles f32[B, k] or az/el
+    f32[B, k, 2])."""
+    W = num_points
+    if cfg.geometry.kind == "ura":
+        g2 = cfg.grid2d
+        peaks2d = find_local_max_2d if peaks2d is None else peaks2d
+        vals, az_c, el_c = peaks2d(
+            P.reshape(P.shape[0], g2.num_az, g2.num_el), num_peaks,
+            (g2.az_lo_deg, g2.az_hi_deg), (g2.el_lo_deg, g2.el_hi_deg),
+            refine=False)
+        azg, elg = micro_grid_2d(az_c, el_c, half_width_deg, W)
+        m = fused_metric(Vt, dmin, (azg, elg), cfg, refine_chunk)
+        az, el, _ = argbest_2d(m, azg, elg, largest=True)
+        return vals, torch.stack([az, el], dim=-1)
+    vals, coarse = find_local_max(P, num_peaks, x_rng[0], x_rng[1],
+                                  refine=False)
+    theta = coarse[..., None] + torch.linspace(
+        -half_width_deg, half_width_deg, W, dtype=torch.float32,
+        device=coarse.device)                                # (B, k, W)
+    m = fused_metric(Vt, dmin, theta, cfg, refine_chunk)
+    i = torch.argmax(m, dim=-1)
+    step = 2.0 * half_width_deg / (W - 1)
+    t0 = torch.gather(theta, -1, i[..., None])[..., 0]
+    return vals, t0 + parabolic_vertex(m, i) * step

@@ -34,9 +34,9 @@ General path (smoothing, subspace_method="eigh", a hop outside the rule):
 As in the reference, the sharded pipeline takes neither subspace_impl nor
 subspace_check (the warm MGS subspace always runs) and reports escalation
 counts on the fused path only. Outside the slice, and raising
-NotImplementedError: the wideband, TOPS and CSSM sharded pipelines (queue
-A.6) and beamspace, min-norm, root-MUSIC, ESPRIT, Unitary ESPRIT and the
-Jacobi subspace (queue A.3).
+NotImplementedError: the wideband, TOPS and CSSM sharded pipelines and
+beamspace (queue A.6), and min-norm, root-MUSIC, ESPRIT, Unitary ESPRIT
+and the Jacobi subspace (queue A.3).
 """
 
 from __future__ import annotations
@@ -244,7 +244,8 @@ def _check_sharded_slice(cfg: DoaConfig) -> None:
                     f"{cfg.wideband.fusion!r}: _build_sharded_wideband, "
                     "_build_sharded_tops, _build_sharded_cssm; queue A.6)")
     if cfg.beamspace.enabled:
-        todo.append("beamspace (queue A.3)")
+        todo.append("sharded beamspace (the steering and each rank's R "
+                    "projected onto the beams; queue A.6)")
     if cfg.subspace_method == "jacobi":
         todo.append("subspace_method='jacobi' (queue A.3)")
     other = [e.value for e in cfg.estimators if e not in _ESTIMATORS]

@@ -52,6 +52,18 @@ Wideband (c5; planes input is stacked once into the interleaved layout):
         eigh, Jacobi, Capon, Bartlett, min-norm, the grid-free ones; 2-D
         ESPRIT on a URA) as on the planes path
 
+Beamspace (cfg.beamspace, a ULA): after the covariance stage (K1 or
+kernel 8 at the array's 2N) E and, where an estimator needs it, R are
+projected onto Nb DFT beams (ops/beamspace); the steering is the
+unit-norm beamspace steering, and the subspace and scans run at 2·Nb.
+
+Hierarchical (scan_mode="hierarchical"): MUSIC on the power subspace and
+Capon take the coarse → refine scans of ops/hierarchical (the coarse
+scan on the plan's route: K2 with the refine off on a 1-D grid, else K3
+and the peak rule or kernel 6), incoherent wideband MUSIC the fused-
+metric refine of ops/wideband on kernel 5's coarse spectrum and dmin;
+none returns a spectrum.
+
 call.scan_capture runs a capture staged as M blocks through the fused or
 wideband path, block by block with the continuous-framing carry.
 
@@ -75,8 +87,15 @@ from doa_tpu_torch.ops.cpx_ops import signal_subspace_from_E_T
 from doa_tpu_torch.ops.cuda.cov_embedded import cov_embedded
 from doa_tpu_torch.ops.cuda.music_scan import peaks_tiles, scan_tiles
 from doa_tpu_torch.ops.cuda.wideband_cov import wideband_cov_embedded
+from doa_tpu_torch.ops.beamspace import (beamspace_covariance,
+                                         beamspace_embedded,
+                                         beamspace_steering, dft_beam_matrix)
 from doa_tpu_torch.ops.esprit import (esprit_2d_cpx, esprit_cpx,
                                       unitary_esprit_cpx)
+from doa_tpu_torch.ops.hierarchical import (capon_hierarchical_ula,
+                                            capon_hierarchical_ura,
+                                            music_hierarchical_ula,
+                                            music_hierarchical_ura)
 from doa_tpu_torch.ops.jacobi import subspace_projector_jacobi
 from doa_tpu_torch.ops.min_norm import (min_norm_denominator_cpx,
                                         min_norm_denominator_subspace)
@@ -85,9 +104,11 @@ from doa_tpu_torch.ops.root_music import root_music_cpx
 from doa_tpu_torch.ops.wideband import (auto_focused_covariance,
                                         cssm_covariance, focusing_matrices,
                                         subband_subspaces_from_E,
+                                        wideband_music_hierarchical,
                                         wideband_steering_stack)
 from doa_tpu_torch.plan import (Plan, fused_route, kernel_forms,  # noqa: F401
-                                kernel_plan, kernel_routes)
+                                hierarchical_music, kernel_plan,
+                                kernel_routes)
 from doa_tpu_torch.pipeline import DoaResult, _steering_fn, _steering_matrix
 
 
@@ -120,15 +141,12 @@ def _check_slice(cfg: DoaConfig) -> None:
                         "full array's covariances (queue A.4)")
     elif cfg.cov_dtype == "int8" and not fused_route(cfg):
         todo.append("cov_dtype='int8' on the planes path (ROADMAP.md §C)")
-    if cfg.beamspace.enabled:
-        todo.append("beamspace (queue A.3)")
-    if cfg.scan_mode == "hierarchical":
-        todo.append("scan_mode='hierarchical' (queue A.3)")
     if todo:
         raise NotImplementedError(
-            "doa_tpu_torch ports the narrowband fused and planes paths and "
-            "the wideband incoherent, cssm and cssm_auto paths; not yet "
-            "ported: "
+            "doa_tpu_torch ports the narrowband fused and planes paths "
+            "(beamspace and the hierarchical scans included) and the "
+            "wideband incoherent (hierarchical included), cssm and "
+            "cssm_auto paths; not yet ported: "
             + "; ".join(todo) + " — see ROADMAP.md")
 
 
@@ -161,9 +179,12 @@ def _correction_planes(correction, N, device: torch.device):
 
 
 def load_state(A_re, A_im, correction=None, *, device="cuda",
-               subband_planes=None, focusing=None) -> dict:
-    """The pipeline's state — steering planes A_re, A_im f32[G, N_eff], the
-    calibration correction c64[N] (None = no correction) and, for a
+               subband_planes=None, focusing=None, beams=None) -> dict:
+    """The pipeline's state — steering planes A_re, A_im f32[G, N_eff]
+    (under beamspace the unit-norm beamspace steering f32[G, Nb]), the
+    calibration correction c64[N] (None = no correction), under beamspace
+    the beam matrix beams = complex64 (N, Nb) (doa_tpu's
+    ``dft_beam_matrix``; None = build it from the config) and, for a
     wideband config, the per-subband steering planes
     subband_planes = (re, im) f32[F, G, N] (doa_tpu's
     ``call.wb_ilv_args[1:]``; incoherent and cssm_auto) or the focusing
@@ -198,6 +219,12 @@ def load_state(A_re, A_im, correction=None, *, device="cuda",
                              f"shape, got {Tr.shape} and {Ti.shape}")
         state["T"] = torch.complex(torch.from_numpy(Tr),
                                    torch.from_numpy(Ti)).to(dev)
+    if beams is not None:
+        Bm = np.array(beams, dtype=np.complex64)
+        if Bm.ndim != 2 or Bm.shape[1] != A_re.shape[1]:
+            raise ValueError(f"need a beam matrix complex64 (N, Nb) with "
+                             f"Nb = {A_re.shape[1]}, got {Bm.shape}")
+        state["Bm"] = torch.from_numpy(Bm).to(dev)
     return state
 
 
@@ -293,6 +320,22 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
     "jacobi" scans that noise projector (the reference's; one a call,
     shared by MUSIC and min-norm). Capon (Cholesky) and Bartlett scan R.
     Min-norm scans the power subspace's weight (or the projector's).
+    Under beamspace the state's steering is the unit-norm beamspace
+    steering f32[G, Nb] (its ‖a‖² ≈ 1, the nrm K2 and K3 take), E (fused)
+    and R (where Capon, Bartlett or return_covariance reads it; the
+    returned covariance is R_b) are projected after the covariance, and
+    the subspace and scans run at 2·Nb. The reference resolves
+    scan_mode "auto" to a dense scan under beamspace; the port keeps K2 /
+    K3 there, whose peaks are held bit-equal to normalise +
+    find_local_max, so the angles are the dense scan's.
+    scan_mode="hierarchical" (as the reference, pipeline_tpu.py:317, 409):
+    MUSIC on the power subspace (under eigh or Jacobi it stays dense) and
+    Capon (whatever the subspace method) return the coarse scan's
+    max-normalised peak values and angles refined on micro-grids
+    (ops/hierarchical), and no spectrum whatever return_spectra says;
+    refine_peaks does not apply to them. The coarse MUSIC scan is K2 with
+    the refine off on a 1-D grid (the plan picks it with spectra too),
+    else K3 and the peak rule (kernel 6 on a 2-D grid).
     The grid-free estimators fill DoaResult.root_music_angles (a ULA; on
     the power subspace's noise projector, else eigh's, as the
     reference), esprit_angles (f32[B, K] on a ULA, az/el pairs
@@ -312,8 +355,12 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
     num_subbands not a power of two, the reference's dense channelizer +
     kernel 7's plain version). Incoherent fusion: the
     per-subband subspaces, the fused subband scan and the peaks; the
-    fused spectrum is always returned and the escalation counts are None,
-    as in the reference; forward-backward averaging does not apply there.
+    fused spectrum is returned (but under scan_mode="hierarchical": one
+    launch of kernel 5 gives the coarse spectrum and each subband's
+    minimum, and ops/wideband.wideband_music_hierarchical refines the
+    coarse peaks on the fused metric, no spectrum), and the escalation
+    counts are None, as in the reference; forward-backward averaging does
+    not apply there.
     "cssm" / "cssm_auto": R_coh, then FB, smoothing and the narrowband
     estimators on the planes path's route, escalation counts included.
     cov_dtype does not apply to the wideband path, as in the reference.
@@ -336,11 +383,26 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
     fused = route["covariance"] == "chunk_gram"
     g2 = cfg.grid2d if cfg.geometry.kind == "ura" else None
     A_host, x_rng = _steering_matrix(cfg)
+    bs = cfg.beamspace.enabled
+    Bm_host = None
+    if bs:
+        Bm_host = dft_beam_matrix(N, cfg.beamspace.num_beams,
+                                  cfg.beamspace.center_deg,
+                                  cfg.geometry.norm_spacing)
+        A_host = beamspace_steering(A_host, Bm_host)           # (G, Nb)
     if state is None:
-        state = load_state(A_host.real, A_host.imag, device=dev)
+        state = load_state(A_host.real, A_host.imag, device=dev,
+                           beams=Bm_host)
     elif tuple(state["A_re"].shape) != A_host.shape:
         raise ValueError(f"state steering {tuple(state['A_re'].shape)} does "
                          f"not match the config's grid {A_host.shape}")
+    if bs:
+        Bm = state["Bm"] if "Bm" in state else torch.from_numpy(Bm_host)
+        if tuple(Bm.shape) != Bm_host.shape:
+            raise ValueError(f"state beam matrix {tuple(Bm.shape)} does not "
+                             f"match {Bm_host.shape}")
+        Bm = Bm.to(dev)
+        Bt = embed_planes(Bm.real, Bm.imag).contiguous()      # (2N, 2Nb)
     no_correction = _correction_planes(None, N, dev)
     A_re = state["A_re"].to(dev)
     A_im = state["A_im"].to(dev)
@@ -362,6 +424,10 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
               or return_covariance)
     fb = cfg.avg_method == AvgMethod.FORWARD_BACKWARD
     esc = cfg.escalate_kwargs
+    # scan_mode="hierarchical": Capon's coarse → refine scan whatever the
+    # subspace method, MUSIC's on the power subspace only (plan.py)
+    hier = cfg.scan_mode == "hierarchical"
+    hier_music = hierarchical_music(cfg)
     subband_planes = None
     if wb:
         F = cfg.wideband.num_subbands
@@ -390,17 +456,15 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
         As_emb = torch.cat([Xr, Xi], dim=-1).contiguous()     # (F, G, 2N)
         As_nrm = (As_emb * As_emb).sum(dim=-1)
 
-    def _peaks(P):
+    def _peaks(P, refine=refine_peaks):
         """(values, angles): 1-D → angles (B, k); 2-D → (B, k, 2) az/el
         through the 2-D peaks kernel (k ≤ 4; the plain rule beyond)."""
         if g2 is None:
-            return find_local_max(P, k, x_rng[0], x_rng[1],
-                                  refine=refine_peaks)
+            return find_local_max(P, k, x_rng[0], x_rng[1], refine=refine)
         P2 = P.reshape(P.shape[0], g2.num_az, g2.num_el)
         az_rng = (g2.az_lo_deg, g2.az_hi_deg)
         el_rng = (g2.el_lo_deg, g2.el_hi_deg)
-        v, az, el = plan.op("peaks")(P2, k, az_rng, el_rng,
-                                     refine=refine_peaks)
+        v, az, el = plan.op("peaks")(P2, k, az_rng, el_rng, refine=refine)
         return v, torch.stack([az, el], dim=-1)
 
     def _subspace(E):
@@ -436,12 +500,12 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
                 embed_planes(*R), n_noise))
         return cpx_ops.noise_projector(*R, K)
 
-    def _music(Vt, M):
+    def _music(Vt, M, refine=refine_peaks):
         """→ (P or None, (values, angles) or None); M the noise projector
         of the eigh and Jacobi routes."""
         if route.get("scan") == "music_scan_peaks":
             return None, scan(Vt, At_emb, k, x_rng[0], x_rng[1],
-                              refine=refine_peaks, nrm=nrm)
+                              refine=refine, nrm=nrm)
         if scan is not None:
             P = scan(Vt, At_emb, nrm)
             return P / P.max(dim=-1, keepdim=True).values, None
@@ -452,6 +516,37 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
             den = cpx_ops.music_denominator_cpx(*M, A_re, A_im,
                                                 cfg.compute_dtype)
         return cpx_ops.spectrum_from_den(den), None
+
+    def _coarse_music(Vt):
+        """The hierarchical MUSIC's coarse scan on the plan's scan route
+        (K2, or K3 / the dense scan with the peak rule, kernel 6 on a 2-D
+        grid): its unrefined peaks, (values, angles) on a 1-D grid,
+        (values, az, el) on a 2-D one."""
+        P, peaks = _music(Vt, None, refine=False)
+        v, l = _peaks(P, refine=False) if peaks is None else peaks
+        return (v, l) if g2 is None else (v, l[..., 0], l[..., 1])
+
+    def _hierarchical(est, R, Vt):
+        """MUSIC (on the power subspace Vt) or Capon (on R) by the
+        coarse → refine scan → (values, angles); no spectrum."""
+        d = cfg.geometry.norm_spacing
+        if est == Estimator.MUSIC and g2 is None:
+            return music_hierarchical_ula(
+                Vt, At_emb, k, d, coarse_rng=x_rng,
+                compute_dtype=cfg.compute_dtype, coarse=_coarse_music)
+        if est == Estimator.MUSIC:
+            v, az, el = music_hierarchical_ura(
+                Vt, At_emb, k, cfg.geometry.shape, d, g2,
+                compute_dtype=cfg.compute_dtype, coarse=_coarse_music)
+        elif g2 is None:
+            return capon_hierarchical_ula(*R, At_emb, k, d,
+                                          diag_load=cfg.capon_diag_load,
+                                          coarse_rng=x_rng)
+        else:
+            v, az, el = capon_hierarchical_ura(
+                *R, At_emb, k, cfg.geometry.shape, d, g2,
+                diag_load=cfg.capon_diag_load, peaks2d=plan.op("peaks"))
+        return v, torch.stack([az, el], dim=-1)
 
     def _grid_free(R, Vt):
         """The grid-free angles (root-MUSIC, ESPRIT, Unitary ESPRIT) of the
@@ -476,7 +571,12 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
 
     def _estimate(R, E):
         """Everything downstream of the covariance: R planes (Rr, Ri) or
-        None, E(R) windows (fused path) or None."""
+        None, E(R) windows (fused path) or None. Under beamspace both are
+        projected onto the beams first (each where it is given), and
+        every later stage runs at 2·Nb."""
+        if bs:
+            E = None if E is None else beamspace_embedded(E, Bt)
+            R = None if R is None else beamspace_covariance(*R, Bm)
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         stats = (zero, zero)
         Vt = sub_res = None
@@ -501,6 +601,11 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
             Estimator.MUSIC in ests or Estimator.MIN_NORM in ests) else None)
         for est in ests:
             peaks = None
+            if (est == Estimator.MUSIC and hier_music) or (
+                    est == Estimator.CAPON and hier):
+                pvals[est.value], pangs[est.value] = _hierarchical(est, R,
+                                                                   Vt)
+                continue
             if est == Estimator.MUSIC:
                 P, peaks = _music(Vt, M)
             elif est == Estimator.MIN_NORM:
@@ -560,6 +665,16 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
                     return _estimate(_coherent(E_sub), None)
                 Vt = subband_subspaces_from_E(E_sub, cfg,
                                               iterate=plan.op("subspace"))
+                if hier:
+                    # one launch of kernel 5: the coarse fused spectrum and
+                    # each subband's minimum for the refine; no spectrum
+                    P, dmin = plan.op("fusion")(Vt, As_emb, As_nrm,
+                                                return_dmin=True)
+                    v, l = wideband_music_hierarchical(
+                        Vt, P, dmin, cfg, k, x_rng,
+                        peaks2d=plan.op("peaks") if g2 else None)
+                    return DoaResult(spectra={}, peak_values={"music": v},
+                                     peak_angles={"music": l})
                 P = plan.op("fusion")(Vt, As_emb, As_nrm)
                 v, l = _peaks(P)
                 return DoaResult(spectra={"music": P},

@@ -14,7 +14,9 @@ they run.
 
 The route rules the plan reads are stated here once: the fused-path rule
 (`fused_route`), the subspace rule (`runs_power_subspace`), the
-fused-peaks rule (`fuses_peaks`) and the scan rule (`scans_music_kernel`).
+fused-peaks rule (`fuses_peaks`), the scan rule (`scans_music_kernel`),
+the hierarchical rule (`hierarchical_music`) and the width of the
+subspace and scan stages (`subspace_n2`: the beams' under beamspace).
 """
 
 from __future__ import annotations
@@ -116,7 +118,9 @@ def _grid_size(cfg: DoaConfig) -> int:
 def fuses_peaks(cfg: DoaConfig, return_spectra: bool) -> bool:
     """The fused-peaks rule: K2 writes the peaks (no spectrum) when the
     spectra are not returned, the grid is 1-D, k ≤ MAX_FUSED_K and
-    3 ≤ G ≤ MAX_FUSED_G."""
+    3 ≤ G ≤ MAX_FUSED_G. A single-card pipeline asks with
+    return_spectra=False under the hierarchical rule, whose MUSIC returns
+    no spectrum whatever return_spectra is (kernel_routes)."""
     G = _grid_size(cfg)
     return (not return_spectra and cfg.geometry.kind != "ura"
             and cfg.num_max_vals <= MAX_FUSED_K and 3 <= G <= MAX_FUSED_G)
@@ -132,6 +136,26 @@ def runs_power_subspace(cfg: DoaConfig) -> bool:
             and (Estimator.MUSIC in ests or Estimator.MIN_NORM in ests
                  or (Estimator.ROOT_MUSIC in ests
                      and cfg.geometry.kind == "ula")))
+
+
+def hierarchical_music(cfg: DoaConfig) -> bool:
+    """The reference's hierarchical rule for MUSIC (pipeline_tpu.py:317):
+    scan_mode "hierarchical" on the power subspace. There MUSIC returns
+    the coarse scan's peaks refined on micro-grids and no spectrum; under
+    eigh or Jacobi it stays a dense scan of the projector (Capon's
+    hierarchical branch does not read the subspace method)."""
+    return (cfg.scan_mode == "hierarchical"
+            and cfg.subspace_method == "power"
+            and Estimator.MUSIC in cfg.estimators)
+
+
+def subspace_n2(cfg: DoaConfig) -> int:
+    """The width 2N of the subspace and scan stages: 2·Nb under beamspace
+    (the covariance stays at the array's 2N and is projected after it),
+    else 2·effective_num_elements."""
+    if cfg.beamspace.enabled:
+        return 2 * cfg.beamspace.num_beams
+    return 2 * cfg.effective_num_elements
 
 
 def scans_music_kernel(cfg: DoaConfig) -> bool:
@@ -162,13 +186,14 @@ def kernel_routes(cfg, *, return_spectra: bool = True) -> dict:
     * "subspace": K4, or kernel 11 "subspace_ns" (fused route,
       subspace_impl="pallas"), for the power subspace's estimators
       (runs_power_subspace: MUSIC, root-MUSIC on a ULA, min-norm);
-    * "scan": K2 "music_scan_peaks" (the fused-peaks rule) or K3
+    * "scan": K2 "music_scan_peaks" (the fused-peaks rule; under the
+      hierarchical rule the coarse scan, which keeps no spectrum) or K3
       "music_scan", where MUSIC runs the scan kernels;
     * "fusion": kernel 5 "wideband_fusion" (incoherent wideband);
     * "peaks": kernel 6 "peaks2d" on a 2-D grid (k ≤ MAX_PEAKS2D_K)."""
     cfg = as_config(cfg)
     N, K = cfg.geometry.num_elements, cfg.num_sources
-    n2, k2 = 2 * cfg.effective_num_elements, 2 * K
+    n2, k2 = subspace_n2(cfg), 2 * K
     routes = {}
     wb = cfg.wideband
     incoherent = wb.enabled and wb.fusion == "incoherent"
@@ -195,7 +220,8 @@ def kernel_routes(cfg, *, return_spectra: bool = True) -> dict:
         if scans_music_kernel(cfg):
             routes["scan"] = (
                 ("music_scan_peaks", peaks_takes(k2, n2, _grid_size(cfg)))
-                if fuses_peaks(cfg, return_spectra)
+                if fuses_peaks(cfg, return_spectra
+                               and not hierarchical_music(cfg))
                 else ("music_scan", scan_takes(k2, n2)))
     if cfg.geometry.kind == "ura":
         routes["peaks"] = ("peaks2d", cfg.num_max_vals <= MAX_PEAKS2D_K)
@@ -212,7 +238,7 @@ def sharded_kernel_routes(cfg, n_snap: int, n_grid: int,
     (K2 under the fused-peaks rule on an unsharded grid, else K3)."""
     cfg = as_config(cfg)
     N, fast = cfg.geometry.num_elements, fused_route(cfg)
-    n2, k2 = 2 * cfg.effective_num_elements, 2 * cfg.num_sources
+    n2, k2 = subspace_n2(cfg), 2 * cfg.num_sources
     routes = {}
     if cfg.halo_impl == "pallas" and cfg.overlap > 0 and n_snap > 1:
         routes["halo"] = ("halo_ring", True)
@@ -247,8 +273,7 @@ def kernel_forms(cfg, routes: dict) -> dict:
     cfg = as_config(cfg)
     forms = {"planes_chunk_gram":
              chunk_form(cfg.geometry.num_elements, "interleaved"),
-             "subspace_ns": ns_form(2 * cfg.effective_num_elements,
-                                    2 * cfg.num_sources)}
+             "subspace_ns": ns_form(subspace_n2(cfg), 2 * cfg.num_sources)}
     if cfg.geometry.kind == "ura":
         forms["peaks2d"] = peaks_form(cfg.grid2d.num_az, cfg.grid2d.num_el)
     return {stage: forms[kernel] for stage, (kernel, _) in routes.items()

@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from doa_tpu.configs import (ArrayGeometry, BeamspaceSpec, DoaConfig,
-                             Estimator, GridSpec1D, GridSpec2D, PRESETS)
+from doa_tpu.configs import (ArrayGeometry, DoaConfig, Estimator,
+                             GridSpec1D, GridSpec2D, PRESETS, WidebandSpec)
 from doa_tpu.cpx import Cpx, embed_hermitian as embed_jax
 from doa_tpu.io import SourceSpec, synth_ula_iq
 from doa_tpu.ops import steering as steer_jax
@@ -229,6 +229,8 @@ def test_port_never_imports_jax():
         "assert 'doa_tpu_torch.ops.wideband' in sys.modules\n"
         "assert 'doa_tpu_torch.parallel.sharded' in sys.modules\n"
         "assert 'doa_tpu_torch.ops.cuda.ring' in sys.modules\n"
+        "for m in ('beamspace', 'hierarchical', 'model_order'):\n"
+        "    assert 'doa_tpu_torch.ops.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -300,11 +302,15 @@ def _c5_with(**wideband):
         c5, wideband=dataclasses.replace(c5.wideband, **wideband))
 
 
+# each key names the preset its config comes from; beamspace and the
+# hierarchical scans, once listed here, are ported, and their cases now
+# hold configs the slice still refuses
 _OUTSIDE = {
     "c2_ula8_2src": lambda: dataclasses.replace(
-        PRESETS["c2_ula8_2src"], beamspace=BeamspaceSpec(num_beams=4)),
+        PRESETS["c2_ula8_2src"], cov_dtype="int8", subspace_method="eigh"),
     "c3_ula16_calib_smooth": lambda: dataclasses.replace(
-        PRESETS["c3_ula16_calib_smooth"], scan_mode="hierarchical"),
+        PRESETS["c3_ula16_calib_smooth"], wideband=WidebandSpec(
+            num_subbands=16, fractional_bw=0.1, fusion="cssm_auto")),
     "c5_tops": lambda: _c5_with(fusion="tops"),
     "c5_eigh": lambda: dataclasses.replace(
         PRESETS["c5_ura64_wideband"], subspace_method="eigh"),
@@ -312,7 +318,8 @@ _OUTSIDE = {
         PRESETS["c5_ura64_wideband"], estimators=(Estimator.MUSIC,
                                                   Estimator.ESPRIT)),
     "c5_hierarchical": lambda: dataclasses.replace(
-        PRESETS["c5_ura64_wideband"], scan_mode="hierarchical"),
+        PRESETS["c5_ura64_wideband"], scan_mode="hierarchical",
+        compute_dtype="int8"),
     "c5_bf16_scan": lambda: dataclasses.replace(
         PRESETS["c5_ura64_wideband"], compute_dtype="bfloat16"),
 }
