@@ -221,6 +221,28 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    dmin within 1e-5·max‖a‖² of its plain version's and P bit-equal to
    the launch without it; kernel 6 with refine off), medians within 0.5
    and 2.0 deg.
+18. the complex-typed public entry (doa_tpu_torch.estimate_doa,
+   pipeline.build_pipeline: PyTorch library calls on complex64, no
+   kernel of the port launched, `no_kernel`), each path also on the CPU
+   for the first 64 windows of its capture (`cpx_card_vs_cpu`: the
+   covariance within 2e-5 of max|R|, every estimate within 1e-3 deg,
+   root-MUSIC's windows that the card and the CPU split differently
+   counted where one takes a source twice): the headline capture
+   (16384 windows) with all seven estimators, every window of MUSIC,
+   Capon, min-norm, ESPRIT and Unitary ESPRIT within 0.5 deg of 70/110,
+   root-MUSIC's angles within 0.5 deg of a source, Bartlett's error
+   logged, then timed beside the MUSIC-only complex call and the fast
+   path's headline on the same capture; beamspace with 8 beams at 90
+   deg (MUSIC, every window); MVDR extraction toward 70 deg on 4096
+   windows (the CPU within 2e-5 of max|y|); PRESETS c2 (MUSIC + Capon),
+   c3 (FB, smoothing L = 12, M = 5, with the calibration correction on
+   an impaired capture) and c4 (overlap 512) at T=2^24, every window
+   within 0.5 deg; S = 96 with overlap 40 (the explicit frames) with
+   return_covariance, the median window within 0.5 deg; the 8x8 URA
+   narrowband on c5's 181x91 grid with MUSIC + 2-D ESPRIT at 512
+   windows (reduced depth: the (B, G, N) complex64 products are 4.3 GB
+   there), every window within 0.5 deg. The median of 10 calls and a
+   profile window for the headline, c2, c3, c4 and the URA.
 
 Each kernel record gives its bound (the larger of its bytes over
 3.35 TB/s and the FP32 operations the function needs over 67 TFLOP/s,
@@ -239,6 +261,7 @@ JSON object with the kernels, then {"ok": true, "device": {...}}.
 """
 
 import dataclasses
+import importlib
 import json
 import math
 import os
@@ -3666,23 +3689,31 @@ def est_every_window(torch, name, res, truth, want):
         check(e <= ANGLE_TOL, f"{name} {key} angle error {e}")
 
 
-def root_music_windows(torch, name, ang, truth):
+def root_music_windows(torch, name, ang, truth, allow_nonfinite=False):
     """Root-MUSIC's angles: every angle of every window within ANGLE_TOL
     of a planted source. The reference's rule takes the K roots inside
     the unit circle nearest it, and where a source's conjugate-reciprocal
     pair of roots both land inside in FP32, it takes that source twice
     and loses the other (ROADMAP §C.3; in both packages on the CPU,
     tests/test_torch_root_music.py): those windows are counted, not
-    failed, and the card against the CPU holds them too."""
-    if not bool(torch.isfinite(ang).all()):
+    failed, and the card against the CPU holds them too. With
+    allow_nonfinite (the complex root finder, whose roots can escape and
+    overflow FP32 in both packages, §C.3) the windows with a non-finite
+    angle are counted too, and the rest held."""
+    bad = ~torch.isfinite(ang).all(-1)
+    if bool(bad.any()) and not allow_nonfinite:
         fail(f"{name}: non-finite root-MUSIC angles")
+    nonfinite = int(bad.sum())
+    ang = ang[~bad]
     t = torch.tensor(truth, device=ang.device)
     d = (ang[..., None] - t).abs()                       # (B, K, K)
     near = float(d.amin(-1).max())
     lost = int((d.amin(-2) > ANGLE_TOL).any(-1).sum())
-    log(f"{name} root_music_angles: {ang.shape[0]} windows, every angle "
+    B = ang.shape[0] + nonfinite
+    log(f"{name} root_music_angles: {B} windows, every finite angle "
         f"within {near!r} deg of a source (limit {ANGLE_TOL}); {lost} "
-        f"windows ({lost / ang.shape[0]:.4f}) take one source twice")
+        f"windows ({lost / B:.4f}) take one source twice, {nonfinite} "
+        f"({nonfinite / B:.4f}) have a non-finite angle")
     check(near <= ANGLE_TOL, f"{name} root-MUSIC angle {near} off")
 
 
@@ -3792,7 +3823,9 @@ def estimator_phase(torch, dev, card):
     """Phase 16 → the launches of the earlier kernels in these paths."""
     from doa_tpu_torch import Estimator, PRESETS
     from doa_tpu_torch.cpx import embed_planes, fp32_matmuls, unembed_planes
-    from doa_tpu_torch.ops import cpx_ops, esprit, min_norm, root_music
+    from doa_tpu_torch.ops import cpx_ops, esprit, min_norm
+    # the module (doa_tpu_torch.ops.root_music is the function)
+    root_music = importlib.import_module("doa_tpu_torch.ops.root_music")
     from doa_tpu_torch.ops import wideband as wb
     from doa_tpu_torch.ops.cuda import cov_embedded as ce
     from doa_tpu_torch.ops.cuda import covariance as cv
@@ -4168,6 +4201,311 @@ def hier_phase(torch, dev, card):
     return total
 
 
+# ---------------------------------------------------------------------
+# 18: the complex-typed public entry (pipeline.build_pipeline,
+# estimate_doa) with its ops, and MVDR extraction; library calls on
+# complex64 tensors, no hand-written kernel
+# ---------------------------------------------------------------------
+
+CPX_TOL = 2e-5                     # of max|R| and max|y|, card against CPU
+T_IRR = 1 << 20                    # 18c: S = 96, overlap 40 (18724 windows)
+T_URA_CPX = 512 * 1024             # 18d: 512 windows of the 8x8 URA
+T_MVDR = 1 << 22                   # 18f: 4096 windows of the headline scene
+
+
+def launch_counts():
+    """{wrapper: launches} of every kernel wrapper of the port."""
+    out = {}
+    for mod in [m for n, m in sys.modules.items()
+                if n.startswith("doa_tpu_torch.ops")]:
+        for k, v in vars(mod).items():
+            if callable(v) and hasattr(v, "launches"):
+                out[f"{mod.__name__}.{k}"] = v.launches
+    return out
+
+
+def no_kernel(torch, name, fn):
+    """fn() → its result; fails if it launched a kernel of the port (the
+    complex path is library calls alone)."""
+    before = launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    moved = {k: v - before.get(k, 0) for k, v in launch_counts().items()
+             if v != before.get(k, 0)}
+    check(not moved, f"{name}: kernels launched on the complex path: "
+          f"{moved}")
+    return out
+
+
+def make_ura_capture(torch, T, shape, sources, snr_db, device, seed):
+    """A narrowband planar-array capture by the model of
+    doa_tpu.io.synth_ura_iq as complex64[T, nx·ny] (x-major), made on the
+    device: each source (az_deg, el_deg, num, den) a unit tone of num/den
+    cycles a sample with a random start phase, complex white noise of
+    power 10^(−snr/10) per element."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    nx, ny = shape
+    x = torch.randn((T, nx * ny, 2), generator=gen, device=device)
+    x *= math.sqrt(10.0 ** (-snr_db / 10.0) / 2.0)
+    xc = torch.view_as_complex(x)
+    t = torch.arange(T, device=device, dtype=torch.int64)
+    ix = torch.arange(nx, device=device, dtype=torch.float64)[:, None]
+    iy = torch.arange(ny, device=device, dtype=torch.float64)[None, :]
+    for az, el, num, den in sources:
+        ph = (2.0 * math.pi / den) * ((t * num) % den).to(torch.float64)
+        ph += rng.uniform(0.0, 2.0 * math.pi)
+        s = torch.polar(torch.ones_like(ph), ph).to(torch.complex64)
+        a, e = math.radians(az), math.radians(el)
+        pa = -math.pi * (math.cos(e) * math.sin(a) * ix
+                         + math.cos(e) * math.cos(a) * iy)
+        st = torch.polar(torch.ones_like(pa), pa).reshape(-1).to(
+            torch.complex64)
+        xc += s[:, None] * st[None, :]
+        del ph, s
+    return xc
+
+
+def duplicate_windows(torch, ang, truth):
+    """bool[B]: the windows whose root-MUSIC angles leave a planted
+    source with none within ANGLE_TOL (one source taken twice, C.3)."""
+    t = torch.tensor(truth, device=ang.device)
+    return ((ang[..., None] - t).abs().amin(-2) > ANGLE_TOL).any(-1)
+
+
+def cpx_card_vs_cpu(torch, name, cfg, x, B, truth, correction=None):
+    """The complex pipeline on the card against the same pipeline on the
+    CPU on the first B windows of x (complex64): the covariance within
+    CPX_TOL of max|R|; every estimate, sorted (pair-sorted on az/el),
+    within FAULT_TOL; root-MUSIC's windows that differ beyond it must be
+    windows where the card or the CPU takes one source twice (C.3), and
+    are counted."""
+    from doa_tpu_torch.pipeline import build_pipeline
+    hop = cfg.snapshot_size - cfg.overlap
+    xs = x[:(B - 1) * hop + cfg.snapshot_size]
+    c = None if correction is None else correction.cpu()
+    gpu = no_kernel(torch, name, lambda: build_pipeline(
+        cfg, return_covariance=True, device=x.device)(xs, correction))
+    t0 = time.perf_counter()
+    cpu = build_pipeline(cfg, return_covariance=True, device="cpu")(
+        xs.cpu(), c)
+    secs = time.perf_counter() - t0
+    Rg, Rc = gpu.covariance.cpu(), cpu.covariance
+    check(Rg.shape == Rc.shape and Rg.shape[0] == B,
+          f"{name}: covariance {tuple(Rg.shape)} on the card, "
+          f"{tuple(Rc.shape)} on the CPU")
+    dR = float((Rg - Rc).abs().max() / Rc.abs().max())
+    og, oc = est_outputs(gpu), est_outputs(cpu)
+    check(og.keys() == oc.keys(), f"{name}: card {sorted(og)}, CPU "
+          f"{sorted(oc)}")
+    d, split, nonfinite = {}, 0, 0
+    for k in og:
+        a, b = est_sorted(torch, og[k].cpu()), est_sorted(torch, oc[k])
+        per = (a - b).abs().flatten(1).amax(-1)
+        if k == "root_music_angles":
+            fin = torch.isfinite(a).all(-1) & torch.isfinite(b).all(-1)
+            dup = (duplicate_windows(torch, a, truth)
+                   | duplicate_windows(torch, b, truth))
+            off = ~(per <= FAULT_TOL)
+            split = int((off & dup & fin).sum())
+            nonfinite = int((~fin).sum())
+            check(not bool((off & ~dup & fin).any()),
+                  f"{name}: root-MUSIC differs outside the duplicate-pair "
+                  f"and non-finite windows")
+            per = torch.where(dup | ~fin, 0.0, per)
+        d[k] = float(per.max())
+    log(f"{name} card vs CPU on {B} windows: covariance max|dR|/max|R| "
+        f"{dR!r} (tol {CPX_TOL}); max angle difference "
+        + ", ".join(f"{k} {v!r}" for k, v in d.items())
+        + f" deg (tol {FAULT_TOL})"
+        + (f"; root-MUSIC windows split differently {split}, non-finite "
+           f"on the card or the CPU {nonfinite}, of {B}"
+           if "root_music_angles" in og else "")
+        + f"; CPU run {secs:.1f} s")
+    check(dR <= CPX_TOL, f"{name}: card and CPU covariances disagree")
+    check(all(v <= FAULT_TOL for v in d.values()),
+          f"{name}: card and CPU disagree")
+
+
+def cpx_timed(torch, name, call, B, card):
+    """Median ms of 10 calls (CUDA events) and a profile window."""
+    ts = call_times(torch, call, reps=EST_REPS, warm=2)
+    med = 0.5 * (ts[EST_REPS // 2 - 1] + ts[EST_REPS // 2])
+    log(f"{name}: median {med:.4f} ms per call of {B} windows ({EST_REPS} "
+        f"calls, min {ts[0]:.4f}, max {ts[-1]:.4f})  [{card}]")
+    profile_window(torch, call, card)
+    return med
+
+
+def complex_phase(torch, dev, card):
+    """Phase 18: the complex-typed public entry on the card."""
+    from doa_tpu_torch import (BeamspaceSpec, Estimator, PRESETS,
+                               WidebandSpec, estimate_doa)
+    from doa_tpu_torch.ops.beamform import extract_source_ula
+    from doa_tpu_torch.ops.covariance import cov_from_stream
+    from doa_tpu_torch.pipeline import build_pipeline
+    from doa_tpu_torch.pipeline_torch import build_pipeline_torch
+
+    seven = tuple(Estimator)
+
+    # 18a. the headline capture through estimate_doa, all seven estimators
+    cfg7 = dataclasses.replace(headline_config(), estimators=seven)
+    x = make_scene(torch, T_MAIN, 16, dev)
+    xc = torch.view_as_complex(x.view(T_MAIN, 16, 2))
+    B = T_MAIN // 1024
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    name = "complex headline, seven estimators (estimate_doa)"
+    res = no_kernel(torch, name, lambda: estimate_doa(xc, cfg7, device=dev))
+    peak = torch.cuda.max_memory_allocated() - held
+    check(sorted(res.spectra) == ["bartlett", "capon", "min_norm", "music"],
+          f"{name}: spectra {sorted(res.spectra)}")
+    check(all(tuple(P.shape) == (B, 1024) and bool(torch.isfinite(P).all())
+              for P in res.spectra.values()), f"{name}: spectra")
+    est_every_window(torch, name, res, THETA,
+                     ("peaks music", "peaks capon", "peaks min_norm",
+                      "esprit_angles", "unitary_esprit_angles"))
+    root_music_windows(torch, name, res.root_music_angles, THETA,
+                       allow_nonfinite=True)
+    e_b = sorted_err(torch, res.peak_angles["bartlett"], THETA)
+    log(f"{name} peaks bartlett: max |sorted angle - truth| {e_b!r} deg "
+        f"(not checked: the estimator's own bias); peak allocation "
+        f"{peak / 2 ** 30:.3f} GiB above the {held / 2 ** 30:.3f} GiB held")
+    del res
+    cfg1 = headline_config()
+    pipe7 = build_pipeline(cfg7, device=dev)
+    pipe1 = build_pipeline(cfg1, device=dev)
+    fast = build_pipeline_torch(cfg1, device=dev, return_spectra=False)
+    e1 = angle_err(torch, pipe1(xc).peak_angles["music"])
+    log(f"complex headline, MUSIC: max angle error {e1!r} deg")
+    ms7 = cpx_timed(torch, name, lambda: pipe7(xc), B, card)
+    ms1 = cpx_timed(torch, "complex headline, MUSIC (build_pipeline)",
+                    lambda: pipe1(xc), B, card)
+    msf = cpx_timed(torch, "fast headline, MUSIC (build_pipeline_torch, "
+                    "same capture)", lambda: fast.interleaved(x), B, card)
+    log(f"complex headline against the fast path on one capture: MUSIC "
+        f"{ms1:.4f} against {msf:.4f} ms ({ms1 / msf:.2f}x); seven "
+        f"estimators {ms7:.4f} ms  [{card}]")
+    del pipe7, pipe1, fast
+    cpx_card_vs_cpu(torch, name, cfg7, xc, B_EST_CPU, THETA)
+
+    # 18e. beamspace, 8 beams at 90°, MUSIC, on the same capture
+    cfg_bs = dataclasses.replace(
+        cfg1, beamspace=BeamspaceSpec(num_beams=8, center_deg=90.0))
+    name = "complex headline + beamspace (8 beams at 90°)"
+    est_every_window(torch, name, no_kernel(
+        torch, name, lambda: build_pipeline(cfg_bs, device=dev)(xc)), THETA,
+        ("peaks music",))
+    cpx_card_vs_cpu(torch, name, cfg_bs, xc, B_EST_CPU, THETA)
+
+    # 18f. MVDR extraction toward 70° on the headline scene's windows
+    Bm = T_MVDR // 1024
+    xr, xi = x[:T_MVDR, 0::2], x[:T_MVDR, 1::2]
+    R = cov_from_stream(xc[:T_MVDR], 1024, 0)
+    theta = torch.full((Bm,), THETA[0], device=dev)
+    y = no_kernel(torch, "MVDR extraction", lambda: extract_source_ula(
+        xr, xi, R.real, R.imag, theta, 0.5, 1024))
+    check(all(tuple(p.shape) == (Bm, 1024) and bool(torch.isfinite(p).all())
+              for p in y), "MVDR extraction: shape or non-finite values")
+    n = B_EST_CPU
+    yc = extract_source_ula(xr[:n * 1024].cpu(), xi[:n * 1024].cpu(),
+                            R.real[:n].cpu(), R.imag[:n].cpu(),
+                            theta[:n].cpu(), 0.5, 1024)
+    yg = torch.complex(y[0][:n].cpu(), y[1][:n].cpu())
+    yc = torch.complex(*yc)
+    dy = float((yg - yc).abs().max() / yc.abs().max())
+    pw = float((y[0] * y[0] + y[1] * y[1]).mean())
+    log(f"MVDR extraction toward {THETA[0]} deg: {Bm} windows of 1024, mean "
+        f"|y|^2 {pw!r} (the source's power {2 * 10 ** (SNR_DB / 10)}); card "
+        f"vs CPU on {n} windows max|dy|/max|y| {dy!r} (tol {CPX_TOL})")
+    check(dy <= CPX_TOL, "MVDR extraction: card and CPU disagree")
+    del x, xc, xr, xi, R, y, yc, yg
+
+    # 18b. c2 (MUSIC + Capon), c3 (FB, smoothing L = 12, M = 5, with the
+    # calibration correction) and c4 (overlap 512) at the presets' widths
+    x2 = torch.view_as_complex(make_ula_capture(
+        torch, T_C2, 8, ((60.0, 1, 10), (110.0, 31, 100)), SNR_DB, dev,
+        seed=2))
+    x3 = make_ula_capture(torch, T_C3, 16, c3_sources(), SNR_DB, dev,
+                          seed=3)
+    factor = impairments(16)
+    x3 = torch.view_as_complex(impair(torch, x3, factor))
+    corr = torch.from_numpy((1.0 / factor).astype("complex64")).to(dev)
+    x4 = torch.view_as_complex(make_scene(torch, T_MAIN, 16, dev,
+                                          seed=4).view(T_MAIN, 16, 2))
+    for tag, xb, truth, c, keys in (
+            ("c2_ula8_2src", x2, C2_TRUTH, None, ("music", "capon")),
+            ("c3_ula16_calib_smooth", x3, C3_TRUTH, corr, ("music",)),
+            ("c4_ula16_streaming", x4, THETA, None, ("music",))):
+        cfg = PRESETS[tag]
+        pipe = build_pipeline(cfg, device=dev)
+        name = f"complex {tag}" + (" + correction" if c is not None else "")
+        res = no_kernel(torch, name, lambda: pipe(xb, c))
+        nb = next(iter(res.peak_angles.values())).shape[0]
+        est_every_window(torch, name, res, truth,
+                         [f"peaks {k}" for k in keys])
+        del res
+        cpx_timed(torch, name, lambda: pipe(xb, c), nb, card)
+        cpx_card_vs_cpu(torch, name, cfg, xb, B_EST_CPU, truth, c)
+        del pipe
+    del x2, x3, x4
+
+    # 18c. an irregular overlap (S = 96, overlap 40: the explicit frames)
+    cfg_i = dataclasses.replace(cfg1, snapshot_size=96, overlap=40)
+    xi_ = torch.view_as_complex(make_ula_capture(
+        torch, T_IRR, 16, ((70.0, 1, 10), (110.0, 31, 100)), SNR_DB, dev,
+        seed=18))
+    name = "complex S = 96, overlap 40"
+    res = no_kernel(torch, name, lambda: build_pipeline(
+        cfg_i, return_covariance=True, device=dev)(xi_))
+    Bi = (T_IRR - 96) // 56 + 1
+    check(tuple(res.covariance.shape) == (Bi, 16, 16)
+          and bool(torch.isfinite(res.covariance).all()),
+          f"{name}: covariance {tuple(res.covariance.shape)}")
+    a = res.peak_angles["music"].sort(-1).values
+    med = a.median(dim=0).values
+    e_med = float((med - torch.tensor(THETA, device=dev)).abs().max())
+    log(f"{name}: {Bi} windows, max |sorted angle - truth| "
+        f"{sorted_err(torch, a, THETA)!r} deg, the median window's "
+        f"{e_med!r} deg (limit {ANGLE_TOL})")
+    check(e_med <= ANGLE_TOL, f"{name}: median window off by {e_med}")
+    del res, a
+    cpx_card_vs_cpu(torch, name, cfg_i, xi_, B_EST_CPU * 8, THETA)
+    del xi_
+
+    # 18d. the 8x8 URA narrowband on c5's 181x91 grid, MUSIC + 2-D ESPRIT,
+    # at 512 windows (the (B, G, N) complex64 products are 4.3 GB there)
+    cfg5 = dataclasses.replace(PRESETS["c5_ura64_wideband"],
+                               wideband=WidebandSpec(num_subbands=1),
+                               estimators=(Estimator.MUSIC,
+                                           Estimator.ESPRIT))
+    x5 = make_ura_capture(torch, T_URA_CPX, (8, 8),
+                          [(az, el, num, den) for (az, el), (num, den)
+                           in zip(C5_TRUTH, ((1, 10), (31, 100)))],
+                          SNR_DB, dev, seed=5)
+    pipe = build_pipeline(cfg5, device=dev)
+    name = "complex 8x8 URA narrowband (c5 grid), MUSIC + 2-D ESPRIT"
+    res = no_kernel(torch, name, lambda: pipe(x5))
+    for key, ang in (("peaks music", res.peak_angles["music"]),
+                     ("esprit_angles", res.esprit_angles)):
+        check(tuple(ang.shape) == (T_URA_CPX // 1024, 2, 2),
+              f"{name} {key}: {tuple(ang.shape)}")
+        e_max, e_med, medp = c5_errors(torch, ang)
+        log(f"{name} {key}: {ang.shape[0]} windows, max |pair-sorted "
+            f"angle - truth| {e_max!r}, median {e_med!r} deg (limit "
+            f"{ANGLE_TOL})")
+        check(e_max <= ANGLE_TOL, f"{name} {key}: angle error {e_max}")
+    del res
+    cpx_timed(torch, name, lambda: pipe(x5), T_URA_CPX // 1024, card)
+    del pipe
+    cpx_card_vs_cpu(torch, name, cfg5, x5, B_EST_CPU, C5_TRUTH)
+    del x5
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -4368,6 +4706,10 @@ def main():
     # and hierarchical, model order, c2, c5 and c5 cssm hierarchical
     for name, n in hier_phase(torch, dev, card).items():
         recs[name]["launches"] += n
+    # 18. the complex-typed public entry (estimate_doa, build_pipeline):
+    # the headline with seven estimators, c2, c3, c4, S = 96, the 8x8 URA,
+    # beamspace and MVDR extraction; no kernel launched
+    complex_phase(torch, dev, card)
     for f, v in PEAKS_TALLY.items():
         recs["peaks2d"]["by_form"][f]["launches"] = v
     check(sum(PEAKS_TALLY.values()) == recs["peaks2d"]["launches"],

@@ -45,6 +45,17 @@ Covered so far (``build_pipeline_torch``):
   MUSIC; ``ops/hierarchical.py``) and source counting by AIC / MDL
   (``ops/model_order.py``).
 
+The public one-shot entry (``estimate_doa``, ``pipeline.build_pipeline``)
+is the reference's complex-typed path: complex64 samples → correction →
+covariance windows (``ops/covariance.py``: FB, smoothing; beamspace) →
+MUSIC, Capon, Bartlett and min-norm spectra with their peaks, root-MUSIC,
+ESPRIT and Unitary ESPRIT (``ops/music.py``, ``capon.py``,
+``bartlett.py``, ``subspace.py``, ``root_music.py``, ``min_norm.py``),
+composed of PyTorch library calls in true FP32 as the reference composes
+XLA's; beside it ``ops`` exports the reference's ops surface, the device
+steering functions, MVDR beamforming (``ops/beamform.py``) and the
+Cramér–Rao bounds (``ops/crb.py``).
+
 ROADMAP.md lists what is still to port.
 """
 
@@ -71,6 +82,14 @@ def build_pipeline_torch(*args, **kwargs):
     return f(*args, **kwargs)
 
 
+def estimate_doa(*args, **kwargs):
+    """Lazy re-export of doa_tpu_torch.pipeline.estimate_doa (the
+    one-shot complex-typed path; on the card unless device="cpu")."""
+    from doa_tpu_torch.pipeline import estimate_doa as f
+
+    return f(*args, **kwargs)
+
+
 __all__ = [
     "configs",
     "ArrayGeometry",
@@ -85,4 +104,5 @@ __all__ = [
     "WidebandSpec",
     "as_config",
     "build_pipeline_torch",
+    "estimate_doa",
 ]

@@ -76,6 +76,16 @@ def beamspace_covariance(Rr: torch.Tensor, Ri: torch.Tensor,
     return Rb.real.contiguous(), Rb.imag.contiguous()
 
 
+def beamspace_covariance_complex(R: torch.Tensor,
+                                 Bm: torch.Tensor) -> torch.Tensor:
+    """The complex pipeline's projection (``pipeline.py``): R c64[B, N, N]
+    and the beam matrix Bm c64 (N, Nb) → R_b = Bᴴ R B c64[B, Nb, Nb].
+    The reference names this one ``beamspace_covariance``; here that
+    name is the planes path's, so this one is named for its type."""
+    with fp32_matmuls():
+        return torch.matmul(torch.matmul(Bm.mH, R), Bm)
+
+
 def beamspace_embedded(E: torch.Tensor, Bt: torch.Tensor) -> torch.Tensor:
     """Embedded covariance windows E f32[B, 2N, 2N] and B̃ f32[2N, 2Nb] →
     E_b = B̃ᵀ E B̃ f32[B, 2Nb, 2Nb]."""

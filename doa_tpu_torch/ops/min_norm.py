@@ -1,5 +1,7 @@
-"""Min-Norm (Kumaresan–Tufts) spectra (port of the split-complex part of
-doa_tpu/ops/min_norm.py).
+"""Min-Norm (Kumaresan–Tufts), spectral and rooted (port of
+doa_tpu/ops/min_norm.py: its complex-typed functions for the complex
+pipeline, ``pipeline.py``, and its split-complex ones for the fused and
+planes paths).
 
 Min-Norm scans against the one vector w of the noise subspace with
 w[0] = 1 and the least norm,
@@ -10,17 +12,65 @@ so the scan is two (B, 2N)·(2N, G) products where MUSIC's is
 (B·2K, 2N)·(2N, G). From the power subspace, w comes from the embedded
 signal basis V f32[B, 2N, 2K]: Pn ẽ1 = ẽ1 − V (Vᵀ ẽ1), Vᵀẽ1 being row 0
 of V; from the eigh or Jacobi route, from the complex noise projector.
-Every product is true FP32 (cpx.fp32_matmuls).
+The rooted form roots W(z) = Σ w_n zⁿ. Every product is true FP32
+(cpx.fp32_matmuls).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from doa_tpu_torch.cpx import fp32_matmuls
 from doa_tpu_torch.ops.cpx_ops import _cast, spectrum_from_den
+from doa_tpu_torch.ops.music import noise_projector
+from doa_tpu_torch.ops.root_music import polynomial_roots
 
 _TINY = torch.finfo(torch.float32).tiny
+
+
+# ---------------------------------------------------------------------
+# The complex-typed functions (pipeline.py)
+# ---------------------------------------------------------------------
+
+def min_norm_weight(R: torch.Tensor, num_sources: int) -> torch.Tensor:
+    """R c64[B, N, N] → w c64[B, N], the noise-subspace vector of least
+    norm with w[0] = 1: Pn e1 over its first (real) entry."""
+    d = noise_projector(R, num_sources)[..., :, 0]
+    return d / d[..., :1].real.clamp_min(_TINY)
+
+
+def min_norm_spectrum(R: torch.Tensor, steering_mat: torch.Tensor,
+                      num_sources: int, normalize: bool = True):
+    """R (B, N, N), A (G, N) → P = 1/|aᴴw|² f32[B, G], each window
+    divided by its maximum unless normalize is False."""
+    w = min_norm_weight(R, num_sources)
+    with fp32_matmuls():
+        s = torch.matmul(w, steering_mat.conj().T)         # (B, G)
+    return spectrum_from_den((s * s.conj()).real, normalize)
+
+
+def root_min_norm(R: torch.Tensor, num_sources: int, norm_spacing: float,
+                  num_iters: int = 60) -> torch.Tensor:
+    """Grid-free Min-Norm on a ULA: root W(z) (degree N − 1), keep the K
+    roots nearest the unit circle by |1 − |z||, inside or out (ties to
+    the lower index), cos θ = +arg(z)/(2πd): with a_n = exp(−j2πd cosθ·n),
+    aᴴw = W(e^{+j2πd cosθ}), the sign opposite to root-MUSIC's.
+    R c64[B, N, N] → f32[B, K] degrees, ascending."""
+    roots = polynomial_roots(min_norm_weight(R, num_sources),
+                             num_iters=num_iters)
+    score = (1.0 - roots.abs()).abs()
+    idx = torch.sort(score, dim=-1, stable=True).indices[..., :num_sources]
+    sel = torch.gather(roots, -1, idx)
+    cos_theta = (torch.angle(sel) / (2 * math.pi * norm_spacing)).clamp(
+        -1.0, 1.0)
+    return torch.sort(torch.rad2deg(torch.arccos(cos_theta)), dim=-1).values
+
+
+# ---------------------------------------------------------------------
+# The split-complex functions (the fused and planes paths)
+# ---------------------------------------------------------------------
 
 
 def min_norm_weight_from_signal(V_emb: torch.Tensor) -> torch.Tensor:

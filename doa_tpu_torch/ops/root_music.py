@@ -1,5 +1,7 @@
-"""Root-MUSIC for uniform linear arrays, grid-free (port of the
-split-complex part of doa_tpu/ops/root_music.py).
+"""Root-MUSIC for uniform linear arrays, grid-free (port of
+doa_tpu/ops/root_music.py: its complex-typed functions, which the
+complex pipeline (``pipeline.py``) calls, and its split-complex ones,
+which the fused and planes paths call).
 
 The noise-subspace polynomial D(z) = Σ_{l=-(N-1)}^{N-1} c_l z^{l+N-1},
 c_l the l-th diagonal sum of the noise projector M = E_n E_nᴴ, is rooted
@@ -8,8 +10,12 @@ every root updated at once, every window at once, no host sync inside
 the loop. The K roots inside the unit circle closest to it give
 θ = acos(−arg(z) / (2π d)) (steering a_k = z^k, z = exp(−j 2π d cosθ)).
 
-Complex values are complex64 tensors here; the reference carries them
-as (re, im) planes only because its TPU backend has no complex dtype.
+Complex values are complex64 tensors in both halves. The two halves
+mirror two reference functions that differ in their arithmetic:
+``polynomial_roots`` divides natively and guards p'(z) == 0 and a zero
+denominator, as the reference's complex-typed root finder;
+``polynomial_roots_cpx`` divides by the textbook (a·conj(b))/|b|² and
+guards |b|² > 0, as its split-complex one.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import math
 import torch
 
 from doa_tpu_torch.ops.cpx_ops import noise_projector
+from doa_tpu_torch.ops.music import noise_projector as noise_projector_c64
 
 
 def _poly_and_deriv_cpx(coeffs: torch.Tensor, z: torch.Tensor):
@@ -102,6 +109,67 @@ def root_music_cpx(Rr: torch.Tensor, Ri: torch.Tensor, num_sources: int,
         torch.stack([diag(Mi, l) for l in range(-(N - 1), N)], dim=-1))
     roots = polynomial_roots_cpx(coeffs, num_iters=num_iters)
     sel = select_inside(roots, num_sources)
+    cos_theta = (-torch.angle(sel) / (2 * math.pi * norm_spacing)).clamp(
+        -1.0, 1.0)
+    return torch.sort(torch.rad2deg(torch.arccos(cos_theta)), dim=-1).values
+
+
+# ---------------------------------------------------------------------
+# The complex-typed functions (pipeline.py)
+# ---------------------------------------------------------------------
+
+# p(z) and p'(z) by Horner: the same complex products in both halves
+_poly_and_deriv = _poly_and_deriv_cpx
+
+
+def polynomial_roots(coeffs: torch.Tensor, num_iters: int = 60):
+    """Batched Aberth–Ehrlich on complex64: coeffs c64[B, D+1] ascending
+    powers, the leading one nonzero → roots c64[B, D]. The start is
+    polynomial_roots_cpx's spiral; the divisions are native complex
+    ones, with a zero p'(z) and a zero denominator replaced by 1, as the
+    reference's complex root finder."""
+    D = coeffs.shape[-1] - 1
+    coeffs = coeffs / coeffs[..., -1:]
+    dev = coeffs.device
+    k = torch.arange(D, dtype=torch.float32, device=dev)
+    radius = 0.92 + 0.05 * (k % 3)
+    ang = 2 * math.pi * (k + 0.25) / D + 0.1
+    z = torch.complex(radius * torch.cos(ang), radius * torch.sin(ang))
+    z = z.expand(coeffs.shape[:-1] + (D,))
+    eye = torch.eye(D, dtype=torch.bool, device=dev)
+    one = torch.ones((), dtype=coeffs.dtype, device=dev)
+    zero = torch.zeros((), dtype=coeffs.dtype, device=dev)
+    for _ in range(num_iters):
+        p, dp = _poly_and_deriv(coeffs, z)
+        w = p / torch.where(dp == 0, one, dp)
+        diff = z[..., :, None] - z[..., None, :]
+        s = torch.where(eye, zero, 1.0 / torch.where(eye, one, diff)).sum(-1)
+        denom = 1.0 - w * s
+        z = z - w / torch.where(denom == 0, one, denom)
+    return z
+
+
+def root_music_coeffs(R: torch.Tensor, num_sources: int) -> torch.Tensor:
+    """R c64[B, N, N] → the polynomial's coefficients c64[B, 2N − 1],
+    ascending: coeffs[.., l + N − 1] = Σ diag_l(E_n E_nᴴ)."""
+    N = R.shape[-1]
+    C = noise_projector_c64(R, num_sources)
+    return torch.stack([torch.diagonal(C, offset=l, dim1=-2, dim2=-1).sum(-1)
+                        for l in range(-(N - 1), N)], dim=-1)
+
+
+def select_signal_roots(roots: torch.Tensor, num_sources: int):
+    """The K roots strictly inside the unit circle nearest it
+    (select_inside's rule: ties to the lower index, as lax.top_k)."""
+    return select_inside(roots, num_sources)
+
+
+def root_music(R: torch.Tensor, num_sources: int, norm_spacing: float,
+               num_iters: int = 60) -> torch.Tensor:
+    """R c64[B, N, N] → DoA f32[B, K] degrees, ascending."""
+    roots = polynomial_roots(root_music_coeffs(R, num_sources),
+                             num_iters=num_iters)
+    sel = select_signal_roots(roots, num_sources)
     cos_theta = (-torch.angle(sel) / (2 * math.pi * norm_spacing)).clamp(
         -1.0, 1.0)
     return torch.sort(torch.rad2deg(torch.arccos(cos_theta)), dim=-1).values

@@ -4,14 +4,68 @@ The same conventions as doa_tpu.ops.steering (pinned by tests/golden.py):
 ULA element positions p_k = k·d wavelengths, theta from the array axis,
 a(theta)_k = exp(-1j·2π·d·k·cos theta). That module imports jax.numpy at
 the top, so its numpy functions are repeated here; grids are built once per
-pipeline and copied to the device.
+pipeline and copied to the device. ``ula_steering`` and ``ura_steering``
+are the device functions: steering at angles given at run time, phases
+in FP32 as the reference computes them.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
 
 from doa_tpu_torch.configs import ArrayGeometry, GridSpec1D, GridSpec2D
+
+
+def _angles_rad(deg, device) -> torch.Tensor:
+    """Angles in degrees (a tensor keeps its device; anything else goes
+    to `device`, the card unless the caller names the CPU) → f32
+    radians."""
+    if not isinstance(deg, torch.Tensor) or device is not None:
+        from doa_tpu_torch.pipeline_torch import _device
+        dev = _device("cuda" if device is None else device)
+        deg = torch.as_tensor(deg, dtype=torch.float32, device=dev)
+    return torch.deg2rad(deg.to(torch.float32))
+
+
+def ula_phase(theta: torch.Tensor, num_elements: int,
+              norm_spacing: float) -> torch.Tensor:
+    """f32 radians (...) → the ULA steering phases f32[..., N],
+    (−2π·d)·cos θ·k, rounded in the reference's order."""
+    k = torch.arange(num_elements, dtype=torch.float32, device=theta.device)
+    return (-2.0 * math.pi * norm_spacing * torch.cos(theta))[..., None] * k
+
+
+def _expj(phase: torch.Tensor, dtype) -> torch.Tensor:
+    return torch.complex(torch.cos(phase), torch.sin(phase)).to(dtype)
+
+
+def ula_steering(theta_deg, num_elements: int, norm_spacing: float,
+                 dtype=torch.complex64, *, device=None) -> torch.Tensor:
+    """a(θ) (..., N) for a ULA at angles theta_deg of any shape (a tensor
+    stays on its device; other input goes to `device`, default the
+    card)."""
+    return _expj(ula_phase(_angles_rad(theta_deg, device), num_elements,
+                           norm_spacing), dtype)
+
+
+def ura_steering(az_deg, el_deg, shape, norm_spacing: float,
+                 dtype=torch.complex64, *, device=None) -> torch.Tensor:
+    """Planar-array steering at (az, el) of any one shape, the elements
+    on an (nx, ny) grid in the x-y plane, u = (cos el sin az,
+    cos el cos az), x-major flattening → (..., nx·ny)."""
+    az = _angles_rad(az_deg, device)
+    el = _angles_rad(el_deg, device)
+    ux = torch.cos(el) * torch.sin(az)
+    uy = torch.cos(el) * torch.cos(az)
+    nx, ny = shape
+    ix = torch.arange(nx, dtype=torch.float32, device=az.device)[:, None]
+    iy = torch.arange(ny, dtype=torch.float32, device=az.device)[None, :]
+    phase = -2.0 * math.pi * norm_spacing * (
+        ux[..., None, None] * ix + uy[..., None, None] * iy)
+    return _expj(phase, dtype).reshape(*az.shape, nx * ny)
 
 
 def grid_angles_1d(grid: GridSpec1D) -> np.ndarray:

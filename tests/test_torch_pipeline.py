@@ -231,6 +231,9 @@ def test_port_never_imports_jax():
         "assert 'doa_tpu_torch.ops.cuda.ring' in sys.modules\n"
         "for m in ('beamspace', 'hierarchical', 'model_order'):\n"
         "    assert 'doa_tpu_torch.ops.' + m in sys.modules, m\n"
+        "for m in ('music', 'capon', 'bartlett', 'covariance', 'beamform',\n"
+        "          'crb'):\n"
+        "    assert 'doa_tpu_torch.ops.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

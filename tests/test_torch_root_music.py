@@ -5,6 +5,7 @@ inputs; and the fused path with all five estimators (MUSIC, root-MUSIC,
 ESPRIT, Unitary ESPRIT, min-norm) against build_pipeline_tpu."""
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -20,8 +21,12 @@ from doa_tpu.ops import cpx_ops as cj
 from doa_tpu.ops.root_music import polynomial_roots_cpx as roots_jax
 from doa_tpu.ops.root_music import root_music_cpx as root_music_jax
 from doa_tpu.pipeline_tpu import build_pipeline_tpu
-from doa_tpu_torch.ops import cpx_ops, root_music
+from doa_tpu_torch.ops import cpx_ops
 from doa_tpu_torch.pipeline_torch import build_pipeline_torch
+
+# the module: doa_tpu_torch.ops exports the function root_music under its
+# name, as doa_tpu.ops does
+root_music = importlib.import_module("doa_tpu_torch.ops.root_music")
 
 N, K = 8, 2
 
