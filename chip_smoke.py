@@ -243,6 +243,23 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    windows (reduced depth: the (B, G, N) complex64 products are 4.3 GB
    there), every window within 0.5 deg. The median of 10 calls and a
    profile window for the headline, c2, c3, c4 and the URA.
+19. the rest of single-card wideband (torch ops around the ported
+   kernels; no new kernel), each configuration driven once with counts
+   from zero (its plan's kernels launched, no other), its peak
+   allocation, the median of 10 calls and a profile window (as phase
+   16): c5 with fusion="tops" at 2048 windows in both return_spectra
+   modes (kernel 4 and kernel 6 once a call, no K4, no kernel 5; the
+   median pair-sorted az/el within 2.0 deg, tests/test_tops.py's bound;
+   the layers: front end, unembed, complex subspaces, accumulate,
+   finalize, peaks), ULA-16 TOPS (S = 1024, F = 16, fractional bandwidth
+   0.4, 1024 windows) at K = 2 on 65/115 deg and at K = 3 on 45/80/120
+   deg (the Jacobi λ_min), medians within 2.0 deg; c5 incoherent at
+   compute_dtype bfloat16 and int8 and hierarchical + bfloat16 (K4, the
+   quantized scan as torch ops, no kernel 5), medians within 0.5 deg;
+   c5 with subspace_method="eigh" at 8 windows (reduced depth: cuSOLVER's
+   batched Jacobi eigh of F·B = 128 matrices of 128x128 takes ~0.25 s a
+   call), median within 0.5 deg; the TOPS cells and c5 eigh against the
+   CPU (32, 16 and 8 windows, within 5e-3 deg).
 
 Each kernel record gives its bound (the larger of its bytes over
 3.35 TB/s and the FP32 operations the function needs over 67 TFLOP/s,
@@ -3788,10 +3805,29 @@ def est_path(torch, name, pipe, call, counters, card, check_angles,
     return res, launches
 
 
+def grid_step(cfg):
+    """The scan grid's step in degrees (the larger of az and el on 2-D)."""
+    g2 = cfg.grid2d
+    if g2 is not None:
+        return max((g2.az_hi_deg - g2.az_lo_deg) / (g2.num_az - 1),
+                   (g2.el_hi_deg - g2.el_lo_deg) / (g2.num_el - 1))
+    g = cfg.grid
+    return (g.hi_deg - g.lo_deg) / (g.num_points - 1)
+
+
+# a quantized scan (compute_dtype bfloat16 / int8): windows whose scan
+# inputs sit one rounding apart in the two runs may move their refined
+# peak; at most this share of the windows may leave EST_CPU_TOL, each
+# within one grid step (tests/test_torch_wideband_scans.py: 2 of 15)
+QUANT_OFF_SHARE = 2 / 15
+
+
 def est_card_vs_cpu(torch, name, cfg, call_of, x, B, wideband):
     """Every estimate of the card's pipeline against the same pipeline on
     the CPU on the first B windows of x, sorted (pair-sorted on az/el),
-    within EST_CPU_TOL."""
+    within EST_CPU_TOL. Under a quantized compute_dtype the windows past
+    it are counted, at most QUANT_OFF_SHARE of B, each within one grid
+    step."""
     from doa_tpu_torch.pipeline_torch import build_pipeline_torch
     xs = x[:B * cfg.snapshot_size]
     gpu = est_outputs(call_of(build_pipeline_torch(cfg, device=x.device),
@@ -3802,13 +3838,24 @@ def est_card_vs_cpu(torch, name, cfg, call_of, x, B, wideband):
     tol = EST_CPU_TOL[wideband]
     check(gpu.keys() == cpu.keys(), f"{name}: card {sorted(gpu)}, CPU "
           f"{sorted(cpu)}")
-    d = {k: (est_sorted(torch, gpu[k].cpu())
-             - est_sorted(torch, cpu[k])).abs().max().item() for k in gpu}
+    per = {k: (est_sorted(torch, gpu[k].cpu()) - est_sorted(torch, cpu[k])
+               ).abs().flatten(1).amax(-1) for k in gpu}
+    d = {k: v.max().item() for k, v in per.items()}
     log(f"{name} card vs CPU on {B} windows: max angle difference "
         + ", ".join(f"{k} {v!r}" for k, v in d.items())
         + f" deg (tol {tol}; CPU run {time.perf_counter() - t0:.1f} s)")
-    check(all(v <= tol for v in d.values()),
-          f"{name}: card and CPU disagree")
+    if cfg.compute_dtype == "float32":
+        check(all(v <= tol for v in d.values()),
+              f"{name}: card and CPU disagree")
+        return
+    step = grid_step(cfg)
+    for k, v in per.items():
+        off = int((v > tol).sum())
+        log(f"{name} {k}: {off} of {B} windows past {tol} deg (at most "
+            f"{int(QUANT_OFF_SHARE * B)}, each within the grid step "
+            f"{step!r} deg)")
+        check(off <= QUANT_OFF_SHARE * B and d[k] <= step,
+              f"{name} {k}: card and CPU disagree past one rounding")
 
 
 def est_shares(torch, name, fns, card):
@@ -4506,6 +4553,232 @@ def complex_phase(torch, dev, card):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------
+# 19: the rest of single-card wideband: TOPS (ops/tops.py), and the
+# incoherent scans the reference keeps off its fusion kernel (quantized,
+# eigh projectors); torch ops around the ported kernels, no new kernel
+# ---------------------------------------------------------------------
+
+TOPS_ANGLE_TOL = 2.0               # deg, the median (tests/test_tops.py's)
+B_TOPS_CPU = 32                    # windows, card against CPU (c5, ULA K=2)
+B_TOPS3_CPU = 16                   # ULA-16 at K = 3 (Jacobi λ_min on the CPU)
+B_QUANT_CPU = 32                   # windows, c5 bf16 / int8 card against CPU
+ULA3_TRUTH = (45.0, 80.0, 120.0)   # the K = 3 wideband ULA scene
+T_EIGH_C5 = 8 * 1024               # c5 eigh, reduced depth: 8 windows
+B_EIGH_C5_CPU = 8                  # windows, c5 eigh card against CPU
+
+
+def tops_layers(torch, cfg, pipe, x, card):
+    """The layers of a TOPS call, each synced and timed on the call's own
+    intermediates: the front end (kernel 4), unembed, the complex signal
+    subspaces, accumulate (leakage row, Σ CᴴC and the guard), finalize
+    (λ_min, the normalisation) and the peaks (kernel 6) → the spectrum,
+    checked equal to the pipeline's."""
+    from doa_tpu_torch.cpx import fp32_matmuls, unembed_planes
+    from doa_tpu_torch.ops import tops
+    from doa_tpu_torch.ops.cuda import wideband_cov as wc
+    N, K = cfg.geometry.num_elements, cfg.num_sources
+    F, r = cfg.wideband.num_subbands, cfg.wideband.tops_ref_band
+    g2 = cfg.grid2d
+    dev = x.device
+    cr, ci = torch.ones(N, device=dev), torch.zeros(N, device=dev)
+    A = torch.complex(*pipe.subband_planes)
+    w = [0.0 if f == r else 1.0 for f in range(F)]
+    st = {}
+    with fp32_matmuls():
+        st["E"] = wc.wideband_cov_embedded(
+            x, cr, ci, N=N, F=F, snapshot_size=cfg.snapshot_size,
+            kernel=pipe.plan.op("covariance"))
+        st["R"] = torch.complex(*unembed_planes(st["E"]))
+        st["S"] = tops.tops_subspaces(st["R"], K, cfg.power_iters)
+
+        def accumulate():
+            v = tops.tops_leakage_row(A[r], st["S"][r])
+            return v, tops.tops_accumulate_cc(st["S"], A, A[r],
+                                              st["S"][r], v, w)
+
+        st["v"], (ccr, cci, mus) = accumulate()
+        guard = mus if cfg.wideband.tops_guard else None
+        P = tops.tops_finalize(ccr, cci, st["v"], F, guard=guard)
+        layers = {
+            "front end (kernel 4)": lambda: wc.wideband_cov_embedded(
+                x, cr, ci, N=N, F=F, snapshot_size=cfg.snapshot_size,
+                kernel=pipe.plan.op("covariance")),
+            "unembed": lambda: torch.complex(*unembed_planes(st["E"])),
+            "complex subspaces (signal_subspace_cpx)":
+                lambda: tops.tops_subspaces(st["R"], K, cfg.power_iters),
+            "accumulate (v, sum CᴴC, guard)": accumulate,
+            "finalize (λ_min, normalise)": lambda: tops.tops_finalize(
+                ccr, cci, st["v"], F, guard=guard),
+        }
+        if g2 is not None:
+            P2 = P.reshape(P.shape[0], g2.num_az, g2.num_el)
+            layers["peaks (kernel 6)"] = lambda: pipe.plan.op("peaks")(
+                P2, cfg.num_max_vals, (g2.az_lo_deg, g2.az_hi_deg),
+                (g2.el_lo_deg, g2.el_hi_deg), refine=True)
+        out = {k: time_ms(torch, f, reps=5) for k, f in layers.items()}
+    log(f"TOPS layer times (B = {x.shape[0] // cfg.snapshot_size}), ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in out.items()) + f"  [{card}]")
+    return P
+
+
+def tops_cell(torch, name, cfg, x, counters, card, truth, B_cpu, total):
+    """One TOPS configuration on the card in both return_spectra modes
+    (est_path: every count from zero, the plan's kernels each launched,
+    kernel 4 and kernel 6 once a call, no other, so neither K4 nor kernel
+    5; the peak allocation; EST_REPS timed calls; a profile window),
+    its median sorted (pair-sorted on az/el) angles within TOPS_ANGLE_TOL
+    of the scene, its layers, and the card against the CPU on B_cpu
+    windows within 5e-3 deg."""
+    from doa_tpu_torch.pipeline_torch import build_pipeline_torch
+    B = x.shape[0] // cfg.snapshot_size
+    two_d = cfg.geometry.kind == "ura"
+    for rs in (True, False):
+        pipe = build_pipeline_torch(cfg, device=x.device, return_spectra=rs)
+        tag = f"{name} return_spectra={rs}"
+
+        def angles(res, tag=tag):
+            a = res.peak_angles["tops"]
+            check(list(res.peak_angles) == ["tops"]
+                  and tuple(a.shape) == ((B, cfg.num_max_vals, 2) if two_d
+                                         else (B, cfg.num_max_vals)),
+                  f"{tag}: peaks {list(res.peak_angles)} {tuple(a.shape)}")
+            if two_d:
+                est_medians(torch, tag, res, truth, ("peaks tops",),
+                            TOPS_ANGLE_TOL)
+                return
+            a = a.sort(-1).values
+            check(bool(torch.isfinite(a).all()), f"{tag}: non-finite angles")
+            per = (a - torch.tensor(truth, device=a.device)).abs().amax(-1)
+            med = a.median(dim=0).values
+            d = float((med - torch.tensor(truth, device=a.device)).abs().max())
+            log(f"{tag} peaks tops: per-window max |angle - truth| max "
+                f"{float(per.max())!r}, median {float(per.median())!r} deg; "
+                f"median sorted {med.tolist()} (limit {TOPS_ANGLE_TOL} deg)")
+            check(d <= TOPS_ANGLE_TOL, f"{tag} median off by {d}")
+
+        res, n = est_path(torch, tag, pipe, lambda: pipe.interleaved(x),
+                          counters, card, angles)
+        check(n["wideband_fft_gram"] == 1
+              and n["peaks2d"] == (1 if two_d else 0),
+              f"{tag}: kernel 4 and kernel 6 not once each: {n}")
+        spectra_keys(torch, tag, res, ["tops"] if rs else [])
+        if rs:
+            P = tops_layers(torch, cfg, pipe, x, card)
+            d = (P - res.spectra["tops"]).abs().max().item()
+            log(f"{tag}: the layers' spectrum against the call's: max "
+                f"difference {d!r} (tol 1e-6)")
+            check(d <= 1e-6, f"{tag}: the layers do not give the call's "
+                  "spectrum")
+            del P
+        for key, v in n.items():
+            total[key] += v
+        del res
+    est_card_vs_cpu(torch, name, cfg, lambda p, xs: p.interleaved(xs),
+                    x, B_cpu, True)
+
+
+def wideband_rest_phase(torch, dev, card):
+    """Phase 19 → the launches of the earlier kernels in these paths."""
+    from doa_tpu_torch import (ArrayGeometry, DoaConfig, Estimator,
+                               WidebandSpec)
+    from doa_tpu_torch.ops import cpx_ops
+    from doa_tpu_torch.ops.cuda import music_scan as ms
+    from doa_tpu_torch.ops.cuda import peaks2d as pk
+    from doa_tpu_torch.ops.cuda import wideband_cov as wc
+    from doa_tpu_torch.ops.cuda import wideband_scan as wsc
+    from doa_tpu_torch.pipeline_torch import build_pipeline_torch
+
+    counters = {"wideband_fft_gram": wc.subband_chunk_grams,
+                "subband_embedded_frames": wc.subband_embedded_frames,
+                "mgs_iterate": cpx_ops.mgs_iterate,
+                "music_scan": ms.music_scan,
+                "music_scan_peaks": ms.music_scan_peaks,
+                "wideband_fusion": wsc.wideband_fused_spectrum,
+                "peaks2d": pk.peaks2d}
+    total = {n: 0 for n in counters}
+    t0 = time.perf_counter()
+
+    def done(cell):
+        log(f"phase 19: {cell} done at {time.perf_counter() - t0:.1f} s")
+
+    # 19a. c5 with fusion="tops", 2048 windows of exp_r5.py's scene
+    x16 = make_c5_scene(torch, T_C5, dev, seed=5)
+    tops_cell(torch, "c5 tops", c5_variant(fusion="tops"), x16, counters,
+              card, C5_TRUTH, B_TOPS_CPU, total)
+    torch.cuda.empty_cache()
+    done("c5 tops")
+
+    # 19b. ULA-16 TOPS (S = 1024, F = 16, fractional bandwidth 0.4) at
+    # K = 2 on the 65/115 deg scene and at K = 3 (the Jacobi λ_min)
+    for K, truth, B_cpu in ((2, ULA_TRUTH, B_TOPS_CPU),
+                            (3, ULA3_TRUTH, B_TOPS3_CPU)):
+        cfg_u = DoaConfig(
+            geometry=ArrayGeometry(kind="ula", num_elements=16,
+                                   norm_spacing=0.5),
+            snapshot_size=1024, num_sources=K, num_max_vals=K,
+            estimators=(Estimator.MUSIC,),
+            wideband=WidebandSpec(num_subbands=16, fractional_bw=0.4,
+                                  fusion="tops"))
+        xu = make_wideband_ula_capture(torch, T_ULA, 16, truth, 0.5, 0.4,
+                                       SNR_DB, dev, seed=1)
+        tops_cell(torch, f"ULA-16 tops K={K}", cfg_u, xu, counters, card,
+                  truth, B_cpu, total)
+        del xu
+        done(f"ULA-16 tops K={K}")
+    torch.cuda.empty_cache()
+
+    # 19c. c5 incoherent at compute_dtype bfloat16 and int8, and
+    # hierarchical + bfloat16: K4, then the quantized scan (torch ops),
+    # no kernel 5; the card against the CPU on B_QUANT_CPU windows
+    for name, over in (("c5 incoherent bf16", dict(compute_dtype="bfloat16")),
+                       ("c5 incoherent int8", dict(compute_dtype="int8")),
+                       ("c5 hierarchical + bf16", dict(
+                           compute_dtype="bfloat16",
+                           scan_mode="hierarchical"))):
+        cfg5 = dataclasses.replace(c5_variant(), **over)
+        pipe = build_pipeline_torch(cfg5, device=dev)
+        res, n = est_path(
+            torch, name, pipe, lambda: pipe.interleaved(x16), counters, card,
+            lambda r, name=name: est_medians(torch, name, r, C5_TRUTH,
+                                             ("peaks music",), C5_ANGLE_TOL))
+        check(n["mgs_iterate"] > 0 and n["wideband_fusion"] == 0,
+              f"{name}: K4 {n['mgs_iterate']}, kernel 5 "
+              f"{n['wideband_fusion']} launches")
+        spectra_keys(torch, name, res, [] if "scan_mode" in over
+                     else ["music"])
+        for key, v in n.items():
+            total[key] += v
+        del res
+        est_card_vs_cpu(torch, name, cfg5, lambda p, xs: p.interleaved(xs),
+                        x16, B_QUANT_CPU, True)
+        done(name)
+    del x16
+    torch.cuda.empty_cache()
+
+    # 19d. c5 with subspace_method="eigh" at reduced depth (8 windows:
+    # cuSOLVER's batched Jacobi eigh of the F·B = 128 matrices of 128x128
+    # takes ~0.25 s a call, thousands of launches): the eigh noise
+    # projectors and their scan, no K4, no kernel 5
+    x5 = make_c5_scene(torch, T_EIGH_C5, dev, seed=6)
+    cfg_e = dataclasses.replace(c5_variant(), subspace_method="eigh")
+    pipe = build_pipeline_torch(cfg_e, device=dev)
+    name = f"c5 eigh ({T_EIGH_C5 // 1024} windows)"
+    res, n = est_path(
+        torch, name, pipe, lambda: pipe.interleaved(x5), counters, card,
+        lambda r: est_medians(torch, name, r, C5_TRUTH, ("peaks music",),
+                              C5_ANGLE_TOL))
+    for key, v in n.items():
+        total[key] += v
+    del res
+    est_card_vs_cpu(torch, name, cfg_e, lambda p, xs: p.interleaved(xs),
+                    x5, B_EIGH_C5_CPU, True)
+    del x5
+    torch.cuda.empty_cache()
+    done(name)
+    return total
+
+
 def main():
     import torch
 
@@ -4710,6 +4983,10 @@ def main():
     # the headline with seven estimators, c2, c3, c4, S = 96, the 8x8 URA,
     # beamspace and MVDR extraction; no kernel launched
     complex_phase(torch, dev, card)
+    # 19. the rest of single-card wideband: c5 and ULA-16 TOPS, c5
+    # incoherent in bf16 and int8, hierarchical + bf16, c5 with eigh
+    for name, n in wideband_rest_phase(torch, dev, card).items():
+        recs[name]["launches"] += n
     for f, v in PEAKS_TALLY.items():
         recs["peaks2d"]["by_form"][f]["launches"] = v
     check(sum(PEAKS_TALLY.values()) == recs["peaks2d"]["launches"],

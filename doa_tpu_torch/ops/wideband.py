@@ -20,10 +20,22 @@ the effective element spacing d·(1 + f·fractional_bw).
   unrefined peaks, then the fused metric (1/F) Σ_f dmin_f / den_f(θ) on
   a micro-grid around each peak, every subband's exact denominator at
   its own spacing (wideband_music_hierarchical).
+* The incoherent scans the reference keeps off its fusion kernel (kernel
+  5 takes the power subspaces at compute_dtype "float32" only): the
+  power subspaces scanned in bfloat16 or int8 (power_spectra), and the
+  eigh noise projectors of subspace_method "eigh" or "jacobi" scanned at
+  any compute_dtype (subband_noise_projectors, projector_spectra), their
+  mean as the reference's XLA scan takes it (fused_mean), as torch ops.
+  wideband_music_cpx chooses between these and kernel 5
+  (fusion_kernel_applies) for the pipeline and the stream entry alike.
+* The complex-stream functions of the reference, which no pipeline of
+  the port reaches (its builder always takes the front end): the DFT
+  channelizer on a complex64 capture (dft_matrix, channelize_cpx),
+  subband_covariances, subband_subspaces, _subband_spectra and
+  wideband_music_cpx. TOPS is ops/tops.py.
 
-The complex-stream channelizer and TOPS are not ported (ROADMAP.md,
-queue A.4). Complex values are torch complex64; every product runs in
-true FP32 (cpx.fp32_matmuls).
+Complex values are torch complex64; every product runs in true FP32
+(cpx.fp32_matmuls).
 """
 
 from __future__ import annotations
@@ -34,14 +46,19 @@ import numpy as np
 import torch
 
 from doa_tpu_torch.configs import DoaConfig
-from doa_tpu_torch.cpx import fp32_matmuls
-from doa_tpu_torch.ops.cpx_ops import (music_denominator_subspace,
+from doa_tpu_torch.cpx import embed_planes, fp32_matmuls, unembed_planes
+from doa_tpu_torch.ops.covariance import cov_from_stream as cov_cpx
+from doa_tpu_torch.ops.cuda.wideband_scan import wideband_fused_spectrum
+from doa_tpu_torch.ops.cpx_ops import (music_denominator_cpx,
+                                       music_denominator_subspace,
+                                       noise_projector,
                                        signal_subspace_embedded,
                                        signal_subspace_from_E_T,
                                        spectrum_from_den)
 from doa_tpu_torch.ops.hierarchical import (argbest_2d, micro_grid_2d,
                                             parabolic_vertex)
 from doa_tpu_torch.ops.peaks import find_local_max, find_local_max_2d
+from doa_tpu_torch.ops.subspace import EIGH_BATCH
 
 
 def subband_center_freqs(num_subbands: int) -> np.ndarray:
@@ -99,6 +116,219 @@ def subband_subspaces_from_E(E_sub: torch.Tensor, cfg: DoaConfig,
                                       squarings=cfg.power_squarings,
                                       iterate=iterate)
     return Vt.reshape(F, B, 2 * K, n2)
+
+
+# ---------------------------------------------------------------------
+# The incoherent scans off kernel 5, and the complex-stream functions
+# ---------------------------------------------------------------------
+
+def power_spectra(Vt: torch.Tensor, As_emb: torch.Tensor,
+                  compute_dtype: str):
+    """Each subband's max-normalised MUSIC spectrum f32[B, G] on its power
+    subspaces, one subband at a time: Vt f32[F, B, 2K, 2N], the embedded
+    per-subband steering As_emb f32[F, G, 2N], den_f =
+    music_denominator_subspace at compute_dtype."""
+    for f in range(Vt.shape[0]):
+        yield spectrum_from_den(music_denominator_subspace(
+            Vt[f].transpose(-1, -2), As_emb[f], compute_dtype))
+
+
+def projector_spectra(Mr: torch.Tensor, Mi: torch.Tensor, Xr: torch.Tensor,
+                      Xi: torch.Tensor, compute_dtype: str):
+    """Each subband's max-normalised MUSIC spectrum f32[B, G] on its noise
+    projectors, one subband at a time: planes (Mr, Mi) f32[F, B, N, N],
+    the per-subband steering planes (Xr, Xi) f32[F, G, N], den_f =
+    music_denominator_cpx at compute_dtype."""
+    for f in range(Mr.shape[0]):
+        yield spectrum_from_den(music_denominator_cpx(
+            Mr[f], Mi[f], Xr[f], Xi[f], compute_dtype))
+
+
+def fused_mean(spectra, F: int) -> torch.Tensor:
+    """The incoherent fusion of the reference's XLA scan (its route where
+    its fusion kernel does not apply: compute_dtype "bfloat16" or "int8"
+    on the power subspaces, subspace_method "eigh" and "jacobi"): the
+    mean of the F subband spectra, accumulated one at a time, f32[B, G]."""
+    acc = None
+    for P in spectra:
+        acc = P if acc is None else acc.add_(P)
+    return acc / torch.full((), F, dtype=torch.float32, device=acc.device)
+
+
+def subband_den_minima(Vt: torch.Tensor, As_emb: torch.Tensor):
+    """Each subband's minimum over the grid of its FP32 den, clamped to
+    [tiny, ∞), f32[F, B]: the hierarchical refine's normaliser, which the
+    reference takes from the FP32 den whatever compute_dtype is."""
+    return torch.stack([music_denominator_subspace(
+        Vt[f].transpose(-1, -2), As_emb[f]).clamp_min(0.0).amin(dim=-1)
+        for f in range(Vt.shape[0])]).clamp_min(
+            torch.finfo(torch.float32).tiny)
+
+
+def subband_noise_projectors(E_sub: torch.Tensor, num_sources: int):
+    """Embedded subband covariances f32[F, B, 2N, 2N] → each window's
+    complex noise projector as planes (Mr, Mi) f32[F, B, N, N]
+    (cpx_ops.noise_projector: eigh of the embedding, the 2(N − K)
+    smallest eigenvectors), at most subspace.EIGH_BATCH windows an eigh
+    call (cuSOLVER's batched limit, ROADMAP §C.3).
+
+    The reference takes this projector under subspace_method "jacobi"
+    too: its wideband scan calls noise_projector_cpx (eigh) for every
+    method but "power", so the port does the same, not Jacobi's."""
+    F, B, n2, _ = E_sub.shape
+    Rr, Ri = unembed_planes(E_sub.reshape(F * B, n2, n2))
+    parts = [noise_projector(Rr[i:i + EIGH_BATCH], Ri[i:i + EIGH_BATCH],
+                             num_sources)
+             for i in range(0, F * B, EIGH_BATCH)]
+    N = n2 // 2
+    return (torch.cat([p[0] for p in parts]).reshape(F, B, N, N),
+            torch.cat([p[1] for p in parts]).reshape(F, B, N, N))
+
+
+def dft_matrix(F: int) -> np.ndarray:
+    """(F, F) complex64 DFT matrix W[f, t] = exp(−2πj f t / F)."""
+    f = np.arange(F)[:, None]
+    t = np.arange(F)[None, :]
+    return np.exp(-2j * np.pi * f * t / F).astype(np.complex64)
+
+
+def channelize_cpx(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """A capture x c64[T, N] and the DFT matrix W c64[F, F] → subband
+    streams c64[F, T // F, N]: frames of F samples, one DFT each,
+    out[f, m, n] = Σ_t W[f, t] x[m·F + t, n]; one complex GEMM."""
+    F = W.shape[0]
+    T, N = x.shape
+    M = T // F
+    xf = x[:M * F].reshape(M, F, N).permute(1, 0, 2).reshape(F, M * N)
+    with fp32_matmuls():
+        return torch.matmul(W, xf).reshape(F, M, N)
+
+
+def subband_covariances(x: torch.Tensor, W: torch.Tensor,
+                        cfg: DoaConfig) -> torch.Tensor:
+    """A capture x c64[T, N] → the windowed subband covariances
+    c64[F, B, N, N]: the channelized streams, each framed at S/F subband
+    samples a window (one fused window spans a narrowband window's
+    samples) with the overlap taken in the subband domain, hop
+    max(S/F − overlap/F, 1), by ops/covariance.cov_from_stream."""
+    F = W.shape[0]
+    S = cfg.snapshot_size
+    if S % F:
+        raise ValueError("snapshot_size must be divisible by num_subbands")
+    S_sub = S // F
+    hop_sub = max(S_sub - cfg.overlap // F, 1)
+    xs = channelize_cpx(x, W)
+    return torch.stack([cov_cpx(xs[f], S_sub, S_sub - hop_sub)
+                        for f in range(F)])
+
+
+def subband_subspaces(R: torch.Tensor, cfg: DoaConfig) -> torch.Tensor:
+    """Subband covariances R c64[F, B, N, N] → the embedded signal
+    subspaces f32[F, B, 2N, 2K] (the reference's layout; the power path).
+    A warm start (cfg.subspace_warm_start and B ≥ 32) is
+    subband_subspaces_from_E on E(R); else each subband's cold MGS
+    iteration with power_iters and the config's squarings, the escalation
+    detector armed at the subband operating point (S/F snapshots) when
+    there are no squarings."""
+    F, B = R.shape[:2]
+    if cfg.subspace_warm_start and B >= 32:
+        E = embed_planes(R.real, R.imag)
+        return subband_subspaces_from_E(E, cfg).transpose(-1, -2)
+    esc = cfg.escalate_kwargs_for(cfg.snapshot_size
+                                  // cfg.wideband.num_subbands)
+    kw = esc if cfg.power_squarings == 0 else {}
+    return torch.stack([signal_subspace_embedded(
+        R[f].real.contiguous(), R[f].imag.contiguous(), cfg.num_sources,
+        iters=cfg.power_iters, squarings=cfg.power_squarings, **kw)
+        for f in range(F)])
+
+
+def fusion_kernel_applies(cfg: DoaConfig) -> bool:
+    """The reference's rule for its fusion kernel (_wb_fusion_resolved):
+    incoherent wideband on the power subspaces at compute_dtype "float32"
+    runs kernel 5; its other incoherent scans are XLA, torch ops here.
+    plan.kernel_routes plans the "fusion" stage by this rule."""
+    return cfg.subspace_method == "power" and cfg.compute_dtype == "float32"
+
+
+def steering_planes(Xr: torch.Tensor, Xi: torch.Tensor):
+    """Per-subband steering planes f32[F, G, N] → (Xr, Xi, As_emb
+    f32[F, G, 2N], As_nrm f32[F, G] = ‖a_fg‖²), what the scans read. A
+    caller that scans one stack every call makes them once: kernel 5
+    keeps its tiles on As_emb."""
+    Xr, Xi = Xr.contiguous(), Xi.contiguous()
+    As_emb = torch.cat([Xr, Xi], dim=-1).contiguous()
+    return Xr, Xi, As_emb, (As_emb * As_emb).sum(dim=-1)
+
+
+def _scan_operands(x, W, cfg: DoaConfig, E_sub, iterate=None):
+    """→ (Vt f32[F, B, 2K, 2N], None) on the power subspaces, else (None,
+    (Mr, Mi)) the eigh noise projectors f32[F, B, N, N]; from E_sub, or
+    from the capture x with the DFT W (the power subspaces there through
+    subband_subspaces, as the reference)."""
+    if cfg.subspace_method == "power":
+        if E_sub is not None:
+            return subband_subspaces_from_E(E_sub, cfg, iterate=iterate), None
+        V = subband_subspaces(subband_covariances(x, W, cfg), cfg)
+        return V.transpose(-1, -2).contiguous(), None
+    if E_sub is None:
+        R = subband_covariances(x, W, cfg)
+        E_sub = embed_planes(R.real, R.imag)
+    return None, subband_noise_projectors(E_sub, cfg.num_sources)
+
+
+def _band_spectra(Vt, M, planes, compute_dtype: str):
+    """Each subband's max-normalised spectrum f32[B, G], one at a time:
+    power_spectra on Vt, else projector_spectra on M = (Mr, Mi)."""
+    Xr, Xi, As_emb, _ = planes
+    if Vt is not None:
+        return power_spectra(Vt, As_emb, compute_dtype)
+    return projector_spectra(*M, Xr, Xi, compute_dtype)
+
+
+def _subband_spectra(x, A_stack: torch.Tensor, W, cfg: DoaConfig,
+                     E_sub=None):
+    """→ (P_sub f32[F, B, G], each subband's spectrum max-normalised, and
+    the power subspaces V f32[F, B, 2N, 2K] or None). From the capture x
+    c64[T, N] with the DFT W, or the embedded subband covariances E_sub
+    f32[F, B, 2N, 2N] (x, W unused); A_stack c64[F, G, N]. The power path
+    scans its subspaces at cfg.compute_dtype, the others the eigh noise
+    projector (subband_noise_projectors)."""
+    Vt, M = _scan_operands(x, W, cfg, E_sub)
+    planes = steering_planes(A_stack.real, A_stack.imag)
+    P = torch.stack(list(_band_spectra(Vt, M, planes, cfg.compute_dtype)))
+    return P, None if Vt is None else Vt.transpose(-1, -2)
+
+
+def wideband_music_cpx(x, A_stack, W, cfg: DoaConfig, E_sub=None, *,
+                       planes=None, iterate=None, fusion=None,
+                       return_dmin: bool = False):
+    """Incoherent wideband MUSIC: the capture x c64[T, N] with the DFT
+    matrix W c64[F, F], or the embedded subband covariances E_sub
+    f32[F, B, 2N, 2N] (x, W unused), and the per-subband steering
+    A_stack c64[F, G, N] (or planes = steering_planes of it, made once by
+    a caller that scans the same stack every call) → the fused spectrum
+    f32[B, G], the mean of the subbands' max-normalised spectra.
+
+    Where fusion_kernel_applies: the fusion kernel (kernel 5, `fusion`,
+    default ops/cuda/wideband_scan's wrapper; its plain version on a CPU
+    tensor), as the reference's kernel route; otherwise the fused mean of
+    the subband spectra (_band_spectra), the reference's XLA scan.
+    iterate: the MGS rounds of the power subspaces. return_dmin (power
+    subspaces only) → (P, Vt f32[F, B, 2K, 2N], dmin f32[F, B]) for the
+    hierarchical refine: dmin from kernel 5's same launch, else from each
+    subband's FP32 den (subband_den_minima), as the reference."""
+    if planes is None:
+        planes = steering_planes(A_stack.real, A_stack.imag)
+    As_emb, As_nrm = planes[2:]
+    Vt, M = _scan_operands(x, W, cfg, E_sub, iterate)
+    if fusion_kernel_applies(cfg):
+        out = (fusion or wideband_fused_spectrum)(Vt, As_emb, As_nrm,
+                                                  return_dmin=return_dmin)
+        return (out[0], Vt, out[1]) if return_dmin else out
+    P = fused_mean(_band_spectra(Vt, M, planes, cfg.compute_dtype),
+                   As_emb.shape[0])
+    return (P, Vt, subband_den_minima(Vt, As_emb)) if return_dmin else P
 
 
 # ---------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The DoA pipelines on torch tensors (port of the narrowband fused and
-planes branches and the wideband incoherent and coherent branches of
-doa_tpu/pipeline_tpu.py::build_pipeline_tpu).
+planes branches and the wideband incoherent, coherent and TOPS branches
+of doa_tpu/pipeline_tpu.py::build_pipeline_tpu).
 
 Narrowband, fused path (no smoothing, subspace_method="power",
 TPACK | gcd(S, hop): plan.fused_route, the reference's route rule):
@@ -43,6 +43,15 @@ Wideband (c5; planes input is stacked once into the interleaved layout):
       → per-subband warm-start MGS subspaces (K4) Vt f32[F, B, 2K, 2N]
                                                    ops/wideband
       → fused subband scan + fusion → P f32[B, G]  ops/cuda/wideband_scan
+        (ops/wideband.wideband_music_cpx chooses: compute_dtype bfloat16 /
+        int8, the reference's quantized subband scan as torch ops;
+        subspace_method eigh / jacobi, the eigh noise projectors and their
+        scan, no K4; no kernel 5 in either)        ops/wideband
+      → 2-D peaks (az/el grids) or find_local_max  ops/cuda/peaks2d
+    TOPS ("tops"):
+      → unembed → R_sub c64[F, B, N, N] → complex signal subspaces
+        (signal_subspace_cpx) → leakage row, Σ_f CᴴC and the guard,
+        λ_min → P f32[B, G]                        ops/tops
       → 2-D peaks (az/el grids) or find_local_max  ops/cuda/peaks2d
     coherent fusion ("cssm": static focusing; "cssm_auto": focusing at the
     peaks of a coarse incoherent spectrum of the capture-mean subband
@@ -101,9 +110,10 @@ from doa_tpu_torch.ops.min_norm import (min_norm_denominator_cpx,
                                         min_norm_denominator_subspace)
 from doa_tpu_torch.ops.peaks import find_local_max
 from doa_tpu_torch.ops.root_music import root_music_cpx
+from doa_tpu_torch.ops.tops import wideband_tops_cpx
 from doa_tpu_torch.ops.wideband import (auto_focused_covariance,
                                         cssm_covariance, focusing_matrices,
-                                        subband_subspaces_from_E,
+                                        steering_planes, wideband_music_cpx,
                                         wideband_music_hierarchical,
                                         wideband_steering_stack)
 from doa_tpu_torch.plan import (Plan, fused_route, kernel_forms,  # noqa: F401
@@ -113,41 +123,32 @@ from doa_tpu_torch.pipeline import DoaResult, _steering_fn, _steering_matrix
 
 
 def _check_slice(cfg: DoaConfig) -> None:
-    """Raise NotImplementedError for a config outside the ported slices,
-    naming the ROADMAP.md entry that will cover it."""
-    todo = []
+    """Raise for a config the single-card builder does not run: ValueError
+    where the reference's own call fails, NotImplementedError, naming the
+    ROADMAP.md entry, for what is not ported."""
     wb = cfg.wideband
     if wb.enabled:
         if cfg.snapshot_size % wb.num_subbands:
             raise ValueError(f"snapshot_size ({cfg.snapshot_size}) must be "
                              f"divisible by num_subbands ({wb.num_subbands})")
-        if wb.fusion == "tops":
-            todo.append("wideband fusion='tops' (queue A.4)")
-        if cfg.compute_dtype != "float32":
-            todo.append(f"the quantized wideband scans, compute_dtype="
-                        f"{cfg.compute_dtype!r} (queue A.4)")
-        if wb.fusion == "incoherent":
-            if cfg.smoothing.enabled or cfg.subspace_method != "power":
-                todo.append("incoherent fusion with smoothing or "
-                            f"subspace_method={cfg.subspace_method!r} "
-                            "(queue A.4)")
-            if tuple(cfg.estimators) != (Estimator.MUSIC,):
-                todo.append("incoherent fusion with estimators other than "
-                            "MUSIC (queue A.4)")
-        if (wb.fusion == "cssm_auto" and cfg.smoothing.enabled
+        if (wb.fusion != "cssm" and cfg.smoothing.enabled
                 and cfg.geometry.kind == "ula"):
-            todo.append("cssm_auto with smoothing: the reference's coarse "
-                        "pass scans the subarray's steering against the "
-                        "full array's covariances (queue A.4)")
+            # the reference builds the steering of the L-element subarray
+            # and scans it against the N-element subband covariances,
+            # which fails in its einsum (a ValueError on the call); only
+            # "cssm" smooths R_coh, after the focusing, before its scan
+            raise ValueError(
+                f"fusion={wb.fusion!r} with spatial smoothing on a ULA: "
+                f"the steering is the {cfg.smoothing.subarray_size}-element "
+                f"subarray's, the subband covariances are "
+                f"{cfg.geometry.num_elements}-element (only 'cssm' smooths, "
+                "after focusing)")
     elif cfg.cov_dtype == "int8" and not fused_route(cfg):
-        todo.append("cov_dtype='int8' on the planes path (ROADMAP.md §C)")
-    if todo:
         raise NotImplementedError(
-            "doa_tpu_torch ports the narrowband fused and planes paths "
-            "(beamspace and the hierarchical scans included) and the "
-            "wideband incoherent (hierarchical included), cssm and "
-            "cssm_auto paths; not yet ported: "
-            + "; ".join(todo) + " — see ROADMAP.md")
+            "doa_tpu_torch runs every single-card path of the reference "
+            "but cov_dtype='int8' on the planes path (the reference "
+            "truncates unscaled planes there; ROADMAP.md §C.3) — see "
+            "ROADMAP.md")
 
 
 # what scan_capture keeps of each block's DoaResult, as the reference's
@@ -187,7 +188,7 @@ def load_state(A_re, A_im, correction=None, *, device="cuda",
     ``dft_beam_matrix``; None = build it from the config) and, for a
     wideband config, the per-subband steering planes
     subband_planes = (re, im) f32[F, G, N] (doa_tpu's
-    ``call.wb_ilv_args[1:]``; incoherent and cssm_auto) or the focusing
+    ``call.wb_ilv_args[1:]``; incoherent, cssm_auto and tops) or the focusing
     matrices focusing = (re, im) f32[F, N, N] (doa_tpu's
     ``focusing_matrices(cfg)``; cssm), None = build them from the config,
     all numpy — as device tensors, for build_pipeline_torch(state=...)."""
@@ -353,19 +354,41 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
     front end (on the card one launch of the ring kernel on the frames,
     its DFT in the kernel, at any num_subbands; the plain route, at
     num_subbands not a power of two, the reference's dense channelizer +
-    kernel 7's plain version). Incoherent fusion: the
-    per-subband subspaces, the fused subband scan and the peaks; the
-    fused spectrum is returned (but under scan_mode="hierarchical": one
-    launch of kernel 5 gives the coarse spectrum and each subband's
-    minimum, and ops/wideband.wideband_music_hierarchical refines the
-    coarse peaks on the fused metric, no spectrum), and the escalation
-    counts are None, as in the reference; forward-backward averaging does
+    kernel 7's plain version), then one of the four fusion modes.
+    Incoherent fusion ("incoherent") and TOPS ("tops") return their fused
+    key alone, "music" or "tops", whatever cfg.estimators lists, and no
+    escalation counts, as the reference; forward-backward averaging does
     not apply there.
-    "cssm" / "cssm_auto": R_coh, then FB, smoothing and the narrowband
-    estimators on the planes path's route, escalation counts included.
-    cov_dtype does not apply to the wideband path, as in the reference.
-    The reference's wb_fusion_impl and peaks_impl switches choose between
-    its TPU kernels and XLA; here the kernels always run.
+    * "incoherent": the per-subband subspaces, the fused subband scan and
+      the peaks; the fused spectrum is returned whatever return_spectra
+      says, as in the reference (but under scan_mode="hierarchical" on
+      the power subspaces: the coarse spectrum and each subband's
+      minimum, and ops/wideband.wideband_music_hierarchical refines the
+      coarse peaks on the fused metric; no spectrum). At compute_dtype
+      "float32" on the power subspaces kernel 5 scans (with dmin in the
+      same launch under hierarchical); at "bfloat16" or "int8" the
+      reference's quantized scan as torch ops (hierarchical: its coarse
+      spectrum, each minimum from the FP32 den); under subspace_method
+      "eigh" or "jacobi" the eigh noise projector of each window
+      (Jacobi's route takes eigh's, as the reference) and its scan at
+      compute_dtype, with no K4. ops/wideband.wideband_music_cpx makes
+      the choice.
+    * "tops": ops/tops.wideband_tops_cpx on E_sub (the complex signal
+      subspaces of the unembedded subband covariances, then the TOPS
+      spectrum on the config's reference band and guard);
+      return_spectra=False drops its spectrum.
+    * "cssm" / "cssm_auto": R_coh, then FB, smoothing and the narrowband
+      estimators on the planes path's route, escalation counts included
+      (a quantized compute_dtype takes the dense quantized MUSIC scan;
+      cssm_auto's coarse pass stays FP32, as the reference's).
+    Spatial smoothing on a ULA raises ValueError under every mode but
+    "cssm": the reference scans the subarray's steering against the full
+    array's subband covariances there and fails. cov_dtype does not apply
+    to the wideband path, as in the reference. The reference's
+    wb_fusion_impl and peaks_impl switches choose between its TPU kernels
+    and XLA; here every stage the plan gives a kernel runs it, and the
+    stages the reference runs as XLA (TOPS, the quantized and projector
+    scans) run as torch ops, not kernel 5.
 
     `cfg` may be a doa_tpu_torch or a doa_tpu DoaConfig; call.config is
     the port's own (as_config(cfg))."""
@@ -453,8 +476,13 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
             Xr, Xi = (torch.from_numpy(np.ascontiguousarray(
                 p.astype(np.float32))).to(dev) for p in (X.real, X.imag))
         subband_planes = (Xr, Xi)
-        As_emb = torch.cat([Xr, Xi], dim=-1).contiguous()     # (F, G, 2N)
-        As_nrm = (As_emb * As_emb).sum(dim=-1)
+        wb_planes = steering_planes(Xr, Xi)
+        As_emb = wb_planes[2]                                  # (F, G, 2N)
+        if fusion == "tops":
+            A_stack = torch.complex(Xr, Xi)                    # (F, G, N)
+    # incoherent fusion's coarse → refine scan (on the power subspaces
+    # only, as the reference; under eigh or Jacobi it stays dense)
+    wb_hier = wb and hier and cfg.subspace_method == "power"
 
     def _peaks(P, refine=refine_peaks):
         """(values, angles): 1-D → angles (B, k); 2-D → (B, k, 2) az/el
@@ -654,6 +682,24 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
                                             cfg.smoothing.subarray_size)
         return Rr, Ri
 
+    def _incoherent(E_sub):
+        """E_sub → (P f32[B, G] or None, values, angles) of incoherent
+        fusion (ops/wideband.wideband_music_cpx: kernel 5 where the plan
+        has it, else the reference's XLA scan as torch ops); under the
+        hierarchical rule the refined peaks and no spectrum."""
+        ops = {s: plan.op(s) for s in ("subspace", "fusion") if s in route}
+        out = wideband_music_cpx(None, None, None, cfg, E_sub=E_sub,
+                                 planes=wb_planes,
+                                 iterate=ops.get("subspace"),
+                                 fusion=ops.get("fusion"),
+                                 return_dmin=wb_hier)
+        if not wb_hier:
+            return (out, *_peaks(out))
+        P, Vt, dmin = out
+        return (None, *wideband_music_hierarchical(
+            Vt, P, dmin, cfg, k, x_rng,
+            peaks2d=plan.op("peaks") if g2 else None))
+
     def run_interleaved(x: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor):
         with fp32_matmuls():
             if wb:
@@ -661,25 +707,25 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
                     x, cr, ci, N=N, F=F, snapshot_size=cfg.snapshot_size,
                     overlap=cfg.overlap, variant=variant,
                     kernel=plan.op("covariance"))
-                if "fusion" not in route:
+                if fusion in ("cssm", "cssm_auto"):
                     return _estimate(_coherent(E_sub), None)
-                Vt = subband_subspaces_from_E(E_sub, cfg,
-                                              iterate=plan.op("subspace"))
-                if hier:
-                    # one launch of kernel 5: the coarse fused spectrum and
-                    # each subband's minimum for the refine; no spectrum
-                    P, dmin = plan.op("fusion")(Vt, As_emb, As_nrm,
-                                                return_dmin=True)
-                    v, l = wideband_music_hierarchical(
-                        Vt, P, dmin, cfg, k, x_rng,
-                        peaks2d=plan.op("peaks") if g2 else None)
-                    return DoaResult(spectra={}, peak_values={"music": v},
-                                     peak_angles={"music": l})
-                P = plan.op("fusion")(Vt, As_emb, As_nrm)
-                v, l = _peaks(P)
-                return DoaResult(spectra={"music": P},
-                                 peak_values={"music": v},
-                                 peak_angles={"music": l})
+                # the fused key alone, whatever cfg.estimators lists, and
+                # no escalation counts, as the reference
+                if fusion == "tops":
+                    P = wideband_tops_cpx(None, A_stack, None, cfg,
+                                          E_sub=E_sub)
+                    del E_sub
+                    v, l = _peaks(P)
+                    key = "tops"
+                    # the reference's wideband branch keeps P whatever
+                    # return_spectra says; TOPS drops it as the flag asks
+                    spectra = {key: P} if return_spectra else {}
+                else:
+                    P, v, l = _incoherent(E_sub)
+                    key = "music"
+                    spectra = {} if P is None else {key: P}
+                return DoaResult(spectra=spectra, peak_values={key: v},
+                                 peak_angles={key: l})
             E = cov_embedded(x, cr, ci, N=N, snapshot_size=cfg.snapshot_size,
                              overlap=cfg.overlap, fb=fb,
                              compute_dtype=cfg.cov_dtype,

@@ -52,6 +52,7 @@ from doa_tpu_torch.ops.cuda.wideband_cov import (kernel_takes,
 from doa_tpu_torch.ops.cuda.wideband_scan import (
     fusion_takes, wideband_fused_spectrum, wideband_fused_spectrum_plain)
 from doa_tpu_torch.ops.peaks import find_local_max_2d
+from doa_tpu_torch.ops.wideband import fusion_kernel_applies
 
 # kernel name → (its wrapper, its plain version: the same signature)
 KERNELS = {
@@ -185,26 +186,39 @@ def kernel_routes(cfg, *, return_spectra: bool = True) -> dict:
     * "coarse_subspace": K4 "mgs_iterate" in cssm_auto's coarse pass;
     * "subspace": K4, or kernel 11 "subspace_ns" (fused route,
       subspace_impl="pallas"), for the power subspace's estimators
-      (runs_power_subspace: MUSIC, root-MUSIC on a ULA, min-norm);
+      (runs_power_subspace: MUSIC, root-MUSIC on a ULA, min-norm); K4 for
+      incoherent wideband on the power subspaces;
     * "scan": K2 "music_scan_peaks" (the fused-peaks rule; under the
       hierarchical rule the coarse scan, which keeps no spectrum) or K3
       "music_scan", where MUSIC runs the scan kernels;
-    * "fusion": kernel 5 "wideband_fusion" (incoherent wideband);
-    * "peaks": kernel 6 "peaks2d" on a 2-D grid (k ≤ MAX_PEAKS2D_K)."""
+    * "fusion": kernel 5 "wideband_fusion" (incoherent wideband where
+      ops/wideband.fusion_kernel_applies, the reference's rule: the power
+      subspaces at compute_dtype "float32"; its other incoherent scans
+      are XLA, and so torch ops here);
+    * "peaks": kernel 6 "peaks2d" on a 2-D grid (k ≤ MAX_PEAKS2D_K).
+
+    TOPS ("tops") plans "covariance" and, on a 2-D grid, "peaks" only: its
+    subspaces, products and λ_min are torch ops, as they are XLA in the
+    reference. Incoherent fusion and TOPS run no narrowband estimator
+    (the reference returns the fused key alone whatever cfg.estimators
+    says)."""
     cfg = as_config(cfg)
     N, K = cfg.geometry.num_elements, cfg.num_sources
     n2, k2 = subspace_n2(cfg), 2 * K
     routes = {}
     wb = cfg.wideband
     incoherent = wb.enabled and wb.fusion == "incoherent"
+    fused_key = wb.enabled and wb.fusion in ("incoherent", "tops")
     if wb.enabled:
         fft = resolve_variant(wb.num_subbands, "auto") == "fft"
         routes["covariance"] = ("wideband_fft_gram" if fft
                                 else "subband_embedded_frames",
                                 kernel_takes(N))
-        if incoherent:
+        if incoherent and cfg.subspace_method == "power":
             routes["subspace"] = ("mgs_iterate", mgs_takes(2 * N, k2))
-            routes["fusion"] = ("wideband_fusion", fusion_takes(k2, 2 * N))
+            if fusion_kernel_applies(cfg):
+                routes["fusion"] = ("wideband_fusion",
+                                    fusion_takes(k2, 2 * N))
         elif wb.fusion == "cssm_auto":
             routes["coarse_subspace"] = ("mgs_iterate", mgs_takes(2 * N, k2))
     elif fused_route(cfg):
@@ -212,7 +226,7 @@ def kernel_routes(cfg, *, return_spectra: bool = True) -> dict:
         routes["covariance_planes"] = ("planes_chunk_gram", planes_takes(N))
     else:
         routes["covariance"] = ("planes_chunk_gram", planes_takes(N))
-    if not incoherent and runs_power_subspace(cfg):
+    if not fused_key and runs_power_subspace(cfg):
         if fused_route(cfg) and cfg.subspace_impl == "pallas":
             routes["subspace"] = ("subspace_ns", ns_takes(n2, k2))
         else:

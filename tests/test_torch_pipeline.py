@@ -229,7 +229,7 @@ def test_port_never_imports_jax():
         "assert 'doa_tpu_torch.ops.wideband' in sys.modules\n"
         "assert 'doa_tpu_torch.parallel.sharded' in sys.modules\n"
         "assert 'doa_tpu_torch.ops.cuda.ring' in sys.modules\n"
-        "for m in ('beamspace', 'hierarchical', 'model_order'):\n"
+        "for m in ('beamspace', 'hierarchical', 'model_order', 'tops'):\n"
         "    assert 'doa_tpu_torch.ops.' + m in sys.modules, m\n"
         "for m in ('music', 'capon', 'bartlett', 'covariance', 'beamform',\n"
         "          'crb'):\n"
@@ -305,26 +305,13 @@ def _c5_with(**wideband):
         c5, wideband=dataclasses.replace(c5.wideband, **wideband))
 
 
-# each key names the preset its config comes from; beamspace and the
-# hierarchical scans, once listed here, are ported, and their cases now
-# hold configs the slice still refuses
+# each key names the preset its config comes from; beamspace, the
+# hierarchical scans and the rest of single-card wideband, once listed
+# here, are ported, and the case left holds the config the slice still
+# refuses
 _OUTSIDE = {
     "c2_ula8_2src": lambda: dataclasses.replace(
         PRESETS["c2_ula8_2src"], cov_dtype="int8", subspace_method="eigh"),
-    "c3_ula16_calib_smooth": lambda: dataclasses.replace(
-        PRESETS["c3_ula16_calib_smooth"], wideband=WidebandSpec(
-            num_subbands=16, fractional_bw=0.1, fusion="cssm_auto")),
-    "c5_tops": lambda: _c5_with(fusion="tops"),
-    "c5_eigh": lambda: dataclasses.replace(
-        PRESETS["c5_ura64_wideband"], subspace_method="eigh"),
-    "c5_incoherent_esprit": lambda: dataclasses.replace(
-        PRESETS["c5_ura64_wideband"], estimators=(Estimator.MUSIC,
-                                                  Estimator.ESPRIT)),
-    "c5_hierarchical": lambda: dataclasses.replace(
-        PRESETS["c5_ura64_wideband"], scan_mode="hierarchical",
-        compute_dtype="int8"),
-    "c5_bf16_scan": lambda: dataclasses.replace(
-        PRESETS["c5_ura64_wideband"], compute_dtype="bfloat16"),
 }
 
 
@@ -332,6 +319,60 @@ _OUTSIDE = {
 def test_configs_outside_the_slice_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_pipeline_torch(_OUTSIDE[name](), device="cpu")
+
+
+# the configs that test_configs_outside_the_slice_raise held until the
+# rest of single-card wideband was ported, under the same keys: each
+# builds on the CPU with the stages its plan names (c5's sizes are not
+# run through either package here: tests/test_torch_tops.py and
+# tests/test_torch_wideband_scans.py hold the paths at small sizes)
+_ONCE_OUTSIDE = {
+    "c5_tops": (lambda: _c5_with(fusion="tops"), {
+        "covariance": "wideband_fft_gram", "peaks": "peaks2d"}),
+    "c5_eigh": (lambda: dataclasses.replace(
+        PRESETS["c5_ura64_wideband"], subspace_method="eigh"), {
+        "covariance": "wideband_fft_gram", "peaks": "peaks2d"}),
+    "c5_incoherent_esprit": (lambda: dataclasses.replace(
+        PRESETS["c5_ura64_wideband"], estimators=(Estimator.MUSIC,
+                                                  Estimator.ESPRIT)), {
+        "covariance": "wideband_fft_gram", "subspace": "mgs_iterate",
+        "fusion": "wideband_fusion", "peaks": "peaks2d"}),
+    "c5_hierarchical": (lambda: dataclasses.replace(
+        PRESETS["c5_ura64_wideband"], scan_mode="hierarchical",
+        compute_dtype="int8"), {
+        "covariance": "wideband_fft_gram", "subspace": "mgs_iterate",
+        "peaks": "peaks2d"}),
+    "c5_bf16_scan": (lambda: dataclasses.replace(
+        PRESETS["c5_ura64_wideband"], compute_dtype="bfloat16"), {
+        "covariance": "wideband_fft_gram", "subspace": "mgs_iterate",
+        "peaks": "peaks2d"}),
+    "c3_ula16_calib_smooth": (lambda: dataclasses.replace(
+        PRESETS["c3_ula16_calib_smooth"], wideband=WidebandSpec(
+            num_subbands=16, fractional_bw=0.1, fusion="cssm_auto")), None),
+}
+
+
+@pytest.mark.parametrize("name", list(_ONCE_OUTSIDE))
+def test_configs_once_outside_the_slice_build(name):
+    """Each builds on the CPU and its plan names the stages of its route
+    (TOPS and the eigh projectors: the front end and kernel 6 alone;
+    incoherent with ESPRIT: MUSIC's route, the estimator ignored as the
+    reference does; the quantized scans: K4 and no kernel 5). The c3 key
+    (cssm_auto with smoothing on a ULA) raises ValueError in both
+    packages: the reference on its call, the port when it builds."""
+    make, stages = _ONCE_OUTSIDE[name]
+    cfg = make()
+    if stages is None:
+        x = np.zeros((cfg.snapshot_size, cfg.geometry.num_elements),
+                     np.complex64)
+        with pytest.raises(ValueError, match="does not match"):
+            build_pipeline_tpu(cfg)(x)
+        with pytest.raises(ValueError, match="subarray"):
+            build_pipeline_torch(cfg, device="cpu")
+        return
+    call = build_pipeline_torch(cfg, device="cpu")
+    assert call.plan.kernels == stages
+    assert set(call.plan.values()) == {"plain"}
 
 
 @pytest.mark.parametrize("name", ["c1_ula4_tone", "c2_ula8_2src",
