@@ -260,6 +260,31 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    batched Jacobi eigh of F·B = 128 matrices of 128x128 takes ~0.25 s a
    call), median within 0.5 deg; the TOPS cells and c5 eigh against the
    CPU (32, 16 and 8 windows, within 5e-3 deg).
+20. the rest of the sharded pipeline on ranks of this card (spawn_ranks,
+   gloo, as phase 14), one launch a mesh shape: on MeshSpec(2, 1) c4 at
+   T = 2^21 with MUSIC, min-norm, root-MUSIC, ESPRIT and Unitary ESPRIT
+   under halo_impl="pallas" (K1, K4, K2, kernel 13), c4 with 8 beams and
+   c4 under "jacobi" (the general path: kernel 8, K4 / eigh), and c5 cssm
+   (kernel 4, K4, K3; c5's 16471-point grid does not split in two); c5
+   incoherent on MeshSpec(1, 2) and (2, 2) (each rank kernel 4 on its
+   block, K4, kernel 5 on its 8 or 16 subbands, one psum, kernel 6) and
+   c5 TOPS on (1, 2) (kernel 4, the psum of Σ CᴴC, kernel 6), and on
+   (1, 2) phase 11c's ULA-16 scene under cssm and cssm_auto (the psum of
+   the focused sums, then K3 on each rank's half of the 180-point grid
+   into the O(k) merge; cssm_auto's psums of the capture means and the
+   coarse spectra); c5 at T = 2^20 (1024 windows). Each case driven
+   once with every count from zero on every rank (its plan all kernels,
+   each launched, no other; kernel 6 in its planned form), then 3 calls
+   timed (the slowest rank of each, every rank at once); its angles
+   within 5e-3 deg of the single-card port on the same capture (the
+   jacobi case against eigh, the beamspace case against a cold subspace:
+   the sharded general path takes both, as the reference's), every c4
+   window within 0.5 deg of the scene, the c5 median within 0.5 deg and
+   the ULA-16 median within 2 deg (phase 11c's limit), root-MUSIC's
+   windows that take one source twice counted (C.3) and held out of the
+   comparison.
+   The EP psum of c5 incoherent and TOPS is timed inside the call, in 3
+   more calls with a span around it (the grid ranks met first).
 
 Each kernel record gives its bound (the larger of its bytes over
 3.35 TB/s and the FP32 operations the function needs over 67 TFLOP/s,
@@ -278,6 +303,7 @@ JSON object with the kernels, then {"ok": true, "device": {...}}.
 """
 
 import dataclasses
+import functools
 import importlib
 import json
 import math
@@ -2260,6 +2286,23 @@ def make_wideband_ula_capture(torch, T, N, thetas, bw, fbw, snr_db, device,
     return x.reshape(T, 2 * N)
 
 
+def ula16_wideband(fusion, estimators):
+    """Phase 11c's ULA-16 wideband config: S = 1024, F = 16, fractional
+    bandwidth 0.4, FB, the default 180-point grid, and under "cssm"
+    smoothing to L = 12 (cssm_auto's steering is the whole array's)."""
+    from doa_tpu_torch import (ArrayGeometry, AvgMethod, DoaConfig,
+                               SmoothingSpec, WidebandSpec)
+    return DoaConfig(
+        geometry=ArrayGeometry(kind="ula", num_elements=16, norm_spacing=0.5),
+        snapshot_size=1024, num_sources=2, num_max_vals=2,
+        estimators=estimators,
+        wideband=WidebandSpec(num_subbands=16, fractional_bw=0.4,
+                              fusion=fusion),
+        avg_method=AvgMethod.FORWARD_BACKWARD,
+        smoothing=SmoothingSpec(
+            subarray_size=12 if fusion == "cssm" else 0))
+
+
 # kernel 7 exact: (F, N, g, chunks, offset in floats of the view into its
 # buffer): every tile form of the ring kernel (N = 64, 36, 16 at RT = 4;
 # 6, 32 at 2; 5, 1 at 1), several stages a chunk (g = 300), and views one
@@ -2717,15 +2760,7 @@ def coherent_phases(torch, dev, card, k4_shapes=None):
     del E7, Y12
 
     # 11c. ULA-16 CSSM with FB, smoothing to L = 12, MUSIC + Capon
-    from doa_tpu_torch import (ArrayGeometry, DoaConfig, WidebandSpec)
-    cfg_u = DoaConfig(
-        geometry=ArrayGeometry(kind="ula", num_elements=16, norm_spacing=0.5),
-        snapshot_size=1024, num_sources=2, num_max_vals=2,
-        estimators=(Estimator.MUSIC, Estimator.CAPON),
-        wideband=WidebandSpec(num_subbands=16, fractional_bw=0.4,
-                              fusion="cssm"),
-        avg_method=AvgMethod.FORWARD_BACKWARD,
-        smoothing=SmoothingSpec(subarray_size=12))
+    cfg_u = ula16_wideband("cssm", (Estimator.MUSIC, Estimator.CAPON))
     xu = make_wideband_ula_capture(torch, T_ULA, 16, ULA_TRUTH, 0.5, 0.4,
                                    SNR_DB, dev, seed=1)
     pipe_u = build_pipeline_torch(cfg_u, device=dev)
@@ -4779,6 +4814,316 @@ def wideband_rest_phase(torch, dev, card):
     return total
 
 
+# ---------------------------------------------------------------------
+# 20. the rest of the sharded pipeline on R ranks of one card: the
+# estimators, Jacobi and beamspace (c4), and the EP wideband builders (c5)
+# ---------------------------------------------------------------------
+T_SH_EST = 1 << 21                 # c4: 4095 windows of 1024 at hop 512
+T_SH_C5 = 1 << 20                  # c5: 1024 windows of 1024
+SH_C5_SEED = 20
+SH_REPS = 3                        # timed calls a case; the median is kept
+# mesh shape → the cases its ranks run, in one launch. c5's 16471-point
+# grid does not split in two, so CSSM's grid-sharded scan of R_coh and
+# cssm_auto's EP psums run on phase 11c's ULA-16 scene (180 points)
+SH_REST = (((2, 1), ("c4 estimators", "c4 beamspace", "c4 jacobi",
+                     "c5 cssm")),
+           ((1, 2), ("c5 incoherent", "c5 tops", "u16 cssm",
+                     "u16 cssm_auto")),
+           ((2, 2), ("c5 incoherent",)))
+
+
+def sh_case(name):
+    """Phase 20's case → (the sharded config, return_spectra, the config
+    of the single-card run it is held to). The sharded general path takes
+    eigh's projector under "jacobi" and a cold subspace (its reference's),
+    so those single-card runs take eigh and no warm start."""
+    from doa_tpu_torch import BeamspaceSpec, Estimator, PRESETS
+    c4 = PRESETS["c4_ula16_streaming"]
+    if name == "c4 estimators":
+        cfg = dataclasses.replace(c4, halo_impl="pallas", estimators=(
+            Estimator.MUSIC, Estimator.MIN_NORM, Estimator.ROOT_MUSIC,
+            Estimator.ESPRIT, Estimator.UNITARY_ESPRIT))
+        return cfg, False, cfg
+    if name == "c4 beamspace":
+        cfg = dataclasses.replace(c4, beamspace=BeamspaceSpec(
+            num_beams=8, center_deg=90.0))
+        return cfg, True, dataclasses.replace(cfg, subspace_warm_start=False)
+    if name == "c4 jacobi":
+        cfg = dataclasses.replace(c4, subspace_method="jacobi")
+        return cfg, True, dataclasses.replace(cfg, subspace_method="eigh")
+    fusion = name.split()[1]
+    cfg = (c5_variant(fusion=fusion) if name.startswith("c5")
+           else ula16_wideband(fusion, (Estimator.MUSIC,)))
+    return cfg, True, cfg
+
+
+def sh_capture(torch, name, device):
+    """A case's whole capture x f32[T, 2N] on `device`: c4's planted scene
+    as R blocks of phase 14's kind (every rank count divides T), or the c5
+    scene, made alike on every rank from one seed."""
+    if name.startswith("c4"):
+        R = 4
+        return torch.cat([shard_block(torch, T_SH_EST // R, s, device)
+                          for s in range(R)])
+    if name.startswith("u16"):
+        return make_wideband_ula_capture(torch, T_ULA, 16, ULA_TRUTH, 0.5,
+                                         0.4, SNR_DB, device, seed=1)
+    return make_c5_scene(torch, T_SH_C5, device, seed=SH_C5_SEED)
+
+
+def sh_counters():
+    from doa_tpu_torch.ops import cpx_ops
+    from doa_tpu_torch.ops.cuda import cov_embedded as ce
+    from doa_tpu_torch.ops.cuda import covariance as cv
+    from doa_tpu_torch.ops.cuda import music_scan as ms
+    from doa_tpu_torch.ops.cuda import peaks2d as pk
+    from doa_tpu_torch.ops.cuda import ring as rg
+    from doa_tpu_torch.ops.cuda import wideband_cov as wc
+    from doa_tpu_torch.ops.cuda import wideband_scan as wsc
+    return {"halo_ring": rg.halo_ring, "chunk_gram": ce.chunk_grams_uhat,
+            "planes_chunk_gram": cv.chunk_grams,
+            "mgs_iterate": cpx_ops.mgs_iterate,
+            "music_scan": ms.music_scan,
+            "music_scan_peaks": ms.music_scan_peaks,
+            "wideband_fft_gram": wc.subband_chunk_grams,
+            "subband_embedded_frames": wc.subband_embedded_frames,
+            "wideband_fusion": wsc.wideband_fused_spectrum,
+            "peaks2d": pk.peaks2d}
+
+
+def sh_angles(out):
+    """{key: angles} of a sharded output dict (peaks and grid-free)."""
+    return {k: v for k, v in out.items()
+            if k.startswith("peak_angles") or k in GRID_FREE}
+
+
+def shard_rest_rank(device, spec, names, card):
+    """Phase 20 on one rank of a (n_snap, n_grid) mesh on cuda:0 (a
+    spawn_ranks target): each case's pipeline driven once with every
+    count from zero (launches, kernel 6's forms, the angles), then
+    SH_REPS calls timed, every rank at once."""
+    import torch
+    import torch.distributed as dist
+    from doa_tpu_torch.ops.cuda import peaks2d as pk
+    from doa_tpu_torch.parallel import (MeshSpec, build_sharded_pipeline,
+                                        make_mesh, sharded)
+    from doa_tpu_torch.parallel.sharded import _block_rows
+
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(MeshSpec(*spec), device=device)
+    counters = sh_counters()
+    out = {"device": str(mesh.device), "backend": mesh.backend,
+           "coords": dict(mesh.coords)}
+    for name in names:
+        cfg, spectra, _ = sh_case(name)
+        x = sh_capture(torch, name, mesh.device)
+        lo, hi = _block_rows(x.shape[0], mesh)
+        xb = x[lo:hi].clone()
+        del x
+        pipe = build_sharded_pipeline(cfg, mesh, return_spectra=spectra)
+        torch.cuda.synchronize()
+        dist.barrier()
+        for f in counters.values():
+            f.launches = 0
+        pk.peaks2d.by_form = dict.fromkeys(pk.peaks2d.by_form, 0)
+        res = pipe.local(xb)
+        torch.cuda.synchronize()
+        rec = {"launches": {k: f.launches for k, f in counters.items()},
+               "by_form": dict(pk.peaks2d.by_form),
+               "plan": dict(pipe.plan), "forms": dict(pipe.plan.forms),
+               "angles": {k: v.cpu().numpy()
+                          for k, v in sh_angles(res).items()},
+               "keys": sorted(res)}
+        del res
+        ts = []
+        for _ in range(SH_REPS + 1):
+            dist.barrier()
+            t0 = time.perf_counter()
+            pipe.local(xb)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        rec["ms"] = ts[1:]
+        if name in ("c5 incoherent", "c5 tops") and spec[1] > 1:
+            # the EP fusion's psum inside the call (the rank's (B_loc, G)
+            # spectrum sum, or TOPS's Σ CᴴC planes and guard sum in one
+            # buffer): SH_REPS more calls with a span around each psum
+            # over the grid axis, the card synchronized and the grid
+            # ranks met at a barrier first, so that the span holds the
+            # host-staged all_reduce and no wait for the other rank
+            plain_psum, spans = sharded.psum, []
+
+            def timed_psum(t, mesh_, axis):
+                if axis != "grid":
+                    return plain_psum(t, mesh_, axis)
+                torch.cuda.synchronize()
+                dist.barrier(group=mesh_.group(axis))
+                t0 = time.perf_counter()
+                r = plain_psum(t, mesh_, axis)
+                torch.cuda.synchronize()
+                spans.append(((time.perf_counter() - t0) * 1e3,
+                              4 * t.numel()))
+                return r
+            sharded.psum = timed_psum
+            try:
+                for _ in range(SH_REPS + 1):
+                    pipe.local(xb)
+                    torch.cuda.synchronize()
+            finally:
+                sharded.psum = plain_psum
+            check(len(spans) == SH_REPS + 1, f"{name}: {len(spans)} EP "
+                  f"psums in {SH_REPS + 1} calls")
+            rec["psum_ms"] = [t for t, _ in spans[1:]]
+            rec["psum_bytes"] = spans[0][1]
+        out[name] = rec
+        del pipe, xb
+        torch.cuda.empty_cache()
+    mesh.close()
+    return out
+
+
+def sh_gather(outs, spec, name, key):
+    """A sharded angle output over the whole capture: grid rank 0's rows
+    (the peaks are the same on every grid rank) in snap order."""
+    import numpy as np
+    by = {(o["coords"]["snap"], o["coords"]["grid"]): o[name]["angles"][key]
+          for o in outs}
+    for o in outs:
+        check(np.array_equal(o[name]["angles"][key],
+                             by[(o["coords"]["snap"], 0)], equal_nan=True),
+              f"{name} {key}: grid ranks of one snap row disagree")
+    return np.concatenate([by[(s, 0)] for s in range(spec[0])])
+
+
+def sharded_rest_phase(torch, dev, card):
+    """Phase 20 → the launches of the earlier kernels in the ranks'
+    main-path runs."""
+    import numpy as np
+    from doa_tpu_torch.parallel.launch import spawn_ranks
+    from doa_tpu_torch.parallel.sharded import num_valid_windows
+    from doa_tpu_torch.pipeline_torch import build_pipeline_torch
+
+    total = {n: 0 for n in sh_counters()}
+    t_phase = time.perf_counter()
+    for spec, names in SH_REST:
+        R = spec[0] * spec[1]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        outs = spawn_ranks(shard_rest_rank, R, (spec, names, card),
+                           device="cuda", timeout=900)
+        log(f"phase 20: MeshSpec{spec}: {R} ranks ran {list(names)} in "
+            f"{time.perf_counter() - t0:.1f} s on "
+            f"{sorted({o['device'] for o in outs})}, backend "
+            f"{outs[0]['backend']}")
+        for name in names:
+            cfg, spectra, cfg_one = sh_case(name)
+            recs = [o[name] for o in outs]
+            plan = recs[0]["plan"]
+            log(f"{name} on MeshSpec{spec}: plan {json.dumps(plan)}")
+            check("plain" not in plan.values(),
+                  f"{name}: a stage is planned plain on the card")
+            planned = set(plan.values())
+            for r in recs:
+                n = r["launches"]
+                ran = {k for k, v in n.items() if v}
+                check(ran == planned, f"{name} MeshSpec{spec}: launched "
+                      f"{sorted(ran)}, planned {sorted(planned)}: {n}")
+                if "peaks2d" in planned:
+                    want = r["forms"].get("peaks")
+                    check(r["by_form"].get(want) == n["peaks2d"]
+                          == sum(r["by_form"].values()),
+                          f"{name}: kernel 6 by form {r['by_form']}, "
+                          f"planned {want}")
+                    for f, v in r["by_form"].items():
+                        PEAKS_TALLY[f] = PEAKS_TALLY.get(f, 0) + v
+                for k, v in n.items():
+                    total[k] += v
+            log(f"{name} on MeshSpec{spec}: launches a rank "
+                + json.dumps([r["launches"] for r in recs]))
+            # the single-card port on the same capture
+            x = sh_capture(torch, name, dev)
+            B = (num_valid_windows(x.shape[0], cfg) if name.startswith("c4")
+                 else x.shape[0] // cfg.snapshot_size)
+            pipe = build_pipeline_torch(cfg_one, device=dev,
+                                        return_spectra=spectra)
+            if pipe.fast_path or cfg.wideband.enabled:
+                run_one = functools.partial(pipe.interleaved, x)
+            else:           # the planes route: the capture's two views
+                xv = x.view(x.shape[0], -1, 2)
+                run_one = functools.partial(pipe, (xv[..., 0], xv[..., 1]))
+            one = run_one()
+            t_one = call_times(torch, run_one, reps=SH_REPS, warm=1)
+            del x, pipe, run_one
+            ref = {f"peak_angles_{k}": v for k, v in one.peak_angles.items()}
+            ref.update({k: getattr(one, k) for k in GRID_FREE
+                        if getattr(one, k) is not None})
+            check(set(ref) == set(sh_angles(dict.fromkeys(recs[0]["keys"]))),
+                  f"{name}: sharded keys {recs[0]['keys']}, single card "
+                  f"{sorted(ref)}")
+            for key, want in ref.items():
+                got = torch.from_numpy(sh_gather(outs, spec, name, key)[:B])
+                want = want.cpu()
+                check(tuple(got.shape) == tuple(want.shape),
+                      f"{name} {key}: shapes {tuple(got.shape)}, "
+                      f"{tuple(want.shape)}")
+                if key == "root_music_angles":
+                    # the windows where either run takes one source twice
+                    # (ROADMAP §C.3) are counted, the rest held
+                    t = torch.tensor(THETA)
+                    twice = lambda a: ((a[..., None] - t).abs()  # noqa
+                                       .amin(-2) > ANGLE_TOL).any(-1)
+                    keep = ~(twice(got) | twice(want))
+                    root_music_windows(torch, f"{name} sharded", got, THETA)
+                    log(f"{name} root_music_angles: {int((~keep).sum())} "
+                        f"of {B} windows take one source twice in the "
+                        f"sharded or the single-card run; held on the rest")
+                    got, want = got[keep], want[keep]
+                d = float((est_sorted(torch, got)
+                           - est_sorted(torch, want)).abs().max())
+                log(f"{name} {key}: max|sharded - single card| {d!r} deg "
+                    f"over {B} windows (tol {SHARD_TOL})")
+                check(d <= SHARD_TOL, f"{name} {key}: sharded vs single "
+                      f"card {d}")
+                if name.startswith("u16"):
+                    med = est_sorted(torch, got).median(0).values
+                    dm = float((med - torch.tensor(ULA_TRUTH)).abs().max())
+                    log(f"{name} {key}: median sorted {med.tolist()} "
+                        f"(limit {CSSM_ANGLE_TOL} deg)")
+                    check(dm <= CSSM_ANGLE_TOL, f"{name} median off by {dm}")
+                elif name.startswith("c5"):
+                    e_max, e_med, med = c5_errors(torch, got)
+                    dm = float((med - torch.tensor(C5_TRUTH)).abs().max())
+                    log(f"{name} {key}: median pair-sorted {med.tolist()}, "
+                        f"per-window max |angle - truth| median {e_med!r}, "
+                        f"max {e_max!r} deg (limit {C5_ANGLE_TOL} on the "
+                        f"median)")
+                    check(dm <= C5_ANGLE_TOL, f"{name} median off by {dm}")
+                elif key != "root_music_angles":
+                    e = sorted_err(torch, got, THETA)
+                    log(f"{name} {key}: max |sorted angle - truth| {e!r} "
+                        f"deg (limit {ANGLE_TOL})")
+                    check(e <= ANGLE_TOL, f"{name} {key} angle error {e}")
+            del one
+            ts = np.max([r["ms"] for r in recs], axis=0)
+            log(f"{name} on MeshSpec{spec} (ranks time-sliced on one card, "
+                f"not scaling): median {float(np.median(ts)):.4f} ms a call "
+                f"of {B} windows ({SH_REPS} calls, slowest rank each: "
+                f"{[round(float(t), 4) for t in ts]}); the single-card "
+                f"port on the same capture {t_one[len(t_one) // 2]:.4f} ms "
+                f"(median of {SH_REPS})  [{card}]")
+            if "psum_ms" in recs[0]:
+                ps = np.max([r["psum_ms"] for r in recs], axis=0)
+                log(f"{name} on MeshSpec{spec}: the EP psum inside the call "
+                    f"({recs[0]['psum_bytes']} bytes a rank, host-staged "
+                    f"gloo all_reduce, the grid ranks met first) median "
+                    f"{float(np.median(ps)):.4f} ms ({SH_REPS} calls, "
+                    f"slowest rank each: "
+                    f"{[round(float(t), 4) for t in ps]})  [{card}]")
+    log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main():
     import torch
 
@@ -4986,6 +5331,11 @@ def main():
     # 19. the rest of single-card wideband: c5 and ULA-16 TOPS, c5
     # incoherent in bf16 and int8, hierarchical + bf16, c5 with eigh
     for name, n in wideband_rest_phase(torch, dev, card).items():
+        recs[name]["launches"] += n
+    # 20. the rest of the sharded pipeline on 2 and 4 ranks of this card:
+    # c4 with the estimators, beamspace and Jacobi; c5 incoherent (EP),
+    # cssm and TOPS
+    for name, n in sharded_rest_phase(torch, dev, card).items():
         recs[name]["launches"] += n
     for f, v in PEAKS_TALLY.items():
         recs["peaks2d"]["by_form"][f]["launches"] = v

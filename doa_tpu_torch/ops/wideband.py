@@ -85,30 +85,33 @@ def wideband_steering_stack(cfg: DoaConfig, A_fn) -> np.ndarray:
 
 
 def subband_subspaces_from_E(E_sub: torch.Tensor, cfg: DoaConfig,
-                             iterate=None) -> torch.Tensor:
+                             iterate=None, Ebar=None) -> torch.Tensor:
     """Embedded per-subband covariances f32[F, B, 2N, 2N] → signal
     subspaces Vt f32[F, B, 2K, 2N] (transposed: rows orthonormal; the
     reference returns the swap, f32[F, B, 2N, 2K]). The (F, B) axes merge
     into one batch for the iteration.
 
-    cfg.subspace_warm_start and B ≥ 32: each window starts from its
-    subband's capture-mean subspace (max(power_iters, 8) iterations on F
-    matrices) and refines with power_iters_warm applies, the escalation
-    detector armed at the subband operating point (S/F snapshots); the
-    init is one row per subband, shared by that subband's B windows in
-    the subspace kernel. Otherwise a cold start with power_iters and the
-    config's squarings, detector off — as the reference. No escalation
-    counts are returned, as in the reference. iterate: the MGS rounds
+    cfg.subspace_warm_start and B ≥ 32, or Ebar given: each window starts
+    from its subband's capture-mean subspace (max(power_iters, 8)
+    iterations on F matrices) and refines with power_iters_warm applies,
+    the escalation detector armed at the subband operating point (S/F
+    snapshots); the init is one row per subband, shared by that subband's
+    B windows in the subspace kernel. Ebar f32[F, 2N, 2N] replaces the
+    capture mean (a sharded caller passes the mean over every rank's
+    windows and gates on the global window count, as the reference).
+    Otherwise a cold start with power_iters and the config's squarings,
+    detector off — as the reference. No escalation counts are returned,
+    as in the reference. iterate: the MGS rounds
     (signal_subspace_from_E_T)."""
     F, B, n2, _ = E_sub.shape
     K = cfg.num_sources
     E = E_sub.reshape(F * B, n2, n2)
-    if cfg.subspace_warm_start and B >= 32:
+    if Ebar is not None or (cfg.subspace_warm_start and B >= 32):
         esc = cfg.escalate_kwargs_for(
             cfg.snapshot_size // cfg.wideband.num_subbands, n2=n2)
         Vt_bar = signal_subspace_from_E_T(
-            E_sub.mean(dim=1), K, iters=max(cfg.power_iters, 8),
-            iterate=iterate, **esc)
+            E_sub.mean(dim=1) if Ebar is None else Ebar, K,
+            iters=max(cfg.power_iters, 8), iterate=iterate, **esc)
         Vt = signal_subspace_from_E_T(E, K, iters=cfg.power_iters_warm,
                                       init=Vt_bar, iterate=iterate, **esc)
     else:
@@ -144,15 +147,28 @@ def projector_spectra(Mr: torch.Tensor, Mi: torch.Tensor, Xr: torch.Tensor,
             Mr[f], Mi[f], Xr[f], Xi[f], compute_dtype))
 
 
+def fused_sum(spectra) -> torch.Tensor:
+    """The subband spectra's sum, accumulated one at a time, f32[B, G]
+    (a sharded rank's partial fusion over its own subbands)."""
+    acc = None
+    for P in spectra:
+        acc = P if acc is None else acc.add_(P)
+    return acc
+
+
+def divide(t: torch.Tensor, n) -> torch.Tensor:
+    """t / n with n as a tensor: a true division on the card too, where a
+    Python divisor is multiplied by its rounded reciprocal (ROADMAP
+    §C.4)."""
+    return t / torch.full((), n, dtype=t.real.dtype, device=t.device)
+
+
 def fused_mean(spectra, F: int) -> torch.Tensor:
     """The incoherent fusion of the reference's XLA scan (its route where
     its fusion kernel does not apply: compute_dtype "bfloat16" or "int8"
     on the power subspaces, subspace_method "eigh" and "jacobi"): the
     mean of the F subband spectra, accumulated one at a time, f32[B, G]."""
-    acc = None
-    for P in spectra:
-        acc = P if acc is None else acc.add_(P)
-    return acc / torch.full((), F, dtype=torch.float32, device=acc.device)
+    return divide(fused_sum(spectra), F)
 
 
 def subband_den_minima(Vt: torch.Tensor, As_emb: torch.Tensor):
@@ -504,10 +520,10 @@ def runtime_focusing(P: torch.Tensor, cfg: DoaConfig, spacings,
     return polar_unitary(M)
 
 
-def cssm_covariance(R_sub: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+def focused_sum(R_sub: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     """Subband covariances R_sub complex64[F, B, N, N] (Hermitian) and
-    focusing matrices T complex64[F, N, N] → the focused coherent
-    covariance complex64[B, N, N] = mean_f T_f R_f T_fᴴ.
+    focusing matrices T complex64[F, N, N] → Σ_f T_f R_f T_fᴴ
+    complex64[B, N, N] (a sharded rank's sum over its own subbands).
 
     As GEMMs with no batch broadcast: R_f's windows side by side are
     (R_f viewed (B·N, N))ᴴ, since each R_f[b] is Hermitian, so T_f R_f[b]
@@ -519,23 +535,36 @@ def cssm_covariance(R_sub: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
         TR = torch.matmul(T, R_sub.reshape(F, B * N, N).mH)  # (F, N, B·N)
         for f in range(F):
             acc.addmm_(TR[f].reshape(N * B, N), T[f].mH)
-    return (acc / F).reshape(N, B, N).permute(1, 0, 2).contiguous()
+    return acc.reshape(N, B, N).permute(1, 0, 2).contiguous()
 
 
-def coarse_fused_spectrum(R_mean: torch.Tensor, At_emb: torch.Tensor,
-                          cfg: DoaConfig, iterate=None) -> torch.Tensor:
-    """The coarse pass of "cssm_auto": capture-mean subband covariances
-    R_mean complex64[F, N, N] → the mean over subbands of their
-    max-normalised MUSIC spectra f32[1, G] on the per-subband embedded
-    steering At_emb f32[F, G, 2N] (cold subspaces, max(power_iters, 16)
-    rounds by `iterate`, as signal_subspace_from_E_T)."""
+def cssm_covariance(R_sub: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """Subband covariances R_sub complex64[F, B, N, N] (Hermitian) and
+    focusing matrices T complex64[F, N, N] → the focused coherent
+    covariance complex64[B, N, N] = mean_f T_f R_f T_fᴴ (focused_sum)."""
+    return focused_sum(R_sub, T) / R_sub.shape[0]
+
+
+def coarse_band_spectra(R_mean: torch.Tensor, At_emb: torch.Tensor,
+                        cfg: DoaConfig, iterate=None) -> torch.Tensor:
+    """The coarse pass of "cssm_auto" band by band: capture-mean subband
+    covariances R_mean complex64[F, N, N] → each subband's max-normalised
+    MUSIC spectrum f32[F, 1, G] on the per-subband embedded steering
+    At_emb f32[F, G, 2N] (cold subspaces, max(power_iters, 16) rounds by
+    `iterate`, as signal_subspace_from_E_T)."""
     V = signal_subspace_embedded(R_mean.real.contiguous(),
                                  R_mean.imag.contiguous(), cfg.num_sources,
                                  iters=max(cfg.power_iters, 16),
                                  iterate=iterate)
-    P = [spectrum_from_den(music_denominator_subspace(V[f:f + 1], At_emb[f]))
-         for f in range(V.shape[0])]
-    return torch.stack(P).mean(dim=0)
+    return torch.stack([spectrum_from_den(music_denominator_subspace(
+        V[f:f + 1], At_emb[f])) for f in range(V.shape[0])])
+
+
+def coarse_fused_spectrum(R_mean: torch.Tensor, At_emb: torch.Tensor,
+                          cfg: DoaConfig, iterate=None) -> torch.Tensor:
+    """The coarse pass of "cssm_auto": the mean over subbands of
+    coarse_band_spectra, f32[1, G]."""
+    return coarse_band_spectra(R_mean, At_emb, cfg, iterate).mean(dim=0)
 
 
 def auto_focused_covariance(R_sub: torch.Tensor, At_emb: torch.Tensor,

@@ -131,6 +131,12 @@ def _job(mesh, kind, kw):
         pipe = sharded.build_sharded_pipeline(
             kw["cfg"], mesh, **kw.get("build", {}))
         return pipe(kw["x"], kw.get("correction"))
+    if kind == "build_error":
+        try:
+            sharded.build_sharded_pipeline(kw["cfg"], mesh)
+        except ValueError as e:
+            return str(e)
+        return None
     if kind == "pipeline_local":
         pipe = sharded.build_sharded_pipeline(
             kw["cfg"], mesh, **kw.get("build", {}))
@@ -166,7 +172,9 @@ def run_jobs(device, spec: MeshSpec, jobs: dict):
     "coords" (this rank's snap and grid indices). Kinds: "pipeline"
     (build_sharded_pipeline(cfg, mesh, **build)(x, correction) on the
     global capture), "pipeline_local" (the same through .local on this
-    rank's block), "halo" (halo_exchange of this rank's rows of x, then
+    rank's block), "build_error" (the message of the ValueError that
+    build_sharded_pipeline(cfg, mesh) raises, or None), "halo"
+    (halo_exchange of this rank's rows of x, then
     of their negation: both results, read after the second exchange;
     impl "pallas" is kernel 13), "merge_1d" / "merge_2d" (the O(k) peak
     merges of this rank's block of a global spectrum P), "covariance"

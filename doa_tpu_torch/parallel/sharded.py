@@ -1,7 +1,7 @@
-"""The time-sharded narrowband DoA pipeline over torch.distributed ranks
-(port of the narrowband half of doa_tpu/parallel/sharded.py).
+"""The sharded DoA pipeline over torch.distributed ranks (port of
+doa_tpu/parallel/sharded.py).
 
-Layout, one rank per mesh position (parallel/mesh.py):
+Narrowband layout, one rank per mesh position (parallel/mesh.py):
 
     capture x[T, N] c64       → rows [s·T/n_snap, (s+1)·T/n_snap) on snap
                                 index s (the reference's P("snap", None))
@@ -17,26 +17,48 @@ merge over the grid axis. Windows at the global tail whose halo ran past
 the capture end are invalid: callers keep the first num_valid_windows(T,
 cfg) rows of the concatenated blocks.
 
-Fused path (the single-card fused route's rule, plan.fused_route),
-per rank:
+Fast path (plan.sharded_fused_route: the single-card fused route's rule,
+no beamspace), per rank:
     x_blk[T_loc, 2N] → halo → K1 (cov_embedded) → E f32[B_loc, 2N, 2N]
       → the last rank's tail windows zeroed for the subspace stage
       → warm start from the psum'd global capture mean (K4) and the
         escalation counts psum'd (or cold when fewer than 32 windows)
       → unsharded grid, return_spectra=False: K2 scan + peaks;
-        otherwise K3 → the O(k) merge; Capon, Bartlett on R = unembed(E)
-General path (smoothing, subspace_method="eigh", a hop outside the rule):
+        otherwise K3 → the O(k) merge; min-norm on the subspace; Capon,
+        Bartlett and the grid-free estimators on R = unembed(E)
+General path (smoothing, beamspace, subspace_method "eigh" or "jacobi", a
+hop outside the rule):
     halo → the two stride-2 planes → kernel 8 windows (Rr, Ri) → the
-    correction, FB, smoothing → the cold MGS subspace (K4) and the dense
-    MUSIC denominator, or the eigh noise projector; Capon, Bartlett → the
-    O(k) merge.
+    correction, FB, smoothing → beamspace's projection BᴴRB (the beam
+    matrix replicated, the projected steering grid sharded) → the cold
+    MGS subspace (K4) and its dense MUSIC and min-norm denominators, or
+    the eigh noise projector; Capon, Bartlett → the O(k) merge; the
+    grid-free estimators on the rank's R.
+
+Wideband, the expert-parallel (EP) layout: the snap axis shards time as
+above (no halo: a window lies in one block, T divisible by n_snap·S), the
+grid axis shards the F subbands, F_loc = F / n_grid a rank:
+    x_blk → the rank's subband windows E f32[F_loc, B_loc, 2N, 2N]
+      (kernel 4 on the block for all F subbands, the rank's slice kept:
+      the single-card front end, wideband_cov_embedded(variant="auto"))
+    incoherent: per-subband subspaces (K4, warm from the mean over every
+      rank's windows) → the rank's spectrum sum over its subbands
+      (kernel 5's mean × F_loc on the fast route where it applies, else
+      the per-subband spectra) → one psum over the grid axis, / F → the
+      peaks of the whole row (kernel 6 on a 2-D grid)
+    TOPS: the reference band's subspaces replicated, Σ CᴴC and the guard
+      sum over the rank's subbands → one psum → λ_min → peaks
+    CSSM: Σ T_f R_f T_fᴴ over the rank's subbands → one psum, / F →
+      R_coh, replicated; then the same axis shards the grid of its
+      narrowband MUSIC scan (K4, K3 or K2) and the O(k) merge
+      (cssm_auto: the capture-mean covariances psum'd over time and the
+      coarse spectra over the rank's subbands psum'd, so every rank
+      focuses at the same angles, each for its own subbands)
 
 As in the reference, the sharded pipeline takes neither subspace_impl nor
-subspace_check (the warm MGS subspace always runs) and reports escalation
-counts on the fused path only. Outside the slice, and raising
-NotImplementedError: the wideband, TOPS and CSSM sharded pipelines and
-beamspace (queue A.6), and min-norm, root-MUSIC, ESPRIT, Unitary ESPRIT
-and the Jacobi subspace (queue A.3).
+subspace_check (the warm MGS subspace always runs), reports escalation
+counts on the fast path only, runs MUSIC alone under CSSM, and takes the
+eigh noise projector under subspace_method "jacobi".
 """
 
 from __future__ import annotations
@@ -49,19 +71,38 @@ import torch
 from doa_tpu_torch.configs import AvgMethod, DoaConfig, Estimator, as_config
 from doa_tpu_torch.cpx import fp32_matmuls, unembed_planes
 from doa_tpu_torch.ops import cpx_ops
+from doa_tpu_torch.ops.beamspace import (beamspace_covariance,
+                                         beamspace_steering, dft_beam_matrix)
 from doa_tpu_torch.ops.cpx_ops import signal_subspace_from_E_T
 from doa_tpu_torch.ops.cuda.cov_embedded import cov_embedded
 from doa_tpu_torch.ops.cuda.music_scan import peaks_tiles, scan_tiles
 from doa_tpu_torch.ops.cuda import ring
+from doa_tpu_torch.ops.cuda.wideband_cov import wideband_cov_embedded
+from doa_tpu_torch.ops.esprit import (esprit_cpx, signal_subspace_cpx,
+                                      unitary_esprit_cpx)
+from doa_tpu_torch.ops.min_norm import (min_norm_denominator_cpx,
+                                        min_norm_denominator_subspace)
 from doa_tpu_torch.ops.peaks import (_refine_frac, _topk_lastaxis,
-                                     find_local_max_2d)
+                                     find_local_max)
+from doa_tpu_torch.ops.root_music import root_music_cpx
+from doa_tpu_torch.ops.tops import (tops_accumulate_cc, tops_finalize,
+                                    tops_leakage_row)
+from doa_tpu_torch.ops.wideband import (coarse_band_spectra, divide,
+                                        focused_sum, focusing_matrices,
+                                        fused_sum, power_spectra,
+                                        projector_spectra, runtime_focusing,
+                                        steering_planes,
+                                        subband_noise_projectors,
+                                        subband_spacings,
+                                        subband_subspaces_from_E,
+                                        wideband_steering_stack)
 from doa_tpu_torch.parallel.collectives import all_gather, ppermute, psum
 from doa_tpu_torch.parallel.mesh import GRID_AXIS, SNAP_AXIS, Mesh
-from doa_tpu_torch.pipeline import _steering_matrix
-from doa_tpu_torch.pipeline_torch import _correction_planes
+from doa_tpu_torch.pipeline import _steering_fn, _steering_matrix
+from doa_tpu_torch.pipeline_torch import _check_slice, _correction_planes
 from doa_tpu_torch.plan import Plan, kernel_forms, sharded_kernel_routes
 
-_ESTIMATORS = (Estimator.MUSIC, Estimator.CAPON, Estimator.BARTLETT)
+_TINY = torch.finfo(torch.float32).tiny
 
 
 def num_valid_windows(T: int, cfg: DoaConfig) -> int:
@@ -235,30 +276,6 @@ def _local_peaks_merge_2d(P_loc: torch.Tensor, num_max_vals: int, g2,
     return v, torch.stack([az_o, el_o], dim=-1), gmax
 
 
-def _check_sharded_slice(cfg: DoaConfig) -> None:
-    """Raise NotImplementedError for a config outside the ported sharded
-    slice, naming the ROADMAP.md queue that will cover it."""
-    todo = []
-    if cfg.wideband.enabled:
-        todo.append(f"the sharded wideband pipelines (fusion="
-                    f"{cfg.wideband.fusion!r}: _build_sharded_wideband, "
-                    "_build_sharded_tops, _build_sharded_cssm; queue A.6)")
-    if cfg.beamspace.enabled:
-        todo.append("sharded beamspace (the steering and each rank's R "
-                    "projected onto the beams; queue A.6)")
-    if cfg.subspace_method == "jacobi":
-        todo.append("subspace_method='jacobi' (queue A.3)")
-    other = [e.value for e in cfg.estimators if e not in _ESTIMATORS]
-    if other:
-        todo.append(f"estimators {other} (root-MUSIC, ESPRIT, Unitary "
-                    "ESPRIT, min-norm: queue A.3)")
-    if todo:
-        raise NotImplementedError(
-            "doa_tpu_torch's sharded pipeline ports the narrowband fused and "
-            "general paths; not yet ported: " + "; ".join(todo)
-            + " — see ROADMAP.md")
-
-
 def _to_interleaved(x) -> np.ndarray:
     """A numpy complex (T, N) capture or a pair of f32[T, N] planes → the
     interleaved float32 (T, 2N) bytes of its complex64 form."""
@@ -282,126 +299,212 @@ def _block_rows(T: int, mesh: Mesh):
     return s * T_loc, (s + 1) * T_loc
 
 
+def _plan(cfg: DoaConfig, mesh: Mesh, return_spectra: bool) -> Plan:
+    routes = sharded_kernel_routes(cfg, mesh.axis_size(SNAP_AXIS),
+                                   mesh.axis_size(GRID_AXIS), return_spectra)
+    return Plan(routes, on_card=mesh.device.type == "cuda",
+                forms=kernel_forms(cfg, routes))
+
+
+def _grid_block(A_host: np.ndarray, mesh: Mesh):
+    """The rank's block of the steering grid → (A_re, A_im f32[G_loc, N],
+    At_emb f32[G_loc, 2N], nrm f32[G_loc]) on its device."""
+    G_loc = A_host.shape[0] // mesh.axis_size(GRID_AXIS)
+    g = mesh.axis_index(GRID_AXIS)
+    blk = A_host[g * G_loc:(g + 1) * G_loc]
+    A_re, A_im = (torch.from_numpy(np.ascontiguousarray(
+        p, dtype=np.float32)).to(mesh.device) for p in (blk.real, blk.imag))
+    At_emb = torch.cat([A_re, A_im], dim=-1).contiguous()
+    return A_re, A_im, At_emb, (At_emb * At_emb).sum(dim=-1)
+
+
+def _scan_op(plan: Plan, At_emb: torch.Tensor, K: int):
+    """The plan's MUSIC scan on the rank's grid block, a kernel with its
+    grid operand made once (K3's A', K2's A' or Aᵀ); None where the route
+    has no scan stage."""
+    if plan.get("scan") == "music_scan":
+        return functools.partial(plan.op("scan"),
+                                 tiles=scan_tiles(At_emb, 2 * K))
+    if plan.get("scan") == "music_scan_peaks":
+        return functools.partial(plan.op("scan"),
+                                 tiles=peaks_tiles(At_emb, 2 * K))
+    return plan.op("scan") if "scan" in plan else None
+
+
+def _row_peaks(cfg: DoaConfig, plan: Plan, x_rng, refine: bool):
+    """→ peaks(P) of whole spectrum rows P f32[B, G]: find_local_max on a
+    1-D grid, the plan's 2-D peaks (kernel 6) on an az/el grid →
+    (values, angles (B, k) or az/el (B, k, 2))."""
+    k = cfg.num_max_vals
+    g2 = cfg.grid2d if cfg.geometry.kind == "ura" else None
+
+    def peaks(P):
+        if g2 is None:
+            return find_local_max(P, k, x_rng[0], x_rng[1], refine=refine)
+        v, az, el = plan.op("peaks")(
+            P.reshape(P.shape[0], g2.num_az, g2.num_el), k,
+            (g2.az_lo_deg, g2.az_hi_deg), (g2.el_lo_deg, g2.el_hi_deg),
+            refine=refine)
+        return v, torch.stack([az, el], dim=-1)
+    return peaks
+
+
+def _peak_merger(cfg: DoaConfig, mesh: Mesh, plan: Plan, x_rng,
+                 refine: bool, return_spectra: bool):
+    """→ merge(out, name, P_loc): the peaks of a grid-sharded scan's block
+    P_loc f32[B, G_loc] into `out` under the reference's keys. 1-D → the
+    column-halo merge; 2-D → the az-row-halo merge where the rank
+    boundaries fall on az rows, else the gathered row's peaks (kernel 6).
+    With return_spectra the spectrum: the block normalised by the global
+    row maximum, or the whole gathered row."""
+    k = cfg.num_max_vals
+    g2 = cfg.grid2d if cfg.geometry.kind == "ura" else None
+    gather = "peaks" in plan.kernels
+    row_peaks = _row_peaks(cfg, plan, x_rng, refine)
+
+    def merge(out, name, P_loc):
+        if gather:
+            P = all_gather(P_loc, mesh, GRID_AXIS, dim=1)
+            spec = P / P.max(dim=-1, keepdim=True).values
+            v, l = row_peaks(spec)
+        else:
+            if g2 is not None:
+                v, l, gmax = _local_peaks_merge_2d(P_loc, k, g2, refine, mesh)
+            else:
+                v, l, gmax = _local_peaks_merge_1d(P_loc, k, x_rng, refine,
+                                                   mesh)
+            spec = P_loc / gmax
+        if return_spectra:
+            out[f"spectrum_{name}"] = spec
+        out[f"peak_values_{name}"] = v
+        out[f"peak_angles_{name}"] = l
+    return merge
+
+
+def _inverse(den: torch.Tensor) -> torch.Tensor:
+    """P = 1 / max(den, tiny), the reference's unnormalised spectrum."""
+    return 1.0 / den.clamp_min(_TINY)
+
+
 def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
                            refine_peaks: bool = True,
                            return_spectra: bool = True):
     """→ callable(x, correction=None) → dict of this rank's outputs; every
     rank of the mesh calls together. x is the global capture, a numpy
     complex (T, N) array or a pair of f32[T, N] planes; each rank takes
-    its own rows, and T must be divisible by n_snap · hop. ``call.local(
-    x_blk, correction=None)`` takes this rank's block only: numpy complex
-    (T_loc, N), or a tensor of the interleaved (T_loc, 2N) bytes (float32,
-    bfloat16, or int8 under cov_dtype="int8").
+    its own rows, and T must be divisible by n_snap · hop (a wideband
+    config: n_snap · S). ``call.local(x_blk, correction=None)`` takes this
+    rank's block only: numpy complex (T_loc, N), or a tensor of the
+    interleaved (T_loc, 2N) bytes (float32; on the narrowband fast path
+    also bfloat16, or int8 under cov_dtype="int8").
 
     Outputs (the reference's keys): ``peak_values_<est>``,
     ``peak_angles_<est>`` (B_loc, k) or (B_loc, k, 2) az/el, and with
     return_spectra ``spectrum_<est>`` (B_loc, G_loc), this rank's windows
     and grid block, normalised by the global row maximum (a 2-D grid
     whose az rows do not split over the grid ranks returns the whole
-    (B_loc, G) row); on the fused path ``escalation_flagged`` and
+    (B_loc, G) row), for MUSIC, min-norm, Capon and Bartlett; on a ULA
+    ``root_music_angles``, ``esprit_angles``, ``unitary_esprit_angles``
+    (B_loc, K); on the fast path ``escalation_flagged`` and
     ``escalation_overflow``, summed over the snap axis. Rows past
-    num_valid_windows on the last snap rank are invalid.
+    num_valid_windows on the last snap rank are invalid. Wideband configs
+    take the EP layout (module docstring): incoherent fusion and CSSM
+    return the "music" keys, TOPS the "tops" keys, each spectrum the
+    whole (B_loc, G) row (CSSM's as the narrowband scan's).
 
-    return_spectra=False on the fused path with an unsharded 1-D grid
+    return_spectra=False on the fast path with an unsharded 1-D grid
     fuses normalise + peaks into the scan kernel (K2; k ≤ 4, G ≤ 8192),
-    as the single-card pipeline does. ``call.plan`` is
-    sharded_kernel_plan on a CUDA mesh (every stage "plain" on the CPU;
-    plan.py): the pipeline takes each stage's route and callable from it,
-    so a stage takes its plain torch version on the card only where it
-    says so. cfg.halo_impl picks the halo
-    exchange ("xla" ppermute, or "pallas": kernel 13). The pipeline runs
-    on the mesh rank's device (make_mesh: the card unless the caller asks
-    for the CPU).
+    as the single-card pipeline does, and so does the CSSM scan of
+    R_coh. ``call.plan`` is sharded_kernel_plan on a CUDA mesh (every
+    stage "plain" on the CPU; plan.py): the pipeline takes each stage's
+    route and callable from it, so a stage takes its plain torch version
+    on the card only where it says so. cfg.halo_impl picks the narrowband
+    halo exchange ("xla" ppermute, or "pallas": kernel 13). The pipeline
+    runs on the mesh rank's device (make_mesh: the card unless the caller
+    asks for the CPU).
 
-    ``call.fast`` (the fused path), ``call.mesh``, ``call.config`` (the
-    port's own) and ``call.steering_planes`` (this rank's grid block)."""
+    ``call.mesh``, ``call.config`` (the port's own), ``call.plan`` and,
+    narrowband, ``call.fast`` (the fast path) and ``call.steering_planes``
+    (this rank's grid block)."""
     cfg = as_config(cfg)
-    _check_sharded_slice(cfg)
+    if cfg.wideband.enabled:
+        return _build_sharded_wideband(cfg, mesh, refine_peaks,
+                                       return_spectra)
     dev = mesh.device
     n_snap, n_grid = mesh.axis_size(SNAP_AXIS), mesh.axis_size(GRID_AXIS)
-    routes = sharded_kernel_routes(cfg, n_snap, n_grid, return_spectra)
-    plan = Plan(routes, on_card=dev.type == "cuda",
-                forms=kernel_forms(cfg, routes))
+    plan = _plan(cfg, mesh, return_spectra)
     route = plan.kernels
     A_host, x_rng = _steering_matrix(cfg)
     S, hop, overlap = cfg.snapshot_size, cfg.hop, cfg.overlap
     fb = cfg.avg_method == AvgMethod.FORWARD_BACKWARD
-    G = A_host.shape[0]
-    if G % n_grid:
-        raise ValueError(f"grid size {G} not divisible by n_grid {n_grid}")
     N = cfg.geometry.num_elements
     K = cfg.num_sources
     k = cfg.num_max_vals
+    d = cfg.geometry.norm_spacing
+    bs = cfg.beamspace.enabled
+    if bs:
+        # the (N, Nb) beam matrix is replicated and the PROJECTED steering
+        # grid sharded: the covariance stays element-space on each rank
+        # (halo and psum layout unchanged) and each rank projects its
+        # R → BᴴRB once; every later stage runs at Nb
+        Bm_host = dft_beam_matrix(N, cfg.beamspace.num_beams,
+                                  cfg.beamspace.center_deg, d)
+        A_host = beamspace_steering(A_host, Bm_host)
+        Bm = torch.from_numpy(Bm_host).to(dev)
+    G = A_host.shape[0]
+    if G % n_grid:
+        raise ValueError(f"grid size {G} not divisible by n_grid {n_grid}")
     use_power = cfg.subspace_method == "power"
-    g2 = cfg.grid2d if cfg.geometry.kind == "ura" else None
-    use_2d_merge = g2 is not None and (G // n_grid) % g2.num_el == 0
     fast = route["covariance"] == "chunk_gram"
     esc = cfg.escalate_kwargs
-    G_loc = G // n_grid
-    g = mesh.axis_index(GRID_AXIS)
-    A_blk = A_host[g * G_loc:(g + 1) * G_loc]
-    A_re = torch.from_numpy(np.ascontiguousarray(
-        A_blk.real, dtype=np.float32)).to(dev)
-    A_im = torch.from_numpy(np.ascontiguousarray(
-        A_blk.imag, dtype=np.float32)).to(dev)
-    At_emb = torch.cat([A_re, A_im], dim=-1).contiguous()   # (G_loc, 2N)
-    nrm = (At_emb * At_emb).sum(dim=-1)
-    scan = plan.op("scan") if "scan" in plan else None
-    if plan.get("scan") == "music_scan":
-        # K3's A' of the rank's grid block, made once
-        scan = functools.partial(scan, tiles=scan_tiles(At_emb, 2 * K))
-    elif plan.get("scan") == "music_scan_peaks":
-        # K2's grid operand (A', or Aᵀ for its CUDA-core form), made once
-        scan = functools.partial(scan, tiles=peaks_tiles(At_emb, 2 * K))
-    need_R = (Estimator.CAPON in cfg.estimators
-              or Estimator.BARTLETT in cfg.estimators)
+    A_re, A_im, At_emb, nrm = _grid_block(A_host, mesh)
+    scan = _scan_op(plan, At_emb, K)
+    ests = cfg.estimators
+    ula = cfg.geometry.kind == "ula"
+    need_R = any(e in ests for e in (
+        Estimator.CAPON, Estimator.BARTLETT, Estimator.ROOT_MUSIC,
+        Estimator.ESPRIT, Estimator.UNITARY_ESPRIT))
+    merge = _peak_merger(cfg, mesh, plan, x_rng, refine_peaks,
+                         return_spectra)
 
-    def _peaks(P_full):
-        """Peaks of the gathered, normalised (B, G) row (2-D grids whose
-        az rows do not split over the grid ranks)."""
-        P2 = P_full.reshape(P_full.shape[0], g2.num_az, g2.num_el)
-        v, az, el = find_local_max_2d(
-            P2, k, (g2.az_lo_deg, g2.az_hi_deg),
-            (g2.el_lo_deg, g2.el_hi_deg), refine=refine_peaks)
-        return v, torch.stack([az, el], dim=-1)
-
-    def _merge_peaks(out, est, P_loc):
-        """1-D → the column-halo merge; 2-D → the az-row-halo merge when
-        rank boundaries fall on az rows, the gathered row otherwise."""
-        if g2 is not None and not use_2d_merge:
-            P_full = all_gather(P_loc, mesh, GRID_AXIS, dim=1)
-            P_full = P_full / P_full.max(dim=-1, keepdim=True).values
-            v, l = _peaks(P_full)
-            spec = P_full
-        else:
-            if g2 is not None:
-                v, l, gmax = _local_peaks_merge_2d(P_loc, k, g2,
-                                                   refine_peaks, mesh)
-            else:
-                v, l, gmax = _local_peaks_merge_1d(P_loc, k, x_rng,
-                                                   refine_peaks, mesh)
-            spec = P_loc / gmax
-        if return_spectra:
-            out[f"spectrum_{est.value}"] = spec
-        out[f"peak_values_{est.value}"] = v
-        out[f"peak_angles_{est.value}"] = l
-
-    def _spectra(out, R, music):
-        """Capon and Bartlett on R, MUSIC through music(); each into the
-        merge."""
-        for est in cfg.estimators:
+    def _spectra(out, R, music, min_norm):
+        """Each scanned estimator's block into the merge: MUSIC through
+        music() (None: K2 wrote the peaks), min-norm's den through
+        min_norm() (w is per window, so the grid-sharded scan needs no
+        collective), Capon and Bartlett on R."""
+        for est in ests:
             if est == Estimator.MUSIC:
                 P_loc = music()
-                if P_loc is None:             # K2 wrote the peaks
+                if P_loc is None:
                     continue
+            elif est == Estimator.MIN_NORM:
+                P_loc = _inverse(min_norm())
             elif est == Estimator.CAPON:
                 P_loc = cpx_ops.capon_spectrum(
                     *R, At_emb, diag_load=cfg.capon_diag_load,
                     normalize=False)
-            else:
+            elif est == Estimator.BARTLETT:
                 P_loc = cpx_ops.bartlett_spectrum(*R, At_emb,
                                                   normalize=False)
-            _merge_peaks(out, est, P_loc)
+            else:               # grid-free: _grid_free
+                continue
+            merge(out, est.value, P_loc)
+
+    def _grid_free(out, R, V_emb):
+        """Root-MUSIC (on the power subspace's noise projector where there
+        is one, else eigh's), ESPRIT and Unitary ESPRIT of the rank's own
+        windows, on a ULA only, as the reference."""
+        if not ula:
+            return
+        if Estimator.ROOT_MUSIC in ests:
+            nproj = (None if V_emb is None
+                     else cpx_ops.noise_projector_from_signal(V_emb))
+            out["root_music_angles"] = root_music_cpx(*R, K, d,
+                                                      noise_proj=nproj)
+        if Estimator.ESPRIT in ests:
+            out["esprit_angles"] = esprit_cpx(*R, K, d)
+        if Estimator.UNITARY_ESPRIT in ests:
+            out["unitary_esprit_angles"] = unitary_esprit_cpx(*R, K, d)
 
     def run_fast(x_ext, T, cr, ci):
         E_win = cov_embedded(x_ext, cr, ci, N=N, snapshot_size=S,
@@ -434,6 +537,7 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
                 E_sub, K, iters=cfg.power_iters,
                 squarings=cfg.power_squarings, return_stats=True, iterate=it,
                 **(esc if cfg.power_squarings == 0 else {}))
+        V_emb = Vt.transpose(-1, -2)
         out = {}
 
         def music():
@@ -445,7 +549,10 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
                 return None
             return scan(Vt, At_emb, nrm)
 
-        _spectra(out, unembed_planes(E_win) if need_R else None, music)
+        R = unembed_planes(E_win) if need_R else None
+        _spectra(out, R, music, lambda: min_norm_denominator_subspace(
+            V_emb, A_re, A_im, cfg.compute_dtype))
+        _grid_free(out, R, V_emb)
         counts = psum(torch.stack(stats).reshape(2), mesh, SNAP_AXIS)
         out["escalation_flagged"] = counts[0]
         out["escalation_overflow"] = counts[1]
@@ -460,24 +567,40 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
             R = cpx_ops.forward_backward(*R)
         if cfg.smoothing.enabled:
             R = cpx_ops.spatial_smooth(*R, cfg.smoothing.subarray_size)
+        if bs:
+            R = beamspace_covariance(*R, Bm)
+        V_emb = M = None
+        if "subspace" in route:
+            V_emb = cpx_ops.signal_subspace_embedded(
+                *R, K, iters=cfg.power_iters, squarings=cfg.power_squarings,
+                iterate=plan.op("subspace"),
+                **(esc if cfg.power_squarings == 0 else {}))
+        elif Estimator.MUSIC in ests or Estimator.MIN_NORM in ests:
+            # eigh's projector under "jacobi" too: the reference's sharded
+            # general path reads the subspace method as "power" or not
+            # (parallel/sharded.py:287) and takes noise_projector_cpx, as
+            # its single-card wideband scan does (ops/wideband.py)
+            M = cpx_ops.noise_projector(*R, K)
         out = {}
 
         def music():
             if use_power:
-                V_emb = cpx_ops.signal_subspace_embedded(
-                    *R, K, iters=cfg.power_iters,
-                    squarings=cfg.power_squarings,
-                    iterate=plan.op("subspace"),
-                    **(esc if cfg.power_squarings == 0 else {}))
                 den = cpx_ops.music_denominator_subspace(
                     V_emb, At_emb, cfg.compute_dtype)
             else:
-                M = cpx_ops.noise_projector(*R, K)
                 den = cpx_ops.music_denominator_cpx(
                     *M, A_re, A_im, cfg.compute_dtype)
-            return 1.0 / den.clamp_min(torch.finfo(torch.float32).tiny)
+            return _inverse(den)
 
-        _spectra(out, R, music)
+        def min_norm():
+            if use_power:
+                return min_norm_denominator_subspace(V_emb, A_re, A_im,
+                                                     cfg.compute_dtype)
+            # at float32 whatever compute_dtype is, as the reference's
+            return min_norm_denominator_cpx(*M, A_re, A_im)
+
+        _spectra(out, R, music, min_norm)
+        _grid_free(out, R, V_emb)
         return out
 
     def local(x_blk, correction=None) -> dict:
@@ -518,6 +641,283 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
     call.steering_planes = (A_re, A_im)
     call.plan = plan
     return call
+
+
+# ---------------------------------------------------------------------
+# Wideband: the expert-parallel layout
+# ---------------------------------------------------------------------
+
+def _ep_layout(cfg: DoaConfig, mesh: Mesh):
+    """The EP layout's checks, the reference's ValueErrors (and the
+    single-card pipeline's for spatial smoothing on a wideband ULA) → (F,
+    F_loc, lo): the rank's subbands are [lo, lo + F_loc)."""
+    _check_slice(cfg)
+    F = cfg.wideband.num_subbands
+    n_ep = mesh.axis_size(GRID_AXIS)
+    if F % n_ep:
+        raise ValueError(f"subbands {F} not divisible by EP axis {n_ep}")
+    F_loc = F // n_ep
+    return F, F_loc, mesh.axis_index(GRID_AXIS) * F_loc
+
+
+def _ep_front_end(cfg: DoaConfig, plan: Plan):
+    """→ front(x, cr, ci) → the embedded covariance windows E f32[F,
+    B_loc, 2N, 2N] of every subband of the rank's block x f32[T_loc, 2N]
+    (interleaved), the correction (cr, ci) folded per subband: one launch
+    of kernel 4 (the single-card front end, variant "auto": the FFT form
+    for a power-of-two F, else the frames source) yields all F subbands,
+    which the layout makes inherent; callers slice their own."""
+    N, F = cfg.geometry.num_elements, cfg.wideband.num_subbands
+
+    def front(x, cr, ci):
+        return wideband_cov_embedded(
+            x, cr, ci, N=N, F=F, snapshot_size=cfg.snapshot_size,
+            overlap=cfg.overlap, kernel=plan.op("covariance"))
+    return front
+
+
+def _ep_pipeline(cfg: DoaConfig, mesh: Mesh, plan: Plan, run):
+    """The entry points of an EP pipeline around run(x f32[T_loc, 2N], cr,
+    ci) → dict (build_sharded_pipeline's call and call.local)."""
+    dev = mesh.device
+    N, S = cfg.geometry.num_elements, cfg.snapshot_size
+    n_snap = mesh.axis_size(SNAP_AXIS)
+
+    def local(x_blk, correction=None) -> dict:
+        if isinstance(x_blk, torch.Tensor):
+            xt = x_blk.to(device=dev, dtype=torch.float32).reshape(-1, 2 * N)
+        else:
+            xt = torch.from_numpy(_to_interleaved(x_blk)).to(dev)
+        if xt.shape[0] % S:
+            raise ValueError(f"a rank's block of {xt.shape[0]} samples must "
+                             f"be a multiple of S ({S}): T must be divisible "
+                             f"by n_snap*S={n_snap * S} on the wideband EP "
+                             "path")
+        cr, ci = _correction_planes(correction, N, dev)
+        with fp32_matmuls():
+            return run(xt, cr, ci)
+
+    def call(x, correction=None) -> dict:
+        xil = _to_interleaved(x)
+        T = xil.shape[0]
+        if T % (n_snap * S):
+            raise ValueError(f"T={T} must be divisible by n_snap*S="
+                             f"{n_snap * S} on the wideband EP path")
+        lo, hi = _block_rows(T, mesh)
+        return local(torch.from_numpy(xil[lo:hi]), correction)
+
+    call.local = local
+    call.mesh = mesh
+    call.config = cfg
+    call.plan = plan
+    return call
+
+
+def _subband_steering(cfg: DoaConfig, lo: int, hi: int, dev) -> torch.Tensor:
+    """Subbands [lo, hi) of the per-subband steering stack, c64[hi − lo,
+    G, N] on the device."""
+    X = wideband_steering_stack(cfg, _steering_fn(cfg))[lo:hi]
+    return torch.from_numpy(np.ascontiguousarray(X, np.complex64)).to(dev)
+
+
+def _build_sharded_wideband(cfg: DoaConfig, mesh: Mesh,
+                            refine_peaks: bool = True,
+                            return_spectra: bool = True):
+    """EP-sharded wideband (build_sharded_pipeline): "cssm" and
+    "cssm_auto" go to _build_sharded_cssm, "tops" to _build_sharded_tops;
+    incoherent fusion here. Each rank's subband windows (_ep_front_end),
+    their subspaces (K4; the warm start from the mean over every rank's
+    windows, the reference's pmean, gated on the global window count) and
+    the sum of its subbands' max-normalised spectra: kernel 5's mean × F_loc
+    where the plan has it (the reference's fast route), else each
+    subband's spectrum (the power subspaces at compute_dtype, or eigh's
+    noise projectors, under "jacobi" too) summed; then ONE psum over the
+    grid axis, / F, and every rank peaks its windows on the whole grid."""
+    if cfg.wideband.fusion in ("cssm", "cssm_auto"):
+        return _build_sharded_cssm(cfg, mesh, refine_peaks, return_spectra)
+    if cfg.wideband.fusion == "tops":
+        return _build_sharded_tops(cfg, mesh, refine_peaks, return_spectra)
+    F, F_loc, lo = _ep_layout(cfg, mesh)
+    plan = _plan(cfg, mesh, return_spectra)
+    route = plan.kernels
+    _, x_rng = _steering_matrix(cfg)
+    A_loc = _subband_steering(cfg, lo, lo + F_loc, mesh.device)
+    Xr, Xi, As_emb, As_nrm = steering_planes(A_loc.real, A_loc.imag)
+    del A_loc
+    front = _ep_front_end(cfg, plan)
+    peaks = _row_peaks(cfg, plan, x_rng, refine_peaks)
+    n_snap = mesh.axis_size(SNAP_AXIS)
+    K = cfg.num_sources
+
+    def run(x, cr, ci):
+        E = front(x, cr, ci)[lo:lo + F_loc]           # (F_loc, B_loc, 2N, 2N)
+        if cfg.subspace_method == "power":
+            Ebar = (divide(psum(E.mean(dim=1), mesh, SNAP_AXIS), n_snap)
+                    if cfg.subspace_warm_start
+                    and E.shape[1] * n_snap >= 32 else None)
+            Vt = subband_subspaces_from_E(E, cfg, iterate=plan.op("subspace"),
+                                          Ebar=Ebar)
+            del E
+            if "fusion" in route:
+                # kernel 5's mean over the rank's subbands × F_loc: their
+                # sum, as the reference's fast route
+                P = plan.op("fusion")(Vt, As_emb, As_nrm) * F_loc
+            else:
+                P = fused_sum(power_spectra(Vt, As_emb, cfg.compute_dtype))
+        else:
+            M = subband_noise_projectors(E, K)
+            del E
+            P = fused_sum(projector_spectra(*M, Xr, Xi, cfg.compute_dtype))
+        # the EP fusion: one psum of the ranks' subband sums, / F
+        P = divide(psum(P, mesh, GRID_AXIS), F)
+        v, l = peaks(P)
+        out = {"peak_values_music": v, "peak_angles_music": l}
+        if return_spectra:
+            out["spectrum_music"] = P
+        return out
+
+    return _ep_pipeline(cfg, mesh, plan, run)
+
+
+def _build_sharded_tops(cfg: DoaConfig, mesh: Mesh,
+                        refine_peaks: bool = True,
+                        return_spectra: bool = True):
+    """EP-sharded TOPS (fusion="tops", ops/tops.py): the subband axis is
+    the EP axis. Each rank takes the reference band's covariance and
+    complex signal subspace itself (one band: no broadcast; the reference
+    steering row rides in replicated), its own subbands' subspaces
+    (max(power_iters, 16) iterations, as the reference), and Σ CᴴC with
+    the guard's sum over its subbands (tops_accumulate_cc on its slice,
+    the reference band weighted 0). The fusion is ONE psum of those sums
+    over the grid axis, after which every rank finalises λ_min and peaks
+    its windows on the whole grid."""
+    F, F_loc, lo = _ep_layout(cfg, mesh)
+    plan = _plan(cfg, mesh, return_spectra)
+    _, x_rng = _steering_matrix(cfg)
+    dev = mesh.device
+    K, N = cfg.num_sources, cfg.geometry.num_elements
+    ref = cfg.wideband.tops_ref_band
+    sub_iters = max(cfg.power_iters, 16)
+    A_loc = _subband_steering(cfg, lo, lo + F_loc, dev)
+    A_ref = _subband_steering(cfg, ref, ref + 1, dev)[0]
+    w = [0.0 if lo + f == ref else 1.0 for f in range(F_loc)]
+    front = _ep_front_end(cfg, plan)
+    peaks = _row_peaks(cfg, plan, x_rng, refine_peaks)
+
+    def run(x, cr, ci):
+        E = front(x, cr, ci)
+        S_ref = signal_subspace_cpx(
+            torch.complex(*unembed_planes(E[ref])), K, iters=sub_iters)
+        R = torch.complex(*unembed_planes(E[lo:lo + F_loc]))
+        del E
+        B = R.shape[1]
+        S_loc = signal_subspace_cpx(R.reshape(F_loc * B, N, N), K,
+                                    iters=sub_iters).reshape(F_loc, B, N, K)
+        del R
+        v = tops_leakage_row(A_ref, S_ref)
+        ccr, cci, mus = tops_accumulate_cc(S_loc, A_loc, A_ref, S_ref, v, w)
+        # the fusion: ONE psum of the three sums in one buffer
+        n = ccr.numel()
+        buf = psum(torch.cat([ccr.reshape(-1), cci.reshape(-1),
+                              mus.reshape(-1)]), mesh, GRID_AXIS)
+        ccr, cci = buf[:n].view_as(ccr), buf[n:2 * n].view_as(cci)
+        mus = buf[2 * n:].view_as(mus)
+        P = tops_finalize(ccr, cci, v, F,
+                          guard=mus if cfg.wideband.tops_guard else None)
+        pv, pl = peaks(P)
+        out = {"peak_values_tops": pv, "peak_angles_tops": pl}
+        if return_spectra:
+            out["spectrum_tops"] = P
+        return out
+
+    return _ep_pipeline(cfg, mesh, plan, run)
+
+
+def _build_sharded_cssm(cfg: DoaConfig, mesh: Mesh,
+                        refine_peaks: bool = True,
+                        return_spectra: bool = True):
+    """EP → TP coherent wideband: the grid axis is used twice. As the EP
+    axis, each rank's Σ T_f R_f T_fᴴ over its subbands, ONE psum, / F →
+    R_coh, replicated; then FB and smoothing, and as the TP axis the
+    narrowband MUSIC scan of R_coh against the rank's grid block (K4, and
+    K3 or K2 where the plan has them) into the O(k) merge.
+
+    "cssm_auto" keeps its two passes EP-sharded: the capture-mean subband
+    covariances over every rank's windows (the ranks' means psum'd over
+    the snap axis, / n_snap, as the reference), each rank's coarse spectra
+    against its subbands' steering, one psum over the grid axis, / F: the
+    same coarse spectrum, and so the same focusing angles, on every rank;
+    then runtime focusing for the rank's own subbands."""
+    F, F_loc, lo = _ep_layout(cfg, mesh)
+    dev = mesh.device
+    A_host, x_rng = _steering_matrix(cfg)
+    G, n_ep = A_host.shape[0], mesh.axis_size(GRID_AXIS)
+    if G % n_ep:
+        raise ValueError(f"grid size {G} not divisible by TP axis {n_ep}")
+    plan = _plan(cfg, mesh, return_spectra)
+    route = plan.kernels
+    n_snap = mesh.axis_size(SNAP_AXIS)
+    K, k = cfg.num_sources, cfg.num_max_vals
+    fb = cfg.avg_method == AvgMethod.FORWARD_BACKWARD
+    esc = cfg.escalate_kwargs
+    A_re, A_im, At_emb, nrm = _grid_block(A_host, mesh)
+    scan = _scan_op(plan, At_emb, K)
+    merge = _peak_merger(cfg, mesh, plan, x_rng, refine_peaks,
+                         return_spectra)
+    auto = cfg.wideband.fusion == "cssm_auto"
+    if auto:
+        A_loc = _subband_steering(cfg, lo, lo + F_loc, dev)
+        As_emb = steering_planes(A_loc.real, A_loc.imag)[2]
+        del A_loc
+        spac = np.concatenate([[cfg.geometry.norm_spacing],
+                               subband_spacings(cfg)[lo:lo + F_loc]])
+    else:
+        T_foc = torch.from_numpy(focusing_matrices(cfg)[lo:lo + F_loc]).to(dev)
+    front = _ep_front_end(cfg, plan)
+
+    def run(x, cr, ci):
+        R_sub = torch.complex(*unembed_planes(
+            front(x, cr, ci)[lo:lo + F_loc]))
+        if auto:
+            Rbar = divide(psum(R_sub.mean(dim=1), mesh, SNAP_AXIS), n_snap)
+            P1 = coarse_band_spectra(Rbar, As_emb, cfg,
+                                     iterate=plan.op("coarse_subspace"))
+            P1 = divide(psum(P1.sum(dim=0), mesh, GRID_AXIS), F)   # (1, G)
+            Tf = runtime_focusing(P1, cfg, spac)
+        else:
+            Tf = T_foc
+        # the EP fusion: ONE psum of the ranks' focused sums → R_coh
+        R = divide(psum(focused_sum(R_sub, Tf), mesh, GRID_AXIS), F)
+        del R_sub
+        Rr, Ri = R.real.contiguous(), R.imag.contiguous()
+        if fb:
+            Rr, Ri = cpx_ops.forward_backward(Rr, Ri)
+        if cfg.smoothing.enabled:
+            Rr, Ri = cpx_ops.spatial_smooth(Rr, Ri,
+                                            cfg.smoothing.subarray_size)
+        # the TP scan on the same axis: R_coh replicated, the grid sharded
+        out = {}
+        if "subspace" in route:
+            V = cpx_ops.signal_subspace_embedded(
+                Rr, Ri, K, iters=cfg.power_iters,
+                squarings=cfg.power_squarings, iterate=plan.op("subspace"),
+                **(esc if cfg.power_squarings == 0 else {}))
+            Vt = V.transpose(-1, -2)
+            if route.get("scan") == "music_scan_peaks":
+                v, l = scan(Vt, At_emb, k, x_rng[0], x_rng[1],
+                            refine=refine_peaks, nrm=nrm)
+                return {"peak_values_music": v, "peak_angles_music": l}
+            P_loc = (scan(Vt, At_emb, nrm) if scan is not None
+                     else _inverse(cpx_ops.music_denominator_subspace(
+                         V, At_emb, cfg.compute_dtype)))
+        else:
+            M = cpx_ops.noise_projector(Rr, Ri, K)
+            P_loc = _inverse(cpx_ops.music_denominator_cpx(
+                *M, A_re, A_im, cfg.compute_dtype))
+        merge(out, "music", P_loc)
+        return out
+
+    return _ep_pipeline(cfg, mesh, plan, run)
 
 
 def distributed_covariance(mesh: Mesh):

@@ -171,6 +171,15 @@ def scans_music_kernel(cfg: DoaConfig) -> bool:
             and (scan_mode == "pallas" or cfg.compute_dtype == "float32"))
 
 
+def _wideband_covariance_route(cfg: DoaConfig):
+    """Kernel 4's front end, wideband_cov_embedded(variant="auto")'s
+    dispatch: "wideband_fft_gram" for a power-of-two subband count, else
+    the ring kernel's frames source "subband_embedded_frames"."""
+    fft = resolve_variant(cfg.wideband.num_subbands, "auto") == "fft"
+    return ("wideband_fft_gram" if fft else "subband_embedded_frames",
+            kernel_takes(cfg.geometry.num_elements))
+
+
 def kernel_routes(cfg, *, return_spectra: bool = True) -> dict:
     """{stage: (kernel, whether it takes the config's shapes)} of a
     single-card pipeline of `cfg`, each stage only where the config's
@@ -210,10 +219,7 @@ def kernel_routes(cfg, *, return_spectra: bool = True) -> dict:
     incoherent = wb.enabled and wb.fusion == "incoherent"
     fused_key = wb.enabled and wb.fusion in ("incoherent", "tops")
     if wb.enabled:
-        fft = resolve_variant(wb.num_subbands, "auto") == "fft"
-        routes["covariance"] = ("wideband_fft_gram" if fft
-                                else "subband_embedded_frames",
-                                kernel_takes(N))
+        routes["covariance"] = _wideband_covariance_route(cfg)
         if incoherent and cfg.subspace_method == "power":
             routes["subspace"] = ("mgs_iterate", mgs_takes(2 * N, k2))
             if fusion_kernel_applies(cfg):
@@ -242,31 +248,91 @@ def kernel_routes(cfg, *, return_spectra: bool = True) -> dict:
     return routes
 
 
+def sharded_fused_route(cfg: DoaConfig) -> bool:
+    """The sharded narrowband fast path's rule, the reference's
+    (parallel/sharded.py:306-308): the fused route's, and no beamspace."""
+    return fused_route(cfg) and not cfg.beamspace.enabled
+
+
+def gathers_spectrum_row(cfg: DoaConfig, n_grid: int) -> bool:
+    """Whether a grid-sharded 2-D scan gathers the whole spectrum row for
+    its peaks (the reference's rule, parallel/sharded.py:290-291): a URA
+    whose az rows do not fall whole on the n_grid ranks; else the O(k)
+    merge runs."""
+    return (cfg.geometry.kind == "ura"
+            and (_grid_size(cfg) // n_grid) % cfg.grid2d.num_el != 0)
+
+
+def _music_scan_route(cfg, n_grid: int, return_spectra: bool, k2: int,
+                      n2: int):
+    return (("music_scan_peaks", peaks_takes(k2, n2, _grid_size(cfg)))
+            if n_grid == 1 and fuses_peaks(cfg, return_spectra)
+            else ("music_scan", scan_takes(k2, n2)))
+
+
 def sharded_kernel_routes(cfg, n_snap: int, n_grid: int,
                           return_spectra: bool = True) -> dict:
     """kernel_routes of a sharded pipeline of `cfg` on an (n_snap, n_grid)
-    mesh, per rank: "halo" (kernel 13 "halo_ring" under halo_impl="pallas"
-    with a halo to exchange), "covariance" (K1 on the fused route, kernel
-    8 on the general route), "subspace" (K4: on the fused route, and for
-    MUSIC on the power subspace) and, for MUSIC on the fused route, "scan"
-    (K2 under the fused-peaks rule on an unsharded grid, else K3)."""
+    mesh, per rank.
+
+    Narrowband: "halo" (kernel 13 "halo_ring" under halo_impl="pallas"
+    with a halo to exchange), "covariance" (K1 on the fast path,
+    sharded_fused_route; kernel 8 on the general path), "subspace" (K4:
+    on the fast path, and on the general path where the power subspace
+    runs, runs_power_subspace), "scan" for MUSIC on the fast path (K2
+    under the fused-peaks rule on an unsharded grid, else K3).
+
+    Wideband (the EP layout): "covariance" as on one card (kernel 4 on
+    each rank's block, "wideband_fft_gram" for a power-of-two F, else the
+    ring kernel's frames source "subband_embedded_frames"); incoherent
+    fusion on the power subspaces: "subspace" (K4) and, where
+    fusion_kernel_applies, "fusion" (kernel 5 on the rank's subbands);
+    "cssm" / "cssm_auto": "coarse_subspace" (K4, cssm_auto's coarse
+    pass), and on the power subspace of R_coh "subspace" (K4) and "scan"
+    (K3, or K2 as above, where scans_music_kernel); TOPS: the front end
+    alone.
+
+    "peaks": kernel 6 on a 2-D grid wherever a rank peaks a whole
+    spectrum row: incoherent fusion and TOPS (P is whole on every rank),
+    and the gathered row of a grid-sharded scan (gathers_spectrum_row)."""
     cfg = as_config(cfg)
-    N, fast = cfg.geometry.num_elements, fused_route(cfg)
-    n2, k2 = subspace_n2(cfg), 2 * cfg.num_sources
+    N, K = cfg.geometry.num_elements, cfg.num_sources
+    n2, k2 = subspace_n2(cfg), 2 * K
+    power = cfg.subspace_method == "power"
+    wb = cfg.wideband
+    whole_row = gathers_spectrum_row(cfg, n_grid)
     routes = {}
-    if cfg.halo_impl == "pallas" and cfg.overlap > 0 and n_snap > 1:
-        routes["halo"] = ("halo_ring", True)
-    routes["covariance"] = (("chunk_gram", gram_takes(2 * N)) if fast
-                            else ("planes_chunk_gram", planes_takes(N)))
-    music = Estimator.MUSIC in cfg.estimators
-    if fast or (music and cfg.subspace_method == "power"):
-        # the fused route runs its subspace (and escalation counts) always
-        routes["subspace"] = ("mgs_iterate", mgs_takes(n2, k2))
-    if music and fast:
-        routes["scan"] = (
-            ("music_scan_peaks", peaks_takes(k2, n2, _grid_size(cfg)))
-            if n_grid == 1 and fuses_peaks(cfg, return_spectra)
-            else ("music_scan", scan_takes(k2, n2)))
+    if wb.enabled:
+        routes["covariance"] = _wideband_covariance_route(cfg)
+        if wb.fusion == "incoherent" and power:
+            routes["subspace"] = ("mgs_iterate", mgs_takes(2 * N, k2))
+            if fusion_kernel_applies(cfg):
+                routes["fusion"] = ("wideband_fusion",
+                                    fusion_takes(k2, 2 * N))
+        elif wb.fusion in ("cssm", "cssm_auto"):
+            if wb.fusion == "cssm_auto":
+                routes["coarse_subspace"] = ("mgs_iterate",
+                                             mgs_takes(2 * N, k2))
+            if power:
+                routes["subspace"] = ("mgs_iterate", mgs_takes(n2, k2))
+                if scans_music_kernel(cfg):
+                    routes["scan"] = _music_scan_route(
+                        cfg, n_grid, return_spectra, k2, n2)
+        whole_row = whole_row or wb.fusion in ("incoherent", "tops")
+    else:
+        fast = sharded_fused_route(cfg)
+        if cfg.halo_impl == "pallas" and cfg.overlap > 0 and n_snap > 1:
+            routes["halo"] = ("halo_ring", True)
+        routes["covariance"] = (("chunk_gram", gram_takes(2 * N)) if fast
+                                else ("planes_chunk_gram", planes_takes(N)))
+        if fast or runs_power_subspace(cfg):
+            # the fast path runs its subspace (and escalation counts) always
+            routes["subspace"] = ("mgs_iterate", mgs_takes(n2, k2))
+        if Estimator.MUSIC in cfg.estimators and fast:
+            routes["scan"] = _music_scan_route(cfg, n_grid, return_spectra,
+                                               k2, n2)
+    if cfg.geometry.kind == "ura" and whole_row:
+        routes["peaks"] = ("peaks2d", cfg.num_max_vals <= MAX_PEAKS2D_K)
     return routes
 
 

@@ -250,6 +250,34 @@ def test_sharded_plan_follows_the_predicates():
         "music_scan_peaks")
 
 
+@pytest.mark.parametrize("fusion,spec,want", [
+    ("incoherent", (1, 2), {"covariance": "wideband_fft_gram",
+                            "subspace": "mgs_iterate",
+                            "fusion": "wideband_fusion", "peaks": "peaks2d"}),
+    ("tops", (1, 2), {"covariance": "wideband_fft_gram", "peaks": "peaks2d"}),
+    ("cssm", (2, 1), {"covariance": "wideband_fft_gram",
+                      "subspace": "mgs_iterate", "scan": "music_scan"}),
+    ("cssm_auto", (2, 1), {"covariance": "wideband_fft_gram",
+                           "coarse_subspace": "mgs_iterate",
+                           "subspace": "mgs_iterate", "scan": "music_scan"}),
+])
+def test_sharded_wideband_plans_the_ep_kernels(fusion, spec, want):
+    """c5's EP builders plan a kernel for every stage: kernel 4 on each
+    rank's block (F = 16, a power of two), K4, kernel 5 on the rank's
+    subbands and kernel 6 on the whole row (incoherent), kernel 4 and 6
+    (TOPS), K4 and K3 for R_coh's scan, whose grid (16471 points) takes
+    the O(k) merge unsharded, no kernel 6 (CSSM). At F = 12 (not a power
+    of two) the front end is the single card's: kernel 4's frames source,
+    and kernel 5 still fuses each rank's subbands."""
+    assert sharded_kernel_plan(_c5(fusion=fusion), *spec) == want
+    f12 = _c5(num_subbands=12, snapshot_size=768)
+    assert sharded_kernel_plan(f12, 1, 2) == {
+        "covariance": "subband_embedded_frames", "subspace": "mgs_iterate",
+        "fusion": "wideband_fusion", "peaks": "peaks2d"}
+    assert (sharded_kernel_plan(f12, 1, 2)["covariance"]
+            == kernel_plan(f12)["covariance"])
+
+
 def test_k3_keeps_a_kernel_for_every_shape_its_first_form_took():
     """K3's CUDA-core form took any 2K wherever its tiles fit shared
     memory; scan_takes keeps all of those (the tensor-core form, else the

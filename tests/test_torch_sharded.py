@@ -22,9 +22,11 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from doa_tpu.configs import (ArrayGeometry, DoaConfig, Estimator, GridSpec1D,
-                             PRESETS, WidebandSpec)
+from doa_tpu.configs import (ArrayGeometry, BeamspaceSpec, DoaConfig,
+                             Estimator, GridSpec1D, PRESETS,
+                             WidebandSpec)
 from doa_tpu.io import SourceSpec, synth_ula_iq
+from doa_tpu.io.synthetic import synth_wideband_ura_iq
 from doa_tpu.ops.pallas.ring import halo_exchange as halo_ref
 from doa_tpu.ops.peaks import find_local_max, find_local_max_2d
 from doa_tpu.parallel import MeshSpec as MeshSpecJ
@@ -101,6 +103,24 @@ def _pipe_job(**over):
                          "correction": CORRECTION, "build": build})
 
 
+_ALL_FIVE = (Estimator.MUSIC, Estimator.MIN_NORM, Estimator.ROOT_MUSIC,
+             Estimator.ESPRIT, Estimator.UNITARY_ESPRIT)
+# tests/test_sharded.py:96-108, 247-264, 299-319 and 385-405 on the port's
+# routes: the fast path with every estimator but Capon and Bartlett (the
+# reference's under cov_impl="pallas"); the general path under "jacobi"
+# (eigh's projector in both packages) with the same five; beamspace (5
+# beams, the general path in both; the configs refuse min-norm and the
+# grid-free estimators there) with MUSIC on the power subspace of BᴴRB,
+# Capon and Bartlett
+_ESTIMATOR_JOBS = {
+    "estimators": {"estimators": _ALL_FIVE},
+    "jacobi": {"estimators": _ALL_FIVE, "subspace_method": "jacobi"},
+    "beamspace": {"estimators": (Estimator.MUSIC, Estimator.CAPON,
+                                 Estimator.BARTLETT),
+                  "beamspace": BeamspaceSpec(num_beams=5, center_deg=90.0)},
+}
+
+
 def _jobs():
     return {
         "fast": _pipe_job(),
@@ -123,6 +143,7 @@ def _jobs():
                               "impl": "xla"}),
         "halo_ring": ("halo", {"x": _plane(), "overlap": OVERLAP,
                                "impl": "pallas"}),
+        **{name: _pipe_job(**over) for name, over in _ESTIMATOR_JOBS.items()},
     }
 
 
@@ -237,6 +258,36 @@ def test_eigh_general_path_matches_reference(ranks, spec):
         _assert_spectra(_assemble(outs, spec, "eigh", f"spectrum_{est}"),
                         r[f"spectrum_{est}"], B)
     assert "escalation_flagged" not in outs[0]["eigh"]
+
+
+@pytest.mark.parametrize("spec", SPECS)
+@pytest.mark.parametrize("job", list(_ESTIMATOR_JOBS))
+def test_estimators_and_beamspace_match_reference(ranks, spec, job):
+    """Min-norm, root-MUSIC, ESPRIT and Unitary ESPRIT on the fast path
+    (from each rank's R = unembed(E); root-MUSIC on the power subspace's
+    projector) and on the general path under "jacobi" (eigh's projector,
+    as the reference's sharded path takes), and beamspace (the beam matrix
+    replicated, the projected grid sharded, each rank's R projected):
+    the reference's keys, angles within 1e-3° of doa_tpu's on the same
+    mesh shape (the grid-free angles window by window, each sorted),
+    spectra within _assert_spectra's tolerance."""
+    outs = ranks(spec)
+    B = num_valid_windows(T, CFG)
+    cfg = dataclasses.replace(CFG, cov_impl="pallas", **_ESTIMATOR_JOBS[job])
+    ref = build_ref(cfg, _ref_mesh(spec))
+    assert ref.fast == (job == "estimators")
+    r = ref(_capture(), correction=CORRECTION)
+    assert sorted(outs[0][job]) == sorted(r)
+    for key in r:
+        if key.startswith("escalation"):
+            assert {int(o[job][key]) for o in outs} == {int(r[key])}, key
+            continue
+        got = _assemble(outs, spec, job, key)[:B]
+        if key.startswith("spectrum"):
+            _assert_spectra(got, r[key], B)
+        elif not key.startswith("peak_values"):
+            np.testing.assert_allclose(_sorted(got), _sorted(r[key])[:B],
+                                       atol=1e-3, err_msg=key)
 
 
 @pytest.mark.parametrize("spec", SPECS)
@@ -365,16 +416,19 @@ def _c4_with(**over):
     return dataclasses.replace(PRESETS["c4_ula16_streaming"], **over)
 
 
+def _c5_with(fusion):
+    return dataclasses.replace(
+        PRESETS["c5_ura64_wideband"],
+        wideband=WidebandSpec(num_subbands=16, fractional_bw=0.1,
+                              fusion=fusion))
+
+
+# the configs this table once held outside the sharded slice, each now
+# built on one rank
 _OUTSIDE = {
     "wideband": lambda: PRESETS["c5_ura64_wideband"],
-    "tops": lambda: dataclasses.replace(
-        PRESETS["c5_ura64_wideband"],
-        wideband=WidebandSpec(num_subbands=16, fractional_bw=0.1,
-                              fusion="tops")),
-    "cssm": lambda: dataclasses.replace(
-        PRESETS["c5_ura64_wideband"],
-        wideband=WidebandSpec(num_subbands=16, fractional_bw=0.1,
-                              fusion="cssm")),
+    "tops": lambda: _c5_with("tops"),
+    "cssm": lambda: _c5_with("cssm"),
     "root_music": lambda: _c4_with(estimators=(Estimator.MUSIC,
                                                Estimator.ROOT_MUSIC)),
     "esprit": lambda: _c4_with(estimators=(Estimator.ESPRIT,)),
@@ -383,10 +437,59 @@ _OUTSIDE = {
 }
 
 
+def _one_rank_capture(cfg):
+    """A planted scene at full width and small depth: the c5 URA's two
+    sources on 3 windows, or c4's 70°/110° on 40 windows."""
+    if cfg.wideband.enabled:
+        return synth_wideband_ura_iq(
+            [SourceSpec(az_deg=-20.0, el_deg=30.0, freq_norm=0.0,
+                        bandwidth_norm=0.5),
+             SourceSpec(az_deg=35.0, el_deg=60.0, freq_norm=0.0,
+                        bandwidth_norm=0.5)],
+            (8, 8), 0.5, 3 * 1024, fractional_bw=0.1, snr_db=10,
+            seed=4).astype(np.complex64)
+    return synth_ula_iq([SourceSpec(theta_deg=70.0, freq_norm=0.1),
+                         SourceSpec(theta_deg=110.0, freq_norm=0.3)],
+                        16, 0.5, 41 * 512, snr_db=10,
+                        seed=2).astype(np.complex64)
+
+
 @pytest.mark.parametrize("name", list(_OUTSIDE))
 def test_configs_outside_the_slice_raise(one_rank_mesh, name):
-    with pytest.raises(NotImplementedError, match="queue A"):
-        build_sharded_pipeline(_OUTSIDE[name](), one_rank_mesh)
+    """Each config the sharded pipeline refused (NotImplementedError, queue
+    A) until it ported the EP wideband builders, the estimators and
+    Jacobi now raises nothing: it runs on a mesh of one
+    rank (no collective) and gives build_pipeline_torch's outputs on the
+    same capture: the same fused or estimator keys, peak angles within
+    1e-4° (pair-sorted az/el; the O(k) merge's refine rounds otherwise
+    than find_local_max's) and the grid-free angles within 1e-4°. Under
+    "jacobi" the sharded path takes eigh's projector, as the reference's,
+    so it is held to the single-card pipeline under "eigh"."""
+    from doa_tpu_torch.pipeline_torch import build_pipeline_torch
+    cfg = as_config(_OUTSIDE[name]())
+    x = _one_rank_capture(cfg)
+    out = build_sharded_pipeline(cfg, one_rank_mesh)(x)
+    single = (dataclasses.replace(cfg, subspace_method="eigh")
+              if name == "jacobi" else cfg)
+    res = build_pipeline_torch(single, device="cpu")(x)
+    keys = {k[len("peak_angles_"):] for k in out
+            if k.startswith("peak_angles_")}
+    assert keys == set(res.peak_angles), (keys, list(res.peak_angles))
+    for est, a_ref in res.peak_angles.items():
+        a = out[f"peak_angles_{est}"][:a_ref.shape[0]]
+        if a.dim() == 3:
+            a, a_ref = (torch.take_along_dim(t, t[..., :1].argsort(-2), -2)
+                        for t in (a, a_ref))
+        else:
+            a, a_ref = a.sort(-1).values, a_ref.sort(-1).values
+        torch.testing.assert_close(a, a_ref, rtol=0, atol=1e-4)
+    for key in ("root_music_angles", "esprit_angles",
+                "unitary_esprit_angles"):
+        want = getattr(res, key)
+        assert (key in out) == (want is not None), key
+        if want is not None:
+            torch.testing.assert_close(out[key][:want.shape[0]], want,
+                                       rtol=0, atol=1e-4)
 
 
 def test_one_rank_mesh_equals_single_card_pipeline(one_rank_mesh):
@@ -442,8 +545,11 @@ def test_initialize_a_single_process():
 
 
 def test_a_failing_rank_makes_the_launch_raise():
-    """A rank that raises stops the launch with its traceback."""
-    jobs = {"bad": ("pipeline", {"cfg": as_config(PRESETS["c5_ura64_wideband"]),
-                                 "x": _capture()})}
-    with pytest.raises(RuntimeError, match="queue A.6"):
+    """A rank that raises stops the launch with its traceback: the EP
+    wideband layout's ValueError on a capture of 1000 samples, not a
+    multiple of n_snap·S."""
+    cfg = as_config(dataclasses.replace(
+        CFG, wideband=WidebandSpec(num_subbands=8, fractional_bw=0.1)))
+    jobs = {"bad": ("pipeline", {"cfg": cfg, "x": _capture()[:1000]})}
+    with pytest.raises(RuntimeError, match="n_snap\\*S"):
         spawn_ranks(run_jobs, 2, (MeshSpec(2, 1), jobs), device="cpu")
