@@ -285,6 +285,35 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    comparison.
    The EP psum of c5 incoherent and TOPS is timed inside the call, in 3
    more calls with a span around it (the grid ranks met first).
+21. the host side (`host_phase`), in a temporary directory: the commands
+   of `python -m doa_tpu_torch` run in this process (cli.main) on the
+   card, each command's wall time logged: simulate → estimate on c2
+   (32768 samples; the medians within 0.5 deg of 60/110 and within 1e-3
+   deg of `estimate --device cpu` on the same file) and on c4 (2^21
+   samples, 4095 windows, within 0.5 deg); tests/test_cli.py's
+   calibration workflow (calibrate-phase, calibrate-elements, a
+   calibrated c2 estimate within 1.5 deg); `track` on a moving-emitter
+   c4 capture of 2^21 samples (the tracker kernel's main path, its
+   launches counted from zero: one); a 2-SNR, 2-trial `evaluate` on c2.
+   The tracker kernel (csrc/track.cu) bit-equal to its plain version on
+   the card over the first 512 windows of that capture's peaks and to the
+   CPU's plain run over all 4095 (NaN masks and final states too), and
+   on three made scenes against both (`track_scenes`: NaN angles and
+   values; tied values, signed zeros and equal costs; 32 slots and 32
+   detections); the
+   tracks within 1.5 deg of both trajectories over the second half; the
+   kernel's ms at 4095 windows (median of 10) against the plain
+   version's on the card (one call: 5.4 s), and both at 512 (median of
+   10).
+   The track state at window 2048 through save_stream_state and
+   load_stream_state back onto the card resumes bit-equal to the
+   uninterrupted run. The streaming driver (run_iter and its thread) on
+   the card's c4 pipeline at 2^20 samples in 8 blocks: within 0.01 deg of
+   the offline call, counts and escalations summed. NativeUdpSource
+   (the C++ framer's drain, built with g++) → driver → pipeline over
+   loopback: 4 blocks of 2^14 samples, no datagram lost, every window
+   within 1 deg; one loopback_rate_bench line (a host figure). Timer.fence
+   on a card result and trace_to writing a trace file.
 
 Each kernel record gives its bound (the larger of its bytes over
 3.35 TB/s and the FP32 operations the function needs over 67 TFLOP/s,
@@ -331,7 +360,8 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
 SOURCES = ("cov_gram", "music_scan", "subspace", "wideband_cov",
-           "wideband_scan", "peaks2d", "covariance", "subspace_ns", "ring")
+           "wideband_scan", "peaks2d", "covariance", "subspace_ns", "ring",
+           "track")
 # the published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, FP32
 # FLOP/s outside the tensor cores, int8 OP/s (the card's exact integer
 # rate, on its tensor cores: the bound of a product of int8 inputs even
@@ -5124,6 +5154,377 @@ def sharded_rest_phase(torch, dev, card):
     return total
 
 
+T_HOST_C2 = 32768                  # 21a: c2, 16 windows of 2048
+T_HOST_C4 = 1 << 21                # 21a/b: c4, 4095 windows of 1024 at 512
+TRACK_CARD_CMP = 512               # 21b: kernel against plain on the card
+TRACK_RESUME = 2048                # 21e: the checkpoint's cut
+TRACK_PLAIN_REPS = 1               # 21b: plain on the card, 4095 windows
+T_STREAM = 1 << 20                 # 21c: c4, 2047 windows, blocks of 2^17
+T_UDP = 1 << 16                    # 21d: c4 over loopback, blocks of 2^14
+HOST_TOL_CPU = 1e-3                # deg, c2 medians: card against CPU
+STREAM_TOL = 0.01                  # deg, streamed against offline
+UDP_TOL = 1.0                      # deg, tests/test_socket_source.py's
+TRACK_TOL = 1.5                    # deg, tests/test_streaming_tracking.py's
+
+
+def cli_run(torch, tag, argv, card):
+    """`python -m doa_tpu_torch` in this process: cli.main(argv) → its
+    JSON lines; the wall time (to the card's sync) on a log line."""
+    import contextlib
+    import io
+    from doa_tpu_torch import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out = [json.loads(s) for s in buf.getvalue().splitlines() if s.strip()]
+    log(f"cli {tag}: {dt:.3f} s wall  [{card}]")
+    return out
+
+
+def track_equal(torch, a, b):
+    """Bit-equal tracks or track states: the same NaN masks, the other
+    values equal bit for bit (angles and velocities as int32 words)."""
+    if isinstance(a, torch.Tensor):
+        a, b = (a,), (b,)
+    for x, y in zip(a, b):
+        if x.dtype == torch.float32:
+            if not torch.equal(x.isnan().cpu(), y.isnan().cpu()):
+                return False
+            x, y = (t.nan_to_num(0.0).view(torch.int32) for t in (x, y))
+        if not torch.equal(x.cpu(), y.cpu()):
+            return False
+    return True
+
+
+def track_scenes(np):
+    """Detections that reach the tracker's corner cases → [(name, angles,
+    values f32[B, K], TrackerConfig kwargs)]: NaN angles (a NaN wins its
+    track's argmin and fails the gate) and NaN values (spawned last);
+    tied values with -0.0 and 0.0 and duplicated angles (stable order,
+    first-index argmin); 32 slots and 32 detections (every lane)."""
+    rng = np.random.default_rng(23)
+    B, t = 150, np.arange(150)
+    nan_a = np.stack([40 + 0.2 * t, 90 - 0.1 * t, 140 + 0 * t,
+                      rng.uniform(0, 180, B)], 1)
+    nan_a = nan_a + 0.5 * rng.standard_normal((B, 4))
+    nan_a[rng.random((B, 4)) < 0.1] = np.nan
+    nan_v = rng.random((B, 4))
+    nan_v[rng.random((B, 4)) < 0.1] = np.nan
+    tie_a = np.round(rng.uniform(20, 160, (90, 6)) / 4) * 4
+    tie_a[:, 3] = tie_a[:, 1]
+    tie_v = rng.integers(0, 3, (90, 6)).astype(np.float64)
+    tie_v[::7], tie_v[1::7] = -0.0, 0.0
+    wide_a = rng.uniform(0, 180, (200, 32))
+    wide_a[rng.random((200, 32)) < 0.05] = np.nan
+    wide_v = rng.integers(0, 4, (200, 32)).astype(np.float64)
+    return [("nan", nan_a, nan_v, dict(max_tracks=3, gate_deg=4.0,
+                                       min_age=2)),
+            ("ties", tie_a, tie_v, dict(max_tracks=5, gate_deg=6.0,
+                                        alpha=0.3, beta=0.05, max_missed=2,
+                                        min_age=1)),
+            ("32 lanes", wide_a, wide_v, dict(max_tracks=32, gate_deg=3.0))]
+
+
+def host_phase(torch, dev, card):
+    """Phase 21: the host side — `python -m doa_tpu_torch`'s commands on
+    the card (cli.main in this process), the tracker kernel against its
+    plain version, the streaming driver, UDP ingest through the C++
+    framer, the checkpoint and the profiling fence. → the track kernel's
+    record (its launches: the `track` command's)."""
+    import numpy as np
+    from doa_tpu_torch import PRESETS, checkpoint, tracking
+    from doa_tpu_torch.io import recorded, socket_source, synthetic
+    from doa_tpu_torch.io.stream import StreamingDriver
+    from doa_tpu_torch.ops.cuda import track as trk
+    from doa_tpu_torch.pipeline_torch import build_pipeline_torch
+    from doa_tpu_torch.utils.profiling import Timer, trace_to
+
+    t_phase = time.perf_counter()
+    c4 = PRESETS["c4_ula16_streaming"]
+    with tempfile.TemporaryDirectory() as d:
+        p = lambda name: os.path.join(d, name)  # noqa: E731
+
+        # 21a. the commands at c2's and c4's full widths
+        cli_run(torch, "simulate c2", [
+            "simulate", "--preset", "c2_ula8_2src", "--angles", "60,110",
+            "--samples", str(T_HOST_C2), "--out", p("c2.npz")], card)
+        meds = {}
+        for device in ("cuda", "cpu"):
+            (r,) = cli_run(torch, f"estimate c2 --device {device}", [
+                "estimate", "--preset", "c2_ula8_2src", "--input",
+                p("c2.npz"), "--device", device], card)
+            meds[device] = np.asarray(r["music"]["median_angles_deg"]
+                                      + r["capon"]["median_angles_deg"])
+        e = float(np.abs(meds["cuda"] - [60, 110, 60, 110]).max())
+        dc = float(np.abs(meds["cuda"] - meds["cpu"]).max())
+        log(f"cli estimate c2 on the card: medians {meds['cuda'].tolist()}"
+            f", max |median - truth| {e!r} deg (limit {ANGLE_TOL}), max "
+            f"|card - cpu| {dc!r} deg (limit {HOST_TOL_CPU})")
+        check(e <= ANGLE_TOL and dc <= HOST_TOL_CPU, "cli estimate c2")
+        cli_run(torch, "simulate c4", [
+            "simulate", "--preset", "c4_ula16_streaming", "--angles",
+            "70,110", "--samples", str(T_HOST_C4), "--out", p("c4.npz")],
+            card)
+        (r,) = cli_run(torch, "estimate c4", [
+            "estimate", "--preset", "c4_ula16_streaming", "--input",
+            p("c4.npz")], card)
+        med = r["music"]["median_angles_deg"]
+        e = float(np.abs(np.asarray(med) - THETA).max())
+        log(f"cli estimate c4: {r['music']['windows']} windows, medians "
+            f"{med}, max |median - truth| {e!r} deg (limit {ANGLE_TOL})")
+        check(r["music"]["windows"] == 4095 and e <= ANGLE_TOL,
+              "cli estimate c4")
+        # the calibration workflow of tests/test_cli.py
+        for name, ang, snr in (("common", "90", "30"),
+                               ("pilot", "68", "25")):
+            cli_run(torch, f"simulate {name}", [
+                "simulate", "--preset", "c1_ula4_tone", "--elements", "8",
+                "--angles", ang, "--samples", "16384", "--snr", snr,
+                "--out", p(f"{name}.npz")], card)
+        (r,) = cli_run(torch, "calibrate-phase", [
+            "calibrate-phase", "--input", p("common.npz"), "--out",
+            p("cal1.npz")], card)
+        check(len(r["phase_offsets_rad"]) == 8, "calibrate-phase")
+        (r,) = cli_run(torch, "calibrate-elements", [
+            "calibrate-elements", "--input", p("pilot.npz"), "--pilot",
+            "68", "--phase-calib", p("cal1.npz"), "--out", p("cal2.npz")],
+            card)
+        check(len(r["gains"]) == 8, "calibrate-elements")
+        (r,) = cli_run(torch, "estimate c2 --calib", [
+            "estimate", "--preset", "c2_ula8_2src", "--input", p("c2.npz"),
+            "--calib", p("cal2.npz")], card)
+        e = float(np.abs(np.asarray(r["music"]["median_angles_deg"])
+                         - [60, 110]).max())
+        log(f"cli estimate c2 calibrated: max |median - truth| {e!r} deg "
+            f"(limit 1.5, tests/test_cli.py's)")
+        check(e <= 1.5, "calibrated estimate")
+        # track on a moving-emitter c4 capture: the main path of the
+        # tracker kernel (counts from zero here)
+        x_mov = synthetic.synth_moving_ula_iq(
+            [(50.0, 80.0), (130.0, 100.0)], 16, 0.5, T_HOST_C4,
+            snr_db=10, seed=5)
+        recorded.save_iq(p("moving.npz"), x_mov)
+        trk.track_scan.launches = 0
+        (r,) = cli_run(torch, "track c4", [
+            "track", "--preset", "c4_ula16_streaming", "--input",
+            p("moving.npz")], card)
+        launches = trk.track_scan.launches
+        finals = [a for a in r["final_track_angles_deg"] if a is not None]
+        log(f"cli track c4: {r['windows']} windows, {r['active_tracks']} "
+            f"active tracks, final {r['final_track_angles_deg']}; track "
+            f"kernel launches {launches}")
+        check(launches == 1, f"track kernel launches {launches}")
+        check(r["active_tracks"] >= 2 and any(
+            abs(a - 80.0) < 2 for a in finals) and any(
+            abs(a - 100.0) < 2 for a in finals), "cli track c4")
+        rows = cli_run(torch, "evaluate c2", [
+            "evaluate", "--preset", "c2_ula8_2src", "--snrs", "0,10",
+            "--trials", "2"], card)
+        for row in rows:
+            log(f"  evaluate: {json.dumps(row)}")
+        check(len(rows) == 4 and all(
+            math.isfinite(r["rmse_deg"]) and r["rmse_deg"] < ANGLE_TOL
+            for r in rows), "cli evaluate c2")
+
+        # 21b. the tracker kernel against its plain version
+        pipe = build_pipeline_torch(c4, device=dev)
+        res = pipe(x_mov)
+        ang, val = res.peak_angles["music"], res.peak_values["music"]
+        B = ang.shape[0]
+        tc = tracking.TrackerConfig(max_tracks=4, gate_deg=4.0)
+        init = tracking.init_tracks(tc, device=dev)
+        n = TRACK_CARD_CMP
+        sk, tk = trk.track_scan(ang[:n], val[:n], tc, init)
+        sp, tp = tracking.track_batch_plain(ang[:n], val[:n], tc, init)
+        torch.cuda.synchronize()
+        check(track_equal(torch, tk, tp) and track_equal(torch, sk, sp),
+              f"track kernel and plain differ on the card ({n} windows)")
+        s_all, t_all = trk.track_scan(ang, val, tc, init)
+        t0 = time.perf_counter()
+        s_cpu, t_cpu = tracking.track_batch_plain(
+            ang.cpu(), val.cpu(), tc, tracking.init_tracks(tc, "cpu"))
+        t_cpu_s = time.perf_counter() - t0
+        check(track_equal(torch, t_all, t_cpu)
+              and track_equal(torch, s_all, s_cpu),
+              f"track kernel and the CPU's plain version differ ({B} "
+              f"windows)")
+        for name, a_np, v_np, kw in track_scenes(np):
+            tcs = tracking.TrackerConfig(**kw)
+            a_c = torch.from_numpy(a_np.astype(np.float32)).to(dev)
+            v_c = torch.from_numpy(v_np.astype(np.float32)).to(dev)
+            i_c = tracking.init_tracks(tcs, device=dev)
+            outs = (trk.track_scan(a_c, v_c, tcs, i_c),
+                    tracking.track_batch_plain(a_c, v_c, tcs, i_c),
+                    tracking.track_batch_plain(
+                        a_c.cpu(), v_c.cpu(), tcs,
+                        tracking.init_tracks(tcs, "cpu")))
+            same = all(track_equal(torch, o[1], outs[0][1])
+                       and track_equal(torch, o[0], outs[0][0])
+                       for o in outs[1:])
+            log(f"track kernel, scene {name} ({a_np.shape[0]} windows, K = "
+                f"{a_np.shape[1]}, M = {tcs.max_tracks}): bit-equal to the "
+                f"plain version on the card and on the CPU: {same}; "
+                f"{int(outs[0][1].isfinite().sum())} confirmed slot-windows")
+            check(same, f"track kernel differs from plain on scene {name}")
+        nan_share = float(t_all.isnan().float().mean())
+        log(f"track kernel bit-equal to its plain version: on the card "
+            f"over {n} windows, against the CPU's run over all {B} "
+            f"({t_cpu_s:.3f} s on the host); NaN share {nan_share:.4f}, "
+            f"masks equal")
+        tracks = t_all.cpu().numpy()
+        u = (np.arange(B) * c4.hop + c4.snapshot_size / 2) / T_HOST_C4
+        tail = slice(B // 2, None)
+        for name, truth in (("50->80", 50.0 + 30.0 * u),
+                            ("130->100", 130.0 - 30.0 * u)):
+            err = float(np.nanmean(np.nanmin(np.abs(
+                tracks[tail] - truth[tail, None]), axis=1)))
+            log(f"track {name}: mean error over the second half {err!r} "
+                f"deg (limit {TRACK_TOL})")
+            check(err < TRACK_TOL, f"track {name} error {err}")
+        a_n, v_n = ang[:n].contiguous(), val[:n].contiguous()
+        k_n = time_ms(torch, lambda: trk.track_scan(a_n, v_n, tc, init))
+        p_n = time_ms(torch, lambda: tracking.track_batch_plain(
+            a_n, v_n, tc, init), warm=1)
+        k_ms = time_ms(torch, lambda: trk.track_scan(ang, val, tc, init))
+        p_ms = time_ms(torch, lambda: tracking.track_batch_plain(
+            ang, val, tc, init), reps=TRACK_PLAIN_REPS, warm=0)
+        b = bound(B * ang.shape[1] * 8 + B * tc.max_tracks * 4, 0.0)
+        log(f"track kernel at {B} windows (K = {ang.shape[1]}, M = "
+            f"{tc.max_tracks}): {k_ms:.4f} ms (median of 10) against the "
+            f"plain version's {p_ms:.4f} ms ({TRACK_PLAIN_REPS} call); "
+            f"at {n} windows {k_n:.4f} against {p_n:.4f} ms (median of "
+            f"10 each); bound {b['bound_ms']:.6f} ms ({b['bound_by']}; the "
+            f"kernel is set by its dependent chain)  [{card}]")
+
+        # 21e. checkpoint: the state at window TRACK_RESUME through the
+        # .npz and back onto the card resumes the uninterrupted tracks
+        cut = TRACK_RESUME
+        s_half, _ = trk.track_scan(ang[:cut], val[:cut], tc, init)
+        checkpoint.save_stream_state(p("stream"), checkpoint.StreamState(
+            track_state=s_half, samples_processed=cut * c4.hop,
+            overlap_tail=x_mov[cut * c4.hop:cut * c4.hop + c4.overlap]))
+        st = checkpoint.load_stream_state(p("stream"))
+        check(st.track_state.angle.is_cuda
+              and st.samples_processed == cut * c4.hop, "checkpoint load")
+        s_rest, t_rest = trk.track_scan(ang[cut:], val[cut:], tc,
+                                        st.track_state)
+        check(track_equal(torch, t_rest, t_all[cut:])
+              and track_equal(torch, s_rest, s_all),
+              "the resumed tracks differ from the uninterrupted ones")
+        log(f"checkpoint: the card's track state at window {cut} saved, "
+            f"loaded onto the card and resumed: bit-equal to the "
+            f"uninterrupted tracks over windows {cut}-{B - 1}")
+
+        # 21c. the streaming driver on the card's pipeline
+        xs = synthetic.synth_ula_iq(
+            [synthetic.SourceSpec(theta_deg=70.0, freq_norm=0.1),
+             synthetic.SourceSpec(theta_deg=110.0, freq_norm=0.3)],
+            16, 0.5, T_STREAM, snr_db=10, seed=21)
+        off = pipe(xs)
+        # each window's peaks sorted: the prefix sums of a block's windows
+        # start at the block, so two peaks of equal power may trade
+        # places against the offline call's
+        offline = off.peak_angles["music"].sort(-1).values
+        blk = T_STREAM // 8
+        blocks = [xs[j:j + blk] for j in range(0, T_STREAM, blk)]
+        t0 = time.perf_counter()
+        drv = StreamingDriver(pipe, block_samples=blk)
+        outs = list(drv.run_iter(blocks))
+        t_iter = time.perf_counter() - t0
+        got = torch.cat([r.peak_angles["music"] for _, r in outs]).sort(
+            -1).values
+        d_iter = float((got - offline).abs().max())
+        esc = sum(int(r.escalation_flagged) for _, r in outs)
+        drv = StreamingDriver(pipe, block_samples=blk, ring_capacity=8)
+        for b_ in blocks:
+            drv.push(b_)
+        t0 = time.perf_counter()
+        drv.start()
+        drv.stop(wait=True)
+        t_thr = time.perf_counter() - t0
+        res_t = [drv.results.get_nowait() for _ in blocks]
+        got_t = torch.cat([r.peak_angles["music"] for _, r in res_t]).sort(
+            -1).values
+        d_thr = float((got_t - offline).abs().max())
+        st_ = drv.stats
+        log(f"streaming c4 ({len(blocks)} blocks of {blk}): run_iter "
+            f"max|streamed - offline| {d_iter!r} deg, threaded {d_thr!r} "
+            f"(limit {STREAM_TOL}); {st_.windows_emitted} windows emitted, "
+            f"{st_.blocks_dropped} dropped, escalated {st_.windows_escalated}"
+            f" (run_iter's blocks {esc}, offline "
+            f"{int(off.escalation_flagged)}); {t_iter:.3f} s and "
+            f"{t_thr:.3f} s wall  [{card}]")
+        check(d_iter <= STREAM_TOL and d_thr <= STREAM_TOL
+              and [i for i, _ in res_t] == list(range(len(blocks)))
+              and st_.windows_emitted == offline.shape[0]
+              and st_.blocks_dropped == 0
+              and st_.windows_escalated == esc, "streaming driver")
+
+        # 21d. UDP: NativeUdpSource → driver → the card's pipeline
+        xu = xs[:T_UDP]
+        blk = T_UDP // 4
+        drv = StreamingDriver(pipe, block_samples=blk).start()
+        src = socket_source.NativeUdpSource(drv, num_channels=16,
+                                            block_samples=blk).start()
+        t0 = time.perf_counter()
+        seq = 0
+        for j in range(0, T_UDP, 4096):       # paced, as a radio is
+            seq = socket_source.send_capture_udp(
+                xu[j:j + 4096], src.addr, datagram_frames=250, seq0=seq)
+            time.sleep(0.002)
+        results = []
+        while len(results) < 4 and time.perf_counter() - t0 < 30:
+            try:
+                results.append(drv.results.get(timeout=0.5))
+            except Exception:
+                pass
+        src.stop()
+        drv.stop()
+        lost = src.stats.packets_lost
+        check(len(results) == 4, f"udp c4: {len(results)} of 4 blocks "
+              f"came through ({src.stats}, {drv.stats})")
+        e = sorted_err(torch, torch.cat(
+            [r.peak_angles["music"] for _, r in results]), THETA)
+        log(f"udp c4 ({src.stats.packets_in} datagrams of 250 frames, "
+            f"{len(results)} blocks of {blk}): {lost} lost, max |sorted "
+            f"angle - truth| {e!r} deg (limit {UDP_TOL})")
+        check(lost == 0 and e <= UDP_TOL, "udp c4")
+        gbps, loss, deliv = socket_source.loopback_rate_bench(
+            num_channels=16, seconds=0.5, native=True, native_sender=True,
+            target_gbps=1.28)
+        log(f"loopback_rate_bench (a host figure, no device; native "
+            f"receiver and sender, offered 1.28 GB/s, 16 channels): "
+            f"{gbps:.4f} GB/s received, loss {loss:.6f}, {deliv:.4f} GB/s "
+            f"delivered as blocks")
+
+        # 21f. profiling: the fence on a card result, a trace file
+        tm = Timer()
+        with tm:
+            r_ = pipe(xs)
+            Timer.fence(r_)
+        with trace_to(p("trace")):
+            Timer.fence(pipe(xs))
+        files = os.listdir(p("trace"))
+        size = sum(os.path.getsize(os.path.join(p("trace"), f))
+                   for f in files)
+        log(f"profiling: Timer.fence on a card DoaResult, one c4 call "
+            f"{tm.best * 1e3:.3f} ms wall; trace_to wrote {files} "
+            f"({size} bytes)")
+        check(len(files) == 1 and size > 0, "trace_to wrote no trace")
+    rec = dict(name="track", route="cuda",
+               source="doa_tpu_torch/csrc/track.cu",
+               replaces="doa_tpu/tracking.py:110 (the lax.scan of "
+                        "track_batch; no pallas_call)",
+               launches=launches, max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
+               library_ms=None, **b,
+               by_shape={f"{n} windows": {"ms": k_n, "plain_ms": p_n}})
+    log(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return rec
+
+
 def main():
     import torch
 
@@ -5155,13 +5556,13 @@ def main():
     # 2. build
     from concurrent.futures import ThreadPoolExecutor
     from doa_tpu_torch.ops.cuda import (covariance, peaks2d, ring,
-                                        subspace_ns, wideband_cov,
+                                        subspace_ns, track, wideband_cov,
                                         wideband_scan)
     sigs = {"cov_gram": ce._SIG, "music_scan": ms._SIG, "ring": ring._SIG,
             "subspace_ns": subspace_ns._SIG,
             "subspace": cpx_ops._SIG, "wideband_cov": wideband_cov._SIG,
             "wideband_scan": wideband_scan._SIG, "peaks2d": peaks2d._SIG,
-            "covariance": covariance._SIG}
+            "covariance": covariance._SIG, "track": track._SIG}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:   # one nvcc per source
         list(pool.map(lambda name: _build.load(name, sigs[name]), SOURCES))
@@ -5337,6 +5738,9 @@ def main():
     # cssm and TOPS
     for name, n in sharded_rest_phase(torch, dev, card).items():
         recs[name]["launches"] += n
+    # 21. the host side: python -m doa_tpu_torch's commands, the tracker
+    # kernel, streaming, UDP through the C++ framer, the checkpoint
+    recs["track"] = host_phase(torch, dev, card)
     for f, v in PEAKS_TALLY.items():
         recs["peaks2d"]["by_form"][f]["launches"] = v
     check(sum(PEAKS_TALLY.values()) == recs["peaks2d"]["launches"],

@@ -56,7 +56,16 @@ XLA's; beside it ``ops`` exports the reference's ops surface, the device
 steering functions, MVDR beamforming (``ops/beamform.py``) and the
 Cramér–Rao bounds (``ops/crb.py``).
 
-ROADMAP.md lists what is still to port.
+The host side: ``python -m doa_tpu_torch <cmd>`` (``cli.py``: simulate,
+estimate, calibrate-phase, calibrate-elements, evaluate, track; on the
+card unless ``--device cpu``), the sample ingest (``io``: the synthetic
+generators, recorded-IQ files, the C++ framer ``csrc/framer.cpp`` built
+with g++, the streaming driver, UDP sources), the alpha-beta tracker
+(``tracking.py``: its scan in one launch of ``csrc/track.cu`` on the
+card), the streaming checkpoint (``checkpoint.py``), the Monte-Carlo
+evaluation (``eval.py``) and ``utils`` (timing fence, ``torch.profiler``
+traces, metrics, HTML reports). With it the port does all that
+``doa_tpu`` does; ROADMAP.md lists what comes next.
 """
 
 from doa_tpu_torch import configs

@@ -3,12 +3,13 @@ pipeline launches on the card.
 
 A kernel is built for some shapes only, and its wrapper's predicate
 (`gram_takes`, `planes_takes`, `mgs_takes`, `kernel_takes`,
-`fusion_takes`, `ns_takes`, `scan_takes`, `peaks_takes`) states which;
-given a CUDA tensor of another shape the wrapper raises. The plan is
-worked out once, from the config alone (no card needed), when a pipeline
-is built: {stage: the kernel's name}, or "plain" where the predicate says
-no, and there the stage runs the kernel's plain torch version on the
-card. The pipelines take each stage's route (`Plan.kernels`) and callable
+`fusion_takes`, `ns_takes`, `scan_takes`, `peaks_takes`, `track_takes`)
+states which; given a CUDA tensor of another shape the wrapper raises.
+The plan is worked out once, from the config alone (no card needed), when
+a pipeline is built: {stage: the kernel's name}, or "plain" where the
+predicate says no, and there the stage runs the kernel's plain torch
+version on the card (the tracker's plan, `track_plan`, from its slots
+and detections a window). The pipelines take each stage's route (`Plan.kernels`) and callable
 (`Plan.op`) from it, so the plan they expose as ``call.plan`` is what
 they run.
 
@@ -43,6 +44,7 @@ from doa_tpu_torch.ops.cuda.peaks2d import (MAX_PEAKS2D_K, peaks2d,
 from doa_tpu_torch.ops.cuda.subspace_ns import (ns_form, ns_takes,
                                                 subspace_ns,
                                                 subspace_ns_plain)
+from doa_tpu_torch.ops.cuda.track import track_scan, track_takes
 from doa_tpu_torch.ops.cuda.wideband_cov import (kernel_takes,
                                                  resolve_variant,
                                                  subband_chunk_grams,
@@ -52,6 +54,7 @@ from doa_tpu_torch.ops.cuda.wideband_cov import (kernel_takes,
 from doa_tpu_torch.ops.cuda.wideband_scan import (
     fusion_takes, wideband_fused_spectrum, wideband_fused_spectrum_plain)
 from doa_tpu_torch.ops.peaks import find_local_max_2d
+from doa_tpu_torch.tracking import track_batch_plain
 from doa_tpu_torch.ops.wideband import fusion_kernel_applies
 
 # kernel name → (its wrapper, its plain version: the same signature)
@@ -68,6 +71,7 @@ KERNELS = {
     "wideband_fusion": (wideband_fused_spectrum,
                         wideband_fused_spectrum_plain),
     "peaks2d": (peaks2d, find_local_max_2d),
+    "track": (track_scan, track_batch_plain),
 }
 
 
@@ -375,3 +379,12 @@ def sharded_kernel_plan(cfg, n_snap: int, n_grid: int,
     """kernel_plan of a sharded pipeline (sharded_kernel_routes)."""
     return dict(Plan(sharded_kernel_routes(cfg, n_snap, n_grid,
                                            return_spectra)))
+
+
+def track_plan(max_tracks: int, K: int, on_card: bool = True) -> Plan:
+    """The tracker's plan (tracking.track_batch): {"track": "track"}, the
+    scan kernel, where track_takes(max_tracks, K) (a slot and a detection
+    a lane of one warp) and the detections are on the card; else
+    {"track": "plain"}, tracking.track_batch_plain."""
+    return Plan({"track": ("track", track_takes(max_tracks, K))},
+                on_card=on_card)

@@ -212,9 +212,10 @@ def test_fp32_matmuls_scope():
 
 
 def test_port_never_imports_jax():
-    """In a fresh interpreter every module of the port, chip_smoke,
-    exp_subspace_ns, exp_peaks2d and exp_wideband_cov (imported, not run)
-    load neither jax nor any module of doa_tpu."""
+    """In a fresh interpreter every module of the port (the host side's
+    cli, __main__, tracking, checkpoint, eval, io and utils among them),
+    chip_smoke, exp_subspace_ns, exp_peaks2d and exp_wideband_cov
+    (imported, not run) load neither jax nor any module of doa_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import doa_tpu_torch, chip_smoke, exp_subspace_ns, exp_peaks2d\n"
@@ -234,12 +235,44 @@ def test_port_never_imports_jax():
         "for m in ('music', 'capon', 'bartlett', 'covariance', 'beamform',\n"
         "          'crb'):\n"
         "    assert 'doa_tpu_torch.ops.' + m in sys.modules, m\n"
+        "for m in ('cli', '__main__', 'tracking', 'checkpoint', 'eval',\n"
+        "          'io.stream', 'io.socket_source', 'io.synthetic',\n"
+        "          'utils.profiling', 'ops.cuda.track'):\n"
+        "    assert 'doa_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_module_help_runs_without_jax():
+    """`python -m doa_tpu_torch --help` exits 0 in a fresh interpreter
+    and loads neither jax nor doa_tpu (the host side's entry point)."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['doa_tpu_torch', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('doa_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'doa_tpu' or "
+        "m.startswith('doa_tpu.'))\n"
+        "assert not bad, bad\n"
+        "assert 'doa_tpu_torch.cli' in sys.modules\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "calibrate-elements" in out.stdout and "--device" not in (
+        out.stderr)
+    out = subprocess.run([sys.executable, "-m", "doa_tpu_torch", "--help"],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and "simulate" in out.stdout, out.stderr
 
 
 def test_cuda_device_raises_without_a_card():
