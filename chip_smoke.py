@@ -37,12 +37,17 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    subspaces (`k2_scene`) within 0.01° of the plain version's sorted
    angles and 0.5° of the planted scene, timed in turns with its plain
    version, its CUDA-core form and the unfused route (K3, normalise,
-   find_local_max).
+   find_local_max). K4 (its group form at 2N = 32) on the headline's
+   windows, warm 3 rounds and cold 8, and on their capture mean (B = 1,
+   cold 8) within 1e-5 (projectors, W over max|W|; `k4_scene`), timed at
+   both (`k4_times`).
 4. main path: the headline configuration (ULA-16, S=1024, K=2, G=1024,
    MUSIC, e1 power schedule, warm start + escalation) at T=2^24 samples
    (16384 windows) through build_pipeline_torch(...).interleaved, with
    return_spectra False (fused scan + peaks, K2) and True (K3); launch
-   counts reset before and read after (K2's all of its tensor-core form); every window within 0.5° of the
+   counts reset before and read after (K2's all of its tensor-core form,
+   K4's all of the form call.plan.forms["subspace"] names: `k4_forms`,
+   as in phases 7 and 9); every window within 0.5° of the
    planted 70°/110°; the median call time from CUDA events. Each path's
    call.plan is logged (here and below), and every preset's kernel_plan,
    with the c5 variants driven here, must name a kernel for every stage.
@@ -56,8 +61,10 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    form, bit-equal), and the subspace kernel K4 at 2N = 128 with one init per
    subband (its block form: 8 warps a window, E held on chip for every
    round); exact on integer-valued inputs (K4: signed-permutation windows
-   at (2K, 2N) = (2, 66), (4, 128), (8, 128), (6, 96), B = 1001, cold and
-   from each init grouping), within the stated tolerances on the scene;
+   at (2K, 2N) = (2, 66), (4, 128), (8, 128), (6, 96) and, in its group
+   form, (2, 8), (4, 16), (4, 32), (6, 24), (8, 32), (2, 34), (6, 48),
+   (8, 64), B = 1001, cold and from each init grouping), within the
+   stated tolerances on the scene;
    each kernel's time beside its plain version's (K4 also on the
    per-subband means and, in phase 11, on c5 cssm's R_coh windows). The
    fusion kernel (3xTF32 on the tensor cores) also in window groups
@@ -104,7 +111,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    overlap 512 (1024 windows); the card against
    the CPU on 64 c3 windows; PRESETS["c2_ula8_2src"] (MUSIC + Capon) at
    T=2^24 on validate_tpu.py's c2 scene: every window within 0.5 deg of
-   60/110 (K2 in its tensor-core form; `scan_parity` on c2's subspaces),
+   60/110 (K2 in its tensor-core form; `scan_parity` on c2's subspaces;
+   K4 on c2's windows warm from their mean within 1e-5, and timed),
    the card against the CPU on 64 windows; the cov_windows entry
    driven at gcd 8 (kernel 12, all of its chunk-sum form).
 10. the wideband front end at any F: kernel 7 (the ring kernel of
@@ -751,30 +759,21 @@ def kernel_parity(torch, dev, x, Vt, At, nrm, card):
         E = ce.cov_embedded(x, torch.ones(16, device=dev),
                             torch.zeros(16, device=dev), N=16,
                             snapshot_size=1024)
-        init = cpx_ops.mgs_iterate_plain(E.mean(0, keepdim=True), 2, 8)[0]
+        Em = E.mean(0, keepdim=True)
+        init = cpx_ops.mgs_iterate_plain(Em, 2, 8)[0]
         init = init.expand(E.shape[0], -1, -1)
-        e4 = 0.0
-        for rounds, ini in ((3, init), (8, None)):
-            outk = cpx_ops.mgs_iterate(E, 2, rounds, ini)
-            outp = cpx_ops.mgs_iterate_plain(E, 2, rounds, ini)
-            proj = [o.transpose(1, 2) @ o for o in (outk[0], outp[0])]
-            dp = (proj[0] - proj[1]).abs().max().item()
-            dw = ((outk[1] - outp[1]).abs().max()
-                  / outp[1].abs().max()).item()
-            start = "warm" if ini is not None else "cold"
-            log(f"K4 scene rounds={rounds} {start}: max|projector kernel - "
-                f"plain| = {dp!r} (tol 1e-5), "
-                f"max|W kernel - plain|/max|W| = {dw!r} (tol 1e-5)")
-            check(dp <= 1e-5 and dw <= 1e-5, "K4 disagrees with plain")
-            e4 = max(e4, dp)
+        e4 = max(k4_scene(torch, "headline", E, 2, 3, init),
+                 k4_scene(torch, "headline", E, 2, 8, None),
+                 k4_scene(torch, "headline mean", Em, 2, 8, None))
         t4 = k4_times(torch, "headline", E, 2, 3, init, card)
+        t4m = k4_times(torch, "headline mean", Em, 2, 8, None, card)
     recs["mgs_iterate"] = dict(
         name="mgs_iterate", route="cuda",
         source="doa_tpu_torch/csrc/subspace.cu",
         replaces="doa_tpu/ops/cpx_ops.py:347", max_abs_err=e4,
         **{k: t4[k] for k in ("ms", "plain_ms", "product_ms", "bound_ms",
                               "bound_by")},
-        library_ms=None, by_shape={"headline": t4})
+        library_ms=None, by_shape={"headline": t4, "headline mean": t4m})
     return recs
 
 
@@ -1034,6 +1033,29 @@ def mgs_bound(E, k2, rounds, *, cold):
                  B * (applies * 2 * n2 * n2 * k2 + passes * 4 * k2 * k2 * n2))
 
 
+def k4_scene(torch, tag, E, K, rounds, init):
+    """K4 against its plain version on a scene's windows: rsqrt and the
+    sums' order differ, so projectors VᵀV are held to 1e-5 and W to 1e-5
+    of max|W| → the projectors' max difference."""
+    from doa_tpu_torch.ops import cpx_ops
+
+    outk = cpx_ops.mgs_iterate(E, K, rounds, init)
+    outp = cpx_ops.mgs_iterate_plain(E, K, rounds, init)
+    dp = 0.0
+    for lo in range(0, E.shape[0], 4096):
+        a, b = outk[0][lo:lo + 4096], outp[0][lo:lo + 4096]
+        dp = max(dp, (a.transpose(1, 2) @ a - b.transpose(1, 2) @ b
+                      ).abs().max().item())
+    dw = ((outk[1] - outp[1]).abs().max() / outp[1].abs().max()).item()
+    log(f"K4 scene {tag} ({E.shape[0]} windows, (2N, 2K) = ({E.shape[-1]}, "
+        f"{2 * K}), {'warm' if init is not None else 'cold'} {rounds} "
+        f"rounds, {cpx_ops.mgs_form(E.shape[-1], 2 * K)} form): "
+        f"max|projector kernel - plain| = {dp!r} (tol 1e-5), "
+        f"max|W kernel - plain|/max|W| = {dw!r} (tol 1e-5)")
+    check(dp <= 1e-5 and dw <= 1e-5, f"K4 disagrees with plain at {tag}")
+    return dp
+
+
 def k4_times(torch, tag, E, K, rounds, init, card):
     """K4 at `tag`'s shape (E f32[B, n2, n2], 2K = 2·K, `rounds`, warm from
     `init` or cold) timed in turns with its plain version and one FP32
@@ -1063,8 +1085,10 @@ def k4_times(torch, tag, E, K, rounds, init, card):
     return rec
 
 
-# K4 exact: (2K, 2N) of the block form (2N > 64)
-K4_EXACT = ((2, 66), (4, 128), (8, 128), (6, 96))
+# K4 exact: (2K, 2N) of the block form (2N > 64) and of the group form,
+# every group width L (4, 8, 16) and K2
+K4_EXACT = ((2, 66), (4, 128), (8, 128), (6, 96), (2, 8), (4, 16), (4, 32),
+            (6, 24), (8, 32), (2, 34), (6, 48), (8, 64))
 B_K4_EXACT = 1001                   # 7 · 11 · 13 windows: ragged
 
 
@@ -1511,6 +1535,28 @@ def fusion_f64(torch, Vt, At, nrm):
 
 
 PEAKS_TALLY = {}                   # kernel 6's path launches by form
+K4_TALLY = {}                      # K4's launches by form, the paths below
+
+
+def k4_forms_zero():
+    from doa_tpu_torch.ops import cpx_ops
+    cpx_ops.mgs_iterate.by_form.update(dict.fromkeys(cpx_ops.MGS_FORMS, 0))
+
+
+def k4_forms(tag, pipes, n):
+    """K4's n launches in a path since k4_forms_zero: all of the form each
+    pipeline's plan names for its "subspace" stage (mgs_iterate.by_form),
+    added to K4_TALLY."""
+    from doa_tpu_torch.ops import cpx_ops
+
+    by = dict(cpx_ops.mgs_iterate.by_form)
+    planned = {p.plan.forms.get("subspace") for p in pipes}
+    log(f"{tag}: K4 launches by form {json.dumps(by)}, planned "
+        f"{sorted(map(str, planned))}")
+    check(len(planned) == 1 and by.get(next(iter(planned))) == n > 0,
+          f"{tag}: K4 did not launch the form its plan names alone")
+    for f, v in by.items():
+        K4_TALLY[f] = K4_TALLY.get(f, 0) + v
 
 
 def peaks_forms(name, pipe, n):
@@ -1557,10 +1603,12 @@ def c5_phases(torch, dev, card, counters, k4_shapes=None):
     for f in list(counters.values()) + list(wb_counters.values()):
         f.launches = 0
     pk.peaks2d.by_form.update(dict.fromkeys(pk.PEAKS_FORMS, 0))
+    k4_forms_zero()
     res = pipe.interleaved(x)
     torch.cuda.synchronize()
     launches = {n: f.launches for n, f in wb_counters.items()}
     log("launches in the c5 path: " + json.dumps(launches))
+    k4_forms("c5 path", (pipe,), launches["mgs_iterate"])
     peaks_forms("c5 path", pipe, launches["peaks2d"])
     for name, n in launches.items():
         check(n > 0, f"kernel {name} never ran in the c5 path")
@@ -1990,13 +2038,7 @@ def planes_parity(torch, dev, x3, card, k4_shapes=None):
         R = compute_covariances(x3[..., 0], x3[..., 1],
                                 PRESETS["c3_ula16_calib_smooth"], (cr1, ci0))
         E = embed_planes(*R)
-        outk = cpx_ops.mgs_iterate(E, 3, 8)
-        outp = cpx_ops.mgs_iterate_plain(E, 3, 8)
-        dp = (outk[0].transpose(1, 2) @ outk[0]
-              - outp[0].transpose(1, 2) @ outp[0]).abs().max().item()
-        log(f"K4 c3 scene (2N, 2K) = (24, 6) cold 8 rounds, {E.shape[0]} "
-            f"windows: max|projector kernel - plain| = {dp!r} (tol 1e-5)")
-        check(dp <= 1e-5, "K4 at (24, 6) disagrees with plain")
+        k4_scene(torch, "c3", E, 3, 8, None)
         t4 = k4_times(torch, "c3", E, 3, 8, None, card)
     if k4_shapes is not None:
         k4_shapes["c3"] = t4
@@ -2086,9 +2128,11 @@ def planes_phases(torch, dev, card, k4_shapes=None, k2_shapes=None):
     ms.music_scan_peaks.tc_launches = 0
     for by_form in (cv.chunk_grams.by_form, cv.cov_windows.by_form):
         by_form.update(dict.fromkeys(by_form, 0))
+    k4_forms_zero()
     res = {rs: p((xr, xi), corr) for rs, p in pipes.items()}
     torch.cuda.synchronize()
     n3 = {k: f.launches for k, f in counters.items()}
+    k4_forms("c3 path", pipes.values(), n3["mgs_iterate"])
     n3["music_scan_peaks (tensor-core form)"] = (
         ms.music_scan_peaks.tc_launches)
     k8_forms = dict(cv.chunk_grams.by_form)
@@ -2195,9 +2239,11 @@ def planes_phases(torch, dev, card, k4_shapes=None, k2_shapes=None):
     for f in counters.values():
         f.launches = 0
     ms.music_scan_peaks.tc_launches = 0
+    k4_forms_zero()
     r2 = pipe2.interleaved(x2)
     torch.cuda.synchronize()
     n2 = {k: f.launches for k, f in counters.items()}
+    k4_forms("c2 path", (pipe2,), n2["mgs_iterate"])
     n2["music_scan_peaks (tensor-core form)"] = (
         ms.music_scan_peaks.tc_launches)
     log("launches in the c2 path: " + json.dumps(n2))
@@ -2221,7 +2267,14 @@ def planes_phases(torch, dev, card, k4_shapes=None, k2_shapes=None):
         Vt2 = cpx_ops.signal_subspace_from_E_T(E2, 2, iters=8)
         scan_parity(torch, "c2", Vt2, At2, (At2 * At2).sum(-1), 2,
                     C2_TRUTH, card, k2_shapes)
-    del E2, Vt2
+        # K4 at c2's warm refine: 3 rounds from the capture-mean subspace
+        init2 = cpx_ops.mgs_iterate_plain(E2.mean(0, keepdim=True), 2,
+                                          8)[0].expand(E2.shape[0], -1, -1)
+        k4_scene(torch, "c2", E2, 2, 3, init2)
+        t4 = k4_times(torch, "c2", E2, 2, 3, init2, card)
+        if k4_shapes is not None:
+            k4_shapes["c2"] = t4
+    del E2, Vt2, init2
     ts = call_times(torch, lambda: pipe2.interleaved(x2), reps=20, warm=3)
     med = 0.5 * (ts[9] + ts[10])
     log(f"c2 path (MUSIC + Capon, peaks only): median {med:.4f} ms per call "
@@ -5615,11 +5668,13 @@ def main():
     for f in counters.values():
         f.launches = 0
     ms.music_scan_peaks.tc_launches = 0
+    k4_forms_zero()
     res_f = pipe_f.interleaved(x)
     res_s = pipe_s.interleaved(x)
     torch.cuda.synchronize()
     for name, f in counters.items():
         recs[name]["launches"] = f.launches
+    k4_forms("main path", (pipe_f, pipe_s), cpx_ops.mgs_iterate.launches)
     recs["music_scan_peaks"]["tc_launches"] = ms.music_scan_peaks.tc_launches
     check(ms.music_scan_peaks.tc_launches
           == ms.music_scan_peaks.launches > 0,
@@ -5743,6 +5798,9 @@ def main():
     recs["track"] = host_phase(torch, dev, card)
     for f, v in PEAKS_TALLY.items():
         recs["peaks2d"]["by_form"][f]["launches"] = v
+    recs["mgs_iterate"]["launches_by_form"] = K4_TALLY
+    check(K4_TALLY.get("group", 0) > 0 and K4_TALLY.get("block", 0) > 0,
+          f"K4's forms were not both launched on the paths: {K4_TALLY}")
     check(sum(PEAKS_TALLY.values()) == recs["peaks2d"]["launches"],
           f"kernel 6's launches by form {PEAKS_TALLY} do not add up to its "
           f"{recs['peaks2d']['launches']} path launches")

@@ -25,12 +25,40 @@
 // Two forms, chosen by n2 alone (`block_form`; cpx_ops.mgs_form is the
 // same rule):
 //
-// Warp form, n2 <= WARP_MAX_N2 = 64 (the narrowband and planes paths): one
-// warp a window, MAX_WARPS warps a block. E (16 KiB at n2 = 64), Vt, W and
-// Vt_prev live in the warp's slice of shared memory, E entering with
-// 16-byte loads. In the apply each lane owns the columns j = lane + 32c of
-// every row of W in registers (E rows read across lanes, Vt broadcast);
-// each MGS dot product is a warp shuffle reduction.
+// Group form, n2 <= GROUP_MAX_N2 = 64 (every narrowband and planes path:
+// 2N = 8, 16, 24, 32): a window per group of L lanes, L = group_width(n2)
+// (4 for n2 <= 16, 8 for n2 <= 32, 16 for n2 <= 64), 32 / L windows a warp,
+// GROUP_THREADS = 64 threads a block. What held the first form (a warp a
+// window) back was each window's dependent chain: a lane a column, so every
+// MGS dot product was one FMA and a five-level shuffle tree, the rows read
+// back from shared memory, K2 a runtime loop bound, E staged by the warp's
+// own loads before any round. Here:
+// - Columns: lane gl of a group holds columns gl + L c (c < C = ceil(n2 /
+//   L) <= 4) of every row of Vt and W in registers; K2, L and C are
+//   template arguments.
+// - MGS: mgs_rows<K2, L, C>, shared with the block form (L = 32, C = 4):
+//   each dot product the lane's C products, then a log2(L)-level xor tree
+//   inside the group (3 levels at the headline against 5).
+// - Apply W = Vt E: after each MGS the group writes its rows to its Vt
+//   area in shared memory, transposed (column n's K2 values together);
+//   each row n of the apply reads E[n][j] from the slot (C floats a lane)
+//   and Vt[.][n] as float4 broadcasts, summed in row order. Taking
+//   Vt[k][n] by a shuffle from the lane that holds column n instead (one
+//   shuffle a k and row) was 13-18 % slower at the headline and c3.
+// - Copy and walk: a persistent grid; group q takes windows q, q + groups,
+//   ...; each window's E arrives in the group's slot by one bulk copy with
+//   the group's mbarrier (load_window), the next window's issued as soon as
+//   the last apply has read E, so it lands during the last (two-pass) MGS
+//   and the stores. The slots are n2^2 rounded up to 32 words plus L, so a
+//   warp's groups read their rows L banks apart, without conflicts.
+// - Measured (exp_mgs_iterate.py on an H100 80GB HBM3 at 700 W, device ms
+//   a launch, the warp form's in the same call in parentheses; PERF.md):
+//   headline 0.047 (0.092; bound 0.0275), c3 0.082 (0.283), c2 0.011
+//   (0.030), the headline's B = 1 capture mean 0.013 (0.036). A second E
+//   slot a group (the next copy under a window's whole chain) and blocks
+//   of 32 or 128 threads moved nothing. Registers: 80 at the headline, 72
+//   at c3, 64 at c2; the (K2, n2) = (8, 34..48) entry spills 24 bytes (no
+//   path runs it).
 //
 // Block form, 64 < n2 <= 128 (c5, c5_f12, cssm, cssm_auto; ULA-48's 96):
 // one window at a time per block of BLOCK_THREADS = 256 threads, E read
@@ -54,8 +82,8 @@
 // - MGS on one warp, in place over W, the rows in registers (lane:
 //   columns lane + 32c, c < 4; at K2 = 8 only the current row); the other
 //   warps wait at the barrier while the SM's other blocks run. Each dot
-//   product: the lane's 4 products in c order, then the xor shuffle tree,
-//   as the warp form.
+//   product: the lane's 4 products in c order, then the xor shuffle tree
+//   (mgs_rows<K2, 32, 4>).
 // - Shared memory a block: E n2^2 + Vt/W K2 n2 + X K2 n2 floats:
 //   65536 + 4096 + 4096 = 73728 bytes at n2 = 128, K2 = 8 (+ 8 bytes of
 //   mbarrier, + 1 KiB the SM reserves a block): 3 blocks in 228 KiB.
@@ -68,7 +96,7 @@
 //   against 0.83 ms; bound 0.70). Vt read four rows at a time (float4,
 //   rows padded) instead of two moved nothing, so the apply is not bound
 //   by its shared-memory loads; the MGS rows read back from shared memory
-//   (the warp form's mgs) cost 14% at c5 cold 8 rounds, so up to K2 = 6
+//   (mgs<4>) cost 14% at c5 cold 8 rounds, so up to K2 = 6
 //   they stay in registers.
 //
 // Exact inputs give the plain version's outputs bit for bit in both forms
@@ -81,22 +109,61 @@
 
 namespace {
 
-constexpr int MAX_WARPS = 4;
 constexpr int MAX_N2 = 128;             // up to 4 elements of a row per lane
 constexpr int MAX_K2 = 8;
-constexpr int WARP_MAX_N2 = 64;         // the warp form's n2; above: blocks
-constexpr size_t SMEM_LIMIT = 232448;   // bytes a block may use (H100)
+constexpr int GROUP_MAX_N2 = 64;        // the group form's n2; above: blocks
 constexpr int BLOCK_THREADS = 256;      // block form: 4 column groups x 2
 constexpr int BLOCKS_PER_SM = 3;        //   row halves; blocks an SM holds
 constexpr int MAX_DEVICES = 64;
+constexpr int GROUP_THREADS = 64;       // group form: 2 warps a block
+constexpr int MAX_GROUPS = GROUP_THREADS / 4;
 
 __host__ __device__ constexpr bool block_form(int n2) {
-  return n2 > WARP_MAX_N2;
+  return n2 > GROUP_MAX_N2;
+}
+
+// The group form's lanes a window: 4 for n2 <= 16, 8 for n2 <= 32, 16 for
+// n2 <= 64, so that a lane holds at most 4 columns of a row
+__host__ __device__ constexpr int group_width(int n2) {
+  return n2 <= 16 ? 4 : n2 <= 32 ? 8 : 16;
+}
+
+// A group's E slot in floats: n2^2 rounded up to 32 words, plus L, so that
+// the slots of a warp's 32 / L groups start L banks apart
+__host__ __device__ constexpr int group_slot(int n2, int L) {
+  return (n2 * n2 + 31) / 32 * 32 + L;
+}
+
+// A column's K2 values of Vt in the group's Vt area, padded for float4
+__host__ __device__ constexpr int vt_pad(int K2) { return (K2 + 3) / 4 * 4; }
+
+// A group's Vt area in floats: L C columns of vt_pad(K2), plus 4, so that
+// (L C vt_pad a multiple of 16) the areas of a warp's groups start an odd
+// number of float4s apart: their broadcasts fall in distinct bank quads
+__host__ __device__ constexpr int group_vt(int K2, int L, int C) {
+  return L * C * vt_pad(K2) + 4;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// The lanes of this lane's group of L (all 32 for L = 32)
+template <int L>
+__device__ __forceinline__ unsigned group_mask(int lane) {
+  if constexpr (L == 32) return 0xffffffffu;
+  else return ((1u << L) - 1) << (lane & ~(L - 1));
+}
+
+// Sum over a group of L lanes: the xor tree, offsets L/2 ... 1 in order
+// (L = 32: warp_sum's)
+template <int L>
+__device__ __forceinline__ float group_sum(float v, unsigned mask) {
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(mask, v, off);
   return v;
 }
 
@@ -123,48 +190,11 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (clock64() - t0 > (1ll << 34)) __trap();
 }
 
-// ---------------------------------------------------------------- warp form
+// ---------------------------------------------------------------- shared
 
-// W[k][j] = sum_n V[k][n] * E[n][j], summed in n order; CPL = columns
-// of a row per lane (ceil(n2 / 32))
-template <int CPL>
-__device__ void apply(const float* V, const float* Es, float* W, int n2,
-                      int K2, int lane) {
-  float acc[MAX_K2][CPL];
-#pragma unroll
-  for (int k = 0; k < MAX_K2; ++k)
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) acc[k][c] = 0.f;
-  for (int n = 0; n < n2; ++n) {
-    float e[CPL];
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) {
-      const int j = lane + 32 * c;
-      e[c] = j < n2 ? Es[n * n2 + j] : 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < MAX_K2; ++k) {
-      if (k < K2) {
-        const float v = V[k * n2 + n];
-#pragma unroll
-        for (int c = 0; c < CPL; ++c) acc[k][c] += v * e[c];
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < MAX_K2; ++k) {
-    if (k < K2) {
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        const int j = lane + 32 * c;
-        if (j < n2) W[k * n2 + j] = acc[k][c];
-      }
-    }
-  }
-  __syncwarp();
-}
-
-// rows of W, modified Gram-Schmidt → V (orthonormal rows)
+// Rows of W, modified Gram-Schmidt → V (orthonormal rows), on one warp:
+// only row i in registers, the rows before it read back from V (the block
+// form's MGS at K2 = 8; CPL = columns of a row per lane)
 template <int CPL>
 __device__ void mgs(const float* W, float* V, int n2, int K2, int passes,
                     int lane) {
@@ -202,80 +232,6 @@ __device__ void mgs(const float* W, float* V, int n2, int K2, int passes,
     }
     __syncwarp();
   }
-}
-
-template <int CPL>
-__global__ void __launch_bounds__(MAX_WARPS * 32)
-mgs_warp_kernel(const float* __restrict__ E, const float* __restrict__ init,
-                int init_group, float* __restrict__ Vt_out,
-                float* __restrict__ W_out, float* __restrict__ Vprev_out,
-                int B, int n2, int K2, int rounds) {
-  extern __shared__ __align__(16) float smem[];
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * warps + warp;
-  if (b >= B) return;               // warps are independent: no block sync
-  const int kn = K2 * n2;
-  // n2 and K2 even: every slice starts 16-byte aligned
-  float* S = smem + warp * (n2 * n2 + 3 * kn);    // E
-  float* V = S + n2 * n2;           // current Vt
-  float* W = V + kn;                // apply product
-  float* P = W + kn;                // Vt before the last apply
-  const float4* Eb4 = reinterpret_cast<const float4*>(E + (size_t)b * n2 * n2);
-  float4* S4 = reinterpret_cast<float4*>(S);
-#pragma unroll 4
-  for (int idx = lane; idx < n2 * n2 / 4; idx += 32) S4[idx] = Eb4[idx];
-  // E's staged copy through a pointer the compiler cannot place in shared
-  // memory (a select on n2, which is > 0), as the first form's (whose E
-  // could also lie in device memory): knowing it shared, ptxas spilled at
-  // CPL = 2 and the headline ran 5-10% slower (exp_mgs_iterate.py; hiding
-  // it behind an asm mov did not help)
-  const float* Es = n2 > 0 ? S : E;
-  if (init != nullptr) {
-    const float* Ib = init + (size_t)(b / init_group) * kn;
-    for (int idx = lane; idx < kn; idx += 32) V[idx] = Ib[idx];
-    __syncwarp();
-  } else {
-    __syncwarp();
-    mgs<CPL>(Es, V, n2, K2, 1, lane);   // rows 0..K2-1 of E
-  }
-  for (int r = 0; r + 1 < rounds; ++r) {
-    apply<CPL>(V, Es, W, n2, K2, lane);
-    for (int idx = lane; idx < kn; idx += 32) P[idx] = V[idx];
-    __syncwarp();
-    mgs<CPL>(W, V, n2, K2, r == rounds - 2 ? 2 : 1, lane);
-  }
-  if (rounds < 2) {                 // no apply ran: one for the detector
-    apply<CPL>(V, Es, W, n2, K2, lane);
-    for (int idx = lane; idx < kn; idx += 32) P[idx] = V[idx];
-    __syncwarp();
-  }
-  const size_t o = (size_t)b * kn;
-  for (int idx = lane; idx < kn; idx += 32) {
-    Vt_out[o + idx] = V[idx];
-    W_out[o + idx] = W[idx];
-    Vprev_out[o + idx] = P[idx];
-  }
-}
-
-template <int CPL>
-int launch_warp(const float* E, const float* init, int init_group, float* Vt,
-                float* W, float* Vprev, int B, int n2, int K2, int rounds,
-                cudaStream_t stream) {
-  const size_t per_warp = sizeof(float) * (n2 * n2 + 3 * K2 * n2);
-  int warps = (int)(SMEM_LIMIT / per_warp);
-  warps = warps > MAX_WARPS ? MAX_WARPS : warps;
-  const size_t smem = per_warp * warps;
-  const int blocks = (B + warps - 1) / warps;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mgs_warp_kernel<CPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  mgs_warp_kernel<CPL><<<blocks, warps * 32, smem, stream>>>(
-      E, init, init_group, Vt, W, Vprev, B, n2, K2, rounds);
-  return (int)cudaGetLastError();
 }
 
 // --------------------------------------------------------------- block form
@@ -318,20 +274,14 @@ __device__ __forceinline__ void apply_rows(const float* Es, const float* V,
   }
 }
 
-// One warp: modified Gram-Schmidt over the K2 rows of W (stride n2) →
-// orthonormal rows in V (may be W), and in out (device memory) unless
-// null. The rows stay in registers: lane holds columns lane + 32c.
-template <int K2>
-__device__ __forceinline__ void mgs_rows(const float* W, float* V, int n2,
-                                         int passes, int lane, float* out) {
-  float v[K2][4];
-#pragma unroll
-  for (int k = 0; k < K2; ++k)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = lane + 32 * c;
-      v[k][c] = j < n2 ? W[k * n2 + j] : 0.f;
-    }
+// Modified Gram-Schmidt over K2 rows held in registers by a group of L
+// lanes (mask: the group's), each lane C columns of every row (ok[c]: the
+// column lies in the window) → orthonormal rows, in place. Each dot
+// product: the lane's products in c order, then the group's xor tree.
+template <int K2, int L, int C>
+__device__ __forceinline__ void mgs_rows(float (&v)[K2][C],
+                                         const bool (&ok)[C], int passes,
+                                         unsigned mask) {
 #pragma unroll
   for (int i = 0; i < K2; ++i) {
     for (int p = 0; p < passes; ++p) {
@@ -339,42 +289,53 @@ __device__ __forceinline__ void mgs_rows(const float* W, float* V, int n2,
       for (int u = 0; u < i; ++u) {
         float d = 0.f;
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (lane + 32 * c < n2) d += v[u][c] * v[i][c];
-        d = warp_sum(d);
+        for (int c = 0; c < C; ++c)
+          if (ok[c]) d += v[u][c] * v[i][c];
+        d = group_sum<L>(d, mask);
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (lane + 32 * c < n2) v[i][c] = v[i][c] - d * v[u][c];
+        for (int c = 0; c < C; ++c)
+          if (ok[c]) v[i][c] = v[i][c] - d * v[u][c];
       }
     }
     float s = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s += v[i][c] * v[i][c];
-    const float r = rsqrtf(fmaxf(warp_sum(s), 1e-30f));
+    for (int c = 0; c < C; ++c) s += v[i][c] * v[i][c];
+    const float r = rsqrtf(fmaxf(group_sum<L>(s, mask), 1e-30f));
 #pragma unroll
-    for (int c = 0; c < 4; ++c) v[i][c] *= r;
+    for (int c = 0; c < C; ++c) v[i][c] *= r;
   }
-#pragma unroll
-  for (int k = 0; k < K2; ++k)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = lane + 32 * c;
-      if (j < n2) {
-        V[k * n2 + j] = v[k][c];
-        if (out != nullptr) out[k * n2 + j] = v[k][c];
-      }
-    }
 }
 
-// The block form's MGS on one warp: the rows in registers (mgs_rows) up to
-// K2 = 6; at K2 = 8 those 32 floats a lane spilled at 80 registers, so the
-// warp form's mgs<4> (only row i in registers, the rows before it read
-// back from V), its rows then copied to out unless null.
+// The block form's MGS on one warp over the K2 rows of W (stride n2) →
+// orthonormal rows in V (may be W), and in out (device memory) unless
+// null. Up to K2 = 6 the rows stay in registers (mgs_rows, lane: columns
+// lane + 32c, c < 4); at K2 = 8 those 32 floats a lane spilled at 80
+// registers, so mgs<4> (only row i in registers, the rows
+// before it read back from V), its rows then copied to out unless null.
 template <int K2>
 __device__ __forceinline__ void block_mgs(const float* W, float* V, int n2,
                                           int passes, int lane, float* out) {
   if constexpr (K2 <= 6) {
-    mgs_rows<K2>(W, V, n2, passes, lane, out);
+    float v[K2][4];
+    bool ok[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) ok[c] = lane + 32 * c < n2;
+#pragma unroll
+    for (int k = 0; k < K2; ++k)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        v[k][c] = ok[c] ? W[k * n2 + lane + 32 * c] : 0.f;
+    mgs_rows<K2, 32, 4>(v, ok, passes, 0xffffffffu);
+#pragma unroll
+    for (int k = 0; k < K2; ++k)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = lane + 32 * c;
+        if (ok[c]) {
+          V[k * n2 + j] = v[k][c];
+          if (out != nullptr) out[k * n2 + j] = v[k][c];
+        }
+      }
   } else {
     mgs<4>(W, V, n2, K2, passes, lane);
     if (out != nullptr)
@@ -491,6 +452,212 @@ int launch_block(const float* E, const float* init, int init_group,
   return (int)cudaGetLastError();
 }
 
+// --------------------------------------------------------------- group form
+
+// W = Vt E over the window's rows in order: lane gl of the group holds
+// columns j = gl + L c (c < C) of each row of W; E[n][j] comes from the
+// group's slot, Vt[.][n] from the group's Vt area as float4 broadcasts
+template <int K2, int L, int C>
+__device__ __forceinline__ void group_apply(const float* Es, const float* Vs,
+                                            const bool (&ok)[C],
+                                            float (&w)[K2][C], int n2,
+                                            int gl) {
+  constexpr int KP = vt_pad(K2);
+#pragma unroll
+  for (int k = 0; k < K2; ++k)
+#pragma unroll
+    for (int c = 0; c < C; ++c) w[k][c] = 0.f;
+#pragma unroll
+  for (int cn = 0; cn < C; ++cn) {
+#pragma unroll
+    for (int s = 0; s < L; ++s) {
+      const int n = s + L * cn;
+      if (cn == C - 1 && n >= n2) break;   // the window's rows end
+      const float* row = Es + n * n2 + gl;
+      float e[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) e[c] = ok[c] ? row[L * c] : 0.f;
+      float vk[KP];
+#pragma unroll
+      for (int q = 0; q < KP / 4; ++q) {
+        const float4 t = reinterpret_cast<const float4*>(Vs + n * KP)[q];
+        vk[4 * q] = t.x;
+        vk[4 * q + 1] = t.y;
+        vk[4 * q + 2] = t.z;
+        vk[4 * q + 3] = t.w;
+      }
+#pragma unroll
+      for (int k = 0; k < K2; ++k)
+#pragma unroll
+        for (int c = 0; c < C; ++c) w[k][c] += vk[k] * e[c];
+    }
+  }
+}
+
+// The group's Vt rows (registers) into its Vt area, transposed: column n's
+// K2 values at n vt_pad(K2), for the next apply
+template <int K2, int L, int C>
+__device__ __forceinline__ void vt_out(const float (&v)[K2][C], float* Vs,
+                                       const bool (&ok)[C], int gl,
+                                       unsigned mask) {
+  __syncwarp(mask);                        // the last apply has read it
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (ok[c])
+#pragma unroll
+      for (int k = 0; k < K2; ++k) Vs[(gl + L * c) * vt_pad(K2) + k] = v[k][c];
+  __syncwarp(mask);
+}
+
+// K2 rows of this lane's columns from src (stride n2; zero outside the
+// window) into registers, or from registers to dst
+template <int K2, int L, int C>
+__device__ __forceinline__ void rows_in(float (&v)[K2][C], const float* src,
+                                        const bool (&ok)[C], int n2) {
+#pragma unroll
+  for (int k = 0; k < K2; ++k)
+#pragma unroll
+    for (int c = 0; c < C; ++c) v[k][c] = ok[c] ? src[k * n2 + L * c] : 0.f;
+}
+
+template <int K2, int L, int C>
+__device__ __forceinline__ void rows_out(const float (&v)[K2][C], float* dst,
+                                         const bool (&ok)[C], int n2) {
+#pragma unroll
+  for (int k = 0; k < K2; ++k)
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (ok[c]) dst[k * n2 + L * c] = v[k][c];
+}
+
+// A window per group of L lanes, GROUP_THREADS / L groups a block, on a
+// persistent grid: group q of the grid takes windows q, q + groups, ...;
+// its window's E arrives in its slot by one bulk copy, issued as soon as
+// the last apply of the window before has read E.
+template <int K2, int L, int C>
+__global__ void __launch_bounds__(GROUP_THREADS)
+mgs_group_kernel(const float* __restrict__ E,
+                 const float* __restrict__ init, int init_group,
+                 float* __restrict__ Vt_out, float* __restrict__ W_out,
+                 float* __restrict__ Vprev_out, int B, int n2, int rounds) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) unsigned long long bars[MAX_GROUPS];
+  constexpr int G = GROUP_THREADS / L;     // groups a block
+  const int tid = threadIdx.x, grp = tid / L, gl = tid % L;
+  const unsigned mask = group_mask<L>(tid & 31);
+  float* Es = smem + grp * group_slot(n2, L);
+  float* Vs = smem + G * group_slot(n2, L) + grp * group_vt(K2, L, C);
+  const uint32_t bar = smem_addr(&bars[grp]);
+  const uint32_t bytes = (uint32_t)(n2 * n2 * sizeof(float));
+  const int kn = K2 * n2;
+  const int stride = gridDim.x * G;
+  bool ok[C];                              // columns gl + L c of the window
+#pragma unroll
+  for (int c = 0; c < C; ++c) ok[c] = c < C - 1 || gl + L * c < n2;
+  const int applies = rounds > 1 ? rounds - 1 : 1;
+  const bool orth = rounds > 1;
+  int b = blockIdx.x * G + grp;
+  if (gl == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (b < B) load_window(Es, E + (size_t)b * n2 * n2, bytes, bar);
+  }
+  __syncthreads();
+  uint32_t parity = 0;
+  for (; b < B; b += stride, parity ^= 1) {
+    const size_t o = (size_t)b * kn + gl;
+    float v[K2][C], w[K2][C];
+    if (init != nullptr)
+      rows_in<K2, L, C>(v, init + (size_t)(b / init_group) * kn + gl, ok,
+                        n2);
+    mbar_wait(bar, parity);
+    __syncwarp(mask);
+    if (init == nullptr) {                 // rows 0..K2-1 of E
+      rows_in<K2, L, C>(v, Es + gl, ok, n2);
+      mgs_rows<K2, L, C>(v, ok, 1, mask);
+    }
+    vt_out<K2, L, C>(v, Vs, ok, gl, mask);
+    for (int r = 0; r < applies; ++r) {
+      group_apply<K2, L, C>(Es, Vs, ok, w, n2, gl);
+      if (r == applies - 1) {
+        __syncwarp(mask);                  // the group has read E: the
+        if (gl == 0 && b + stride < B)     // next window's copy flies
+          load_window(Es, E + (size_t)(b + stride) * n2 * n2, bytes, bar);
+        rows_out<K2, L, C>(v, Vprev_out + o, ok, n2);
+        rows_out<K2, L, C>(w, W_out + o, ok, n2);
+      }
+      if (orth) {
+#pragma unroll
+        for (int k = 0; k < K2; ++k)
+#pragma unroll
+          for (int c = 0; c < C; ++c) v[k][c] = w[k][c];
+        mgs_rows<K2, L, C>(v, ok, r == applies - 1 ? 2 : 1, mask);
+        if (r < applies - 1) vt_out<K2, L, C>(v, Vs, ok, gl, mask);
+      }
+    }
+    rows_out<K2, L, C>(v, Vt_out + o, ok, n2);
+  }
+}
+
+template <int K2, int L, int C>
+int launch_group(const float* E, const float* init, int init_group,
+                 float* Vt, float* W, float* Vprev, int B, int n2,
+                 int rounds, cudaStream_t stream) {
+  if constexpr (K2 > L * C) {
+    return (int)cudaErrorInvalidValue;     // K2 > n2: refused before
+  } else {
+    static int sms[MAX_DEVICES] = {};               // 0: not read yet
+    constexpr int G = GROUP_THREADS / L;
+    const size_t smem =
+        sizeof(float) * (size_t)G * (group_slot(n2, L) + group_vt(K2, L, C));
+    int dev = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+    if (sms[dev] == 0) {
+      e = cudaDeviceGetAttribute(sms + dev, cudaDevAttrMultiProcessorCount,
+                                 dev);
+      if (e != cudaSuccess) return (int)e;
+    }
+    e = cudaFuncSetAttribute(mgs_group_kernel<K2, L, C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, mgs_group_kernel<K2, L, C>, GROUP_THREADS, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const long long need = (B + G - 1) / G;
+    const long long fit = (long long)per_sm * sms[dev];
+    const int grid = (int)(need < fit ? need : fit);
+    mgs_group_kernel<K2, L, C><<<grid, GROUP_THREADS, smem, stream>>>(
+        E, init, init_group, Vt, W, Vprev, B, n2, rounds);
+    return (int)cudaGetLastError();
+  }
+}
+
+// The group form's entry of a K2: L = group_width(n2), C = ceil(n2 / L)
+template <int K2>
+int launch_group_k(const float* E, const float* init, int init_group,
+                   float* Vt, float* W, float* Vprev, int B, int n2,
+                   int rounds, cudaStream_t st) {
+#define DOA_GROUP(L, C) \
+  launch_group<K2, L, C>(E, init, init_group, Vt, W, Vprev, B, n2, rounds, st)
+  switch (group_width(n2)) {
+    case 4:
+      switch ((n2 + 3) / 4) {
+        case 1: return DOA_GROUP(4, 1);
+        case 2: return DOA_GROUP(4, 2);
+        case 3: return DOA_GROUP(4, 3);
+        default: return DOA_GROUP(4, 4);
+      }
+    case 8: return n2 <= 24 ? DOA_GROUP(8, 3) : DOA_GROUP(8, 4);
+    default: return n2 <= 48 ? DOA_GROUP(16, 3) : DOA_GROUP(16, 4);
+  }
+#undef DOA_GROUP
+}
+
 }  // namespace
 
 // E f32[B, n2, n2] (16-byte aligned); init f32[B / init_group, K2, n2],
@@ -519,8 +686,14 @@ extern "C" int doa_mgs_iterate(const void* E, const void* init,
                                       rounds, st);
     }
   }
-  if (n2 <= 32)
-    return launch_warp<1>(e, in, init_group, vt, w, vp, B, n2, K2, rounds,
-                          st);
-  return launch_warp<2>(e, in, init_group, vt, w, vp, B, n2, K2, rounds, st);
+  switch (K2) {
+    case 2: return launch_group_k<2>(e, in, init_group, vt, w, vp, B, n2,
+                                     rounds, st);
+    case 4: return launch_group_k<4>(e, in, init_group, vt, w, vp, B, n2,
+                                     rounds, st);
+    case 6: return launch_group_k<6>(e, in, init_group, vt, w, vp, B, n2,
+                                     rounds, st);
+    default: return launch_group_k<8>(e, in, init_group, vt, w, vp, B, n2,
+                                      rounds, st);
+  }
 }

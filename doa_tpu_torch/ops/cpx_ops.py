@@ -34,19 +34,21 @@ _I = ctypes.c_int
 _SIG = {"doa_mgs_iterate": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]}
 MGS_MAX_N2 = 128        # csrc/subspace.cu: four elements of a row per lane
 MGS_MAX_K2 = 8          # csrc/subspace.cu: rows of W a lane keeps
-MGS_WARP_MAX_N2 = 64    # csrc/subspace.cu WARP_MAX_N2: the warp form's 2N
+MGS_GROUP_MAX_N2 = 64   # csrc/subspace.cu GROUP_MAX_N2: the group form's 2N
+MGS_FORMS = ("group", "block")
 
 
 def mgs_form(n2: int, k2: int) -> str | None:
     """The form of K4 that takes (2N, 2K), as csrc/subspace.cu dispatches
-    (`block_form`): "warp" (one warp a window, 2N ≤ MGS_WARP_MAX_N2),
-    "block" (a block of 8 warps a window, E held in shared memory for
-    every round, MGS_WARP_MAX_N2 < 2N ≤ MGS_MAX_N2), or None for a shape
-    K4 does not take (an odd 2N, 2N > MGS_MAX_N2 or 2K > min(2N,
-    MGS_MAX_K2))."""
+    (`block_form`): "group" (a window per group of 4, 8 or 16 lanes by
+    2N, its rows in registers, E by bulk copy on a persistent grid;
+    2N ≤ MGS_GROUP_MAX_N2), "block" (a block of 8 warps a window, E held
+    in shared memory for every round, MGS_GROUP_MAX_N2 < 2N ≤ MGS_MAX_N2),
+    or None for a shape K4 does not take (an odd 2N, 2N > MGS_MAX_N2 or
+    2K > min(2N, MGS_MAX_K2))."""
     if not (n2 <= MGS_MAX_N2 and n2 % 2 == 0 and k2 <= min(n2, MGS_MAX_K2)):
         return None
-    return "warp" if n2 <= MGS_WARP_MAX_N2 else "block"
+    return "group" if n2 <= MGS_GROUP_MAX_N2 else "block"
 
 
 def mgs_takes(n2: int, k2: int) -> bool:
@@ -117,7 +119,9 @@ def mgs_iterate(E: torch.Tensor, num_sources: int, rounds: int,
     None (cold).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel and raises if that fails."""
+    kernel in the form mgs_form names and raises if that fails; each
+    launch is counted in mgs_iterate.launches and, by form, in
+    mgs_iterate.by_form."""
     K2 = 2 * num_sources
     if E.dim() != 3 or E.shape[1] != E.shape[2] or E.dtype != torch.float32:
         raise ValueError(f"need E f32[B, 2N, 2N], got {tuple(E.shape)} "
@@ -135,7 +139,7 @@ def mgs_iterate(E: torch.Tensor, num_sources: int, rounds: int,
                          f"{MGS_MAX_N2}, 2K ≤ min(2N, {MGS_MAX_K2}), "
                          f"rounds ≥ 1 (2N={n2}, 2K={K2}, rounds={rounds})")
     E = E.contiguous()
-    if E.data_ptr() % 16:       # float4 loads and bulk copies of E
+    if E.data_ptr() % 16:       # bulk copies of E
         E = E.clone()
     group = 0
     if init is not None:
@@ -151,10 +155,12 @@ def mgs_iterate(E: torch.Tensor, num_sources: int, rounds: int,
         B, n2, K2, rounds, torch.cuda.current_stream(E.device).cuda_stream)
     _build.check(err, "doa_mgs_iterate")
     mgs_iterate.launches += 1
+    mgs_iterate.by_form[mgs_form(n2, K2)] += 1
     return tuple(outs)
 
 
 mgs_iterate.launches = 0
+mgs_iterate.by_form = dict.fromkeys(MGS_FORMS, 0)
 
 
 def escalation_detector(W, Vt_prev, n2: int, scale=None):

@@ -25,8 +25,8 @@ from __future__ import annotations
 import math
 
 from doa_tpu_torch.configs import DoaConfig, Estimator, as_config
-from doa_tpu_torch.ops.cpx_ops import (mgs_iterate, mgs_iterate_plain,
-                                       mgs_takes)
+from doa_tpu_torch.ops.cpx_ops import (mgs_form, mgs_iterate,
+                                       mgs_iterate_plain, mgs_takes)
 from doa_tpu_torch.ops.cuda.cov_embedded import (chunk_grams_uhat,
                                                   chunk_grams_uhat_plain,
                                                   gram_takes,
@@ -184,6 +184,23 @@ def _wideband_covariance_route(cfg: DoaConfig):
             kernel_takes(cfg.geometry.num_elements))
 
 
+def mgs_n2(cfg: DoaConfig, stage: str) -> int:
+    """The 2N at which K4 runs `stage`: the array's for cssm_auto's coarse
+    pass ("coarse_subspace") and for the power subspaces of incoherent
+    wideband, else subspace_n2."""
+    wb = cfg.wideband
+    if stage == "coarse_subspace" or (wb.enabled
+                                      and wb.fusion == "incoherent"):
+        return 2 * cfg.geometry.num_elements
+    return subspace_n2(cfg)
+
+
+def _k4_route(cfg: DoaConfig, stage: str) -> tuple:
+    """K4's route of `stage`: ("mgs_iterate", whether it takes the
+    stage's shapes)."""
+    return ("mgs_iterate", mgs_takes(mgs_n2(cfg, stage), 2 * cfg.num_sources))
+
+
 def kernel_routes(cfg, *, return_spectra: bool = True) -> dict:
     """{stage: (kernel, whether it takes the config's shapes)} of a
     single-card pipeline of `cfg`, each stage only where the config's
@@ -225,12 +242,12 @@ def kernel_routes(cfg, *, return_spectra: bool = True) -> dict:
     if wb.enabled:
         routes["covariance"] = _wideband_covariance_route(cfg)
         if incoherent and cfg.subspace_method == "power":
-            routes["subspace"] = ("mgs_iterate", mgs_takes(2 * N, k2))
+            routes["subspace"] = _k4_route(cfg, "subspace")
             if fusion_kernel_applies(cfg):
                 routes["fusion"] = ("wideband_fusion",
                                     fusion_takes(k2, 2 * N))
         elif wb.fusion == "cssm_auto":
-            routes["coarse_subspace"] = ("mgs_iterate", mgs_takes(2 * N, k2))
+            routes["coarse_subspace"] = _k4_route(cfg, "coarse_subspace")
     elif fused_route(cfg):
         routes["covariance"] = ("chunk_gram", gram_takes(2 * N))
         routes["covariance_planes"] = ("planes_chunk_gram", planes_takes(N))
@@ -240,7 +257,7 @@ def kernel_routes(cfg, *, return_spectra: bool = True) -> dict:
         if fused_route(cfg) and cfg.subspace_impl == "pallas":
             routes["subspace"] = ("subspace_ns", ns_takes(n2, k2))
         else:
-            routes["subspace"] = ("mgs_iterate", mgs_takes(n2, k2))
+            routes["subspace"] = _k4_route(cfg, "subspace")
         if scans_music_kernel(cfg):
             routes["scan"] = (
                 ("music_scan_peaks", peaks_takes(k2, n2, _grid_size(cfg)))
@@ -309,16 +326,15 @@ def sharded_kernel_routes(cfg, n_snap: int, n_grid: int,
     if wb.enabled:
         routes["covariance"] = _wideband_covariance_route(cfg)
         if wb.fusion == "incoherent" and power:
-            routes["subspace"] = ("mgs_iterate", mgs_takes(2 * N, k2))
+            routes["subspace"] = _k4_route(cfg, "subspace")
             if fusion_kernel_applies(cfg):
                 routes["fusion"] = ("wideband_fusion",
                                     fusion_takes(k2, 2 * N))
         elif wb.fusion in ("cssm", "cssm_auto"):
             if wb.fusion == "cssm_auto":
-                routes["coarse_subspace"] = ("mgs_iterate",
-                                             mgs_takes(2 * N, k2))
+                routes["coarse_subspace"] = _k4_route(cfg, "coarse_subspace")
             if power:
-                routes["subspace"] = ("mgs_iterate", mgs_takes(n2, k2))
+                routes["subspace"] = _k4_route(cfg, "subspace")
                 if scans_music_kernel(cfg):
                     routes["scan"] = _music_scan_route(
                         cfg, n_grid, return_spectra, k2, n2)
@@ -331,7 +347,7 @@ def sharded_kernel_routes(cfg, n_snap: int, n_grid: int,
                                 else ("planes_chunk_gram", planes_takes(N)))
         if fast or runs_power_subspace(cfg):
             # the fast path runs its subspace (and escalation counts) always
-            routes["subspace"] = ("mgs_iterate", mgs_takes(n2, k2))
+            routes["subspace"] = _k4_route(cfg, "subspace")
         if Estimator.MUSIC in cfg.estimators and fast:
             routes["scan"] = _music_scan_route(cfg, n_grid, return_spectra,
                                                k2, n2)
@@ -353,15 +369,20 @@ def kernel_forms(cfg, routes: dict) -> dict:
     * kernel 11 ("subspace_ns"): subspace_ns.ns_form of the config's
       (2N, 2K), the form its wrapper launches (subspace_ns.by_form);
     * kernel 6 ("peaks2d"): peaks2d.peaks_form of the config's az/el
-      grid, the form its wrapper launches (peaks2d.by_form)."""
+      grid, the form its wrapper launches (peaks2d.by_form);
+    * K4 ("mgs_iterate"): cpx_ops.mgs_form of the stage's (2N, 2K)
+      (mgs_n2), the form its wrapper launches (mgs_iterate.by_form)."""
     cfg = as_config(cfg)
+    k2 = 2 * cfg.num_sources
     forms = {"planes_chunk_gram":
              chunk_form(cfg.geometry.num_elements, "interleaved"),
-             "subspace_ns": ns_form(subspace_n2(cfg), 2 * cfg.num_sources)}
+             "subspace_ns": ns_form(subspace_n2(cfg), k2)}
     if cfg.geometry.kind == "ura":
         forms["peaks2d"] = peaks_form(cfg.grid2d.num_az, cfg.grid2d.num_el)
-    return {stage: forms[kernel] for stage, (kernel, _) in routes.items()
-            if kernel in forms}
+    return {stage: (mgs_form(mgs_n2(cfg, stage), k2)
+                    if kernel == "mgs_iterate" else forms[kernel])
+            for stage, (kernel, _) in routes.items()
+            if kernel in forms or kernel == "mgs_iterate"}
 
 
 def kernel_plan(cfg, *, return_spectra: bool = True) -> dict:

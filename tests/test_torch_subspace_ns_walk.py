@@ -23,9 +23,10 @@ import torch
 
 from doa_tpu.configs import ArrayGeometry, DoaConfig, Estimator, GridSpec1D
 from doa_tpu_torch.cpx import embed_planes
+from doa_tpu_torch.ops.cpx_ops import mgs_form
 from doa_tpu_torch.ops.cuda import subspace_ns as sns
 from doa_tpu_torch.pipeline_torch import build_pipeline_torch
-from doa_tpu_torch.plan import Plan, kernel_forms, kernel_routes
+from doa_tpu_torch.plan import Plan, kernel_forms, kernel_routes, subspace_n2
 
 SRC = os.path.join(os.path.dirname(sns.__file__), "..", "..", "csrc",
                    "subspace_ns.cu")
@@ -300,17 +301,21 @@ def test_plan_names_kernel_11s_form(N, K, want, spectra):
     """Under subspace_impl="pallas" on the fused route the plan names
     kernel 11's form for its subspace stage: the warp form at the
     headline (ULA-16, K = 2) and ULA-8, the block form at 2N = 128 and
-    2K = 10. ULA-12 at K = 3 is off the fused route (no kernel 11). The
-    default subspace_impl runs K4 and names no subspace form; on the CPU
-    no form is named."""
+    2K = 10. ULA-12 at K = 3 is off the fused route (no kernel 11: K4,
+    whose form the plan names). The default subspace_impl runs K4 and
+    names K4's form (none where K4 does not take the shape and its plain
+    version runs); on the CPU no form is named."""
     cfg = _ula(N, K, subspace_impl="pallas")
     routes = kernel_routes(cfg, return_spectra=spectra)
     plan = Plan(routes, forms=kernel_forms(cfg, routes))
-    assert plan.forms.get("subspace") == want
+    k4_form = mgs_form(subspace_n2(cfg), 2 * K)
+    assert plan.forms.get("subspace") == (want if want is not None
+                                          else k4_form)
     assert (plan.get("subspace") == "subspace_ns") == (want is not None)
     dflt = dataclasses.replace(cfg, subspace_impl="auto")
     r = kernel_routes(dflt, return_spectra=spectra)
-    assert "subspace" not in Plan(r, forms=kernel_forms(dflt, r)).forms
+    assert Plan(r, forms=kernel_forms(dflt, r)).forms.get("subspace") == \
+        k4_form
     if want is not None:
         assert build_pipeline_torch(cfg, device="cpu").plan.forms == {}
 
