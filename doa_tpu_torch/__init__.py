@@ -64,8 +64,8 @@ with g++, the streaming driver, UDP sources), the alpha-beta tracker
 (``tracking.py``: its scan in one launch of ``csrc/track.cu`` on the
 card), the streaming checkpoint (``checkpoint.py``), the Monte-Carlo
 evaluation (``eval.py``) and ``utils`` (timing fence, ``torch.profiler``
-traces, metrics, HTML reports). With it the port does all that
-``doa_tpu`` does; ROADMAP.md lists what comes next.
+traces, the pipeline's named spans, HTML reports). With it the port does
+all that ``doa_tpu`` does; ROADMAP.md lists what comes next.
 """
 
 from doa_tpu_torch import configs

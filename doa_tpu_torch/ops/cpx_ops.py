@@ -28,6 +28,7 @@ from doa_tpu_torch import _build
 from doa_tpu_torch.cpx import embed_planes, fp32_matmuls, unembed_planes
 from doa_tpu_torch.ops.cuda.covariance import cov_from_stream  # noqa: F401
 from doa_tpu_torch.ops.cuda.subspace_ns import ns_subspace
+from doa_tpu_torch.utils.profiling import span
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -232,7 +233,9 @@ def _subspace_E_T_mgs(E, num_sources: int, iters: int, squarings: int,
     default or its plain version.
 
     One host sync per call: whether any window was flagged decides
-    whether the escalation batch runs at all (lax.cond in the reference)."""
+    whether the escalation batch runs at all (lax.cond in the reference).
+    Its span, doa.sync.escalation, holds the host read alone: the flag's
+    reduction is launched before it."""
     n2 = E.shape[-1]
     tr = torch.diagonal(E, dim1=-2, dim2=-1).sum(-1) / n2        # (B,)
     if squarings > 0:
@@ -257,9 +260,13 @@ def _subspace_E_T_mgs(E, num_sources: int, iters: int, squarings: int,
     gamma, gamma_max, res = escalation_detector(W, Vt_prev, n2, scale=scale)
     bad, score = escalation_flags(gamma, gamma_max, res, escalate_gap,
                                   escalate_tol, escalate_signal_floor)
-    if bool(bad.any()):
-        Vt = escalate_flagged(Ep, Vt, bad, score, escalate_extra,
-                              escalate_capacity)
+    flag = bad.any()
+    with span("doa.sync.escalation"):
+        flagged_any = bool(flag)
+    if flagged_any:
+        with span("doa.escalate"):
+            Vt = escalate_flagged(Ep, Vt, bad, score, escalate_extra,
+                                  escalate_capacity)
     if return_stats:
         flagged = bad.sum().to(torch.int32)
         cap = min(Vt.shape[0], max(1, escalate_capacity))

@@ -120,6 +120,7 @@ from doa_tpu_torch.plan import (Plan, fused_route, kernel_forms,  # noqa: F401
                                 hierarchical_music, kernel_plan,
                                 kernel_routes)
 from doa_tpu_torch.pipeline import DoaResult, _steering_fn, _steering_matrix
+from doa_tpu_torch.utils.profiling import span
 
 
 def _check_slice(cfg: DoaConfig) -> None:
@@ -487,13 +488,16 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
     def _peaks(P, refine=refine_peaks):
         """(values, angles): 1-D → angles (B, k); 2-D → (B, k, 2) az/el
         through the 2-D peaks kernel (k ≤ 4; the plain rule beyond)."""
-        if g2 is None:
-            return find_local_max(P, k, x_rng[0], x_rng[1], refine=refine)
-        P2 = P.reshape(P.shape[0], g2.num_az, g2.num_el)
-        az_rng = (g2.az_lo_deg, g2.az_hi_deg)
-        el_rng = (g2.el_lo_deg, g2.el_hi_deg)
-        v, az, el = plan.op("peaks")(P2, k, az_rng, el_rng, refine=refine)
-        return v, torch.stack([az, el], dim=-1)
+        with span("doa.peaks"):
+            if g2 is None:
+                return find_local_max(P, k, x_rng[0], x_rng[1],
+                                      refine=refine)
+            P2 = P.reshape(P.shape[0], g2.num_az, g2.num_el)
+            az_rng = (g2.az_lo_deg, g2.az_hi_deg)
+            el_rng = (g2.el_lo_deg, g2.el_hi_deg)
+            v, az, el = plan.op("peaks")(P2, k, az_rng, el_rng,
+                                         refine=refine)
+            return v, torch.stack([az, el], dim=-1)
 
     def _subspace(E):
         """Fused path → (Vt, (flagged, overflow)): kernel 11 cold under
@@ -609,15 +613,16 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
         stats = (zero, zero)
         Vt = sub_res = None
         if "subspace" in route:
-            if E is not None:
-                Vt, stats = _subspace(E)
-            else:
-                V, stats = cpx_ops.signal_subspace_embedded(
-                    *R, K, iters=cfg.power_iters,
-                    squarings=cfg.power_squarings, return_stats=True,
-                    iterate=plan.op("subspace"),
-                    **(esc if cfg.power_squarings == 0 else {}))
-                Vt = V.transpose(-1, -2)
+            with span("doa.subspace"):
+                if E is not None:
+                    Vt, stats = _subspace(E)
+                else:
+                    V, stats = cpx_ops.signal_subspace_embedded(
+                        *R, K, iters=cfg.power_iters,
+                        squarings=cfg.power_squarings, return_stats=True,
+                        iterate=plan.op("subspace"),
+                        **(esc if cfg.power_squarings == 0 else {}))
+                    Vt = V.transpose(-1, -2)
             if cfg.subspace_check:
                 V, sub_res = cpx_ops.guarded_signal_subspace(
                     E if E is not None else embed_planes(*R),
@@ -635,7 +640,8 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
                                                                    Vt)
                 continue
             if est == Estimator.MUSIC:
-                P, peaks = _music(Vt, M)
+                with span("doa.scan"):
+                    P, peaks = _music(Vt, M)
             elif est == Estimator.MIN_NORM:
                 if "subspace" in route:
                     den = min_norm_denominator_subspace(
@@ -688,11 +694,12 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
         has it, else the reference's XLA scan as torch ops); under the
         hierarchical rule the refined peaks and no spectrum."""
         ops = {s: plan.op(s) for s in ("subspace", "fusion") if s in route}
-        out = wideband_music_cpx(None, None, None, cfg, E_sub=E_sub,
-                                 planes=wb_planes,
-                                 iterate=ops.get("subspace"),
-                                 fusion=ops.get("fusion"),
-                                 return_dmin=wb_hier)
+        with span("doa.wb_fusion"):
+            out = wideband_music_cpx(None, None, None, cfg, E_sub=E_sub,
+                                     planes=wb_planes,
+                                     iterate=ops.get("subspace"),
+                                     fusion=ops.get("fusion"),
+                                     return_dmin=wb_hier)
         if not wb_hier:
             return (out, *_peaks(out))
         P, Vt, dmin = out
@@ -703,10 +710,11 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
     def run_interleaved(x: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor):
         with fp32_matmuls():
             if wb:
-                E_sub = wideband_cov_embedded(
-                    x, cr, ci, N=N, F=F, snapshot_size=cfg.snapshot_size,
-                    overlap=cfg.overlap, variant=variant,
-                    kernel=plan.op("covariance"))
+                with span("doa.wb_front"):
+                    E_sub = wideband_cov_embedded(
+                        x, cr, ci, N=N, F=F, snapshot_size=cfg.snapshot_size,
+                        overlap=cfg.overlap, variant=variant,
+                        kernel=plan.op("covariance"))
                 if fusion in ("cssm", "cssm_auto"):
                     return _estimate(_coherent(E_sub), None)
                 # the fused key alone, whatever cfg.estimators lists, and
@@ -726,10 +734,12 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
                     spectra = {} if P is None else {key: P}
                 return DoaResult(spectra=spectra, peak_values={key: v},
                                  peak_angles={key: l})
-            E = cov_embedded(x, cr, ci, N=N, snapshot_size=cfg.snapshot_size,
-                             overlap=cfg.overlap, fb=fb,
-                             compute_dtype=cfg.cov_dtype,
-                             kernel=plan.op("covariance"))
+            with span("doa.covariance"):
+                E = cov_embedded(x, cr, ci, N=N,
+                                 snapshot_size=cfg.snapshot_size,
+                                 overlap=cfg.overlap, fb=fb,
+                                 compute_dtype=cfg.cov_dtype,
+                                 kernel=plan.op("covariance"))
             return _estimate(unembed_planes(E) if need_R else None, E)
 
     def run_planes(xr: torch.Tensor, xi: torch.Tensor, cr: torch.Tensor,
@@ -741,10 +751,11 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
         with fp32_matmuls():
             # the fused path's planes route: f32 Grams whatever cov_dtype,
             # as the reference's XLA stacked Gram
-            R = compute_covariances(
-                xr, xi, cfg, (cr, ci), "float32" if fused else None,
-                grams=plan.op("covariance_planes" if fused
-                              else "covariance"))
+            with span("doa.covariance"):
+                R = compute_covariances(
+                    xr, xi, cfg, (cr, ci), "float32" if fused else None,
+                    grams=plan.op("covariance_planes" if fused
+                                  else "covariance"))
             if fused:
                 return _estimate(R if need_R else None, embed_planes(*R))
             return _estimate(R, None)
@@ -774,12 +785,13 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
                              f"{tuple(p.shape)}")
         return p
 
-    def call(x, correction=None) -> DoaResult:
-        cr, ci = _planes(correction)
+    def _call_input(x):
+        """call's x on the device → the planes (xr, xi), a tuple, or the
+        interleaved capture x[T, 2N]."""
         if isinstance(x, (tuple, list)):
             if len(x) != 2:
                 raise ValueError("planes input is a pair (xr, xi)")
-            return run_planes(_plane(x[0]), _plane(x[1]), cr, ci)
+            return _plane(x[0]), _plane(x[1])
         if not isinstance(x, np.ndarray):
             raise TypeError("call(x) takes a numpy complex (T, N) capture "
                             "or a pair of f32[T, N] planes; use "
@@ -793,9 +805,18 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
         xt = torch.from_numpy(np.ascontiguousarray(
             x, dtype=np.complex64).view(np.float32))
         if wb or (fused and c64):
-            return run_interleaved(_ingest(xt), cr, ci)
+            return _ingest(xt)
         xt = xt.to(dev).view(-1, N, 2)
-        return run_planes(xt[..., 0], xt[..., 1], cr, ci)
+        return xt[..., 0], xt[..., 1]
+
+    def call(x, correction=None) -> DoaResult:
+        with span("doa.call"):
+            with span("doa.ingest"):
+                cr, ci = _planes(correction)
+                x = _call_input(x)
+            if isinstance(x, tuple):
+                return run_planes(*x, cr, ci)
+            return run_interleaved(x, cr, ci)
 
     def call_interleaved(xil, correction=None) -> DoaResult:
         if not (fused or wb):
@@ -803,9 +824,12 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
                              "(power subspace, no smoothing, TPACK | "
                              "gcd(S, hop)) or the wideband path; this "
                              "config takes planes")
-        xt = torch.from_numpy(np.ascontiguousarray(xil)) if isinstance(
-            xil, np.ndarray) else xil
-        return run_interleaved(_ingest(xt), *_planes(correction))
+        with span("doa.call"):
+            with span("doa.ingest"):
+                if isinstance(xil, np.ndarray):
+                    xil = torch.from_numpy(np.ascontiguousarray(xil))
+                x, (cr, ci) = _ingest(xil), _planes(correction)
+            return run_interleaved(x, cr, ci)
 
     # windows start at global multiples of hop, so the earliest window
     # spanning a block boundary starts hop·ceil(overlap/hop) samples
@@ -830,28 +854,30 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
                              "blocks (io.native.quantize_interleaved_int8 "
                              "per block), not a float buffer")
         M = xt.shape[0]
-        x = _ingest(xt)                                # (M·T_blk, 2N)
-        T_blk = x.shape[0] // M
-        if T_blk % cfg.hop:
-            raise ValueError(f"scan_capture needs hop ({cfg.hop}) | "
-                             f"block samples ({T_blk})")
-        cr, ci = _planes(correction)
-        outs = []
-        for m in range(M):
-            # block m and its carry: the stream behind a zero prefix of
-            # `carry` samples, a contiguous slice once m·T_blk ≥ carry
-            lo = m * T_blk - carry
-            xb = x[max(lo, 0):(m + 1) * T_blk]
-            if lo < 0:
-                xb = torch.cat([xb.new_zeros((-lo, xb.shape[1])), xb])
-            r = run_interleaved(xb, cr, ci)
-            outs.append({key: getattr(r, key) for key in _CAPTURE_KEYS
-                         if getattr(r, key) is not None})
-        return {key: ({est: torch.stack([o[key][est] for o in outs])
-                       for est in first}
-                      if isinstance(first, dict)
-                      else torch.stack([o[key] for o in outs]))
-                for key, first in outs[0].items()}
+        with span("doa.call"):
+            with span("doa.ingest"):
+                x = _ingest(xt)                        # (M·T_blk, 2N)
+                T_blk = x.shape[0] // M
+                if T_blk % cfg.hop:
+                    raise ValueError(f"scan_capture needs hop ({cfg.hop}) "
+                                     f"| block samples ({T_blk})")
+                cr, ci = _planes(correction)
+            outs = []
+            for m in range(M):
+                # block m and its carry: the stream behind a zero prefix of
+                # `carry` samples, a contiguous slice once m·T_blk ≥ carry
+                lo = m * T_blk - carry
+                xb = x[max(lo, 0):(m + 1) * T_blk]
+                if lo < 0:
+                    xb = torch.cat([xb.new_zeros((-lo, xb.shape[1])), xb])
+                r = run_interleaved(xb, cr, ci)
+                outs.append({key: getattr(r, key) for key in _CAPTURE_KEYS
+                             if getattr(r, key) is not None})
+            return {key: ({est: torch.stack([o[key][est] for o in outs])
+                           for est in first}
+                          if isinstance(first, dict)
+                          else torch.stack([o[key] for o in outs]))
+                    for key, first in outs[0].items()}
 
     # windows of block 0 that reach into the zero prefix (drop them)
     scan_capture.prefix_windows = carry // cfg.hop

@@ -1,7 +1,6 @@
-"""Host utilities of the port: timing and tracing (``profiling``),
-streaming metrics (``metrics``), HTML reports (``report``)."""
+"""Host utilities of the port: timing, tracing and the pipeline's spans
+(``profiling``), HTML reports (``report``)."""
 
-from doa_tpu_torch.utils.profiling import Timer, trace_to, throughput_report
-from doa_tpu_torch.utils.metrics import PipelineMetrics
+from doa_tpu_torch.utils.profiling import Timer, span, trace_to
 
-__all__ = ["Timer", "trace_to", "throughput_report", "PipelineMetrics"]
+__all__ = ["Timer", "span", "trace_to"]

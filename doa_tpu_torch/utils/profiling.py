@@ -7,7 +7,11 @@
   before the card finishes, so `Timer.fence(x)` reads one element of the
   first tensor in a result to the host (`.cpu()`), which completes once
   the card has computed it.
-* `throughput_report`: snapshots/s + samples/s from timed runs (a copy).
+* `span(name)`: the pipeline's named spans (``doa.call``,
+  ``doa.covariance``, ``doa.sync.escalation``, ...). While a profiler
+  records, a ``record_function`` whose host event lands in the same Chrome
+  trace as the card's operations, on one clock; otherwise one shared
+  no-op context, so a call pays a flag read a span when nothing records.
 """
 
 from __future__ import annotations
@@ -20,6 +24,21 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that names the work inside it on a profiler's trace: a
+    ``torch.profiler.record_function(name)`` while a profiler records
+    (``trace_to``, a benchmark's traced run, an operator's own), else a
+    shared no-op context, with no object built. The profiler puts a device
+    operation down to the innermost span open when it was launched, and
+    nests the spans of one call inside its ``doa.call``."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager
@@ -85,24 +104,3 @@ class Timer:
     @property
     def best(self) -> float:
         return float(np.min(self.laps)) if self.laps else float("nan")
-
-
-def throughput_report(seconds_per_call: float, snapshots_per_call: int,
-                      snapshot_size: int, num_channels: int,
-                      samp_rate: Optional[float] = None,
-                      hop: Optional[int] = None) -> dict:
-    """samples/s counts each INPUT sample once: with overlapped windows a
-    snapshot advances the stream by `hop` samples (hop = S − overlap), not
-    by snapshot_size — pass `hop` for overlapped configs or samples/s,
-    ingest bytes/s and x_realtime over-count by S/hop."""
-    snaps_s = snapshots_per_call / seconds_per_call
-    samples_s = snaps_s * (hop if hop is not None else snapshot_size)
-    rep = {
-        "snapshots_per_s": snaps_s,
-        "samples_per_s_per_channel": samples_s,
-        "aggregate_samples_per_s": samples_s * num_channels,
-        "ingest_bytes_per_s": samples_s * num_channels * 8.0,
-    }
-    if samp_rate:
-        rep["x_realtime"] = samples_s / samp_rate
-    return rep
