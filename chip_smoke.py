@@ -154,7 +154,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    orthonormality within the stated tolerances; both forms timed on the
    headline's E in turns with the plain version; kernel 9
    (`embedded_parity`: chunk Grams with the embedding, correction, FB
-   and 1/S in the epilogue) exact on integer-valued inputs at every tile
+   and 1/S in the epilogue; also the covariance stage's epilogue where a
+   window is one chunk) exact on integer-valued inputs at every tile
    form, at g = 256, 7 and 1, FB on and off, also on views at row 1 and
    element 1, within 1e-5 of max|E| at the headline shape (f32, bf16;
    overlaps 0 and 512), and its route within 2e-5 of max|E| of the
@@ -1614,7 +1615,8 @@ def c5_phases(torch, dev, card, counters, k4_shapes=None):
         check(n > 0, f"kernel {name} never ran in the c5 path")
         if name in recs:
             recs[name]["launches"] = n
-    for name in ("chunk_gram", "music_scan", "music_scan_peaks"):
+    for name in ("chunk_gram", "chunk_embedded", "music_scan",
+                 "music_scan_peaks"):
         check(counters[name].launches == 0,
               f"narrowband kernel {name} ran in the c5 path")
     B = T_C5 // cfg.snapshot_size
@@ -1775,6 +1777,24 @@ def scan_parity(torch, tag, Vt, At, nrm, k, truth, card, k2_shapes=None):
     _, rec = k2_scene(torch, tag, Vt, At, nrm, k, truth, card)
     if k2_shapes is not None:
         k2_shapes[tag] = rec
+
+
+def form_counts(counter):
+    """A wrapper's launches by the form its plan names: `by_form`, or
+    K1's `by_epilogue` (chunk_grams_uhat: the covariance stage's calls by
+    epilogue); None if it has neither."""
+    return getattr(counter, "by_form", getattr(counter, "by_epilogue", None))
+
+
+def stage_counter(plan, stage):
+    """The counter a planned stage's launches land on: its kernel's, but
+    kernel 9's ("chunk_embedded") where the covariance stage
+    ("chunk_gram") takes the embedded epilogue (plan.forms), which
+    launches kernel 9's entry in K1's place."""
+    kernel = plan.kernels[stage]
+    if kernel == "chunk_gram" and plan.forms.get(stage) == "embedded":
+        return "chunk_embedded"
+    return kernel
 
 
 def form_of(fn, counter):
@@ -2122,7 +2142,8 @@ def planes_phases(torch, dev, card, k4_shapes=None, k2_shapes=None):
                 "mgs_iterate": cpx_ops.mgs_iterate,
                 "music_scan": ms.music_scan,
                 "music_scan_peaks": ms.music_scan_peaks,
-                "chunk_gram": ce.chunk_grams_uhat}
+                "chunk_gram": ce.chunk_grams_uhat,
+                "chunk_embedded": ce.chunk_embedded}
     for f in counters.values():
         f.launches = 0
     ms.music_scan_peaks.tc_launches = 0
@@ -2149,8 +2170,9 @@ def planes_phases(torch, dev, card, k4_shapes=None, k2_shapes=None):
     check(n3["planes_chunk_gram"] > 0 and n3["mgs_iterate"] > 0
           and n3["music_scan"] > 0 and n3["music_scan_peaks"] > 0,
           "a kernel of the c3 path never ran")
-    check(n3["planes_cov_windows"] == 0 and n3["chunk_gram"] == 0,
-          "kernel 12 or K1 ran in the c3 path")
+    check(n3["planes_cov_windows"] == 0 and n3["chunk_gram"] == 0
+          and n3["chunk_embedded"] == 0,
+          "kernel 12, K1 or kernel 9 ran in the c3 path")
     recs["planes_chunk_gram"]["launches"] = n3["planes_chunk_gram"]
     recs["planes_chunk_gram"]["launches_by_form"] = k8_forms
     B3 = T_C3 // 1024
@@ -2249,8 +2271,10 @@ def planes_phases(torch, dev, card, k4_shapes=None, k2_shapes=None):
     log("launches in the c2 path: " + json.dumps(n2))
     check(n2["music_scan_peaks (tensor-core form)"]
           == n2["music_scan_peaks"], "K2 left its tensor-core form at c2")
-    check(n2["chunk_gram"] > 0 and n2["mgs_iterate"] > 0
-          and n2["music_scan_peaks"] > 0, "a kernel of the c2 path never ran")
+    # overlap 0: the covariance stage launches kernel 9's entry, not K1
+    check(n2["chunk_embedded"] > 0 and n2["chunk_gram"] == 0
+          and n2["mgs_iterate"] > 0 and n2["music_scan_peaks"] > 0,
+          "a kernel of the c2 path never ran, or K1 ran")
     B2 = T_C2 // 2048
     for key in ("music", "capon"):
         ang = r2.peak_angles[key]
@@ -2587,8 +2611,9 @@ def path_run(torch, name, pipe, x, counters, card, truth, tol, call=None):
     call = call or (lambda: pipe.interleaved(x))
     for f in counters.values():
         f.launches = 0
-        if hasattr(f, "by_form"):
-            f.by_form.update(dict.fromkeys(f.by_form, 0))
+        by = form_counts(f)
+        if by is not None:
+            by.update(dict.fromkeys(by, 0))
     res = call()
     torch.cuda.synchronize()
     launches = {n: f.launches for n, f in counters.items()}
@@ -3003,6 +3028,43 @@ def routes_vs_f64(torch, x, cr, ci, kw):
           f"a covariance route drifts from float64 at overlap {ov}")
 
 
+def embedded_route(torch, x, W):
+    """The covariance stage where a window is one chunk (g = S = 1024, the
+    main path's shape): chunk_grams_uhat(x, g, embed=...) launches kernel
+    9's entry (by_epilogue "embedded"), bit for bit K1's Grams folded by
+    uhat_windows_to_embedded and within 1e-5 of max|E| of the plain
+    version, f32 and bf16, FB off and on, with a correction W."""
+    from doa_tpu_torch.ops.cuda import cov_embedded as ce
+
+    for dt in (torch.float32, torch.bfloat16):
+        xk = x.to(dt)
+        for fb in (False, True):
+            emb = (16, 1.0 / 1024, W, fb)
+            by, k9 = (dict(ce.chunk_grams_uhat.by_epilogue),
+                      ce.chunk_embedded.launches)
+            Er = ce.chunk_grams_uhat(xk, 1024, embed=emb)
+            torch.cuda.synchronize()
+            took = (ce.chunk_grams_uhat.by_epilogue["embedded"]
+                    - by["embedded"], ce.chunk_embedded.launches - k9)
+            Ek1 = ce.uhat_windows_to_embedded(ce.chunk_grams_uhat(xk, 1024),
+                                              *emb)
+            same = torch.equal(Er.view(torch.int32), Ek1.view(torch.int32))
+            del Ek1
+            Ep = ce.chunk_grams_uhat_plain(xk, 1024, embed=emb)
+            e = (Er - Ep).abs().max().item()
+            sc = Ep.abs().max().item()
+            del Er, Ep
+            log(f"covariance stage with embed, g=1024 {dt} fb={fb}: kernel "
+                f"9's entry launched {took[1]} (by_epilogue 'embedded' "
+                f"{took[0]}); bit-equal to K1 + the torch fold: {same}; "
+                f"max|stage-plain| = {e!r}, max|E| = {sc!r}, tol "
+                f"1e-5*max|E|")
+            check(took == (1, 1) and same and e <= 1e-5 * sc,
+                  f"the covariance stage's embedded epilogue ({dt}, "
+                  f"fb={fb})")
+        del xk
+
+
 def embedded_parity(torch, dev, x, card):
     """Phase 12's kernel-9 part → its record (launches filled in later).
     x: the headline capture f32[T_MAIN, 32] on the card."""
@@ -3058,13 +3120,19 @@ def embedded_parity(torch, dev, x, card):
             if dt == torch.float32 and ov == 0:
                 e9 = e
             del Ek, Ep, xk
+        if ov == 0:
+            # both variants launch kernel 9's entry here: the stacked
+            # route's stage (chunk_grams_uhat with embed) is held bit for
+            # bit against K1 + the torch fold, and to the plain version
+            embedded_route(torch, x, W)
+            continue
         # the route against the stacked K1 route (test_fused_path.py's
         # variants check on the card). With overlap the windows are
         # differences of prefix sums over the chunk stack, whose f32
         # rounding grows with the chunk count in both routes: that case is
         # held on the first 2^17 samples (256 chunks), and at 2^24 each
         # route is logged against a float64 sum
-        xo = x if ov == 0 else x[:1 << 17]
+        xo = x[:1 << 17]
         kw = dict(N=16, snapshot_size=1024, overlap=ov, fb=True)
         Ec = ce.cov_embedded(xo, cr, ci, variant="chunk", **kw)
         Es = ce.cov_embedded(xo, cr, ci, variant="stacked", **kw)
@@ -3075,8 +3143,7 @@ def embedded_parity(torch, dev, x, card):
         check(dv <= 2e-5 * sv, f"variants chunk and stacked disagree at "
                                f"overlap {ov}")
         del Ec, Es
-        if ov:
-            routes_vs_f64(torch, x, cr, ci, kw)
+        routes_vs_f64(torch, x, cr, ci, kw)
     xv = x.view(-1, 1024, 32)
     with fp32_matmuls():
         k_ms, p_ms, lib9_ms = turns_ms(
@@ -3208,8 +3275,8 @@ def opt_in_phases(torch, dev, card):
             f"return_spectra={rs}: " + json.dumps(n) + ", kernel 11 by "
             f"form {json.dumps(sns.subspace_ns.by_form)}, planned "
             f"{json.dumps(pipe.plan.forms)}")
-        check(n["subspace_ns"] > 0 and n["chunk_gram"] > 0
-              and n["mgs_iterate"] == 0
+        check(n["subspace_ns"] > 0 and n["chunk_embedded"] > 0
+              and n["chunk_gram"] == 0 and n["mgs_iterate"] == 0
               and n["music_scan" if rs else "music_scan_peaks"] > 0,
               "launch counts of the subspace_impl='pallas' path")
         check(sns.subspace_ns.by_form["warp"] == n["subspace_ns"]
@@ -3684,6 +3751,7 @@ def fault_phase(torch, dev, card):
     from doa_tpu_torch.pipeline_torch import build_pipeline_torch
 
     counters = {"chunk_gram": ce.chunk_grams_uhat,
+                "chunk_embedded": ce.chunk_embedded,
                 "planes_chunk_gram": cv.chunk_grams,
                 "mgs_iterate": cpx_ops.mgs_iterate,
                 "subspace_ns": sn.subspace_ns,
@@ -3721,7 +3789,8 @@ def fault_phase(torch, dev, card):
             check(ms.music_scan_peaks.tc_launches == 0,
                   f"{name}: K2 took its tensor-core form")
             # the interleaved entry drives every stage but planes input's
-            planned = {v for key, v in pipe.plan.items()
+            planned = {stage_counter(pipe.plan, key)
+                       for key, v in pipe.plan.items()
                        if v != "plain" and key != "covariance_planes"}
             for key, count in n.items():
                 check((count > 0) == (key in planned),
@@ -3877,8 +3946,9 @@ def est_path(torch, name, pipe, call, counters, card, check_angles,
     from doa_tpu_torch.ops.cuda import music_scan as ms
     for f in counters.values():
         f.launches = 0
-        if hasattr(f, "by_form"):
-            f.by_form.update(dict.fromkeys(f.by_form, 0))
+        by = form_counts(f)
+        if by is not None:
+            by.update(dict.fromkeys(by, 0))
     ms.music_scan_peaks.tc_launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3896,7 +3966,8 @@ def est_path(torch, name, pipe, call, counters, card, check_angles,
     # and planes input on a fused config does not run K1's
     skip = ("covariance_planes" if interleaved
             else "covariance" if "covariance_planes" in pipe.plan else None)
-    route = {s: k for s, k in pipe.plan.kernels.items() if s != skip}
+    route = {s: stage_counter(pipe.plan, s) for s in pipe.plan.kernels
+             if s != skip}
     for stage, kernel in route.items():
         check(launches[kernel] > 0,
               f"{name}: stage {stage}'s kernel {kernel} never launched")
@@ -3908,7 +3979,7 @@ def est_path(torch, name, pipe, call, counters, card, check_angles,
     for stage, form in pipe.plan.forms.items():
         if stage not in route:
             continue
-        by = counters[route[stage]].by_form
+        by = form_counts(counters[pipe.plan.kernels[stage]])
         check(by[form] == launches[route[stage]],
               f"{name}: {stage} launched {dict(by)}, planned {form}")
     if "peaks" in pipe.plan:
@@ -4006,6 +4077,7 @@ def estimator_phase(torch, dev, card):
     five = (E_.MUSIC, E_.ROOT_MUSIC, E_.ESPRIT, E_.UNITARY_ESPRIT,
             E_.MIN_NORM)
     counters = {"chunk_gram": ce.chunk_grams_uhat,
+                "chunk_embedded": ce.chunk_embedded,
                 "planes_chunk_gram": cv.chunk_grams,
                 "wideband_fft_gram": wc.subband_chunk_grams,
                 "mgs_iterate": cpx_ops.mgs_iterate,
@@ -4250,6 +4322,7 @@ def hier_phase(torch, dev, card):
 
     E_ = Estimator
     counters = {"chunk_gram": ce.chunk_grams_uhat,
+                "chunk_embedded": ce.chunk_embedded,
                 "planes_chunk_gram": cv.chunk_grams,
                 "wideband_fft_gram": wc.subband_chunk_grams,
                 "mgs_iterate": cpx_ops.mgs_iterate,
@@ -5662,27 +5735,42 @@ def main():
 
     # 4. main path
     counters = {"chunk_gram": ce.chunk_grams_uhat,
+                "chunk_embedded": ce.chunk_embedded,
                 "music_scan": ms.music_scan,
                 "music_scan_peaks": ms.music_scan_peaks,
                 "mgs_iterate": cpx_ops.mgs_iterate}
     for f in counters.values():
         f.launches = 0
+    by_epi = ce.chunk_grams_uhat.by_epilogue
+    by_epi.update(dict.fromkeys(by_epi, 0))
     ms.music_scan_peaks.tc_launches = 0
     k4_forms_zero()
     res_f = pipe_f.interleaved(x)
     res_s = pipe_s.interleaved(x)
     torch.cuda.synchronize()
+    k9_main = ce.chunk_embedded.launches     # kernel 9's record comes later
     for name, f in counters.items():
-        recs[name]["launches"] = f.launches
+        if name != "chunk_embedded":
+            recs[name]["launches"] = f.launches
+    # overlap 0: the covariance stage is kernel 9's entry, once a call
+    check(k9_main == 2 and recs["chunk_gram"]["launches"] == 0
+          and by_epi == {"gram": 0, "embedded": 2}
+          and pipe_f.plan.forms.get("covariance") == "embedded",
+          f"the main path's covariance stage: kernel 9 {k9_main}, K1 "
+          f"{recs['chunk_gram']['launches']} launches, by epilogue "
+          f"{dict(by_epi)}; planned {pipe_f.plan.forms.get('covariance')}")
     k4_forms("main path", (pipe_f, pipe_s), cpx_ops.mgs_iterate.launches)
     recs["music_scan_peaks"]["tc_launches"] = ms.music_scan_peaks.tc_launches
     check(ms.music_scan_peaks.tc_launches
           == ms.music_scan_peaks.launches > 0,
           "K2 did not run its tensor-core form on the headline path")
     log("launches in the main path: " + json.dumps(
-        {n: r["launches"] for n, r in recs.items()}))
+        {n: r["launches"] for n, r in recs.items()}
+        | {"chunk_embedded": k9_main}))
     for name, r in recs.items():
-        check(r["launches"] > 0, f"kernel {name} never ran in the main path")
+        if name != "chunk_gram":
+            check(r["launches"] > 0,
+                  f"kernel {name} never ran in the main path")
     B = T_MAIN // 1024
     for tag, res in (("return_spectra=False", res_f),
                      ("return_spectra=True", res_s)):
@@ -5764,6 +5852,7 @@ def main():
     for name, n in op_launches.items():
         recs[name]["launches"] += n
     recs.update(op_recs)
+    recs["chunk_embedded"]["launches"] += k9_main
 
     # 14. the time-sharded pipeline on 2 and 4 ranks of this card
     torch.cuda.empty_cache()

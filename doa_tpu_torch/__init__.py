@@ -34,7 +34,9 @@ Covered so far (``build_pipeline_torch``):
 * the fused path's opt-in stages — ``subspace_impl="pallas"`` (the cold
   Newton–Schulz subspace kernel 11), ``subspace_check`` (the subspace
   guard, with ``DoaResult.subspace_residual``), the chunk covariance
-  kernel 9 behind ``cov_embedded(variant="chunk")``, ``donate_inputs`` and
+  kernel 9 behind ``cov_embedded(variant="chunk")`` (the fused path's
+  covariance stage launches it in K1's place where a window is one
+  chunk), ``donate_inputs`` and
   ``call.scan_capture`` (a capture staged as blocks, framed as one
   stream). These are options and methods of what ``build_pipeline_torch``
   returns, so the package exports nothing new for them;

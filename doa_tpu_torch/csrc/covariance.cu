@@ -267,7 +267,7 @@ int launch(const float* xr, const float* xi, long long rs, long long es,
 // i/N + i in the Z basis (SRC_PLANES). Every (i, j) reads the same two
 // slots as (j, i), so the mirror is exact.
 template <int RT, int SRC> struct PlanesEpi {
-  static constexpr bool kFinish = true;
+  static constexpr bool kFinish = true, kFold = false;
   float* rr;
   float* ri;
   int N;

@@ -5,7 +5,7 @@
 // persistent grid, the ring of 1-D bulk copies, the row classes, the
 // chunk-end reduction) and what limits it.
 //
-// Each kernel gives its own epilogue (an Epi: entry, tile, finish) and
+// Each kernel gives its own epilogue (an Epi: entry, tile, finish, fold) and
 // picks its source and rounding through template arguments; what one
 // kernel does not use is cut out at compile time (if constexpr), so the
 // others compile to the code they had before they shared it.
@@ -164,7 +164,11 @@ __device__ __forceinline__ float u_at(const float* red, int i, int j,
 // row classes' tiles land in `red`; the threads of each tile sum its
 // upper-triangle entries over the classes in order and hand each to
 // epi.entry(c, i, j, sum, class 0's slot), then, where Epi::kFinish,
-// epi.finish(c, red, nt, width) runs with every thread of the block. With
+// epi.finish(c, red, nt, width) runs with every thread of the block. Where
+// Epi::kFold, epi.fold(c, red, nt, ntri, groups) runs with every thread
+// instead of both: it sums what it needs from the classes' partial tiles
+// itself (entry e of class q's tile ti at red[e * width + q * ntri + ti],
+// width = groups * ntri), so no further barrier is taken. With
 // WHOLE (whole_chunks holds; K1 only), each class takes whole chunks and
 // each tile goes to epi.tile(c, i0, j0, acc) from its thread's registers
 // instead. Every thread must call this.
@@ -413,7 +417,9 @@ __device__ __forceinline__ void gram_mainloop(const T* __restrict__ x,
               }
           }
           __syncthreads();
-          if (active) {
+          if constexpr (Epi::kFold) {
+            epi.fold(c, red, nt, ntri, groups);
+          } else if (active) {
             // this tile's entries rg, rg + groups, ...: the sum over the
             // classes in order (a diagonal tile's lower half is its
             // mirror)
@@ -431,7 +437,12 @@ __device__ __forceinline__ void gram_mainloop(const T* __restrict__ x,
             __syncthreads();
             epi.finish(c, red, nt, width);
           }
-          __syncthreads();
+          // no thread writes `red` again before its next chunk end, in a
+          // stage STAGES or more on when g >= STAGES * TS: a warp reaches
+          // that stage only once every warp has left this one (its slot's
+          // refill), so the barrier that keeps a slow thread's reads
+          // before the next partial stores is needed only below that
+          if (g < STAGES * TS) __syncthreads();
           ++c;
           coff = 0;
           nxt = rg;

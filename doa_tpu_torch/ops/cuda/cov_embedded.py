@@ -13,11 +13,14 @@ correction W = c cᴴ folded as (c cᴴ) ∘ R, forward-backward averaging and
 the 1/S scale. All of these are permutations, sign flips and elementwise
 products, so no matmul and no TF32 question arises there.
 
-The "chunk" variant (kernel 9, the second entry of csrc/cov_gram.cu) does
-the embedding, the correction, FB and the 1/S scale in the kernel's
-epilogue, chunk by chunk, and the windows are summed from the chunks' E.
-No pipeline selects it (the reference's pipelines do not either); it is
-reached through cov_embedded(..., variant="chunk").
+Kernel 9 (the second entry of csrc/cov_gram.cu) does the embedding, the
+correction, FB and the 1/S scale in the Gram kernel's epilogue, chunk by
+chunk. Where a window is one chunk (g = S, i.e. no overlap) the stacked
+variant asks its stage for that epilogue (chunk_grams_uhat's `embed`), so
+the torch ops above never run: E is K1's U folded as
+uhat_windows_to_embedded folds it, bit for bit. The "chunk" variant sums
+the windows from kernel 9's per-chunk E at any overlap; no pipeline
+selects it (the reference's pipelines do not either).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ _SIG = {"doa_chunk_gram": [_P, _P, _I, _I, _I, _I, _P],
         "doa_chunk_embedded": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                ctypes.c_float, _P]}
 VARIANTS = ("stacked", "chunk")
+EPILOGUES = ("gram", "embedded")       # chunk_grams_uhat.by_epilogue's keys
 
 
 def interleave_factor(N: int) -> int:
@@ -58,8 +62,11 @@ def _perm_interleaved_to_planar(N: int) -> np.ndarray:
     return P
 
 
-def chunk_grams_uhat_plain(x: torch.Tensor, g: int) -> torch.Tensor:
-    """Plain PyTorch version of K1: x[n·g, 2N] → f32[n, 2N, 2N].
+def chunk_grams_uhat_plain(x: torch.Tensor, g: int,
+                           embed=None) -> torch.Tensor:
+    """Plain PyTorch version of K1: x[n·g, 2N] → f32[n, 2N, 2N]; with
+    embed = (N, scale, W, fb), each chunk's Gram then goes through
+    uhat_windows_to_embedded (kernel 9's plain version, chunk_embedded_plain).
 
     float32 and bfloat16 inputs are widened to float32 and multiplied in
     true FP32. int8 is multiplied in float64, which is exact for these
@@ -70,21 +77,38 @@ def chunk_grams_uhat_plain(x: torch.Tensor, g: int) -> torch.Tensor:
     xc = x[:n * g].reshape(n, g, n2)
     if x.dtype == torch.int8:
         xd = xc.to(torch.float64)
-        return torch.bmm(xd.transpose(1, 2), xd).to(torch.float32)
-    xf = xc.to(torch.float32)
-    with fp32_matmuls():
-        return torch.bmm(xf.transpose(1, 2), xf)
+        U = torch.bmm(xd.transpose(1, 2), xd).to(torch.float32)
+    else:
+        xf = xc.to(torch.float32)
+        with fp32_matmuls():
+            U = torch.bmm(xf.transpose(1, 2), xf)
+    return U if embed is None else uhat_windows_to_embedded(U, *embed)
 
 
-def chunk_grams_uhat(x: torch.Tensor, g: int) -> torch.Tensor:
+def gram_epilogue(dtype) -> str:
+    """The epilogue chunk_grams_uhat launches on the card when asked for
+    E (`embed`): "embedded", kernel 9's entry, for float32 and bfloat16
+    rows (its sums are K1's at every g: csrc/cov_gram.cu); "gram", K1
+    followed by uhat_windows_to_embedded, for int8, which kernel 9 does
+    not take."""
+    dt = _DTYPES.get(dtype, dtype)
+    return "embedded" if dt in (torch.float32, torch.bfloat16) else "gram"
+
+
+def chunk_grams_uhat(x: torch.Tensor, g: int, embed=None) -> torch.Tensor:
     """K1: per-chunk Grams Û_c = Σ_t u_t u_tᵀ of x[n·g, 2N] (float32,
     bfloat16 or int8; rows made contiguous here, at any element offset)
-    → f32[n, 2N, 2N].
+    → f32[n, 2N, 2N]. With embed = (N, scale, W, fb), each chunk's
+    embedded covariance instead (uhat_windows_to_embedded of its Gram):
+    kernel 9's entry where gram_epilogue says "embedded", else K1 and the
+    torch fold.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (csrc/cov_gram.cu: a persistent grid over the chunks, 1-D bulk
     async copies into a shared-memory ring, the Gram's upper triangle,
-    mirrored) and raises if that fails."""
+    mirrored) and raises if that fails. `launches` counts K1's launches
+    (kernel 9's are chunk_embedded.launches), `by_epilogue` the card's
+    calls by the epilogue they took ("gram", "embedded")."""
     if x.dim() != 2 or x.dtype not in _KERNEL_DTYPE_CODE:
         raise ValueError(f"need x[T, 2N] float32|bfloat16|int8, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -93,12 +117,18 @@ def chunk_grams_uhat(x: torch.Tensor, g: int) -> torch.Tensor:
     if n < 1:
         raise ValueError(f"capture of {x.shape[0]} samples holds no chunk "
                          f"of {g}")
+    if embed is not None and 2 * embed[0] != n2:
+        raise ValueError(f"embed's N = {embed[0]} does not match 2N = {n2}")
     if x.device.type == "cpu":
-        return chunk_grams_uhat_plain(x, g)
+        return chunk_grams_uhat_plain(x, g, embed)
     if not x.is_cuda:
         raise ValueError(f"unsupported device {x.device}")
     _check_gram_width(n2, "chunk_gram")
     x = x[:n * g].contiguous()
+    if embed is not None and gram_epilogue(x.dtype) == "embedded":
+        E = _launch_embedded(x, g, *embed)
+        chunk_grams_uhat.by_epilogue["embedded"] += 1
+        return E
     lib = _build.load("cov_gram", _SIG)
     out = torch.empty((n, n2, n2), dtype=torch.float32, device=x.device)
     err = lib.doa_chunk_gram(
@@ -106,10 +136,12 @@ def chunk_grams_uhat(x: torch.Tensor, g: int) -> torch.Tensor:
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "doa_chunk_gram")
     chunk_grams_uhat.launches += 1
-    return out
+    chunk_grams_uhat.by_epilogue["gram"] += 1
+    return out if embed is None else uhat_windows_to_embedded(out, *embed)
 
 
 chunk_grams_uhat.launches = 0
+chunk_grams_uhat.by_epilogue = dict.fromkeys(EPILOGUES, 0)
 
 
 def uhat_windows_to_embedded(Uw: torch.Tensor, N: int, scale: float, W,
@@ -160,8 +192,27 @@ def chunk_embedded_plain(x: torch.Tensor, g: int, N: int, scale: float,
     embedded covariance f32[n, 2N, 2N], K1's plain Gram followed by
     uhat_windows_to_embedded on every chunk (scale, the correction
     W = (Wre, Wim), FB)."""
-    return uhat_windows_to_embedded(chunk_grams_uhat_plain(x, g), N, scale,
-                                    W, fb)
+    return chunk_grams_uhat_plain(x, g, (N, scale, W, fb))
+
+
+def _launch_embedded(x: torch.Tensor, g: int, N: int, scale: float, W,
+                     fb: bool) -> torch.Tensor:
+    """Kernel 9's entry (doa_chunk_embedded) on contiguous CUDA rows
+    x[n·g, 2N], float32 or bfloat16 → E f32[n, 2N, 2N]; counted by
+    chunk_embedded.launches, whichever wrapper asks."""
+    n = x.shape[0] // g
+    Wre, Wim = (w.to(device=x.device, dtype=torch.float32).contiguous()
+                for w in W)
+    lib = _build.load("cov_gram", _SIG)
+    out = torch.empty((n, 2 * N, 2 * N), dtype=torch.float32,
+                      device=x.device)
+    err = lib.doa_chunk_embedded(
+        x.data_ptr(), Wre.data_ptr(), Wim.data_ptr(), out.data_ptr(), n, g,
+        2 * N, _KERNEL_DTYPE_CODE[x.dtype], int(fb), scale,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "doa_chunk_embedded")
+    chunk_embedded.launches += 1
+    return out
 
 
 def chunk_embedded(x: torch.Tensor, g: int, N: int, scale: float, W,
@@ -186,19 +237,7 @@ def chunk_embedded(x: torch.Tensor, g: int, N: int, scale: float, W,
     if not x.is_cuda:
         raise ValueError(f"unsupported device {x.device}")
     _check_gram_width(2 * N, "chunk_embedded")
-    x = x[:n * g].contiguous()
-    Wre, Wim = (w.to(device=x.device, dtype=torch.float32).contiguous()
-                for w in W)
-    lib = _build.load("cov_gram", _SIG)
-    out = torch.empty((n, 2 * N, 2 * N), dtype=torch.float32,
-                      device=x.device)
-    err = lib.doa_chunk_embedded(
-        x.data_ptr(), Wre.data_ptr(), Wim.data_ptr(), out.data_ptr(), n, g,
-        2 * N, _KERNEL_DTYPE_CODE[x.dtype], int(fb), scale,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "doa_chunk_embedded")
-    chunk_embedded.launches += 1
-    return out
+    return _launch_embedded(x[:n * g].contiguous(), g, N, scale, W, fb)
 
 
 chunk_embedded.launches = 0
@@ -236,9 +275,12 @@ def cov_embedded(xil: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor, *,
     capture (io.native.quantize_interleaved_int8).
 
     variant "stacked": K1's interleaved-basis chunk Grams, windows, then
-    the embedding, correction and FB on the windows; "chunk": kernel 9's
-    per-chunk E (embedding, correction, FB and 1/S in the kernel), then
-    the windows. The int8 mode takes the stacked variant only.
+    the embedding, correction and FB on the windows; where a window is one
+    chunk (g = S) the stage itself is asked for E (`embed`: kernel 9's
+    epilogue on the card for float32 and bfloat16, see gram_epilogue).
+    "chunk": kernel 9's per-chunk E (embedding, correction, FB and 1/S in
+    the kernel), then the windows. The int8 mode takes the stacked variant
+    only, with K1's Grams.
 
     kernel: the variant's kernel stage, chunk_grams_uhat ("stacked") or
     chunk_embedded ("chunk") by default; the pipelines pass its plain
@@ -277,6 +319,10 @@ def cov_embedded(xil: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor, *,
         # sum of its chunks' E
         E = (kernel or chunk_embedded)(x[:n * g], g, N, 1.0 / S, W, fb)
         return window_sums(E, B, n_win, stride)
+    if n_win == 1:
+        # the chunks are the windows (B = n): E from the stage's epilogue
+        return (kernel or chunk_grams_uhat)(x[:n * g], g,
+                                            embed=(N, 1.0 / S, W, fb))
     U = (kernel or chunk_grams_uhat)(x[:n * g], g)   # interleaved basis
     # windows first: every later step is linear in the chunk sum
     Uw = window_sums(U, B, n_win, stride)

@@ -6,6 +6,7 @@ Narrowband, fused path (no smoothing, subspace_method="power",
 TPACK | gcd(S, hop): plan.fused_route, the reference's route rule):
     capture x[T, 2N] (the bytes of a complex64 (T, N) buffer)
       → K1 chunk Grams → windows E(R) f32[B, 2N, 2N]   ops/cuda/cov_embedded
+        (overlap 0: each window's E from kernel 9's epilogue, no windows)
       → warm-start MGS subspace (K4) Vt f32[B, 2K, 2N] ops/cpx_ops
         or, under subspace_impl="pallas", the cold Newton–Schulz
         subspace (kernel 11)                           ops/cuda/subspace_ns

@@ -29,7 +29,7 @@ from doa_tpu_torch.ops.cpx_ops import (mgs_form, mgs_iterate,
                                        mgs_iterate_plain, mgs_takes)
 from doa_tpu_torch.ops.cuda.cov_embedded import (chunk_grams_uhat,
                                                   chunk_grams_uhat_plain,
-                                                  gram_takes,
+                                                  gram_epilogue, gram_takes,
                                                   interleave_factor)
 from doa_tpu_torch.ops.cuda.covariance import (chunk_form, chunk_grams,
                                                chunk_grams_plain,
@@ -360,6 +360,10 @@ def kernel_forms(cfg, routes: dict) -> dict:
     """{stage: form} for the stages of `routes` whose kernel has named
     forms:
 
+    * K1 ("chunk_gram"), the epilogue its wrapper launches
+      (chunk_grams_uhat.by_epilogue): "embedded" where a window is one
+      chunk (overlap 0) and cov_embedded asks the stage for E, as
+      cov_embedded.gram_epilogue says of cov_dtype, else "gram";
     * kernel 8 ("planes_chunk_gram"), in the form it takes on the two
       views of an interleaved complex64 capture (covariance.chunk_form of
       the "interleaved" layout): the planes a pipeline makes of its
@@ -374,8 +378,10 @@ def kernel_forms(cfg, routes: dict) -> dict:
       (mgs_n2), the form its wrapper launches (mgs_iterate.by_form)."""
     cfg = as_config(cfg)
     k2 = 2 * cfg.num_sources
-    forms = {"planes_chunk_gram":
-             chunk_form(cfg.geometry.num_elements, "interleaved"),
+    N = cfg.geometry.num_elements
+    forms = {"chunk_gram": gram_epilogue(cfg.cov_dtype)
+             if cfg.hop == cfg.snapshot_size else "gram",
+             "planes_chunk_gram": chunk_form(N, "interleaved"),
              "subspace_ns": ns_form(subspace_n2(cfg), k2)}
     if cfg.geometry.kind == "ura":
         forms["peaks2d"] = peaks_form(cfg.grid2d.num_az, cfg.grid2d.num_el)

@@ -1,30 +1,40 @@
 #!/usr/bin/env python3
 """Time K1 and kernel 9 (doa_tpu_torch/csrc/cov_gram.cu) in other ring
-shapes and with parts of the kernel cut out, beside one torch.bmm, on one
-NVIDIA GPU.
+shapes and with parts of the kernel cut out, beside one torch.bmm and K1
+followed by the torch fold, on one NVIDIA GPU.
 
-    python3 exp_cov_gram.py [--against OTHER/cov_gram.cu ...]
+    python3 exp_cov_gram.py [--T LOG2] [--against OTHER/cov_gram.cu ...]
 
 Each variant is a copy of the source (with csrc/gram_ring.cuh, the ring
 mainloop it shares with kernel 8, expanded in place) with a few lines
-patched, built by nvcc into a temporary directory and loaded with ctypes,
-and each whole variant's ptxas lines (registers, spills) are printed a
-kernel each, and for each `--against` source how many of its kernels
-compile to the package's SASS word for word: the ring's STAGES
-and STAGE_BYTES; "no FMAs" skips the mainloop's multiply-adds (the
-copies, the walk and the chunk-end work remain); "no chunk-end
-reduction" cuts the class sums, their barriers and the entry stores
-where the classes share a chunk (large g); "no whole-chunk stores" drops
-the tile stores where each class takes whole chunks (small g). Each
-`--against` adds another cov_gram.cu with the same C ABI (an earlier
-commit's, say) as a whole variant. The whole variants are first held
-exact against the plain version on integer inputs (2N = 6, 32, 64;
-chunks of 7 and 1024 rows; f32, bf16, int8; a view at row 1); the cut
-variants compute wrong Grams by design and are only timed. Shapes: the
-headline capture (T = 2^24, 2N = 32) at g = 1024 in f32, bf16 and int8,
-at g = 512 and g = 8 in f32, and kernel 9 (correction + FB) in f32. Each
-time is the mean of two medians of 10 launches (CUDA events), the
-variants in turns.
+patched, built by nvcc into a temporary directory and loaded with
+ctypes, and each whole variant's ptxas lines (registers, spills) are
+printed a kernel each, and for each `--against` source how many of its
+kernels compile to the package's SASS word for word: the ring's STAGES
+and STAGE_BYTES; "barrier at every chunk end" takes a chunk end's
+trailing barrier also where a chunk spans STAGES stages or more (the
+mainloop's earlier rule; there the ring's refills already order the next
+chunk's partial stores after every read of this one's); "no FMAs" skips
+the mainloop's multiply-adds (the copies, the walk and the chunk-end
+work remain); "no chunk-end reduction" cuts the class sums, kernel 9's
+fold, their barriers and the stores where the classes share a chunk
+(large g); "no fold" cuts kernel 9's fold alone (its partial stores and
+barriers remain); "no E stores" computes kernel 9's fold and stores
+nothing; "no whole-chunk stores" drops the tile stores where each class
+takes whole chunks (small g). Each `--against` adds another cov_gram.cu
+with the same C ABI (an earlier commit's, say) as a whole variant. The
+whole variants are first held exact against the plain version on integer
+inputs (2N = 6, 32, 64; chunks of 7 and 1024 rows; f32, bf16, int8; a
+view at row 1), and kernel 9 bit-equal to K1 followed by the torch fold
+on random inputs at g = 1024 (f32 and bf16, FB on and off); the cut
+variants compute wrong results by design and are only timed. Shapes: the
+capture of 2^LOG2 samples (default 27, the benchmark's ULA cell: 131072
+windows) at 2N = 32: K1 at g = 1024 in f32, bf16 and int8, at g = 512
+and g = 8 in f32 on the first 2^24 samples; kernel 9 at g = 1024 with a
+correction, FB off (the cell's) and on, f32 and bf16, beside K1 followed
+by uhat_windows_to_embedded. Each time is the median over 15 rounds in
+which every variant runs 3 launches (CUDA events), the order reversed
+every other round.
 """
 
 import argparse
@@ -45,9 +55,12 @@ from doa_tpu_torch import _build
 HERE = os.path.dirname(os.path.abspath(__file__))
 RING = ("constexpr int STAGES = 3;", "constexpr int STAGE_BYTES = 32768;")
 FMAS = "for (int it = 0; it < cnt; ++it, pa += stride, pb += stride) {"
-REDUCTION = ("          __syncthreads();\n          if (active) {\n"
-             "            // this tile's entries",
+REDUCTION = ("          __syncthreads();\n"
+             "          if constexpr (Epi::kFold) {\n",
              "          ++c;\n          coff = 0;")
+TRAILING = "          if (g < STAGES * TS) __syncthreads();\n          ++c;\n"
+FOLD = "            epi.fold(c, red, nt, ntri, groups);\n"
+E_STORES = "      if (it.mine) {\n        const int i = it.i, j = it.j;\n"
 TILE_STORES = "          epi.tile(cc, i0, j0, acc);\n"
 CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -138,11 +151,33 @@ def no_tile_stores(src):
     return src.replace(TILE_STORES, "")
 
 
+def barrier_every_chunk(src):
+    once(src, TRAILING)
+    return src.replace(TRAILING, "          __syncthreads();\n"
+                       "          ++c;\n")
+
+
+def no_fold(src):
+    once(src, FOLD)
+    return src.replace(FOLD, "")
+
+
+def no_e_stores(src):
+    # never true for the finite values these inputs give, and not
+    # provable at compile time, so the fold is computed and not stored
+    once(src, E_STORES)
+    return src.replace(E_STORES, E_STORES.replace(
+        "if (it.mine)", "if (it.mine && rr != rr)"))
+
+
 VARIANTS = {            # name: (patch, whole)
     "package (3 x 32 KiB)": (lambda src: src, True),
     "4 x 16 KiB": (ring(4, 16384), True),
+    "barrier at every chunk end": (barrier_every_chunk, True),
     "no FMAs": (no_fmas, False),
     "no chunk-end reduction": (no_reduction, False),
+    "no fold": (no_fold, False),
+    "no E stores": (no_e_stores, False),
     "no whole-chunk stores": (no_tile_stores, False),
 }
 
@@ -176,19 +211,53 @@ def gram(lib, x, g):
     return out
 
 
-def embedded(lib, x, g, W):
+def embedded(lib, x, g, W, fb):
     n, n2 = x.shape[0] // g, x.shape[1]
     out = torch.empty((n, n2, n2), device=x.device)
     err = lib.doa_chunk_embedded(
         x.data_ptr(), W[0].data_ptr(), W[1].data_ptr(), out.data_ptr(), n,
-        g, n2, CODE[x.dtype], 1, 1.0 / g,
+        g, n2, CODE[x.dtype], int(fb), 1.0 / g,
         torch.cuda.current_stream().cuda_stream)
     _build.check(err, "doa_chunk_embedded")
     return out
 
 
+def gram_then_fold(lib, x, g, W, fb):
+    """K1, then the torch fold (the stacked route's glue where g = S)."""
+    from doa_tpu_torch.ops.cuda import cov_embedded as ce
+
+    n2 = x.shape[1]
+    return ce.uhat_windows_to_embedded(gram(lib, x, g), n2 // 2, 1.0 / g, W,
+                                       fb)
+
+
+def rounds_ms(fns, rounds=15, reps=3):
+    """Median ms of each fn over `rounds` rounds, each fn timed once a
+    round over `reps` calls (CUDA events), the order reversed every other
+    round: drift of the card's clock falls on every variant alike."""
+    fns = list(fns)
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    ts = [[] for _ in fns]
+    for r in range(rounds):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for k in order:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(reps):
+                fns[k]()
+            e1.record()
+            e1.synchronize()
+            ts[k].append(e0.elapsed_time(e1) / reps)
+    return [sorted(t)[len(t) // 2] for t in ts]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--T", type=int, default=27,
+                    help="log2 of the capture's samples (default 27)")
     ap.add_argument("--against", action="append", default=[],
                     help="another cov_gram.cu, same C ABI (repeatable)")
     args = ap.parse_args()
@@ -235,30 +304,66 @@ def main():
                             if d != 0.0:
                                 sys.exit(f"{name}: 2N={n2} g={g} {dt} "
                                          f"differs by {d!r}")
-        x = cs.make_scene(torch, cs.T_MAIN, 16, dev)
-        W = ce.correction_pattern(torch.ones(16, device=dev),
-                                  torch.zeros(16, device=dev))
-        cases = {"f32": (x, 1024), "bf16": (x.to(torch.bfloat16), 1024),
-                 "int8": (quantize_interleaved_int8(x)[0], 1024),
-                 "f32 g=512": (x, 512), "f32 g=8": (x, 8)}
+            for n2 in (6, 16, 30, 32, 64):
+                N = n2 // 2
+                c = torch.polar(1.0 + 0.1 * torch.randn(N, generator=gen,
+                                                        device=dev),
+                                0.3 * torch.randn(N, generator=gen,
+                                                  device=dev))
+                Wc = ce.correction_pattern(c.real.contiguous(),
+                                           c.imag.contiguous())
+                xr = torch.randn((64 * 1024, n2), generator=gen, device=dev)
+                for dt in (torch.float32, torch.bfloat16):
+                    for fb in (False, True):
+                        a = embedded(lib, xr.to(dt), 1024, Wc, fb)
+                        b = ce.uhat_windows_to_embedded(
+                            gram(lib, xr.to(dt), 1024), N, 1.0 / 1024, Wc,
+                            fb)
+                        if not torch.equal(a, b):
+                            sys.exit(f"{name}: kernel 9 at 2N={n2} {dt} "
+                                     f"fb={fb} is not K1 + the fold")
+        x = cs.make_scene(torch, 1 << args.T, 16, dev)
+        c = torch.polar(torch.ones(16, device=dev),
+                        torch.linspace(-0.3, 0.3, 16, device=dev))
+        W = ce.correction_pattern(c.real.contiguous(), c.imag.contiguous())
+        # g = 512 and g = 8 on the first 2^24 samples (K1's output at g = 8
+        # is 32 times the capture's bytes)
+        head = x[:1 << min(args.T, 24)]
+        cases = {"f32": (lambda: x, 1024),
+                 "bf16": (lambda: x.to(torch.bfloat16), 1024),
+                 "int8": (lambda: quantize_interleaved_int8(x)[0], 1024),
+                 "f32 g=512": (lambda: head, 512),
+                 "f32 g=8": (lambda: head, 8)}
         res = {}
-        for tag, (xk, g) in cases.items():
-            xv = x.view(-1, g, 32)
+        for tag, (make, g) in cases.items():
+            xk = make()
+            xv = x[:xk.shape[0]].view(-1, g, 32)
             fns = {n: (lambda lib=lib: gram(lib, xk, g))
                    for n, lib in libs.items()}
             fns["torch.bmm (f32)"] = lambda: torch.bmm(xv.transpose(1, 2),
                                                        xv)
             with fp32_matmuls():
-                res[tag] = dict(zip(fns, cs.turns_ms(torch, *fns.values())))
+                res[tag] = dict(zip(fns, rounds_ms(fns.values())))
             T, n2 = xk.shape
             res[tag]["bound"] = cs.bound(
                 cs.nbytes(xk) + (T // g) * n2 * n2 * 4, T * n2 * (n2 + 1),
                 cs.H100_INT8_PER_S if xk.dtype == torch.int8
                 else cs.H100_FP32_PER_S)["bound_ms"]
-        fns = {n: (lambda lib=lib: embedded(lib, x, 1024, W))
-               for n, lib in libs.items()}
-        res["kernel 9 f32"] = dict(zip(fns, cs.turns_ms(torch,
-                                                        *fns.values())))
+            del xk, xv
+        k1 = libs["package (3 x 32 KiB)"]
+        for tag, xk, fb in (("f32", x, False), ("f32 FB", x, True),
+                            ("bf16", None, False)):
+            xk = x.to(torch.bfloat16) if xk is None else xk
+            fns = {n: (lambda lib=lib: embedded(lib, xk, 1024, W, fb))
+                   for n, lib in libs.items()}
+            fns["K1 + torch fold"] = lambda: gram_then_fold(k1, xk, 1024, W,
+                                                            fb)
+            row = dict(zip(fns, rounds_ms(fns.values())))
+            T, n2 = xk.shape
+            row["bound"] = cs.bound(cs.nbytes(xk) + (T // 1024) * n2 * n2 * 4,
+                                    T * n2 * (n2 + 1))["bound_ms"]
+            res[f"kernel 9 {tag}"] = row
+            del xk
     for tag, row in res.items():
         print(f"{tag}: " + ", ".join(f"{n} {t:.4f} ms" for n, t in
                                      row.items()) + f"  [{card}]")

@@ -46,8 +46,8 @@ from doa_tpu_torch import _build
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FMAS = "for (int it = 0; it < cnt; ++it, pa += stride, pb += stride) {"
-REDUCTION = ("          __syncthreads();\n          if (active) {\n"
-             "            // this tile's entries",
+REDUCTION = ("          __syncthreads();\n"
+             "          if constexpr (Epi::kFold) {\n",
              "          ++c;\n          coff = 0;")
 EPI_STORES = ("      oc_r[p] = __fadd_rn(tl, br);\n"
               "      oc_i[p] = __fsub_rn(bl, tr);\n")

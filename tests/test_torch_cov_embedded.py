@@ -2,6 +2,8 @@
 path of the K1 chunk-Gram kernel) against doa_tpu's Pallas kernel in
 interpret mode, on the same numpy capture."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -331,7 +333,9 @@ def test_chunk_embedded_plain_against_float64(g, n2):
 
 @pytest.mark.parametrize("variant", ["4 x 16 KiB", "no FMAs",
                                      "no chunk-end reduction",
-                                     "no whole-chunk stores"])
+                                     "no whole-chunk stores",
+                                     "barrier at every chunk end",
+                                     "no fold", "no E stores"])
 def test_timing_experiment_patches_the_kernel_source(variant):
     """exp_cov_gram.py times patched copies of csrc/cov_gram.cu with the
     ring mainloop it includes (csrc/gram_ring.cuh) expanded in place: each
@@ -350,7 +354,111 @@ def test_timing_experiment_patches_the_kernel_source(variant):
     src = _build.expanded_source(paths[0])
     patch, whole = exp_cov_gram.VARIANTS[variant]
     out = patch(src)
-    assert out != src and ("KiB" in variant) == whole
+    assert out != src and whole == (variant in (
+        "4 x 16 KiB", "barrier at every chunk end"))
     for path, text in zip(paths, files):
         with open(path) as f:
             assert f.read() == text
+
+
+class _Spy:
+    """A stage kernel that records each call's embed= and runs the plain
+    version."""
+
+    def __init__(self):
+        self.embeds = []
+
+    def __call__(self, x, g, embed=None):
+        self.embeds.append(embed)
+        return ce.chunk_grams_uhat_plain(x, g, embed)
+
+
+@pytest.mark.parametrize("overlap,dtype,embedded", [
+    (0, "float32", True), (0, "bfloat16", True), (128, "float32", False),
+    (100, "bfloat16", False), (0, "int8", False), (128, "int8", False)])
+def test_stacked_variant_asks_the_stage_for_E_where_windows_are_chunks(
+        overlap, dtype, embedded):
+    """Overlap 0 (g = S: a window is a chunk) calls the stage with
+    embed = (N, 1/S, W, fb) and returns its E as it is; any overlap calls
+    it without and folds the windows in torch as before. On the card the
+    stage takes kernel 9's epilogue for a float32 or bfloat16 capture and
+    K1 + the torch fold for int8, the route int8 had (gram_epilogue). Both
+    give the same E as the windowed route on the same Grams, bit for
+    bit."""
+    N = 16
+    xil = torch.from_numpy(_capture(N).view(np.float32))
+    cr, ci = (torch.from_numpy(p) for p in _correction(N, seed=6))
+    x = quantize_interleaved_int8(xil)[0] if dtype == "int8" else xil
+    spy = _Spy()
+    E = ce.cov_embedded(x, cr, ci, N=N, snapshot_size=S, overlap=overlap,
+                        fb=True, compute_dtype=dtype, kernel=spy)
+    assert len(spy.embeds) == 1
+    embed = spy.embeds[0]
+    assert (embed is not None) == (overlap == 0)
+    assert (overlap == 0 and ce.gram_epilogue(dtype) == "embedded"
+            ) == embedded
+    if embed is not None:
+        assert embed[0] == N and embed[1] == 1.0 / S and embed[3] is True
+        for w, want in zip(embed[2], ce.correction_pattern(cr, ci)):
+            assert torch.equal(w, want)
+    g = math.gcd(S, S - overlap)
+    xd = x if dtype == "int8" else x.to(ce._DTYPES[dtype])
+    U = ce.chunk_grams_uhat_plain(xd.reshape(-1, 2 * N), g)
+    B = (xd.shape[0] - S) // (S - overlap) + 1
+    ref = ce.uhat_windows_to_embedded(
+        ce.window_sums(U, B, S // g, (S - overlap) // g), N, 1.0 / S,
+        ce.correction_pattern(cr, ci), True)
+    assert torch.equal(E, ref)
+
+
+def test_plain_stage_with_embed_is_kernel_9s_plain_version():
+    """chunk_grams_uhat_plain(x, g, embed=(N, scale, W, fb)) equals
+    chunk_embedded_plain bit for bit, and the wrapper on a CPU tensor
+    takes it with no launch counted."""
+    N, g = 8, 64
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.standard_normal((6 * g + 5, 2 * N)).astype(
+        np.float32))
+    cr, ci = (torch.from_numpy(p) for p in _correction(N, seed=7))
+    W = ce.correction_pattern(cr, ci)
+    launches = ce.chunk_grams_uhat.launches
+    by = dict(ce.chunk_grams_uhat.by_epilogue)
+    for xd in (x, x.to(torch.bfloat16)):
+        for fb in (False, True):
+            want = ce.chunk_embedded_plain(xd, g, N, 1.0 / g, W, fb)
+            got = ce.chunk_grams_uhat_plain(xd, g, embed=(N, 1.0 / g, W, fb))
+            assert got.shape == (6, 2 * N, 2 * N)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+            assert torch.equal(ce.chunk_grams_uhat(xd, g, (N, 1.0 / g, W,
+                                                          fb)), want)
+    assert ce.chunk_grams_uhat.launches == launches
+    assert ce.chunk_grams_uhat.by_epilogue == by
+    assert set(by) == set(ce.EPILOGUES) == {"gram", "embedded"}
+
+
+def test_halved_samples_on_the_plain_stage_change_E_at_the_ulas_shape():
+    """The benchmark's planted fault on the "chunk_gram" stage (each
+    chunk's second half zeroed, the result doubled) still changes E where
+    the stage returns E (the ULA cell's framing: overlap 0): E is linear
+    in the rows, so half the rows doubled is not E."""
+    N = 16
+    xil = torch.from_numpy(_capture(N, T=8 * S).view(np.float32))
+    cr, ci = (torch.from_numpy(p) for p in _correction(N, seed=8))
+
+    def half_samples(x, g, embed=None):
+        rows = x[: (x.shape[0] // g) * g].reshape(-1, g, x.shape[1]).clone()
+        rows[:, g // 2:] = 0.0
+        return ce.chunk_grams_uhat_plain(rows.reshape(-1, x.shape[1]), g,
+                                         embed) * 2.0
+
+    kw = dict(N=N, snapshot_size=S, overlap=0, fb=False)
+    E = ce.cov_embedded(xil, cr, ci, **kw)
+    Eb = ce.cov_embedded(xil, cr, ci, kernel=half_samples, **kw)
+    assert E.shape == Eb.shape == (8, 2 * N, 2 * N)
+    assert (Eb - E).abs().max() > 1e-2 * E.abs().max()
+
+
+def test_chunk_grams_rejects_an_embed_of_another_width():
+    with pytest.raises(ValueError, match="embed"):
+        ce.chunk_grams_uhat(torch.empty((256, 32), device="meta"), 64,
+                            (8, 1.0, None, False))

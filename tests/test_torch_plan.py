@@ -384,3 +384,28 @@ def test_plain_stage_shapes_match_reference(N, thetas, spectra):
     np.testing.assert_allclose(a, a_ref, atol=1e-3)
     assert int(out.escalation_flagged) == int(ref.escalation_flagged)
     assert np.abs(np.sort(a, -1) - np.array(thetas)).max() < 1.0
+
+
+@pytest.mark.parametrize("name,form", [
+    ("c1_ula4_tone", "embedded"), ("c2_ula8_2src", "embedded"),
+    ("c4_ula16_streaming", "gram"), ("fast_bf16", "embedded"),
+    ("fast_int8", "gram")])
+def test_the_covariance_stage_keeps_its_name_and_names_its_epilogue(name,
+                                                                     form):
+    """The fused route's covariance stage is K1's "chunk_gram" on one card
+    and sharded, whichever epilogue it launches; the plan's form names the
+    epilogue (chunk_grams_uhat.by_epilogue): kernel 9's "embedded" where a
+    window is one chunk and the capture is float32 or bfloat16, K1's
+    "gram" with overlap (c4) or int8 ingest. On the CPU no form is named."""
+    cfg = PRESETS[name]
+    routes = kernel_routes(cfg)
+    assert routes["covariance"][0] == "chunk_gram"
+    plan = Plan(routes, forms=kernel_forms(cfg, routes))
+    assert plan["covariance"] == plan.kernels["covariance"] == "chunk_gram"
+    assert plan.forms["covariance"] == form
+    sh = sharded_kernel_routes(cfg, 2, 1, True)
+    splan = Plan(sh, forms=kernel_forms(cfg, sh))
+    assert splan["covariance"] == "chunk_gram"
+    assert splan.forms["covariance"] == form
+    assert "covariance" not in build_pipeline_torch(
+        cfg, device="cpu").plan.forms
