@@ -23,10 +23,11 @@ TPACK | gcd(S, hop): plan.fused_route, the reference's route rule):
 Narrowband, planes path (smoothing, subspace_method="eigh", a hop outside
 the route rule, or planes input on either path):
     planes xr, xi f32[T, N] (separate, or strided views of a complex64
-    capture)
-      → kernel 8 chunk Grams → windows (Rr, Ri) f32[B, N, N]
+    capture: call.interleaved reads its x[T, 2N] so, in place)
+      → kernel 8 chunk Grams → windows (Rr, Ri) f32[B, N, N]   (doa.gram)
                                                    ops/cuda/covariance
       → correction (c cᴴ) ∘ R → FB → spatial smoothing  ops/cpx_ops
+                                                        (doa.smoothing)
       → cold MGS subspace of E(R) (K4; the guard under subspace_check)
         → K3 / K2 scan, or the eigh (or Jacobi: ops/jacobi) noise
         projector and its dense MUSIC and min-norm denominators; Capon,
@@ -153,6 +154,9 @@ def _check_slice(cfg: DoaConfig) -> None:
             "ROADMAP.md")
 
 
+# call.interleaved.by_route's keys
+INTERLEAVED_ROUTES = ("fused", "wideband", "planes")
+
 # what scan_capture keeps of each block's DoaResult, as the reference's
 # (pipeline_tpu.py:652-655): the peaks and the grid-free angles
 _CAPTURE_KEYS = ("peak_values", "peak_angles", "root_music_angles",
@@ -239,17 +243,22 @@ def compute_covariances(xr: torch.Tensor, xi: torch.Tensor, cfg: DoaConfig,
     prefix-sum windows, then, in this fixed order, the correction
     (cr, ci) folded as (c cᴴ) ∘ R, forward-backward averaging and spatial
     smoothing. compute_dtype: the Gram's input precision (default
-    cfg.cov_dtype); grams: kernel 8's stage (cov_from_stream)."""
-    Rr, Ri = cpx_ops.cov_from_stream(
-        xr, xi, cfg.snapshot_size, cfg.overlap,
-        compute_dtype=cfg.cov_dtype if compute_dtype is None
-        else compute_dtype, grams=grams)
-    if correction is not None:
-        Rr, Ri = cpx_ops.apply_correction_to_cov(Rr, Ri, *correction)
-    if cfg.avg_method == AvgMethod.FORWARD_BACKWARD:
-        Rr, Ri = cpx_ops.forward_backward(Rr, Ri)
-    if cfg.smoothing.enabled:
-        Rr, Ri = cpx_ops.spatial_smooth(Rr, Ri, cfg.smoothing.subarray_size)
+    cfg.cov_dtype); grams: kernel 8's stage (cov_from_stream). The Grams
+    and windows run under the span doa.gram, the correction, FB and
+    smoothing under doa.smoothing."""
+    with span("doa.gram"):
+        Rr, Ri = cpx_ops.cov_from_stream(
+            xr, xi, cfg.snapshot_size, cfg.overlap,
+            compute_dtype=cfg.cov_dtype if compute_dtype is None
+            else compute_dtype, grams=grams)
+    with span("doa.smoothing"):
+        if correction is not None:
+            Rr, Ri = cpx_ops.apply_correction_to_cov(Rr, Ri, *correction)
+        if cfg.avg_method == AvgMethod.FORWARD_BACKWARD:
+            Rr, Ri = cpx_ops.forward_backward(Rr, Ri)
+        if cfg.smoothing.enabled:
+            Rr, Ri = cpx_ops.spatial_smooth(Rr, Ri,
+                                            cfg.smoothing.subarray_size)
     return Rr, Ri
 
 
@@ -272,12 +281,16 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
 
     The callable also has
 
-    * ``call.interleaved(xil, correction=None)`` (fused and wideband
-      paths; a planes-path config raises ValueError, as the reference):
-      the capture as float x[T, 2N] or doa_tpu's (T/TPACK, 2N·TPACK) (same
+    * ``call.interleaved(xil, correction=None)`` (every path): the
+      capture as float x[T, 2N] or doa_tpu's (T/TPACK, 2N·TPACK) (same
       bytes), numpy or torch; under cov_dtype="int8" a float buffer is
       quantized on the device (narrowband), an int8 buffer passes as it
-      is;
+      is. On the planes path (smoothing, eigh, Jacobi, ...) the float32
+      capture on the device is read as its two stride-2 planes
+      x.view(-1, N, 2)[..., 0] and [..., 1], with no copy, as call(x)
+      reads a complex64 numpy capture, and the answers are call(x)'s.
+      ``call.interleaved.by_route`` counts the calls of each route
+      ("fused", "wideband", "planes");
     * ``call.scan_capture(blocks, correction=None)`` (fused and wideband
       paths): a capture staged as M blocks, (M, T_blk, 2N) or doa_tpu's
       (M, T_blk/TPACK, 2N·TPACK), numpy or torch, hop | T_blk (wideband:
@@ -819,18 +832,27 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
                 return run_planes(*x, cr, ci)
             return run_interleaved(x, cr, ci)
 
+    interleaved_route = "wideband" if wb else "fused" if fused else "planes"
+
     def call_interleaved(xil, correction=None) -> DoaResult:
-        if not (fused or wb):
-            raise ValueError("the interleaved entry needs the fused path "
-                             "(power subspace, no smoothing, TPACK | "
-                             "gcd(S, hop)) or the wideband path; this "
-                             "config takes planes")
         with span("doa.call"):
             with span("doa.ingest"):
                 if isinstance(xil, np.ndarray):
                     xil = torch.from_numpy(np.ascontiguousarray(xil))
-                x, (cr, ci) = _ingest(xil), _planes(correction)
+                cr, ci = _planes(correction)
+                if interleaved_route == "planes":
+                    # the capture's two stride-2 planes, read in place
+                    x = xil.to(device=dev, dtype=torch.float32).reshape(
+                        -1, N, 2)
+                    x = x[..., 0], x[..., 1]
+                else:
+                    x = _ingest(xil)
+            call_interleaved.by_route[interleaved_route] += 1
+            if isinstance(x, tuple):
+                return run_planes(*x, cr, ci)
             return run_interleaved(x, cr, ci)
+
+    call_interleaved.by_route = dict.fromkeys(INTERLEAVED_ROUTES, 0)
 
     # windows start at global multiples of hop, so the earliest window
     # spanning a block boundary starts hop·ceil(overlap/hop) samples

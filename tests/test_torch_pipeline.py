@@ -594,11 +594,20 @@ def test_complex128_capture_matches_reference():
     _assert_matches(out, ref, ["music", "capon"], True, sort=True)
 
 
-def test_planes_config_has_no_interleaved_entry():
+def test_planes_config_serves_the_interleaved_entry():
+    """A planes-path config (c3) serves call.interleaved: the float32
+    capture is read as its two stride-2 planes and the answers are
+    call(x)'s on the same complex64 capture, bit for bit."""
     pipe = build_pipeline_torch(PRESETS["c3_ula16_calib_smooth"],
                                 device="cpu")
-    with pytest.raises(ValueError, match="fused"):
-        pipe.interleaved(_c3_capture(B=2).view(np.float32))
+    x = _c3_capture(B=2)
+    want = pipe(x)
+    got = pipe.interleaved(x.view(np.float32))
+    for key in ("peak_values", "peak_angles", "spectra"):
+        torch.testing.assert_close(getattr(got, key)["music"],
+                                   getattr(want, key)["music"], rtol=0,
+                                   atol=0)
+    assert pipe.interleaved.by_route["planes"] == 1
 
 
 @pytest.mark.parametrize("compute_dtype", ["bfloat16", "int8"])
@@ -860,7 +869,8 @@ def test_route_rule_matches_reference(overlap, fused):
     """The reference's route rule, TPACK | gcd(S, hop): at overlap 252
     (hop 4, gcd 4, TPACK 8) both packages take the planes route and its
     cold subspace; at 248 (gcd 8) both take the fused route and its warm
-    start. Angles within 1e-3°, equal escalation counts."""
+    start. Angles within 1e-3°, equal escalation counts; call.interleaved
+    gives call(x)'s angles on either route."""
     cfg, x = _route_case(overlap)
     ref_pipe = build_pipeline_tpu(dataclasses.replace(cfg, cov_impl="pallas"))
     assert (ref_pipe.jitted_ilv is not None) == fused
@@ -874,12 +884,12 @@ def test_route_rule_matches_reference(overlap, fused):
                                atol=1e-3)
     assert int(out.escalation_flagged) == int(ref.escalation_flagged)
     assert int(out.escalation_overflow) == int(ref.escalation_overflow)
+    # the interleaved entry serves either route with call(x)'s answers;
+    # scan_capture still takes the fused route alone
     xil = x.view(np.float32)
-    if fused:
-        pipe.interleaved(xil)
-    else:
-        with pytest.raises(ValueError, match="gcd"):
-            pipe.interleaved(xil)
+    np.testing.assert_array_equal(
+        pipe.interleaved(xil).peak_angles["music"].numpy(), a)
+    if not fused:
         with pytest.raises(ValueError, match="gcd"):
             pipe.scan_capture(xil.reshape(2, -1, 16))
 
