@@ -159,8 +159,13 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    form, at g = 256, 7 and 1, FB on and off, also on views at row 1 and
    element 1, within 1e-5 of max|E| at the headline shape (f32, bf16;
    overlaps 0 and 512), and its route within 2e-5 of max|E| of the
-   stacked K1 route; timed in turns with its plain version and one
-   torch.bmm.
+   stacked route; timed in turns with its plain version and one
+   torch.bmm; kernel 9's window entry (`window_route`: the covariance
+   stage at overlap 512, 2^24 samples, g = 512, f32 and bf16, FB off and
+   on) launched once, bit-equal to kernel 9's per-chunk E summed in
+   order and within 1e-5 of max|E| of its plain version, the stacked
+   route within 1e-5 of max|E| of a float64 sum, timed in turns with its
+   plain version, one torch.bmm and the route it replaces.
 13. the paths: the headline with subspace_impl="pallas" in both
    return_spectra modes (every window within 0.5 deg, escalation counts
    0, kernel 11 launched in its warp form alone, as call.plan.forms
@@ -181,8 +186,11 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    next exchange, its time alone, the exchange's, the default halo's; the sharded fused path under halo_impl "pallas" and
    "xla", equal bit for bit on the valid windows, within 5e-3 deg of the
    single-card path on the same capture, every window within 0.5 deg,
-   equal escalation counts, launch counts of kernel 13, K1, K4 and K2;
-   the ms of a call with the R ranks time-sliced on one card.
+   equal escalation counts, launch counts of kernel 13, K4, K2 and the
+   covariance stage (kernel 9's window entry once and K1 never where the
+   plan names the "windows" epilogue, on the single card and on every
+   rank: `window_epilogue`); the ms of a call with the R ranks
+   time-sliced on one card.
 15. fault C.5: ULA-48 (2N = 96, beyond K1 and kernel 8) and ULA-16 at
    K = 5 (2K = 10, beyond K4; K3 takes it in its CUDA-core form), the
    latter also under subspace_impl="pallas" (kernel 11), through
@@ -272,8 +280,9 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 20. the rest of the sharded pipeline on ranks of this card (spawn_ranks,
    gloo, as phase 14), one launch a mesh shape: on MeshSpec(2, 1) c4 at
    T = 2^21 with MUSIC, min-norm, root-MUSIC, ESPRIT and Unitary ESPRIT
-   under halo_impl="pallas" (K1, K4, K2, kernel 13), c4 with 8 beams and
-   c4 under "jacobi" (the general path: kernel 8, K4 / eigh), and c5 cssm
+   under halo_impl="pallas" (kernel 9's window entry, K4, K2, kernel
+   13), c4 with 8 beams and c4 under "jacobi" (the general path: kernel
+   8, K4 / eigh), and c5 cssm
    (kernel 4, K4, K3; c5's 16471-point grid does not split in two); c5
    incoherent on MeshSpec(1, 2) and (2, 2) (each rank kernel 4 on its
    block, K4, kernel 5 on its 8 or 16 subbands, one psum, kernel 6) and
@@ -1786,15 +1795,19 @@ def form_counts(counter):
     return getattr(counter, "by_form", getattr(counter, "by_epilogue", None))
 
 
-def stage_counter(plan, stage):
-    """The counter a planned stage's launches land on: its kernel's, but
-    kernel 9's ("chunk_embedded") where the covariance stage
-    ("chunk_gram") takes the embedded epilogue (plan.forms), which
-    launches kernel 9's entry in K1's place."""
-    kernel = plan.kernels[stage]
-    if kernel == "chunk_gram" and plan.forms.get(stage) == "embedded":
+def counter_of(kernel, form):
+    """The counter a stage's launches land on, from its kernel and the
+    form its plan names: the kernel's, but kernel 9's ("chunk_embedded")
+    where the covariance stage ("chunk_gram") takes the embedded or the
+    window epilogue, which launch kernel 9's entries in K1's place."""
+    if kernel == "chunk_gram" and form in ("embedded", "windows"):
         return "chunk_embedded"
     return kernel
+
+
+def stage_counter(plan, stage):
+    """counter_of a planned stage (plan.kernels, plan.forms)."""
+    return counter_of(plan.kernels[stage], plan.forms.get(stage))
 
 
 def form_of(fn, counter):
@@ -3000,7 +3013,10 @@ def routes_vs_f64(torch, x, cr, ci, kw):
     """Both covariance routes on the whole capture x against the same
     windows summed in float64 (chunk Grams, prefix sums, embedding,
     correction and FB): logs each route's max error as a fraction of
-    max|E|, and fails past 1e-2."""
+    max|E|, and fails past 1e-2 for the "chunk" variant (its windows are
+    FP32 prefix-sum differences, whose rounding grows with the chunk
+    count) and past 1e-5 for the stacked one (kernel 9's window entry:
+    each window its own chunks summed in order)."""
     from doa_tpu_torch.ops.cuda import cov_embedded as ce
     S, ov = kw["snapshot_size"], kw["overlap"]
     hop = S - ov
@@ -3022,9 +3038,9 @@ def routes_vs_f64(torch, x, cr, ci, kw):
     dv = (Ev["chunk"] - Ev["stacked"]).abs().max().item() / sv
     log(f"cov_embedded overlap {ov}, {x.shape[0]} samples: max|chunk - "
         f"stacked| / max|E64| = {dv!r}; against a float64 sum, max|E - E64|"
-        f" / max|E64| chunk {errs['chunk']!r}, stacked {errs['stacked']!r} "
-        f"(tol 1e-2)")
-    check(max(errs.values()) <= 1e-2,
+        f" / max|E64| chunk {errs['chunk']!r} (tol 1e-2), stacked "
+        f"{errs['stacked']!r} (tol 1e-5)")
+    check(errs["chunk"] <= 1e-2 and errs["stacked"] <= 1e-5,
           f"a covariance route drifts from float64 at overlap {ov}")
 
 
@@ -3065,8 +3081,90 @@ def embedded_route(torch, x, W):
         del xk
 
 
+def window_route(torch, x, W, card):
+    """The covariance stage where windows overlap, at c4's shape (2^24
+    samples, S = 1024, overlap 512: g = 512, n_win 2, stride 1):
+    chunk_grams_uhat(x, 512, embed=..., windows=...) launches kernel 9's
+    window entry once (doa_chunk_windows, whose one kernel is
+    chunk_windows_kernel: by_epilogue "windows", chunk_embedded.launches;
+    K1 never; the card tests name the kernel from the profiler around
+    cov_embedded's call, as a region holding its launch alone loses it),
+    bit for bit kernel 9's per-chunk E summed in chunk order
+    (chunk_embedded + ordered_window_sums) and within 1e-5 of max|E| of
+    the plain version (chunk_windows_plain), f32 and bf16, FB off and on,
+    with a correction W → the window entry's record (f32, FB on;
+    launches filled in later)."""
+    from doa_tpu_torch.cpx import fp32_matmuls
+    from doa_tpu_torch.ops.cuda import cov_embedded as ce
+
+    g, S = 512, 1024
+    B = (x.shape[0] - S) // g + 1
+    windows = (B, S // g, 1)
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        xk = x.to(dt)
+        for fb in (False, True):
+            emb = (16, 1.0 / S, W, fb)
+            by, k1, k9 = (dict(ce.chunk_grams_uhat.by_epilogue),
+                          ce.chunk_grams_uhat.launches,
+                          ce.chunk_embedded.launches)
+            Ew = ce.chunk_grams_uhat(xk, g, embed=emb, windows=windows)
+            torch.cuda.synchronize()
+            took = (ce.chunk_grams_uhat.by_epilogue["windows"]
+                    - by["windows"], ce.chunk_grams_uhat.launches - k1,
+                    ce.chunk_embedded.launches - k9)
+            Es = ce.ordered_window_sums(
+                ce.chunk_embedded(xk, g, *emb), *windows)
+            same = torch.equal(Ew.view(torch.int32), Es.view(torch.int32))
+            del Es
+            Ep = ce.chunk_windows_plain(xk, g, *emb, windows)
+            e = (Ew - Ep).abs().max().item()
+            sc = Ep.abs().max().item()
+            del Ew, Ep
+            log(f"covariance stage with embed and windows, g={g} n_win 2 "
+                f"{dt} fb={fb}: by_epilogue 'windows' {took[0]}, K1 "
+                f"{took[1]}, kernel 9's entries "
+                f"{took[2]}; bit-equal to kernel 9's per-chunk E summed in "
+                f"order: {same}; max|stage-plain| = {e!r}, max|E| = {sc!r}, "
+                f"tol 1e-5*max|E|")
+            check(took == (1, 0, 1) and same
+                  and e <= 1e-5 * sc,
+                  f"the covariance stage's window epilogue ({dt}, fb={fb})")
+            if dt == torch.float32 and fb:
+                err = e
+        del xk
+    emb = (16, 1.0 / S, W, True)
+    xv = x.view(-1, g, 32)
+    with fp32_matmuls():
+        k_ms, p_ms, lib_ms, old_ms = turns_ms(
+            torch,
+            lambda: ce.chunk_grams_uhat(x, g, embed=emb, windows=windows),
+            lambda: ce.chunk_windows_plain(x, g, *emb, windows),
+            lambda: torch.bmm(xv.transpose(1, 2), xv),
+            lambda: ce.uhat_windows_to_embedded(ce.window_sums(
+                ce.chunk_grams_uhat(x, g), *windows), *emb))
+    n = x.shape[0] // g
+    # the capture read once and each window's E written once; the
+    # symmetric Gram's half, the fold, correction and FB of each chunk,
+    # and the windows' sums (4 values an item)
+    b = bound(x.numel() * 4 + B * 32 * 32 * 4,
+              x.shape[0] * 32 * 33 + n * 12 * 16 * 16 + B * 4 * 16 * 17)
+    log(f"kernel 9's window entry time [{x.shape[0]}, 32] g={g} n_win 2, "
+        f"correction + FB: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        f"library (one torch.bmm of the chunks) {lib_ms:.4f} ms, the route "
+        f"it replaces (K1, window_sums, the torch fold) {old_ms:.4f} ms, "
+        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
+    return dict(
+        name="chunk_windows", route="cuda", launches=0,
+        source="doa_tpu_torch/csrc/cov_gram.cu",
+        replaces="doa_tpu/ops/pallas/cov_embedded.py:331",
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms, **b, library_ms=lib_ms,
+        replaced_route_ms=old_ms)
+
+
 def embedded_parity(torch, dev, x, card):
-    """Phase 12's kernel-9 part → its record (launches filled in later).
+    """Phase 12's kernel-9 part → the records of kernel 9's entry and its
+    window entry, by name (launches filled in later).
     x: the headline capture f32[T_MAIN, 32] on the card."""
     from doa_tpu_torch.cpx import fp32_matmuls
     from doa_tpu_torch.ops.cuda import cov_embedded as ce
@@ -3126,12 +3224,13 @@ def embedded_parity(torch, dev, x, card):
             # bit against K1 + the torch fold, and to the plain version
             embedded_route(torch, x, W)
             continue
-        # the route against the stacked K1 route (test_fused_path.py's
-        # variants check on the card). With overlap the windows are
-        # differences of prefix sums over the chunk stack, whose f32
-        # rounding grows with the chunk count in both routes: that case is
-        # held on the first 2^17 samples (256 chunks), and at 2^24 each
-        # route is logged against a float64 sum
+        # the route against the stacked route (test_fused_path.py's
+        # variants check on the card). With overlap the "chunk" variant's
+        # windows are differences of prefix sums over the chunk stack,
+        # whose f32 rounding grows with the chunk count: that case is held
+        # on the first 2^17 samples (256 chunks), and at 2^24 each route is
+        # held against a float64 sum; the stacked route's stage, kernel 9's
+        # window entry, is held at 2^24 by window_route
         xo = x[:1 << 17]
         kw = dict(N=16, snapshot_size=1024, overlap=ov, fb=True)
         Ec = ce.cov_embedded(xo, cr, ci, variant="chunk", **kw)
@@ -3144,6 +3243,7 @@ def embedded_parity(torch, dev, x, card):
                                f"overlap {ov}")
         del Ec, Es
         routes_vs_f64(torch, x, cr, ci, kw)
+        rec_w = window_route(torch, x, W, card)
     xv = x.view(-1, 1024, 32)
     with fp32_matmuls():
         k_ms, p_ms, lib9_ms = turns_ms(
@@ -3159,11 +3259,12 @@ def embedded_parity(torch, dev, x, card):
         f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library (one torch.bmm of "
         f"the chunks) {lib9_ms:.4f} ms, bound {b9['bound_ms']:.4f} ms "
         f"({b9['bound_by']})  [{card}]")
-    return dict(
+    rec9 = dict(
         name="chunk_embedded", route="cuda",
         source="doa_tpu_torch/csrc/cov_gram.cu",
         replaces="doa_tpu/ops/pallas/cov_embedded.py:99",
         max_abs_err=e9, ms=k_ms, plain_ms=p_ms, **b9, library_ms=lib9_ms)
+    return {"chunk_embedded": rec9, "chunk_windows": rec_w}
 
 
 def opt_in_parity(torch, dev, x, card):
@@ -3214,7 +3315,7 @@ def opt_in_parity(torch, dev, x, card):
         by_form={"warp": {"ms": w_ms, "ms_squarings_2": w2_ms},
                  "block": {"ms": b_ms, "ms_squarings_2": b2_ms}})
 
-    recs["chunk_embedded"] = embedded_parity(torch, dev, x, card)
+    recs.update(embedded_parity(torch, dev, x, card))
     return recs
 
 
@@ -3546,9 +3647,11 @@ def shard_rank(device, R, card):
 
     counters = {"halo_ring": rg.halo_ring,
                 "chunk_gram": ce.chunk_grams_uhat,
+                "chunk_embedded": ce.chunk_embedded,
                 "mgs_iterate": cpx_ops.mgs_iterate,
                 "music_scan": ms.music_scan,
                 "music_scan_peaks": ms.music_scan_peaks}
+    by_epi = ce.chunk_grams_uhat.by_epilogue
     for impl in ("pallas", "xla"):
         pipe = build_sharded_pipeline(
             dataclasses.replace(cfg, halo_impl=impl), mesh,
@@ -3556,10 +3659,13 @@ def shard_rank(device, R, card):
         barrier()
         for f in counters.values():
             f.launches = 0
+        by_epi.update(dict.fromkeys(by_epi, 0))
         res = pipe.local(x)
         torch.cuda.synchronize()
         out[impl] = {
             "launches": {k: f.launches for k, f in counters.items()},
+            "by_epilogue": dict(by_epi),
+            "form": pipe.plan.forms.get("covariance"),
             "angles": res["peak_angles_music"].cpu().numpy(),
             "values": res["peak_values_music"].cpu().numpy(),
             "flagged": int(res["escalation_flagged"]),
@@ -3581,6 +3687,33 @@ def shard_rank(device, R, card):
     return out
 
 
+def window_epilogue(torch, pipe, x):
+    """One call of a fused single-card pipeline whose windows overlap
+    (c4), with the covariance stage's counters reset just before it: the
+    stage must launch kernel 9's window entry once (by_epilogue "windows",
+    chunk_embedded.launches) and K1 not at all wherever its plan names the
+    "windows" epilogue, and K1 once where the plan names "gram" → (the
+    planned form, the call's result)."""
+    from doa_tpu_torch.ops.cuda import cov_embedded as ce
+
+    form = pipe.plan.forms.get("covariance")
+    by = ce.chunk_grams_uhat.by_epilogue
+    by.update(dict.fromkeys(by, 0))
+    ce.chunk_grams_uhat.launches = ce.chunk_embedded.launches = 0
+    one = pipe.interleaved(x)
+    torch.cuda.synchronize()
+    took = dict(by)
+    n = (ce.chunk_grams_uhat.launches, ce.chunk_embedded.launches)
+    log(f"c4 single card: covariance stage by epilogue {json.dumps(took)}, "
+        f"K1 {n[0]}, kernel 9's entries {n[1]} launches; planned {form}")
+    check(form in ("windows", "gram") and took[form] == 1
+          and sum(took.values()) == 1
+          and n == ((0, 1) if form == "windows" else (1, 0)),
+          f"c4's covariance stage took {took} (K1, kernel 9: {n}), "
+          f"planned {form}")
+    return form, one
+
+
 def sharded_phases(torch, dev, card):
     """Phase 14 → (kernel 13's record, the launches of the earlier
     kernels in the ranks' main-path runs)."""
@@ -3597,15 +3730,15 @@ def sharded_phases(torch, dev, card):
         f"windows) on R ranks, each a process on {dev} (one card: gloo, "
         f"whose collectives the port stages through the host explicitly; "
         f"kernel 13 writes each halo through a CUDA IPC peer pointer)")
-    total = {"chunk_gram": 0, "mgs_iterate": 0, "music_scan": 0,
-             "music_scan_peaks": 0}
+    total = {"chunk_gram": 0, "chunk_embedded": 0, "mgs_iterate": 0,
+             "music_scan": 0, "music_scan_peaks": 0}
     ring_launches = 0
     rec = None
     for R in SHARD_RANKS:
         T_loc = T_SHARD // R
         x = torch.cat([shard_block(torch, T_loc, s, dev) for s in range(R)])
         pipe = build_pipeline_torch(cfg, device=dev, return_spectra=False)
-        one = pipe.interleaved(x)
+        epi, one = window_epilogue(torch, pipe, x)
         a_one = one.peak_angles["music"].sort(-1).values.cpu().numpy()
         flagged_one = int(one.escalation_flagged)
         ts = call_times(torch, lambda: pipe.interleaved(x), reps=10, warm=2)
@@ -3650,11 +3783,20 @@ def sharded_phases(torch, dev, card):
             f"{b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
         for impl in ("pallas", "xla"):
             for o in outs:
-                n = o[impl]["launches"]
-                check(n["chunk_gram"] > 0 and n["mgs_iterate"] > 0
+                n, form = o[impl]["launches"], o[impl]["form"]
+                cov = counter_of("chunk_gram", form)
+                # the covariance stage: kernel 9's window entry once where
+                # the plan names it (c4's hop 512), else K1
+                check(n[cov] > 0 and n["chunk_gram" if cov != "chunk_gram"
+                                       else "chunk_embedded"] == 0
+                      and o[impl]["by_epilogue"][form] == n[cov]
+                      and form == epi
+                      and n["mgs_iterate"] > 0
                       and n["music_scan_peaks"] > 0
                       and n["halo_ring"] == (1 if impl == "pallas" else 0),
-                      f"R={R} {impl}: launch counts {n}")
+                      f"R={R} {impl}: launch counts {n}, covariance "
+                      f"{o[impl]['by_epilogue']}, planned {form}, the "
+                      f"single card's {epi}")
                 for k in total:
                     total[k] += n[k]
             ring_launches += sum(o[impl]["launches"]["halo_ring"]
@@ -3697,6 +3839,10 @@ def sharded_phases(torch, dev, card):
                    max_abs_err=err, ms=k_ms, plain_ms=plain_ms, **b,
                    library_ms=xla_ms)
     rec["launches"] = ring_launches
+    # the ranks' kernel 9 launches are its window entry's (the covariance
+    # stage where the plan names "windows")
+    if epi == "windows":
+        total["chunk_windows"] = total.pop("chunk_embedded")
     return rec, total
 
 
@@ -5037,6 +5183,7 @@ def sh_counters():
     from doa_tpu_torch.ops.cuda import wideband_cov as wc
     from doa_tpu_torch.ops.cuda import wideband_scan as wsc
     return {"halo_ring": rg.halo_ring, "chunk_gram": ce.chunk_grams_uhat,
+            "chunk_embedded": ce.chunk_embedded,
             "planes_chunk_gram": cv.chunk_grams,
             "mgs_iterate": cpx_ops.mgs_iterate,
             "music_scan": ms.music_scan,
@@ -5179,7 +5326,10 @@ def sharded_rest_phase(torch, dev, card):
             log(f"{name} on MeshSpec{spec}: plan {json.dumps(plan)}")
             check("plain" not in plan.values(),
                   f"{name}: a stage is planned plain on the card")
-            planned = set(plan.values())
+            # the covariance stage's launches land on kernel 9's counter
+            # where its plan names kernel 9's entries (counter_of)
+            planned = {counter_of(k, recs[0]["forms"].get(st))
+                       for st, k in plan.items()}
             for r in recs:
                 n = r["launches"]
                 ran = {k for k, v in n.items() if v}
@@ -5754,7 +5904,7 @@ def main():
             recs[name]["launches"] = f.launches
     # overlap 0: the covariance stage is kernel 9's entry, once a call
     check(k9_main == 2 and recs["chunk_gram"]["launches"] == 0
-          and by_epi == {"gram": 0, "embedded": 2}
+          and by_epi == {"gram": 0, "embedded": 2, "windows": 0}
           and pipe_f.plan.forms.get("covariance") == "embedded",
           f"the main path's covariance stage: kernel 9 {k9_main}, K1 "
           f"{recs['chunk_gram']['launches']} launches, by epilogue "

@@ -36,8 +36,8 @@ Covered so far (``build_pipeline_torch``):
   guard, with ``DoaResult.subspace_residual``), the chunk covariance
   kernel 9 behind ``cov_embedded(variant="chunk")`` (the fused path's
   covariance stage launches it in K1's place where a window is one
-  chunk), ``donate_inputs`` and
-  ``call.scan_capture`` (a capture staged as blocks, framed as one
+  chunk, and its window entry where windows overlap), ``donate_inputs``
+  and ``call.scan_capture`` (a capture staged as blocks, framed as one
   stream). These are options and methods of what ``build_pipeline_torch``
   returns, so the package exports nothing new for them;
 * DFT beamspace (``BeamspaceSpec``: covariance and steering projected

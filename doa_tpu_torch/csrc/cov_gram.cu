@@ -10,7 +10,10 @@
 // averaging applied in its epilogue. Where a window is one chunk (g = S)
 // the pipelines' covariance stage launches it in K1's place
 // (chunk_grams_uhat's `embed`): its E is K1's U folded by the plain
-// version, bit for bit, with no torch pass over the chunk stack. The TPU
+// version, bit for bit, with no torch pass over the chunk stack. Where
+// windows overlap (n_win = S/g chunks a window), its third entry
+// (`doa_chunk_windows`, WindowsEpi) sums each window's chunks' E in the
+// epilogue and writes the windows' E alone. The TPU
 // kernels pack TPACK time steps into 128 lanes and run the f32 Gram as a
 // bf16 hi/lo split on the MXU;
 // here the capture is read in its natural layout (n2 = 2N: re, im
@@ -28,9 +31,12 @@
 //         multiply-adds on the CUDA cores issue at about half the FP32
 //         rate, ~0.5 ms for the triangle, so its arithmetic limits it
 // Kernel 9 adds an O(n2^2) epilogue a chunk to K1's O(g n2^2), folded
-// where K1's chunk-end reduction is (EmbeddedEpi).
+// where K1's chunk-end reduction is (EmbeddedEpi). Its window entry at
+// c4's shape (2^24 samples, g = 512, n_win = 2: 32767 windows) reads the
+// capture once and writes E once: 2 GiB + 128 MiB, 0.68 ms at 3.35 TB/s;
+// its walk reads n_win - 1 chunks more a block (WindowsEpi's lead-in).
 //
-// Design (one mainloop, `gram_mainloop`, for both entries):
+// Design (one mainloop, `gram_mainloop`, for every entry):
 // - Persistent grid: as many blocks as fit on the card (2 a SM), each
 //   walking a contiguous run of whole chunks, so a small g does not cost a
 //   block a chunk and copies stay in flight across chunk boundaries. One
@@ -70,7 +76,11 @@
 //   whole chunks its entry runs K1's form and then folds each chunk's U in
 //   place (fold_kernel, the same arithmetic). Either way its sums, and E,
 //   are K1's bit for bit at every g, so the stage can launch it in K1's
-//   place wherever a window is one chunk.
+//   place wherever a window is one chunk. Its window entry shares chunks
+//   at every g: at K1's whole-chunk shapes its E is within rounding of
+//   kernel 9's per-chunk E summed (the classes' partial sums are added in
+//   another order), and each small chunk pays the reduction and barriers
+//   above.
 // - What limits it (exp_cov_gram.py times patched copies of this file;
 //   PERF.md): f32 runs within ~5% of its copies and chunk-end work
 //   without the FMAs (~1.2x the bytes bound); bf16 and int8 are bound by
@@ -91,7 +101,7 @@ using namespace gram_ring;
 
 // K1's epilogue: U[i][j] and U[j][i] of chunk c from one value.
 struct GramEpi {
-  static constexpr bool kFinish = false, kFold = false;
+  static constexpr bool kFinish = false, kFold = false, kLead = false;
   float* out;
   int n2;
   template <typename A>
@@ -126,6 +136,13 @@ struct GramEpi {
   __device__ void finish(long long, const float*, int, int) const {}
 };
 
+// Lanes kernel 9's fold takes at a chunk end: pairs (e, Q(e)) over the
+// entries i <= j, i + j <= N-1, of an N x N R (EmbeddedEpi below).
+__host__ __device__ constexpr int fold_slots(int N) {
+  const int h = (N + 1) / 2;
+  return 2 * h * (N - h + 1);
+}
+
 // Kernel 9's epilogue: the chunk's embedded covariance E = [[rr, -ri],
 // [ri, rr]] (N = n2/2), in the order of the plain version
 // (ops/cuda/cov_embedded.py uhat_windows_to_embedded): the planar fold of
@@ -153,7 +170,7 @@ struct GramEpi {
 // the odd lane its Q; where Q(e) = e (i + j = N-1) the odd lane idles and
 // the even lane is its own partner.
 template <int RT> struct EmbeddedEpi {
-  static constexpr bool kFinish = false, kFold = true;
+  static constexpr bool kFinish = false, kFold = true, kLead = false;
   // an item: R's entry (i, j), its block's first class-0 entry in `red`
   // (b) and the step to (2i+1, 2j) (w10), whether the lane holds one
   // (mine) and is its own FB partner (self), and W at (i, j) and (j, i)
@@ -169,10 +186,7 @@ template <int RT> struct EmbeddedEpi {
   float scale;
   Item first;             // this thread's item in a chunk end's first round
 
-  __device__ int slots() const {
-    const int N = n2 / 2, h = (N + 1) / 2;
-    return 2 * h * (N - h + 1);
-  }
+  __device__ int slots() const { return fold_slots(n2 / 2); }
   __device__ Item item(int slot) const {
     const int N = n2 / 2, nt = n2 / RT;
     const int width = row_classes(n2, RT) * (nt * (nt + 1) / 2);
@@ -207,45 +221,58 @@ template <int RT> struct EmbeddedEpi {
     it.wim = __ldg(Wim + j * N + i);
     return it;
   }
+  // Item it's values at a chunk end (rr, ri at (i, j), mr, mi at (j, i)):
+  // the four class sums of its block in K1's order, the fold, the scale,
+  // the correction and, with fb, the FB average with its partner's lane.
+  // Every lane of the warp calls this together (the shuffle needs them).
+  __device__ __forceinline__ void value(const Item& it, const float* red,
+                                        int ntri, int groups, float& rr,
+                                        float& ri, float& mr,
+                                        float& mi) const {
+    const int width = groups * ntri, w11 = (RT + 1) * width;
+    const int lane = threadIdx.x & 31;
+    rr = 0.f, ri = 0.f, mr = 0.f, mi = 0.f;
+    if (it.mine) {
+      const float* b = red + it.b;
+      float u00 = b[0], u01 = b[width], u10 = b[it.w10], u11 = b[w11];
+#pragma unroll 4
+      for (int q = 1; q < groups; ++q) {
+        const float* p = b + q * ntri;
+        u00 += p[0];
+        u01 += p[width];
+        u10 += p[it.w10];
+        u11 += p[w11];
+      }
+      const float r0 = __fmul_rn(__fadd_rn(u00, u11), scale);
+      const float i0 = __fmul_rn(__fsub_rn(u10, u01), scale);
+      const float i1 = __fmul_rn(__fsub_rn(u01, u10), scale);  // (j, i)'s
+      rr = __fsub_rn(__fmul_rn(r0, it.wr), __fmul_rn(i0, it.wi));
+      ri = __fadd_rn(__fmul_rn(r0, it.wi), __fmul_rn(i0, it.wr));
+      mr = __fsub_rn(__fmul_rn(r0, it.wrm), __fmul_rn(i1, it.wim));
+      mi = __fadd_rn(__fmul_rn(r0, it.wim), __fmul_rn(i1, it.wrm));
+    }
+    if (fb) {
+      const int src = it.self ? lane : lane ^ 1;
+      const float qr = __shfl_sync(0xffffffffu, rr, src);
+      const float qi = __shfl_sync(0xffffffffu, ri, src);
+      const float qmr = __shfl_sync(0xffffffffu, mr, src);
+      const float qmi = __shfl_sync(0xffffffffu, mi, src);
+      rr = __fmul_rn(0.5f, __fadd_rn(rr, qmr));
+      ri = __fmul_rn(0.5f, __fsub_rn(ri, qmi));
+      mr = __fmul_rn(0.5f, __fadd_rn(mr, qr));
+      mi = __fmul_rn(0.5f, __fsub_rn(mi, qi));
+    }
+  }
   __device__ void fold(long long c, const float* red, int, int ntri,
                        int groups) const {
-    const int N = n2 / 2, width = groups * ntri, w11 = (RT + 1) * width;
+    const int N = n2 / 2;
     const int lane = threadIdx.x & 31;
     float* oc = out + c * n2 * n2;
     // a warp's lanes take slots s + lane together (the shuffle needs them)
     for (int s = threadIdx.x - lane; s < slots(); s += THREADS) {
       const Item it = s + lane == (int)threadIdx.x ? first : item(s + lane);
-      float rr = 0.f, ri = 0.f, mr = 0.f, mi = 0.f;
-      if (it.mine) {
-        const float* b = red + it.b;
-        float u00 = b[0], u01 = b[width], u10 = b[it.w10], u11 = b[w11];
-#pragma unroll 4
-        for (int q = 1; q < groups; ++q) {
-          const float* p = b + q * ntri;
-          u00 += p[0];
-          u01 += p[width];
-          u10 += p[it.w10];
-          u11 += p[w11];
-        }
-        const float r0 = __fmul_rn(__fadd_rn(u00, u11), scale);
-        const float i0 = __fmul_rn(__fsub_rn(u10, u01), scale);
-        const float i1 = __fmul_rn(__fsub_rn(u01, u10), scale);  // (j, i)'s
-        rr = __fsub_rn(__fmul_rn(r0, it.wr), __fmul_rn(i0, it.wi));
-        ri = __fadd_rn(__fmul_rn(r0, it.wi), __fmul_rn(i0, it.wr));
-        mr = __fsub_rn(__fmul_rn(r0, it.wrm), __fmul_rn(i1, it.wim));
-        mi = __fadd_rn(__fmul_rn(r0, it.wim), __fmul_rn(i1, it.wrm));
-      }
-      if (fb) {
-        const int src = it.self ? lane : lane ^ 1;
-        const float qr = __shfl_sync(0xffffffffu, rr, src);
-        const float qi = __shfl_sync(0xffffffffu, ri, src);
-        const float qmr = __shfl_sync(0xffffffffu, mr, src);
-        const float qmi = __shfl_sync(0xffffffffu, mi, src);
-        rr = __fmul_rn(0.5f, __fadd_rn(rr, qmr));
-        ri = __fmul_rn(0.5f, __fsub_rn(ri, qmi));
-        mr = __fmul_rn(0.5f, __fadd_rn(mr, qr));
-        mi = __fmul_rn(0.5f, __fsub_rn(mi, qi));
-      }
+      float rr, ri, mr, mi;
+      value(it, red, ntri, groups, rr, ri, mr, mi);
       if (it.mine) {
         const int i = it.i, j = it.j;
         oc[i * n2 + j] = rr;
@@ -259,6 +286,89 @@ template <int RT> struct EmbeddedEpi {
           oc[(N + j) * n2 + N + i] = mr;
         }
       }
+    }
+  }
+};
+
+// Open windows a lane of the window epilogue holds at most: a chunk lies
+// in ceil(n_win / stride) windows, so 4 covers overlaps up to 3/4 of S at
+// g = hop.
+constexpr int WMAX = 4;
+
+// Kernel 9's window epilogue, where windows overlap (n_win = S/g chunks
+// a window, `stride` = hop/g chunks from one window's start to the next):
+// every step of the fold is linear, so window w's E is the sum of its
+// chunks' E, taken in chunk order, (((E_{ws} + E_{ws+1}) + ...) +
+// E_{ws+n_win-1}), s = stride. Each lane holds one item (fold_slots(N) <=
+// THREADS) and, in registers, its values' sums over the open windows that
+// hold the chunk: win[k] is window wb + k. At each chunk end it adds the
+// chunk's folded values (EmbeddedEpi::value) into each of them (__fadd_rn;
+// a window's first chunk sets it) and stores a window as its last chunk
+// ends: the blocks rr, ri and the mirror's from the sums, the -ri blocks
+// as the negated sums. No chunk's E is written.
+//
+// Ownership: a window is stored by the block whose chunk range [c0, c1)
+// holds its last chunk. That block's walk starts at the chunk unit at or
+// below c0 - (n_win - 1), clamped at 0 (lead(): every chunk of a window
+// that ends in [c0, c1) lies at or after it), and it stores nothing as a
+// chunk before c0 ends (a window that ends there is the previous block's).
+// So every window is written once, and no block reads another's output.
+template <int RT> struct WindowsEpi : EmbeddedEpi<RT> {
+  static constexpr bool kLead = true;
+  using Item = typename EmbeddedEpi<RT>::Item;
+  int n_win, stride;
+  mutable long long own;       // c0: the walk's first chunk that stores
+  mutable long long wb;        // the window win[0] holds
+  mutable float win[WMAX][4];  // rr, ri, mr, mi summed over its chunks
+
+  __device__ long long lead(long long c0, int unit) const {
+    const long long d = c0 - (n_win - 1);
+    const long long cw = d <= 0 ? 0 : d / unit * unit;
+    own = c0;
+    // the first window that holds chunk cw
+    wb = cw - (n_win - 1) <= 0 ? 0 : (cw - (n_win - 1) + stride - 1) / stride;
+#pragma unroll
+    for (int k = 0; k < WMAX; ++k)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) win[k][q] = 0.f;
+    return cw;
+  }
+  __device__ void store(long long w, const Item& it,
+                        const float (&v)[4]) const {
+    const int n2 = this->n2, N = n2 / 2, i = it.i, j = it.j;
+    float* ow = this->out + w * n2 * n2;
+    ow[i * n2 + j] = v[0];
+    ow[i * n2 + N + j] = -v[1];
+    ow[(N + i) * n2 + j] = v[1];
+    ow[(N + i) * n2 + N + j] = v[0];
+    if (i != j) {
+      ow[j * n2 + i] = v[2];
+      ow[j * n2 + N + i] = -v[3];
+      ow[(N + j) * n2 + i] = v[3];
+      ow[(N + j) * n2 + N + i] = v[2];
+    }
+  }
+  __device__ void fold(long long c, const float* red, int, int ntri,
+                       int groups) const {
+    const Item& it = this->first;
+    float v[4];
+    this->value(it, red, ntri, groups, v[0], v[1], v[2], v[3]);
+#pragma unroll
+    for (int k = 0; k < WMAX; ++k) {
+      const long long w0 = (wb + k) * stride;    // window wb + k's first
+      if (c < w0 || c >= w0 + n_win) continue;   // chunk c is not in it
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        win[k][q] = c == w0 ? v[q] : __fadd_rn(win[k][q], v[q]);
+      if (c == w0 + n_win - 1 && c >= own && it.mine)
+        store(wb + k, it, win[k]);
+    }
+    if (c == wb * stride + n_win - 1) {          // window wb has ended
+#pragma unroll
+      for (int k = 0; k + 1 < WMAX; ++k)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) win[k][q] = win[k + 1][q];
+      ++wb;
     }
   }
 };
@@ -280,6 +390,18 @@ chunk_embedded_kernel(const T* __restrict__ x, const float* __restrict__ Wre,
                       float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   EmbeddedEpi<RT> epi{out, Wre, Wim, n2, fb, scale, {}};
+  epi.first = epi.item(threadIdx.x);       // decoded once, held in registers
+  gram_mainloop<T, RT, VEC, false, float>(x, n_chunks, g, n2, smem, epi);
+}
+
+template <typename T, int RT, bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+chunk_windows_kernel(const T* __restrict__ x, const float* __restrict__ Wre,
+                     const float* __restrict__ Wim, float* __restrict__ out,
+                     long long n_chunks, int g, int n2, int fb, float scale,
+                     int n_win, int stride) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  WindowsEpi<RT> epi{{out, Wre, Wim, n2, fb, scale, {}}, n_win, stride};
   epi.first = epi.item(threadIdx.x);       // decoded once, held in registers
   gram_mainloop<T, RT, VEC, false, float>(x, n_chunks, g, n2, smem, epi);
 }
@@ -368,6 +490,27 @@ int launch_embedded(const void* x, const void* Wre, const void* Wim, void* out,
   });
 }
 
+// Kernel 9's window entry: windows of n_win chunks, stride chunks apart,
+// over n_chunks = (B - 1) * stride + n_win chunks, where a lane holds one
+// item (fold_slots(N) <= THREADS) and a chunk lies in at most WMAX windows
+// (ops/cuda/cov_embedded.py's gram_epilogue asks only there). Its classes
+// share each chunk at every g, K1's whole-chunk shapes included, so the
+// block's chunks end in order, as its sums need.
+template <typename T>
+int launch_windows(const void* x, const void* Wre, const void* Wim,
+                   void* out, int n_chunks, int g, int n2, int fb,
+                   float scale, int n_win, int stride, cudaStream_t s) {
+  if (n_win < 2 || stride < 1 || stride >= n_win ||
+      (n_win + stride - 1) / stride > WMAX || fold_slots(n2 / 2) > THREADS)
+    return (int)cudaErrorInvalidValue;
+  return dispatch<T>(x, n_chunks, g, n2, [&](auto f, long long units) {
+    using F = decltype(f);
+    return launch_grid<chunk_windows_kernel<T, F::RT, F::VEC>>(
+        units, s, (const T*)x, (const float*)Wre, (const float*)Wim,
+        (float*)out, (long long)n_chunks, g, n2, fb, scale, n_win, stride);
+  });
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = int8. x: [n_chunks * g, n2]
@@ -399,6 +542,30 @@ extern "C" int doa_chunk_embedded(const void* x, const void* Wre,
                                           fb, scale, s);
     case 1: return launch_embedded<__nv_bfloat16>(x, Wre, Wim, out, n_chunks,
                                                   g, n2, fb, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Kernel 9's window entry. dtype: 0 = float32, 1 = bfloat16. x:
+// [n_chunks * g, n2] contiguous, n_chunks = (B - 1) * stride + n_win;
+// Wre, Wim as doa_chunk_embedded; out: f32[B, n2, n2], window w the sum in
+// chunk order of chunks w * stride ... w * stride + n_win - 1's embedded
+// covariances (scale, correction, FB as doa_chunk_embedded). Takes
+// 2 <= n_win, 1 <= stride < n_win, ceil(n_win / stride) <= WMAX, any g and
+// n2 with fold_slots(n2 / 2) <= THREADS (of K1's widths, n2 <= 40);
+// cudaErrorInvalidValue otherwise.
+extern "C" int doa_chunk_windows(const void* x, const void* Wre,
+                                 const void* Wim, void* out, int n_chunks,
+                                 int g, int n2, int dtype, int fb,
+                                 float scale, int n_win, int stride,
+                                 void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0: return launch_windows<float>(x, Wre, Wim, out, n_chunks, g, n2,
+                                         fb, scale, n_win, stride, s);
+    case 1: return launch_windows<__nv_bfloat16>(x, Wre, Wim, out, n_chunks,
+                                                 g, n2, fb, scale, n_win,
+                                                 stride, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -168,10 +168,13 @@ __device__ __forceinline__ float u_at(const float* red, int i, int j,
 // Epi::kFold, epi.fold(c, red, nt, ntri, groups) runs with every thread
 // instead of both: it sums what it needs from the classes' partial tiles
 // itself (entry e of class q's tile ti at red[e * width + q * ntri + ti],
-// width = groups * ntri), so no further barrier is taken. With
-// WHOLE (whole_chunks holds; K1 only), each class takes whole chunks and
-// each tile goes to epi.tile(c, i0, j0, acc) from its thread's registers
-// instead. Every thread must call this.
+// width = groups * ntri), so no further barrier is taken. Where
+// Epi::kLead (kernel 9's window epilogue), the block's walk starts at
+// epi.lead(c0, unit), a unit boundary at or below its first chunk c0, and
+// the chunks before c0 reach epi.fold like the others (the epilogue
+// stores nothing from them). With WHOLE (whole_chunks holds; K1 only),
+// each class takes whole chunks and each tile goes to epi.tile(c, i0, j0,
+// acc) from its thread's registers instead. Every thread must call this.
 //
 // SRC (enum Src) says where the rows come from: SRC_ROWS, x's contiguous
 // rows of n2 values; SRC_PLANES, two planes x and xi of contiguous rows of
@@ -189,6 +192,7 @@ __device__ __forceinline__ void gram_mainloop(const T* __restrict__ x,
                                               const T* __restrict__ xi =
                                                   nullptr) {
   static_assert(!BF16 || std::is_same_v<T, float>, "f32 rows only");
+  static_assert(!(WHOLE && Epi::kLead), "a lead-in shares its chunks");
   const int tid = threadIdx.x;
   // bytes a row (of one plane, for planes)
   const int rb = (SRC == SRC_PLANES ? n2 / 2 : n2) * (int)sizeof(T);
@@ -198,13 +202,15 @@ __device__ __forceinline__ void gram_mainloop(const T* __restrict__ x,
   const long long c1 =
       min(units * (blockIdx.x + 1) / gridDim.x * unit, n_chunks);
   if (c0 >= c1) return;
+  long long cw = c0;                        // the walk's first chunk
+  if constexpr (Epi::kLead) cw = epi.lead(c0, unit);
   // planes: a stage's xi rows start one row past its x rows' room, so that
   // xi's column i lies in the banks of column n2/2 + i of one contiguous
   // row of Z (a stage's x rows span a multiple of 128 bytes)
   const int TS = SRC == SRC_PLANES ? ((STAGE_BYTES - rb) / (2 * rb)) & ~15
                                    : stage_rows(rb);
   const int half = SRC == SRC_PLANES ? (TS + 1) * rb : 0;
-  const long long R0 = c0 * g, R1 = c1 * g;
+  const long long R0 = cw * g, R1 = c1 * g;
   const int nst = (int)((R1 - R0 + TS - 1) / TS);
   const uintptr_t xb = reinterpret_cast<uintptr_t>(x);
   const int phase = (int)(xb & 15);                    // the same each stage
@@ -361,7 +367,7 @@ __device__ __forceinline__ void gram_mainloop(const T* __restrict__ x,
   // Otherwise the classes share each chunk: chunk c, the offset coff in it
   // of the stage's next row, and nxt, this thread's next row of chunk c
   // (offsets rg, rg + groups, ...)
-  long long c = c0;
+  long long c = cw;
   int coff = 0, nxt = rg;
   for (int k = 0; k < nst; ++k) {
     mbar_wait(smem_addr(full + k % STAGES), (uint32_t)((k / STAGES) & 1));

@@ -361,9 +361,11 @@ def kernel_forms(cfg, routes: dict) -> dict:
     forms:
 
     * K1 ("chunk_gram"), the epilogue its wrapper launches
-      (chunk_grams_uhat.by_epilogue): "embedded" where a window is one
-      chunk (overlap 0) and cov_embedded asks the stage for E, as
-      cov_embedded.gram_epilogue says of cov_dtype, else "gram";
+      (chunk_grams_uhat.by_epilogue) when cov_embedded asks it for the
+      windows' E, as cov_embedded.gram_epilogue says of cov_dtype, 2N and
+      the windows' chunks: "embedded" where a window is one chunk
+      (overlap 0), "windows" where windows overlap and kernel 9's window
+      entry takes the shapes, else "gram";
     * kernel 8 ("planes_chunk_gram"), in the form it takes on the two
       views of an interleaved complex64 capture (covariance.chunk_form of
       the "interleaved" layout): the planes a pipeline makes of its
@@ -379,8 +381,10 @@ def kernel_forms(cfg, routes: dict) -> dict:
     cfg = as_config(cfg)
     k2 = 2 * cfg.num_sources
     N = cfg.geometry.num_elements
-    forms = {"chunk_gram": gram_epilogue(cfg.cov_dtype)
-             if cfg.hop == cfg.snapshot_size else "gram",
+    g = math.gcd(cfg.snapshot_size, cfg.hop)
+    forms = {"chunk_gram": gram_epilogue(cfg.cov_dtype, 2 * N,
+                                         cfg.snapshot_size // g,
+                                         cfg.hop // g),
              "planes_chunk_gram": chunk_form(N, "interleaved"),
              "subspace_ns": ns_form(subspace_n2(cfg), k2)}
     if cfg.geometry.kind == "ura":

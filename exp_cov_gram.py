@@ -32,9 +32,16 @@ capture of 2^LOG2 samples (default 27, the benchmark's ULA cell: 131072
 windows) at 2N = 32: K1 at g = 1024 in f32, bf16 and int8, at g = 512
 and g = 8 in f32 on the first 2^24 samples; kernel 9 at g = 1024 with a
 correction, FB off (the cell's) and on, f32 and bf16, beside K1 followed
-by uhat_windows_to_embedded. Each time is the median over 15 rounds in
-which every variant runs 3 launches (CUDA events), the order reversed
-every other round.
+by uhat_windows_to_embedded; kernel 9's window entry at c4's shape on the
+first 2^24 samples (S = 1024, hop 512: g = 512, two chunks a window,
+32767 windows), FB off and on, beside K1 followed by window_sums and the
+torch fold (the route it replaces) and kernel 9's per-chunk entry
+followed by ordered_window_sums (its plain form on the card). The whole
+variants' window entries (those of a source that has one) are first held
+bit-equal to kernel 9's per-chunk entry summed in chunk order at g = 512
+(n_win 2, stride 1; n_win 4, stride 3). Each time is the median over 15
+rounds in which every variant runs 3 launches (CUDA events), the order
+reversed every other round.
 """
 
 import argparse
@@ -197,7 +204,8 @@ def build(tmp, name, src):
     lib.ptxas = ptxas_summary(proc.stdout + proc.stderr)
     lib.sass = sass(so)
     for fn, argtypes in ce._SIG.items():
-        getattr(lib, fn).argtypes = argtypes
+        if hasattr(lib, fn):             # an older source may lack one
+            getattr(lib, fn).argtypes = argtypes
     return lib
 
 
@@ -211,15 +219,51 @@ def gram(lib, x, g):
     return out
 
 
-def embedded(lib, x, g, W, fb):
+def embedded(lib, x, g, W, fb, scale=None):
     n, n2 = x.shape[0] // g, x.shape[1]
     out = torch.empty((n, n2, n2), device=x.device)
     err = lib.doa_chunk_embedded(
         x.data_ptr(), W[0].data_ptr(), W[1].data_ptr(), out.data_ptr(), n,
-        g, n2, CODE[x.dtype], int(fb), 1.0 / g,
+        g, n2, CODE[x.dtype], int(fb), 1.0 / g if scale is None else scale,
         torch.cuda.current_stream().cuda_stream)
     _build.check(err, "doa_chunk_embedded")
     return out
+
+
+def windows(lib, x, g, W, fb, win):
+    """Kernel 9's window entry: win = (B, n_win, stride) windows of n_win
+    chunks of g rows, stride chunks apart, scale 1/(n_win·g)."""
+    B, n_win, stride = win
+    n, n2 = (B - 1) * stride + n_win, x.shape[1]
+    out = torch.empty((B, n2, n2), device=x.device)
+    err = lib.doa_chunk_windows(
+        x.data_ptr(), W[0].data_ptr(), W[1].data_ptr(), out.data_ptr(), n,
+        g, n2, CODE[x.dtype], int(fb), 1.0 / (n_win * g), n_win, stride,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "doa_chunk_windows")
+    return out
+
+
+def chunks_then_sum(lib, x, g, W, fb, win):
+    """Kernel 9's per-chunk entry, then ordered_window_sums: the window
+    entry's plain form on the card."""
+    from doa_tpu_torch.ops.cuda import cov_embedded as ce
+
+    B, n_win, stride = win
+    n = (B - 1) * stride + n_win
+    return ce.ordered_window_sums(
+        embedded(lib, x[:n * g], g, W, fb, 1.0 / (n_win * g)), *win)
+
+
+def gram_then_window_sums(lib, x, g, W, fb, win):
+    """K1, window_sums' prefix sums, then the torch fold: the stacked
+    route where windows overlap before the window entry."""
+    from doa_tpu_torch.ops.cuda import cov_embedded as ce
+
+    n2 = x.shape[1]
+    return ce.uhat_windows_to_embedded(
+        ce.window_sums(gram(lib, x, g), *win), n2 // 2,
+        1.0 / (win[1] * g), W, fb)
 
 
 def gram_then_fold(lib, x, g, W, fb):
@@ -322,6 +366,25 @@ def main():
                         if not torch.equal(a, b):
                             sys.exit(f"{name}: kernel 9 at 2N={n2} {dt} "
                                      f"fb={fb} is not K1 + the fold")
+            if not hasattr(lib, "doa_chunk_windows"):
+                continue
+            xr = torch.randn((3001 * 512 + 9, 32), generator=gen,
+                             device=dev)
+            c = torch.polar(1.0 + 0.1 * torch.randn(16, generator=gen,
+                                                    device=dev),
+                            0.3 * torch.randn(16, generator=gen, device=dev))
+            Wc = ce.correction_pattern(c.real.contiguous(),
+                                       c.imag.contiguous())
+            for win in ((3000, 2, 1), (999, 4, 3)):
+                for dt in (torch.float32, torch.bfloat16):
+                    for fb in (False, True):
+                        a = windows(lib, xr.to(dt), 512, Wc, fb, win)
+                        b = chunks_then_sum(lib, xr.to(dt), 512, Wc, fb, win)
+                        if not torch.equal(a.view(torch.int32),
+                                           b.view(torch.int32)):
+                            sys.exit(f"{name}: kernel 9's window entry "
+                                     f"{win} {dt} fb={fb} is not its "
+                                     f"chunks' E summed in order")
         x = cs.make_scene(torch, 1 << args.T, 16, dev)
         c = torch.polar(torch.ones(16, device=dev),
                         torch.linspace(-0.3, 0.3, 16, device=dev))
@@ -364,6 +427,21 @@ def main():
                                     T * n2 * (n2 + 1))["bound_ms"]
             res[f"kernel 9 {tag}"] = row
             del xk
+        # kernel 9's window entry at c4's shape on the first 2^24 samples
+        win = ((head.shape[0] - 1024) // 512 + 1, 2, 1)
+        for tag, fb in (("f32", False), ("f32 FB", True)):
+            fns = {n: (lambda lib=lib: windows(lib, head, 512, W, fb, win))
+                   for n, lib in libs.items()
+                   if hasattr(lib, "doa_chunk_windows")}
+            fns["K1 + window_sums + torch fold"] = (
+                lambda: gram_then_window_sums(k1, head, 512, W, fb, win))
+            fns["kernel 9 + ordered_window_sums"] = (
+                lambda: chunks_then_sum(k1, head, 512, W, fb, win))
+            row = dict(zip(fns, rounds_ms(fns.values())))
+            T, n2 = head.shape
+            row["bound"] = cs.bound(cs.nbytes(head) + win[0] * n2 * n2 * 4,
+                                    T * n2 * (n2 + 1))["bound_ms"]
+            res[f"kernel 9 windows g=512 {tag}"] = row
     for tag, row in res.items():
         print(f"{tag}: " + ", ".join(f"{n} {t:.4f} ms" for n, t in
                                      row.items()) + f"  [{card}]")

@@ -362,29 +362,32 @@ def test_timing_experiment_patches_the_kernel_source(variant):
 
 
 class _Spy:
-    """A stage kernel that records each call's embed= and runs the plain
-    version."""
+    """A stage kernel that records each call's embed= and windows= and
+    runs the plain version."""
 
     def __init__(self):
-        self.embeds = []
+        self.calls = []
 
-    def __call__(self, x, g, embed=None):
-        self.embeds.append(embed)
-        return ce.chunk_grams_uhat_plain(x, g, embed)
+    def __call__(self, x, g, embed=None, windows=None):
+        self.calls.append((embed, windows))
+        return ce.chunk_grams_uhat_plain(x, g, embed, windows)
 
 
 @pytest.mark.parametrize("overlap,dtype,embedded", [
     (0, "float32", True), (0, "bfloat16", True), (128, "float32", False),
     (100, "bfloat16", False), (0, "int8", False), (128, "int8", False)])
-def test_stacked_variant_asks_the_stage_for_E_where_windows_are_chunks(
+def test_stacked_variant_asks_the_stage_for_E_of_its_windows(
         overlap, dtype, embedded):
-    """Overlap 0 (g = S: a window is a chunk) calls the stage with
-    embed = (N, 1/S, W, fb) and returns its E as it is; any overlap calls
-    it without and folds the windows in torch as before. On the card the
-    stage takes kernel 9's epilogue for a float32 or bfloat16 capture and
-    K1 + the torch fold for int8, the route int8 had (gram_epilogue). Both
-    give the same E as the windowed route on the same Grams, bit for
-    bit."""
+    """The stacked variant calls its stage once with embed = (N, 1/S, W,
+    fb) at every overlap, with windows = (B, n_win, stride) where a window
+    spans chunks (overlap > 0), and returns its E as it is. On the card
+    the stage takes the epilogue gram_epilogue names: kernel 9's entry
+    ("embedded", the third parameter) where a window is one chunk and the
+    rows are float32 or bfloat16; kernel 9's window entry ("windows")
+    where windows overlap and it takes the shapes (float32 at overlap 128,
+    g = 128; bfloat16 at overlap 100, g = 4); else K1, the prefix-sum
+    windows and the torch fold ("gram": int8, the route int8 had). E is
+    that route's plain version, bit for bit."""
     N = 16
     xil = torch.from_numpy(_capture(N).view(np.float32))
     cr, ci = (torch.from_numpy(p) for p in _correction(N, seed=6))
@@ -392,23 +395,108 @@ def test_stacked_variant_asks_the_stage_for_E_where_windows_are_chunks(
     spy = _Spy()
     E = ce.cov_embedded(x, cr, ci, N=N, snapshot_size=S, overlap=overlap,
                         fb=True, compute_dtype=dtype, kernel=spy)
-    assert len(spy.embeds) == 1
-    embed = spy.embeds[0]
-    assert (embed is not None) == (overlap == 0)
-    assert (overlap == 0 and ce.gram_epilogue(dtype) == "embedded"
-            ) == embedded
-    if embed is not None:
-        assert embed[0] == N and embed[1] == 1.0 / S and embed[3] is True
-        for w, want in zip(embed[2], ce.correction_pattern(cr, ci)):
-            assert torch.equal(w, want)
-    g = math.gcd(S, S - overlap)
-    xd = x if dtype == "int8" else x.to(ce._DTYPES[dtype])
-    U = ce.chunk_grams_uhat_plain(xd.reshape(-1, 2 * N), g)
-    B = (xd.shape[0] - S) // (S - overlap) + 1
-    ref = ce.uhat_windows_to_embedded(
-        ce.window_sums(U, B, S // g, (S - overlap) // g), N, 1.0 / S,
-        ce.correction_pattern(cr, ci), True)
-    assert torch.equal(E, ref)
+    assert len(spy.calls) == 1
+    embed, windows = spy.calls[0]
+    W = ce.correction_pattern(cr, ci)
+    assert embed[0] == N and embed[1] == 1.0 / S and embed[3] is True
+    for w, want in zip(embed[2], W):
+        assert torch.equal(w, want)
+    hop = S - overlap
+    g = math.gcd(S, hop)
+    B = (x.shape[0] - S) // hop + 1
+    assert windows == (None if overlap == 0 else (B, S // g, hop // g))
+    epilogue = ce.gram_epilogue(dtype, 2 * N, S // g, hop // g)
+    assert (epilogue == "embedded") == embedded
+    assert (epilogue == "windows") == (overlap > 0 and dtype != "int8")
+    xd = (x if dtype == "int8" else x.to(ce._DTYPES[dtype])).reshape(-1,
+                                                                     2 * N)
+    if epilogue == "windows":
+        ref = ce.chunk_windows_plain(xd, g, N, 1.0 / S, W, True, windows)
+    else:
+        U = ce.chunk_grams_uhat_plain(xd, g)
+        ref = ce.uhat_windows_to_embedded(
+            ce.window_sums(U, B, S // g, hop // g), N, 1.0 / S, W, True)
+    assert torch.equal(E.view(torch.int32), ref.view(torch.int32))
+
+
+def _ordered_sums(E, B, n_win, stride):
+    """Each window's E summed chunk by chunk in order, entry by entry:
+    window w = ((E[w·stride] + E[w·stride + 1]) + …); the −Ri block the
+    negated sum of the Ri block."""
+    N = E.shape[-1] // 2
+    out = []
+    for w in range(B):
+        acc = E[w * stride].clone()
+        for k in range(1, n_win):
+            acc = acc + E[w * stride + k]
+        acc[:N, N:] = -acc[N:, :N]
+        out.append(acc)
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("fb", [False, True])
+@pytest.mark.parametrize("overlap", [128, 192, 100])
+def test_plain_window_route_is_kernel_9s_chunks_summed_in_order(overlap, fb):
+    """Kernel 9's window entry's plain version (chunk_windows_plain) is
+    chunk_embedded_plain followed by the ordered window sum, bit for bit,
+    at n_win 2, 4 and 64 (stride 39, overlap 100), FB off and on, with a
+    correction; and the plain stage asked for E with windows takes it, as
+    gram_epilogue names the window entry at each of these overlaps (at
+    100, g = 4, K1's whole-chunk shape, too)."""
+    N = 16
+    hop = S - overlap
+    g = math.gcd(S, hop)
+    n_win, stride = S // g, hop // g
+    xil = torch.from_numpy(_capture(N, T=12 * S + 37).view(np.float32))
+    B = (xil.shape[0] - S) // hop + 1
+    cr, ci = (torch.from_numpy(p) for p in _correction(N, seed=11))
+    W = ce.correction_pattern(cr, ci)
+    got = ce.chunk_windows_plain(xil, g, N, 1.0 / S, W, fb,
+                                 (B, n_win, stride))
+    n = (B - 1) * stride + n_win
+    want = _ordered_sums(ce.chunk_embedded_plain(xil[:n * g], g, N, 1.0 / S,
+                                                 W, fb), B, n_win, stride)
+    assert got.shape == (B, 2 * N, 2 * N)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert ce.gram_epilogue(torch.float32, 2 * N, n_win, stride) == "windows"
+    stage = ce.chunk_grams_uhat(xil, g, (N, 1.0 / S, W, fb),
+                                (B, n_win, stride))
+    assert torch.equal(stage.view(torch.int32), got.view(torch.int32))
+
+
+def test_ordered_window_sums_drift_less_than_prefix_sums():
+    """Over 4,095 chunks (S = 128, hop 64: n_win 2) of a capture with a
+    strong common tone, each window's E as the ordered sum of its chunks'
+    E (the window route) lies closer to a float64 sum than the prefix-sum
+    route's (K1's Grams, window_sums, the fold), whose FP32 prefix sums
+    grow with the chunk index."""
+    N, S2, hop = 8, 128, 64
+    g = math.gcd(S2, hop)
+    rng = np.random.default_rng(31)
+    T = 4096 * g
+    t = np.arange(T)
+    tone = 30.0 * np.exp(2j * np.pi * (0.01 * t[:, None]
+                                       + 0.2 * np.arange(N)[None, :]))
+    noise = rng.standard_normal((T, N)) + 1j * rng.standard_normal((T, N))
+    x = torch.from_numpy((tone + noise).astype(np.complex64)
+                         .view(np.float32).reshape(T, 2 * N))
+    cr, ci = (torch.from_numpy(p) for p in _correction(N, seed=12))
+    W = ce.correction_pattern(cr, ci)
+    B = (T - S2) // hop + 1
+    windows = (B, S2 // g, hop // g)
+    ordered = ce.chunk_windows_plain(x, g, N, 1.0 / S2, W, False, windows)
+    U = ce.chunk_grams_uhat_plain(x, g)
+    prefix = ce.uhat_windows_to_embedded(ce.window_sums(U, *windows), N,
+                                         1.0 / S2, W, False)
+    xd = x.to(torch.float64).reshape(-1, g, 2 * N)
+    U64 = torch.bmm(xd.transpose(1, 2), xd)
+    E64 = ce.uhat_windows_to_embedded(
+        ce.window_sums(U64, *windows), N, 1.0 / S2,
+        [w.to(torch.float64) for w in W], False)
+    err_ordered = (ordered.double() - E64).abs().max().item()
+    err_prefix = (prefix.double() - E64).abs().max().item()
+    assert err_ordered < err_prefix, (err_ordered, err_prefix)
+    assert err_ordered < 1e-5 * E64.abs().max().item()
 
 
 def test_plain_stage_with_embed_is_kernel_9s_plain_version():
@@ -433,7 +521,8 @@ def test_plain_stage_with_embed_is_kernel_9s_plain_version():
                                                           fb)), want)
     assert ce.chunk_grams_uhat.launches == launches
     assert ce.chunk_grams_uhat.by_epilogue == by
-    assert set(by) == set(ce.EPILOGUES) == {"gram", "embedded"}
+    assert set(by) == set(ce.EPILOGUES) == {"gram", "embedded",
+                                            "windows"}
 
 
 def test_halved_samples_on_the_plain_stage_change_E_at_the_ulas_shape():

@@ -1,6 +1,8 @@
 """On the card: the covariance stage's embedded epilogue (kernel 9's entry
 in K1's place where a window is one chunk) against K1 followed by the
-torch fold, bit for bit, and kernel 9's other uses. Every test skips
+torch fold, bit for bit, its window epilogue (kernel 9's window entry
+where windows overlap) against kernel 9's per-chunk E summed in chunk
+order, bit for bit, and kernel 9's other uses. Every test skips
 without an NVIDIA GPU. This file imports no JAX, so it runs on a machine
 with the card and without JAX, from the repository root:
 
@@ -8,6 +10,7 @@ with the card and without JAX, from the repository root:
         tests/test_torch_cov_embedded_card.py
 """
 
+import math
 import os
 import re
 
@@ -39,12 +42,12 @@ def k1_takes_whole_chunks(n2, g, itemsize):
 
 
 COV_GRAM_KERNELS = ("chunk_gram_kernel", "chunk_embedded_kernel",
-                    "fold_kernel")             # csrc/cov_gram.cu's
+                    "chunk_windows_kernel", "fold_kernel")  # cov_gram.cu's
 
 
-def card_kernels(fn):
+def card_kernels(fn, every=False):
     """fn() → (its result, {kernel name: launches} of csrc/cov_gram.cu's
-    kernels on the card)."""
+    kernels on the card, or of every kernel with every=True)."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         out = fn()
@@ -55,7 +58,7 @@ def card_kernels(fn):
             n = e.name.replace("(anonymous namespace)::", "")
             n = re.split(r"[<(]", n.removeprefix("void "), maxsplit=1)[0]
             n = n.split("::")[-1].strip()
-            if n in COV_GRAM_KERNELS:
+            if every or n in COV_GRAM_KERNELS:
                 names[n] = names.get(n, 0) + 1
     return out, names
 
@@ -103,7 +106,8 @@ def test_route_E_is_k1_then_the_fold(dev, n2, dtype, fb, S):
         x, cr, ci, N=N, snapshot_size=S, fb=fb, compute_dtype=dtype))
     assert ce.gram_epilogue(dt) == "embedded"
     assert ce.chunk_grams_uhat.by_epilogue == {
-        "gram": by["gram"], "embedded": by["embedded"] + 1}
+        "gram": by["gram"], "embedded": by["embedded"] + 1,
+        "windows": by["windows"]}
     assert (ce.chunk_grams_uhat.launches, ce.chunk_embedded.launches) == (
         k1, k9 + 1)
     if k1_takes_whole_chunks(n2, S, dt.itemsize):
@@ -164,7 +168,145 @@ def test_the_headline_launches_the_embedded_epilogue_once(dev):
     k1, k9 = ce.chunk_grams_uhat.launches, ce.chunk_embedded.launches
     _, ran = card_kernels(lambda: call.interleaved(x))
     assert ce.chunk_grams_uhat.by_epilogue == {
-        "gram": by["gram"], "embedded": by["embedded"] + 1}
+        "gram": by["gram"], "embedded": by["embedded"] + 1,
+        "windows": by["windows"]}
     assert (ce.chunk_grams_uhat.launches, ce.chunk_embedded.launches) == (
         k1, k9 + 1)
     assert ran == {"chunk_embedded_kernel": 1}, ran
+
+
+def _ordered(E, windows):
+    return ce.ordered_window_sums(E, *windows)
+
+
+@pytest.mark.parametrize("fb", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ["c4", "ragged n_win 4", "ragged stride 3"])
+def test_window_entry_is_kernel_9s_chunks_summed_in_order(dev, shape,
+                                                          dtype, fb):
+    """Kernel 9's window entry (the stage with embed and windows, where
+    gram_epilogue names "windows") gives each window's E bit for bit as
+    kernel 9's per-chunk entry followed by the ordered torch sum
+    (ordered_window_sums), with a correction, FB off and on: at c4's shape
+    (2^24 samples, S = 1024, hop 512: g = 512, n_win 2) and on chunk
+    counts that split unevenly over the persistent grid (S = 1024, hop
+    256: n_win 4, stride 1; hop 768: n_win 4, stride 3). One launch of
+    its kernel, counted by chunk_embedded.launches and by_epilogue
+    "windows"; K1 does not run, and cov_embedded at that overlap launches
+    the window entry alone, with the same E."""
+    S, hop, T = {"c4": (1024, 512, 1 << 24),
+                 "ragged n_win 4": (1024, 256, 5003 * 256 + 77),
+                 "ragged stride 3": (1024, 768, 4001 * 256 + 5)}[shape]
+    N = 16
+    g = math.gcd(S, hop)
+    n_win, stride = S // g, hop // g
+    B = (T - S) // hop + 1
+    windows = (B, n_win, stride)
+    assert ce.gram_epilogue(dtype, 2 * N, n_win, stride) == "windows"
+    assert not k1_takes_whole_chunks(2 * N, g, dtype.itemsize)
+    gen = torch.Generator(device=dev).manual_seed(T + fb)
+    x = torch.randn((T, 2 * N), generator=gen, device=dev).to(dtype)
+    cr_ci = _correction(N, dev, 7)
+    W = ce.correction_pattern(*cr_ci)
+    embed = (N, 1.0 / S, W, fb)
+    by = dict(ce.chunk_grams_uhat.by_epilogue)
+    k1, k9 = ce.chunk_grams_uhat.launches, ce.chunk_embedded.launches
+    E = ce.chunk_grams_uhat(x, g, embed, windows)
+    assert ce.chunk_grams_uhat.by_epilogue == {
+        "gram": by["gram"], "embedded": by["embedded"],
+        "windows": by["windows"] + 1}
+    assert (ce.chunk_grams_uhat.launches, ce.chunk_embedded.launches) == (
+        k1, k9 + 1)
+    n = (B - 1) * stride + n_win
+    ref = _ordered(ce.chunk_embedded(x[:n * g], g, N, 1.0 / S, W, fb),
+                   windows)
+    assert E.shape == ref.shape == (B, 2 * N, 2 * N)
+    assert torch.equal(_bits(E), _bits(ref))
+    # the stacked variant at this overlap: the window entry alone
+    Es, ran = card_kernels(lambda: ce.cov_embedded(
+        x, *cr_ci, N=N, snapshot_size=S, overlap=S - hop, fb=fb,
+        compute_dtype=dtype))
+    assert ran == {"chunk_windows_kernel": 1}, ran
+    assert torch.equal(_bits(Es), _bits(E))
+
+
+@pytest.mark.parametrize("fb", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_entry_takes_k1s_whole_chunk_shapes(dev, dtype, fb):
+    """At a g where K1 takes whole chunks (S = 256, overlap 100: g = 4,
+    n_win 64, stride 39) the window entry still shares each chunk over its
+    classes: the stage launches it once (chunk_embedded.launches,
+    by_epilogue "windows"; K1 never), cov_embedded at that overlap runs
+    its kernel alone with the same E, and each window lies within
+    1e-5·max|E| of the plain version (chunk_windows_plain) and of kernel
+    9's per-chunk E summed in order (K1's whole-chunk form adds a chunk's
+    rows in another order, so not bit for bit). The profiler is read on
+    cov_embedded's call, whose torch ops surround the launch: on a region
+    holding the ctypes launch alone it missed the kernel in most tries
+    (H100, torch's CUPTI tracing)."""
+    S, hop, N = 256, 156, 16
+    g = math.gcd(S, hop)
+    n_win, stride = S // g, hop // g
+    T = 4000 * hop + 91
+    B = (T - S) // hop + 1
+    windows = (B, n_win, stride)
+    assert k1_takes_whole_chunks(2 * N, g, dtype.itemsize)
+    assert ce.gram_epilogue(dtype, 2 * N, n_win, stride) == "windows"
+    gen = torch.Generator(device=dev).manual_seed(T + fb)
+    x = torch.randn((T, 2 * N), generator=gen, device=dev).to(dtype)
+    cr_ci = _correction(N, dev, 8)
+    W = ce.correction_pattern(*cr_ci)
+    embed = (N, 1.0 / S, W, fb)
+    by = dict(ce.chunk_grams_uhat.by_epilogue)
+    k1, k9 = ce.chunk_grams_uhat.launches, ce.chunk_embedded.launches
+    E = ce.chunk_grams_uhat(x, g, embed, windows)
+    assert ce.chunk_grams_uhat.by_epilogue == dict(
+        by, windows=by["windows"] + 1)
+    assert (ce.chunk_grams_uhat.launches, ce.chunk_embedded.launches) == (
+        k1, k9 + 1)
+    Es, ran = card_kernels(lambda: ce.cov_embedded(
+        x, *cr_ci, N=N, snapshot_size=S, overlap=S - hop, fb=fb,
+        compute_dtype=dtype))
+    assert ran == {"chunk_windows_kernel": 1}, ran
+    assert torch.equal(_bits(Es), _bits(E))
+    n = (B - 1) * stride + n_win
+    plain = ce.chunk_windows_plain(x, g, *embed, windows)
+    summed = _ordered(ce.chunk_embedded(x[:n * g], g, *embed), windows)
+    scale = plain.abs().max().item()
+    for ref in (plain, summed):
+        assert (E - ref).abs().max().item() <= 1e-5 * scale
+
+
+def test_the_hop512_call_launches_the_window_entry_once(dev):
+    """A fused call at hop 512 (c4: ULA-16, S = 1024, overlap 512, the
+    benchmark's hop512 traffic): the plan names the "windows" epilogue,
+    the covariance stage launches kernel 9's window entry once and K1 not
+    at all, and no prefix sum (torch.cumsum's scan_outer_dim kernel) runs
+    in the call; at hop 1024 the same array keeps kernel 9's "embedded"
+    entry."""
+    import dataclasses
+
+    from doa_tpu_torch import PRESETS
+    from doa_tpu_torch.pipeline_torch import build_pipeline_torch
+
+    c4 = PRESETS["c4_ula16_streaming"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((256 * 1024, 32), generator=gen, device=dev)
+    for cfg, form, kernel in (
+            (c4, "windows", "chunk_windows_kernel"),
+            (dataclasses.replace(c4, overlap=0), "embedded",
+             "chunk_embedded_kernel")):
+        call = build_pipeline_torch(cfg, device=dev, return_spectra=False)
+        assert call.plan.forms["covariance"] == form
+        call.interleaved(x)
+        torch.cuda.synchronize()
+        by = dict(ce.chunk_grams_uhat.by_epilogue)
+        k1, k9 = ce.chunk_grams_uhat.launches, ce.chunk_embedded.launches
+        _, ran = card_kernels(lambda: call.interleaved(x), every=True)
+        assert ce.chunk_grams_uhat.by_epilogue == dict(
+            by, **{form: by[form] + 1})
+        assert (ce.chunk_grams_uhat.launches,
+                ce.chunk_embedded.launches) == (k1, k9 + 1)
+        assert ran.get(kernel) == 1, ran
+        assert not {"chunk_gram_kernel", "fold_kernel"} & set(ran), ran
+        assert not [n for n in ran if "scan_outer_dim" in n], ran

@@ -290,3 +290,144 @@ def test_gram_epilogue_names_kernel_9_for_float_rows_at_every_g(n2, g, dtype,
     entry follows K1 there: test_the_model_reads_the_kernel_source); int8
     keeps K1."""
     assert ce.gram_epilogue(dtype) == want
+
+
+# ---------------------------------------------------------------------
+# kernel 9's window entry (WindowsEpi): the blocks' walks and who stores
+# each window
+# ---------------------------------------------------------------------
+
+def _source(name):
+    with open(os.path.join(_build.CSRC, name)) as f:
+        return f.read()
+
+
+def window_walk(n_chunks, unit, grid, n_win, stride, wmax):
+    """gram_mainloop's block ranges and WindowsEpi's lead() and fold(),
+    block by block → ({window: (block, its chunks in the order summed)},
+    {block: the lead chunks it folded}). A window whose first chunk lies
+    before a block's walk starts holds None there (its sum is partial)."""
+    units = -(-n_chunks // unit)
+    stored, leads = {}, {}
+    for b in range(grid):
+        c0 = units * b // grid * unit
+        c1 = min(units * (b + 1) // grid * unit, n_chunks)
+        if c0 >= c1:
+            continue
+        d = c0 - (n_win - 1)
+        cw = 0 if d <= 0 else d // unit * unit
+        own = c0
+        e = cw - (n_win - 1)
+        wb = 0 if e <= 0 else (e + stride - 1) // stride
+        win = [None] * wmax
+        leads[b] = list(range(cw, c0))
+        for c in range(cw, c1):
+            holding = {w for w in range(c // stride + 1)
+                       if w * stride <= c < w * stride + n_win}
+            assert holding <= set(range(wb, wb + wmax)), (c, wb, holding)
+            for k in range(wmax):
+                w0 = (wb + k) * stride
+                if c < w0 or c >= w0 + n_win:
+                    continue
+                win[k] = [c] if c == w0 else (
+                    None if win[k] is None else win[k] + [c])
+                if c == w0 + n_win - 1 and c >= own:
+                    assert wb + k not in stored, "a window stored twice"
+                    stored[wb + k] = (b, win[k])
+            if c == wb * stride + n_win - 1:
+                win = win[1:] + [None]
+                wb += 1
+    return stored, leads
+
+
+@pytest.mark.parametrize("unit", [1, 2, 4])
+@pytest.mark.parametrize("n_win,stride", [(2, 1), (4, 1), (4, 3), (3, 2)])
+def test_each_window_is_stored_once_by_the_block_holding_its_last_chunk(
+        n_win, stride, unit):
+    """Over ragged persistent grids (chunk counts no multiple of the
+    blocks, blocks with no chunk, unit-aligned starts): every window is
+    stored exactly once, by the block whose range holds its last chunk,
+    as the sum of its own chunks in chunk order; a block's lead chunks
+    (from the unit at or below c0 - (n_win - 1)) are folded and no window
+    is stored as one of them ends; a lane never holds more than
+    ceil(n_win / stride) open windows."""
+    wmax = ce.WINDOWS_WMAX
+    assert -(-n_win // stride) <= wmax
+    for n_chunks in (n_win, 37, 100, 257):
+        for grid in (1, 3, 7, 16, 64):
+            stored, leads = window_walk(n_chunks, unit, grid, n_win, stride,
+                                        wmax)
+            B = (n_chunks - n_win) // stride + 1
+            assert sorted(stored) == list(range(B))
+            units = -(-n_chunks // unit)
+            for w, (b, chunks) in stored.items():
+                last = w * stride + n_win - 1
+                c0 = units * b // grid * unit
+                c1 = min(units * (b + 1) // grid * unit, n_chunks)
+                assert c0 <= last < c1
+                assert chunks == list(range(w * stride, last + 1))
+            for b, lead in leads.items():
+                ends = {w * stride + n_win - 1 for w, (ob, _) in
+                        stored.items() if ob == b}
+                assert not ends & set(lead)
+                assert len(lead) < n_win - 1 + unit
+
+
+def test_the_window_walk_reads_the_kernel_source():
+    """The lines window_walk mirrors are in csrc/cov_gram.cu (lead(),
+    fold()'s window test, store and shift) and csrc/gram_ring.cuh (the
+    block's range and the walk's start, compiled only where the epilogue
+    asks: Epi::kLead), the window entry takes every g (no whole_chunks
+    test), and the Python rule's WINDOWS_WMAX and WINDOWS_N2_MAX are the
+    kernel's WMAX and the widths of K1 whose items fit one a lane."""
+    src = _source("cov_gram.cu")
+    for line in ("const long long cw = d <= 0 ? 0 : d / unit * unit;",
+                 "wb = cw - (n_win - 1) <= 0 ? 0 : (cw - (n_win - 1) + "
+                 "stride - 1) / stride;",
+                 "if (c < w0 || c >= w0 + n_win) continue;",
+                 "win[k][q] = c == w0 ? v[q] : __fadd_rn(win[k][q], v[q]);",
+                 "if (c == w0 + n_win - 1 && c >= own && it.mine)",
+                 "if (c == wb * stride + n_win - 1) {",
+                 "static constexpr bool kLead = true;"):
+        assert src.count(line) == 1, line
+    ring = _source("gram_ring.cuh")
+    for line in ("const long long c0 = units * blockIdx.x / gridDim.x * unit;",
+                 "if constexpr (Epi::kLead) cw = epi.lead(c0, unit);",
+                 "const long long R0 = cw * g, R1 = c1 * g;",
+                 "long long c = cw;"):
+        assert ring.count(line) == 1, line
+    assert f"constexpr int WMAX = {ce.WINDOWS_WMAX};" in src
+    kw = src[src.index("int launch_windows("):]
+    assert "whole_chunks" not in kw[:kw.index("\n}\n")]
+    for n2 in range(2, 65, 2):
+        if ce.gram_takes(n2):
+            assert (len(slots(n2 // 2)) <= THREADS) == (
+                n2 <= ce.WINDOWS_N2_MAX), n2
+
+
+@pytest.mark.parametrize("n2,S,overlap,dtype,want", [
+    (32, 1024, 512, torch.float32, "windows"),      # c4: g = 512, n_win 2
+    (32, 1024, 512, torch.bfloat16, "windows"),
+    (32, 1024, 512, torch.int8, "gram"),            # int8: K1's route
+    (32, 1024, 768, torch.float32, "windows"),      # n_win 4, stride 1
+    (32, 1024, 800, torch.float32, "gram"),         # 5 windows a chunk
+    (32, 256, 100, torch.float32, "windows"),       # g = 4, K1's whole chunks
+    (32, 256, 192, torch.bfloat16, "windows"),      # g = 64, K1's whole chunks
+    (32, 256, 192, torch.int8, "gram"),
+    (16, 256, 128, torch.float32, "windows"),
+    (40, 1024, 512, torch.float32, "windows"),      # 220 items <= 256
+    (44, 1024, 512, torch.float32, "gram"),         # 264 items: two a lane
+    (64, 1024, 512, torch.float32, "gram"),
+    (32, 1024, 0, torch.float32, "embedded"),       # a window is a chunk
+    (32, 1024, 0, torch.int8, "gram")])
+def test_gram_epilogue_names_the_window_entry_where_it_takes_the_shapes(
+        n2, S, overlap, dtype, want):
+    """gram_epilogue names kernel 9's window entry for float rows where
+    windows overlap, a lane holds one item (2N <= 40 of K1's widths) and a
+    chunk lies in at most WMAX windows, at every g (K1's whole-chunk
+    shapes too); int8 and the other shapes keep K1's route ("gram"), and
+    overlap 0 kernel 9's entry."""
+    import math
+    hop = S - overlap
+    g = math.gcd(S, hop)
+    assert ce.gram_epilogue(dtype, n2, S // g, hop // g) == want

@@ -388,15 +388,16 @@ def test_plain_stage_shapes_match_reference(N, thetas, spectra):
 
 @pytest.mark.parametrize("name,form", [
     ("c1_ula4_tone", "embedded"), ("c2_ula8_2src", "embedded"),
-    ("c4_ula16_streaming", "gram"), ("fast_bf16", "embedded"),
+    ("c4_ula16_streaming", "windows"), ("fast_bf16", "embedded"),
     ("fast_int8", "gram")])
 def test_the_covariance_stage_keeps_its_name_and_names_its_epilogue(name,
                                                                      form):
     """The fused route's covariance stage is K1's "chunk_gram" on one card
     and sharded, whichever epilogue it launches; the plan's form names the
     epilogue (chunk_grams_uhat.by_epilogue): kernel 9's "embedded" where a
-    window is one chunk and the capture is float32 or bfloat16, K1's
-    "gram" with overlap (c4) or int8 ingest. On the CPU no form is named."""
+    window is one chunk and the capture is float32 or bfloat16, its
+    "windows" entry where windows overlap (c4: g = 512, two chunks a
+    window), K1's "gram" for int8 ingest. On the CPU no form is named."""
     cfg = PRESETS[name]
     routes = kernel_routes(cfg)
     assert routes["covariance"][0] == "chunk_gram"
