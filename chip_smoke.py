@@ -72,15 +72,16 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    version's errors against float64 on 64 windows (logged).
 7. the c5 path: PRESETS["c5_ura64_wideband"] at B = 2048 windows
    (T = 2^21 samples) through build_pipeline_torch(...).interleaved;
-   launch counts reset before and read after (kernel 6's launches all of
-   the form `call.plan.forms["peaks"]` names, as on every path below that
-   runs it: `peaks_forms`); the median pair-sorted
+   its launches counted in a `counting()` block of the port's launch
+   registry (kernel 6's launches all of the form `call.plan.forms["peaks"]`
+   names, as on every path below that runs it: `peaks_forms`); the
+   median pair-sorted
    az/el within 0.5 deg of the planted (-20, 30), (35, 60); the median
    call time, per-layer times and a profile window; then the card's
    pipeline against the same pipeline on the CPU on 32 windows.
 8. planes-path kernel parity: kernel 8 (chunk Grams of sample planes, f32
-   and bf16) in each of its forms (`form_of` reads the form of each
-   launch from the wrapper's by_form counts): the ring form on the
+   and bf16) in each of its forms (`one_launch` reads the form of each
+   launch from the port's launch registry): the ring form on the
    stride-2 views of a complex64 capture (also 8 bytes off a 16-byte
    boundary) and on separate planes (4 | N), the staged form on rows
    padded by one element, every third value and separate planes at odd
@@ -131,7 +132,7 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    library call (one batched torch.matmul of the subband Grams; kernel 10
    likewise), the frames launch beside the composition, its plain version
    and the channelizer matmul alone.
-11. the paths at full width, each driven once with counts from zero, then
+11. the paths at full width, each driven once with its launches counted, then
    20 timed calls and a profile window: c5_f12 (c5 at S=768, 12 subbands:
    the ring kernel once on the frames, no channelizer call, kernel 7's
    stream entry not launched; incoherent fusion; 2048 windows, median
@@ -203,7 +204,7 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    K4, K3, K2, 5, 4, 7, the frames launch, kernel 11 and its warp form)
    still raises on a CUDA tensor of a shape it does not take.
 16. the grid-free and projector estimators, each configuration driven
-   once with counts from zero (its plan's kernels launched, no other),
+   once with its launches counted (its plan's kernels launched, no other),
    its peak allocation, the median of 10 calls, a profile window, each
    estimator's own time and the card against the CPU on 64 windows
    (sorted angles within 1e-3 deg narrowband, 5e-3 deg wideband): the
@@ -219,7 +220,7 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    (kernel 4, R_coh, cold K4, K3, kernel 6; 2-D ESPRIT on R_coh; 2048
    windows), MUSIC's and ESPRIT's median az/el within 2.0 deg.
 17. beamspace, the hierarchical scans and model order, each
-   configuration driven once with counts from zero (its plan's kernels
+   configuration driven once with its launches counted (its plan's kernels
    launched, no other), its peak allocation, the median of 10 calls, a
    profile window and the card against the CPU on 64 windows (as phase
    16): the headline with 8 DFT beams at 90 deg (E projected after K1;
@@ -291,7 +292,7 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    the focused sums, then K3 on each rank's half of the 180-point grid
    into the O(k) merge; cssm_auto's psums of the capture means and the
    coarse spectra); c5 at T = 2^20 (1024 windows). Each case driven
-   once with every count from zero on every rank (its plan all kernels,
+   once with its launches counted on every rank (its plan all kernels,
    each launched, no other; kernel 6 in its planned form), then 3 calls
    timed (the slowest rank of each, every rank at once); its angles
    within 5e-3 deg of the single-card port on the same capture (the
@@ -311,8 +312,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    samples, 4095 windows, within 0.5 deg); tests/test_cli.py's
    calibration workflow (calibrate-phase, calibrate-elements, a
    calibrated c2 estimate within 1.5 deg); `track` on a moving-emitter
-   c4 capture of 2^21 samples (the tracker kernel's main path, its
-   launches counted from zero: one); a 2-SNR, 2-trial `evaluate` on c2.
+   c4 capture of 2^21 samples (the tracker kernel's main path, one
+   launch); a 2-SNR, 2-trial `evaluate` on c2.
    The tracker kernel (csrc/track.cu) bit-equal to its plain version on
    the card over the first 512 windows of that capture's peaks and to the
    CPU's plain run over all 4095 (NaN masks and final states too), and
@@ -341,14 +342,15 @@ bound_fp32_ms, the published H100 peaks; a symmetric or Hermitian Gram
 counts the half its output determines) and the time of one PyTorch call
 computing the same function (library_ms; null where there is none; K3's
 record gives the FP32 product alone as product_ms, and its figures at c5
-cssm's shapes as the keys ending in _c5_cssm; K2's record gives its
-tensor-core form's count as tc_launches, both forms' times as by_form
-(kernel 11's and kernel 6's records their forms' launches and times),
-the unfused route's as unfused_ms and its c3 and c2 figures in
-by_shape). The last two lines: one
-JSON object with the kernels, then {"ok": true, "device": {...}}.
+cssm's shapes as the keys ending in _c5_cssm; K2's record gives both
+forms' times as by_form (kernel 11's and kernel 6's records their
+forms' times), the unfused route's as unfused_ms and its c3 and c2
+figures in by_shape; every record's launches are the paths' (PATHS),
+by form in launches_by_form where its kernel has forms). The last two
+lines: one JSON object with the kernels, then {"ok": true, "device": {...}}.
 """
 
+import collections
 import dataclasses
 import functools
 import importlib
@@ -399,6 +401,64 @@ def fail(msg):
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
     stop_resource_tracker()
     sys.exit(1)
+
+
+# the launches of the paths below, {(kernel, form): launches} as the
+# port's launch registry counts them (doa_tpu_torch._build): the kernel
+# records' launches
+PATHS = collections.Counter()
+
+
+def counting():
+    """doa_tpu_torch._build.counting(): yields a Counter that holds, once
+    the block has ended, the launches made inside it by (kernel, form).
+    Imported on call, as every use of the package here: main() first
+    checks that the package is this checkout's."""
+    from doa_tpu_torch import _build
+    return _build.counting()
+
+
+def by_kernel(n):
+    """Counter {kernel: launches} of counting()'s counts, its forms
+    summed."""
+    out = collections.Counter()
+    for (kernel, _), v in n.items():
+        out[kernel] += v
+    return out
+
+
+def forms_in(n, kernel):
+    """{form: launches} of `kernel` in counting()'s counts."""
+    return {f: v for (k, f), v in n.items() if k == kernel}
+
+
+def shown(n):
+    """counting()'s counts as JSON: "kernel" or "kernel/form" → launches."""
+    return json.dumps({k if f is None else f"{k}/{f}": v
+                       for (k, f), v in sorted(n.items(), key=str)})
+
+
+# the kernel record a (kernel, form) of the registry reports under, where
+# it is not the kernel's own name: kernel 9's entries, which the covariance
+# stage launches in K1's place, and two records named by their C entries
+RECORD_OF = {("chunk_gram", "embedded"): "chunk_embedded",
+             ("chunk_gram", "windows"): "chunk_windows",
+             "cov_windows": "planes_cov_windows",
+             "subband_grams": "subband_gram"}
+
+
+def path_launches(recs):
+    """Fill each kernel record's launches, and launches_by_form where
+    its kernel has forms, from the paths' launches (PATHS)."""
+    for rec in recs.values():
+        rec["launches"] = 0
+    for (kernel, form), v in sorted(PATHS.items(), key=str):
+        rec = recs[RECORD_OF.get((kernel, form), RECORD_OF.get(kernel,
+                                                               kernel))]
+        rec["launches"] += v
+        if form is not None:
+            by = rec.setdefault("launches_by_form", {})
+            by[form] = by.get(form, 0) + v
 
 
 def stop_resource_tracker():
@@ -944,24 +1004,21 @@ def k2_exact(torch, dev, gen):
         f"{worst!r} (must be 0)")
     for k2, n2, G in K2_FMA_EXACT:
         Vq, Aq, nq = inputs(k2, n2, G)
-        tc0, all0 = (ms.music_scan_peaks.tc_launches,
-                     ms.music_scan_peaks.launches)
         worst = 0.0
-        for k in (1, 2, 3, 4):
-            for refine in (False, True):
-                d = diff(ms.music_scan_peaks(Vq, Aq, k, 0.0, 180.0, refine,
-                                             nq),
-                         ms.music_scan_peaks_plain(Vq, Aq, k, 0.0, 180.0,
-                                                   refine, nq))
-                worst = max(worst, d)
-                check(d == 0.0, f"K2 differs on exact inputs at (2K, 2N, G) "
-                      f"= ({k2}, {n2}, {G}), k={k}, refine={refine}")
+        with counting() as n:
+            for k in (1, 2, 3, 4):
+                for refine in (False, True):
+                    d = diff(ms.music_scan_peaks(Vq, Aq, k, 0.0, 180.0,
+                                                 refine, nq),
+                             ms.music_scan_peaks_plain(Vq, Aq, k, 0.0, 180.0,
+                                                       refine, nq))
+                    worst = max(worst, d)
+                    check(d == 0.0, f"K2 differs on exact inputs at (2K, 2N, "
+                          f"G) = ({k2}, {n2}, {G}), k={k}, refine={refine}")
         log(f"K2 exact-input (2K, 2N, G) = ({k2}, {n2}, {G}) through the "
             f"wrapper: max|kernel - plain| {worst!r} (must be 0); launches "
-            f"{ms.music_scan_peaks.launches - all0}, of the tensor-core "
-            f"form {ms.music_scan_peaks.tc_launches - tc0} (must be 0)")
-        check(ms.music_scan_peaks.tc_launches == tc0
-              and ms.music_scan_peaks.launches == all0 + 8,
+            f"{shown(n)} (the CUDA-core form alone)")
+        check(n == {("music_scan_peaks", "fma"): 8},
               f"K2 did not take its CUDA-core form at ({k2}, {n2}, {G})")
 
 
@@ -1544,54 +1601,32 @@ def fusion_f64(torch, Vt, At, nrm):
     return acc / Vt.shape[0]
 
 
-PEAKS_TALLY = {}                   # kernel 6's path launches by form
-K4_TALLY = {}                      # K4's launches by form, the paths below
-
-
-def k4_forms_zero():
-    from doa_tpu_torch.ops import cpx_ops
-    cpx_ops.mgs_iterate.by_form.update(dict.fromkeys(cpx_ops.MGS_FORMS, 0))
-
-
 def k4_forms(tag, pipes, n):
-    """K4's n launches in a path since k4_forms_zero: all of the form each
-    pipeline's plan names for its "subspace" stage (mgs_iterate.by_form),
-    added to K4_TALLY."""
-    from doa_tpu_torch.ops import cpx_ops
-
-    by = dict(cpx_ops.mgs_iterate.by_form)
-    planned = {p.plan.forms.get("subspace") for p in pipes}
+    """Check that K4 launched in a path's counts `n`, all of the form each
+    pipeline's plan names for its "subspace" stage."""
+    by = forms_in(n, "mgs_iterate")
+    want = {p.plan.forms.get("subspace") for p in pipes}
     log(f"{tag}: K4 launches by form {json.dumps(by)}, planned "
-        f"{sorted(map(str, planned))}")
-    check(len(planned) == 1 and by.get(next(iter(planned))) == n > 0,
+        f"{sorted(map(str, want))}")
+    check(len(want) == 1 and set(by) == want and sum(by.values()) > 0,
           f"{tag}: K4 did not launch the form its plan names alone")
-    for f, v in by.items():
-        K4_TALLY[f] = K4_TALLY.get(f, 0) + v
 
 
 def peaks_forms(name, pipe, n):
-    """Check that a path's n launches of kernel 6 (counted from zero, with
-    its by_form counts) all took the form pipe.plan.forms["peaks"] names,
-    and add them to PEAKS_TALLY."""
-    from doa_tpu_torch.ops.cuda import peaks2d as pk
-    by = dict(pk.peaks2d.by_form)
+    """Check that kernel 6 launched in a path's counts `n`, all of the
+    form pipe.plan.forms["peaks"] names."""
+    by = forms_in(n, "peaks2d")
     want = pipe.plan.forms.get("peaks")
     log(f"{name}: kernel 6 by form {json.dumps(by)}, planned {want}")
-    check(n > 0 and want is not None and by[want] == n
-          and sum(by.values()) == n,
+    check(want is not None and set(by) == {want} and by[want] > 0,
           f"{name} did not launch kernel 6's planned form {want} alone")
-    for f, v in by.items():
-        PEAKS_TALLY[f] = PEAKS_TALLY.get(f, 0) + v
 
 
-def c5_phases(torch, dev, card, counters, k4_shapes=None):
-    """Phases 6 and 7 → (the wideband kernels' records, the subspace
-    kernel's launches in the c5 path). `counters`: the narrowband
-    kernels' wrappers, which must not launch in the c5 path; K4's times
-    at c5 go into `k4_shapes` if given."""
+def c5_phases(torch, dev, card, k4_shapes=None):
+    """Phases 6 and 7 → the wideband kernels' records; K4's times at c5
+    go into `k4_shapes` if given."""
     from doa_tpu_torch import PRESETS
     from doa_tpu_torch.cpx import fp32_matmuls
-    from doa_tpu_torch.ops import cpx_ops
     from doa_tpu_torch.ops import wideband as wb
     from doa_tpu_torch.ops.cuda import peaks2d as pk
     from doa_tpu_torch.ops.cuda import wideband_cov as wc
@@ -1606,28 +1641,17 @@ def c5_phases(torch, dev, card, counters, k4_shapes=None):
     recs, (E_sub, Vt, At, nrm, P2) = wideband_parity(torch, dev, x, cfg,
                                                      pipe, card, k4_shapes)
 
-    # 7. the c5 path, counts from zero just before it
-    wb_counters = {"wideband_fft_gram": wc.subband_chunk_grams,
-                   "wideband_fusion": wsc.wideband_fused_spectrum,
-                   "peaks2d": pk.peaks2d, "mgs_iterate": cpx_ops.mgs_iterate}
-    for f in list(counters.values()) + list(wb_counters.values()):
-        f.launches = 0
-    pk.peaks2d.by_form.update(dict.fromkeys(pk.PEAKS_FORMS, 0))
-    k4_forms_zero()
-    res = pipe.interleaved(x)
-    torch.cuda.synchronize()
-    launches = {n: f.launches for n, f in wb_counters.items()}
-    log("launches in the c5 path: " + json.dumps(launches))
-    k4_forms("c5 path", (pipe,), launches["mgs_iterate"])
-    peaks_forms("c5 path", pipe, launches["peaks2d"])
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} never ran in the c5 path")
-        if name in recs:
-            recs[name]["launches"] = n
-    for name in ("chunk_gram", "chunk_embedded", "music_scan",
-                 "music_scan_peaks"):
-        check(counters[name].launches == 0,
-              f"narrowband kernel {name} ran in the c5 path")
+    # 7. the c5 path
+    with counting() as n:
+        res = pipe.interleaved(x)
+        torch.cuda.synchronize()
+    PATHS.update(n)
+    log("launches in the c5 path: " + shown(n))
+    k4_forms("c5 path", (pipe,), n)
+    peaks_forms("c5 path", pipe, n)
+    check(set(by_kernel(n)) == {"wideband_fft_gram", "wideband_fusion",
+                                "peaks2d", "mgs_iterate"},
+          "the c5 path did not launch its four kernels alone")
     B = T_C5 // cfg.snapshot_size
     ang = res.peak_angles["music"]
     check(tuple(ang.shape) == (B, 2, 2), f"c5 angles shape {tuple(ang.shape)}")
@@ -1680,7 +1704,7 @@ def c5_phases(torch, dev, card, counters, k4_shapes=None):
         f"angle difference {d!r} deg (tol 1e-2; CPU run "
         f"{time.perf_counter() - t0:.1f} s)")
     check(d <= 1e-2, "c5 card and CPU pipelines disagree")
-    return recs, launches["mgs_iterate"]
+    return recs
 
 
 # ---------------------------------------------------------------------
@@ -1788,38 +1812,14 @@ def scan_parity(torch, tag, Vt, At, nrm, k, truth, card, k2_shapes=None):
         k2_shapes[tag] = rec
 
 
-def form_counts(counter):
-    """A wrapper's launches by the form its plan names: `by_form`, or
-    K1's `by_epilogue` (chunk_grams_uhat: the covariance stage's calls by
-    epilogue); None if it has neither."""
-    return getattr(counter, "by_form", getattr(counter, "by_epilogue", None))
-
-
-def counter_of(kernel, form):
-    """The counter a stage's launches land on, from its kernel and the
-    form its plan names: the kernel's, but kernel 9's ("chunk_embedded")
-    where the covariance stage ("chunk_gram") takes the embedded or the
-    window epilogue, which launch kernel 9's entries in K1's place."""
-    if kernel == "chunk_gram" and form in ("embedded", "windows"):
-        return "chunk_embedded"
-    return kernel
-
-
-def stage_counter(plan, stage):
-    """counter_of a planned stage (plan.kernels, plan.forms)."""
-    return counter_of(plan.kernels[stage], plan.forms.get(stage))
-
-
-def form_of(fn, counter):
-    """fn() → (its result, the form of its one launch of the wrapper
-    `counter`, from the wrapper's `by_form` counts)."""
-    before = dict(counter.by_form)
-    out = fn()
-    moved = {f: n - before[f] for f, n in counter.by_form.items()
-             if n != before[f]}
-    check(len(moved) == 1 and list(moved.values()) == [1],
-          f"not one launch of one form: {moved}")
-    return out, next(iter(moved), None)
+def one_launch(kernel, fn):
+    """fn() → (its result, the form of its one launch, which must be
+    `kernel`'s alone)."""
+    with counting() as n:
+        out = fn()
+    check(by_kernel(n) == {kernel: 1}, f"not one launch of {kernel}: "
+          f"{shown(n)}")
+    return out, next(iter(n), (None, None))[1]
 
 
 def k12_per_window(torch, xr, xi, S, ov):
@@ -1884,8 +1884,9 @@ def planes_parity(torch, dev, x3, card, k4_shapes=None):
                 ("stride3", (x3v[..., 0], x3v[..., 2]), "staged"))
             for dt in ("float32", "bfloat16"):
                 for name, (xr, xi), want in layouts:
-                    got, form = form_of(
-                        lambda: cv.chunk_grams(xr, xi, g, dt), cv.chunk_grams)
+                    got, form = one_launch(
+                        "planes_chunk_gram",
+                        lambda: cv.chunk_grams(xr, xi, g, dt))
                     d = dmax(got, cv.chunk_grams_plain(xr, xi, g, dt))
                     log(f"kernel 8 exact-input N={N} g={g} {dt} {name} "
                         f"({form}): max|kernel-plain| = {d!r} (must be 0)")
@@ -1909,8 +1910,8 @@ def planes_parity(torch, dev, x3, card, k4_shapes=None):
                              ("ring_planar", xp, "float32"),
                              ("staged", xs, "float32"),
                              ("ring_interleaved", (xr, xi), "bfloat16")):
-        got, took = form_of(lambda: cv.chunk_grams(*planes, 1024, dt),
-                            cv.chunk_grams)
+        got, took = one_launch("planes_chunk_gram",
+                               lambda: cv.chunk_grams(*planes, 1024, dt))
         want = ref if dt == "float32" else cv.chunk_grams_plain(
             xr, xi, 1024, dt)
         e = dmax(got, want)
@@ -1972,8 +1973,8 @@ def planes_parity(torch, dev, x3, card, k4_shapes=None):
                                     x2v[..., 1].contiguous())),
                         ("stride3", (x3v[..., 0], x3v[..., 2]))]
         for name, (xr, xi) in layouts:
-            got, form = form_of(lambda: cv.cov_windows(xr, xi, S, ov),
-                                cv.cov_windows)
+            got, form = one_launch("cov_windows",
+                                   lambda: cv.cov_windows(xr, xi, S, ov))
             d = dmax(got, cv.cov_windows_plain(xr, xi, S, ov))
             B12 = got[0].shape[0]
             log(f"kernel 12 exact-input N={N} S={S} overlap={ov} {name} "
@@ -2004,8 +2005,8 @@ def planes_parity(torch, dev, x3, card, k4_shapes=None):
     B12 = (T_K12 - S) // (S - ov) + 1
     ref = cv.cov_windows_plain(xr, xi, S, ov)
     s12 = ref[0].abs().max().item()
-    got, form = form_of(lambda: cv.cov_windows(xr, xi, S, ov),
-                        cv.cov_windows)
+    got, form = one_launch("cov_windows",
+                           lambda: cv.cov_windows(xr, xi, S, ov))
     k12 = {"chunk_sums": {"max_abs_err": dmax(got, ref)},
            "per_window": {"max_abs_err": dmax(per_window(xr, xi, S, ov),
                                               ref)}}
@@ -2122,9 +2123,9 @@ def calibrate(torch, dev, factor, card):
 
 
 def planes_phases(torch, dev, card, k4_shapes=None, k2_shapes=None):
-    """Phases 8 and 9 → (kernel records, the launches of K4 in the c3 and
-    c2 paths); K4's time at c3 goes into `k4_shapes` and K2's records at
-    c3 and c2 into `k2_shapes` if given."""
+    """Phases 8 and 9 → kernel records; K4's time at c3 goes into
+    `k4_shapes` and K2's records at c3 and c2 into `k2_shapes` if
+    given."""
     import numpy as np
     from doa_tpu_torch import PRESETS
     from doa_tpu_torch.cpx import embed_planes, fp32_matmuls
@@ -2150,44 +2151,25 @@ def planes_phases(torch, dev, card, k4_shapes=None, k2_shapes=None):
              for rs in (False, True)}
     for rs, p in pipes.items():
         show_plan(f"c3 return_spectra={rs}", p)
-    counters = {"planes_chunk_gram": cv.chunk_grams,
-                "planes_cov_windows": cv.cov_windows,
-                "mgs_iterate": cpx_ops.mgs_iterate,
-                "music_scan": ms.music_scan,
-                "music_scan_peaks": ms.music_scan_peaks,
-                "chunk_gram": ce.chunk_grams_uhat,
-                "chunk_embedded": ce.chunk_embedded}
-    for f in counters.values():
-        f.launches = 0
-    ms.music_scan_peaks.tc_launches = 0
-    for by_form in (cv.chunk_grams.by_form, cv.cov_windows.by_form):
-        by_form.update(dict.fromkeys(by_form, 0))
-    k4_forms_zero()
-    res = {rs: p((xr, xi), corr) for rs, p in pipes.items()}
-    torch.cuda.synchronize()
-    n3 = {k: f.launches for k, f in counters.items()}
-    k4_forms("c3 path", pipes.values(), n3["mgs_iterate"])
-    n3["music_scan_peaks (tensor-core form)"] = (
-        ms.music_scan_peaks.tc_launches)
-    k8_forms = dict(cv.chunk_grams.by_form)
+    with counting() as n3:
+        res = {rs: p((xr, xi), corr) for rs, p in pipes.items()}
+        torch.cuda.synchronize()
+    PATHS.update(n3)
+    k4_forms("c3 path", pipes.values(), n3)
     log("launches in the c3 path (both return_spectra modes): "
-        + json.dumps(n3) + "; kernel 8 by form " + json.dumps(k8_forms)
-        + "; the plan's kernel 8 forms "
+        + shown(n3) + "; the plan's forms "
         + json.dumps(pipes[False].plan.forms))
-    check(k8_forms["ring_interleaved"] == n3["planes_chunk_gram"],
-          "kernel 8 left its ring form on c3's strided views")
-    check(pipes[False].plan.forms.get("covariance") == "ring_interleaved",
-          "c3's plan does not name the ring form")
-    check(n3["music_scan_peaks (tensor-core form)"]
-          == n3["music_scan_peaks"], "K2 left its tensor-core form at c3")
-    check(n3["planes_chunk_gram"] > 0 and n3["mgs_iterate"] > 0
-          and n3["music_scan"] > 0 and n3["music_scan_peaks"] > 0,
-          "a kernel of the c3 path never ran")
-    check(n3["planes_cov_windows"] == 0 and n3["chunk_gram"] == 0
-          and n3["chunk_embedded"] == 0,
-          "kernel 12, K1 or kernel 9 ran in the c3 path")
-    recs["planes_chunk_gram"]["launches"] = n3["planes_chunk_gram"]
-    recs["planes_chunk_gram"]["launches_by_form"] = k8_forms
+    check(pipes[False].plan.forms.get("covariance") == "ring_interleaved"
+          and pipes[False].plan.forms.get("scan") == "tc",
+          "c3's plan does not name kernel 8's ring form and K2's "
+          "tensor-core form")
+    # kernel 8 all in its ring form on c3's strided views, K2 all in its
+    # tensor-core form; no kernel 12, K1 or kernel 9
+    check(set(n3) == {("planes_chunk_gram", "ring_interleaved"),
+                      ("mgs_iterate", "group"), ("music_scan", None),
+                      ("music_scan_peaks", "tc")},
+          "the c3 path did not launch its kernels in their planned forms "
+          "alone")
     B3 = T_C3 // 1024
     for rs, r in res.items():
         ang = r.peak_angles["music"]
@@ -2271,23 +2253,18 @@ def planes_phases(torch, dev, card, k4_shapes=None, k2_shapes=None):
                           SNR_DB, dev, seed=2)
     pipe2 = build_pipeline_torch(cfg2, device=dev, return_spectra=False)
     show_plan("c2", pipe2)
-    for f in counters.values():
-        f.launches = 0
-    ms.music_scan_peaks.tc_launches = 0
-    k4_forms_zero()
-    r2 = pipe2.interleaved(x2)
-    torch.cuda.synchronize()
-    n2 = {k: f.launches for k, f in counters.items()}
-    k4_forms("c2 path", (pipe2,), n2["mgs_iterate"])
-    n2["music_scan_peaks (tensor-core form)"] = (
-        ms.music_scan_peaks.tc_launches)
-    log("launches in the c2 path: " + json.dumps(n2))
-    check(n2["music_scan_peaks (tensor-core form)"]
-          == n2["music_scan_peaks"], "K2 left its tensor-core form at c2")
-    # overlap 0: the covariance stage launches kernel 9's entry, not K1
-    check(n2["chunk_embedded"] > 0 and n2["chunk_gram"] == 0
-          and n2["mgs_iterate"] > 0 and n2["music_scan_peaks"] > 0,
-          "a kernel of the c2 path never ran, or K1 ran")
+    with counting() as n2:
+        r2 = pipe2.interleaved(x2)
+        torch.cuda.synchronize()
+    PATHS.update(n2)
+    k4_forms("c2 path", (pipe2,), n2)
+    log("launches in the c2 path: " + shown(n2))
+    # overlap 0: the covariance stage launches kernel 9's entry, not K1;
+    # K2 all in its tensor-core form
+    check(set(n2) == {("chunk_gram", "embedded"), ("mgs_iterate", "group"),
+                      ("music_scan_peaks", "tc")},
+          "the c2 path did not launch kernel 9's entry, K4 and K2's "
+          "tensor-core form alone")
     B2 = T_C2 // 2048
     for key in ("music", "capon"):
         ang = r2.peak_angles[key]
@@ -2330,30 +2307,22 @@ def planes_phases(torch, dev, card, k4_shapes=None, k2_shapes=None):
     del x2, r2
 
     # the cov_windows entry (kernel 12's route, gcd < 64), driven as a
-    # user calls it, counts from zero
+    # user calls it
     xq = make_ula_capture(torch, T_K12, 16, c3_sources(), SNR_DB, dev,
                           seed=6)
-    for f in counters.values():
-        f.launches = 0
-    for by_form in (cv.chunk_grams.by_form, cv.cov_windows.by_form):
-        by_form.update(dict.fromkeys(by_form, 0))
-    Rw = cv.cov_windows(xq[..., 0], xq[..., 1], 1024, 1000)
-    torch.cuda.synchronize()
+    with counting() as n12:
+        Rw = cv.cov_windows(xq[..., 0], xq[..., 1], 1024, 1000)
+        torch.cuda.synchronize()
+    PATHS.update(n12)
     B12 = (T_K12 - 1024) // 24 + 1
     check(tuple(Rw[0].shape) == (B12, 16, 16)
           and bool(torch.isfinite(Rw[0]).all()), "cov_windows output")
     log(f"cov_windows entry (S=1024, overlap 1000, {B12} windows): launches "
-        f"kernel 12 {cv.cov_windows.launches} (by form "
-        f"{json.dumps(cv.cov_windows.by_form)}), kernel 8 "
-        f"{cv.chunk_grams.launches}")
-    check(cv.cov_windows.launches > 0 and cv.chunk_grams.launches == 0,
-          "the cov_windows entry did not take kernel 12")
-    check(cv.cov_windows.by_form["chunk_sums"] == cv.cov_windows.launches,
-          "the cov_windows entry left kernel 12's chunk-sum form")
-    recs["planes_cov_windows"]["launches"] = cv.cov_windows.launches
-    recs["planes_cov_windows"]["launches_by_form"] = dict(
-        cv.cov_windows.by_form)
-    return recs, n3["mgs_iterate"] + n2["mgs_iterate"]
+        f"{shown(n12)}")
+    check(n12 == {("cov_windows", "chunk_sums"): 1},
+          "the cov_windows entry did not take kernel 12's chunk-sum form "
+          "alone")
+    return recs
 
 
 # ---------------------------------------------------------------------
@@ -2617,22 +2586,18 @@ def subband_parity(torch, dev, x12, x16, card):
     return recs
 
 
-def path_run(torch, name, pipe, x, counters, card, truth, tol, call=None):
-    """Drive one path once with every count from zero → (result, the
-    launches); check the median pair-sorted angles within `tol` of
-    `truth`; then 20 timed calls and a profile window."""
+def path_run(torch, name, pipe, x, card, truth, tol, call=None):
+    """Drive one path once → (result, its launches by kernel, added to
+    PATHS); check the median pair-sorted angles within `tol` of `truth`;
+    then 20 timed calls and a profile window."""
     call = call or (lambda: pipe.interleaved(x))
-    for f in counters.values():
-        f.launches = 0
-        by = form_counts(f)
-        if by is not None:
-            by.update(dict.fromkeys(by, 0))
-    res = call()
-    torch.cuda.synchronize()
-    launches = {n: f.launches for n, f in counters.items()}
-    log(f"launches in the {name} path: " + json.dumps(launches))
+    with counting() as n:
+        res = call()
+        torch.cuda.synchronize()
+    PATHS.update(n)
+    log(f"launches in the {name} path: " + shown(n))
     if "peaks" in pipe.plan:
-        peaks_forms(name, pipe, launches["peaks2d"])
+        peaks_forms(name, pipe, n)
     ang = res.peak_angles["music"]
     B = ang.shape[0]
     if ang.dim() == 3:
@@ -2655,7 +2620,7 @@ def path_run(torch, name, pipe, x, counters, card, truth, tol, call=None):
         f"min {ts[0]:.4f}, max {ts[-1]:.4f}) = {B / (med_ms / 1e3):.1f} "
         f"snapshots/s  [{card}]")
     profile_window(torch, call, card)
-    return res, launches
+    return res, by_kernel(n)
 
 
 def card_vs_cpu(torch, name, cfg, x, B):
@@ -2681,10 +2646,9 @@ def card_vs_cpu(torch, name, cfg, x, B):
 
 
 def coherent_phases(torch, dev, card, k4_shapes=None):
-    """Phases 10 and 11 → (the records of kernels 7 and 10, the launches
-    of the earlier kernels in these paths, K3's figures at c5 cssm's
-    shapes); K4's time on c5 cssm's R_coh windows goes into `k4_shapes`
-    (K4's by_shape) if given."""
+    """Phases 10 and 11 → (the records of kernels 7 and 10, K3's figures
+    at c5 cssm's shapes); K4's time on c5 cssm's R_coh windows goes into
+    `k4_shapes` (K4's by_shape) if given."""
     from doa_tpu_torch import AvgMethod, Estimator, SmoothingSpec
     from doa_tpu_torch.cpx import embed_planes, fp32_matmuls, unembed_planes
     from doa_tpu_torch.ops import cpx_ops
@@ -2699,21 +2663,6 @@ def coherent_phases(torch, dev, card, k4_shapes=None):
     x16 = make_c5_scene(torch, T_C5, dev, seed=5)
     torch.cuda.synchronize()
     recs = subband_parity(torch, dev, x12, x16, card)
-
-    counters = {"subband_embedded": wc.subband_embedded,
-                "subband_embedded_frames": wc.subband_embedded_frames,
-                "subband_gram": wc.subband_grams,
-                "wideband_fft_gram": wc.subband_chunk_grams,
-                "wideband_fusion": wsc.wideband_fused_spectrum,
-                "mgs_iterate": cpx_ops.mgs_iterate,
-                "music_scan": ms.music_scan,
-                "music_scan_peaks": ms.music_scan_peaks,
-                "peaks2d": pk.peaks2d}
-    total = {n: 0 for n in counters}
-
-    def add(launches):
-        for n, v in launches.items():
-            total[n] += v
 
     cr1, ci0 = torch.ones(64, device=dev), torch.zeros(64, device=dev)
     # 11a. c5_f12: 12 subbands, incoherent; the front end is one launch of
@@ -2734,7 +2683,7 @@ def coherent_phases(torch, dev, card, k4_shapes=None):
     torch.cuda.reset_peak_memory_stats()
     wc.channelize_frames = counted
     try:
-        res12, n12 = path_run(torch, "c5_f12", pipe12, x12, counters, card,
+        res12, n12 = path_run(torch, "c5_f12", pipe12, x12, card,
                               C5_TRUTH, C5_ANGLE_TOL)
     finally:
         wc.channelize_frames = channelize
@@ -2745,7 +2694,6 @@ def coherent_phases(torch, dev, card, k4_shapes=None):
           and n12["wideband_fft_gram"] == 0 and not channelized
           and n12["wideband_fusion"] > 0 and n12["mgs_iterate"] > 0
           and n12["peaks2d"] > 0, "c5_f12 launch counts")
-    add(n12)
     # its layers, and the reference composition's front end beside the
     # card's
     As12 = torch.cat(pipe12.subband_planes, -1).contiguous()   # (F, G, 2N)
@@ -2794,13 +2742,12 @@ def coherent_phases(torch, dev, card, k4_shapes=None):
         cfg = c5_variant(fusion=fusion)
         pipe = build_pipeline_torch(cfg, device=dev)
         show_plan(f"c5 {fusion}", pipe)
-        res, n = path_run(torch, f"c5 {fusion}", pipe, x16, counters, card,
+        res, n = path_run(torch, f"c5 {fusion}", pipe, x16, card,
                           C5_TRUTH, CSSM_ANGLE_TOL)
         check(n["wideband_fft_gram"] == 1 and n["mgs_iterate"] > 0
               and n["music_scan"] > 0 and n["peaks2d"] > 0
               and n["wideband_fusion"] == 0 and n["subband_embedded"] == 0,
               f"c5 {fusion} launch counts")
-        add(n)
         P = res.spectra["music"]
         check(tuple(P.shape) == (T_C5 // 1024, 181 * 91)
               and bool(torch.isfinite(P).all()), f"c5 {fusion} spectrum")
@@ -2849,35 +2796,27 @@ def coherent_phases(torch, dev, card, k4_shapes=None):
     del E_sub, R_sub, R, Rr, Ri, V, Vt, P, P2, tiles
 
     # the uhat entry (kernel 10's route), driven as a user calls it
-    for f in counters.values():
-        f.launches = 0
-    Eu = wc.wideband_cov_embedded(x16, cr1, ci0, N=64, F=16,
-                                  snapshot_size=1024, variant="uhat")
-    torch.cuda.synchronize()
-    log(f"wideband_cov_embedded(variant='uhat') entry: launches kernel 10 "
-        f"{wc.subband_grams.launches}, kernel 7 "
-        f"{wc.subband_embedded.launches}, kernel 4 "
-        f"{wc.subband_chunk_grams.launches}")
+    with counting() as n:
+        Eu = wc.wideband_cov_embedded(x16, cr1, ci0, N=64, F=16,
+                                      snapshot_size=1024, variant="uhat")
+        torch.cuda.synchronize()
+    PATHS.update(n)
+    log(f"wideband_cov_embedded(variant='uhat') entry: launches {shown(n)}")
     check(tuple(Eu.shape) == (16, T_C5 // 1024, 128, 128)
-          and wc.subband_grams.launches == 1
-          and wc.subband_chunk_grams.launches == 0, "the uhat entry")
-    add({"subband_gram": wc.subband_grams.launches})
+          and n == {("subband_grams", None): 1}, "the uhat entry")
     del Eu
     # kernel 7's entry: a caller that holds a channelized stream Y
     Y12 = wc.channelize_frames(x12.reshape(-1, 12 * 128),
                                wc.channelizer_on(12, 64, dev))
-    for f in counters.values():
-        f.launches = 0
-    E7 = wc.subband_embedded(Y12, cr1, ci0, F=12, N=64, g=64, scale=1 / 64)
-    torch.cuda.synchronize()
+    with counting() as n:
+        E7 = wc.subband_embedded(Y12, cr1, ci0, F=12, N=64, g=64,
+                                 scale=1 / 64)
+        torch.cuda.synchronize()
+    PATHS.update(n)
     log(f"subband_embedded entry (a channelized stream {tuple(Y12.shape)}): "
-        f"launches kernel 7 {wc.subband_embedded.launches}, the frames "
-        f"launch {wc.subband_embedded_frames.launches}")
+        f"launches {shown(n)}")
     check(tuple(E7.shape) == (12, T_F12 // 768, 128, 128)
-          and wc.subband_embedded.launches == 1
-          and wc.subband_embedded_frames.launches == 0,
-          "the kernel 7 entry")
-    add({"subband_embedded": wc.subband_embedded.launches})
+          and n == {("subband_embedded", None): 1}, "the kernel 7 entry")
     del E7, Y12
 
     # 11c. ULA-16 CSSM with FB, smoothing to L = 12, MUSIC + Capon
@@ -2887,10 +2826,9 @@ def coherent_phases(torch, dev, card, k4_shapes=None):
     pipe_u = build_pipeline_torch(cfg_u, device=dev)
     show_plan("ULA-16 cssm", pipe_u)
     res_u, n_u = path_run(torch, "ULA-16 cssm FB + smoothing", pipe_u, xu,
-                          counters, card, ULA_TRUTH, CSSM_ANGLE_TOL)
+                          card, ULA_TRUTH, CSSM_ANGLE_TOL)
     check(n_u["wideband_fft_gram"] == 1 and n_u["mgs_iterate"] > 0
           and n_u["music_scan"] > 0, "ULA-16 cssm launch counts")
-    add(n_u)
     a = torch.sort(res_u.peak_angles["capon"], -1).values
     dcap = float((a.median(0).values
                   - torch.tensor(ULA_TRUTH, device=dev)).abs().max())
@@ -2905,12 +2843,9 @@ def coherent_phases(torch, dev, card, k4_shapes=None):
     card_vs_cpu(torch, "c5 cssm_auto", c5_variant(fusion="cssm_auto"), x16,
                 B_CSSM_CPU)
     card_vs_cpu(torch, "ULA-16 cssm", cfg_u, xu, B_CSSM_CPU)
-    for name in ("subband_embedded", "subband_embedded_frames",
-                 "subband_gram"):
-        recs[name]["launches"] = total.pop(name)
     k3_c5 = {f"{key}_c5_cssm": v for key, v in k3_c5.items()}
     k3_c5["max_abs_err_c5_cssm"] = e_c5
-    return recs, total, k3_c5
+    return recs, k3_c5
 
 
 # ---------------------------------------------------------------------
@@ -3047,7 +2982,7 @@ def routes_vs_f64(torch, x, cr, ci, kw):
 def embedded_route(torch, x, W):
     """The covariance stage where a window is one chunk (g = S = 1024, the
     main path's shape): chunk_grams_uhat(x, g, embed=...) launches kernel
-    9's entry (by_epilogue "embedded"), bit for bit K1's Grams folded by
+    9's entry (("chunk_gram", "embedded")), bit for bit K1's Grams folded by
     uhat_windows_to_embedded and within 1e-5 of max|E| of the plain
     version, f32 and bf16, FB off and on, with a correction W."""
     from doa_tpu_torch.ops.cuda import cov_embedded as ce
@@ -3056,12 +2991,9 @@ def embedded_route(torch, x, W):
         xk = x.to(dt)
         for fb in (False, True):
             emb = (16, 1.0 / 1024, W, fb)
-            by, k9 = (dict(ce.chunk_grams_uhat.by_epilogue),
-                      ce.chunk_embedded.launches)
-            Er = ce.chunk_grams_uhat(xk, 1024, embed=emb)
-            torch.cuda.synchronize()
-            took = (ce.chunk_grams_uhat.by_epilogue["embedded"]
-                    - by["embedded"], ce.chunk_embedded.launches - k9)
+            with counting() as took:
+                Er = ce.chunk_grams_uhat(xk, 1024, embed=emb)
+                torch.cuda.synchronize()
             Ek1 = ce.uhat_windows_to_embedded(ce.chunk_grams_uhat(xk, 1024),
                                               *emb)
             same = torch.equal(Er.view(torch.int32), Ek1.view(torch.int32))
@@ -3070,12 +3002,12 @@ def embedded_route(torch, x, W):
             e = (Er - Ep).abs().max().item()
             sc = Ep.abs().max().item()
             del Er, Ep
-            log(f"covariance stage with embed, g=1024 {dt} fb={fb}: kernel "
-                f"9's entry launched {took[1]} (by_epilogue 'embedded' "
-                f"{took[0]}); bit-equal to K1 + the torch fold: {same}; "
-                f"max|stage-plain| = {e!r}, max|E| = {sc!r}, tol "
+            log(f"covariance stage with embed, g=1024 {dt} fb={fb}: "
+                f"launches {shown(took)}; bit-equal to K1 + the torch fold: "
+                f"{same}; max|stage-plain| = {e!r}, max|E| = {sc!r}, tol "
                 f"1e-5*max|E|")
-            check(took == (1, 1) and same and e <= 1e-5 * sc,
+            check(took == {("chunk_gram", "embedded"): 1} and same
+                  and e <= 1e-5 * sc,
                   f"the covariance stage's embedded epilogue ({dt}, "
                   f"fb={fb})")
         del xk
@@ -3086,8 +3018,8 @@ def window_route(torch, x, W, card):
     samples, S = 1024, overlap 512: g = 512, n_win 2, stride 1):
     chunk_grams_uhat(x, 512, embed=..., windows=...) launches kernel 9's
     window entry once (doa_chunk_windows, whose one kernel is
-    chunk_windows_kernel: by_epilogue "windows", chunk_embedded.launches;
-    K1 never; the card tests name the kernel from the profiler around
+    chunk_windows_kernel: ("chunk_gram", "windows"); K1 never; the card
+    tests name the kernel from the profiler around
     cov_embedded's call, as a region holding its launch alone loses it),
     bit for bit kernel 9's per-chunk E summed in chunk order
     (chunk_embedded + ordered_window_sums) and within 1e-5 of max|E| of
@@ -3105,14 +3037,9 @@ def window_route(torch, x, W, card):
         xk = x.to(dt)
         for fb in (False, True):
             emb = (16, 1.0 / S, W, fb)
-            by, k1, k9 = (dict(ce.chunk_grams_uhat.by_epilogue),
-                          ce.chunk_grams_uhat.launches,
-                          ce.chunk_embedded.launches)
-            Ew = ce.chunk_grams_uhat(xk, g, embed=emb, windows=windows)
-            torch.cuda.synchronize()
-            took = (ce.chunk_grams_uhat.by_epilogue["windows"]
-                    - by["windows"], ce.chunk_grams_uhat.launches - k1,
-                    ce.chunk_embedded.launches - k9)
+            with counting() as took:
+                Ew = ce.chunk_grams_uhat(xk, g, embed=emb, windows=windows)
+                torch.cuda.synchronize()
             Es = ce.ordered_window_sums(
                 ce.chunk_embedded(xk, g, *emb), *windows)
             same = torch.equal(Ew.view(torch.int32), Es.view(torch.int32))
@@ -3122,12 +3049,10 @@ def window_route(torch, x, W, card):
             sc = Ep.abs().max().item()
             del Ew, Ep
             log(f"covariance stage with embed and windows, g={g} n_win 2 "
-                f"{dt} fb={fb}: by_epilogue 'windows' {took[0]}, K1 "
-                f"{took[1]}, kernel 9's entries "
-                f"{took[2]}; bit-equal to kernel 9's per-chunk E summed in "
-                f"order: {same}; max|stage-plain| = {e!r}, max|E| = {sc!r}, "
-                f"tol 1e-5*max|E|")
-            check(took == (1, 0, 1) and same
+                f"{dt} fb={fb}: launches {shown(took)}; bit-equal to kernel "
+                f"9's per-chunk E summed in order: {same}; max|stage-plain| "
+                f"= {e!r}, max|E| = {sc!r}, tol 1e-5*max|E|")
+            check(took == {("chunk_gram", "windows"): 1} and same
                   and e <= 1e-5 * sc,
                   f"the covariance stage's window epilogue ({dt}, fb={fb})")
             if dt == torch.float32 and fb:
@@ -3320,46 +3245,20 @@ def opt_in_parity(torch, dev, x, card):
 
 
 def opt_in_phases(torch, dev, card):
-    """Phases 12 and 13 → (the records of kernels 11 and 9, the launches
-    of the earlier kernels in these paths)."""
+    """Phases 12 and 13 → the records of kernels 11 and 9."""
     from doa_tpu_torch import PRESETS, Estimator
-    from doa_tpu_torch.ops import cpx_ops
     from doa_tpu_torch.ops.cuda import cov_embedded as ce
-    from doa_tpu_torch.ops.cuda import music_scan as ms
-    from doa_tpu_torch.ops.cuda import peaks2d as pk
-    from doa_tpu_torch.ops.cuda import subspace_ns as sns
-    from doa_tpu_torch.ops.cuda import wideband_cov as wc
-    from doa_tpu_torch.ops.cuda import wideband_scan as wsc
     from doa_tpu_torch.pipeline_torch import build_pipeline_torch
 
     x = make_scene(torch, T_MAIN, 16, dev, seed=12)
     torch.cuda.synchronize()
     recs = opt_in_parity(torch, dev, x, card)
 
-    counters = {"subspace_ns": sns.subspace_ns,
-                "chunk_embedded": ce.chunk_embedded,
-                "chunk_gram": ce.chunk_grams_uhat,
-                "mgs_iterate": cpx_ops.mgs_iterate,
-                "music_scan": ms.music_scan,
-                "music_scan_peaks": ms.music_scan_peaks,
-                "wideband_fft_gram": wc.subband_chunk_grams,
-                "wideband_fusion": wsc.wideband_fused_spectrum,
-                "peaks2d": pk.peaks2d}
-    total = {n: 0 for n in counters}
-    ns_forms = dict.fromkeys(sns.NS_FORMS, 0)     # kernel 11's, by form
-
     def drive(call):
-        for f in counters.values():
-            f.launches = 0
-        sns.subspace_ns.by_form.update(dict.fromkeys(sns.NS_FORMS, 0))
-        pk.peaks2d.by_form.update(dict.fromkeys(pk.PEAKS_FORMS, 0))
-        res = call()
-        torch.cuda.synchronize()
-        n = {k: f.launches for k, f in counters.items()}
-        for k, v in n.items():
-            total[k] += v
-        for f, v in sns.subspace_ns.by_form.items():
-            ns_forms[f] += v
+        with counting() as n:
+            res = call()
+            torch.cuda.synchronize()
+        PATHS.update(n)
         return res, n
 
     cfg = headline_config()
@@ -3372,15 +3271,16 @@ def opt_in_phases(torch, dev, card):
         show_plan(f"headline subspace_impl='pallas' return_spectra={rs}",
                   pipe)
         res, n = drive(lambda: pipe.interleaved(x))
+        k = by_kernel(n)
         log(f"launches in the headline path, subspace_impl='pallas', "
-            f"return_spectra={rs}: " + json.dumps(n) + ", kernel 11 by "
-            f"form {json.dumps(sns.subspace_ns.by_form)}, planned "
+            f"return_spectra={rs}: " + shown(n) + ", planned "
             f"{json.dumps(pipe.plan.forms)}")
-        check(n["subspace_ns"] > 0 and n["chunk_embedded"] > 0
-              and n["chunk_gram"] == 0 and n["mgs_iterate"] == 0
-              and n["music_scan" if rs else "music_scan_peaks"] > 0,
+        # the covariance stage is kernel 9's entry, not K1
+        check(k["subspace_ns"] > 0 and n["chunk_gram", "embedded"] > 0
+              and n["chunk_gram", "gram"] == 0 and k["mgs_iterate"] == 0
+              and k["music_scan" if rs else "music_scan_peaks"] > 0,
               "launch counts of the subspace_impl='pallas' path")
-        check(sns.subspace_ns.by_form["warp"] == n["subspace_ns"]
+        check(forms_in(n, "subspace_ns") == {"warp": k["subspace_ns"]}
               and pipe.plan.forms.get("subspace") == "warp",
               "the subspace_impl='pallas' headline did not launch kernel "
               "11's warp form alone, as planned")
@@ -3415,13 +3315,14 @@ def opt_in_phases(torch, dev, card):
         err = angle_err(torch, res.peak_angles["music"])
         ts = call_times(torch, lambda: pipe.interleaved(x), reps=10, warm=2)
         log(f"headline subspace_check, subspace_impl={impl!r}: launches "
-            f"{json.dumps(n)}; {int((r >= 1).sum())} of {B} windows "
+            f"{shown(n)}; {int((r >= 1).sum())} of {B} windows "
             f"replaced, max residual of the rest "
             f"{float(r[r < 1].max()) if bool((r < 1).any()) else 0.0!r}; "
             f"max angle error {err!r} deg (limit {ANGLE_TOL}); median "
             f"{0.5 * (ts[4] + ts[5]):.4f} ms per call (10 calls)  [{card}]")
         check(err <= ANGLE_TOL, f"subspace_check angle error {err}")
-        check(n["subspace_ns" if impl == "pallas" else "mgs_iterate"] > 0,
+        check(by_kernel(n)["subspace_ns" if impl == "pallas"
+                           else "mgs_iterate"] > 0,
               f"subspace_check ({impl}): the subspace kernel never ran")
     del res
 
@@ -3446,7 +3347,7 @@ def opt_in_phases(torch, dev, card):
         log(f"hard scene (30:1, 20 dB, power_iters=4, {a.shape[0]} windows) "
             f"subspace_impl={impl!r}: {int((r >= 1).sum())} windows "
             f"replaced; max|guarded - eigh| = {d!r} deg (tol {HARD_TOL}); "
-            f"launches {json.dumps(n)}")
+            f"launches {shown(n)}")
         check(d <= HARD_TOL, f"hard scene ({impl}): guarded angles off eigh")
     del xh
 
@@ -3475,7 +3376,7 @@ def opt_in_phases(torch, dev, card):
                         warm=1)
         log(f"scan_capture headline overlap {ov}: {M} blocks of {T_BLK} "
             f"samples, {angs.shape[1]} windows each (prefix {pre}); "
-            f"launches {json.dumps(n)}; max|block m - per-block call| = "
+            f"launches {shown(n)}; max|block m - per-block call| = "
             f"{d!r} (tol 1e-4 deg), block 0 beyond the prefix {d0!r} (tol "
             f"1e-3 deg); max angle error {err!r} deg; median {ts[2]:.4f} ms "
             f"per capture (5 captures)  [{card}]")
@@ -3489,7 +3390,7 @@ def opt_in_phases(torch, dev, card):
     pipe = build_pipeline_torch(c5, device=dev, return_spectra=False)
     wblocks = xw.view(4, T_WB_BLK, 128)
     out, n = drive(lambda: pipe.scan_capture(wblocks))
-    peaks_forms("scan_capture c5", pipe, n["peaks2d"])
+    peaks_forms("scan_capture c5", pipe, n)
     angs = out["peak_angles"]["music"]
     C = 512
     d = 0.0
@@ -3499,13 +3400,14 @@ def opt_in_phases(torch, dev, card):
     e_max, e_med, med = c5_errors(torch, angs[1:].reshape(-1, 2, 2))
     ts = call_times(torch, lambda: pipe.scan_capture(wblocks), reps=3, warm=1)
     log(f"scan_capture c5 overlap 512: 4 blocks of {T_WB_BLK} samples, "
-        f"{angs.shape[1]} windows each; launches {json.dumps(n)}; max|block "
+        f"{angs.shape[1]} windows each; launches {shown(n)}; max|block "
         f"m - per-block call| = {d!r} (tol 1e-4 deg); median pair-sorted "
         f"(az, el) {med.tolist()}; median {ts[1]:.4f} ms per capture (3 "
         f"captures)  [{card}]")
     dmed = float((med - torch.tensor(C5_TRUTH, device=dev)).abs().max())
     check(d <= 1e-4 and dmed <= C5_ANGLE_TOL, "scan_capture c5")
-    check(n["wideband_fft_gram"] == 4 and n["wideband_fusion"] > 0,
+    check(by_kernel(n)["wideband_fft_gram"] == 4
+          and by_kernel(n)["wideband_fusion"] > 0,
           "scan_capture c5 launch counts")
     del xw, wblocks, out
 
@@ -3516,10 +3418,9 @@ def opt_in_phases(torch, dev, card):
         x, c.real.contiguous(), c.imag.contiguous(), N=16,
         snapshot_size=1024, fb=True, variant="chunk"))
     log(f"cov_embedded(variant='chunk') entry at T={T_MAIN}: launches "
-        f"{json.dumps(n)}")
+        f"{shown(n)}")
     check(tuple(E9.shape) == (B, 32, 32) and bool(torch.isfinite(E9).all())
-          and n["chunk_embedded"] == 1 and n["chunk_gram"] == 0,
-          "the chunk entry")
+          and n == {("chunk_embedded", None): 1}, "the chunk entry")
     del E9
 
     # the card against the CPU, 64 windows of each path
@@ -3537,11 +3438,7 @@ def opt_in_phases(torch, dev, card):
             f"angle difference {d!r} deg (tol 1e-3)")
         check(d <= 1e-3, f"{tag}: card and CPU pipelines disagree")
     del x
-    for name in ("subspace_ns", "chunk_embedded"):
-        recs[name]["launches"] = total.pop(name)
-    for f, v in ns_forms.items():
-        recs["subspace_ns"]["by_form"][f]["launches"] = v
-    return recs, total
+    return recs
 
 
 # ---------------------------------------------------------------------
@@ -3568,14 +3465,11 @@ def shard_rank(device, R, card):
     cuda:0): kernel 13 against its plain version, the kernel's, the
     exchange's, the plain version's and the default halo's times, then the
     c4 preset's sharded fused path under halo_impl "pallas" and "xla",
-    each driven once with the counts from zero, then timed, and under
+    each driven once with its launches counted, then timed, and under
     "pallas" a profile window of rank 0's calls."""
     import torch
     import torch.distributed as dist
     from doa_tpu_torch import PRESETS, _build
-    from doa_tpu_torch.ops import cpx_ops
-    from doa_tpu_torch.ops.cuda import cov_embedded as ce
-    from doa_tpu_torch.ops.cuda import music_scan as ms
     from doa_tpu_torch.ops.cuda import ring as rg
     from doa_tpu_torch.parallel import (MeshSpec, build_sharded_pipeline,
                                         make_mesh)
@@ -3645,26 +3539,16 @@ def shard_rank(device, R, card):
     out["plain_ms"] = together(lambda: rg.halo_ring_plain(xc, ov, mesh), 3)
     del xc
 
-    counters = {"halo_ring": rg.halo_ring,
-                "chunk_gram": ce.chunk_grams_uhat,
-                "chunk_embedded": ce.chunk_embedded,
-                "mgs_iterate": cpx_ops.mgs_iterate,
-                "music_scan": ms.music_scan,
-                "music_scan_peaks": ms.music_scan_peaks}
-    by_epi = ce.chunk_grams_uhat.by_epilogue
     for impl in ("pallas", "xla"):
         pipe = build_sharded_pipeline(
             dataclasses.replace(cfg, halo_impl=impl), mesh,
             return_spectra=False)
         barrier()
-        for f in counters.values():
-            f.launches = 0
-        by_epi.update(dict.fromkeys(by_epi, 0))
-        res = pipe.local(x)
-        torch.cuda.synchronize()
+        with counting() as n:
+            res = pipe.local(x)
+            torch.cuda.synchronize()
         out[impl] = {
-            "launches": {k: f.launches for k, f in counters.items()},
-            "by_epilogue": dict(by_epi),
+            "launches": n,
             "form": pipe.plan.forms.get("covariance"),
             "angles": res["peak_angles_music"].cpu().numpy(),
             "values": res["peak_values_music"].cpu().numpy(),
@@ -3689,34 +3573,26 @@ def shard_rank(device, R, card):
 
 def window_epilogue(torch, pipe, x):
     """One call of a fused single-card pipeline whose windows overlap
-    (c4), with the covariance stage's counters reset just before it: the
-    stage must launch kernel 9's window entry once (by_epilogue "windows",
-    chunk_embedded.launches) and K1 not at all wherever its plan names the
-    "windows" epilogue, and K1 once where the plan names "gram" → (the
-    planned form, the call's result)."""
-    from doa_tpu_torch.ops.cuda import cov_embedded as ce
-
+    (c4): the covariance stage must launch kernel 9's window entry once
+    (("chunk_gram", "windows")) and K1 not at all wherever its plan names
+    the "windows" epilogue, and K1 once where the plan names "gram" →
+    (the planned form, the call's result)."""
     form = pipe.plan.forms.get("covariance")
-    by = ce.chunk_grams_uhat.by_epilogue
-    by.update(dict.fromkeys(by, 0))
-    ce.chunk_grams_uhat.launches = ce.chunk_embedded.launches = 0
-    one = pipe.interleaved(x)
-    torch.cuda.synchronize()
-    took = dict(by)
-    n = (ce.chunk_grams_uhat.launches, ce.chunk_embedded.launches)
-    log(f"c4 single card: covariance stage by epilogue {json.dumps(took)}, "
-        f"K1 {n[0]}, kernel 9's entries {n[1]} launches; planned {form}")
-    check(form in ("windows", "gram") and took[form] == 1
-          and sum(took.values()) == 1
-          and n == ((0, 1) if form == "windows" else (1, 0)),
-          f"c4's covariance stage took {took} (K1, kernel 9: {n}), "
-          f"planned {form}")
+    with counting() as n:
+        one = pipe.interleaved(x)
+        torch.cuda.synchronize()
+    PATHS.update(n)
+    took = forms_in(n, "chunk_gram")
+    log(f"c4 single card: covariance stage launches by epilogue "
+        f"{json.dumps(took)}; planned {form}")
+    check(form in ("windows", "gram") and took == {form: 1}
+          and not forms_in(n, "chunk_embedded"),
+          f"c4's covariance stage took {took}, planned {form}")
     return form, one
 
 
 def sharded_phases(torch, dev, card):
-    """Phase 14 → (kernel 13's record, the launches of the earlier
-    kernels in the ranks' main-path runs)."""
+    """Phase 14 → kernel 13's record."""
     import numpy as np
     from doa_tpu_torch import PRESETS
     from doa_tpu_torch.parallel.launch import spawn_ranks
@@ -3730,9 +3606,6 @@ def sharded_phases(torch, dev, card):
         f"windows) on R ranks, each a process on {dev} (one card: gloo, "
         f"whose collectives the port stages through the host explicitly; "
         f"kernel 13 writes each halo through a CUDA IPC peer pointer)")
-    total = {"chunk_gram": 0, "chunk_embedded": 0, "mgs_iterate": 0,
-             "music_scan": 0, "music_scan_peaks": 0}
-    ring_launches = 0
     rec = None
     for R in SHARD_RANKS:
         T_loc = T_SHARD // R
@@ -3784,25 +3657,20 @@ def sharded_phases(torch, dev, card):
         for impl in ("pallas", "xla"):
             for o in outs:
                 n, form = o[impl]["launches"], o[impl]["form"]
-                cov = counter_of("chunk_gram", form)
-                # the covariance stage: kernel 9's window entry once where
-                # the plan names it (c4's hop 512), else K1
-                check(n[cov] > 0 and n["chunk_gram" if cov != "chunk_gram"
-                                       else "chunk_embedded"] == 0
-                      and o[impl]["by_epilogue"][form] == n[cov]
-                      and form == epi
-                      and n["mgs_iterate"] > 0
-                      and n["music_scan_peaks"] > 0
-                      and n["halo_ring"] == (1 if impl == "pallas" else 0),
-                      f"R={R} {impl}: launch counts {n}, covariance "
-                      f"{o[impl]['by_epilogue']}, planned {form}, the "
-                      f"single card's {epi}")
-                for k in total:
-                    total[k] += n[k]
-            ring_launches += sum(o[impl]["launches"]["halo_ring"]
-                                 for o in outs)
+                PATHS.update(n)
+                k = by_kernel(n)
+                # the covariance stage: kernel 9's window entry where the
+                # plan names it (c4's hop 512), else K1
+                check(forms_in(n, "chunk_gram") == {form: k["chunk_gram"]}
+                      and k["chunk_gram"] > 0 and form == epi
+                      and k["chunk_embedded"] == 0
+                      and k["mgs_iterate"] > 0
+                      and k["music_scan_peaks"] > 0
+                      and k["halo_ring"] == (1 if impl == "pallas" else 0),
+                      f"R={R} {impl}: launches {shown(n)}, planned {form}, "
+                      f"the single card's {epi}")
             log(f"R={R} launches in the sharded path, halo_impl={impl!r}, "
-                f"rank 0: " + json.dumps(outs[0][impl]["launches"]))
+                f"rank 0: " + shown(outs[0][impl]["launches"]))
             log(f"R={R} plan of the sharded path, halo_impl={impl!r}, "
                 f"rank 0: " + json.dumps(outs[0][impl]["plan"]))
             check(all("plain" not in o[impl]["plan"].values() for o in outs),
@@ -3838,12 +3706,7 @@ def sharded_phases(torch, dev, card):
                    replaces="doa_tpu/ops/pallas/ring.py:35",
                    max_abs_err=err, ms=k_ms, plain_ms=plain_ms, **b,
                    library_ms=xla_ms)
-    rec["launches"] = ring_launches
-    # the ranks' kernel 9 launches are its window entry's (the covariance
-    # stage where the plan names "windows")
-    if epi == "windows":
-        total["chunk_windows"] = total.pop("chunk_embedded")
-    return rec, total
+    return rec
 
 
 # ---------------------------------------------------------------------
@@ -3896,13 +3759,6 @@ def fault_phase(torch, dev, card):
     from doa_tpu_torch.ops.cuda import wideband_scan as wsc
     from doa_tpu_torch.pipeline_torch import build_pipeline_torch
 
-    counters = {"chunk_gram": ce.chunk_grams_uhat,
-                "chunk_embedded": ce.chunk_embedded,
-                "planes_chunk_gram": cv.chunk_grams,
-                "mgs_iterate": cpx_ops.mgs_iterate,
-                "subspace_ns": sn.subspace_ns,
-                "music_scan": ms.music_scan,
-                "music_scan_peaks": ms.music_scan_peaks}
     for name, N, sources, k, fields in FAULT_CASES:
         cfg = DoaConfig(
             geometry=ArrayGeometry(kind="ula", num_elements=N,
@@ -3915,37 +3771,27 @@ def fault_phase(torch, dev, card):
         for rs in (True, False):
             pipe = build_pipeline_torch(cfg, device=dev, return_spectra=rs)
             show_plan(f"{name} return_spectra={rs}", pipe, all_kernel=False)
-            for f in counters.values():
-                f.launches = 0
-            ms.music_scan_peaks.tc_launches = 0
-            sn.subspace_ns.by_form.update(dict.fromkeys(sn.NS_FORMS, 0))
-            a_gpu = pipe.interleaved(x).peak_angles["music"]
-            torch.cuda.synchronize()
-            n = {key: f.launches for key, f in counters.items()}
+            with counting() as n:
+                a_gpu = pipe.interleaved(x).peak_angles["music"]
+                torch.cuda.synchronize()
             log(f"launches in the {name} path, return_spectra={rs}: "
-                + json.dumps(n) + ", of K2's tensor-core form "
-                f"{ms.music_scan_peaks.tc_launches}, kernel 11 by form "
-                f"{json.dumps(sn.subspace_ns.by_form)}")
-            if n["subspace_ns"]:
-                check(sn.subspace_ns.by_form[pipe.plan.forms["subspace"]]
-                      == n["subspace_ns"],
-                      f"{name}: kernel 11 launched another form than "
-                      f"the plan's {pipe.plan.forms}")
+                + shown(n) + f", planned forms {json.dumps(pipe.plan.forms)}")
             # K2 here (2N = 96 at G = 1024, or 2K = 10): its CUDA-core form
-            check(ms.music_scan_peaks.tc_launches == 0,
+            check(("music_scan_peaks", "tc") not in n,
                   f"{name}: K2 took its tensor-core form")
-            # the interleaved entry drives every stage but planes input's
-            planned = {stage_counter(pipe.plan, key)
-                       for key, v in pipe.plan.items()
-                       if v != "plain" and key != "covariance_planes"}
-            for key, count in n.items():
-                check((count > 0) == (key in planned),
-                      f"{name}: {key} launched {count} times against the "
-                      f"plan {pipe.plan}")
+            # the interleaved entry drives every stage but planes input's:
+            # each planned stage's kernel launches, in the planned form,
+            # and no other kernel does
+            want = {(pipe.plan.kernels[st], pipe.plan.forms.get(st))
+                    for st, v in pipe.plan.items()
+                    if v != "plain" and st != "covariance_planes"}
+            check(set(n) == want, f"{name}: launched {shown(n)} against "
+                  f"the plan {pipe.plan}")
             if rs and len(sources) == 5:
                 # K3 at 2K = 10: its CUDA-core form, where K3's first form
                 # also ran
-                check(n["music_scan"] == 1, f"{name}: K3 did not launch")
+                check(n["music_scan", None] == 1,
+                      f"{name}: K3 did not launch")
             a_cpu = build_pipeline_torch(
                 cfg, device="cpu", return_spectra=rs).interleaved(
                 x.cpu()).peak_angles["music"]
@@ -4080,56 +3926,37 @@ def est_medians(torch, name, res, truth, want, tol):
         check(d <= tol, f"{name} {key} median off by {d}")
 
 
-def est_path(torch, name, pipe, call, counters, card, check_angles,
+def est_path(torch, name, pipe, call, card, check_angles,
              interleaved=True):
-    """Drive one configuration once with every count from zero: the plan's
-    kernels each launched (call.interleaved: but for the planes-input
-    stage; planes input on a fused config: but for K1's stage), no other
-    counted kernel; its peak allocation
-    above what was held before the call; check_angles(result); then
-    EST_REPS timed calls and a profile window (idle share, device ops) →
-    (result, the launches)."""
-    from doa_tpu_torch.ops.cuda import music_scan as ms
-    for f in counters.values():
-        f.launches = 0
-        by = form_counts(f)
-        if by is not None:
-            by.update(dict.fromkeys(by, 0))
-    ms.music_scan_peaks.tc_launches = 0
+    """Drive one configuration once: each stage of the plan launches its
+    kernel in the form the plan names (call.interleaved: but for the
+    planes-input stage; planes input on a fused config: but for K1's
+    stage), and no other kernel launches; its peak allocation above what
+    was held before the call; check_angles(result); then EST_REPS timed
+    calls and a profile window (idle share, device ops) → (result, its
+    launches by kernel, added to PATHS)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    res = call()
-    torch.cuda.synchronize()
+    with counting() as n:
+        res = call()
+        torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - held
-    launches = {n: f.launches for n, f in counters.items()}
+    PATHS.update(n)
     show_plan(name, pipe)
-    log(f"launches in {name}: {json.dumps(launches)} (K2's tensor-core form "
-        f"{ms.music_scan_peaks.tc_launches}); the plan's forms "
+    log(f"launches in {name}: {shown(n)}; the plan's forms "
         f"{json.dumps(pipe.plan.forms)}; peak allocation "
         f"{peak / 2 ** 30:.3f} GiB above the {held / 2 ** 30:.3f} GiB held")
     # the interleaved entry does not run kernel 8's planes-input stage,
     # and planes input on a fused config does not run K1's
     skip = ("covariance_planes" if interleaved
             else "covariance" if "covariance_planes" in pipe.plan else None)
-    route = {s: stage_counter(pipe.plan, s) for s in pipe.plan.kernels
-             if s != skip}
-    for stage, kernel in route.items():
-        check(launches[kernel] > 0,
-              f"{name}: stage {stage}'s kernel {kernel} never launched")
-    others = {n: v for n, v in launches.items()
-              if n not in route.values() and v}
-    check(not others, f"{name}: kernels outside its plan launched: {others}")
-    check(ms.music_scan_peaks.tc_launches == launches["music_scan_peaks"],
+    want = {(pipe.plan.kernels[s], pipe.plan.forms.get(s))
+            for s in pipe.plan.kernels if s != skip}
+    check(set(n) == want, f"{name}: launched {shown(n)}, planned "
+          f"{sorted(want, key=str)}")
+    check(pipe.plan.forms.get("scan") in (None, "tc"),
           f"{name}: K2 left its tensor-core form")
-    for stage, form in pipe.plan.forms.items():
-        if stage not in route:
-            continue
-        by = form_counts(counters[pipe.plan.kernels[stage]])
-        check(by[form] == launches[route[stage]],
-              f"{name}: {stage} launched {dict(by)}, planned {form}")
-    if "peaks" in pipe.plan:
-        peaks_forms(name, pipe, launches["peaks2d"])
     check_angles(res)
     ts = call_times(torch, call, reps=EST_REPS, warm=2)
     med = 0.5 * (ts[EST_REPS // 2 - 1] + ts[EST_REPS // 2])
@@ -4137,7 +3964,7 @@ def est_path(torch, name, pipe, call, counters, card, check_angles,
     log(f"{name}: median {med:.4f} ms per call of {B} windows ({EST_REPS} "
         f"calls, min {ts[0]:.4f}, max {ts[-1]:.4f})  [{card}]")
     profile_window(torch, call, card)
-    return res, launches
+    return res, by_kernel(n)
 
 
 def grid_step(cfg):
@@ -4202,7 +4029,7 @@ def est_shares(torch, name, fns, card):
 
 
 def estimator_phase(torch, dev, card):
-    """Phase 16 → the launches of the earlier kernels in these paths."""
+    """Phase 16."""
     from doa_tpu_torch import Estimator, PRESETS
     from doa_tpu_torch.cpx import embed_planes, fp32_matmuls, unembed_planes
     from doa_tpu_torch.ops import cpx_ops, esprit, min_norm
@@ -4210,9 +4037,6 @@ def estimator_phase(torch, dev, card):
     root_music = importlib.import_module("doa_tpu_torch.ops.root_music")
     from doa_tpu_torch.ops import wideband as wb
     from doa_tpu_torch.ops.cuda import cov_embedded as ce
-    from doa_tpu_torch.ops.cuda import covariance as cv
-    from doa_tpu_torch.ops.cuda import music_scan as ms
-    from doa_tpu_torch.ops.cuda import peaks2d as pk
     from doa_tpu_torch.ops.cuda import wideband_cov as wc
     from doa_tpu_torch.ops.jacobi import subspace_projector_jacobi
     from doa_tpu_torch.ops.peaks import find_local_max
@@ -4222,20 +4046,6 @@ def estimator_phase(torch, dev, card):
     E_ = Estimator
     five = (E_.MUSIC, E_.ROOT_MUSIC, E_.ESPRIT, E_.UNITARY_ESPRIT,
             E_.MIN_NORM)
-    counters = {"chunk_gram": ce.chunk_grams_uhat,
-                "chunk_embedded": ce.chunk_embedded,
-                "planes_chunk_gram": cv.chunk_grams,
-                "wideband_fft_gram": wc.subband_chunk_grams,
-                "mgs_iterate": cpx_ops.mgs_iterate,
-                "music_scan": ms.music_scan,
-                "music_scan_peaks": ms.music_scan_peaks,
-                "peaks2d": pk.peaks2d}
-    total = {n: 0 for n in counters}
-
-    def add(n):
-        for k, v in n.items():
-            total[k] += v
-
     # 16a. the headline with the five estimators, both return_spectra
     cfg1 = dataclasses.replace(headline_config(), estimators=five)
     x = make_scene(torch, T_MAIN, 16, dev)
@@ -4243,12 +4053,11 @@ def estimator_phase(torch, dev, card):
     for rs in (False, True):
         pipe = build_pipeline_torch(cfg1, device=dev, return_spectra=rs)
         name = f"headline + five estimators return_spectra={rs}"
-        res, n = est_path(
-            torch, name, pipe, lambda: pipe.interleaved(x), counters, card,
+        res, _ = est_path(
+            torch, name, pipe, lambda: pipe.interleaved(x), card,
             lambda r: est_every_window(torch, name, r, THETA, want1))
         check(sorted(res.spectra) == (["min_norm", "music"] if rs else []),
               f"{name}: spectra {sorted(res.spectra)}")
-        add(n)
         del res
     cr, ci = torch.ones(16, device=dev), torch.zeros(16, device=dev)
     with fp32_matmuls():
@@ -4293,12 +4102,11 @@ def estimator_phase(torch, dev, card):
         check(dict(pipe.plan) == {"covariance": "planes_chunk_gram"},
               f"c3 jacobi plan {dict(pipe.plan)}")
         name = f"c3 jacobi return_spectra={rs}"
-        res, n = est_path(
-            torch, name, pipe, lambda: pipe((xr, xi)), counters, card,
+        res, _ = est_path(
+            torch, name, pipe, lambda: pipe((xr, xi)), card,
             lambda r: est_every_window(torch, name, r, C3_TRUTH,
                                        ("peaks music",)),
             interleaved=False)
-        add(n)
         del res
     with fp32_matmuls():
         R3 = compute_covariances(xr, xi, cfg3)
@@ -4326,14 +4134,13 @@ def estimator_phase(torch, dev, card):
                                    estimators=(E_.MUSIC, E_.ESPRIT))
         pipe = build_pipeline_torch(cfg5, device=dev)
         name = f"c5 {fusion} + ESPRIT"
-        res, n = est_path(
-            torch, name, pipe, lambda: pipe.interleaved(x16), counters,
-            card, lambda r: est_medians(torch, name, r, C5_TRUTH,
-                                        ("peaks music", "esprit_angles"),
-                                        CSSM_ANGLE_TOL))
+        res, _ = est_path(
+            torch, name, pipe, lambda: pipe.interleaved(x16), card,
+            lambda r: est_medians(torch, name, r, C5_TRUTH,
+                                  ("peaks music", "esprit_angles"),
+                                  CSSM_ANGLE_TOL))
         check(tuple(res.esprit_angles.shape) == (T_C5 // 1024, 2, 2),
               f"{name}: esprit_angles {tuple(res.esprit_angles.shape)}")
-        add(n)
         del res
         est_card_vs_cpu(torch, name, cfg5, lambda p, xs: p.interleaved(xs),
                         x16, B_EST_CPU, True)
@@ -4351,7 +4158,6 @@ def estimator_phase(torch, dev, card):
                 Rr, Ri, 2, 0.5, (8, 8))}, card)
     del R, Rr, Ri, x16
     torch.cuda.empty_cache()
-    return total
 
 
 # ---------------------------------------------------------------------
@@ -4434,12 +4240,11 @@ def dmin_parity(torch, pipe, x, cfg, card):
     del E_sub
     At = torch.cat(pipe.subband_planes, dim=-1).contiguous()
     nrm = (At * At).sum(dim=-1)
-    n0 = wsc.wideband_fused_spectrum.launches
-    P, dmin = wsc.wideband_fused_spectrum(Vt, At, nrm, return_dmin=True)
-    check(wsc.wideband_fused_spectrum.launches == n0 + 1,
+    with counting() as n:
+        P, dmin = wsc.wideband_fused_spectrum(Vt, At, nrm, return_dmin=True)
+    check(n == {("wideband_fusion", None): 1},
           "return_dmin took more than one launch of kernel 5")
     P1 = wsc.wideband_fused_spectrum(Vt, At, nrm)
-    wsc.wideband_fused_spectrum.launches = n0
     _, dmin_p = wsc.wideband_fused_spectrum_plain(Vt, At, nrm,
                                                   return_dmin=True)
     e = (dmin - dmin_p).abs().max().item()
@@ -4455,32 +4260,11 @@ def dmin_parity(torch, pipe, x, cfg, card):
 
 
 def hier_phase(torch, dev, card):
-    """Phase 17 → the launches of the earlier kernels in these paths."""
+    """Phase 17."""
     from doa_tpu_torch import BeamspaceSpec, Estimator, PRESETS
-    from doa_tpu_torch.ops import cpx_ops
-    from doa_tpu_torch.ops.cuda import cov_embedded as ce
-    from doa_tpu_torch.ops.cuda import covariance as cv
-    from doa_tpu_torch.ops.cuda import music_scan as ms
-    from doa_tpu_torch.ops.cuda import peaks2d as pk
-    from doa_tpu_torch.ops.cuda import wideband_cov as wc
-    from doa_tpu_torch.ops.cuda import wideband_scan as wsc
     from doa_tpu_torch.pipeline_torch import build_pipeline_torch
 
     E_ = Estimator
-    counters = {"chunk_gram": ce.chunk_grams_uhat,
-                "chunk_embedded": ce.chunk_embedded,
-                "planes_chunk_gram": cv.chunk_grams,
-                "wideband_fft_gram": wc.subband_chunk_grams,
-                "mgs_iterate": cpx_ops.mgs_iterate,
-                "music_scan": ms.music_scan,
-                "music_scan_peaks": ms.music_scan_peaks,
-                "wideband_fusion": wsc.wideband_fused_spectrum,
-                "peaks2d": pk.peaks2d}
-    total = {n: 0 for n in counters}
-
-    def add(n):
-        for key, v in n.items():
-            total[key] += v
 
     def every_window(name, keys, truth):
         return lambda r: est_every_window(torch, name, r, truth,
@@ -4496,13 +4280,11 @@ def hier_phase(torch, dev, card):
     for rs in (False, True):
         pipe = build_pipeline_torch(cfg_bs, device=dev, return_spectra=rs)
         name = f"headline + beamspace return_spectra={rs}"
-        res, n = est_path(torch, name, pipe, lambda: pipe.interleaved(x),
-                          counters, card, every_window(name, ("music",),
-                                                       THETA))
+        res, _ = est_path(torch, name, pipe, lambda: pipe.interleaved(x),
+                          card, every_window(name, ("music",), THETA))
         e_c = sorted_err(torch, res.peak_angles["capon"], THETA)
         log(f"{name} peaks capon: max |sorted angle - truth| {e_c!r} deg")
         spectra_keys(torch, name, res, ["capon", "music"] if rs else [])
-        add(n)
         del res
     for rs in (False, True):
         est_card_vs_cpu(torch, f"headline + beamspace return_spectra={rs}",
@@ -4518,9 +4300,8 @@ def hier_phase(torch, dev, card):
     for rs in (False, True):
         pipe = build_pipeline_torch(cfg_h, device=dev, return_spectra=rs)
         name = f"headline + hierarchical return_spectra={rs}"
-        res, n = est_path(torch, name, pipe, lambda: pipe.interleaved(x),
-                          counters, card, every_window(name, ("music",),
-                                                       THETA))
+        res, _ = est_path(torch, name, pipe, lambda: pipe.interleaved(x),
+                          card, every_window(name, ("music",), THETA))
         e_h = angle_err(torch, res.peak_angles["music"])
         log(f"{name}: max angle error {e_h!r} deg, the dense headline's "
             f"{e_dense!r} deg on the same capture (limit dense + "
@@ -4528,7 +4309,6 @@ def hier_phase(torch, dev, card):
         check(e_h <= e_dense + HIER_DENSE_SLACK,
               f"{name}: hierarchical error {e_h} beyond dense {e_dense}")
         spectra_keys(torch, name, res, [])
-        add(n)
         del res
     for rs in (False, True):
         est_card_vs_cpu(torch, f"headline + hierarchical return_spectra="
@@ -4547,11 +4327,10 @@ def hier_phase(torch, dev, card):
     xr, xi = x2[..., 0], x2[..., 1]
     pipe = build_pipeline_torch(cfg2, device=dev)
     name = "c2 + hierarchical (planes input)"
-    res, n = est_path(torch, name, pipe, lambda: pipe((xr, xi)), counters,
-                      card, every_window(name, ("music", "capon"),
-                                         C2_TRUTH), interleaved=False)
+    res, _ = est_path(torch, name, pipe, lambda: pipe((xr, xi)), card,
+                      every_window(name, ("music", "capon"), C2_TRUTH),
+                      interleaved=False)
     spectra_keys(torch, name, res, [])
-    add(n)
     del res
     x2c = torch.view_as_complex(x2[:B_EST_CPU * 2048])
     est_card_vs_cpu(torch, name, cfg2, lambda p, xs: p((xs.real, xs.imag)),
@@ -4567,14 +4346,13 @@ def hier_phase(torch, dev, card):
         pipe = build_pipeline_torch(cfg5, device=dev)
         name = f"c5 {fusion} + hierarchical"
         tol = C5_ANGLE_TOL if fusion == "incoherent" else CSSM_ANGLE_TOL
-        res, n = est_path(
-            torch, name, pipe, lambda: pipe.interleaved(x16), counters,
-            card, lambda r: est_medians(torch, name, r, C5_TRUTH,
-                                        ("peaks music",), tol))
+        res, _ = est_path(
+            torch, name, pipe, lambda: pipe.interleaved(x16), card,
+            lambda r: est_medians(torch, name, r, C5_TRUTH,
+                                  ("peaks music",), tol))
         check(tuple(res.peak_angles["music"].shape) == (T_C5 // 1024, 2, 2),
               f"{name}: angles {tuple(res.peak_angles['music'].shape)}")
         spectra_keys(torch, name, res, [])
-        add(n)
         del res
         if fusion == "incoherent":
             dmin_parity(torch, pipe, x16, cfg5, card)
@@ -4582,7 +4360,6 @@ def hier_phase(torch, dev, card):
                         x16, B_EST_CPU, True)
     del x16
     torch.cuda.empty_cache()
-    return total
 
 
 # ---------------------------------------------------------------------
@@ -4597,27 +4374,14 @@ T_URA_CPX = 512 * 1024             # 18d: 512 windows of the 8x8 URA
 T_MVDR = 1 << 22                   # 18f: 4096 windows of the headline scene
 
 
-def launch_counts():
-    """{wrapper: launches} of every kernel wrapper of the port."""
-    out = {}
-    for mod in [m for n, m in sys.modules.items()
-                if n.startswith("doa_tpu_torch.ops")]:
-        for k, v in vars(mod).items():
-            if callable(v) and hasattr(v, "launches"):
-                out[f"{mod.__name__}.{k}"] = v.launches
-    return out
-
-
 def no_kernel(torch, name, fn):
     """fn() → its result; fails if it launched a kernel of the port (the
     complex path is library calls alone)."""
-    before = launch_counts()
-    out = fn()
-    torch.cuda.synchronize()
-    moved = {k: v - before.get(k, 0) for k, v in launch_counts().items()
-             if v != before.get(k, 0)}
-    check(not moved, f"{name}: kernels launched on the complex path: "
-          f"{moved}")
+    with counting() as n:
+        out = fn()
+        torch.cuda.synchronize()
+    check(not n, f"{name}: kernels launched on the complex path: "
+          f"{shown(n)}")
     return out
 
 
@@ -4959,9 +4723,9 @@ def tops_layers(torch, cfg, pipe, x, card):
     return P
 
 
-def tops_cell(torch, name, cfg, x, counters, card, truth, B_cpu, total):
+def tops_cell(torch, name, cfg, x, card, truth, B_cpu):
     """One TOPS configuration on the card in both return_spectra modes
-    (est_path: every count from zero, the plan's kernels each launched,
+    (est_path: the plan's kernels each launched,
     kernel 4 and kernel 6 once a call, no other, so neither K4 nor kernel
     5; the peak allocation; EST_REPS timed calls; a profile window),
     its median sorted (pair-sorted on az/el) angles within TOPS_ANGLE_TOL
@@ -4995,7 +4759,7 @@ def tops_cell(torch, name, cfg, x, counters, card, truth, B_cpu, total):
             check(d <= TOPS_ANGLE_TOL, f"{tag} median off by {d}")
 
         res, n = est_path(torch, tag, pipe, lambda: pipe.interleaved(x),
-                          counters, card, angles)
+                          card, angles)
         check(n["wideband_fft_gram"] == 1
               and n["peaks2d"] == (1 if two_d else 0),
               f"{tag}: kernel 4 and kernel 6 not once each: {n}")
@@ -5008,32 +4772,17 @@ def tops_cell(torch, name, cfg, x, counters, card, truth, B_cpu, total):
             check(d <= 1e-6, f"{tag}: the layers do not give the call's "
                   "spectrum")
             del P
-        for key, v in n.items():
-            total[key] += v
         del res
     est_card_vs_cpu(torch, name, cfg, lambda p, xs: p.interleaved(xs),
                     x, B_cpu, True)
 
 
 def wideband_rest_phase(torch, dev, card):
-    """Phase 19 → the launches of the earlier kernels in these paths."""
+    """Phase 19."""
     from doa_tpu_torch import (ArrayGeometry, DoaConfig, Estimator,
                                WidebandSpec)
-    from doa_tpu_torch.ops import cpx_ops
-    from doa_tpu_torch.ops.cuda import music_scan as ms
-    from doa_tpu_torch.ops.cuda import peaks2d as pk
-    from doa_tpu_torch.ops.cuda import wideband_cov as wc
-    from doa_tpu_torch.ops.cuda import wideband_scan as wsc
     from doa_tpu_torch.pipeline_torch import build_pipeline_torch
 
-    counters = {"wideband_fft_gram": wc.subband_chunk_grams,
-                "subband_embedded_frames": wc.subband_embedded_frames,
-                "mgs_iterate": cpx_ops.mgs_iterate,
-                "music_scan": ms.music_scan,
-                "music_scan_peaks": ms.music_scan_peaks,
-                "wideband_fusion": wsc.wideband_fused_spectrum,
-                "peaks2d": pk.peaks2d}
-    total = {n: 0 for n in counters}
     t0 = time.perf_counter()
 
     def done(cell):
@@ -5041,8 +4790,8 @@ def wideband_rest_phase(torch, dev, card):
 
     # 19a. c5 with fusion="tops", 2048 windows of exp_r5.py's scene
     x16 = make_c5_scene(torch, T_C5, dev, seed=5)
-    tops_cell(torch, "c5 tops", c5_variant(fusion="tops"), x16, counters,
-              card, C5_TRUTH, B_TOPS_CPU, total)
+    tops_cell(torch, "c5 tops", c5_variant(fusion="tops"), x16, card,
+              C5_TRUTH, B_TOPS_CPU)
     torch.cuda.empty_cache()
     done("c5 tops")
 
@@ -5059,8 +4808,8 @@ def wideband_rest_phase(torch, dev, card):
                                   fusion="tops"))
         xu = make_wideband_ula_capture(torch, T_ULA, 16, truth, 0.5, 0.4,
                                        SNR_DB, dev, seed=1)
-        tops_cell(torch, f"ULA-16 tops K={K}", cfg_u, xu, counters, card,
-                  truth, B_cpu, total)
+        tops_cell(torch, f"ULA-16 tops K={K}", cfg_u, xu, card, truth,
+                  B_cpu)
         del xu
         done(f"ULA-16 tops K={K}")
     torch.cuda.empty_cache()
@@ -5076,7 +4825,7 @@ def wideband_rest_phase(torch, dev, card):
         cfg5 = dataclasses.replace(c5_variant(), **over)
         pipe = build_pipeline_torch(cfg5, device=dev)
         res, n = est_path(
-            torch, name, pipe, lambda: pipe.interleaved(x16), counters, card,
+            torch, name, pipe, lambda: pipe.interleaved(x16), card,
             lambda r, name=name: est_medians(torch, name, r, C5_TRUTH,
                                              ("peaks music",), C5_ANGLE_TOL))
         check(n["mgs_iterate"] > 0 and n["wideband_fusion"] == 0,
@@ -5084,8 +4833,6 @@ def wideband_rest_phase(torch, dev, card):
               f"{n['wideband_fusion']} launches")
         spectra_keys(torch, name, res, [] if "scan_mode" in over
                      else ["music"])
-        for key, v in n.items():
-            total[key] += v
         del res
         est_card_vs_cpu(torch, name, cfg5, lambda p, xs: p.interleaved(xs),
                         x16, B_QUANT_CPU, True)
@@ -5102,18 +4849,15 @@ def wideband_rest_phase(torch, dev, card):
     pipe = build_pipeline_torch(cfg_e, device=dev)
     name = f"c5 eigh ({T_EIGH_C5 // 1024} windows)"
     res, n = est_path(
-        torch, name, pipe, lambda: pipe.interleaved(x5), counters, card,
+        torch, name, pipe, lambda: pipe.interleaved(x5), card,
         lambda r: est_medians(torch, name, r, C5_TRUTH, ("peaks music",),
                               C5_ANGLE_TOL))
-    for key, v in n.items():
-        total[key] += v
     del res
     est_card_vs_cpu(torch, name, cfg_e, lambda p, xs: p.interleaved(xs),
                     x5, B_EIGH_C5_CPU, True)
     del x5
     torch.cuda.empty_cache()
     done(name)
-    return total
 
 
 # ---------------------------------------------------------------------
@@ -5173,27 +4917,6 @@ def sh_capture(torch, name, device):
     return make_c5_scene(torch, T_SH_C5, device, seed=SH_C5_SEED)
 
 
-def sh_counters():
-    from doa_tpu_torch.ops import cpx_ops
-    from doa_tpu_torch.ops.cuda import cov_embedded as ce
-    from doa_tpu_torch.ops.cuda import covariance as cv
-    from doa_tpu_torch.ops.cuda import music_scan as ms
-    from doa_tpu_torch.ops.cuda import peaks2d as pk
-    from doa_tpu_torch.ops.cuda import ring as rg
-    from doa_tpu_torch.ops.cuda import wideband_cov as wc
-    from doa_tpu_torch.ops.cuda import wideband_scan as wsc
-    return {"halo_ring": rg.halo_ring, "chunk_gram": ce.chunk_grams_uhat,
-            "chunk_embedded": ce.chunk_embedded,
-            "planes_chunk_gram": cv.chunk_grams,
-            "mgs_iterate": cpx_ops.mgs_iterate,
-            "music_scan": ms.music_scan,
-            "music_scan_peaks": ms.music_scan_peaks,
-            "wideband_fft_gram": wc.subband_chunk_grams,
-            "subband_embedded_frames": wc.subband_embedded_frames,
-            "wideband_fusion": wsc.wideband_fused_spectrum,
-            "peaks2d": pk.peaks2d}
-
-
 def sh_angles(out):
     """{key: angles} of a sharded output dict (peaks and grid-free)."""
     return {k: v for k, v in out.items()
@@ -5202,12 +4925,10 @@ def sh_angles(out):
 
 def shard_rest_rank(device, spec, names, card):
     """Phase 20 on one rank of a (n_snap, n_grid) mesh on cuda:0 (a
-    spawn_ranks target): each case's pipeline driven once with every
-    count from zero (launches, kernel 6's forms, the angles), then
-    SH_REPS calls timed, every rank at once."""
+    spawn_ranks target): each case's pipeline driven once (its launches,
+    the angles), then SH_REPS calls timed, every rank at once."""
     import torch
     import torch.distributed as dist
-    from doa_tpu_torch.ops.cuda import peaks2d as pk
     from doa_tpu_torch.parallel import (MeshSpec, build_sharded_pipeline,
                                         make_mesh, sharded)
     from doa_tpu_torch.parallel.sharded import _block_rows
@@ -5216,7 +4937,6 @@ def shard_rest_rank(device, spec, names, card):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_mesh(MeshSpec(*spec), device=device)
-    counters = sh_counters()
     out = {"device": str(mesh.device), "backend": mesh.backend,
            "coords": dict(mesh.coords)}
     for name in names:
@@ -5228,14 +4948,11 @@ def shard_rest_rank(device, spec, names, card):
         pipe = build_sharded_pipeline(cfg, mesh, return_spectra=spectra)
         torch.cuda.synchronize()
         dist.barrier()
-        for f in counters.values():
-            f.launches = 0
-        pk.peaks2d.by_form = dict.fromkeys(pk.peaks2d.by_form, 0)
-        res = pipe.local(xb)
-        torch.cuda.synchronize()
-        rec = {"launches": {k: f.launches for k, f in counters.items()},
-               "by_form": dict(pk.peaks2d.by_form),
-               "plan": dict(pipe.plan), "forms": dict(pipe.plan.forms),
+        with counting() as n:
+            res = pipe.local(xb)
+            torch.cuda.synchronize()
+        rec = {"launches": n, "plan": dict(pipe.plan),
+               "forms": dict(pipe.plan.forms),
                "angles": {k: v.cpu().numpy()
                           for k, v in sh_angles(res).items()},
                "keys": sorted(res)}
@@ -5300,14 +5017,12 @@ def sh_gather(outs, spec, name, key):
 
 
 def sharded_rest_phase(torch, dev, card):
-    """Phase 20 → the launches of the earlier kernels in the ranks'
-    main-path runs."""
+    """Phase 20."""
     import numpy as np
     from doa_tpu_torch.parallel.launch import spawn_ranks
     from doa_tpu_torch.parallel.sharded import num_valid_windows
     from doa_tpu_torch.pipeline_torch import build_pipeline_torch
 
-    total = {n: 0 for n in sh_counters()}
     t_phase = time.perf_counter()
     for spec, names in SH_REST:
         R = spec[0] * spec[1]
@@ -5326,27 +5041,15 @@ def sharded_rest_phase(torch, dev, card):
             log(f"{name} on MeshSpec{spec}: plan {json.dumps(plan)}")
             check("plain" not in plan.values(),
                   f"{name}: a stage is planned plain on the card")
-            # the covariance stage's launches land on kernel 9's counter
-            # where its plan names kernel 9's entries (counter_of)
-            planned = {counter_of(k, recs[0]["forms"].get(st))
-                       for st, k in plan.items()}
+            # each planned stage's kernel in the form the plan names
+            want = {(k, recs[0]["forms"].get(st)) for st, k in plan.items()}
             for r in recs:
                 n = r["launches"]
-                ran = {k for k, v in n.items() if v}
-                check(ran == planned, f"{name} MeshSpec{spec}: launched "
-                      f"{sorted(ran)}, planned {sorted(planned)}: {n}")
-                if "peaks2d" in planned:
-                    want = r["forms"].get("peaks")
-                    check(r["by_form"].get(want) == n["peaks2d"]
-                          == sum(r["by_form"].values()),
-                          f"{name}: kernel 6 by form {r['by_form']}, "
-                          f"planned {want}")
-                    for f, v in r["by_form"].items():
-                        PEAKS_TALLY[f] = PEAKS_TALLY.get(f, 0) + v
-                for k, v in n.items():
-                    total[k] += v
+                PATHS.update(n)
+                check(set(n) == want, f"{name} MeshSpec{spec}: launched "
+                      f"{shown(n)}, planned {sorted(want, key=str)}")
             log(f"{name} on MeshSpec{spec}: launches a rank "
-                + json.dumps([r["launches"] for r in recs]))
+                + ", ".join(shown(r["launches"]) for r in recs))
             # the single-card port on the same capture
             x = sh_capture(torch, name, dev)
             B = (num_valid_windows(x.shape[0], cfg) if name.startswith("c4")
@@ -5427,7 +5130,6 @@ def sharded_rest_phase(torch, dev, card):
                     f"slowest rank each: "
                     f"{[round(float(t), 4) for t in ps]})  [{card}]")
     log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
-    return total
 
 
 T_HOST_C2 = 32768                  # 21a: c2, 16 windows of 2048
@@ -5509,7 +5211,7 @@ def host_phase(torch, dev, card):
     the card (cli.main in this process), the tracker kernel against its
     plain version, the streaming driver, UDP ingest through the C++
     framer, the checkpoint and the profiling fence. → the track kernel's
-    record (its launches: the `track` command's)."""
+    record."""
     import numpy as np
     from doa_tpu_torch import PRESETS, checkpoint, tracking
     from doa_tpu_torch.io import recorded, socket_source, synthetic
@@ -5578,16 +5280,17 @@ def host_phase(torch, dev, card):
             f"(limit 1.5, tests/test_cli.py's)")
         check(e <= 1.5, "calibrated estimate")
         # track on a moving-emitter c4 capture: the main path of the
-        # tracker kernel (counts from zero here)
+        # tracker kernel
         x_mov = synthetic.synth_moving_ula_iq(
             [(50.0, 80.0), (130.0, 100.0)], 16, 0.5, T_HOST_C4,
             snr_db=10, seed=5)
         recorded.save_iq(p("moving.npz"), x_mov)
-        trk.track_scan.launches = 0
-        (r,) = cli_run(torch, "track c4", [
-            "track", "--preset", "c4_ula16_streaming", "--input",
-            p("moving.npz")], card)
-        launches = trk.track_scan.launches
+        with counting() as n:
+            (r,) = cli_run(torch, "track c4", [
+                "track", "--preset", "c4_ula16_streaming", "--input",
+                p("moving.npz")], card)
+        PATHS.update(n)
+        launches = n["track", None]
         finals = [a for a in r["final_track_angles_deg"] if a is not None]
         log(f"cli track c4: {r['windows']} windows, {r['active_tracks']} "
             f"active tracks, final {r['final_track_angles_deg']}; track "
@@ -5794,7 +5497,7 @@ def host_phase(torch, dev, card):
                source="doa_tpu_torch/csrc/track.cu",
                replaces="doa_tpu/tracking.py:110 (the lax.scan of "
                         "track_batch; no pallas_call)",
-               launches=launches, max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
+               max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
                library_ms=None, **b,
                by_shape={f"{n} windows": {"ms": k_n, "plain_ms": p_n}})
     log(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
@@ -5884,43 +5587,23 @@ def main():
     del E, Vt
 
     # 4. main path
-    counters = {"chunk_gram": ce.chunk_grams_uhat,
-                "chunk_embedded": ce.chunk_embedded,
-                "music_scan": ms.music_scan,
-                "music_scan_peaks": ms.music_scan_peaks,
-                "mgs_iterate": cpx_ops.mgs_iterate}
-    for f in counters.values():
-        f.launches = 0
-    by_epi = ce.chunk_grams_uhat.by_epilogue
-    by_epi.update(dict.fromkeys(by_epi, 0))
-    ms.music_scan_peaks.tc_launches = 0
-    k4_forms_zero()
-    res_f = pipe_f.interleaved(x)
-    res_s = pipe_s.interleaved(x)
-    torch.cuda.synchronize()
-    k9_main = ce.chunk_embedded.launches     # kernel 9's record comes later
-    for name, f in counters.items():
-        if name != "chunk_embedded":
-            recs[name]["launches"] = f.launches
-    # overlap 0: the covariance stage is kernel 9's entry, once a call
-    check(k9_main == 2 and recs["chunk_gram"]["launches"] == 0
-          and by_epi == {"gram": 0, "embedded": 2, "windows": 0}
+    with counting() as n:
+        res_f = pipe_f.interleaved(x)
+        res_s = pipe_s.interleaved(x)
+        torch.cuda.synchronize()
+    PATHS.update(n)
+    log("launches in the main path: " + shown(n))
+    # overlap 0: the covariance stage is kernel 9's entry, once a call,
+    # never K1; K2 all of its tensor-core form
+    check(forms_in(n, "chunk_gram") == {"embedded": 2}
           and pipe_f.plan.forms.get("covariance") == "embedded",
-          f"the main path's covariance stage: kernel 9 {k9_main}, K1 "
-          f"{recs['chunk_gram']['launches']} launches, by epilogue "
-          f"{dict(by_epi)}; planned {pipe_f.plan.forms.get('covariance')}")
-    k4_forms("main path", (pipe_f, pipe_s), cpx_ops.mgs_iterate.launches)
-    recs["music_scan_peaks"]["tc_launches"] = ms.music_scan_peaks.tc_launches
-    check(ms.music_scan_peaks.tc_launches
-          == ms.music_scan_peaks.launches > 0,
+          f"the main path's covariance stage: {shown(n)}; planned "
+          f"{pipe_f.plan.forms.get('covariance')}")
+    k4_forms("main path", (pipe_f, pipe_s), n)
+    check(set(forms_in(n, "music_scan_peaks")) == {"tc"}
+          and pipe_f.plan.forms.get("scan") == "tc",
           "K2 did not run its tensor-core form on the headline path")
-    log("launches in the main path: " + json.dumps(
-        {n: r["launches"] for n, r in recs.items()}
-        | {"chunk_embedded": k9_main}))
-    for name, r in recs.items():
-        if name != "chunk_gram":
-            check(r["launches"] > 0,
-                  f"kernel {name} never ran in the main path")
+    check(n["music_scan", None] > 0, "K3 never ran in the main path")
     B = T_MAIN // 1024
     for tag, res in (("return_spectra=False", res_f),
                      ("return_spectra=True", res_s)):
@@ -5977,72 +5660,50 @@ def main():
 
     # 6. wideband kernel parity at c5's shapes, 7. the c5 path
     k4_shapes = recs["mgs_iterate"]["by_shape"]
-    wb_recs, k4_c5 = c5_phases(torch, dev, card, counters, k4_shapes)
-    recs["mgs_iterate"]["launches"] += k4_c5    # the c5 path's, counted apart
-    recs.update(wb_recs)
+    recs.update(c5_phases(torch, dev, card, k4_shapes))
 
     # 8. planes kernel parity, 9. the c3, c2, eigh paths and calibration
-    pl_recs, k4_planes = planes_phases(
+    recs.update(planes_phases(
         torch, dev, card, k4_shapes,
-        recs["music_scan_peaks"].setdefault("by_shape", {}))
-    recs["mgs_iterate"]["launches"] += k4_planes
-    recs.update(pl_recs)
+        recs["music_scan_peaks"].setdefault("by_shape", {})))
 
     # 10. kernels 7 and 10, 11. c5_f12, c5 cssm / cssm_auto, ULA-16 cssm
-    sb_recs, sb_launches, k3_c5 = coherent_phases(torch, dev, card,
-                                                  k4_shapes)
-    for name, n in sb_launches.items():
-        recs[name]["launches"] += n
+    sb_recs, k3_c5 = coherent_phases(torch, dev, card, k4_shapes)
     recs.update(sb_recs)
     recs["music_scan"].update(k3_c5)
 
     # 12. kernels 11 and 9, 13. subspace_impl="pallas", subspace_check,
     # the hard scene, scan_capture (narrowband and c5), the chunk entry
-    op_recs, op_launches = opt_in_phases(torch, dev, card)
-    for name, n in op_launches.items():
-        recs[name]["launches"] += n
-    recs.update(op_recs)
-    recs["chunk_embedded"]["launches"] += k9_main
+    recs.update(opt_in_phases(torch, dev, card))
 
     # 14. the time-sharded pipeline on 2 and 4 ranks of this card
     torch.cuda.empty_cache()
-    recs["halo_ring"], sh_launches = sharded_phases(torch, dev, card)
-    for name, n in sh_launches.items():
-        recs[name]["launches"] += n
+    recs["halo_ring"] = sharded_phases(torch, dev, card)
     # 15. fault C.5: ULA-48 and ULA-16 at K = 5 on the card
     fault_phase(torch, dev, card)
     # 16. the grid-free and projector estimators: the headline with all
     # five, c3 with Jacobi, c5 cssm and cssm_auto with 2-D ESPRIT
-    for name, n in estimator_phase(torch, dev, card).items():
-        recs[name]["launches"] += n
+    estimator_phase(torch, dev, card)
     # 17. beamspace and the hierarchical scans: the headline with 8 beams
     # and hierarchical, model order, c2, c5 and c5 cssm hierarchical
-    for name, n in hier_phase(torch, dev, card).items():
-        recs[name]["launches"] += n
+    hier_phase(torch, dev, card)
     # 18. the complex-typed public entry (estimate_doa, build_pipeline):
     # the headline with seven estimators, c2, c3, c4, S = 96, the 8x8 URA,
     # beamspace and MVDR extraction; no kernel launched
     complex_phase(torch, dev, card)
     # 19. the rest of single-card wideband: c5 and ULA-16 TOPS, c5
     # incoherent in bf16 and int8, hierarchical + bf16, c5 with eigh
-    for name, n in wideband_rest_phase(torch, dev, card).items():
-        recs[name]["launches"] += n
+    wideband_rest_phase(torch, dev, card)
     # 20. the rest of the sharded pipeline on 2 and 4 ranks of this card:
     # c4 with the estimators, beamspace and Jacobi; c5 incoherent (EP),
     # cssm and TOPS
-    for name, n in sharded_rest_phase(torch, dev, card).items():
-        recs[name]["launches"] += n
+    sharded_rest_phase(torch, dev, card)
     # 21. the host side: python -m doa_tpu_torch's commands, the tracker
     # kernel, streaming, UDP through the C++ framer, the checkpoint
     recs["track"] = host_phase(torch, dev, card)
-    for f, v in PEAKS_TALLY.items():
-        recs["peaks2d"]["by_form"][f]["launches"] = v
-    recs["mgs_iterate"]["launches_by_form"] = K4_TALLY
-    check(K4_TALLY.get("group", 0) > 0 and K4_TALLY.get("block", 0) > 0,
-          f"K4's forms were not both launched on the paths: {K4_TALLY}")
-    check(sum(PEAKS_TALLY.values()) == recs["peaks2d"]["launches"],
-          f"kernel 6's launches by form {PEAKS_TALLY} do not add up to its "
-          f"{recs['peaks2d']['launches']} path launches")
+    path_launches(recs)
+    check(set(forms_in(PATHS, "mgs_iterate")) == {"group", "block"},
+          f"K4's forms were not both launched on the paths: {shown(PATHS)}")
     check(not any(m == "jax" or m.startswith(("jax.", "doa_tpu."))
                   or m == "doa_tpu" for m in sys.modules),
           "jax or doa_tpu was imported")

@@ -8,10 +8,18 @@ headers and takes seconds. The shared object lands in ``_build/`` next to
 this file, named by the hash of its source (with the ``csrc/`` headers it
 includes, expanded in place) and flags: an edited source or header
 rebuilds, an unchanged one is loaded as it is. A failed build raises.
+
+`launch_counts` is the one count of kernel launches: each wrapper calls
+`count(kernel, form)` once a call that launches on the card, `kernel`
+the name the plan gives it (plan.KERNELS; a wrapper no plan stage names
+counts under its own name) and `form` the form plan.kernel_forms names
+for it, else None. `counting()` gives the launches made inside a block.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -32,6 +40,8 @@ _loaded: dict[str, ctypes.CDLL] = {}
 # loaded) and nvcc's output (ptxas: registers, shared memory, spills)
 build_seconds: dict[str, float] = {}
 build_log: dict[str, str] = {}
+# (kernel, form) → launches since the process started
+launch_counts: collections.Counter = collections.Counter()
 
 
 def nvcc_path() -> str:
@@ -114,3 +124,21 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry."""
     if err != 0:
         raise RuntimeError(f"CUDA launch of {what} failed: cudaError {err}")
+
+
+def count(kernel: str, form: str | None = None) -> None:
+    """Count one launch of `kernel` in `form` (see the module's header)."""
+    launch_counts[kernel, form] += 1
+
+
+@contextlib.contextmanager
+def counting():
+    """Yields a Counter {(kernel, form): launches} that holds, once the
+    block has ended, the launches made inside it (nested blocks each
+    count their own)."""
+    before = launch_counts.copy()
+    inside = collections.Counter()
+    try:
+        yield inside
+    finally:
+        inside.update(launch_counts - before)

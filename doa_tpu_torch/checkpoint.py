@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from doa_tpu_torch.cpx import checked_device
 from doa_tpu_torch.tracking import TrackState, state_from_numpy
 
 CHECKPOINT_VERSION = 1
@@ -77,9 +78,7 @@ def save_stream_state(path: str, st: StreamState):
 def load_stream_state(path: str, device="cuda") -> StreamState:
     """The StreamState saved at `path`; its track state on `device` (the
     card unless device="cpu"; no card: RuntimeError)."""
-    from doa_tpu_torch.pipeline_torch import _device
-
-    dev = _device(device)
+    dev = checked_device(device)
     with np.load(_norm_path(path)) as z:
         meta = json.loads(str(z["meta"]))
         if meta["version"] > CHECKPOINT_VERSION:

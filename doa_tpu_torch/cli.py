@@ -26,6 +26,8 @@ import json
 import numpy as np
 import torch
 
+from doa_tpu_torch.cpx import checked_device
+
 
 def _add_common(p):
     p.add_argument("--preset", default="c1_ula4_tone",
@@ -362,9 +364,7 @@ def main(argv=None):
     pt.set_defaults(fn=cmd_track)
 
     args = p.parse_args(argv)
-    from doa_tpu_torch.pipeline_torch import _device
-
-    args.fn(args, _device(args.device))
+    args.fn(args, checked_device(args.device))
 
 
 if __name__ == "__main__":

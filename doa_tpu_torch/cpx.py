@@ -8,6 +8,8 @@ kernels emit it and the subspace iteration and the scan kernels work on it.
 
     E(C) = [[Cr, -Ci], [Ci, Cr]]   (2N x 2N real symmetric for Hermitian C)
     embed_vector(v) = [re(v); im(v)]
+
+``checked_device`` is the one check of a device argument.
 """
 
 from __future__ import annotations
@@ -15,6 +17,19 @@ from __future__ import annotations
 import contextlib
 
 import torch
+
+
+def checked_device(device) -> torch.device:
+    """torch.device(device), a CUDA device only where torch sees one
+    (RuntimeError: nothing falls back to the CPU); any other type than
+    "cpu" or "cuda" raises ValueError."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but torch sees no CUDA "
+                           "device; the pipeline does not fall back to CPU")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
 
 
 def embed_planes(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from doa_tpu_torch.cpx import fp32_matmuls
+from doa_tpu_torch.cpx import checked_device, fp32_matmuls
 
 
 def _div_count(R: torch.Tensor, n: int) -> torch.Tensor:
@@ -117,6 +117,5 @@ def init_streaming_carry(num_elements: int, snapshot_size: int, hop: int,
                          dtype=torch.complex64, *, device="cuda"):
     """The zero ring of chunk Grams for ``streaming_covariance``, on the
     card unless the caller asks for the CPU (no card: RuntimeError)."""
-    from doa_tpu_torch.pipeline_torch import _device
     return torch.zeros((snapshot_size // hop, num_elements, num_elements),
-                       dtype=dtype, device=_device(device))
+                       dtype=dtype, device=checked_device(device))

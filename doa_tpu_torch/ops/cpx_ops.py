@@ -121,8 +121,7 @@ def mgs_iterate(E: torch.Tensor, num_sources: int, rounds: int,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel in the form mgs_form names and raises if that fails; each
-    launch is counted in mgs_iterate.launches and, by form, in
-    mgs_iterate.by_form."""
+    launch is counted as ("mgs_iterate", that form) (_build.count)."""
     K2 = 2 * num_sources
     if E.dim() != 3 or E.shape[1] != E.shape[2] or E.dtype != torch.float32:
         raise ValueError(f"need E f32[B, 2N, 2N], got {tuple(E.shape)} "
@@ -155,13 +154,8 @@ def mgs_iterate(E: torch.Tensor, num_sources: int, rounds: int,
         *(o.data_ptr() for o in outs),
         B, n2, K2, rounds, torch.cuda.current_stream(E.device).cuda_stream)
     _build.check(err, "doa_mgs_iterate")
-    mgs_iterate.launches += 1
-    mgs_iterate.by_form[mgs_form(n2, K2)] += 1
+    _build.count("mgs_iterate", mgs_form(n2, K2))
     return tuple(outs)
-
-
-mgs_iterate.launches = 0
-mgs_iterate.by_form = dict.fromkeys(MGS_FORMS, 0)
 
 
 def escalation_detector(W, Vt_prev, n2: int, scale=None):

@@ -49,8 +49,6 @@ _SIG = {"doa_chunk_gram": [_P, _P, _I, _I, _I, _I, _P],
         "doa_chunk_windows": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                               ctypes.c_float, _I, _I, _P]}
 VARIANTS = ("stacked", "chunk")
-# chunk_grams_uhat.by_epilogue's keys
-EPILOGUES = ("gram", "embedded", "windows")
 
 
 def interleave_factor(N: int) -> int:
@@ -156,10 +154,8 @@ def chunk_grams_uhat(x: torch.Tensor, g: int, embed=None,
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (csrc/cov_gram.cu: a persistent grid over the chunks, 1-D bulk
     async copies into a shared-memory ring, the Gram's upper triangle,
-    mirrored) and raises if that fails. `launches` counts K1's launches
-    (kernel 9's entries' are chunk_embedded.launches), `by_epilogue` the
-    card's calls by the epilogue they took ("gram", "embedded",
-    "windows")."""
+    mirrored) and raises if that fails. Each call on the card is counted
+    once as ("chunk_gram", the epilogue it took) (_build.count)."""
     if x.dim() != 2 or x.dtype not in _KERNEL_DTYPE_CODE:
         raise ValueError(f"need x[T, 2N] float32|bfloat16|int8, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -187,7 +183,7 @@ def chunk_grams_uhat(x: torch.Tensor, g: int, embed=None,
     if embed is not None and epilogue != "gram":
         E = (_launch_windows(x, g, *embed, windows) if windows
              else _launch_embedded(x, g, *embed))
-        chunk_grams_uhat.by_epilogue[epilogue] += 1
+        _build.count("chunk_gram", epilogue)
         return E
     lib = _build.load("cov_gram", _SIG)
     out = torch.empty((n, n2, n2), dtype=torch.float32, device=x.device)
@@ -195,17 +191,12 @@ def chunk_grams_uhat(x: torch.Tensor, g: int, embed=None,
         x.data_ptr(), out.data_ptr(), n, g, n2, _KERNEL_DTYPE_CODE[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "doa_chunk_gram")
-    chunk_grams_uhat.launches += 1
-    chunk_grams_uhat.by_epilogue["gram"] += 1
+    _build.count("chunk_gram", "gram")
     if embed is None:
         return out
     if windows is not None:
         out = window_sums(out, *windows)
     return uhat_windows_to_embedded(out, *embed)
-
-
-chunk_grams_uhat.launches = 0
-chunk_grams_uhat.by_epilogue = dict.fromkeys(EPILOGUES, 0)
 
 
 def uhat_windows_to_embedded(Uw: torch.Tensor, N: int, scale: float, W,
@@ -293,7 +284,7 @@ def _launch_windows(x: torch.Tensor, g: int, N: int, scale: float, W,
                     fb: bool, windows) -> torch.Tensor:
     """Kernel 9's window entry (doa_chunk_windows) on contiguous CUDA rows
     x[n·g, 2N], float32 or bfloat16, windows = (B, n_win, stride) → E
-    f32[B, 2N, 2N]; counted by chunk_embedded.launches."""
+    f32[B, 2N, 2N]."""
     B, n_win, stride = windows
     n = (B - 1) * stride + n_win
     Wre, Wim = (w.to(device=x.device, dtype=torch.float32).contiguous()
@@ -306,15 +297,13 @@ def _launch_windows(x: torch.Tensor, g: int, N: int, scale: float, W,
         2 * N, _KERNEL_DTYPE_CODE[x.dtype], int(fb), scale, n_win, stride,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "doa_chunk_windows")
-    chunk_embedded.launches += 1
     return out
 
 
 def _launch_embedded(x: torch.Tensor, g: int, N: int, scale: float, W,
                      fb: bool) -> torch.Tensor:
     """Kernel 9's entry (doa_chunk_embedded) on contiguous CUDA rows
-    x[n·g, 2N], float32 or bfloat16 → E f32[n, 2N, 2N]; counted by
-    chunk_embedded.launches, whichever wrapper asks."""
+    x[n·g, 2N], float32 or bfloat16 → E f32[n, 2N, 2N]."""
     n = x.shape[0] // g
     Wre, Wim = (w.to(device=x.device, dtype=torch.float32).contiguous()
                 for w in W)
@@ -326,7 +315,6 @@ def _launch_embedded(x: torch.Tensor, g: int, N: int, scale: float, W,
         2 * N, _KERNEL_DTYPE_CODE[x.dtype], int(fb), scale,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "doa_chunk_embedded")
-    chunk_embedded.launches += 1
     return out
 
 
@@ -338,7 +326,7 @@ def chunk_embedded(x: torch.Tensor, g: int, N: int, scale: float, W,
     (csrc/cov_gram.cu, doa_chunk_embedded), as chunk_embedded_plain.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel and raises if that fails."""
+    kernel, counted as "chunk_embedded", and raises if that fails."""
     if (x.dim() != 2 or x.shape[1] != 2 * N
             or x.dtype not in (torch.float32, torch.bfloat16)):
         raise ValueError(f"need x[T, {2 * N}] float32|bfloat16, got "
@@ -352,10 +340,9 @@ def chunk_embedded(x: torch.Tensor, g: int, N: int, scale: float, W,
     if not x.is_cuda:
         raise ValueError(f"unsupported device {x.device}")
     _check_gram_width(2 * N, "chunk_embedded")
-    return _launch_embedded(x[:n * g].contiguous(), g, N, scale, W, fb)
-
-
-chunk_embedded.launches = 0
+    E = _launch_embedded(x[:n * g].contiguous(), g, N, scale, W, fb)
+    _build.count("chunk_embedded")
+    return E
 
 
 def window_sums(U: torch.Tensor, B: int, n_win: int,

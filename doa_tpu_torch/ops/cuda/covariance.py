@@ -27,8 +27,8 @@ Each kernel has named forms, each chosen by a predicate with no fallback:
   computes each window's Gram from its S rows, where the open windows do
   not fit a block.
 
-`chunk_grams.by_form` and `cov_windows.by_form` count the launches of each
-form beside `launches`.
+Each launch is counted in _build.launch_counts by its form:
+("planes_chunk_gram", chunk_form) and ("cov_windows", windows_form).
 """
 
 from __future__ import annotations
@@ -90,10 +90,6 @@ def planes_takes(N: int) -> bool:
     """The element counts kernels 8 and 12 are built for: 2N a multiple of
     4 up to 64, or N ≤ 15."""
     return 2 * N % 4 == 0 and 2 * N <= 64 or N <= 15
-
-
-CHUNK_FORMS = ("ring_interleaved", "ring_planar", "staged")
-WINDOW_FORMS = ("chunk_sums", "per_window")
 
 
 class PlanesArgs(NamedTuple):
@@ -235,13 +231,8 @@ def chunk_grams(xr: torch.Tensor, xi: torch.Tensor, g: int,
             xr.data_ptr(), xi.data_ptr(), rs, es, load, rr.data_ptr(),
             ri.data_ptr(), n, g, N, _DTYPE_CODE[compute_dtype], stream)
         _build.check(err, "doa_planes_chunk_grams")
-    chunk_grams.launches += 1
-    chunk_grams.by_form[form] += 1
+    _build.count("planes_chunk_gram", form)
     return rr, ri
-
-
-chunk_grams.launches = 0
-chunk_grams.by_form = dict.fromkeys(CHUNK_FORMS, 0)
 
 
 def _framing(T: int, S: int, overlap: int):
@@ -307,7 +298,7 @@ def cov_windows(xr: torch.Tensor, xi: torch.Tensor, snapshot_size: int,
     one Gram of its S rows ("per_window").
 
     A CPU tensor takes the plain version; on a CUDA tensor the kernel of
-    its route launches or raises. `cov_windows.launches` counts kernel 12."""
+    its route launches or raises."""
     N = _check_planes(xr, xi)
     S = snapshot_size
     hop, g, B = _framing(xr.shape[0], S, overlap)
@@ -331,10 +322,5 @@ def cov_windows(xr: torch.Tensor, xi: torch.Tensor, snapshot_size: int,
             xr.data_ptr(), xi.data_ptr(), rs, es, load, rr.data_ptr(),
             ri.data_ptr(), B, S, hop, N, stream)
         _build.check(err, "doa_planes_cov_windows")
-    cov_windows.launches += 1
-    cov_windows.by_form[form] += 1
+    _build.count("cov_windows", form)
     return rr, ri
-
-
-cov_windows.launches = 0
-cov_windows.by_form = dict.fromkeys(WINDOW_FORMS, 0)

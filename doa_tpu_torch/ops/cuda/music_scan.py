@@ -191,11 +191,8 @@ def music_scan(Vt: torch.Tensor, At_emb: torch.Tensor,
     else:
         raise ValueError(f"music_scan kernel does not take 2K = {K2} at "
                          f"2N = {n2} (scan_takes)")
-    music_scan.launches += 1
+    _build.count("music_scan")
     return P
-
-
-music_scan.launches = 0
 
 
 def music_scan_peaks_plain(Vt, At_emb, k: int, x_min: float, x_max: float,
@@ -276,10 +273,18 @@ def peaks_fma_takes(k2: int, n2: int, G: int) -> bool:
             and 4 * (2 * G + k2 * n2) <= SMEM_MAX)
 
 
+def scan_peaks_form(k2: int, n2: int, G: int) -> str | None:
+    """The form of K2 that takes (2K, 2N, G): "tc" (the tensor-core form,
+    where peaks_tc_takes), else "fma" (the CUDA-core form, where
+    peaks_fma_takes), or None for a shape K2 does not take."""
+    if peaks_tc_takes(k2, n2, G):
+        return "tc"
+    return "fma" if peaks_fma_takes(k2, n2, G) else None
+
+
 def peaks_takes(k2: int, n2: int, G: int) -> bool:
-    """The shapes K2 is built for: its tensor-core form's or its CUDA-core
-    form's."""
-    return peaks_tc_takes(k2, n2, G) or peaks_fma_takes(k2, n2, G)
+    """The shapes K2 is built for: those scan_peaks_form gives a form."""
+    return scan_peaks_form(k2, n2, G) is not None
 
 
 def peaks_tiles(At_emb: torch.Tensor, k2: int) -> torch.Tensor:
@@ -343,10 +348,9 @@ def music_scan_peaks(Vt: torch.Tensor, At_emb: torch.Tensor, k: int,
     find_local_max otherwise); tiles = peaks_tiles(At_emb, 2K) (made here
     if None).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    tensor-core form where peaks_tc_takes(2K, 2N, G) holds, else the
-    CUDA-core form where peaks_fma_takes does, and raises otherwise or if
-    the launch fails."""
+    A CPU tensor takes the plain version; a CUDA tensor launches the form
+    scan_peaks_form(2K, 2N, G) names, counted as ("music_scan_peaks",
+    form), and raises where it names none or if the launch fails."""
     nrm = _check_args(Vt, At_emb, nrm)
     G = At_emb.shape[0]
     if not 1 <= k <= MAX_FUSED_K or not 3 <= G <= MAX_FUSED_G:
@@ -358,22 +362,15 @@ def music_scan_peaks(Vt: torch.Tensor, At_emb: torch.Tensor, k: int,
     if not Vt.is_cuda:
         raise ValueError(f"unsupported device {Vt.device}")
     B, K2, n2 = Vt.shape
-    if not peaks_takes(K2, n2, G):
+    form = scan_peaks_form(K2, n2, G)
+    if form is None:
         raise ValueError(f"music_scan_peaks kernel does not take 2K = {K2} "
                          f"at 2N = {n2}, G = {G} (peaks_takes)")
     if tiles is None:
         tiles = peaks_tiles(At_emb, K2)
     nrm = nrm.to(torch.float32).contiguous()
     dx = (x_max - x_min) / (G - 1)
-    if peaks_tc_takes(K2, n2, G):
-        out = _peaks_tc(Vt, tiles, nrm, k, x_min, dx, refine)
-        music_scan_peaks.tc_launches += 1
-    else:
-        out = _peaks_fma(Vt, tiles, nrm, k, x_min, dx, refine)
-    music_scan_peaks.launches += 1
+    launch = _peaks_tc if form == "tc" else _peaks_fma
+    out = launch(Vt, tiles, nrm, k, x_min, dx, refine)
+    _build.count("music_scan_peaks", form)
     return out
-
-
-# launches in all, and of the tensor-core form
-music_scan_peaks.launches = 0
-music_scan_peaks.tc_launches = 0

@@ -10,8 +10,8 @@ The kernel has two forms, chosen by `peaks_form` with no fallback: "ring"
 RING_SLOTS window slots in shared memory, filled by bulk copies; the
 stencil from shared memory, the lists merged by warp shuffles; every grid
 whose window fits a slot, c5's 181×91 included) and "block" (the first
-kernel, one window a block, for larger grids). `peaks2d.by_form` counts
-the launches of each form beside `peaks2d.launches`.
+kernel, one window a block, for larger grids). Each launch is counted as
+("peaks2d", its form) in _build.launch_counts.
 """
 
 from __future__ import annotations
@@ -64,8 +64,8 @@ def _check(P: torch.Tensor, k: int):
 def _launch(P: torch.Tensor, k: int, az_rng, el_rng, refine: bool,
             form: str):
     """One launch of kernel 6 in `form` ("ring" or "block", a form that
-    takes P's grid) on a CUDA tensor P → (values, az, el); counted in
-    peaks2d.launches and .by_form. peaks2d launches the form peaks_form
+    takes P's grid) on a CUDA tensor P → (values, az, el); counted as
+    ("peaks2d", form). peaks2d launches the form peaks_form
     names; chip_smoke.py and exp_peaks2d.py call this to hold and time the
     block form where the ring form runs."""
     B, Ga, Ge = P.shape
@@ -84,8 +84,7 @@ def _launch(P: torch.Tensor, k: int, az_rng, el_rng, refine: bool,
         az_rng[0], daz, el_rng[0], de, int(refine), int(form == "ring"),
         torch.cuda.current_stream(P.device).cuda_stream)
     _build.check(err, "doa_peaks2d_form")
-    peaks2d.launches += 1
-    peaks2d.by_form[form] += 1
+    _build.count("peaks2d", form)
     return tuple(outs)
 
 
@@ -102,7 +101,3 @@ def peaks2d(P: torch.Tensor, k: int, az_rng, el_rng, refine: bool = False):
     if not P.is_cuda:
         raise ValueError(f"unsupported device {P.device}")
     return _launch(P, k, az_rng, el_rng, refine, peaks_form(*P.shape[1:]))
-
-
-peaks2d.launches = 0
-peaks2d.by_form = dict.fromkeys(PEAKS_FORMS, 0)

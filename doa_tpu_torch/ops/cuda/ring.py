@@ -220,7 +220,7 @@ def _ring(plane: torch.Tensor, overlap: int, mesh: Mesh) -> torch.Tensor:
     err = lib.doa_halo(x.data_ptr(), w.own, w.left + w.halo_offset,
                        w.halo_offset, overlap * C * x.element_size(), stream)
     _build.check(err, "doa_halo")
-    halo_ring.launches += 1
+    _build.count("halo_ring")
     _call(lib, "doa_ring_record", w.ev_done, stream)
     _barrier(mesh)
     # the right neighbour's head has landed in this window's halo slot
@@ -238,9 +238,6 @@ def halo_ring(plane: torch.Tensor, overlap: int, mesh: Mesh) -> torch.Tensor:
     result is a tensor of its own: a later exchange does not change it."""
     out = _ring(plane, overlap, mesh)
     return out.clone() if out.is_cuda else out
-
-
-halo_ring.launches = 0
 
 
 def _halo_exchange(plane: torch.Tensor, overlap: int, mesh: Mesh,

@@ -27,8 +27,8 @@ The kernel (csrc/subspace_ns.cu) has two forms, chosen by `ns_form` with
 no fallback: "warp" (one warp a window, the 2K×2K chain in registers on
 half-warps, no block barrier; 2N ≤ 64 and 2K ≤ 8: every preset's shape)
 and "block" (the first form, one window a thread block; every other shape
-`ns_takes` takes). `subspace_ns.by_form` counts the launches of each form
-beside `subspace_ns.launches`. The plain version is the same chain as
+`ns_takes` takes). Each launch is counted as ("subspace_ns", its form)
+in _build.launch_counts. The plain version is the same chain as
 batched FP32 torch ops. The XLA chain
 of doa_tpu's `signal_subspace_from_E_T(orth="ns")` is the same but for
 one step, the symmetrisation after each squaring; `ns_subspace` carries
@@ -150,8 +150,8 @@ def _launch(E: torch.Tensor, num_sources: int, form: str, iters: int = 8,
             ns_iters: int = 12, ns_iters_mid: int = 8,
             squarings: int = 2) -> torch.Tensor:
     """One launch of kernel 11 in `form` ("warp" or "block", a form that
-    takes E's shape) on a CUDA tensor E → Vt f32[B, 2K, 2N]; counted in
-    subspace_ns.launches and .by_form. subspace_ns launches the form
+    takes E's shape) on a CUDA tensor E → Vt f32[B, 2K, 2N]; counted as
+    ("subspace_ns", form). subspace_ns launches the form
     ns_form names; chip_smoke.py and exp_subspace_ns.py call this to time
     the block form where the warp form runs."""
     B, n2 = E.shape[0], E.shape[-1]
@@ -170,8 +170,7 @@ def _launch(E: torch.Tensor, num_sources: int, form: str, iters: int = 8,
         ns_rounds(iters, squarings), ns_iters, ns_iters_mid, squarings,
         int(form == "warp"), torch.cuda.current_stream(E.device).cuda_stream)
     _build.check(err, "doa_subspace_ns_form")
-    subspace_ns.launches += 1
-    subspace_ns.by_form[form] += 1
+    _build.count("subspace_ns", form)
     return out
 
 
@@ -196,7 +195,3 @@ def subspace_ns(E: torch.Tensor, num_sources: int, iters: int = 8,
                          f"and 2K ≤ {NS_MAX_K2} (2N={n2}, 2K={k2})")
     return _launch(E, num_sources, ns_form(n2, k2), iters, ns_iters,
                    ns_iters_mid, squarings)
-
-
-subspace_ns.launches = 0
-subspace_ns.by_form = dict.fromkeys(NS_FORMS, 0)

@@ -45,8 +45,8 @@ def track_scan(peak_angles: torch.Tensor, peak_values: torch.Tensor,
     confirmed).
 
     A CPU tensor takes the plain version (tracking.track_batch_plain); a
-    CUDA tensor launches the kernel, counted in track_scan.launches, and
-    raises where the kernel does not take the shapes."""
+    CUDA tensor launches the kernel, counted as "track" (_build.count),
+    and raises where the kernel does not take the shapes."""
     if peak_angles.device.type == "cpu":
         return track_batch_plain(peak_angles, peak_values, tc, init)
     if not peak_angles.is_cuda:
@@ -79,8 +79,5 @@ def track_scan(peak_angles: torch.Tensor, peak_values: torch.Tensor,
         tc.max_missed, tc.min_age,
         torch.cuda.current_stream(ang.device).cuda_stream)
     _build.check(err, "doa_track_scan")
-    track_scan.launches += 1
+    _build.count("track")
     return TrackState(*state1), out
-
-
-track_scan.launches = 0

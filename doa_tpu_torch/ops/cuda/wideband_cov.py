@@ -189,11 +189,8 @@ def subband_chunk_grams(xf: torch.Tensor, cr: torch.Tensor,
         return subband_chunk_grams_plain(xf, cr, ci, F=F, N=N, g=g,
                                          scale=scale)
     out = _ring(xf, cr, ci, F=F, N=N, g=g, n=n, scale=scale, frames=True)
-    subband_chunk_grams.launches += 1
+    _build.count("wideband_fft_gram")
     return out
-
-
-subband_chunk_grams.launches = 0
 
 
 def channelizer_matrix(F: int, N: int) -> np.ndarray:
@@ -264,11 +261,8 @@ def subband_embedded(y: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor,
     if y.device.type == "cpu":
         return subband_embedded_plain(y, cr, ci, F=F, N=N, g=g, scale=scale)
     out = _ring(y, cr, ci, F=F, N=N, g=g, n=n, scale=scale, frames=False)
-    subband_embedded.launches += 1
+    _build.count("subband_embedded")
     return out
-
-
-subband_embedded.launches = 0
 
 
 def subband_embedded_frames_plain(xf: torch.Tensor, cr, ci, *, F: int,
@@ -302,11 +296,8 @@ def subband_embedded_frames(xf: torch.Tensor, cr: torch.Tensor,
         return subband_embedded_frames_plain(xf, cr, ci, F=F, N=N, g=g,
                                              scale=scale, K=K)
     out = _ring(xf, cr, ci, F=F, N=N, g=g, n=n, scale=scale, frames=True)
-    subband_embedded_frames.launches += 1
+    _build.count("subband_embedded_frames")
     return out
-
-
-subband_embedded_frames.launches = 0
 
 
 def _check_sb_group(sb_group) -> None:
@@ -349,11 +340,8 @@ def subband_grams(y: torch.Tensor, *, F: int, N: int, g: int,
         y.data_ptr(), out.data_ptr(), F, N, g, n,
         torch.cuda.current_stream(y.device).cuda_stream)
     _build.check(err, "doa_subband_gram")
-    subband_grams.launches += 1
+    _build.count("subband_grams")
     return out
-
-
-subband_grams.launches = 0
 
 
 def subband_framing(F: int, snapshot_size: int, overlap: int):

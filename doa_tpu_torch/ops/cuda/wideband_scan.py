@@ -143,9 +143,9 @@ def wideband_fused_spectrum(Vt: torch.Tensor, At_emb: torch.Tensor,
     FUSION_K2; 2N at most 224 (2K ≤ 4) or 448.
 
     A CPU tensor takes the plain version; a CUDA tensor runs the kernel
-    and raises if that fails. `launches` counts one a call, which covers
-    the split and layout of the operands, pass A (den and dmin) and pass
-    B (P) of every window group."""
+    and raises if that fails. It counts one launch a call (_build.count),
+    which covers the split and layout of the operands, pass A (den and
+    dmin) and pass B (P) of every window group."""
     nrm = _check_args(Vt, At_emb, nrm)
     if Vt.device.type == "cpu":
         return wideband_fused_spectrum_plain(Vt, At_emb, nrm, return_dmin)
@@ -157,8 +157,5 @@ def wideband_fused_spectrum(Vt: torch.Tensor, At_emb: torch.Tensor,
                          f"and 2N ≤ {most_n2(K2)} there, got 2K = {K2}, "
                          f"2N = {n2}")
     out = _fused_cuda(Vt, At_emb, nrm, return_dmin=return_dmin)
-    wideband_fused_spectrum.launches += 1
+    _build.count("wideband_fusion")
     return out
-
-
-wideband_fused_spectrum.launches = 0

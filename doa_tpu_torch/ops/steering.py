@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from doa_tpu_torch.configs import ArrayGeometry, GridSpec1D, GridSpec2D
+from doa_tpu_torch.cpx import checked_device
 
 
 def _angles_rad(deg, device) -> torch.Tensor:
@@ -24,8 +25,7 @@ def _angles_rad(deg, device) -> torch.Tensor:
     to `device`, the card unless the caller names the CPU) → f32
     radians."""
     if not isinstance(deg, torch.Tensor) or device is not None:
-        from doa_tpu_torch.pipeline_torch import _device
-        dev = _device("cuda" if device is None else device)
+        dev = checked_device("cuda" if device is None else device)
         deg = torch.as_tensor(deg, dtype=torch.float32, device=dev)
     return torch.deg2rad(deg.to(torch.float32))
 

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from doa_tpu_torch.configs import AvgMethod, DoaConfig, Estimator, as_config
-from doa_tpu_torch.cpx import fp32_matmuls
+from doa_tpu_torch.cpx import checked_device, fp32_matmuls
 from doa_tpu_torch.ops import covariance as cov_ops
 from doa_tpu_torch.ops import esprit
 from doa_tpu_torch.ops import steering as steer_ops
@@ -143,10 +143,8 @@ def build_pipeline(cfg: DoaConfig, refine_peaks: bool = True,
     kept on the device (``call.steering_matrix``). As the reference's
     complex path, it ignores cov_dtype, compute_dtype, subspace_method,
     scan_mode and wideband."""
-    from doa_tpu_torch.pipeline_torch import _device
-
     cfg = as_config(cfg)
-    dev = _device(device)
+    dev = checked_device(device)
     A_host, x_rng = _steering_matrix(cfg)
     Bm = None
     if cfg.beamspace.enabled:

@@ -91,7 +91,8 @@ import numpy as np
 import torch
 
 from doa_tpu_torch.configs import AvgMethod, DoaConfig, Estimator, as_config
-from doa_tpu_torch.cpx import embed_planes, fp32_matmuls, unembed_planes
+from doa_tpu_torch.cpx import (checked_device, embed_planes, fp32_matmuls,
+                               unembed_planes)
 from doa_tpu_torch.io.native import quantize_interleaved_int8
 from doa_tpu_torch.ops import cpx_ops
 from doa_tpu_torch.ops.cpx_ops import signal_subspace_from_E_T
@@ -154,23 +155,10 @@ def _check_slice(cfg: DoaConfig) -> None:
             "ROADMAP.md")
 
 
-# call.interleaved.by_route's keys
-INTERLEAVED_ROUTES = ("fused", "wideband", "planes")
-
 # what scan_capture keeps of each block's DoaResult, as the reference's
 # (pipeline_tpu.py:652-655): the peaks and the grid-free angles
 _CAPTURE_KEYS = ("peak_values", "peak_angles", "root_music_angles",
                  "esprit_angles", "unitary_esprit_angles")
-
-
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but torch sees no CUDA "
-                           "device; the pipeline does not fall back to CPU")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def _correction_planes(correction, N, device: torch.device):
@@ -198,7 +186,7 @@ def load_state(A_re, A_im, correction=None, *, device="cuda",
     matrices focusing = (re, im) f32[F, N, N] (doa_tpu's
     ``focusing_matrices(cfg)``; cssm), None = build them from the config,
     all numpy — as device tensors, for build_pipeline_torch(state=...)."""
-    dev = _device(device)
+    dev = checked_device(device)
     A_re = np.array(A_re, dtype=np.float32)
     A_im = np.array(A_im, dtype=np.float32)
     if A_re.ndim != 2 or A_re.shape != A_im.shape:
@@ -289,8 +277,8 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
       capture on the device is read as its two stride-2 planes
       x.view(-1, N, 2)[..., 0] and [..., 1], with no copy, as call(x)
       reads a complex64 numpy capture, and the answers are call(x)'s.
-      ``call.interleaved.by_route`` counts the calls of each route
-      ("fused", "wideband", "planes");
+      ``call.interleaved.route`` names the route, fixed when the
+      pipeline is built: "fused", "wideband" or "planes";
     * ``call.scan_capture(blocks, correction=None)`` (fused and wideband
       paths): a capture staged as M blocks, (M, T_blk, 2N) or doa_tpu's
       (M, T_blk/TPACK, 2N·TPACK), numpy or torch, hop | T_blk (wideband:
@@ -317,8 +305,8 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
       so, and a kernel wrapper given a shape its kernel does not take
       still raises. ``call.plan.forms`` names the form each kernel
       with named forms launches where the plan runs it (plan.kernel_forms:
-      kernel 8's on the views of a complex64 capture, kernel 11's,
-      kernel 6's on a 2-D grid).
+      K1's epilogue, kernel 8's on the views of a complex64 capture, K4's,
+      kernel 11's, K2's, kernel 6's on a 2-D grid).
 
     `state` (load_state) replaces the steering built from cfg and gives
     the default correction. donate_inputs=True is the caller's promise
@@ -407,7 +395,7 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
 
     `cfg` may be a doa_tpu_torch or a doa_tpu DoaConfig; call.config is
     the port's own (as_config(cfg))."""
-    dev = _device(device)
+    dev = checked_device(device)
     cfg = as_config(cfg)
     _check_slice(cfg)
     routes = kernel_routes(cfg, return_spectra=return_spectra)
@@ -847,12 +835,11 @@ def build_pipeline_torch(cfg: DoaConfig, *, device="cuda",
                     x = x[..., 0], x[..., 1]
                 else:
                     x = _ingest(xil)
-            call_interleaved.by_route[interleaved_route] += 1
             if isinstance(x, tuple):
                 return run_planes(*x, cr, ci)
             return run_interleaved(x, cr, ci)
 
-    call_interleaved.by_route = dict.fromkeys(INTERLEAVED_ROUTES, 0)
+    call_interleaved.route = interleaved_route
 
     # windows start at global multiples of hop, so the earliest window
     # spanning a block boundary starts hop·ceil(overlap/hop) samples

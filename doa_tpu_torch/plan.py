@@ -38,7 +38,7 @@ from doa_tpu_torch.ops.cuda.music_scan import (MAX_FUSED_G, MAX_FUSED_K,
                                                music_scan, music_scan_peaks,
                                                music_scan_peaks_plain,
                                                music_scan_plain, peaks_takes,
-                                               scan_takes)
+                                               scan_peaks_form, scan_takes)
 from doa_tpu_torch.ops.cuda.peaks2d import (MAX_PEAKS2D_K, peaks2d,
                                            peaks_form)
 from doa_tpu_torch.ops.cuda.subspace_ns import (ns_form, ns_takes,
@@ -358,26 +358,28 @@ def sharded_kernel_routes(cfg, n_snap: int, n_grid: int,
 
 def kernel_forms(cfg, routes: dict) -> dict:
     """{stage: form} for the stages of `routes` whose kernel has named
-    forms:
+    forms, each the form its wrapper launches and counts as (kernel,
+    form) in _build.launch_counts:
 
-    * K1 ("chunk_gram"), the epilogue its wrapper launches
-      (chunk_grams_uhat.by_epilogue) when cov_embedded asks it for the
-      windows' E, as cov_embedded.gram_epilogue says of cov_dtype, 2N and
-      the windows' chunks: "embedded" where a window is one chunk
+    * K1 ("chunk_gram"), the epilogue its wrapper launches when
+      cov_embedded asks it for the windows' E, as
+      cov_embedded.gram_epilogue says of cov_dtype, 2N and the windows'
+      chunks: "embedded" where a window is one chunk
       (overlap 0), "windows" where windows overlap and kernel 9's window
       entry takes the shapes, else "gram";
     * kernel 8 ("planes_chunk_gram"), in the form it takes on the two
       views of an interleaved complex64 capture (covariance.chunk_form of
       the "interleaved" layout): the planes a pipeline makes of its
       complex capture, and planes input passed as such views. Planes of
-      another layout take that layout's form; chunk_grams.by_form counts
-      the form of each launch;
+      another layout take that layout's form;
     * kernel 11 ("subspace_ns"): subspace_ns.ns_form of the config's
-      (2N, 2K), the form its wrapper launches (subspace_ns.by_form);
+      (2N, 2K);
+    * K2 ("music_scan_peaks"): music_scan.scan_peaks_form of the
+      config's (2K, 2N, G);
     * kernel 6 ("peaks2d"): peaks2d.peaks_form of the config's az/el
-      grid, the form its wrapper launches (peaks2d.by_form);
+      grid;
     * K4 ("mgs_iterate"): cpx_ops.mgs_form of the stage's (2N, 2K)
-      (mgs_n2), the form its wrapper launches (mgs_iterate.by_form)."""
+      (mgs_n2)."""
     cfg = as_config(cfg)
     k2 = 2 * cfg.num_sources
     N = cfg.geometry.num_elements
@@ -386,7 +388,9 @@ def kernel_forms(cfg, routes: dict) -> dict:
                                          cfg.snapshot_size // g,
                                          cfg.hop // g),
              "planes_chunk_gram": chunk_form(N, "interleaved"),
-             "subspace_ns": ns_form(subspace_n2(cfg), k2)}
+             "subspace_ns": ns_form(subspace_n2(cfg), k2),
+             "music_scan_peaks": scan_peaks_form(k2, subspace_n2(cfg),
+                                                 _grid_size(cfg))}
     if cfg.geometry.kind == "ura":
         forms["peaks2d"] = peaks_form(cfg.grid2d.num_az, cfg.grid2d.num_el)
     return {stage: (mgs_form(mgs_n2(cfg, stage), k2)

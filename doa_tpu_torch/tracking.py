@@ -34,6 +34,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from doa_tpu_torch.cpx import checked_device
+
 
 class TrackState(NamedTuple):
     angle: torch.Tensor    # f32[M] current angle estimate (deg)
@@ -65,18 +67,14 @@ def _zeros(M: int, dev: torch.device) -> TrackState:
 
 def init_tracks(tc: TrackerConfig, device="cuda") -> TrackState:
     """No track active, on the device (no card: RuntimeError)."""
-    from doa_tpu_torch.pipeline_torch import _device
-
-    return _zeros(tc.max_tracks, _device(device))
+    return _zeros(tc.max_tracks, checked_device(device))
 
 
 def state_from_numpy(ts, device="cuda") -> TrackState:
     """A TrackState of the port's from the five arrays of any track state
     in field order (doa_tpu's TrackState with its arrays as numpy, the
     arrays of a checkpoint), on the device."""
-    from doa_tpu_torch.pipeline_torch import _device
-
-    dev = _device(device)
+    dev = checked_device(device)
     angle, vel, active, missed, age = (np.asarray(a) for a in ts)
     return TrackState(
         angle=torch.from_numpy(angle.astype(np.float32)).to(dev),
@@ -186,13 +184,12 @@ def track_batch(peak_angles, peak_values, tc: TrackerConfig = TrackerConfig(),
     first part's state gives the tracks of the whole. The route is
     plan.track_plan's: the scan kernel on the card where it takes
     (max_tracks, K), else track_batch_plain."""
-    from doa_tpu_torch.pipeline_torch import _device
     from doa_tpu_torch.plan import track_plan
 
     if device is None:
         device = (peak_angles.device if isinstance(peak_angles, torch.Tensor)
                   else "cuda")
-    dev = _device(device)
+    dev = checked_device(device)
     ang = _as_tensor(peak_angles, dev)
     val = _as_tensor(peak_values, dev)
     if ang.dim() != 2 or ang.shape != val.shape:

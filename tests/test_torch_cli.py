@@ -171,7 +171,7 @@ def test_mode_overrides_reach_the_port(runs):
 
 def test_device_cuda_raises_without_a_card(runs):
     """The default device is the card: without one every command raises
-    pipeline_torch._device's RuntimeError, never runs on the CPU."""
+    cpx.checked_device's RuntimeError, never runs on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     cap = os.path.join(runs["dir"], "cap_j.npz")

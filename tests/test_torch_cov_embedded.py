@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import golden
 from doa_tpu.io.native import quantize_interleaved_int8 as quantize_jax
 from doa_tpu.ops.pallas import cov_embedded as ce_jax
+from doa_tpu_torch import _build
 from doa_tpu_torch.io.native import quantize_interleaved_int8
 from doa_tpu_torch.ops.cuda import cov_embedded as ce
 
@@ -224,9 +225,9 @@ def test_chunk_embedded_plain_is_k1_then_the_embedding():
     W = ce.correction_pattern(cr, ci)
     ref = ce.uhat_windows_to_embedded(ce.chunk_grams_uhat_plain(x, g), N,
                                       1.0 / g, W, True)
-    before = ce.chunk_embedded.launches
-    E = ce.chunk_embedded(x, g, N, 1.0 / g, W, True)
-    assert ce.chunk_embedded.launches == before
+    with _build.counting() as n:
+        E = ce.chunk_embedded(x, g, N, 1.0 / g, W, True)
+    assert not n
     assert E.shape == (5, 2 * N, 2 * N)
     torch.testing.assert_close(E, ref, rtol=0, atol=0)
     torch.testing.assert_close(ce.chunk_embedded_plain(x, g, N, 1.0 / g, W,
@@ -509,20 +510,21 @@ def test_plain_stage_with_embed_is_kernel_9s_plain_version():
         np.float32))
     cr, ci = (torch.from_numpy(p) for p in _correction(N, seed=7))
     W = ce.correction_pattern(cr, ci)
-    launches = ce.chunk_grams_uhat.launches
-    by = dict(ce.chunk_grams_uhat.by_epilogue)
-    for xd in (x, x.to(torch.bfloat16)):
-        for fb in (False, True):
-            want = ce.chunk_embedded_plain(xd, g, N, 1.0 / g, W, fb)
-            got = ce.chunk_grams_uhat_plain(xd, g, embed=(N, 1.0 / g, W, fb))
-            assert got.shape == (6, 2 * N, 2 * N)
-            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-            assert torch.equal(ce.chunk_grams_uhat(xd, g, (N, 1.0 / g, W,
-                                                          fb)), want)
-    assert ce.chunk_grams_uhat.launches == launches
-    assert ce.chunk_grams_uhat.by_epilogue == by
-    assert set(by) == set(ce.EPILOGUES) == {"gram", "embedded",
-                                            "windows"}
+    with _build.counting() as n:
+        for xd in (x, x.to(torch.bfloat16)):
+            for fb in (False, True):
+                want = ce.chunk_embedded_plain(xd, g, N, 1.0 / g, W, fb)
+                got = ce.chunk_grams_uhat_plain(xd, g,
+                                                embed=(N, 1.0 / g, W, fb))
+                assert got.shape == (6, 2 * N, 2 * N)
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32))
+                assert torch.equal(ce.chunk_grams_uhat(xd, g, (N, 1.0 / g, W,
+                                                              fb)), want)
+    assert not n
+    assert {ce.gram_epilogue(torch.int8), ce.gram_epilogue(torch.float32),
+            ce.gram_epilogue(torch.float32, 2 * N, 2, 1)} == {
+                "gram", "embedded", "windows"}
 
 
 def test_halved_samples_on_the_plain_stage_change_E_at_the_ulas_shape():

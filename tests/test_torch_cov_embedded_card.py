@@ -63,6 +63,14 @@ def card_kernels(fn, every=False):
     return out, names
 
 
+def cov_gram_launches(n):
+    """The launches of csrc/cov_gram.cu's wrappers (the covariance
+    stage's "chunk_gram", kernel 9's "chunk_embedded") in a
+    _build.counting() block's counts."""
+    return {k: v for k, v in n.items()
+            if k[0] in ("chunk_gram", "chunk_embedded")}
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -89,27 +97,21 @@ def test_route_E_is_k1_then_the_fold(dev, n2, dtype, fb, S):
     """cov_embedded at overlap 0 (g = S) gives E bit for bit as K1's
     Grams folded by uhat_windows_to_embedded, with a correction, FB on
     and off, through kernel 9's entry (gram_epilogue's "embedded",
-    counted by chunk_grams_uhat.by_epilogue and chunk_embedded.launches;
-    K1's own count does not move): its epilogue where K1 shares each
-    chunk across its row classes (every width at S = 1024), K1's
-    whole-chunk form and the in-place fold where K1 takes whole chunks
-    (some widths at S = 64)."""
+    counted as ("chunk_gram", "embedded"); K1's "gram" does not move):
+    its epilogue where K1 shares each chunk across its row classes (every
+    width at S = 1024), K1's whole-chunk form and the in-place fold where
+    K1 takes whole chunks (some widths at S = 64)."""
     N = n2 // 2
     n = 300 if S == 1024 else 2000
     gen = torch.Generator(device=dev).manual_seed(n2 * 1000 + S + fb)
     x = torch.randn((n * S + 17, n2), generator=gen, device=dev)
     cr, ci = _correction(N, dev, n2)
     dt = ce._DTYPES[dtype]
-    by = dict(ce.chunk_grams_uhat.by_epilogue)
-    k1, k9 = ce.chunk_grams_uhat.launches, ce.chunk_embedded.launches
-    E, ran = card_kernels(lambda: ce.cov_embedded(
-        x, cr, ci, N=N, snapshot_size=S, fb=fb, compute_dtype=dtype))
+    with _build.counting() as launched:
+        E, ran = card_kernels(lambda: ce.cov_embedded(
+            x, cr, ci, N=N, snapshot_size=S, fb=fb, compute_dtype=dtype))
     assert ce.gram_epilogue(dt) == "embedded"
-    assert ce.chunk_grams_uhat.by_epilogue == {
-        "gram": by["gram"], "embedded": by["embedded"] + 1,
-        "windows": by["windows"]}
-    assert (ce.chunk_grams_uhat.launches, ce.chunk_embedded.launches) == (
-        k1, k9 + 1)
+    assert launched == {("chunk_gram", "embedded"): 1}
     if k1_takes_whole_chunks(n2, S, dt.itemsize):
         assert ran == {"chunk_gram_kernel": 1, "fold_kernel": 1}, ran
     else:
@@ -164,14 +166,9 @@ def test_the_headline_launches_the_embedded_epilogue_once(dev):
     x = torch.randn((64 * cfg.snapshot_size, 16), generator=gen, device=dev)
     call.interleaved(x)
     torch.cuda.synchronize()
-    by = dict(ce.chunk_grams_uhat.by_epilogue)
-    k1, k9 = ce.chunk_grams_uhat.launches, ce.chunk_embedded.launches
-    _, ran = card_kernels(lambda: call.interleaved(x))
-    assert ce.chunk_grams_uhat.by_epilogue == {
-        "gram": by["gram"], "embedded": by["embedded"] + 1,
-        "windows": by["windows"]}
-    assert (ce.chunk_grams_uhat.launches, ce.chunk_embedded.launches) == (
-        k1, k9 + 1)
+    with _build.counting() as launched:
+        _, ran = card_kernels(lambda: call.interleaved(x))
+    assert cov_gram_launches(launched) == {("chunk_gram", "embedded"): 1}
     assert ran == {"chunk_embedded_kernel": 1}, ran
 
 
@@ -191,9 +188,9 @@ def test_window_entry_is_kernel_9s_chunks_summed_in_order(dev, shape,
     (2^24 samples, S = 1024, hop 512: g = 512, n_win 2) and on chunk
     counts that split unevenly over the persistent grid (S = 1024, hop
     256: n_win 4, stride 1; hop 768: n_win 4, stride 3). One launch of
-    its kernel, counted by chunk_embedded.launches and by_epilogue
-    "windows"; K1 does not run, and cov_embedded at that overlap launches
-    the window entry alone, with the same E."""
+    its kernel, counted as ("chunk_gram", "windows"); K1 does not run,
+    and cov_embedded at that overlap launches the window entry alone,
+    with the same E."""
     S, hop, T = {"c4": (1024, 512, 1 << 24),
                  "ragged n_win 4": (1024, 256, 5003 * 256 + 77),
                  "ragged stride 3": (1024, 768, 4001 * 256 + 5)}[shape]
@@ -209,14 +206,9 @@ def test_window_entry_is_kernel_9s_chunks_summed_in_order(dev, shape,
     cr_ci = _correction(N, dev, 7)
     W = ce.correction_pattern(*cr_ci)
     embed = (N, 1.0 / S, W, fb)
-    by = dict(ce.chunk_grams_uhat.by_epilogue)
-    k1, k9 = ce.chunk_grams_uhat.launches, ce.chunk_embedded.launches
-    E = ce.chunk_grams_uhat(x, g, embed, windows)
-    assert ce.chunk_grams_uhat.by_epilogue == {
-        "gram": by["gram"], "embedded": by["embedded"],
-        "windows": by["windows"] + 1}
-    assert (ce.chunk_grams_uhat.launches, ce.chunk_embedded.launches) == (
-        k1, k9 + 1)
+    with _build.counting() as launched:
+        E = ce.chunk_grams_uhat(x, g, embed, windows)
+    assert launched == {("chunk_gram", "windows"): 1}
     n = (B - 1) * stride + n_win
     ref = _ordered(ce.chunk_embedded(x[:n * g], g, N, 1.0 / S, W, fb),
                    windows)
@@ -235,12 +227,12 @@ def test_window_entry_is_kernel_9s_chunks_summed_in_order(dev, shape,
 def test_window_entry_takes_k1s_whole_chunk_shapes(dev, dtype, fb):
     """At a g where K1 takes whole chunks (S = 256, overlap 100: g = 4,
     n_win 64, stride 39) the window entry still shares each chunk over its
-    classes: the stage launches it once (chunk_embedded.launches,
-    by_epilogue "windows"; K1 never), cov_embedded at that overlap runs
-    its kernel alone with the same E, and each window lies within
-    1e-5·max|E| of the plain version (chunk_windows_plain) and of kernel
-    9's per-chunk E summed in order (K1's whole-chunk form adds a chunk's
-    rows in another order, so not bit for bit). The profiler is read on
+    classes: the stage launches it once (("chunk_gram", "windows"); K1
+    never), cov_embedded at that overlap runs its kernel alone with the
+    same E, and each window lies within 1e-5·max|E| of the plain version
+    (chunk_windows_plain) and of kernel 9's per-chunk E summed in order
+    (K1's whole-chunk form adds a chunk's rows in another order, so not
+    bit for bit). The profiler is read on
     cov_embedded's call, whose torch ops surround the launch: on a region
     holding the ctypes launch alone it missed the kernel in most tries
     (H100, torch's CUPTI tracing)."""
@@ -257,13 +249,9 @@ def test_window_entry_takes_k1s_whole_chunk_shapes(dev, dtype, fb):
     cr_ci = _correction(N, dev, 8)
     W = ce.correction_pattern(*cr_ci)
     embed = (N, 1.0 / S, W, fb)
-    by = dict(ce.chunk_grams_uhat.by_epilogue)
-    k1, k9 = ce.chunk_grams_uhat.launches, ce.chunk_embedded.launches
-    E = ce.chunk_grams_uhat(x, g, embed, windows)
-    assert ce.chunk_grams_uhat.by_epilogue == dict(
-        by, windows=by["windows"] + 1)
-    assert (ce.chunk_grams_uhat.launches, ce.chunk_embedded.launches) == (
-        k1, k9 + 1)
+    with _build.counting() as launched:
+        E = ce.chunk_grams_uhat(x, g, embed, windows)
+    assert launched == {("chunk_gram", "windows"): 1}
     Es, ran = card_kernels(lambda: ce.cov_embedded(
         x, *cr_ci, N=N, snapshot_size=S, overlap=S - hop, fb=fb,
         compute_dtype=dtype))
@@ -300,13 +288,9 @@ def test_the_hop512_call_launches_the_window_entry_once(dev):
         assert call.plan.forms["covariance"] == form
         call.interleaved(x)
         torch.cuda.synchronize()
-        by = dict(ce.chunk_grams_uhat.by_epilogue)
-        k1, k9 = ce.chunk_grams_uhat.launches, ce.chunk_embedded.launches
-        _, ran = card_kernels(lambda: call.interleaved(x), every=True)
-        assert ce.chunk_grams_uhat.by_epilogue == dict(
-            by, **{form: by[form] + 1})
-        assert (ce.chunk_grams_uhat.launches,
-                ce.chunk_embedded.launches) == (k1, k9 + 1)
+        with _build.counting() as launched:
+            _, ran = card_kernels(lambda: call.interleaved(x), every=True)
+        assert cov_gram_launches(launched) == {("chunk_gram", form): 1}
         assert ran.get(kernel) == 1, ran
         assert not {"chunk_gram_kernel", "fold_kernel"} & set(ran), ran
         assert not [n for n in ran if "scan_outer_dim" in n], ran

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from doa_tpu_torch import PRESETS
+from doa_tpu_torch import PRESETS, _build
 from doa_tpu_torch.ops.cuda import peaks2d as pk
 from doa_tpu_torch.ops.peaks import find_local_max_2d
 from doa_tpu_torch.plan import Plan, kernel_forms, kernel_routes
@@ -277,14 +277,14 @@ def test_wrapper_forms_on_the_cpu():
     """A CPU tensor takes the plain version and counts no launch; a form
     that does not take the grid raises before any launch."""
     P = torch.from_numpy(edge_spectra())
-    before = (pk.peaks2d.launches, dict(pk.peaks2d.by_form))
-    for a, b in zip(pk.peaks2d(P, 2, AZ_RNG, EL_RNG, True),
-                    find_local_max_2d(P, 2, AZ_RNG, EL_RNG, True)):
-        assert torch.equal(a, b)
     big = torch.ones((1, 361, 181))
-    for form in ("ring", "warp"):
-        with pytest.raises(ValueError, match="form"):
-            pk._launch(big, 2, AZ_RNG, EL_RNG, True, form)
-    assert (pk.peaks2d.launches, pk.peaks2d.by_form) == before
-    assert set(pk.peaks2d.by_form) == set(pk.PEAKS_FORMS) == {"ring",
-                                                              "block"}
+    with _build.counting() as n:
+        for a, b in zip(pk.peaks2d(P, 2, AZ_RNG, EL_RNG, True),
+                        find_local_max_2d(P, 2, AZ_RNG, EL_RNG, True)):
+            assert torch.equal(a, b)
+        for form in ("ring", "warp"):
+            with pytest.raises(ValueError, match="form"):
+                pk._launch(big, 2, AZ_RNG, EL_RNG, True, form)
+    assert not n
+    assert {pk.peaks_form(181, 91), pk.peaks_form(361, 181)} == set(
+        pk.PEAKS_FORMS) == {"ring", "block"}

@@ -607,7 +607,7 @@ def test_planes_config_serves_the_interleaved_entry():
         torch.testing.assert_close(getattr(got, key)["music"],
                                    getattr(want, key)["music"], rtol=0,
                                    atol=0)
-    assert pipe.interleaved.by_route["planes"] == 1
+    assert pipe.interleaved.route == "planes"
 
 
 @pytest.mark.parametrize("compute_dtype", ["bfloat16", "int8"])

@@ -161,11 +161,17 @@ def _k2_shape(cfg):
             cfg.grid.num_points)
 
 
+def _k2_form(cfg):
+    routes = kernel_routes(cfg, return_spectra=False)
+    return Plan(routes, forms=kernel_forms(cfg, routes)).forms["scan"]
+
+
 def test_every_preset_k2_stage_takes_the_tensor_core_form():
     """Every preset whose plan runs K2 (return_spectra=False, 1-D grid)
     takes K2's tensor-core form, on one card and sharded; the shapes no
     preset has take its CUDA-core form: ULA-16 at K = 5 (2K = 10) and a
-    grid past the den tile (G = 2048 at the headline's widths)."""
+    grid past the den tile (G = 2048 at the headline's widths). The plan
+    names the form ("tc", "fma")."""
     fused = []
     for name, cfg in sorted(PRESETS.items()):
         if kernel_plan(cfg, return_spectra=False).get("scan") != (
@@ -173,12 +179,14 @@ def test_every_preset_k2_stage_takes_the_tensor_core_form():
             continue
         fused.append(name)
         assert peaks_tc_takes(*_k2_shape(cfg)), name
+        assert _k2_form(cfg) == "tc", name
     assert {"c1_ula4_tone", "c2_ula8_2src", "c3_ula16_calib_smooth",
             "c4_ula16_streaming", "fast_bf16", "fast_int8"} <= set(fused)
     for cfg in (_ula(16, K=5), dataclasses.replace(
             _ula(16), grid=GridSpec1D(num_points=2048))):
         shape = _k2_shape(cfg)
         assert not peaks_tc_takes(*shape) and peaks_fma_takes(*shape)
+        assert _k2_form(cfg) == "fma"
         assert kernel_plan(cfg, return_spectra=False)["scan"] == (
             "music_scan_peaks")
         assert sharded_kernel_plan(cfg, 2, 1, False)["scan"] == (
@@ -394,10 +402,11 @@ def test_the_covariance_stage_keeps_its_name_and_names_its_epilogue(name,
                                                                      form):
     """The fused route's covariance stage is K1's "chunk_gram" on one card
     and sharded, whichever epilogue it launches; the plan's form names the
-    epilogue (chunk_grams_uhat.by_epilogue): kernel 9's "embedded" where a
-    window is one chunk and the capture is float32 or bfloat16, its
-    "windows" entry where windows overlap (c4: g = 512, two chunks a
-    window), K1's "gram" for int8 ingest. On the CPU no form is named."""
+    epilogue (chunk_grams_uhat counts ("chunk_gram", it)): kernel 9's
+    "embedded" where a window is one chunk and the capture is float32 or
+    bfloat16, its "windows" entry where windows overlap (c4: g = 512, two
+    chunks a window), K1's "gram" for int8 ingest. On the CPU no form is
+    named."""
     cfg = PRESETS[name]
     routes = kernel_routes(cfg)
     assert routes["covariance"][0] == "chunk_gram"

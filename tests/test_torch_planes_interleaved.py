@@ -1,8 +1,8 @@
 """call.interleaved on the planes path: a config that smooths (c3) reads
 the interleaved float32 capture x[T, 2N] as its two stride-2 planes, in
 place, and answers as call(x) does on the same complex64 capture; the
-route counter; the spans doa.gram and doa.smoothing inside doa.covariance
-on that path alone. The card's tests (``-m card``) hold kernel 8 through
+route each pipeline names; the spans doa.gram and doa.smoothing inside
+doa.covariance on that path alone. The card's tests (``-m card``) hold kernel 8 through
 the stride-2 views of a capture of 2^27 samples, 2^32 floats, and the
 entry on the card. This file imports no JAX, so it runs on a machine with
 the card and without JAX, from the repository root:
@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from doa_tpu_torch import _build
 from doa_tpu_torch.configs import PRESETS
 from doa_tpu_torch.ops import cpx_ops
 from doa_tpu_torch.ops.cuda import covariance as cov
@@ -76,8 +77,7 @@ def test_the_planes_route_answers_as_call(name):
         got = pipe.interleaved(xil, c)
         for key in keys:
             _equal(got, want, key)
-    assert pipe.interleaved.by_route == {"fused": 0, "wideband": 0,
-                                         "planes": 2}
+    assert pipe.interleaved.route == "planes"
 
 
 def test_the_planes_route_reads_the_capture_in_place(monkeypatch):
@@ -101,19 +101,20 @@ def test_the_planes_route_reads_the_capture_in_place(monkeypatch):
 
 
 def test_the_route_counter():
-    """Each pipeline counts its interleaved calls by route."""
+    """Each pipeline names its interleaved route, fixed when it is
+    built, and call.interleaved answers as call does on the same
+    complex64 capture, which takes that route too."""
     fused = dataclasses.replace(PRESETS["c4_ula16_streaming"], overlap=0)
-    ula = torch.from_numpy(_capture(B=32).view(np.float32))
-    ura = torch.from_numpy(_capture(N=64, B=32).view(np.float32))
+    ula, ura = _capture(B=32), _capture(N=64, B=32)
     for cfg, x, route in ((fused, ula, "fused"), (C3, ula, "planes"),
                           (PRESETS["c5_ura64_wideband"], ura, "wideband")):
         pipe = build_pipeline_torch(cfg, device="cpu", return_spectra=False)
-        assert set(pipe.interleaved.by_route.values()) == {0}
-        for _ in range(2):
-            pipe.interleaved(x)
-        want = dict.fromkeys(("fused", "wideband", "planes"), 0)
-        want[route] = 2
-        assert pipe.interleaved.by_route == want
+        assert pipe.interleaved.route == route
+        got = pipe.interleaved(torch.from_numpy(x.view(np.float32)))
+        want = pipe(x)
+        for field in ("peak_values", "peak_angles"):
+            assert torch.equal(getattr(got, field)["music"],
+                               getattr(want, field)["music"])
 
 
 def test_int8_and_scan_capture_keep_their_checks():
@@ -195,10 +196,9 @@ def test_kernel8_through_stride2_views_past_2_31_floats(dev):
     gen = torch.Generator(device=dev).manual_seed(27)
     x = torch.randn((T, 2 * N), generator=gen, device=dev)
     v = x.view(T, N, 2)
-    before = dict(cov.chunk_grams.by_form)
-    rr, ri = cov.chunk_grams(v[..., 0], v[..., 1], g)
-    assert cov.chunk_grams.by_form["ring_interleaved"] == \
-        before["ring_interleaved"] + 1
+    with _build.counting() as launched:
+        rr, ri = cov.chunk_grams(v[..., 0], v[..., 1], g)
+    assert launched == {("planes_chunk_gram", "ring_interleaved"): 1}
     n = T // g
     assert rr.shape == (n, N, N)
     edge = (1 << 31) // (2 * N) // g               # the chunk at 2^31 floats
@@ -219,14 +219,15 @@ def test_kernel8_through_stride2_views_past_2_31_floats(dev):
 @pytest.mark.card
 def test_the_planes_route_on_the_card(dev):
     """On the card: bit-equal to call(x) on the same complex64 capture,
-    kernel 8's ring form on the buffer's own views, counted as "planes"."""
+    kernel 8's ring form on the buffer's own views, on the "planes"
+    route."""
     x = _capture(B=64)
     pipe = build_pipeline_torch(C3, device=dev, return_spectra=False)
     want = pipe(x)
     xd = torch.from_numpy(x.view(np.float32)).to(dev)
-    before = dict(cov.chunk_grams.by_form)
-    got = pipe.interleaved(xd)
+    with _build.counting() as n:
+        got = pipe.interleaved(xd)
     _equal(got, want)
-    assert cov.chunk_grams.by_form["ring_interleaved"] == \
-        before["ring_interleaved"] + 1
-    assert pipe.interleaved.by_route["planes"] == 1
+    assert {f: v for (k, f), v in n.items() if k == "planes_chunk_gram"} == {
+        "ring_interleaved": 1}
+    assert pipe.interleaved.route == "planes"

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from doa_tpu.configs import ArrayGeometry, DoaConfig, Estimator, GridSpec1D
+from doa_tpu_torch import _build
 from doa_tpu_torch.cpx import embed_planes
 from doa_tpu_torch.ops.cpx_ops import mgs_form
 from doa_tpu_torch.ops.cuda import subspace_ns as sns
@@ -322,15 +323,16 @@ def test_plan_names_kernel_11s_form(N, K, want, spectra):
 
 def test_wrapper_forms_on_the_cpu():
     """A CPU tensor takes the plain version and counts no launch; a form
-    that does not take the shape raises before any launch; the counts by
-    form are kept for both forms."""
+    that does not take the shape raises before any launch; ns_form names
+    both forms."""
     E = scene_E(8, (60.0, 110.0), B=4)
-    before = (sns.subspace_ns.launches, dict(sns.subspace_ns.by_form))
-    assert torch.equal(sns.subspace_ns(E, 2), sns.subspace_ns_plain(E, 2))
     E128 = torch.eye(128).expand(2, 128, 128)
-    for form in ("warp", "tile"):
-        with pytest.raises(ValueError, match="form"):
-            sns._launch(E128, 2, form)
-    assert (sns.subspace_ns.launches, sns.subspace_ns.by_form) == before
-    assert set(sns.subspace_ns.by_form) == set(sns.NS_FORMS) == {"warp",
-                                                                 "block"}
+    with _build.counting() as n:
+        assert torch.equal(sns.subspace_ns(E, 2),
+                           sns.subspace_ns_plain(E, 2))
+        for form in ("warp", "tile"):
+            with pytest.raises(ValueError, match="form"):
+                sns._launch(E128, 2, form)
+    assert not n
+    assert {sns.ns_form(16, 4), sns.ns_form(128, 4)} == set(
+        sns.NS_FORMS) == {"warp", "block"}

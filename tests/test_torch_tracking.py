@@ -10,7 +10,7 @@ import torch
 from doa_tpu import checkpoint as ckpt_jax
 from doa_tpu import tracking as trk_jax
 from doa_tpu.configs import PRESETS
-from doa_tpu_torch import checkpoint, plan, tracking
+from doa_tpu_torch import _build, checkpoint, plan, tracking
 from doa_tpu_torch.io.synthetic import synth_moving_ula_iq
 from doa_tpu_torch.ops.cuda import track as track_cuda
 from doa_tpu_torch.pipeline_torch import build_pipeline_torch
@@ -202,14 +202,14 @@ def test_track_plan_routes():
     # the CPU route of the wrapper is the plain version, and it counts
     # no launch
     det, val, tc = _crossing()
-    before = track_cuda.track_scan.launches
     init = tracking.init_tracks(_tc(tc), device="cpu")
-    _, a = track_cuda.track_scan(torch.from_numpy(det),
-                                 torch.from_numpy(val), _tc(tc), init)
+    with _build.counting() as n:
+        _, a = track_cuda.track_scan(torch.from_numpy(det),
+                                     torch.from_numpy(val), _tc(tc), init)
     _, b = tracking.track_batch_plain(torch.from_numpy(det),
                                       torch.from_numpy(val), _tc(tc), init)
     assert torch.equal(a.nan_to_num(), b.nan_to_num())
-    assert track_cuda.track_scan.launches == before
+    assert not n
 
 
 def test_no_fallback_without_a_card(tmp_path):
